@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels of lit_llama_tpu_torch (K1-K4) with nvcc,
+holds each against its plain PyTorch version at 7B shapes and times both,
+checks the kernel path of a 2-layer full-width model against the plain path,
+then serves a few greedy requests on the full 32-layer 7B int4 model (random
+weights from a seed) and proves with the launch counters that the main path
+ran through the kernels. Any failure raises and exits nonzero.
+
+Output: findings on earlier lines; one line with the card's name and power
+limit; one JSON line {"kernels": [...]} with each kernel's launches on the
+main path, error, time, plain time, bound and library yardstick; and last
+{"ok": true, "device": {...}}. Without a CUDA device, or run from a directory
+that lacks the package, it exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# (name substring, memory bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s):
+# NVIDIA's data sheets; first match wins
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 756e12, 51e12),
+    ("H100 NVL", 3.9e12, 835e12, 60e12),
+    ("H200", 4.8e12, 989e12, 67e12),
+    ("H100", 3.35e12, 989e12, 67e12),
+)
+
+SEED = 0
+TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v| ~ 2
+    "K3": (2e-2, 2e-2),
+    "K4": (2e-2, 2e-2),
+    "K4 lse": (1e-3, 1e-3),
+    "K1": (2e-2, 2e-2),
+    "K1 cache": (1e-2, 1e-2),
+    "K2": (2e-2, 2e-2),
+}
+# 2-layer full-width model, kernel path vs plain path: per-op errors of the
+# table above compound through 2 blocks and the lm_head
+TOL_MODEL = (5e-2, 5e-2)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not (ROOT / "lit_llama_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the package lit_llama_tpu_torch is not beside {__file__}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import _build, fused_layer, quant_matmul
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4
+    from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- 1. set-up ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    bw, tc_peak, f32_peak = next((p[1:] for p in PEAKS if p[0] in kind), PEAKS[-1][1:])
+    log(f"peaks for {kind}: {bw / 1e12} TB/s, {tc_peak / 1e12} TF/s bf16, {f32_peak / 1e12} TF/s f32")
+    t0 = time.perf_counter()
+    took = _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s wall; per library {took}")
+    for name in _build.SOURCES:
+        for line in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    def bound_ms(nbytes, ops, peak):
+        return max(nbytes / bw, ops / peak) * 1e3, ("bytes" if nbytes / bw >= ops / peak else "operations")
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+
+    def time_ms(fn, iters=20):
+        """Median device time of fn over iters runs, L2 flushed before each.
+        A spin on the card ahead of the start event keeps it busy while the
+        host enqueues fn, so the host's time in the wrapper is not counted."""
+        fn()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)  # ~0.5 ms of device cycles
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    def max_err(got, want, key):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"{key}: non-finite kernel output"
+        err = (got - want).abs()
+        atol, rtol = TOL[key]
+        bad = err > atol + rtol * want.abs()
+        assert not bad.any(), f"{key}: {int(bad.sum())} values beyond tolerance, max err {err.max():.3g}"
+        return float(err.max())
+
+    gcpu = torch.Generator().manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gcpu) * scale).to(dev, torch.bfloat16)
+
+    cfg7 = LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int4")
+    D, I, H, hs, gs = cfg7.n_embd, cfg7.intermediate_size, cfg7.n_head, cfg7.head_size, cfg7.quant_groupsize
+    V = cfg7.padded_vocab_size
+    t0 = time.perf_counter()
+    params, cfg = fused_layer.prepare_fused_params(
+        llama.unstack_layers(random_int4_params(cfg7, seed=SEED, device=dev)), cfg7
+    )
+    torch.cuda.synchronize()
+    log(f"random 7B int4 params: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    lp0 = params["h"][0]
+    results = {}
+
+    def q4_bytes(K, N):
+        return K // 2 * N + 2 * (K // gs) * N * 4
+
+    # ---- 2. K3 vs plain ------------------------------------------------------
+    linears = [("c_attn", lp0["attn"]["c_attn"], D), ("attn.c_proj", lp0["attn"]["c_proj"], D),
+               ("c_fc12", lp0["mlp"]["c_fc12"], D), ("mlp.c_proj", lp0["mlp"]["c_proj"], I),
+               ("lm_head", params["lm_head"], D)]
+    errs = []
+    for M in (8, 128):
+        for lname, w, K in linears:
+            N = w["qw"].shape[1]
+            x = randn(M, K)
+            args = (x, w["qw"], w["qscale"], w["qzero"])
+            errs.append(max_err(quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args), "K3"))
+            ms = time_ms(lambda: quant_matmul.matmul_int4(*args))
+            bms, _ = bound_ms(M * K * 2 + q4_bytes(K, N) + M * N * 2, 2 * M * K * N, tc_peak)
+            log(f"K3 M={M} {lname} {K}->{N}: {ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us")
+            if M == 128 and lname == "c_fc12":
+                wd = dequantize_int4(w, torch.bfloat16)
+                k3 = dict(shape=f"M={M} K={K} N={N} (c_fc12)", ms=ms,
+                          plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args), 3),
+                          library_ms=time_ms(lambda: torch.matmul(x, wd)))
+                k3["bound_ms"], k3["bound_by"] = bound_ms(
+                    M * K * 2 + q4_bytes(K, N) + M * N * 2, 2 * M * K * N, tc_peak)
+                del wd
+    results["K3"] = dict(k3, max_abs_err=max(errs))
+
+    # ---- 3. K4 vs plain ------------------------------------------------------
+    import torch.nn.functional as F
+
+    errs = []
+    for T in (128, 200, 512):
+        q, k, v = (randn(1, H, T, hs) for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v)
+        ro, rlse = fa.flash_attention_ref(q, k, v)
+        errs.append(max_err(o, ro, "K4"))
+        max_err(lse, rlse, "K4 lse")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        nbytes, ops = 4 * H * T * hs * 2 + H * T * 4, 4 * hs * H * T * (T + 1) // 2
+        log(f"K4 T={T}: {ms * 1e3:.1f} us, bound {bound_ms(nbytes, ops, tc_peak)[0] * 1e3:.1f} us")
+        if T == 200:
+            k4 = dict(shape=f"B=1 H={H} T={T} hs={hs}", ms=ms,
+                      plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                      library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)))
+            k4["bound_ms"], k4["bound_by"] = bound_ms(nbytes, ops, tc_peak)
+    results["K4"] = dict(k4, max_abs_err=max(errs))
+
+    # ---- 4. K1 vs plain: one 7B block, S = 2048 ------------------------------
+    S = 2048
+    rope = build_rope_cache(cfg.block_size, hs, device=dev)
+    kc0, vc0 = randn(1, H, S, hs, scale=0.3), randn(1, H, S, hs, scale=0.3)
+    layer_bytes = (q4_bytes(D, 3 * D) + q4_bytes(D, D) + q4_bytes(D, 2 * I) + q4_bytes(I, D)
+                   + 2 * D * 2 + 2 * hs * 4 + 2 * D * 2 + 2 * H * hs * 2)
+    layer_ops = 2 * (3 * D * D + D * D + 2 * I * D + I * D)
+    errs = []
+    for pos in (0, 1000, 2047, 2053):
+        x = randn(1, D)
+        cos, sin = rope_half_row(rope, min(pos, cfg.block_size - 1), hs)
+        kv = {"k": kc0.clone(), "v": vc0.clone()}
+        rkv = {"k": kc0.clone(), "v": vc0.clone()}
+        out, _ = fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg)
+        ref, _ = fused_layer.decode_layers_fused_ref(x, [lp0], [rkv], cos, sin, pos % S, pos, cfg)
+        errs.append(max_err(out, ref, "K1"))
+        max_err(kv["k"], rkv["k"], "K1 cache")
+        max_err(kv["v"], rkv["v"], "K1 cache")
+        visible = min(pos, S - 1) + 1
+        nbytes = layer_bytes + 2 * H * visible * hs * 2
+        ops = layer_ops + 4 * H * visible * hs
+        call = lambda: fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg)
+        ms = time_ms(call, 20)
+        log(f"K1 S={S} pos={pos}: {ms * 1e3:.1f} us, bound {bound_ms(nbytes, ops, f32_peak)[0] * 1e3:.1f} us")
+        if pos == 2047:
+            k1 = dict(shape=f"one 7B block, S={S}, pos={pos} ({visible} slots visible)", ms=ms,
+                      plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(
+                          x, [lp0], [rkv], cos, sin, pos % S, pos, cfg), 3),
+                      library_ms=None)
+            k1["bound_ms"], k1["bound_by"] = bound_ms(nbytes, ops, f32_peak)
+    results["K1"] = dict(k1, max_abs_err=max(errs))
+    del kc0, vc0, kv, rkv
+
+    # ---- 5. K2 vs plain -------------------------------------------------------
+    x = randn(1, D)
+    head_args = (x, params["ln_f"], params["lm_head"], cfg)
+    err = max_err(fused_layer.lm_head_fused(*head_args), fused_layer.lm_head_fused_ref(*head_args), "K2")
+    results["K2"] = dict(shape=f"D={D} V={V}", ms=time_ms(lambda: fused_layer.lm_head_fused(*head_args), 20),
+                         plain_ms=time_ms(lambda: fused_layer.lm_head_fused_ref(*head_args), 3),
+                         library_ms=None, max_abs_err=err)
+    results["K2"]["bound_ms"], results["K2"]["bound_by"] = bound_ms(
+        2 * D * 2 + q4_bytes(D, V) + V * 2, 2 * D * V, f32_peak)
+    log(f"K2 D={D} V={V}: {results['K2']['ms'] * 1e3:.1f} us, bound {results['K2']['bound_ms'] * 1e3:.1f} us")
+
+    # ---- 6. full width, depth cut to 2 blocks: kernel path vs plain path ------
+    p2 = dict(params, h=params["h"][:2])
+    c2 = cfg.replace(n_layer=2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 37), generator=gcpu).to(dev)
+    caches = {plain: llama.init_kv_cache(c2, 1, 64, device=dev) for plain in (False, True)}
+    logits = {plain: llama.forward(p2, prompt, c2, rope_cache=rope, kv_cache=caches[plain],
+                                   prefill_from_zero=True, plain=plain)[0] for plain in (False, True)}
+
+    def model_err(got, want, what):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"{what}: non-finite logits"
+        err = float((got - want).abs().max())
+        limit = TOL_MODEL[0] + TOL_MODEL[1] * float(want.abs().max())
+        assert err <= limit, f"{what}: max |dlogit| {err:.3g} > {limit:.3g}"
+        return err
+
+    errs = [model_err(logits[False], logits[True], "2-layer prefill")]
+    tok = logits[False][0, -1:].float().argmax(-1)
+    for step in range(8):
+        pos = prompt.shape[1] + step
+        cos, sin = rope_half_row(rope, pos, hs)
+        step_logits = {}
+        for plain in (False, True):
+            layer = fused_layer.decode_layers_fused_ref if plain else fused_layer.decode_layers_fused
+            head = fused_layer.lm_head_fused_ref if plain else fused_layer.lm_head_fused
+            x = params["wte"][tok].to(torch.bfloat16)
+            for lp, kv in zip(p2["h"], caches[plain]):
+                x, _ = layer(x, [lp], [kv], cos, sin, pos % 64, pos, c2)
+            step_logits[plain] = head(x, params["ln_f"], params["lm_head"], c2)
+        errs.append(model_err(step_logits[False], step_logits[True], f"2-layer decode step {step}"))
+        tok = step_logits[False].float().argmax(-1)
+    log(f"2-layer 7B-width model, kernel vs plain path: prefill max |dlogit| {errs[0]:.4g}, "
+        f"8 decode steps max {max(errs[1:]):.4g}")
+    del caches, logits
+
+    # ---- 7. the full model: a few greedy requests ------------------------------
+    full = {}
+    ref_prompt = torch.randint(0, cfg.vocab_size, (8,), generator=gcpu)
+    kern_logits = llama.forward(params, ref_prompt[None].to(dev), cfg, rope_cache=rope,
+                                kv_cache=llama.init_kv_cache(cfg, 1, 16, device=dev), prefill_from_zero=True)[0]
+    plain_logits = llama.forward(params, ref_prompt[None].to(dev), cfg, rope_cache=rope,
+                                 kv_cache=llama.init_kv_cache(cfg, 1, 16, device=dev), prefill_from_zero=True,
+                                 plain=True)[0]
+    assert torch.isfinite(kern_logits.float()).all(), "32-layer prefill: non-finite logits"
+    rel = float((kern_logits.float() - plain_logits.float()).abs().max() / plain_logits.float().abs().max())
+    log(f"32-layer prefill (8 tokens), kernel vs plain path: max |dlogit| / max |logit| = {rel:.4g}")
+    assert rel < 0.1, "32-layer prefill: kernel path far from the plain path"
+    del kern_logits, plain_logits
+
+    counters = {"K1": fused_layer.decode_layers_fused, "K2": fused_layer.lm_head_fused,
+                "K3": quant_matmul.matmul_int4, "K4": fa.flash_attention}
+    requests = [(8, None), (128, None), (200, None), (128, 2048)]
+    new = 64
+    gen.generate(params, ref_prompt, 4, config=cfg, temperature=0.0)  # warm-up, not counted
+    torch.cuda.synchronize()
+    totals = dict.fromkeys(counters, 0)
+    def wall_s(prompt, n_new, s, reps=3):
+        """Median host time of a greedy request (generate ends in a copy to the host)."""
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            gen.generate(params, prompt, n_new, config=cfg, max_seq_length=s, temperature=0.0)
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[reps // 2]
+
+    for T, s in requests:
+        prompt = torch.randint(0, cfg.vocab_size, (T,), generator=gcpu)
+        for fn in counters.values():
+            fn.launches = 0
+        out = gen.generate(params, prompt, new, config=cfg, max_seq_length=s, temperature=0.0)
+        got = {k: fn.launches for k, fn in counters.items()}
+        prefill_s, total_s = wall_s(prompt, 1, s), wall_s(prompt, new, s)
+        want = {"K1": cfg.n_layer * (new - 1), "K2": new - 1, "K3": 4 * cfg.n_layer + 1, "K4": cfg.n_layer}
+        assert got == want, f"request T={T} S={s}: launches {got}, expected {want}"
+        assert out.shape == (T + new,) and int(out.min()) >= 0 and int(out.max()) < V, "bad tokens"
+        for k in totals:
+            totals[k] += got[k]
+        S_used = gen.plan_seq_length(cfg, T + new, s)
+        tok_s = (new - 1) / (total_s - prefill_s)
+        full[f"T={T},S={S_used}"] = dict(prefill_ms=prefill_s * 1e3, decode_tok_s=tok_s)
+        log(f"request prompt {T} S={S_used}: prefill {prefill_s * 1e3:.1f} ms, "
+            f"decode {tok_s:.1f} tok/s ({new} new tokens, launches {got})")
+
+    kernels = []
+    sources = {
+        "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
+        "K2": ("lm_head_fused", "lit_llama_tpu/ops/fused_layer.py:894"),
+        "K3": ("matmul_int4", "lit_llama_tpu/ops/quant_matmul_pallas.py:172"),
+        "K4": ("flash_attention", "lit_llama_tpu/ops/flash_attention.py:52"),
+    }
+    files = {"K1": "fused_layer.cu", "K2": "fused_layer.cu", "K3": "quant_matmul.cu", "K4": "flash_attention.cu"}
+    for key in ("K1", "K2", "K3", "K4"):
+        r = results[key]
+        kernels.append({
+            "name": f"{key} {sources[key][0]}", "route": "cuda",
+            "source": f"lit_llama_tpu_torch/csrc/{files[key]}", "replaces": sources[key][1],
+            "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+        })
+    print(json.dumps({"requests": full}))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,233 @@
+// K3: int4 weight-only GEMM for M > 1 (prefill), out = x @ dequant(qw).
+//
+// Replaces lit_llama_tpu/ops/quant_matmul_pallas.py _int4_kernel (and its
+// _int4_kernel_fused_scale variant), entry matmul_int4.
+//
+// Layout (ops/linear.py): qw (K/2, N) bytes, packed row r holds logical row r
+// in its low nibble and row r + K/2 in its high nibble; qscale/qzero (G, N)
+// f32 with G = K/gs, low plane groups [0, G/2), high plane [G/2, G).
+// w = bf16(q * scale + zero), the rounding of matmul_int4_ref.
+//
+// Bound on the H100: at prefill M (8..512) the packed weight stream
+// (K*N/2 bytes, plus 8 bytes of scale/zero per group and column) dominates
+// the bytes; the tensor-core work is 2*M*K*N. At M = 128 on c_fc12 the two
+// bounds are within 2x of each other.
+//
+// Design: one block per (64 x 128) output tile, 8 warps in 2 x 4, each warp a
+// 32 x 32 WMMA tile (bf16 in, f32 accumulate). Each k-step reads one 64-row
+// slab of packed bytes ONCE and dequantizes both nibble planes into shared
+// memory as bf16, against the matching two 64-column slabs of x, so the
+// half-split layout costs no second pass over the weight. A k-step stays
+// inside one group (gs % 64 == 0). The next k-step's x, packed bytes, scales
+// and zeros are loaded into registers while the tensor cores work on the
+// current one, so the global latency overlaps the products. Simple first: no
+// cp.async/TMA ring, no wgmma; those are later work.
+
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 64, BN = 128, BK = 64, THREADS = 256;
+constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
+constexpr int SMEM_AB = 2 * BM * LDA * 2 + 2 * BK * LDB * 2;
+constexpr int SMEM_C = BM * LDC * 4;
+constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
+constexpr int A_VECS = 2 * BM * BK / 8 / THREADS;  // 16-byte x vectors per thread: 4
+constexpr int B_ROWS = BK * (BN / 8) / THREADS;    // 8-byte weight rows per thread: 4
+
+// one k-step's operands in registers
+struct Stage {
+  uint4 a[A_VECS];
+  uint2 b[B_ROWS];
+  float s_lo[8], z_lo[8], s_hi[8], z_hi[8];
+};
+
+__device__ __forceinline__ void load_stage(Stage& st, const __nv_bfloat16* __restrict__ x,
+                                           const uint8_t* __restrict__ qw,
+                                           const float* __restrict__ qscale,
+                                           const float* __restrict__ qzero, int M, int N, int K,
+                                           int gs, int m0, int n0, int r0, int tid) {
+  const int Kh = K / 2, Gh = (K / gs) / 2;
+#pragma unroll
+  for (int i = 0; i < A_VECS; ++i) {
+    const int v = tid + THREADS * i;  // 0..1023
+    const int p = v / 512, rem = v % 512;
+    const int m = rem / 8, kc = (rem % 8) * 8;
+    st.a[i] = make_uint4(0, 0, 0, 0);
+    if (m0 + m < M)
+      st.a[i] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + p * Kh + r0 + kc));
+  }
+  const int cg = tid % (BN / 8), row0 = tid / (BN / 8);  // 8 columns, rows row0 + 16 i
+  const int n = n0 + cg * 8;
+  const bool ok = n < N;  // N % 8 == 0: all 8 columns in or out
+#pragma unroll
+  for (int i = 0; i < B_ROWS; ++i) {
+    st.b[i] = make_uint2(0, 0);
+    if (ok) st.b[i] = __ldg(reinterpret_cast<const uint2*>(qw + (size_t)(r0 + row0 + 16 * i) * N + n));
+  }
+  const int g_lo = r0 / gs, g_hi = Gh + r0 / gs;
+#pragma unroll
+  for (int j = 0; j < 8; j += 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, c = a, d = a;
+    if (ok) {
+      a = __ldg(reinterpret_cast<const float4*>(qscale + (size_t)g_lo * N + n + j));
+      b = __ldg(reinterpret_cast<const float4*>(qzero + (size_t)g_lo * N + n + j));
+      c = __ldg(reinterpret_cast<const float4*>(qscale + (size_t)g_hi * N + n + j));
+      d = __ldg(reinterpret_cast<const float4*>(qzero + (size_t)g_hi * N + n + j));
+    }
+    st.s_lo[j] = a.x, st.s_lo[j + 1] = a.y, st.s_lo[j + 2] = a.z, st.s_lo[j + 3] = a.w;
+    st.z_lo[j] = b.x, st.z_lo[j + 1] = b.y, st.z_lo[j + 2] = b.z, st.z_lo[j + 3] = b.w;
+    st.s_hi[j] = c.x, st.s_hi[j + 1] = c.y, st.s_hi[j + 2] = c.z, st.s_hi[j + 3] = c.w;
+    st.z_hi[j] = d.x, st.z_hi[j + 1] = d.y, st.z_hi[j + 2] = d.z, st.z_hi[j + 3] = d.w;
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat16 dq(uint32_t q, float s, float z) {
+  return __float2bfloat16_rn(__fadd_rn(__fmul_rn((float)q, s), z));
+}
+
+__device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, __nv_bfloat16* Bs,
+                                            int tid) {
+#pragma unroll
+  for (int i = 0; i < A_VECS; ++i) {
+    const int v = tid + THREADS * i;
+    const int p = v / 512, rem = v % 512;
+    const int m = rem / 8, kc = (rem % 8) * 8;
+    *reinterpret_cast<uint4*>(As + (p * BM + m) * LDA + kc) = st.a[i];
+  }
+  const int cg = tid % (BN / 8), row0 = tid / (BN / 8);
+#pragma unroll
+  for (int i = 0; i < B_ROWS; ++i) {
+    const int row = row0 + 16 * i;
+    uint32_t lo[4], hi[4];  // bf16 pairs of columns (2j, 2j + 1)
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const uint32_t w = j < 4 ? st.b[i].x : st.b[i].y;
+      const uint32_t b0 = (w >> (8 * (j % 4))) & 0xFFu, b1 = (w >> (8 * (j % 4) + 8)) & 0xFFu;
+      __nv_bfloat162 l = __halves2bfloat162(dq(b0 & 0xFu, st.s_lo[j], st.z_lo[j]),
+                                            dq(b1 & 0xFu, st.s_lo[j + 1], st.z_lo[j + 1]));
+      __nv_bfloat162 h = __halves2bfloat162(dq(b0 >> 4, st.s_hi[j], st.z_hi[j]),
+                                            dq(b1 >> 4, st.s_hi[j + 1], st.z_hi[j + 1]));
+      lo[j / 2] = *reinterpret_cast<uint32_t*>(&l);
+      hi[j / 2] = *reinterpret_cast<uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(Bs + row * LDB + cg * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(Bs + (BK + row) * LDB + cg * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  }
+}
+
+// blockIdx.z takes packed rows [z * rows_per_split, (z + 1) * rows_per_split);
+// with one split the bf16 result goes to out, else the f32 partial to
+// ws[z] (reduced by splitk_reduce_kernel in a fixed order, so the result does
+// not depend on the schedule).
+__global__ void __launch_bounds__(THREADS, 2)
+int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
+                 const float* __restrict__ qscale, const float* __restrict__ qzero,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int M, int N, int K,
+                 int gs, int rows_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BM][LDA]
+  __nv_bfloat16* Bs = As + 2 * BM * LDA;                         // [2][BK][LDB]
+  float* Cs = reinterpret_cast<float*>(smem);                    // [BM][LDC]
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int Kh = K / 2;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(Kh, r_begin + rows_per_split);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  Stage st;
+  load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r_begin, tid);
+  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
+    __syncthreads();  // the previous step's products are done with the tiles
+    store_stage(st, As, Bs, tid);
+    __syncthreads();
+    if (r0 + BK < r_end) load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r0 + BK, tid);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i], As + (p * BM + wm * 32 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(b[j], Bs + (p * BK + kk) * LDB + wn * 32 + j * 16, LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < BM * BN / 2; e += THREADS) {  // two columns per store
+    const int m = e / (BN / 2), n = (e % (BN / 2)) * 2;
+    if (m0 + m >= M || n0 + n >= N) continue;
+    const size_t o = (size_t)(m0 + m) * N + n0 + n;
+    if (ws == nullptr)
+      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(Cs[m * LDC + n], Cs[m * LDC + n + 1]);
+    else
+      *reinterpret_cast<float2*>(ws + (size_t)blockIdx.z * M * N + o) = make_float2(Cs[m * LDC + n], Cs[m * LDC + n + 1]);
+  }
+}
+
+__global__ void splitk_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
+                                     size_t MN, int splits) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN; i += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += ws[z * MN + i];
+    out[i] = __float2bfloat16_rn(v);
+  }
+}
+
+}  // namespace
+
+// x (M, K) bf16, qw (K/2, N) u8, qscale/qzero (K/gs, N) f32 -> out (M, N) bf16.
+// splits > 1 splits K over blockIdx.z (at most `splits` parts of whole
+// 64-row k-steps) and needs ws (splits, M, N) f32.
+// Requires gs % 64 == 0, (K/2) % gs == 0, N % 8 == 0, 16-byte aligned rows
+// (checked by the Python wrapper).
+LLT_EXPORT int k3_matmul_int4(const void* x, const void* qw, const void* qscale, const void* qzero,
+                              void* out, void* ws, int M, int N, int K, int gs, int splits,
+                              void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(int4_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  // whole k-steps per split; the last split may be shorter, none is empty
+  const int steps = K / 2 / BK;
+  const int per = (steps + splits - 1) / splits;
+  splits = (steps + per - 1) / per;
+  // M-tiles fastest: the blocks sharing a weight slab run together, so it
+  // comes from DRAM once
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  int4_gemm_kernel<<<grid, THREADS, SMEM, st>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)qw, (const float*)qscale, (const float*)qzero,
+      (__nv_bfloat16*)out, splits > 1 ? (float*)ws : nullptr, M, N, K, gs, per * BK);
+  if (splits > 1) {
+    const size_t MN = (size_t)M * N;
+    splitk_reduce_kernel<<<(unsigned)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096), 256, 0, st>>>(
+        (const float*)ws, (__nv_bfloat16*)out, MN, splits);
+  }
+  return (int)cudaGetLastError();
+}

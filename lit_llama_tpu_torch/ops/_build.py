@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``. Libraries
+go to ``build/lit_llama_tpu_torch/`` at the repo root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one is loaded
+as it is. ``build()`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and
+``nvcc`` is only needed where the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lit_llama_tpu_torch"
+SOURCES = ("quant_matmul", "flash_attention", "fused_layer")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# ctypes argument kinds used by the ops modules' signature tables
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+FLOAT = ctypes.c_float
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
+    return path
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every library that is missing, one ``nvcc`` per source, all
+    started together. Returns {name: seconds} for those built (0.0 when the
+    library was already there). Raises with nvcc's output if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    took = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            took[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_bytes(log)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built first if missing),
+    with ``argtypes`` set from ``signatures`` and every restype ``int``
+    (each C entry returns ``cudaGetLastError()``)."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

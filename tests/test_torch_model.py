@@ -1,0 +1,105 @@
+"""The slice end to end on the CPU against the JAX package: forward logits
+(no cache and prefill from zero), and greedy generate tokens identical to
+JAX generate on the same prepared weights, past the cache."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from lit_llama_tpu import LLaMAConfig, init_params
+from lit_llama_tpu.models import generate as jgen
+from lit_llama_tpu.models import llama as jllama
+from lit_llama_tpu.ops import fused_layer as jfl
+from lit_llama_tpu_torch.models import config as tcfg
+from lit_llama_tpu_torch.models import generate as tgen
+from lit_llama_tpu_torch.models import llama as tllama
+from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+
+def _port_config(cfg):
+    return tcfg.LLaMAConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                               if f.name not in ("lora", "adapter")})
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = LLaMAConfig(block_size=256, vocab_size=128, n_layer=2, n_head=4, n_embd=512,
+                      quantize="int4", quant_groupsize=128)
+    dense = init_params(cfg.replace(quantize=None), jax.random.PRNGKey(0))
+    stacked = jllama.quantize_params(dense, cfg)
+    fparams, fcfg = jfl.prepare_fused_params(jllama.unstack_layers(stacked), cfg)
+    return cfg, stacked, fparams, fcfg
+
+
+def test_forward_no_cache_matches(model):
+    """Stacked int4 layers, interleaved RoPE, causal over the tokens."""
+    cfg, stacked, _, _ = model
+    toks = np.asarray([[3, 17, 42, 99, 7, 1, 64]], np.int32)
+    want, _ = jllama.forward(stacked, jnp.asarray(toks), cfg)
+    got, cache = tllama.forward(
+        params_from_numpy(_np(stacked), device="cpu"), torch.from_numpy(toks).long(), _port_config(cfg)
+    )
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("T", [1, 6, 130])
+def test_prefill_from_zero_matches(model, T):
+    _, _, fparams, fcfg = model
+    S = 160
+    toks = np.random.default_rng(T).integers(0, 128, size=(1, T)).astype(np.int32)
+    jcache = jllama.unstack_kv_cache(jllama.init_kv_cache(fcfg, 1, S, jnp.float32))
+    want, jnew = jllama.forward(
+        fparams, jnp.asarray(toks), fcfg, input_pos=jnp.arange(T), kv_cache=jcache,
+        prefill_from_zero=True,
+    )
+    tc = _port_config(fcfg)
+    tcache = tllama.init_kv_cache(tc, 1, S, device="cpu")
+    got, tnew = tllama.forward(
+        params_from_numpy(_np(fparams), device="cpu"), torch.from_numpy(toks).long(), tc,
+        kv_cache=tcache, prefill_from_zero=True,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    for j in range(fcfg.n_layer):
+        np.testing.assert_allclose(tnew[j]["k"].numpy(), np.asarray(jnew[j]["k"]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(tnew[j]["v"].numpy(), np.asarray(jnew[j]["v"]), rtol=1e-4, atol=1e-4)
+
+
+def test_generate_greedy_identical_past_the_cache(model):
+    """S = 16 and 32 new tokens: the ring cache wraps twice."""
+    _, _, fparams, fcfg = model
+    prompt = np.asarray([5, 23, 81, 2, 40], np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jgen.generate(fparams, prompt, 32, config=fcfg, max_seq_length=16, temperature=0.0)
+    got = tgen.generate(
+        params_from_numpy(_np(fparams), device="cpu"), prompt, 32, config=_port_config(fcfg),
+        max_seq_length=16, temperature=0.0, device="cpu",
+    )
+    assert got.tolist() == np.asarray(want).tolist()
+
+
+def test_generate_eos_and_sampling(model):
+    _, _, fparams, fcfg = model
+    params = params_from_numpy(_np(fparams), device="cpu")
+    tc = _port_config(fcfg)
+    prompt = [5, 23, 81]
+    full = tgen.generate(params, prompt, 6, config=tc, temperature=0.0, device="cpu")
+    eos = int(full[-1])
+    first = len(prompt) + full[len(prompt):].tolist().index(eos)
+    stopped = tgen.generate(params, prompt, 6, config=tc, temperature=0.0, eos_id=eos, device="cpu")
+    assert stopped.tolist() == full[: first + 1].tolist()
+    g = torch.Generator().manual_seed(0)
+    sampled = tgen.generate(params, prompt, 6, config=tc, temperature=0.8, top_k=5,
+                            generator=g, device="cpu")
+    assert sampled.shape == (9,) and int(sampled.max()) < tc.padded_vocab_size
+    for cfg, t_new, s in ((fcfg, 72, None), (fcfg, 264, None), (fcfg, 80, 2048), (fcfg, 20, None)):
+        assert tgen.plan_seq_length(_port_config(cfg), t_new, s) == jgen.plan_seq_length(cfg, t_new, s)

@@ -1,0 +1,58 @@
+"""K3, the int4 matmul: the port's plain version against the JAX Pallas kernel
+in interpret mode on the CPU (f32), and the CUDA kernel against the plain
+version on the card (skipped without one)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lit_llama_tpu.ops import quant_matmul_pallas as qmp
+from lit_llama_tpu_torch.ops import linear as tlin
+from lit_llama_tpu_torch.ops import quant_matmul as tqm
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _quantized(rng, K, N, gs=128):
+    w = rng.normal(size=(K, N)).astype(np.float32) * 0.02
+    return tlin.quantize_int4(torch.from_numpy(w), groupsize=gs)
+
+
+# K = 768: 6 groups, 3 per nibble plane (odd, like 7B mlp.c_proj's 43)
+@pytest.mark.parametrize("M", [1, 8, 128])
+@pytest.mark.parametrize("K,N", [(512, 256), (768, 384)])
+def test_matmul_int4_ref_matches_pallas(rng, M, K, N):
+    q = _quantized(rng, K, N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    want = qmp.matmul_int4(
+        jnp.asarray(x), *(jnp.asarray(q[k].numpy()) for k in ("qw", "qscale", "qzero")),
+        jnp.float32, interpret=True,
+    )
+    got = tqm.matmul_int4_ref(torch.from_numpy(x), q["qw"], q["qscale"], q["qzero"], torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    # the dispatching wrapper takes the plain version for a CPU tensor
+    out = tqm.matmul_int4(torch.from_numpy(x), q["qw"], q["qscale"], q["qzero"], torch.float32)
+    assert torch.equal(out, got)
+
+
+# N = 1040 is not a multiple of the tile; K = 1536 has 6 groups per nibble
+# plane, K = 768 has 3 and K = 11008 (7B mlp.c_proj) 43, both odd
+@pytest.mark.parametrize("M", [8, 128, 200])
+@pytest.mark.parametrize("K,N", [(1536, 1040), (768, 1040), (11008, 1040)])
+def test_matmul_int4_kernel_matches_plain(rng, cuda, M, K, N):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N).items()}
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = tqm.matmul_int4.launches
+    got = tqm.matmul_int4(x, q["qw"], q["qscale"], q["qzero"])
+    want = tqm.matmul_int4_ref(x, q["qw"], q["qscale"], q["qzero"])
+    torch.cuda.synchronize()
+    assert tqm.matmul_int4.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(TypeError):
+        tqm.matmul_int4(x.float(), q["qw"], q["qscale"], q["qzero"], torch.float32)
