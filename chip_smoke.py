@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels of lit_llama_tpu_torch (K1-K4) with nvcc,
-holds each against its plain PyTorch version at 7B shapes and times both,
-checks the kernel path of a 2-layer full-width model against the plain path,
-then serves a few greedy requests on the full 32-layer 7B int4 model (random
-weights from a seed) and proves with the launch counters that the main path
-ran through the kernels. Any failure raises and exits nonzero.
+Builds the hand-written kernels of lit_llama_tpu_torch (K1-K4 of single-stream
+generation, K7, K8/K8b and K9 of the batched serving step) with nvcc, holds
+each against its plain PyTorch version at 7B shapes and times both, checks the
+kernel path of a 2-layer full-width model against the plain path (single
+stream and serving step), then drives both main paths on the full 32-layer 7B
+int4 model (random weights from a seed): a few greedy single-stream requests
+through ``generate``, and 64 requests through a 32-slot ``DecodeEngine``. The
+launch counters, set to 0 before each path and read after it, prove that the
+path ran through the kernels. Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
 limit; one JSON line {"kernels": [...]} with each kernel's launches on the
@@ -44,6 +47,11 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
     "K1": (2e-2, 2e-2),
     "K1 cache": (1e-2, 1e-2),
     "K2": (2e-2, 2e-2),
+    # the serving kernels sum in f32 from the same bf16-rounded inputs as their
+    # plain versions, in another order: the bf16 outputs differ by an ulp or two
+    "K7": (2e-2, 2e-2),
+    "K9": (2e-2, 2e-2),
+    "K8": (2e-2, 2e-2),  # y; the caches must be identical
 }
 # 2-layer full-width model, kernel path vs plain path: per-op errors of the
 # table above compound through 2 blocks and the lm_head
@@ -55,6 +63,7 @@ def log(*a):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -71,9 +80,11 @@ def main() -> int:
     from lit_llama_tpu_torch.models import generate as gen
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.ops import _build, fused_layer, quant_matmul
+    from lit_llama_tpu_torch.ops import decode_attention as da
     from lit_llama_tpu_torch.ops import flash_attention as fa
     from lit_llama_tpu_torch.ops.linear import dequantize_int4
-    from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row
+    from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
+    from lit_llama_tpu_torch.serve import DecodeEngine
     from lit_llama_tpu_torch.utils.random_params import random_int4_params
 
     dev = torch.device("cuda")
@@ -144,8 +155,8 @@ def main() -> int:
     lp0 = params["h"][0]
     results = {}
 
-    def q4_bytes(K, N):
-        return K // 2 * N + 2 * (K // gs) * N * 4
+    def q4_bytes(K, N, g=gs):
+        return K // 2 * N + 2 * (K // g) * N * 4
 
     # ---- 2. K3 vs plain ------------------------------------------------------
     linears = [("c_attn", lp0["attn"]["c_attn"], D), ("attn.c_proj", lp0["attn"]["c_proj"], D),
@@ -235,6 +246,88 @@ def main() -> int:
         2 * D * 2 + q4_bytes(D, V) + V * 2, 2 * D * V, f32_peak)
     log(f"K2 D={D} V={V}: {results['K2']['ms'] * 1e3:.1f} us, bound {results['K2']['bound_ms'] * 1e3:.1f} us")
 
+    # ---- 5b. K7 and K9 vs plain: the block halves of the serving step ---------
+    odd7 = LLaMAConfig(n_layer=1, n_head=14, n_embd=1792, param_dtype="bfloat16",
+                       compute_dtype="bfloat16", quantize="int4")  # 7 and 19 groups per nibble plane
+    odd_params, odd_cfg = fused_layer.prepare_fused_params(
+        llama.unstack_layers(random_int4_params(odd7, seed=SEED + 1, device=dev)), odd7)
+
+    def halves_args(lp, c, B):
+        x, y = randn(B, c.n_embd), randn(B, c.n_embd)
+        pos = torch.randint(0, c.block_size + 100, (B,), generator=gcpu).to(dev, torch.int32)
+        cos, sin = slot_rope_rows(rope, pos)
+        return ((x, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], c),
+                (x, y, lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"], lp["mlp"]["c_proj"], c))
+
+    errs7, errs9 = [], []
+    for lp, c, what in ((lp0, cfg, "7B"), (odd_params["h"][0], odd_cfg, "odd groups")):
+        Dm, Im, g = c.n_embd, c.intermediate_size, c.quant_groupsize
+        for B in (1, 8, 32, 64):
+            ha, ta = halves_args(lp, c, B)
+            errs7.append(max_err(fused_layer.block_head_fused(*ha), fused_layer.block_head_fused_ref(*ha), "K7"))
+            errs9.append(max_err(fused_layer.block_tail_fused(*ta), fused_layer.block_tail_fused_ref(*ta), "K9"))
+            ms7 = time_ms(lambda: fused_layer.block_head_fused(*ha))
+            ms9 = time_ms(lambda: fused_layer.block_tail_fused(*ta))
+            b7 = bound_ms(B * Dm * 2 + Dm * 2 + q4_bytes(Dm, 3 * Dm, g) + 2 * B * hs * 4 + B * 3 * Dm * 2,
+                          2 * B * Dm * 3 * Dm, tc_peak)
+            b9 = bound_ms(2 * B * Dm * 2 + Dm * 2 + q4_bytes(Dm, Dm, g) + q4_bytes(Dm, 2 * Im, g)
+                          + q4_bytes(Im, Dm, g) + B * Dm * 2,
+                          2 * B * (Dm * Dm + 2 * Im * Dm + Im * Dm), tc_peak)
+            log(f"K7 {what} D={Dm} B={B}: {ms7 * 1e3:.1f} us, bound {b7[0] * 1e3:.1f} us ({b7[1]}); "
+                f"K9 I={Im}: {ms9 * 1e3:.1f} us, bound {b9[0] * 1e3:.1f} us ({b9[1]})")
+            if what == "7B" and B == 32:
+                k7 = dict(shape=f"B={B} D={Dm} -> 3D (c_attn)", ms=ms7, library_ms=None,
+                          plain_ms=time_ms(lambda: fused_layer.block_head_fused_ref(*ha), 3),
+                          bound_ms=b7[0], bound_by=b7[1])
+                k9 = dict(shape=f"B={B} D={Dm} I={Im}", ms=ms9, library_ms=None,
+                          plain_ms=time_ms(lambda: fused_layer.block_tail_fused_ref(*ta), 3),
+                          bound_ms=b9[0], bound_by=b9[1])
+    results["K7"] = dict(k7, max_abs_err=max(errs7))
+    results["K9"] = dict(k9, max_abs_err=max(errs9))
+    del odd_params
+
+    # ---- 5c. K8 vs plain through both entries: cache write + attention -------
+    entries = {"K8": da.decode_attention_write_pipelined, "K8b": da.decode_attention_write_pallas}
+    errs8 = dict.fromkeys(entries, 0.0)
+    for B, S8 in ((32, 256), (8, 2048)):
+        qkv = randn(B, 3 * D)
+        q8, kn8, vn8 = (qkv[:, i * D : (i + 1) * D].reshape(B, H, 1, hs) for i in range(3))
+        kc0, vc0 = randn(B, H, S8, hs, scale=0.5), randn(B, H, S8, hs, scale=0.5)
+        # mixed positions: a retired slot (0), a parked one (S - 1), wrapped ones (>= S)
+        mixed = torch.randint(0, 3 * S8, (B,), generator=gcpu)
+        mixed[:6] = torch.tensor([0, S8 - 1, S8, 2 * S8 + 63, 64, 63])
+        mixed = mixed.to(dev, torch.int32)
+        full_pos = torch.randint(S8 - 1, 2 * S8, (B,), generator=gcpu).to(dev, torch.int32)  # every row visible
+        for key, entry in entries.items():
+            for pos8 in (mixed, full_pos):
+                kc, vc, rk, rv = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+                y8, _, _ = entry(q8, kn8, vn8, kc, vc, pos8)
+                ry8, _, _ = da.decode_attention_write_ref(q8, kn8, vn8, rk, rv, pos8)
+                errs8[key] = max(errs8[key], max_err(y8, ry8, "K8"))
+                assert torch.equal(kc, rk) and torch.equal(vc, rv), f"{key} B={B} S={S8}: caches differ"
+            # timed with every row visible: (S rows of k and of v) per slot and head
+            nbytes = 2 * B * H * S8 * hs * 2 + 4 * B * D * 2 + 2 * B * D * 2 + B * 4
+            b8 = bound_ms(nbytes, 4 * B * H * S8 * hs, f32_peak)
+            ms8 = time_ms(lambda: entry(q8, kn8, vn8, kc, vc, full_pos))
+            log(f"{key} B={B} S={S8}, every row visible: {ms8 * 1e3:.1f} us, bound {b8[0] * 1e3:.1f} us ({b8[1]})")
+            if B == 32:
+                rows8 = torch.arange(B, device=dev)
+                wp8 = (full_pos % S8).long()
+                vis8 = (torch.arange(S8, device=dev)[None, :] <= full_pos[:, None])[:, None, None, :]
+
+                def library_call():
+                    kc[rows8, :, wp8] = kn8[:, :, 0]  # index_put_
+                    vc[rows8, :, wp8] = vn8[:, :, 0]
+                    return F.scaled_dot_product_attention(q8, kc, vc, attn_mask=vis8)
+
+                results[key] = dict(
+                    shape=f"B={B} H={H} S={S8} hs={hs}, every row visible", ms=ms8,
+                    plain_ms=time_ms(lambda: da.decode_attention_write_ref(q8, kn8, vn8, rk, rv, full_pos), 3),
+                    library_ms=time_ms(library_call), bound_ms=b8[0], bound_by=b8[1])
+        del kc0, vc0, kc, vc, rk, rv
+    for key in entries:
+        results[key]["max_abs_err"] = errs8[key]
+
     # ---- 6. full width, depth cut to 2 blocks: kernel path vs plain path ------
     p2 = dict(params, h=params["h"][:2])
     c2 = cfg.replace(n_layer=2)
@@ -270,6 +363,29 @@ def main() -> int:
         f"8 decode steps max {max(errs[1:]):.4g}")
     del caches, logits
 
+    # ---- 6b. the same 2 blocks, serving step: 3 slots at their own positions ----
+    S6, lens6 = 64, (10, 37, 60)  # the third slot passes S during the 8 steps: its ring wraps
+    caches = {plain: llama.init_kv_cache(c2, 3, S6, device=dev) for plain in (False, True)}
+    first = []
+    for b, n in enumerate(lens6):
+        p6 = torch.randint(0, cfg.vocab_size, (1, n), generator=gcpu).to(dev)
+        for plain in (False, True):
+            view = [{name: t[b : b + 1] for name, t in kv.items()} for kv in caches[plain]]
+            lg = llama.forward(p2, p6, c2, rope_cache=rope, kv_cache=view, prefill_from_zero=True, plain=plain)[0]
+            if not plain:
+                first.append(lg[0, -1].float().argmax())
+    tok6 = torch.stack(first)
+    pos6 = torch.tensor(lens6, dtype=torch.int32, device=dev)
+    errs = []
+    for step in range(8):
+        lg = {plain: llama.forward(p2, tok6[:, None], c2, rope_cache=rope, slot_pos=pos6,
+                                   kv_cache=caches[plain], plain=plain)[0][:, -1] for plain in (False, True)}
+        errs.append(model_err(lg[False], lg[True], f"2-layer serving step {step}"))
+        tok6, pos6 = lg[False].float().argmax(-1), pos6 + 1
+    log(f"2-layer 7B-width serving step (K7, K8, K9, K3), kernel vs plain path, slots at {lens6} "
+        f"of S={S6}: 8 steps max |dlogit| {max(errs):.4g}")
+    del caches, lg
+
     # ---- 7. the full model: a few greedy requests ------------------------------
     full = {}
     ref_prompt = torch.randint(0, cfg.vocab_size, (8,), generator=gcpu)
@@ -285,7 +401,9 @@ def main() -> int:
     del kern_logits, plain_logits
 
     counters = {"K1": fused_layer.decode_layers_fused, "K2": fused_layer.lm_head_fused,
-                "K3": quant_matmul.matmul_int4, "K4": fa.flash_attention}
+                "K3": quant_matmul.matmul_int4, "K4": fa.flash_attention,
+                "K7": fused_layer.block_head_fused, "K8": da.decode_attention_write,
+                "K9": fused_layer.block_tail_fused}
     requests = [(8, None), (128, None), (200, None), (128, 2048)]
     new = 64
     gen.generate(params, ref_prompt, 4, config=cfg, temperature=0.0)  # warm-up, not counted
@@ -307,7 +425,8 @@ def main() -> int:
         out = gen.generate(params, prompt, new, config=cfg, max_seq_length=s, temperature=0.0)
         got = {k: fn.launches for k, fn in counters.items()}
         prefill_s, total_s = wall_s(prompt, 1, s), wall_s(prompt, new, s)
-        want = {"K1": cfg.n_layer * (new - 1), "K2": new - 1, "K3": 4 * cfg.n_layer + 1, "K4": cfg.n_layer}
+        want = {"K1": cfg.n_layer * (new - 1), "K2": new - 1, "K3": 4 * cfg.n_layer + 1, "K4": cfg.n_layer,
+                "K7": 0, "K8": 0, "K9": 0}
         assert got == want, f"request T={T} S={s}: launches {got}, expected {want}"
         assert out.shape == (T + new,) and int(out.min()) >= 0 and int(out.max()) < V, "bad tokens"
         for k in totals:
@@ -318,15 +437,63 @@ def main() -> int:
         log(f"request prompt {T} S={S_used}: prefill {prefill_s * 1e3:.1f} ms, "
             f"decode {tok_s:.1f} tok/s ({new} new tokens, launches {got})")
 
+    # ---- 8. the serving path: 64 requests through a 32-slot engine ---------------
+    L = cfg.n_layer
+    n_req, new_e, slots, S_e = 64, 32, 32, 256
+    rng = np.random.default_rng(SEED)
+    lens = np.exp(rng.uniform(np.log(8), np.log(max(9, S_e // 2)), n_req)).astype(int)  # log-uniform in [8, 128]
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64) for n in lens]
+    engine = DecodeEngine(params, cfg, max_batch=slots, max_seq_length=S_e, steps_per_sync=8)
+    engine.warmup()
+    torch.cuda.synchronize()
+    steps0, prefills0 = engine.decode_steps, engine.prefills
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ids = [engine.submit(p, new_e) for p in prompts]
+    done = engine.run()
+    wall = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
+    want = {"K1": 0, "K2": 0, "K3": prefills * (4 * L + 1) + steps, "K4": L * prefills,
+            "K7": L * steps, "K8": L * steps, "K9": L * steps}
+    assert got == want, f"engine: launches {got}, expected {want}"
+    assert prefills == n_req and steps > 0 and sorted(done) == ids and not engine.has_work()
+    for i, p in zip(ids, prompts):
+        toks = done[i].generated
+        assert len(toks) == new_e and min(toks) >= 0 and max(toks) < V, f"request {i}: bad tokens"
+    for i in (ids[0], ids[-1]):  # the first token comes from the same prefill as generate's
+        alone = gen.generate(params, prompts[i - ids[0]], 1, config=cfg, temperature=0.0)
+        assert int(alone[-1]) == done[i].generated[0], f"request {i}: first token differs from generate's"
+    for k in totals:
+        totals[k] += got[k]
+    n_tok = sum(len(r.generated) for r in done.values())
+    ttfts = sorted(r.ttft for r in done.values())
+    serving = dict(requests=n_req, slots=slots, S=S_e, steps_per_sync=8, new_tokens=new_e,
+                   prompt_tokens=int(lens.sum()), decode_steps=steps, prefills=prefills, wall_s=wall,
+                   tok_s=n_tok / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                   ttft_p95_ms=ttfts[int(len(ttfts) * 0.95)] * 1e3)
+    log(f"engine, {slots} slots, S={S_e}, {n_req} requests (prompts {lens.min()}..{lens.max()}, "
+        f"{new_e} new tokens each): {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s aggregate; "
+        f"TTFT p50 {serving['ttft_p50_ms']:.0f} ms, p95 {serving['ttft_p95_ms']:.0f} ms (host clock); "
+        f"{steps} decode steps, {prefills} prefills, launches {got}")
+
     kernels = []
     sources = {
         "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
         "K2": ("lm_head_fused", "lit_llama_tpu/ops/fused_layer.py:894"),
         "K3": ("matmul_int4", "lit_llama_tpu/ops/quant_matmul_pallas.py:172"),
         "K4": ("flash_attention", "lit_llama_tpu/ops/flash_attention.py:52"),
+        "K7": ("block_head_fused", "lit_llama_tpu/ops/fused_layer.py:956"),
+        "K8": ("decode_attention_write_pipelined", "lit_llama_tpu/ops/decode_attention.py:473"),
+        "K8b": ("decode_attention_write_pallas", "lit_llama_tpu/ops/decode_attention.py:226"),
+        "K9": ("block_tail_fused", "lit_llama_tpu/ops/fused_layer.py:981"),
     }
-    files = {"K1": "fused_layer.cu", "K2": "fused_layer.cu", "K3": "quant_matmul.cu", "K4": "flash_attention.cu"}
-    for key in ("K1", "K2", "K3", "K4"):
+    files = {"K1": "fused_layer.cu", "K2": "fused_layer.cu", "K3": "quant_matmul.cu", "K4": "flash_attention.cu",
+             "K7": "serve_layer.cu", "K8": "decode_attention.cu", "K8b": "decode_attention.cu",
+             "K9": "serve_layer.cu"}
+    totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
+    for key in sources:
         r = results[key]
         kernels.append({
             "name": f"{key} {sources[key][0]}", "route": "cuda",
@@ -335,7 +502,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
         })
-    print(json.dumps({"requests": full}))
+    assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
+    print(json.dumps({"requests": full, "serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,30 +17,12 @@
 // never visited; the diagonal tile and the ragged last tile (T % 64 != 0)
 // are masked in the kernel, so T need not be a multiple of the tile.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int HS = 128, BQ = 64, BKV = 64, THREADS = 128;
 constexpr int LDK = HS + 8;  // bf16 elements per shared row (bank spread)
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -44,7 +44,7 @@
 // and each thread one head element for the weighted sum of v.
 // Simple first: no cp.async or TMA pipeline; later work.
 
-#include "common.cuh"
+#include "attention_chunk.cuh"
 
 namespace {
 
@@ -52,8 +52,8 @@ constexpr int GEMV_THREADS = 256;
 constexpr int GEMV_WARPS = GEMV_THREADS / 32;
 constexpr int CPW = 2;  // columns per warp
 constexpr int GEMV_BLOCKS_PER_SM = 2;
-constexpr int HS = 128;
-constexpr int CHUNK = 64;  // cache slots per attention block
+constexpr int HS = ATT_HS;
+constexpr int CHUNK = ATT_CHUNK;  // cache slots per attention block
 
 enum Epilogue { EPI_NONE = 0, EPI_RESIDUAL = 1, EPI_SWIGLU = 2 };
 
@@ -260,11 +260,8 @@ attn_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ cos
                     const float* __restrict__ sinf, __nv_bfloat16* kc, __nv_bfloat16* vc,
                     float* __restrict__ part, int D, int S, int write_pos, int limit, float scale) {
   __shared__ __align__(16) float q_s[HS];
-  __shared__ float sc[CHUNK];
-  __shared__ float red[4];
   const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int d = tid;  // one head element per thread
+  const int d = threadIdx.x;  // one head element per thread
   const int partner = (d + HS / 2) % HS;
   const size_t cbase = (size_t)h * S * HS;
 
@@ -279,70 +276,14 @@ attn_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ cos
 
   const int last = min(limit, S - 1);
   const int n = min(CHUNK, last - s0 + 1);  // visible slots of this chunk (>= 1)
-  {  // threads 2i and 2i + 1 score slot s0 + i over one half of the head each
-    const int slot = tid >> 1, half = tid & 1;
-    float dot = 0.f;
-    if (slot < n) {
-      const uint4* kr = reinterpret_cast<const uint4*>(kc + cbase + (size_t)(s0 + slot) * HS + half * (HS / 2));
-      uint4 kv[HS / 16];
-#pragma unroll
-      for (int j = 0; j < HS / 16; ++j) kv[j] = kr[j];
-#pragma unroll
-      for (int j = 0; j < HS / 16; ++j) {
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv[j]);
-        const float* qh = q_s + half * (HS / 2) + 8 * j;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dot += __low2float(k2[e]) * qh[2 * e];
-          dot += __high2float(k2[e]) * qh[2 * e + 1];
-        }
-      }
-    }
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-    if (half == 0 && slot < n) sc[slot] = dot * scale;
-  }
-  __syncthreads();
-  float m = tid < n ? sc[tid] : LLT_NEG_INF;
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  __syncthreads();
-  float p = 0.f;
-  if (tid < n) {
-    p = __expf(sc[tid] - m);
-    sc[tid] = p;
-  }
-  float l = warp_sum(p);
-  if (lane == 0) red[warp] = l;
-  __syncthreads();
-  l = red[0] + red[1] + red[2] + red[3];
-  float acc = 0.f;
-  const __nv_bfloat16* vr = vc + cbase + (size_t)s0 * HS + d;
-#pragma unroll 8
-  for (int i = 0; i < n; ++i) acc += sc[i] * bf16_to_f32(vr[(size_t)i * HS]);
-  float* pp = part + ((size_t)h * nch + c) * (HS + 2);
-  if (tid == 0) {
-    pp[0] = m;
-    pp[1] = l;
-  }
-  pp[2 + d] = acc;
+  attn_chunk_partial(q_s, kc + cbase, vc + cbase, s0, n, scale,
+                     part + ((size_t)h * nch + c) * ATT_PART);
 }
 
-// y[h, :] = sum_c e^(m_c - M) acc_c / sum_c e^(m_c - M) l_c
 __global__ void __launch_bounds__(128)
 attn_combine_kernel(const float* __restrict__ part, float* __restrict__ y, int nch) {
   const int h = blockIdx.x, d = threadIdx.x;
-  const float* pp = part + (size_t)h * nch * (HS + 2);
-  float M = LLT_NEG_INF;
-  for (int c = 0; c < nch; ++c) M = fmaxf(M, pp[c * (HS + 2)]);
-  float L = 0.f, acc = 0.f;
-  for (int c = 0; c < nch; ++c) {
-    const float w = __expf(pp[c * (HS + 2)] - M);
-    L += w * pp[c * (HS + 2) + 1];
-    acc += w * pp[c * (HS + 2) + 2 + d];
-  }
-  y[h * HS + d] = acc / fmaxf(L, 1e-30f);
+  y[h * HS + d] = attn_combine(part + (size_t)h * nch * ATT_PART, nch, d);
 }
 
 }  // namespace

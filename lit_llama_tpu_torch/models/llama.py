@@ -7,10 +7,11 @@ Layers are stacked on a leading axis (``h`` a dict) as built, or a list of
 per-layer dicts after ``unstack_layers`` (the inference layout, with c_fc1 and
 c_fc2 fused into ``c_fc12``).
 
-``forward`` covers two paths of this slice: no cache (causal over the tokens)
-and ``prefill_from_zero`` (positions 0..T-1 written into a per-layer cache).
-The per-op decode path with roll-left overflow, the ``slot_pos`` serving path
-and the int8 KV cache are later slices.
+``forward`` covers: no cache (causal over the tokens), ``prefill_from_zero``
+(positions 0..T-1 written into a per-layer cache), ``input_pos`` (a continuing
+chunk, or one token with the roll-left overflow) and ``slot_pos`` (the
+continuous-batching decode step, one token per slot). The int8 KV cache and
+the Pallas single-query decode attention of the per-op path are later slices.
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from lit_llama_tpu_torch.models.config import LLaMAConfig
+from lit_llama_tpu_torch.ops import fused_layer
 from lit_llama_tpu_torch.ops.attention import attention
+from lit_llama_tpu_torch.ops.decode_attention import decode_attention_write, decode_attention_write_ref
+from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
 from lit_llama_tpu_torch.ops.norm import rms_norm
-from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope_cache
+from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope_cache, slot_rope_rows
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
@@ -94,9 +98,13 @@ def _mlp(mlp: Params, x: torch.Tensor, plain: bool) -> torch.Tensor:
     return linear(mlp["c_proj"], F.silu(fc1) * fc2, plain=plain)
 
 
-def _causal_self_attention(attn: Params, x, rope, config: LLaMAConfig, kv, plain: bool):
-    """Causal attention over the T tokens of ``x``; with ``kv`` the new k/v
-    are written into its first T slots (prefill from position 0)."""
+def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos,
+                           attend_len, causal: bool, plain: bool):
+    """Fused-QKV attention over the T tokens of ``x``. With ``kv`` the new k/v
+    are written in place at ``write_pos``: an int (T rows from there) or a
+    (B,) tensor (one row per slot). ``attend_len`` promises a prefill from
+    position 0: the attention is causal over the T new rows; otherwise it runs
+    over the whole cache under ``mask``."""
     B, T, C = x.shape
     hs = config.head_size
     qkv = linear(attn["c_attn"], x, plain=plain)
@@ -106,18 +114,44 @@ def _causal_self_attention(attn: Params, x, rope, config: LLaMAConfig, kv, plain
     q, k = rot(q, rope), rot(k, rope)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, hs)
     if kv is not None:
-        kv["k"][:, :, :T] = k.to(kv["k"].dtype)
-        kv["v"][:, :, :T] = v.to(kv["v"].dtype)
-    mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-    y = attention(q, k, v, mask, causal=True, plain=plain)
+        if isinstance(write_pos, int):
+            kv["k"][:, :, write_pos : write_pos + T] = k.to(kv["k"].dtype)
+            kv["v"][:, :, write_pos : write_pos + T] = v.to(kv["v"].dtype)
+        else:
+            rows = torch.arange(B, device=x.device)
+            kv["k"][rows, :, write_pos] = k[:, :, 0].to(kv["k"].dtype)
+            kv["v"][rows, :, write_pos] = v[:, :, 0].to(kv["v"].dtype)
+        if attend_len is None:
+            k, v = kv["k"].to(q.dtype), kv["v"].to(q.dtype)
+    y = attention(q, k, v, mask, causal=causal, plain=plain)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
     return linear(attn["c_proj"], y, plain=plain)
 
 
-def _block(lp: Params, x, rope, config: LLaMAConfig, kv, plain: bool = False):
+def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, attend_len=None,
+           causal: bool = False, plain: bool = False):
     """One pre-norm residual block."""
-    x = x + _causal_self_attention(lp["attn"], rms_norm(x, lp["rms_1"]), rope, config, kv, plain)
+    x = x + _causal_self_attention(lp["attn"], rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
+                                   write_pos, attend_len, causal, plain)
     return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain)
+
+
+def _block_slot_fused(lp: Params, x2d, cos, sin, config: LLaMAConfig, kv, slot_pos, plain: bool):
+    """Batched serving block as three entries: block head (K7: rms_1, QKV,
+    RoPE), cache write + attention (K8), block tail (K9). ``plain`` runs their
+    plain versions (what a CPU tensor takes anyway)."""
+    B, D = x2d.shape
+    H, hs = config.n_head, config.head_size
+    head, attn, tail = (
+        (fused_layer.block_head_fused_ref, decode_attention_write_ref, fused_layer.block_tail_fused_ref)
+        if plain else
+        (fused_layer.block_head_fused, decode_attention_write, fused_layer.block_tail_fused)
+    )
+    qkv = head(x2d, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], config)
+    q, k, v = (qkv[:, i * D : (i + 1) * D].reshape(B, H, 1, hs) for i in range(3))
+    y, _, _ = attn(q, k, v, kv["k"], kv["v"], slot_pos)
+    return tail(x2d, y.reshape(B, D), lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"],
+                lp["mlp"]["c_proj"], config)
 
 
 def forward(
@@ -126,33 +160,97 @@ def forward(
     config: LLaMAConfig,
     *,
     rope_cache: Optional[torch.Tensor] = None,
+    input_pos=None,
+    slot_pos: Optional[torch.Tensor] = None,
     kv_cache: Optional[KVCache] = None,
     prefill_from_zero: bool = False,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model over (B, T) tokens; returns (logits (B, T, V), cache).
 
-    Without ``kv_cache``: causal forward, cache None. With ``kv_cache`` and
-    ``prefill_from_zero=True``: the tokens sit at positions 0..T-1, their k/v
-    are written into each layer's cache in place, and attention is causal over
-    them. ``plain`` runs every kernel's plain version (the reference path the
-    chip check holds the kernels against).
+    Without ``kv_cache``: causal forward, cache None. With ``kv_cache`` (a
+    per-layer list, written IN PLACE and returned) one of:
+
+    ``prefill_from_zero=True``: the tokens sit at positions 0..T-1 and the
+    attention is causal over them.
+
+    ``input_pos`` (T contiguous positions; a sequence or a CPU tensor, since
+    they are read on the host): the new k/v go to those cache rows and the
+    attention runs over the whole cache, row ``s`` visible to the query at
+    position ``p`` iff ``s <= p``. This is the continuing chunk of a chunked
+    prefill. With T == 1 and a position at or past the cache length S the
+    cache is rolled one row left and the token written at S - 1.
+
+    ``slot_pos`` ((B,) ints on the tokens' device): continuous-batching
+    decode, T == 1. Each slot is its own sequence: its token is written at
+    ``slot_pos[b] % S`` (a ring past the cache), row ``s`` is visible iff
+    ``s <= slot_pos[b]``, so a slot at or past S - 1 sees every row. Prepared
+    int4 layers (``fused_layer.use_serve_fused``) take the three fused entries
+    per block, K7, K8 and K9 on the card; other layers take the plain block.
+
+    ``plain`` runs every kernel's plain version (the reference path the chip
+    check holds the kernels against).
     """
-    if kv_cache is not None and not prefill_from_zero:
-        raise NotImplementedError(
-            "per-op decode with input_pos (roll-left overflow) is a later slice; "
-            "decode through models.generate's fused step"
-        )
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
+    dev = tokens.device
     if rope_cache is None:
-        rope_cache = build_rope_cache(config.block_size, config.head_size, device=tokens.device)
-    rope = rope_cache[:T]
+        rope_cache = build_rope_cache(config.block_size, config.head_size, device=dev)
     x = params["wte"][tokens].to(cd)
     layers = _layers(params)
+    write_pos = attend_len = None
+    causal = False
+
+    if kv_cache is None:
+        rope = rope_cache[:T]
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        causal = True
+    elif not isinstance(kv_cache, (list, tuple)):
+        raise TypeError("kv_cache is a per-layer list of {'k', 'v'} (init_kv_cache)")
+    elif slot_pos is not None:
+        if T != 1:
+            raise ValueError("slot_pos decode takes one token per slot")
+        S = kv_cache[0]["k"].shape[-2]
+        if use_serve_fused(config, layers[0]):
+            cos, sin = slot_rope_rows(rope_cache, slot_pos)
+            pos32 = slot_pos.to(torch.int32)
+            x2d = x[:, 0]
+            for lp, kv in zip(layers, kv_cache):
+                x2d = _block_slot_fused(lp, x2d, cos, sin, config, kv, pos32, plain)
+            x = rms_norm(x2d[:, None], params["ln_f"])
+            return linear(params["lm_head"], x, plain=plain), kv_cache
+        pos = slot_pos.long()
+        rope = rope_cache[pos.clamp(0, config.block_size - 1)][:, None]  # (B, 1, hs/2, 2)
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        write_pos = pos % S
+    elif prefill_from_zero:
+        rope = rope_cache[:T]
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        causal = True
+        attend_len = T
+        write_pos = 0
+    elif input_pos is not None:
+        S = kv_cache[0]["k"].shape[-2]
+        positions = [int(p) for p in input_pos]
+        if len(positions) != T or positions != list(range(positions[0], positions[0] + T)):
+            raise ValueError(f"input_pos must be {T} contiguous positions, got {positions}")
+        write_pos = positions[0]
+        if T == 1 and write_pos >= S:
+            for kv in kv_cache:  # roll one row left, write at the last row
+                for c in kv.values():
+                    c.copy_(torch.roll(c, -1, dims=-2))
+            write_pos = S - 1
+        elif write_pos + T > S:
+            raise ValueError(f"positions {positions[0]}..{positions[-1]} run past the cache length {S}")
+        pos = torch.tensor(positions, device=dev)
+        rope = rope_cache[pos.clamp(0, config.block_size - 1)]
+        mask = torch.arange(S, device=dev)[None, :] <= pos[:, None]  # (T, S)
+    else:
+        raise ValueError("a forward with kv_cache needs prefill_from_zero, input_pos or slot_pos")
+
     caches = kv_cache if kv_cache is not None else [None] * len(layers)
     for lp, kv in zip(layers, caches):
-        x = _block(lp, x, rope, config, kv, plain)
+        x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain)
     x = rms_norm(x, params["ln_f"])
     return linear(params["lm_head"], x, plain=plain), kv_cache
 

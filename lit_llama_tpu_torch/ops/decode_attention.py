@@ -1,0 +1,111 @@
+"""Per-slot cache write + single-query attention for continuous batching:
+kernel K8 and its plain version (counterpart of the serving entries of
+lit_llama_tpu/ops/decode_attention.py).
+
+``decode_attention_write`` replaces both Pallas kernels that compute this
+function, ``_pipe_kernel`` (entry ``decode_attention_write_pipelined``, the
+JAX default) and ``_write_attn_kernel`` (entry
+``decode_attention_write_pallas``), with the one CUDA kernel in
+``csrc/decode_attention.cu``; the two named entries are kept and lead to it.
+What bounds it and how its design answers that is noted in the source.
+
+Each of the B slots is an independent sequence at position ``slot_pos[b]``:
+its new k/v row is written at ``slot_pos[b] % S`` (a ring past the cache),
+and row ``s`` is visible iff ``s <= slot_pos[b]``, so a slot at or past
+``S - 1`` sees every row. The cache is a plain (B, H, S, hs) tensor updated IN
+PLACE; the packed u32 pair cache of the TPU toolchain is not carried over.
+The new rows are cast to ``q.dtype`` before they are stored; scores and the
+softmax are f32, and the probabilities stay f32 for the weighted sum.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from lit_llama_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+CHUNK = 64  # cache rows per attention block (csrc/attention_chunk.cuh)
+
+_P, _I = _build.PTR, _build.INT
+_SIGS = {"k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P]}
+
+
+def decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos):
+    """Plain version of :func:`decode_attention_write` (same in-place cache
+    update)."""
+    B, H, S, hs = kc.shape
+    pos = slot_pos.long()
+    rows = torch.arange(B, device=q.device)
+    kc[rows, :, pos % S] = k_new[:, :, 0].to(q.dtype).to(kc.dtype)
+    vc[rows, :, pos % S] = v_new[:, :, 0].to(q.dtype).to(vc.dtype)
+    s = (kc.float() * q.float()).sum(dim=-1) * (1.0 / math.sqrt(hs))  # (B, H, S)
+    visible = torch.arange(S, device=q.device)[None, None, :] <= pos[:, None, None]
+    s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    y = (p[..., None] * vc.float()).sum(dim=2) / l
+    return y[:, :, None, :].to(q.dtype), kc, vc
+
+
+def _slot_stride(t, B, H, hs, what: str) -> int:
+    """Elements between two slots of a (B, H, 1, hs) operand whose heads lie
+    side by side (a view into the fused qkv rows is taken as it is)."""
+    if (t.dtype != torch.bfloat16 or t.shape != (B, H, 1, hs) or not t.is_cuda
+            or t.stride(3) != 1 or (H > 1 and t.stride(1) != hs)):
+        raise ValueError(f"K8 takes bf16 (B, H, 1, {hs}) CUDA {what} with its heads adjoining, "
+                         f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    return t.stride(0) if B > 1 else H * hs
+
+
+def decode_attention_write(q, k_new, v_new, kc, vc, slot_pos):
+    """Write each slot's new k/v row into its cache and attend over the rows
+    visible to it.
+
+    q, k_new, v_new (B, H, 1, hs), k already rotated; kc, vc (B, H, S, hs),
+    written in place; slot_pos (B,) int32, on the device of the rest. Returns
+    (y (B, H, 1, hs) in q.dtype, kc, vc), the caches being the given tensors.
+    A CPU tensor takes the plain version; a CUDA tensor launches K8 or raises.
+    """
+    if not q.is_cuda:
+        return decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos)
+    B, H, S, hs = kc.shape
+    if hs != 128:
+        raise ValueError(f"K8 takes head size 128, got {hs}")
+    strides = [_slot_stride(t, B, H, hs, n) for t, n in ((q, "q"), (k_new, "k_new"), (v_new, "v_new"))]
+    for c in (kc, vc):
+        if c.dtype != torch.bfloat16 or c.shape != (B, H, S, hs) or not c.is_contiguous() or not c.is_cuda:
+            raise ValueError(f"K8 takes contiguous bf16 ({B}, {H}, {S}, {hs}) CUDA caches")
+    if (slot_pos.dtype != torch.int32 or slot_pos.shape != (B,) or not slot_pos.is_cuda
+            or not slot_pos.is_contiguous()):
+        raise ValueError(f"K8 takes slot_pos as a contiguous int32 ({B},) CUDA tensor")
+    part = torch.empty(B * H * (-(-S // CHUNK)) * (hs + 2), dtype=torch.float32, device=q.device)
+    y = torch.empty((B, H, 1, hs), dtype=torch.bfloat16, device=q.device)
+    lib = _build.library("decode_attention", _SIGS)
+    err = lib.k8_decode_attention_write(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *strides, kc.data_ptr(), vc.data_ptr(),
+        slot_pos.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "K8 decode_attention_write")
+    decode_attention_write.launches += 1
+    return y, kc, vc
+
+
+decode_attention_write.launches = 0
+
+
+def decode_attention_write_pipelined(q, k_new, v_new, kc, vc, slot_pos, mxu: bool = True):
+    """The JAX package's default serving entry (``_pipe_kernel``). ``mxu``
+    chose between two formulations of the TPU kernel that compute the same
+    values; both lead to the one CUDA kernel."""
+    return decode_attention_write(q, k_new, v_new, kc, vc, slot_pos)
+
+
+def decode_attention_write_pallas(q, k_new, v_new, kc, vc, slot_pos):
+    """The JAX package's manual-DMA serving entry (``_write_attn_kernel``):
+    the same function, the same CUDA kernel."""
+    return decode_attention_write(q, k_new, v_new, kc, vc, slot_pos)

@@ -1,5 +1,6 @@
-"""Single-stream decode kernels K1 and K2 with their plain versions
-(counterpart of lit_llama_tpu/ops/fused_layer.py).
+"""Fused decode kernels with their plain versions (counterpart of
+lit_llama_tpu/ops/fused_layer.py): K1 and K2 for one stream, K7 and K9 for
+the batched serving step.
 
 ``decode_layers_fused`` replaces the Pallas ``_layer_kernel``
 (lit_llama_tpu/ops/fused_layer.py, entry ``decode_layers_fused``): one decode
@@ -7,6 +8,18 @@ token through whole blocks, launching the fixed sequence of CUDA kernels in
 ``csrc/fused_layer.cu`` per block. ``lm_head_fused`` replaces ``_head_kernel``
 (entry ``lm_head_fused``): the final RMSNorm and the int4 lm_head matvec.
 What bounds them and how their design answers that is noted in the source.
+
+``block_head_fused`` replaces ``_block_head_kernel`` (entry
+``block_head_fused``): rms_1, the int4 QKV product and the half-basis RoPE
+for B serving slots, each at its own position. ``block_tail_fused`` replaces
+``_block_tail_kernel`` (entry ``block_tail_fused``): everything of the block
+after its attention. Both are in ``csrc/serve_layer.cu``; between them runs
+``ops.decode_attention.decode_attention_write``. They take any B from 1 to
+64 (no padding to 8 rows), per-slot (B, hs) cos/sin rows in place of the
+(B, 3D) lane tables, and keep f32 intermediates at every B: the Pallas
+kernel's switch to the compute dtype at 48 rows is a VMEM limit. On the
+serving path q, k and v leave the head in the compute dtype, so q is rounded
+before the attention (K1 keeps it f32).
 
 The k/v cache is a plain (1, H, S, hs) tensor updated IN PLACE at
 ``write_pos`` (ring slot, pos % S); slot s is visible iff s <= ``limit``
@@ -45,6 +58,11 @@ _SIGS = {
     "k1_decode_layer": [_P, _I, _P, _P] + [_P] * 12 + [_P] * 4 + [_P] * 6 + [_I] * 7 + [_P],
     "k2_lm_head": [_P] * 6 + [_I] * 3 + [_P],
 }
+_SERVE_SIGS = {
+    "k7_block_head": [_P] * 10 + [_I] * 3 + [_P],
+    "k9_block_tail": [_P] * 17 + [_I] * 4 + [_P],
+}
+MAX_SLOTS = 64  # rows a serving kernel takes (csrc/serve_layer.cu)
 
 
 # ---------------------------------------------------------------------------
@@ -58,19 +76,18 @@ def _rms_rows(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tens
 
 
 def mv_int4_ref(src: torch.Tensor, w: Params, cdtype: torch.dtype) -> torch.Tensor:
-    """(1, K) f32 @ dequant(w) -> (1, N) f32, with the Pallas matvec's rounding:
-    bf16(src) times exact nibbles, f32 sums, scale per group, plus the
-    zero-point term from f32 group sums of ``src``."""
+    """(B, K) f32 @ dequant(w) -> (B, N) f32, with the Pallas matvec's rounding
+    for every row: bf16(src) times exact nibbles, f32 sums, scale per group,
+    plus the zero-point term from f32 group sums of ``src``."""
     qw, qs, qz = w["qw"], w["qscale"], w["qzero"]
     Kh, N = qw.shape
-    G = qs.shape[0]
+    B, G = src.shape[0], qs.shape[0]
     Gh, gs = G // 2, 2 * Kh // G
-    acc = src.reshape(G, gs).sum(dim=-1) @ qz
-    xb = src.to(cdtype).float().reshape(2, Gh, 1, gs)
-    lo = torch.bmm(xb[0], (qw & 0xF).float().reshape(Gh, gs, N))[:, 0]
-    hi = torch.bmm(xb[1], (qw >> 4).float().reshape(Gh, gs, N))[:, 0]
-    acc = acc + (lo * qs[:Gh]).sum(dim=0) + (hi * qs[Gh:]).sum(dim=0)
-    return acc.reshape(1, N)
+    acc = src.reshape(B, G, gs).sum(dim=-1) @ qz
+    xb = src.to(cdtype).float().reshape(B, 2, Gh, gs).permute(1, 2, 0, 3)  # (2, Gh, B, gs)
+    lo = torch.bmm(xb[0], (qw & 0xF).float().reshape(Gh, gs, N))  # (Gh, B, N)
+    hi = torch.bmm(xb[1], (qw >> 4).float().reshape(Gh, gs, N))
+    return acc + (lo * qs[:Gh, None]).sum(dim=0) + (hi * qs[Gh:, None]).sum(dim=0)
 
 
 def _decode_attention_ref(q, kc, vc, limit: int) -> torch.Tensor:
@@ -110,6 +127,25 @@ def decode_layers_fused_ref(x, lps, kvs, cosf, sinf, write_pos: int, limit: int,
 def lm_head_fused_ref(x, ln_w, head: Params, config):
     """Plain version of :func:`lm_head_fused`."""
     return mv_int4_ref(_rms_rows(x.float(), ln_w), head, x.dtype).to(x.dtype)
+
+
+def block_head_fused_ref(x, rms1, cos, sin, ca: Params, config):
+    """Plain version of :func:`block_head_fused`."""
+    D, hs = config.n_embd, config.head_size
+    B = x.shape[0]
+    qkv = mv_int4_ref(_rms_rows(x.float(), rms1), ca, x.dtype)
+    qk = qkv[:, : 2 * D].reshape(B, -1, hs)
+    qk = qk * cos[:, None] + torch.roll(qk, hs // 2, dims=-1) * sin[:, None]
+    return torch.cat([qk.reshape(B, 2 * D), qkv[:, 2 * D :]], dim=-1).to(x.dtype)
+
+
+def block_tail_fused_ref(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
+    """Plain version of :func:`block_tail_fused`."""
+    I, cd = config.intermediate_size, x.dtype
+    xs = mv_int4_ref(y.float(), cp, cd) + x.float()
+    fg = mv_int4_ref(_rms_rows(xs, rms2), f12, cd)
+    gg = F.silu(fg[:, :I]) * fg[:, I:]
+    return (mv_int4_ref(gg, mp, cd) + xs).to(cd)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +284,112 @@ def lm_head_fused(x, ln_w, head: Params, config):
 
 
 lm_head_fused.launches = 0
+
+
+def _check_rows(x, B, D, what: str):
+    if x.dtype != torch.bfloat16 or x.shape != (B, D) or not x.is_contiguous() or not x.is_cuda:
+        raise ValueError(f"{what} takes contiguous bf16 ({B}, {D}) CUDA rows, got {x.dtype} {tuple(x.shape)}")
+
+
+def _check_serve_layout(config, B: int, what: str):
+    D, I, gs = config.n_embd, config.intermediate_size, config.quant_groupsize
+    if config.head_size != 128:
+        raise ValueError(f"{what} takes head size 128, got {config.head_size}")
+    if not 1 <= B <= MAX_SLOTS:
+        raise ValueError(f"{what} takes 1 to {MAX_SLOTS} slots, got {B}")
+    if D % 128 or I % 128:
+        raise ValueError(f"{what} needs n_embd and the intermediate size divisible by 128 (got {D}, {I})")
+    return D, I, gs
+
+
+def block_head_fused(x, rms1, cos, sin, ca: Params, config):
+    """rms_1 + int4 QKV product + half-basis RoPE for B serving slots.
+
+    x (B, D) compute dtype; rms1 (D,); cos/sin (B, hs) f32 rows at each
+    slot's position (``rope.slot_rope_rows``, sin signed); ca the prepared
+    c_attn. Returns the rotated fused qkv (B, 3D) in x.dtype: q and k rotated,
+    v as it is. A CPU tensor takes the plain version; a CUDA tensor launches
+    K7 or raises."""
+    if "lora_af" in ca or "lora_a" in ca:
+        raise NotImplementedError("K7: the LoRA operands of the block head are a later slice")
+    if not x.is_cuda:
+        return block_head_fused_ref(x, rms1, cos, sin, ca, config)
+    B = x.shape[0]
+    D, _, gs = _check_serve_layout(config, B, "K7")
+    _check_rows(x, B, D, "K7")
+    if rms1.dtype != torch.bfloat16 or rms1.shape != (D,):
+        raise ValueError(f"K7 takes a bf16 ({D},) norm weight")
+    for t in (cos, sin):
+        if t.dtype != torch.float32 or t.shape != (B, 128) or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(f"K7 takes contiguous f32 ({B}, 128) cos/sin rows on the card")
+    _check_q4(ca, D, 3 * D, gs, "K7 c_attn")
+    xb = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
+    gx = torch.empty((B, D // gs), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((B, 3 * D), dtype=torch.bfloat16, device=x.device)
+    lib = _build.library("serve_layer", _SERVE_SIGS)
+    err = lib.k7_block_head(
+        x.data_ptr(), rms1.data_ptr(), *[ca[key].data_ptr() for key in _DECODE_KEYS],
+        cos.data_ptr(), sin.data_ptr(), xb.data_ptr(), gx.data_ptr(), qkv.data_ptr(),
+        B, D, gs, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "K7 block_head_fused")
+    block_head_fused.launches += 1
+    return qkv
+
+
+block_head_fused.launches = 0
+
+
+def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
+    """Everything of a block after its attention, for B serving slots:
+    x + c_proj(y), rms_2, c_fc12, SiLU(gate) * up, mlp c_proj + residual.
+
+    x (the residual stream) and y (the attention output), both (B, D) in the
+    compute dtype; cp, f12, mp the prepared attn c_proj, c_fc12 and mlp c_proj.
+    Returns the new x (B, D). The residual and the MLP intermediates are f32
+    inside at every B. A CPU tensor takes the plain version; a CUDA tensor
+    launches K9 or raises."""
+    if not x.is_cuda:
+        return block_tail_fused_ref(x, y, rms2, cp, f12, mp, config)
+    B = x.shape[0]
+    D, I, gs = _check_serve_layout(config, B, "K9")
+    _check_rows(x, B, D, "K9 x")
+    _check_rows(y, B, D, "K9 y")
+    if rms2.dtype != torch.bfloat16 or rms2.shape != (D,):
+        raise ValueError(f"K9 takes a bf16 ({D},) norm weight")
+    _check_q4(cp, D, D, gs, "K9 attn.c_proj")
+    _check_q4(f12, D, 2 * I, gs, "K9 c_fc12")
+    _check_q4(mp, I, D, gs, "K9 mlp.c_proj")
+    dev, W = x.device, max(D, I)
+    xb = torch.empty((B, W), dtype=torch.bfloat16, device=dev)
+    gx = torch.empty((B, W // gs), dtype=torch.float32, device=dev)
+    xs = torch.empty((B, D), dtype=torch.float32, device=dev)
+    gg = torch.empty((B, I), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    lib = _build.library("serve_layer", _SERVE_SIGS)
+    err = lib.k9_block_tail(
+        x.data_ptr(), y.data_ptr(), rms2.data_ptr(),
+        *[w[key].data_ptr() for w in (cp, f12, mp) for key in _DECODE_KEYS],
+        xb.data_ptr(), gx.data_ptr(), xs.data_ptr(), gg.data_ptr(), out.data_ptr(),
+        B, D, I, gs, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "K9 block_tail_fused")
+    block_tail_fused.launches += 1
+    return out
+
+
+block_tail_fused.launches = 0
+
+
+def use_serve_fused(config, layer_params: Params) -> bool:
+    """Whether the batched serving step takes the fused block halves (K7, K8,
+    K9): int4 weights with c_fc12 fused, in the half-rotation basis, head size
+    128. The JAX package also asks its backend, a slot-count cap and three
+    environment switches; the card always takes the kernels."""
+    if config.rope_layout != "half" or config.head_size != 128:
+        return False
+    c_attn = layer_params.get("attn", {}).get("c_attn", {})
+    return "qzero" in c_attn and "c_fc12" in layer_params.get("mlp", {})
 
 
 # ---------------------------------------------------------------------------

@@ -21,13 +21,16 @@ def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000, device=None) 
 
 
 def _cos_sin(x: torch.Tensor, rope_cache: torch.Tensor):
+    """``rope_cache`` (T, hs/2, 2) for all rows of the batch, or (B, T, hs/2, 2)
+    with each slot's own positions."""
     B, T, H, hs = x.shape
-    rc = rope_cache.float().reshape(1, T, 1, hs // 2, 2)
+    rc = rope_cache.float().reshape(-1, T, 1, hs // 2, 2)
     return rc[..., 0], rc[..., 1]
 
 
 def apply_rope(x: torch.Tensor, rope_cache: torch.Tensor) -> torch.Tensor:
-    """``x``: (B, T, H, hs); ``rope_cache``: (T, hs/2, 2) for x's positions."""
+    """``x``: (B, T, H, hs); ``rope_cache``: (T, hs/2, 2) for x's positions, or
+    (B, T, hs/2, 2) where the slots sit at different positions."""
     B, T, H, hs = x.shape
     xs = x.float().reshape(B, T, H, hs // 2, 2)
     cos, sin = _cos_sin(x, rope_cache)
@@ -62,3 +65,13 @@ def rope_half_tables(rope_cache: torch.Tensor):
     tables, so that a decode step takes its rows as views without a launch."""
     c, s = rope_cache[..., 0].float(), rope_cache[..., 1].float()
     return torch.cat([c, c], dim=-1).contiguous(), torch.cat([-s, s], dim=-1).contiguous()
+
+
+def slot_rope_rows(rope_cache: torch.Tensor, slot_pos: torch.Tensor):
+    """Per-slot (cos, sin_signed) rows (B, hs) f32 for the batched serving
+    step: ``rope_half_tables`` of the rows gathered at ``clip(slot_pos, 0,
+    seq_len - 1)``, on the device. The JAX package expands these to (B, 3D)
+    lane tables for its kernel; here the kernel takes one row per slot, as
+    the single-stream kernel takes one row."""
+    idx = slot_pos.long().clamp(0, rope_cache.shape[0] - 1)
+    return rope_half_tables(rope_cache[idx])

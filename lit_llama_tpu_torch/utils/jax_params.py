@@ -4,7 +4,8 @@
 params)`` gives it (numpy leaves; bf16 leaves are ``ml_dtypes.bfloat16``) and
 returns the same keys and layout with torch tensors on ``device``. The
 kernels' relayout of the TPU toolchain (``qscale_b``/``qzero_b`` from
-``blocked_scales``) is dropped. Nothing here imports JAX.
+``blocked_scales``) is dropped. ``cache_from_numpy`` does the same for a
+per-layer KV cache. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -39,3 +40,23 @@ def params_from_numpy(tree, device=None):
         return tensor_from_numpy(np.asarray(node), dev)
 
     return conv(tree)
+
+
+def cache_from_numpy(layers, device=None):
+    """A JAX per-layer KV cache -> the port's: a list of {"k", "v"} tensors
+    (B, H, S, hs) on ``device`` (the card when None). ``layers`` is the tuple
+    of per-layer dicts with numpy leaves; a packed u32 pair cache must be
+    unpacked first (``fused_layer.unpack_kv`` on the JAX side), since the port
+    keeps plain rows."""
+    dev = resolve_device(device)
+    out = []
+    for kv in layers:
+        if set(kv) != {"k", "v"}:
+            raise ValueError(f"the port's cache holds k and v only, got {sorted(kv)}")
+        entry = {name: tensor_from_numpy(np.asarray(a), dev) for name, a in kv.items()}
+        for name, t in entry.items():
+            if t.ndim != 4 or not t.is_floating_point():
+                raise ValueError(f"cache leaf {name}: expected unpacked (B, H, S, hs) rows, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+        out.append(entry)
+    return out

@@ -1,5 +1,6 @@
 """The slice end to end on the CPU against the JAX package: forward logits
-(no cache and prefill from zero), and greedy generate tokens identical to
+(no cache, prefill from zero, continuing chunks and the slot_pos serving step),
+and greedy generate tokens identical to
 JAX generate on the same prepared weights, past the cache."""
 
 import dataclasses
@@ -103,3 +104,96 @@ def test_generate_eos_and_sampling(model):
     assert sampled.shape == (9,) and int(sampled.max()) < tc.padded_vocab_size
     for cfg, t_new, s in ((fcfg, 72, None), (fcfg, 264, None), (fcfg, 80, 2048), (fcfg, 20, None)):
         assert tgen.plan_seq_length(_port_config(cfg), t_new, s) == jgen.plan_seq_length(cfg, t_new, s)
+
+
+def _filled_caches(fcfg, B, S, seed):
+    """The same random cache content for both sides (f32)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, fcfg.n_head, S, fcfg.head_size)
+    layers = [{n: (rng.normal(size=shape) * 0.3).astype(np.float32) for n in ("k", "v")}
+              for _ in range(fcfg.n_layer)]
+    jcache = tuple({n: jnp.asarray(a) for n, a in kv.items()} for kv in layers)
+    from lit_llama_tpu_torch.utils.jax_params import cache_from_numpy
+
+    return jcache, cache_from_numpy(layers, device="cpu")
+
+
+def _assert_caches_close(tnew, jnew, n_layer):
+    for j in range(n_layer):
+        np.testing.assert_allclose(tnew[j]["k"].numpy(), np.asarray(jnew[j]["k"]), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(tnew[j]["v"].numpy(), np.asarray(jnew[j]["v"]), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("positions", [[0, 5, 31], [32 + 7, 3, 63 + 32, 300]])
+def test_forward_slot_pos_matches(model, positions):
+    """Continuous-batching step: each slot at its own position, one past the
+    cache (ring write) and one past block_size (the rope row clips). The port
+    runs its fused block halves' plain versions; the JAX side its XLA blocks,
+    which compute the function the serving kernels are held to."""
+    _, _, fparams, fcfg = model
+    B, S = len(positions), 32
+    jcache, tcache = _filled_caches(fcfg, B, S, B)
+    toks = np.random.default_rng(B).integers(0, 128, size=(B, 1)).astype(np.int32)
+    want, jnew = jllama.forward(fparams, jnp.asarray(toks), fcfg,
+                                slot_pos=jnp.asarray(positions, jnp.int32), kv_cache=jcache)
+    tc = _port_config(fcfg)
+    tparams = params_from_numpy(_np(fparams), device="cpu")
+    got, tnew = tllama.forward(tparams, torch.from_numpy(toks).long(), tc,
+                               slot_pos=torch.tensor(positions, dtype=torch.int32), kv_cache=tcache)
+    assert tnew is tcache  # written in place
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    _assert_caches_close(tnew, jnew, fcfg.n_layer)
+    # layers the fused halves do not take (interleaved rope) go through the plain block
+    plain_got, _ = tllama.forward(tparams, torch.from_numpy(toks).long(), tc,
+                                  slot_pos=torch.tensor(positions), kv_cache=_filled_caches(fcfg, B, S, B)[1],
+                                  plain=True)
+    np.testing.assert_allclose(plain_got.numpy(), got.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_forward_slot_pos_plain_block_matches(model):
+    """Stacked interleaved-rope int4 layers are not the fused layout: the
+    slot_pos step takes the plain block, per-slot write and mask."""
+    cfg, stacked, _, _ = model
+    positions, S = [4, 0, 9 + 16], 16
+    jcache, tcache = _filled_caches(cfg, 3, S, 9)
+    toks = np.asarray([[3], [17], [42]], np.int32)
+    want, jnew = jllama.forward(jllama.unstack_layers(stacked), jnp.asarray(toks), cfg,
+                                slot_pos=jnp.asarray(positions, jnp.int32), kv_cache=jcache)
+    got, tnew = tllama.forward(tllama.unstack_layers(params_from_numpy(_np(stacked), device="cpu")),
+                               torch.from_numpy(toks).long(), _port_config(cfg),
+                               slot_pos=torch.tensor(positions), kv_cache=tcache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    _assert_caches_close(tnew, jnew, cfg.n_layer)
+
+
+@pytest.mark.parametrize("start,T", [(6, 5), (27, 5), (9, 1), (32, 1), (40, 1)])
+def test_forward_input_pos_matches(model, start, T):
+    """A continuing chunk (T > 1, up to the cache's end) and single tokens:
+    inside the cache, and at and past its length S = 32, where the cache rolls
+    one row left and the token lands on the last row."""
+    _, _, fparams, fcfg = model
+    S = 32
+    jcache, tcache = _filled_caches(fcfg, 1, S, start)
+    toks = np.random.default_rng(start).integers(0, 128, size=(1, T)).astype(np.int32)
+    want, jnew = jllama.forward(fparams, jnp.asarray(toks), fcfg,
+                                input_pos=jnp.arange(start, start + T), kv_cache=jcache)
+    got, tnew = tllama.forward(params_from_numpy(_np(fparams), device="cpu"), torch.from_numpy(toks).long(),
+                               _port_config(fcfg), input_pos=torch.arange(start, start + T), kv_cache=tcache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    _assert_caches_close(tnew, jnew, fcfg.n_layer)
+
+
+def test_forward_with_cache_needs_a_mode(model):
+    _, _, fparams, fcfg = model
+    tc = _port_config(fcfg)
+    params = params_from_numpy(_np(fparams), device="cpu")
+    cache = tllama.init_kv_cache(tc, 1, 16, device="cpu")
+    toks = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(ValueError):
+        tllama.forward(params, toks, tc, kv_cache=cache)
+    with pytest.raises(ValueError):
+        tllama.forward(params, toks, tc, kv_cache=cache, input_pos=[3, 5, 6])
+    with pytest.raises(ValueError):
+        tllama.forward(params, toks, tc, kv_cache=cache, input_pos=[14, 15, 16])
+    with pytest.raises(ValueError):
+        tllama.forward(params, toks, tc, kv_cache=cache, slot_pos=torch.zeros(1, dtype=torch.int32))
