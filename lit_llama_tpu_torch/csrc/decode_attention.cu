@@ -1,3 +1,7 @@
+// K8 and K5: single-query attention against a (B, H, S, 128) cache. K8 (first
+// below) also writes each slot's new row; K5 (second) reads a cache that is
+// already written, bf16 or int8 with one f32 scale per row.
+//
 // K8: per-slot cache-row write + single-query attention for continuous
 // batching (B serving slots, each at its own position).
 //
@@ -84,5 +88,183 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
       (float*)part, H, S, (float)(1.0 / sqrt((double)ATT_HS)));
   write_attn_combine_kernel<<<dim3(H, B), ATT_HS, 0, st>>>((const float*)part, (const int*)slot_pos,
                                                           (__nv_bfloat16*)y, H, S, nch);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K5: one query per (batch row, head) against the whole cache.
+//
+// Replaces lit_llama_tpu/ops/decode_attention.py _kernel (entry
+// decode_attention_pallas), both variants: a bf16 cache, and an int8 cache
+// whose per-row scales are folded into the score (k) and into the softmax
+// weight (v), so the cache is never dequantized.
+//
+// Bound on the H100: bytes. The visible rows of k and v are read once:
+// (min(limit, S - 1) + 1) * H * 128 * 2 elements per batch row, 33.6 MB at
+// B = 1, S = 2048 in bf16 and 17.3 MB in int8 with its scales; the
+// arithmetic is four operations per cache element.
+//
+// Design: the Pallas kernel walks the cache blocks of a head in order and
+// carries (m, l, acc) in scratch; at B = 1 that order would leave all but 32
+// blocks idle here, so every (head, 64-row chunk, batch row) is a block of
+// its own, writes its chunk's (m, l, acc) and a second kernel merges the
+// chunks of a head (the partial layout and the merge are K1's and K8's,
+// attention_chunk.cuh). limit is read from device memory: the grid covers
+// every chunk, and a block whose chunk lies wholly past limit[b] exits at
+// once, so a step costs no host sync. The arithmetic is the Pallas kernel's:
+// each product k * q and w * v is rounded to bf16 (the cache's compute dtype)
+// and summed in f32; the k scale multiplies the f32 score, the v scale the
+// f32 softmax weight before it is rounded; l is floored at 1e-30, so a row
+// with limit < 0 gives zeros.
+// Simple first: v is read one element per thread and row, no cp.async ring.
+
+namespace {
+
+// 64 cache elements (half a row) times the matching half of q, each product
+// rounded to bf16, summed in f32
+__device__ __forceinline__ float half_row_dot(const __nv_bfloat16* kr, const __nv_bfloat162* q2) {
+  uint4 kv[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) kv[j] = reinterpret_cast<const uint4*>(kr)[j];
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv[j]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 p = __hmul2(k2[e], q2[4 * j + e]);
+      dot += __low2float(p);
+      dot += __high2float(p);
+    }
+  }
+  return dot;
+}
+
+__device__ __forceinline__ __nv_bfloat162 s8x2_to_bf162(uint32_t w, int pair) {
+  return __floats2bfloat162_rn((float)(int8_t)((w >> (16 * pair)) & 0xFFu),
+                               (float)(int8_t)((w >> (16 * pair + 8)) & 0xFFu));
+}
+
+__device__ __forceinline__ float half_row_dot(const int8_t* kr, const __nv_bfloat162* q2) {
+  uint4 kv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) kv[j] = reinterpret_cast<const uint4*>(kr)[j];
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t w[4] = {kv[j].x, kv[j].y, kv[j].z, kv[j].w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 p = __hmul2(s8x2_to_bf162(w[e / 2], e % 2), q2[8 * j + e]);
+      dot += __low2float(p);
+      dot += __high2float(p);
+    }
+  }
+  return dot;
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t v) { return __float2bfloat16_rn((float)v); }
+
+// CT: the cache's element type, __nv_bfloat16 (ks, vs unused) or int8_t.
+// q (B, H, 128) bf16 with a batch stride; kc, vc (B, H, S, 128); ks, vs
+// (B, H, S) f32; limit (B) int32; part (B, H, nch, ATT_PART) f32.
+template <typename CT>
+__global__ void __launch_bounds__(ATT_HS)
+decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
+                           const CT* __restrict__ kc, const CT* __restrict__ vc,
+                           const float* __restrict__ ks, const float* __restrict__ vs,
+                           const int* __restrict__ limit, float* __restrict__ part, int H, int S,
+                           float scale) {
+  constexpr bool QUANT = sizeof(CT) == 1;
+  __shared__ __align__(16) __nv_bfloat16 q_s[ATT_HS];
+  __shared__ float sc[ATT_CHUNK];
+  __shared__ __nv_bfloat16 w_s[ATT_CHUNK];
+  __shared__ float red[4];
+  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int last = min(limit[b], S - 1);
+  const int s0 = c * ATT_CHUNK;
+  if (s0 > last) return;  // the whole chunk is past this row's limit
+  const int n = min(ATT_CHUNK, last - s0 + 1);
+  const size_t row0 = ((size_t)b * H + h) * (size_t)S + s0;  // first cache row of the chunk
+
+  q_s[tid] = q[(size_t)b * q_stride + h * ATT_HS + tid];
+  __syncthreads();
+
+  {  // scores: two threads per cache row, half a row each
+    const int slot = tid >> 1, half = tid & 1;
+    float dot = 0.f;
+    if (slot < n)
+      dot = half_row_dot(kc + (row0 + slot) * ATT_HS + half * (ATT_HS / 2),
+                         reinterpret_cast<const __nv_bfloat162*>(q_s) + half * (ATT_HS / 4));
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    if (half == 0 && slot < n) {
+      if (QUANT) dot *= ks[row0 + slot];
+      sc[slot] = dot * scale;
+    }
+  }
+  __syncthreads();
+  float m = tid < n ? sc[tid] : LLT_NEG_INF;
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  __syncthreads();
+  float p = 0.f;
+  if (tid < n) {
+    p = __expf(sc[tid] - m);
+    w_s[tid] = __float2bfloat16_rn(QUANT ? p * vs[row0 + tid] : p);
+  }
+  float l = warp_sum(p);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();  // red and w_s are visible to the block
+  l = red[0] + red[1] + red[2] + red[3];
+  float acc = 0.f;
+  const CT* vr = vc + row0 * ATT_HS + tid;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) acc += __bfloat162float(__hmul(w_s[i], to_bf16(vr[(size_t)i * ATT_HS])));
+  float* pp = part + (((size_t)b * H + h) * nch + c) * ATT_PART;
+  if (tid == 0) {
+    pp[0] = m;
+    pp[1] = l;
+  }
+  pp[2 + tid] = acc;
+}
+
+__global__ void __launch_bounds__(ATT_HS)
+decode_attn_combine_kernel(const float* __restrict__ part, const int* __restrict__ limit,
+                           __nv_bfloat16* __restrict__ y, int H, int S, int nch_max) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int last = min(limit[b], S - 1);
+  const int nch = last < 0 ? 0 : last / ATT_CHUNK + 1;
+  const float* pp = part + ((size_t)b * H + h) * nch_max * ATT_PART;
+  y[((size_t)b * H + h) * ATT_HS + d] = __float2bfloat16_rn(attn_combine(pp, nch, d));
+}
+
+}  // namespace
+
+// q: bf16, element (b, h, d) at b * q_stride + h * 128 + d. k, v (B, H, S, 128)
+// contiguous, bf16 (quantized == 0; ks, vs ignored) or int8 with ks, vs
+// (B, H, S) f32. limit (B) int32 on the device: row s is visible to batch row
+// b iff s <= limit[b]. part: scratch of B * H * ceil(S / 64) * 130 floats.
+// y (B, H, 128) bf16 contiguous.
+LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, const void* v,
+                                   const void* ks, const void* vs, const void* limit, void* part,
+                                   void* y, int B, int H, int S, int quantized, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
+  const float scale = (float)(1.0 / sqrt((double)ATT_HS));
+  const dim3 grid(H, nch, B);
+  if (quantized)
+    decode_attn_partial_kernel<int8_t><<<grid, ATT_HS, 0, st>>>(
+        (const __nv_bfloat16*)q, q_stride, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
+        (const float*)vs, (const int*)limit, (float*)part, H, S, scale);
+  else
+    decode_attn_partial_kernel<__nv_bfloat16><<<grid, ATT_HS, 0, st>>>(
+        (const __nv_bfloat16*)q, q_stride, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, nullptr,
+        nullptr, (const int*)limit, (float*)part, H, S, scale);
+  decode_attn_combine_kernel<<<dim3(H, B), ATT_HS, 0, st>>>((const float*)part, (const int*)limit,
+                                                           (__nv_bfloat16*)y, H, S, nch);
   return (int)cudaGetLastError();
 }

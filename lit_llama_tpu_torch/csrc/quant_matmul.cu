@@ -13,8 +13,8 @@
 // the bytes; the tensor-core work is 2*M*K*N. At M = 128 on c_fc12 the two
 // bounds are within 2x of each other.
 //
-// Design: one block per (64 x 128) output tile, 8 warps in 2 x 4, each warp a
-// 32 x 32 WMMA tile (bf16 in, f32 accumulate). Each k-step reads one 64-row
+// Design: the 64 x 128 output tile of gemm_tile.cuh, shared with K6 (bf16
+// WMMA, f32 accumulate, split-K with a fixed-order reduce). Each k-step reads one 64-row
 // slab of packed bytes ONCE and dequantizes both nibble planes into shared
 // memory as bf16, against the matching two 64-column slabs of x, so the
 // half-split layout costs no second pass over the weight. A k-step stays
@@ -23,18 +23,13 @@
 // current one, so the global latency overlaps the products. Simple first: no
 // cp.async/TMA ring, no wgmma; those are later work.
 
-#include <mma.h>
+#include "gemm_tile.cuh"
 
-#include "common.cuh"
-
-using namespace nvcuda;
+using namespace gemm_tile;
 
 namespace {
 
-constexpr int BM = 64, BN = 128, BK = 64, THREADS = 256;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-constexpr int SMEM_AB = 2 * BM * LDA * 2 + 2 * BK * LDB * 2;
-constexpr int SMEM_C = BM * LDC * 4;
+constexpr int SMEM_AB = 2 * BM * LDA * 2 + 2 * BK * LDB * 2;  // both nibble planes
 constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
 constexpr int A_VECS = 2 * BM * BK / 8 / THREADS;  // 16-byte x vectors per thread: 4
 constexpr int B_ROWS = BK * (BN / 8) / THREADS;    // 8-byte weight rows per thread: 4
@@ -121,9 +116,7 @@ __device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, 
 }
 
 // blockIdx.z takes packed rows [z * rows_per_split, (z + 1) * rows_per_split);
-// with one split the bf16 result goes to out, else the f32 partial to
-// ws[z] (reduced by splitk_reduce_kernel in a fixed order, so the result does
-// not depend on the schedule).
+// with one split the bf16 result goes to out, else the f32 partial to ws[z].
 __global__ void __launch_bounds__(THREADS, 2)
 int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
                  const float* __restrict__ qscale, const float* __restrict__ qzero,
@@ -135,17 +128,13 @@ int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   float* Cs = reinterpret_cast<float*>(smem);                    // [BM][LDC]
 
   const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int Kh = K / 2;
   const int r_begin = blockIdx.z * rows_per_split;
   const int r_end = min(Kh, r_begin + rows_per_split);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  Acc acc;
+  zero(acc);
 
   Stage st;
   load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r_begin, tid);
@@ -155,50 +144,9 @@ int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
     __syncthreads();
     if (r0 + BK < r_end) load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r0 + BK, tid);
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + (p * BM + wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + (p * BK + kk) * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-    }
+    for (int p = 0; p < 2; ++p) mma_slab(acc, As + p * BM * LDA, Bs + p * BK * LDB, warp);
   }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN / 2; e += THREADS) {  // two columns per store
-    const int m = e / (BN / 2), n = (e % (BN / 2)) * 2;
-    if (m0 + m >= M || n0 + n >= N) continue;
-    const size_t o = (size_t)(m0 + m) * N + n0 + n;
-    if (ws == nullptr)
-      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(Cs[m * LDC + n], Cs[m * LDC + n + 1]);
-    else
-      *reinterpret_cast<float2*>(ws + (size_t)blockIdx.z * M * N + o) = make_float2(Cs[m * LDC + n], Cs[m * LDC + n + 1]);
-  }
-}
-
-__global__ void splitk_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ out,
-                                     size_t MN, int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN; i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < splits; ++z) v += ws[z * MN + i];
-    out[i] = __float2bfloat16_rn(v);
-  }
+  store_tile(acc, Cs, nullptr, out, ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * M * N, M, N, m0, n0, tid);
 }
 
 }  // namespace
@@ -224,10 +172,7 @@ LLT_EXPORT int k3_matmul_int4(const void* x, const void* qw, const void* qscale,
   int4_gemm_kernel<<<grid, THREADS, SMEM, st>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)qw, (const float*)qscale, (const float*)qzero,
       (__nv_bfloat16*)out, splits > 1 ? (float*)ws : nullptr, M, N, K, gs, per * BK);
-  if (splits > 1) {
-    const size_t MN = (size_t)M * N;
-    splitk_reduce_kernel<<<(unsigned)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096), 256, 0, st>>>(
-        (const float*)ws, (__nv_bfloat16*)out, MN, splits);
-  }
+  if (splits > 1)
+    launch_splitk_reduce((const float*)ws, nullptr, (__nv_bfloat16*)out, (size_t)M * N, N, splits, st);
   return (int)cudaGetLastError();
 }

@@ -61,7 +61,8 @@ class LLaMAConfig:
     # None | "int8" | "int4"
     quantize: Optional[str] = None
     quant_groupsize: int = 128
-    # None keeps the cache in compute_dtype; "int8" is a later slice
+    # None keeps the cache in compute_dtype; "int8" stores int8 rows with one
+    # f32 scale per (batch row, head, position)
     kv_cache_dtype: Optional[str] = None
     # "interleaved" (Meta pairs (2i, 2i+1)) or "half" (pairs (i, i + hs/2), set
     # by ops.fused_layer.prepare_fused_params with the matching q/k permutation)

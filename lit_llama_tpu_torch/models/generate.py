@@ -1,13 +1,24 @@
 """Single-stream generation (counterpart of lit_llama_tpu/models/generate.py).
 
 ``generate`` runs one prefill of the prompt through ``llama.forward``
-(``prefill_from_zero``: K3 for every int4 linear and K4 for the attention on
-the card), then a Python decode loop in which each block is one
-``fused_layer.decode_layers_fused`` call (K1) and the logits come from
-``fused_layer.lm_head_fused`` (K2). The cache is a per-layer ring: token
-``pos`` is written at ``pos % S`` and sees every slot <= pos, so a generation
-that runs past S keeps the last S positions, as the JAX fused path does.
-Capturing the step in a CUDA graph is later work.
+(``prefill_from_zero``: K3 or K6 for every quantized linear and K4 for the
+attention on the card), then a Python decode loop that chooses its step as
+the JAX ``generate`` does:
+
+* Params prepared by ``fused_layer.prepare_fused_params`` (int4, per-layer
+  list, ``rope_layout == "half"``) with a plain cache decode through the fused
+  step: each block is one ``fused_layer.decode_layers_fused`` call (K1) and
+  the logits come from ``fused_layer.lm_head_fused`` (K2). The cache is a
+  per-layer ring: token ``pos`` is written at ``pos % S`` and sees every slot
+  <= pos, so a generation that runs past S keeps the last S positions.
+* Anything else (dense, int8, unprepared int4; stacked or unstacked layers;
+  either rope layout; an int8 KV cache) decodes per op: one
+  ``llama.forward(input_pos=[pos])`` per token, every quantized linear one K3
+  or K6 launch and the attention one ``decode_attention`` launch (K5) per
+  block on the card. Past S the cache rolls one row left, which keeps the same
+  last S positions.
+
+Capturing either step in a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -79,17 +90,14 @@ def generate(
     dev = resolve_device(device)
     if params["wte"].device.type != dev.type:
         raise ValueError(f"params lie on {params['wte'].device}, generate was asked for {dev}")
-    if config.rope_layout != "half" or not isinstance(params.get("h"), (list, tuple)):
-        raise NotImplementedError(
-            "generate decodes through the fused step: prepare the params with "
-            "llama.unstack_layers and fused_layer.prepare_fused_params"
-        )
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
     T = int(prompt.shape[0])
     S = plan_seq_length(config, T + max_new_tokens, max_seq_length)
     cd = torch_dtype(config.compute_dtype)
     rope_cache = build_rope_cache(config.block_size, config.head_size, device=dev)
     cache = llama.init_kv_cache(config, 1, S, cd, device=dev)
+    fused = (config.rope_layout == "half" and isinstance(params.get("h"), (list, tuple))
+             and config.kv_cache_dtype is None)
 
     logits, cache = llama.forward(
         params, prompt[None], config, rope_cache=rope_cache, kv_cache=cache,
@@ -100,21 +108,28 @@ def generate(
     if eos_id is not None and int(tok) == eos_id:
         return torch.cat([prompt, tok]).cpu()
 
-    cos_tab, sin_tab = rope_half_tables(rope_cache)
-    layers = params["h"]
-    quant_head = "qzero" in params["lm_head"]
+    if fused:
+        cos_tab, sin_tab = rope_half_tables(rope_cache)
+        quant_head = "qzero" in params["lm_head"]
+
+        def step(tok, pos):
+            rp = min(pos, config.block_size - 1)
+            cosf, sinf = cos_tab[rp : rp + 1], sin_tab[rp : rp + 1]
+            x = params["wte"][tok].to(cd)  # (1, D)
+            for lp, kv in zip(params["h"], cache):
+                x, _ = fused_layer.decode_layers_fused(x, [lp], [kv], cosf, sinf, pos % S, pos, config)
+            if quant_head:
+                return fused_layer.lm_head_fused(x, params["ln_f"], params["lm_head"], config)
+            return linear(params["lm_head"], rms_norm(x, params["ln_f"]))
+    else:
+
+        def step(tok, pos):
+            logits, _ = llama.forward(params, tok[None], config, rope_cache=rope_cache, input_pos=[pos],
+                                      kv_cache=cache)
+            return logits[0]  # (1, V)
+
     for i in range(max_new_tokens - 1):
-        pos = T + i
-        rp = min(pos, config.block_size - 1)
-        cosf, sinf = cos_tab[rp : rp + 1], sin_tab[rp : rp + 1]
-        x = params["wte"][tok].to(cd)  # (1, D)
-        for lp, kv in zip(layers, cache):
-            x, _ = fused_layer.decode_layers_fused(x, [lp], [kv], cosf, sinf, pos % S, pos, config)
-        if quant_head:
-            logits = fused_layer.lm_head_fused(x, params["ln_f"], params["lm_head"], config)
-        else:
-            logits = linear(params["lm_head"], rms_norm(x, params["ln_f"]))
-        tok = sample_logits(logits.float(), temperature, top_k, generator)
+        tok = sample_logits(step(tok, T + i).float(), temperature, top_k, generator)
         out.append(tok)
         if eos_id is not None and int(tok) == eos_id:
             break

@@ -10,8 +10,11 @@ c_fc2 fused into ``c_fc12``).
 ``forward`` covers: no cache (causal over the tokens), ``prefill_from_zero``
 (positions 0..T-1 written into a per-layer cache), ``input_pos`` (a continuing
 chunk, or one token with the roll-left overflow) and ``slot_pos`` (the
-continuous-batching decode step, one token per slot). The int8 KV cache and
-the Pallas single-query decode attention of the per-op path are later slices.
+continuous-batching decode step, one token per slot). A cached single token
+(``input_pos`` with T == 1, and ``slot_pos`` on layers that are not the fused
+int4 layout) attends through ``decode_attention`` (K5 on the card). With
+``config.kv_cache_dtype == "int8"`` the cache holds int8 rows with one f32
+scale per (batch row, head, position), and K5 reads it as it is.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ import torch.nn.functional as F
 from lit_llama_tpu_torch.models.config import LLaMAConfig
 from lit_llama_tpu_torch.ops import fused_layer
 from lit_llama_tpu_torch.ops.attention import attention
-from lit_llama_tpu_torch.ops.decode_attention import decode_attention_write, decode_attention_write_ref
+from lit_llama_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    decode_attention_write,
+    decode_attention_write_ref,
+)
 from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
 from lit_llama_tpu_torch.ops.norm import rms_norm
@@ -33,7 +41,8 @@ from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
-KVCache = List[Dict[str, torch.Tensor]]  # per layer {"k", "v"}: (B, H, S, hs)
+# per layer {"k", "v"}: (B, H, S, hs); an int8 cache adds {"ks", "vs"}: (B, H, S, 1) f32
+KVCache = List[Dict[str, torch.Tensor]]
 
 
 def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None, device=None) -> Params:
@@ -66,16 +75,36 @@ def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None
 
 def init_kv_cache(config: LLaMAConfig, batch_size: int, max_seq_length: int, dtype=None,
                   device=None) -> KVCache:
-    """Zero per-layer caches, (B, H, S, hs) each, in the compute dtype."""
-    if config.kv_cache_dtype is not None:
-        raise NotImplementedError("the int8 KV cache is a later slice")
+    """Zero per-layer caches, (B, H, S, hs) each, in the compute dtype. With
+    ``config.kv_cache_dtype == "int8"`` k and v are int8 and each layer also
+    holds ``ks`` and ``vs``, (B, H, S, 1) f32 scales: half the bytes of a bf16
+    cache to keep and to read."""
+    if config.kv_cache_dtype not in (None, "int8"):
+        raise ValueError(f"unknown kv_cache_dtype {config.kv_cache_dtype!r}")
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or config.compute_dtype)
     shape = (batch_size, config.n_head, max_seq_length, config.head_size)
-    return [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in range(config.n_layer)
-    ]
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if config.kv_cache_dtype == "int8":
+        return [
+            {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+             "ks": zeros(shape[:-1] + (1,), torch.float32), "vs": zeros(shape[:-1] + (1,), torch.float32)}
+            for _ in range(config.n_layer)
+        ]
+    return [{"k": zeros(shape, dtype), "v": zeros(shape, dtype)} for _ in range(config.n_layer)]
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization of k/v rows, one f32 scale per (batch row,
+    head, position): scale = max|x| / 127 floored at 1e-12, q = round half to
+    even of x / scale, clipped to +-127."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _layer(h: Params, l: int) -> Params:
@@ -98,41 +127,66 @@ def _mlp(mlp: Params, x: torch.Tensor, plain: bool) -> torch.Tensor:
     return linear(mlp["c_proj"], F.silu(fc1) * fc2, plain=plain)
 
 
+def _cache_write(kv, new: Dict[str, torch.Tensor], write_pos) -> None:
+    """Write the new rows (B, H, T, d) of each named array into the layer's
+    cache in place at ``write_pos``: an int (T rows from there) or a (B,)
+    tensor (one row per slot)."""
+    for name, rows in new.items():
+        c = kv[name]
+        if isinstance(write_pos, int):
+            c[:, :, write_pos : write_pos + rows.shape[2]] = rows.to(c.dtype)
+        else:
+            c[torch.arange(rows.shape[0], device=rows.device), :, write_pos] = rows[:, :, 0].to(c.dtype)
+
+
 def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos,
-                           attend_len, causal: bool, plain: bool):
+                           attend_len, causal: bool, plain: bool, limit=None):
     """Fused-QKV attention over the T tokens of ``x``. With ``kv`` the new k/v
-    are written in place at ``write_pos``: an int (T rows from there) or a
-    (B,) tensor (one row per slot). ``attend_len`` promises a prefill from
-    position 0: the attention is causal over the T new rows; otherwise it runs
-    over the whole cache under ``mask``."""
-    B, T, C = x.shape
+    are written in place at ``write_pos`` (quantized first when the cache is
+    int8). ``attend_len`` promises a prefill from position 0: the attention is
+    causal over the T new rows (of an int8 cache: as they read back from it).
+    ``limit`` ((B,) int32, T == 1) sends the token through
+    ``decode_attention`` against the cache as it is stored; otherwise the
+    attention runs over the whole cache, dequantized to ``q.dtype``, under
+    ``mask``."""
+    B, T, _ = x.shape
     hs = config.head_size
     qkv = linear(attn["c_attn"], x, plain=plain)
     H = qkv.shape[-1] // 3 // hs
-    q, k, v = (t.reshape(B, T, H, hs) for t in qkv.split(C, dim=-1))
     rot = apply_rope_half if config.rope_layout == "half" else apply_rope
-    q, k = rot(q, rope), rot(k, rope)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, T, hs)
+    # q and k rotate in one call, as 2H heads: half the small launches of two calls
+    qk = rot(qkv[..., : 2 * H * hs].reshape(B, T, 2 * H, hs), rope)
+    v = qkv[..., 2 * H * hs :].reshape(B, T, H, hs)
+    q, k, v = (t.transpose(1, 2) for t in (qk[:, :, :H], qk[:, :, H:], v))  # (B, H, T, hs)
+    y = None
     if kv is not None:
-        if isinstance(write_pos, int):
-            kv["k"][:, :, write_pos : write_pos + T] = k.to(kv["k"].dtype)
-            kv["v"][:, :, write_pos : write_pos + T] = v.to(kv["v"].dtype)
+        quant_cache = "ks" in kv
+        if quant_cache:
+            (kq, vq), (ksc, vsc) = _quantize_kv(torch.stack((k, v)))  # both in one pass
+            _cache_write(kv, {"k": kq, "ks": ksc, "v": vq, "vs": vsc}, write_pos)
         else:
-            rows = torch.arange(B, device=x.device)
-            kv["k"][rows, :, write_pos] = k[:, :, 0].to(kv["k"].dtype)
-            kv["v"][rows, :, write_pos] = v[:, :, 0].to(kv["v"].dtype)
-        if attend_len is None:
+            _cache_write(kv, {"k": k, "v": v}, write_pos)
+        if limit is not None:
+            attend = decode_attention_ref if plain else decode_attention
+            y = attend(q, kv["k"], kv["v"], kv.get("ks"), kv.get("vs"), limit)
+        elif attend_len is not None:
+            if quant_cache:  # the new rows as the cache gives them back, as the JAX package attends
+                k, v = (kq.float() * ksc).to(q.dtype), (vq.float() * vsc).to(q.dtype)
+        elif quant_cache:
+            k, v = (kv["k"].float() * kv["ks"]).to(q.dtype), (kv["v"].float() * kv["vs"]).to(q.dtype)
+        else:
             k, v = kv["k"].to(q.dtype), kv["v"].to(q.dtype)
-    y = attention(q, k, v, mask, causal=causal, plain=plain)
+    if y is None:
+        y = attention(q, k, v, mask, causal=causal, plain=plain)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
     return linear(attn["c_proj"], y, plain=plain)
 
 
 def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, attend_len=None,
-           causal: bool = False, plain: bool = False):
+           causal: bool = False, plain: bool = False, limit=None):
     """One pre-norm residual block."""
     x = x + _causal_self_attention(lp["attn"], rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
-                                   write_pos, attend_len, causal, plain)
+                                   write_pos, attend_len, causal, plain, limit)
     return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain)
 
 
@@ -178,15 +232,19 @@ def forward(
     they are read on the host): the new k/v go to those cache rows and the
     attention runs over the whole cache, row ``s`` visible to the query at
     position ``p`` iff ``s <= p``. This is the continuing chunk of a chunked
-    prefill. With T == 1 and a position at or past the cache length S the
-    cache is rolled one row left and the token written at S - 1.
+    prefill (T > 1) and the per-op decode step (T == 1), which attends through
+    ``decode_attention`` (K5 on the card). With T == 1 and a position at or
+    past the cache length S the cache is rolled one row left and the token
+    written at S - 1; it then sees every row.
 
     ``slot_pos`` ((B,) ints on the tokens' device): continuous-batching
     decode, T == 1. Each slot is its own sequence: its token is written at
     ``slot_pos[b] % S`` (a ring past the cache), row ``s`` is visible iff
     ``s <= slot_pos[b]``, so a slot at or past S - 1 sees every row. Prepared
-    int4 layers (``fused_layer.use_serve_fused``) take the three fused entries
-    per block, K7, K8 and K9 on the card; other layers take the plain block.
+    int4 layers (``fused_layer.use_serve_fused``) on a cache in the compute
+    dtype take the three fused entries per block, K7, K8 and K9 on the card;
+    other layers (dense, int8), and any layers on an int8 cache, take the
+    per-op block with ``decode_attention``.
 
     ``plain`` runs every kernel's plain version (the reference path the chip
     check holds the kernels against).
@@ -198,7 +256,7 @@ def forward(
         rope_cache = build_rope_cache(config.block_size, config.head_size, device=dev)
     x = params["wte"][tokens].to(cd)
     layers = _layers(params)
-    write_pos = attend_len = None
+    write_pos = attend_len = mask = limit = None
     causal = False
 
     if kv_cache is None:
@@ -206,12 +264,12 @@ def forward(
         mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
         causal = True
     elif not isinstance(kv_cache, (list, tuple)):
-        raise TypeError("kv_cache is a per-layer list of {'k', 'v'} (init_kv_cache)")
+        raise TypeError("kv_cache is a per-layer list of {'k', 'v'[, 'ks', 'vs']} (init_kv_cache)")
     elif slot_pos is not None:
         if T != 1:
             raise ValueError("slot_pos decode takes one token per slot")
         S = kv_cache[0]["k"].shape[-2]
-        if use_serve_fused(config, layers[0]):
+        if use_serve_fused(config, layers[0]) and "ks" not in kv_cache[0]:  # K8 reads a bf16 cache
             cos, sin = slot_rope_rows(rope_cache, slot_pos)
             pos32 = slot_pos.to(torch.int32)
             x2d = x[:, 0]
@@ -221,7 +279,7 @@ def forward(
             return linear(params["lm_head"], x, plain=plain), kv_cache
         pos = slot_pos.long()
         rope = rope_cache[pos.clamp(0, config.block_size - 1)][:, None]  # (B, 1, hs/2, 2)
-        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        limit = slot_pos.to(torch.int32)
         write_pos = pos % S
     elif prefill_from_zero:
         rope = rope_cache[:T]
@@ -244,13 +302,16 @@ def forward(
             raise ValueError(f"positions {positions[0]}..{positions[-1]} run past the cache length {S}")
         pos = torch.tensor(positions, device=dev)
         rope = rope_cache[pos.clamp(0, config.block_size - 1)]
-        mask = torch.arange(S, device=dev)[None, :] <= pos[:, None]  # (T, S)
+        if T == 1:
+            limit = pos.to(torch.int32).expand(B).contiguous()  # the unrolled position: past S - 1 sees all
+        else:
+            mask = torch.arange(S, device=dev)[None, :] <= pos[:, None]  # (T, S)
     else:
         raise ValueError("a forward with kv_cache needs prefill_from_zero, input_pos or slot_pos")
 
     caches = kv_cache if kv_cache is not None else [None] * len(layers)
     for lp, kv in zip(layers, caches):
-        x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain)
+        x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit)
     x = rms_norm(x, params["ln_f"])
     return linear(params["lm_head"], x, plain=plain), kv_cache
 

@@ -1,6 +1,18 @@
-"""Per-slot cache write + single-query attention for continuous batching:
-kernel K8 and its plain version (counterpart of the serving entries of
-lit_llama_tpu/ops/decode_attention.py).
+"""Single-query attention against the KV cache: kernels K5 and K8 and their
+plain versions (counterpart of lit_llama_tpu/ops/decode_attention.py).
+
+``decode_attention`` (K5; ``decode_attention_pallas`` is the JAX package's
+name for it and is kept as an alias) replaces the Pallas ``_kernel``: one
+query per (batch row, head) against a cache that is already written, a bf16
+cache or an int8 cache with one f32 scale per row, whose scales are folded
+into the score (k) and into the softmax weight (v). Row ``s`` is visible to
+batch row ``b`` iff ``s <= limit[b]``; ``limit`` stays on the device. On the
+card it takes every cached single-token step of the per-op decode path, at
+any B and S, bf16 and int8 cache alike: the TPU's measured gates (S >= 1024,
+S % 128 == 0, B == 1, int8 left to the dequantizing path) are not carried
+over. The kernel takes bf16 and head size 128; the plain version takes any
+float dtype and head size. Products are rounded to the cache's compute dtype
+(``q.dtype``) and summed in f32, as in the Pallas kernel.
 
 ``decode_attention_write`` replaces both Pallas kernels that compute this
 function, ``_pipe_kernel`` (entry ``decode_attention_write_pipelined``, the
@@ -30,7 +42,10 @@ NEG_INF = -1e30
 CHUNK = 64  # cache rows per attention block (csrc/attention_chunk.cuh)
 
 _P, _I = _build.PTR, _build.INT
-_SIGS = {"k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P]}
+_SIGS = {  # both entries of csrc/decode_attention.cu
+    "k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P],
+    "k5_decode_attention": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
+}
 
 
 def decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos):
@@ -56,9 +71,79 @@ def _slot_stride(t, B, H, hs, what: str) -> int:
     side by side (a view into the fused qkv rows is taken as it is)."""
     if (t.dtype != torch.bfloat16 or t.shape != (B, H, 1, hs) or not t.is_cuda
             or t.stride(3) != 1 or (H > 1 and t.stride(1) != hs)):
-        raise ValueError(f"K8 takes bf16 (B, H, 1, {hs}) CUDA {what} with its heads adjoining, "
+        raise ValueError(f"{what}: expected bf16 (B, H, 1, {hs}) on the card with its heads adjoining, "
                          f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
     return t.stride(0) if B > 1 else H * hs
+
+
+def decode_attention_ref(q, k, v, ks, vs, limit):
+    """Plain version of :func:`decode_attention`, in the Pallas kernel's
+    arithmetic: k and v in ``q.dtype`` (int8 -> float is exact), every
+    product rounded to ``q.dtype`` and summed in f32; the k scale multiplies
+    the f32 score and the v scale the f32 softmax weight before that is
+    rounded; the normaliser is floored at 1e-30."""
+    B, H, S, hs = k.shape
+    pdt = q.dtype
+    s = (k.to(pdt) * q.to(pdt)).float().sum(dim=-1)  # (B, H, S); q broadcasts over S
+    if ks is not None:
+        s = s * ks.reshape(B, H, S)
+    s = s * (1.0 / math.sqrt(hs))
+    visible = torch.arange(S, device=q.device)[None, None, :] <= limit.long()[:, None, None]
+    s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(visible, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    w = p if vs is None else p * vs.reshape(B, H, S)
+    acc = (w.to(pdt)[..., None] * v.to(pdt)).float().sum(dim=2)  # (B, H, hs)
+    return (acc / l)[:, :, None, :].to(pdt)
+
+
+def decode_attention(q, k, v, ks, vs, limit):
+    """One query per (batch row, head) against the whole cache.
+
+    q (B, H, 1, hs); k, v (B, H, S, hs) in ``q.dtype``, or int8 with ``ks``,
+    ``vs`` (B, H, S, 1) f32 (else None); limit (B,) int32 on the device of
+    the rest: row ``s`` is visible to batch row ``b`` iff ``s <= limit[b]``,
+    so a limit at or past S - 1 sees every row. Returns (B, H, 1, hs) in
+    ``q.dtype``. A CPU tensor takes the plain version; a CUDA tensor launches
+    K5 or raises."""
+    if not q.is_cuda:
+        return decode_attention_ref(q, k, v, ks, vs, limit)
+    B, H, S, hs = k.shape
+    if hs != 128:
+        raise ValueError(f"K5 takes head size 128, got {hs}")
+    q_stride = _slot_stride(q, B, H, hs, "K5 q")
+    quantized = ks is not None
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    for c in (k, v):
+        if c.dtype != cache_dtype or c.shape != (B, H, S, hs) or not c.is_contiguous() or not c.is_cuda:
+            raise ValueError(f"K5 takes contiguous {cache_dtype} ({B}, {H}, {S}, {hs}) CUDA caches "
+                             f"(int8 with ks and vs, bf16 without)")
+    if quantized:
+        for c in (ks, vs):
+            if (c is None or c.dtype != torch.float32 or c.shape != (B, H, S, 1) or not c.is_contiguous()
+                    or not c.is_cuda):
+                raise ValueError(f"K5 takes ks and vs as contiguous float32 ({B}, {H}, {S}, 1) CUDA tensors")
+    elif vs is not None:
+        raise ValueError("K5 takes ks and vs together")
+    if limit.dtype != torch.int32 or limit.shape != (B,) or not limit.is_cuda or not limit.is_contiguous():
+        raise ValueError(f"K5 takes limit as a contiguous int32 ({B},) CUDA tensor")
+    part = torch.empty(B * H * (-(-S // CHUNK)) * (hs + 2), dtype=torch.float32, device=q.device)
+    y = torch.empty((B, H, 1, hs), dtype=torch.bfloat16, device=q.device)
+    lib = _build.library("decode_attention", _SIGS)
+    err = lib.k5_decode_attention(
+        q.data_ptr(), q_stride, k.data_ptr(), v.data_ptr(),
+        ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
+        limit.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S, int(quantized),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "K5 decode_attention")
+    decode_attention.launches += 1
+    return y
+
+
+decode_attention.launches = 0
+decode_attention_pallas = decode_attention  # the JAX package's name for this entry
 
 
 def decode_attention_write(q, k_new, v_new, kc, vc, slot_pos):
@@ -75,7 +160,7 @@ def decode_attention_write(q, k_new, v_new, kc, vc, slot_pos):
     B, H, S, hs = kc.shape
     if hs != 128:
         raise ValueError(f"K8 takes head size 128, got {hs}")
-    strides = [_slot_stride(t, B, H, hs, n) for t, n in ((q, "q"), (k_new, "k_new"), (v_new, "v_new"))]
+    strides = [_slot_stride(t, B, H, hs, n) for t, n in ((q, "K8 q"), (k_new, "K8 k_new"), (v_new, "K8 v_new"))]
     for c in (kc, vc):
         if c.dtype != torch.bfloat16 or c.shape != (B, H, S, hs) or not c.is_contiguous() or not c.is_cuda:
             raise ValueError(f"K8 takes contiguous bf16 ({B}, {H}, {S}, {hs}) CUDA caches")

@@ -73,16 +73,23 @@ def dequantize_int4(params: Params, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(in_f, out_f).to(dtype)
 
 
-def matmul_int8_ref(x, qw, qscale, compute_dtype):
-    """Plain x @ (qw * scale), the counterpart of ``matmul_int8_xla``."""
+def matmul_int8_dequant(x, qw, qscale, compute_dtype):
+    """x @ (qw * scale) with the dequantized weight rounded to the compute
+    dtype first: the counterpart of the JAX package's ``matmul_int8_xla``.
+    ``linear`` does not use it: int8 params go to
+    ``quant_matmul.matmul_int8``, whose plain version
+    (``quant_matmul.matmul_int8_ref``) follows the Pallas kernel and scales
+    the f32 sum once at the end. The tests hold both against their JAX
+    functions."""
     w = (qw.float() * qscale).to(compute_dtype)
     return x.to(compute_dtype) @ w
 
 
 def linear(params: Params, x: torch.Tensor, compute_dtype=None, plain: bool = False):
-    """Apply a linear-layer variant. ``x``: (..., in_features). ``plain`` runs
-    the int4 kernel's plain version even on a CUDA tensor (the reference path
-    that the chip check compares the kernels against)."""
+    """Apply a linear-layer variant. ``x``: (..., in_features). Int4 params
+    go to K3 and int8 params to K6 (``ops.quant_matmul``); ``plain`` runs the
+    kernel's plain version even on a CUDA tensor (the reference path that the
+    chip check compares the kernels against)."""
     compute_dtype = compute_dtype or x.dtype
     if "w" in params:
         out = x @ params["w"].to(compute_dtype)
@@ -92,12 +99,10 @@ def linear(params: Params, x: torch.Tensor, compute_dtype=None, plain: bool = Fa
         fn = quant_matmul.matmul_int4_ref if plain else quant_matmul.matmul_int4
         out = fn(x, params["qw"], params["qscale"], params["qzero"], compute_dtype)
     elif "qw" in params:
-        if x.is_cuda and not plain:
-            raise NotImplementedError(
-                "int8 weights on the card need kernel K6 "
-                "(lit_llama_tpu/ops/quant_matmul_pallas.py _int8_kernel), not ported yet"
-            )
-        out = matmul_int8_ref(x, params["qw"], params["qscale"], compute_dtype)
+        from lit_llama_tpu_torch.ops import quant_matmul
+
+        fn = quant_matmul.matmul_int8_ref if plain else quant_matmul.matmul_int8
+        out = fn(x, params["qw"], params["qscale"], compute_dtype)
     else:
         raise ValueError(f"unrecognized linear params: {sorted(params)}")
     if "av2_scale" in params:

@@ -9,4 +9,4 @@ import torch
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (norm * scale.float()).to(x.dtype)
+    return (norm * scale).to(x.dtype)  # f32 * scale promotes to f32: no separate cast of the scale

@@ -44,19 +44,22 @@ def params_from_numpy(tree, device=None):
 
 def cache_from_numpy(layers, device=None):
     """A JAX per-layer KV cache -> the port's: a list of {"k", "v"} tensors
-    (B, H, S, hs) on ``device`` (the card when None). ``layers`` is the tuple
-    of per-layer dicts with numpy leaves; a packed u32 pair cache must be
-    unpacked first (``fused_layer.unpack_kv`` on the JAX side), since the port
-    keeps plain rows."""
+    (B, H, S, hs) on ``device`` (the card when None), or of {"k", "v", "ks",
+    "vs"} for an int8 cache (int8 rows, (B, H, S, 1) f32 scales). ``layers``
+    is the tuple of per-layer dicts with numpy leaves; a packed u32 pair cache
+    must be unpacked first (``fused_layer.unpack_kv`` on the JAX side), since
+    the port keeps plain rows."""
     dev = resolve_device(device)
     out = []
     for kv in layers:
-        if set(kv) != {"k", "v"}:
-            raise ValueError(f"the port's cache holds k and v only, got {sorted(kv)}")
+        if set(kv) not in ({"k", "v"}, {"k", "v", "ks", "vs"}):
+            raise ValueError(f"the port's cache holds k and v, or k, v, ks and vs, got {sorted(kv)}")
         entry = {name: tensor_from_numpy(np.asarray(a), dev) for name, a in kv.items()}
+        quant = "ks" in entry
         for name, t in entry.items():
-            if t.ndim != 4 or not t.is_floating_point():
-                raise ValueError(f"cache leaf {name}: expected unpacked (B, H, S, hs) rows, "
-                                 f"got {t.dtype} {tuple(t.shape)}")
+            rows_ok = t.dtype == torch.int8 if quant and name in ("k", "v") else t.is_floating_point()
+            if t.ndim != 4 or not rows_ok:
+                raise ValueError(f"cache leaf {name}: expected unpacked (B, H, S, hs) rows "
+                                 f"(int8 beside f32 ks/vs, else float), got {t.dtype} {tuple(t.shape)}")
         out.append(entry)
     return out

@@ -1,0 +1,164 @@
+"""K5, single-query decode attention (bf16 and int8 cache): the port's plain
+version against the JAX Pallas kernel in interpret mode and against the
+masked attention on the CPU, and the CUDA kernel against the plain version on
+the card (skipped without one).
+
+Tolerances. f32: the same products summed in another order, and ``exp`` from
+two libraries: 2e-5, as the JAX package's own test of the kernel. bf16: every
+product is rounded to bf16 on both sides and summed in f32 in another order;
+outputs are O(1) weighted means: 2e-2 + 2e-2 * |want|. The CUDA kernel
+against the plain version, bf16: with every row of a long cache visible the
+outputs are small means (|want| <= 0.05 at S = 2048), and the kernel differs
+from the plain version in taking each softmax weight relative to its 64-row
+chunk's maximum before rounding it to bf16: 1e-3 + 2e-2 * |want|, the
+absolute part from the errors seen on an H100 (2.4e-4 to 9.8e-4), small
+enough that a chunk left out of the merge fails.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lit_llama_tpu.ops.attention import attention_xla
+from lit_llama_tpu.ops.decode_attention import decode_attention_pallas
+from lit_llama_tpu_torch.ops import decode_attention as tda
+from lit_llama_tpu_torch.ops.attention import attention_ref
+from lit_llama_tpu_torch.utils.jax_params import tensor_from_numpy
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+TOL_CARD = dict(rtol=2e-2, atol=1e-3)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(rng, B, H, S, hs):
+    q = rng.normal(size=(B, H, 1, hs)).astype(np.float32)
+    k = rng.normal(size=(B, H, S, hs)).astype(np.float32)
+    v = rng.normal(size=(B, H, S, hs)).astype(np.float32)
+    return q, k, v
+
+
+def _quantize_rows(a):
+    """int8 rows and (…, 1) f32 scales that vary from row to row."""
+    s = (np.abs(a).max(-1, keepdims=True) / 127.0).astype(np.float32)
+    return np.clip(np.round(a / s), -127, 127).astype(np.int8), s
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+# limits: the first row only, inside a block, the last row, past the cache
+# (every row visible) and below zero (no row visible: zeros)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,limits", [(1, [0]), (1, [127]), (3, [0, 64, 255]), (4, [255, 300, -1, 17])])
+def test_decode_attention_ref_matches_pallas(rng, B, limits, dtype):
+    H, S, hs = 4, 256, 128
+    q, k, v = _inputs(rng, B, H, S, hs)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    limit = np.asarray(limits, np.int32)
+    want = decode_attention_pallas(jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
+                                   jnp.asarray(v).astype(jdt), None, None, jnp.asarray(limit), interpret=True)
+    got = tda.decode_attention_ref(_t(q, tdt), _t(k, tdt), _t(v, tdt), None, None, _t(limit))
+    assert got.shape == (B, H, 1, hs) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **TOL[dtype])
+    # the dispatching wrapper takes the plain version for a CPU tensor
+    out = tda.decode_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), None, None, _t(limit))
+    assert torch.equal(out, got)
+    for b, lim in enumerate(limits):
+        if lim < 0:
+            assert not got[b].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,limits", [(2, 128, [100, 5]), (3, 256, [0, 255, 400])])
+def test_decode_attention_ref_int8_matches_pallas(rng, B, S, limits, dtype):
+    """The int8 cache is consumed as it is: k scale on the score, v scale on
+    the weights."""
+    H, hs = 8, 128
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    (k8, ks), (v8, vs) = _quantize_rows(kf), _quantize_rows(vf)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    limit = np.asarray(limits, np.int32)
+    want = decode_attention_pallas(jnp.asarray(q).astype(jdt), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(ks),
+                                   jnp.asarray(vs), jnp.asarray(limit), interpret=True)
+    got = tda.decode_attention_ref(_t(q, tdt), _t(k8), _t(v8), _t(ks), _t(vs), _t(limit))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **TOL[dtype])
+    assert torch.equal(tda.decode_attention(_t(q, tdt), _t(k8), _t(v8), _t(ks), _t(vs), _t(limit)), got)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_ref_matches_masked_attention(rng, quantized):
+    """Against what the JAX package runs where it does not dispatch the
+    kernel: the whole cache, dequantized, through the masked attention (both
+    packages'), at a head size and cache length the kernel would not take.
+    f32; the dequantize-first order costs a few ulp more: 2e-4, the tolerance
+    of the JAX package's own int8 test."""
+    B, H, S, hs = 3, 2, 50, 32
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    limit = np.asarray([0, 31, 77], np.int32)
+    mask = np.arange(S)[None, :] <= limit[:, None]
+    if quantized:
+        (k8, ks), (v8, vs) = _quantize_rows(kf), _quantize_rows(vf)
+        got = tda.decode_attention_ref(_t(q), _t(k8), _t(v8), _t(ks), _t(vs), _t(limit))
+        kf, vf = k8.astype(np.float32) * ks, v8.astype(np.float32) * vs
+    else:
+        got = tda.decode_attention_ref(_t(q), _t(kf), _t(vf), None, None, _t(limit))
+    ours = attention_ref(_t(q), _t(kf), _t(vf), _t(mask)[:, None, None, :])
+    jax_side = attention_xla(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf), jnp.asarray(mask)[:, None, None, :])
+    np.testing.assert_allclose(got.numpy(), ours.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_side), rtol=2e-4, atol=2e-4)
+
+
+def test_decode_attention_keeps_the_jax_entry_name():
+    assert tda.decode_attention_pallas is tda.decode_attention
+
+
+def _card_case(rng, cuda, B, S, limits, quantized):
+    H, hs = 32, 128
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    # q as the model hands it over: (B, 1, H, hs) rows seen as (B, H, 1, hs)
+    qt = _t(q, torch.bfloat16).transpose(1, 2).contiguous().to(cuda).transpose(1, 2)
+    limit = _t(np.asarray(limits, np.int32)).to(cuda)
+    if quantized:
+        (k8, ks), (v8, vs) = _quantize_rows(kf * 0.5), _quantize_rows(vf * 0.5)
+        return qt, _t(k8).to(cuda), _t(v8).to(cuda), _t(ks).to(cuda), _t(vs).to(cuda), limit
+    return qt, _t(kf * 0.5, torch.bfloat16).to(cuda), _t(vf * 0.5, torch.bfloat16).to(cuda), None, None, limit
+
+
+# limits per row: 0, the middle of a 64-row block, S - 1, past S, below 0
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B,S,limits", [
+    (1, 2048, [2047]), (1, 2048, [1000]), (1, 256, [300]), (1, 100, [0]),
+    (8, 2048, [0, 100, 2047, 2048, 5000, 63, 64, -1]), (3, 100, [99, 37, 64]),
+])
+def test_decode_attention_kernel_matches_plain(rng, cuda, B, S, limits, quantized):
+    args = _card_case(rng, cuda, B, S, limits, quantized)
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(*args)
+    want = tda.decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    assert got.shape == (B, 32, 1, 128) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **TOL_CARD)
+
+
+def test_decode_attention_kernel_raises_on_what_it_does_not_take(rng, cuda):
+    q, k, v, _, _, limit = _card_case(rng, cuda, 2, 64, [3, 9], False)
+    with pytest.raises(ValueError):  # head size
+        tda.decode_attention(q[..., :64], k[..., :64].contiguous(), v[..., :64].contiguous(), None, None, limit)
+    with pytest.raises(ValueError):  # f32 cache
+        tda.decode_attention(q, k.float(), v.float(), None, None, limit)
+    with pytest.raises(ValueError):  # int8 rows without their scales
+        tda.decode_attention(q, k.to(torch.int8), v.to(torch.int8), None, None, limit)
+    with pytest.raises(ValueError):  # limit on the host's dtype
+        tda.decode_attention(q, k, v, None, None, limit.long())
+    assert tensor_from_numpy(np.zeros(2, np.float32), cuda).is_cuda

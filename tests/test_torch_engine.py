@@ -160,3 +160,39 @@ def test_sample_rows_exact_top_k():
         assert int(out[0]) == int(logits[0].argmax())
         seen.add(int(out[1]))
     assert seen <= top2 and len(seen) == 2
+
+
+def test_engine_int8_weights_and_int8_cache_match_generate():
+    """Layers that are not the fused int4 layout take the per-op block in the
+    serving step (``decode_attention`` with each slot's position as its
+    limit), on an int8 KV cache too: each request's greedy tokens equal the
+    port's single-stream ``generate``."""
+    from lit_llama_tpu_torch.models import llama as tllama
+
+    tc = tcfg.LLaMAConfig(block_size=64, vocab_size=128, n_layer=2, n_head=4, n_embd=128,
+                          quantize="int8", kv_cache_dtype="int8")
+    dense = tllama.init_params(tc, torch.Generator().manual_seed(0), device="cpu")
+    tparams = tllama.unstack_layers(tllama.quantize_params(dense, tc))
+    prompts = [np.asarray(p, np.int64) for p in ([5, 23, 81], [7], [9, 9, 3, 40, 2, 11, 64])]
+    got, eng = _port_engine_tokens(tparams, tc, prompts, 6, max_batch=2, max_seq_length=32, steps_per_sync=2)
+    assert eng.cache[0]["k"].dtype == torch.int8 and set(eng.cache[0]) == {"k", "v", "ks", "vs"}
+    for p, toks in zip(prompts, got):
+        alone = tgen.generate(tparams, p, 6, config=tc, max_seq_length=32, temperature=0.0, device="cpu")
+        assert toks == alone[len(p):].tolist()
+
+
+def test_engine_prepared_int4_on_int8_cache_matches_jax_engine(model):
+    """Prepared int4 layers on an int8 KV cache: the fused serving block reads
+    a cache in the compute dtype only, so the step takes the per-op block, as
+    the JAX package decides from the cache's layout. Greedy tokens equal the
+    JAX engine's, past the cache too, and the scales are written."""
+    fparams, fcfg, tparams, tc = model
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(1, 128, size=n).astype(np.int32) for n in (5, 11, 3)]
+    kw = dict(max_batch=2, max_seq_length=16)
+    jeng = JaxEngine(fparams, fcfg.replace(kv_cache_dtype="int8"), **kw)
+    ids = [jeng.submit(p, 8) for p in prompts]
+    done = jeng.run()
+    got, eng = _port_engine_tokens(tparams, tc.replace(kv_cache_dtype="int8"), prompts, 8, **kw)
+    assert got == [done[i].generated for i in ids]
+    assert eng.cache[0]["k"].dtype == torch.int8 and bool(eng.cache[0]["ks"].any())

@@ -197,3 +197,103 @@ def test_forward_with_cache_needs_a_mode(model):
         tllama.forward(params, toks, tc, kv_cache=cache, input_pos=[14, 15, 16])
     with pytest.raises(ValueError):
         tllama.forward(params, toks, tc, kv_cache=cache, slot_pos=torch.zeros(1, dtype=torch.int32))
+
+
+# ---- the per-op decode path: int8 weights, dense weights, the int8 KV cache ----
+
+
+@pytest.fixture(scope="module")
+def per_op_models():
+    """{name: (JAX config, JAX params)}: int8 weights in the inference layout
+    (unstacked, interleaved RoPE) and dense f32 weights, stacked."""
+    cfg = LLaMAConfig(block_size=64, vocab_size=128, n_layer=2, n_head=4, n_embd=128)
+    dense = init_params(cfg, jax.random.PRNGKey(1))
+    c8 = cfg.replace(quantize="int8")
+    return {"int8": (c8, jllama.unstack_layers(jllama.quantize_params(dense, c8))), "dense": (cfg, dense)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_byte_identical(rng, dtype):
+    x = rng.normal(size=(2, 4, 5, 32)).astype(np.float32)
+    x[0, 1, 2] = 0.0  # an all-zero row: the scale floor 1e-12
+    x[1, 0, 3, 7] = 2.5 * 127  # a row whose scale is exact, with values on .5 boundaries
+    x[1, 0, 3, :4] = [2.5 * 0.5, 2.5 * 1.5, -2.5 * 2.5, 2.5 * 126.5]
+    jq, js = jllama._quantize_kv(jnp.asarray(x).astype(jnp.dtype(dtype)))
+    tq, ts = tllama._quantize_kv(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32 and ts.shape == (2, 4, 5, 1)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def _assert_int8_caches_match(tcache, jcache):
+    """Scales to f32 rounding; int8 rows equal but for a value that sits on a
+    rounding boundary (x / scale within an f32 ulp of .5): off by one at most,
+    in fewer than 1 in 1000."""
+    for tkv, jkv in zip(tcache, jcache):
+        for name in ("ks", "vs"):
+            np.testing.assert_allclose(tkv[name].numpy(), np.asarray(jkv[name]), rtol=1e-5, atol=1e-9)
+        for name in ("k", "v"):
+            assert tkv[name].dtype == torch.int8
+            diff = np.abs(tkv[name].numpy().astype(np.int32) - np.asarray(jkv[name]).astype(np.int32))
+            assert diff.max() <= 1 and (diff != 0).mean() < 1e-3, (name, diff.max(), (diff != 0).mean())
+
+
+@pytest.mark.parametrize("kind", ["int8", "dense"])
+def test_forward_int8_cache_matches(per_op_models, kind):
+    """Logits and cache contents against JAX ``forward`` with
+    ``kv_cache_dtype="int8"``: a prefill from zero, a continuing chunk, single
+    tokens inside the cache and three past its length S = 12 (roll-left of all
+    four arrays). f32 compute; the JAX side dequantizes the whole cache and
+    runs the masked attention, the port folds the scales (K5's plain version):
+    logits to 5e-4 (the int8 rows may differ by one step in a rare entry)."""
+    cfg, jparams = per_op_models[kind]
+    cfg = cfg.replace(kv_cache_dtype="int8")
+    tc = _port_config(cfg)
+    tparams = params_from_numpy(_np(jparams), device="cpu")
+    S = 12
+    jcache = jllama.init_kv_cache(cfg, 1, S)
+    if kind == "int8":
+        jcache = jllama.unstack_kv_cache(jcache)
+    tcache = tllama.init_kv_cache(tc, 1, S, device="cpu")
+    assert set(tcache[0]) == {"k", "v", "ks", "vs"} and tcache[0]["ks"].shape == (1, 4, S, 1)
+    toks = np.random.default_rng(7).integers(0, 128, size=(1, 18)).astype(np.int32)
+    steps = [(0, 6, True), (6, 3, False)] + [(p, 1, False) for p in range(9, 15)]
+    for start, T, from_zero in steps:
+        chunk = toks[:, start : start + T]
+        want, jcache = jllama.forward(jparams, jnp.asarray(chunk), cfg, input_pos=jnp.arange(start, start + T),
+                                      kv_cache=jcache, prefill_from_zero=from_zero)
+        mode = dict(prefill_from_zero=True) if from_zero else dict(input_pos=list(range(start, start + T)))
+        got, tcache = tllama.forward(tparams, torch.from_numpy(chunk).long(), tc, kv_cache=tcache, **mode)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-4, err_msg=f"start {start}")
+        jlayers = jcache if kind == "int8" else jllama.unstack_kv_cache(jcache)
+        _assert_int8_caches_match(tcache, jlayers)
+
+
+def test_cache_from_numpy_carries_int8_cache(per_op_models):
+    from lit_llama_tpu_torch.utils.jax_params import cache_from_numpy
+
+    cfg = per_op_models["int8"][0].replace(kv_cache_dtype="int8")
+    jcache = jllama.unstack_kv_cache(jllama.init_kv_cache(cfg, 2, 8))
+    layers = cache_from_numpy(_np(jcache), device="cpu")
+    assert len(layers) == cfg.n_layer and layers[0]["k"].dtype == torch.int8
+    assert layers[0]["vs"].shape == (2, 4, 8, 1) and layers[0]["vs"].dtype == torch.float32
+    with pytest.raises(ValueError):
+        cache_from_numpy([{"k": np.zeros((1, 1, 2, 4), np.float32)}], device="cpu")
+    with pytest.raises(ValueError):  # float rows beside scales
+        cache_from_numpy([{n: np.zeros((1, 1, 2, 4), np.float32) for n in ("k", "v", "ks", "vs")}], device="cpu")
+
+
+# (weights, KV cache dtype, new tokens, S): the default S, and S = 16 with 32
+# new tokens, where the cache rolls left from the 17th position on
+@pytest.mark.parametrize("kind,kv,new,S", [("int8", None, 12, None), ("dense", None, 12, None),
+                                           ("int8", None, 32, 16), ("int8", "int8", 32, 16)])
+def test_generate_per_op_greedy_identical(per_op_models, kind, kv, new, S):
+    """Params that are not the prepared int4 layout decode per op, as in the
+    JAX ``generate``: greedy tokens are identical."""
+    cfg, jparams = per_op_models[kind]
+    cfg = cfg.replace(kv_cache_dtype=kv)
+    prompt = np.asarray([5, 23, 81, 2, 40], np.int32)
+    want = jgen.generate(jparams, prompt, new, config=cfg, max_seq_length=S, temperature=0.0)
+    got = tgen.generate(params_from_numpy(_np(jparams), device="cpu"), prompt, new, config=_port_config(cfg),
+                        max_seq_length=S, temperature=0.0, device="cpu")
+    assert got.tolist() == np.asarray(want).tolist()
