@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels of lit_llama_tpu_torch (K1-K4 of int4
 single-stream generation, K7, K8/K8b and K9 of the batched serving step, K5
-and K6 of the per-op int8 decode path) with nvcc, holds each against its plain
+and K6 of the per-op int8 decode path, K4 and K10 of training) with nvcc, holds each against its plain
 PyTorch version at 7B shapes and times both, checks the kernel path of a
 2-layer full-width model against the plain path (fused step, serving step and
 per-op step with the bf16 and the int8 KV cache), then drives the main paths
@@ -13,9 +13,13 @@ on full 32-layer 7B models (random weights from a seed): on int4 weights a few
 greedy single-stream requests through ``generate`` and 64 requests through a
 32-slot ``DecodeEngine``; then, the int4 model freed, three greedy requests
 through ``generate`` on int8 weights, which decodes per op (short context,
-S = 2048, and S = 2048 on the int8 KV cache). The launch counters, set to 0
-before each path and read after it, prove that the path ran through the
-kernels. Any failure raises and exits nonzero.
+S = 2048, and S = 2048 on the int8 KV cache). Then the training path: K10 (the
+flash-attention backward) against its plain version, a 2-layer full-width
+training step kernel path against plain path, 7 steps of 8-layer full-width
+pretraining at T = 2048 through ``training.loop.train`` on LITPKDS chunks, and
+the ``pretrain.redpajama`` entry point saving and resuming in a subprocess.
+The launch counters, set to 0 before each path and read after it, prove that
+the path ran through the kernels. Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
 limit; one JSON line {"kernels": [...]} with each kernel's launches on the
@@ -33,15 +37,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# (name substring, memory bytes/s, dense bf16 tensor FLOP/s, f32 FLOP/s):
-# NVIDIA's data sheets; first match wins
-PEAKS = (
-    ("H100 PCIe", 2.0e12, 756e12, 51e12),
-    ("H100 NVL", 3.9e12, 835e12, 60e12),
-    ("H200", 4.8e12, 989e12, 67e12),
-    ("H100", 3.35e12, 989e12, 67e12),
-)
 
 SEED = 0
 TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v| ~ 2
@@ -70,6 +65,42 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
 # 2-layer full-width model, kernel path vs plain path: per-op errors of the
 # table above compound through 2 blocks and the lm_head
 TOL_MODEL = (5e-2, 5e-2)
+# K10, bf16, held row by row (a query's dq, a key's dk or dv: the last axis):
+# |kernel - plain| <= row * rowmax + rel * |plain|, with rowmax the row's
+# largest |plain|, at least floor * the output's largest. Both round P and dS
+# to bf16 at the same places from f32 scores that differ in the last bits, and
+# round the outputs to bf16, so an element may differ by an ulp of itself
+# (2^-7 of its size at most; rel allows 2.5 of them) and otherwise by much
+# less than its row's size. The absolute part follows each row's own size:
+# a late query's dq is the sum of ~T/64 KV tiles, so one tile left out moves
+# that row by ~1/sqrt(T/64) of its size (18 % at T = 2048), while the output's
+# largest values sit in the first rows, which have one partner each. The floor
+# is for the one row whose exact grad is 0: the first query's softmax has one
+# term, so its dS = dP - D is f32 rounding noise. On the H100 sound runs need
+# a row part of at most 2.5e-3; a dQ that leaves out one KV tile, or a dK/dV
+# that leaves out one Q tile, needs 0.98 to 1.35
+TOL_K10 = dict(row=1e-2, rel=2e-2, floor=1e-3)
+# the Function's grads (K4 + K10) against autograd of attention_ref, which
+# rounds elsewhere: the flash backward takes D = rowsum(dO * O) from the bf16
+# O, so in a row whose softmax is nearly one-hot (dq near 0) D's rounding is
+# the whole value. These rows are held to the output's largest value (floor 1:
+# rowmax is max |plain| everywhere); this check is of the Function's wiring
+# (which grad goes where, the scale, the saved lse), the tiles are held row by
+# row above
+TOL_FUNCTION = dict(row=1e-2, rel=2e-2, floor=1.0)
+# training step, kernel path vs plain path (bf16 activations through 2 blocks,
+# K4 and K10): each leaf's grad error, as max |dgrad| / max |grad| and as
+# RMS(dgrad) / RMS(grad); the RMS reading sees a bias spread over most
+# elements, which a leaf's few largest grads would hide from the max reading.
+# On the H100 sound runs read at most 0.0114 / 0.0100; a K10 that leaves out
+# one KV tile of dQ reads 0.024 to 0.079 (both readings) on every leaf whose
+# grad passes through an attention backward (all but ln_f and lm_head).
+# One AdamW step from zero moments moves each element by lr * (g / (|g| +
+# eps) + wd * p): the two paths agree to TOL_TRAIN_UPDATE * lr wherever the
+# plain grad is farther from 0 than twice the leaf's largest grad error, and
+# may step the other way (up to 2 lr) where it is not
+TOL_TRAIN_GRAD = dict(max=2e-2, rms=2e-2)
+TOL_TRAIN_UPDATE = 5e-2
 
 
 def log(*a):
@@ -102,10 +133,12 @@ def main() -> int:
     from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
     from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
     from lit_llama_tpu_torch.serve import DecodeEngine
+    from lit_llama_tpu_torch.utils.device import device_peaks
     from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # ---- 1. set-up ---------------------------------------------------------
     smi = subprocess.run(
@@ -113,7 +146,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    bw, tc_peak, f32_peak = next((p[1:] for p in PEAKS if p[0] in kind), PEAKS[-1][1:])
+    bw, tc_peak, f32_peak = device_peaks(kind)
     log(f"peaks for {kind}: {bw / 1e12} TB/s, {tc_peak / 1e12} TF/s bf16, {f32_peak / 1e12} TF/s f32")
     t0 = time.perf_counter()
     took = _build.build()
@@ -647,6 +680,252 @@ def main() -> int:
         log(f"int8 request prompt {T} S={S_used} {kvd or 'bf16'} KV cache: prefill {prefill_s * 1e3:.1f} ms, "
             f"decode {tok_s:.1f} tok/s ({new} new tokens, launches K4 {got['K4']}, K5 {got['K5']}, K6 {got['K6']})")
 
+    del params8, lp8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"int8 model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+
+    from lit_llama_tpu_torch.ops import attention as attn_mod
+    from lit_llama_tpu_torch.training import loop as loop_lib
+    from lit_llama_tpu_torch.training import step as step_lib
+
+    def k10_err(got, want, what, tol=TOL_K10):
+        """Holds got to want by tol (TOL_K10's form). Returns max |got - want|,
+        max |want| and the row part this pair needed: the largest (|err| -
+        rel * |want|) / rowmax, which tol["row"] bounds."""
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"{what}: non-finite kernel output"
+        err, mag = (got - want).abs(), want.abs()
+        top = float(mag.max())
+        rowmax = mag.amax(-1, keepdim=True).clamp_min(tol["floor"] * top)
+        need = float(((err - tol["rel"] * mag).clamp_min(0) / rowmax).max())
+        assert need <= tol["row"], (f"{what}: row part {need:.3g} needed, {tol['row']} allowed; max err "
+                                    f"{float(err.max()):.3g}, max |plain| {top:.3g}")
+        return float(err.max()), top, need
+
+    # ---- 13. K10 vs plain, and the K4 + K10 Function end to end -------------------
+    cfgt = LLaMAConfig.from_name("7B", param_dtype="float32", compute_dtype="bfloat16")
+    H, hs = cfgt.n_head, cfgt.head_size
+    errs10 = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for B, Hh, T in ((1, H, 2048), (2, H, 200), (1, 4, 64), (1, 2, 65)):
+        q, k, v, do = (randn(B, Hh, T, hs) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v)
+        got = fa.flash_attention_backward(q, k, v, o, lse, do)
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        line = []
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+            err, top, need = k10_err(g, w, f"K10 {name} (B, H, T) = {(B, Hh, T)}")
+            assert torch.equal(g, a), f"K10 {name}: two runs differ (the kernels use no atomics)"
+            errs10[name] = max(errs10[name], err)
+            line.append(f"{name} max err {err:.3g} (max |plain| {top:.3g}, row part needed {need:.3g})")
+        log(f"K10 (B, H, T) = {(B, Hh, T)}: " + ", ".join(line) + "; a second run identical")
+        if T == 2048:
+            nrow = B * Hh * T
+            pairs = B * Hh * T * (T + 1) // 2  # causal (query, key) pairs
+            b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
+            b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+            dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+            ms_dq = time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do))
+            ms_dkv = time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd))
+            plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3)
+            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True))
+            ms_k4 = time_ms(lambda: fa.flash_attention(q, k, v))
+            log(f"K10 at (B, H, T, hs) = {(B, Hh, T, hs)}: dq {ms_dq * 1e3:.1f} us (bound {b_dq[0] * 1e3:.1f}, "
+                f"{b_dq[1]}), dkv {ms_dkv * 1e3:.1f} us (bound {b_dkv[0] * 1e3:.1f}, {b_dkv[1]}); plain version "
+                f"(dq, dk, dv) {plain10 * 1e3:.1f} us; SDPA causal backward (dq, dk, dv) {lib10 * 1e3:.1f} us; "
+                f"K4 forward at this shape {ms_k4 * 1e3:.1f} us")
+            shape = f"B={B} H={Hh} T={T} hs={hs}"
+            results["K10dq"] = dict(shape=shape, ms=ms_dq, plain_ms=plain10, library_ms=lib10,
+                                    bound_ms=b_dq[0], bound_by=b_dq[1])
+            results["K10dkv"] = dict(shape=shape, ms=ms_dkv, plain_ms=plain10, library_ms=lib10,
+                                     bound_ms=b_dkv[0], bound_by=b_dkv[1])
+            # the Function: K4 + K10 grads against autograd of the plain attention
+            mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            attn_mod.attention(*xs, mask, causal=True).backward(do)
+            refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            attn_mod.attention_ref(*refs, mask).backward(do)
+            fn_errs = [k10_err(x.grad, r.grad, f"Function grad of {n}", TOL_FUNCTION)
+                       for n, x, r in zip("qkv", xs, refs)]
+            log(f"K4 + K10 through the autograd Function vs autograd of attention_ref at {(B, Hh, T)}: "
+                + ", ".join(f"{n} max |dgrad| {e[0]:.3g} ({e[2]:.3g} of max |grad| beyond 2e-2 |grad|)"
+                            for n, e in zip("qkv", fn_errs)))
+            del qs, ks, vs, sdpa_out, xs, refs, dq, dd
+        del q, k, v, do, o, lse, got, want, again
+    results["K10dq"]["max_abs_err"] = errs10["dq"]
+    results["K10dkv"]["max_abs_err"] = max(errs10["dk"], errs10["dv"])
+
+    # ---- 14. 2 layers at full width, one training step: kernel path vs plain path --
+    c14 = cfgt.replace(n_layer=2)
+    p14 = llama.init_params(c14, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    init14 = {n: t.clone() for n, t in step_lib.tree_leaves(p14).items()}
+    toks14 = torch.randint(0, c14.vocab_size, (1, 1, 2049), generator=gcpu).to(dev)
+    ids14, tgt14 = toks14[..., :-1], toks14[..., 1:]
+    grads14, after14, losses14 = {}, {}, {}
+    for plain in (False, True):
+        leaves = step_lib.tree_leaves(p14)
+        for n, t in leaves.items():
+            t.data.copy_(init14[n])
+            t.requires_grad_(True)
+        for fn in counters.values():
+            fn.launches = 0
+        fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+        loss = step_lib.loss_fn(p14, ids14[0], tgt14[0], c14, remat=True, remat_policy="dots", plain=plain)
+        got = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        n_k4, n_dq, n_dkv = fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
+        want = (0, 0, 0) if plain else (2 * c14.n_layer, c14.n_layer, c14.n_layer)
+        assert (n_k4, n_dq, n_dkv) == want, f"2-layer grads, plain={plain}: K4/K10 launches {(n_k4, n_dq, n_dkv)}, expected {want}"
+        grads14[plain] = dict(zip(leaves, got))
+        losses14[plain] = float(loss.detach())
+        for t in leaves.values():
+            t.requires_grad_(False)
+        del loss, got
+    gerrs, gabs = {}, {}
+    for n, g in grads14[False].items():
+        w = grads14[True][n]
+        assert torch.isfinite(g).all(), f"2-layer grads: non-finite grad of {n}"
+        top = float(w.abs().max())
+        assert top > 0, f"2-layer grads: the plain path gives {n} no grad"
+        gabs[n] = float((g - w).abs().max())
+        gerrs[n] = (gabs[n] / top, float((g - w).norm() / w.norm()))
+        assert gerrs[n][0] <= TOL_TRAIN_GRAD["max"] and gerrs[n][1] <= TOL_TRAIN_GRAD["rms"], \
+            f"2-layer grads: {n} off by {gerrs[n][0]:.3g} of its max |grad|, {gerrs[n][1]:.3g} of its RMS"
+    assert abs(losses14[False] - losses14[True]) <= 1e-2 * abs(losses14[True]), f"2-layer loss {losses14}"
+    log(f"2-layer 7B-width training forward + backward (B=1, T=2048, remat dots), kernel vs plain path: loss "
+        f"{losses14[False]:.5f} vs {losses14[True]:.5f}; every leaf has a finite grad (c_attn included); "
+        f"per leaf max |dgrad| / max |grad| and RMS(dgrad) / RMS(grad): "
+        + ", ".join(f"{n} {a:.3g} / {b:.3g}" for n, (a, b) in gerrs.items()))
+    lr14 = 6e-4
+    for plain in (False, True):
+        for n, t in step_lib.tree_leaves(p14).items():
+            t.copy_(init14[n])
+        opt14 = step_lib.make_optimizer(step_lib.TrainConfig(learning_rate=lr14, warmup_iters=0, max_iters=10))
+        st14 = step_lib.init_train_state(p14, opt14)
+        st14, _ = step_lib.train_step(st14, ids14, tgt14, c14, opt14, True, "dots", plain)
+        after14[plain] = {n: t.clone() for n, t in step_lib.tree_leaves(st14.params).items()}
+        del st14, opt14
+    uerrs = {}
+    for n, w in after14[True].items():
+        diff = ((after14[False][n] - init14[n]) - (w - init14[n])).abs()
+        may_flip = grads14[True][n].abs() <= 2 * gabs[n]
+        bad = diff > lr14 * (TOL_TRAIN_UPDATE + 2 * may_flip)
+        assert not bad.any(), f"2-layer train_step: {int(bad.sum())} elements of {n} off, max {float(diff.max()):.3g}"
+        steady = diff[~may_flip]
+        uerrs[n] = (float(steady.max()) / lr14 if steady.numel() else 0.0, float(may_flip.float().mean()),
+                    float((diff > lr14).float().mean()))
+    log("2-layer train_step, kernel vs plain path: per leaf max |dupdate| / lr where the grad is clear of 0, "
+        "share of elements near 0, share that stepped the other way: "
+        + ", ".join(f"{n} {a:.3g} / {b:.3g} / {c:.3g}" for n, (a, b, c) in uerrs.items()))
+    del p14, init14, after14, grads14
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15. 8 layers at full width: pretraining through the library path --------
+    import tempfile
+
+    from lit_llama_tpu_torch.data.packed_dataset import PackedDatasetBuilder
+    from lit_llama_tpu_torch.pretrain.redpajama import create_dataloader
+    from lit_llama_tpu_torch.utils.checkpoint import load_checkpoint
+
+    c15 = cfgt.replace(n_layer=8)
+    L15, T15, mb15, acc15 = c15.n_layer, c15.block_size, 2, 2
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    builder = PackedDatasetBuilder(str(work / "data"), "cc", chunk_size=(T15 + 1) * 4, sep_token=0,
+                                   dtype="auto", vocab_size=c15.vocab_size)
+    (work / "data").mkdir()
+    block = np.random.default_rng(SEED).integers(1, c15.vocab_size, size=T15 + 1).astype(builder.dtype)
+    for _ in range(16):  # 4 chunks of 4 copies of one block: the model can memorize it
+        builder.add_array(block)
+    builder.write_reminder()
+    batches = create_dataloader(work / "data", T15 + 1, acc15, mb15, seed=1338)()
+    tc15 = step_lib.TrainConfig(learning_rate=6e-4, min_lr=6e-5, warmup_iters=1, max_iters=7)
+    opt15 = step_lib.make_optimizer(tc15)
+    st15 = step_lib.init_train_state(llama.init_params(c15, torch.Generator(device=dev).manual_seed(SEED),
+                                                       device=dev), opt15)
+    n_params = sum(t.numel() for t in step_lib.tree_leaves(st15.params).values())
+    recs = []
+    st15 = loop_lib.train(st15, batches, c15, opt15, loop_lib.LoopConfig(out_dir=work / "out", max_iters=1,
+                                                                         save_interval=0), log_fn=recs.append)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    t0 = time.perf_counter()
+    st15 = loop_lib.train(st15, batches, c15, opt15, loop_lib.LoopConfig(out_dir=work / "out", max_iters=7,
+                                                                         save_interval=0), log_fn=recs.append)
+    torch.cuda.synchronize()
+    wall15 = time.perf_counter() - t0
+    peak15 = torch.cuda.max_memory_allocated()
+    n_steps = len(recs)
+    got = {k: fn.launches for k, fn in counters.items()}
+    got.update({"K10dq": fa.flash_backward_dq.launches, "K10dkv": fa.flash_backward_dkv.launches})
+    want = dict.fromkeys(counters, 0)
+    want.update({"K4": 2 * L15 * acc15 * n_steps, "K10dq": L15 * acc15 * n_steps, "K10dkv": L15 * acc15 * n_steps})
+    assert n_steps == 6 and st15.step == 7, f"pretraining ran {n_steps} steps to step {st15.step}, expected 6 to 7"
+    assert got == want, f"pretraining: launches {got}, expected {want}"
+    losses = [r["loss"] for r in recs]
+    assert all(np.isfinite(losses)), f"pretraining: losses {losses}"
+    assert losses[-1] < losses[0], f"pretraining: the loss did not fall: {losses}"
+    flops_tok, n_mfu = step_lib.flops_per_token(c15)
+    tokens15 = acc15 * mb15 * T15
+    step_s = sorted(r["dt_ms"] for r in recs)[n_steps // 2] / 1e3
+    mfu = flops_tok * tokens15 / step_s / tc_peak
+    training = dict(n_layer=L15, n_embd=c15.n_embd, T=T15, micro_batch=mb15, accum=acc15, params=n_params,
+                    steps=n_steps, losses=losses, step_ms=step_s * 1e3, wall_ms_per_step=wall15 / n_steps * 1e3,
+                    tokens_per_s=tokens15 / step_s, mfu=mfu, peak_gib=peak15 / 2**30, launches=got)
+    log(f"pretraining, 7B width, {L15} layers ({n_params / 1e9:.3f} B params, f32 weights + f32 Adam moments), "
+        f"T={T15}, micro-batch {mb15} x {acc15} accumulation, remat dots: 6 steps after 1 warm-up, losses "
+        f"{losses}; median step {step_s * 1e3:.1f} ms (host clock, ends in the loss's copy to the host; "
+        f"{wall15 / n_steps * 1e3:.1f} ms/step over the whole run), {tokens15 / step_s:.0f} tokens/s, "
+        f"MFU {100 * mfu:.1f} % = (6 N + 6 L T D) * tokens / step time / {tc_peak / 1e12:.0f} TF/s with "
+        f"N = {n_mfu / 1e9:.3f} B (non-embedding + lm_head), recompute not counted; peak memory "
+        f"{peak15 / 2**30:.2f} GiB (max_memory_allocated); launches {got}")
+    totals["K4"] += got["K4"]
+    totals["K10dq"], totals["K10dkv"] = got["K10dq"], got["K10dkv"]
+    del st15, opt15, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 16. the entry point: save, then resume, in a subprocess ----------------
+    data16 = work / "data16"
+    data16.mkdir()
+    b16 = PackedDatasetBuilder(str(data16), "cc", chunk_size=257 * 4, sep_token=0, dtype="auto", vocab_size=512)
+    for _ in range(20):
+        b16.add_array(np.random.default_rng(SEED + 1).integers(1, 512, size=257).astype(b16.dtype))
+    b16.write_reminder()
+    cmd = [sys.executable, "-m", "lit_llama_tpu_torch.pretrain.redpajama", "--train_data_dir", str(data16),
+           "--n_layer", "2", "--n_embd", "256", "--n_head", "2", "--block_size", "256", "--vocab_size", "512",
+           "--batch_size", "2", "--micro_batch_size", "1", "--max_iters", "3", "--save_interval", "2",
+           "--warmup_iters", "1"]
+    t0 = time.perf_counter()
+    for out, extra in (("run", []), ("resumed", ["--resume", str(work / "run" / "iter-000002")])):
+        proc = subprocess.run(cmd + ["--out_dir", str(work / out)] + extra, cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, f"pretrain.redpajama ({out}) exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    recs16 = {out: [json.loads(x) for x in (work / out / "metrics.jsonl").read_text().splitlines()]
+              for out in ("run", "resumed")}
+    assert [r["iter"] for r in recs16["run"]] == [0, 1, 2], recs16["run"]
+    assert [r["iter"] for r in recs16["resumed"]] == [2], recs16["resumed"]
+    assert all(np.isfinite(r["loss"]) for rs in recs16.values() for r in rs)
+    for out in ("run", "resumed"):
+        final = load_checkpoint(work / out / "final")
+        assert "wte" in final["params"] and "count" in final["opt_state"], sorted(final)
+        assert int(final["step"]) == 3, f"{out}: final step {int(final['step'])}"
+    assert int(load_checkpoint(work / "run" / "iter-000002")["step"]) == 2
+    log(f"pretrain.redpajama entry point (2 layers, n_embd 256, T 256): 3 steps saving iter-000002 and final, "
+        f"then --resume iter-000002 to step 3: metrics {recs16}, final step 3 in both; "
+        f"{time.perf_counter() - t0:.1f} s for the two processes")
+    import shutil
+
+    shutil.rmtree(work)
+
     kernels = []
     sources = {
         "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
@@ -660,16 +939,20 @@ def main() -> int:
         "K8": ("decode_attention_write_pipelined", "lit_llama_tpu/ops/decode_attention.py:473"),
         "K8b": ("decode_attention_write_pallas", "lit_llama_tpu/ops/decode_attention.py:226"),
         "K9": ("block_tail_fused", "lit_llama_tpu/ops/fused_layer.py:981"),
+        "K10dq": ("flash_backward_dq (flash-attention backward, dQ)", "lit_llama_tpu/ops/flash_attention.py:182"),
+        "K10dkv": ("flash_backward_dkv (flash-attention backward, dK and dV)",
+                   "lit_llama_tpu/ops/flash_attention.py:216"),
     }
     files = {"K1": "fused_layer.cu", "K2": "fused_layer.cu", "K3": "quant_matmul.cu", "K4": "flash_attention.cu",
              "K5": "decode_attention.cu", "K5q": "decode_attention.cu", "K6": "quant_matmul_int8.cu",
              "K7": "serve_layer.cu", "K8": "decode_attention.cu", "K8b": "decode_attention.cu",
-             "K9": "serve_layer.cu"}
+             "K9": "serve_layer.cu", "K10dq": "flash_attention.cu", "K10dkv": "flash_attention.cu"}
+    labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     for key in sources:
         r = results[key]
         kernels.append({
-            "name": f"{key} {sources[key][0]}", "route": "cuda",
+            "name": f"{labels.get(key, key)} {sources[key][0]}", "route": "cuda",
             "source": f"lit_llama_tpu_torch/csrc/{files[key]}", "replaces": sources[key][1],
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -677,7 +960,8 @@ def main() -> int:
         })
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_int8": full8,
-                      "k6_shapes": k6_shapes, "k5_shapes": k5_shapes}))
+                      "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training}))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,2 @@
+"""Data (counterpart of lit_llama_tpu/data/): the LITPKDS packed token
+dataset."""

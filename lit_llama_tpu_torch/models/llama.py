@@ -19,11 +19,13 @@ scale per (batch row, head, position), and K5 reads it as it is.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from lit_llama_tpu_torch.models.config import LLaMAConfig
 from lit_llama_tpu_torch.ops import fused_layer
@@ -107,15 +109,23 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale
 
 
-def _layer(h: Params, l: int) -> Params:
-    return {k: (_layer(v, l) if isinstance(v, dict) else v[l]) for k, v in h.items()}
-
-
 def _layers(params: Params) -> List[Params]:
+    """Per-layer trees: the list as it is, or views of the stacked (L, ...)
+    leaves. The views come from ``unbind``, whose backward stacks a leaf's L
+    grads in one pass; indexing each layer would give L zero-padded grads of
+    the whole stacked leaf to add up."""
     h = params["h"]
     if isinstance(h, (list, tuple)):
         return list(h)
-    return [_layer(h, l) for l in range(h["rms_1"].shape[0])]
+
+    def split(node):
+        return {k: split(v) for k, v in node.items()} if isinstance(node, dict) else node.unbind(0)
+
+    def pick(node, l):
+        return {k: pick(v, l) for k, v in node.items()} if isinstance(node, dict) else node[l]
+
+    views = split(h)
+    return [pick(views, l) for l in range(h["rms_1"].shape[0])]
 
 
 def _mlp(mlp: Params, x: torch.Tensor, plain: bool) -> torch.Tensor:
@@ -190,6 +200,24 @@ def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, a
     return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of the plain matrix products (the block's five
+    linears, ``aten.mm``) and recompute the rest, attention included: the
+    counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    (the attention's products have batch dims; on the card it is K4)."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    """``context_fn`` of ``checkpoint`` for a remat policy: "dots" saves the
+    matmul outputs, "full" only the block input."""
+    if policy == "full":
+        return None
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    raise ValueError(f"unknown remat policy {policy!r} (use 'dots' or 'full')")
+
+
 def _block_slot_fused(lp: Params, x2d, cos, sin, config: LLaMAConfig, kv, slot_pos, plain: bool):
     """Batched serving block as three entries: block head (K7: rms_1, QKV,
     RoPE), cache write + attention (K8), block tail (K9). ``plain`` runs their
@@ -219,6 +247,8 @@ def forward(
     kv_cache: Optional[KVCache] = None,
     prefill_from_zero: bool = False,
     plain: bool = False,
+    remat: bool = False,
+    remat_policy: str = "dots",
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model over (B, T) tokens; returns (logits (B, T, V), cache).
 
@@ -248,6 +278,13 @@ def forward(
 
     ``plain`` runs every kernel's plain version (the reference path the chip
     check holds the kernels against).
+
+    ``remat`` (no cache only, the training path) runs each block under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+    in the backward, all but the matmul outputs with ``remat_policy="dots"``,
+    all but the block input with ``"full"``. The stacked (L, ...) tree stays
+    the training layout: the layers are views of it, so the grads land on the
+    stacked leaves.
     """
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
@@ -309,9 +346,17 @@ def forward(
     else:
         raise ValueError("a forward with kv_cache needs prefill_from_zero, input_pos or slot_pos")
 
-    caches = kv_cache if kv_cache is not None else [None] * len(layers)
-    for lp, kv in zip(layers, caches):
-        x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit)
+    if remat and kv_cache is None:
+        context = _remat_context(remat_policy)
+        kwargs = {} if context is None else {"context_fn": context}
+        for lp in layers:
+            x = checkpoint(functools.partial(_block, lp, rope=rope, mask=mask, config=config, kv=None,
+                                             causal=True, plain=plain),
+                           x, use_reentrant=False, preserve_rng_state=False, **kwargs)
+    else:
+        caches = kv_cache if kv_cache is not None else [None] * len(layers)
+        for lp, kv in zip(layers, caches):
+            x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit)
     x = rms_norm(x, params["ln_f"])
     return linear(params["lm_head"], x, plain=plain), kv_cache
 

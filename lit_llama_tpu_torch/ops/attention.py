@@ -2,8 +2,9 @@
 
 ``attention_ref`` is the counterpart of ``attention_xla``: scores and the
 softmax in float32, probabilities rounded to the input dtype for the PV
-product. ``attention`` sends causal self-attention over T > 1 positions to
-the flash forward (K4 on the card), everything else to ``attention_ref``.
+product. ``attention`` sends causal self-attention over T > 1 positions
+through ``FlashAttention`` (K4 forward and K10 backward on the card),
+everything else to ``attention_ref``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-from lit_llama_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from lit_llama_tpu_torch.ops.flash_attention import FlashAttention
 
 
 def attention_ref(q, k, v, mask):
@@ -26,9 +27,8 @@ def attention_ref(q, k, v, mask):
 
 def attention(q, k, v, mask, *, causal: bool = False, plain: bool = False):
     """Dispatching attention. ``causal=True`` promises mask == tril over
-    T == S. ``plain`` keeps the flash path on its plain version."""
+    T == S. ``plain`` keeps the flash path on its plain versions."""
     T, S = q.shape[-2], k.shape[-2]
     if causal and T == S and T > 1:
-        fn = flash_attention_ref if plain else flash_attention
-        return fn(q.contiguous(), k.contiguous(), v.contiguous())[0]
+        return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), plain)
     return attention_ref(q, k, v, mask)

@@ -2,7 +2,9 @@
 
 ``params_from_numpy`` takes the tree as ``jax.tree_util.tree_map(np.asarray,
 params)`` gives it (numpy leaves; bf16 leaves are ``ml_dtypes.bfloat16``) and
-returns the same keys and layout with torch tensors on ``device``. The
+returns the same keys and layout with torch tensors on ``device``;
+``params_to_numpy`` goes the other way, bf16 leaves as their uint16 bit
+patterns (``.view(ml_dtypes.bfloat16)`` on the JAX side gives the values). The
 kernels' relayout of the TPU toolchain (``qscale_b``/``qzero_b`` from
 ``blocked_scales``) is dropped. ``cache_from_numpy`` does the same for a
 per-layer KV cache. Nothing here imports JAX.
@@ -63,3 +65,17 @@ def cache_from_numpy(layers, device=None):
                                  f"(int8 beside f32 ks/vs, else float), got {t.dtype} {tuple(t.shape)}")
         out.append(entry)
     return out
+
+
+def params_to_numpy(tree):
+    """Tensors (on any device) -> numpy arrays, keeping dicts, lists and
+    tuples. A bf16 tensor becomes its uint16 bit pattern: numpy has no bf16,
+    and the bits carry the value exactly."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
