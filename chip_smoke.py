@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels of lit_llama_tpu_torch (K1-K4 of int4
-single-stream generation, K7, K8/K8b and K9 of the batched serving step, K5
-and K6 of the per-op int8 decode path, K4 and K10 of training) with nvcc, holds each against its plain
+single-stream generation, K7, K8/K8b and K9 of the batched serving step, K1's
+and K7's LoRA operand, K5 and K6 of the per-op int8 decode path, K4 and K10 of
+training, the probes P1-P5) with nvcc, holds each against its plain
 PyTorch version at 7B shapes and times both, checks the kernel path of a
-2-layer full-width model against the plain path (fused step, serving step and
-per-op step with the bf16 and the int8 KV cache), then drives the main paths
-on full 32-layer 7B models (random weights from a seed): on int4 weights a few
-greedy single-stream requests through ``generate`` and 64 requests through a
-32-slot ``DecodeEngine``; then, the int4 model freed, three greedy requests
-through ``generate`` on int8 weights, which decodes per op (short context,
-S = 2048, and S = 2048 on the int8 KV cache). Then the training path: K10 (the
+2-layer full-width model against the plain path (fused step and serving step,
+without and with LoRA; per-op step with the bf16 and the int8 KV cache), then
+drives the main paths on full 32-layer 7B models (random weights from a
+seed): on int4 weights a few greedy single-stream requests through
+``generate`` and 64 requests through a 32-slot ``DecodeEngine``, then the
+same model with a seeded LoRA overlay (r = 8, q and v) through both, beside
+the same requests without it; the probe tool's cases; the two generation
+entry points (``generate.base``, ``generate.lora``) in subprocesses on a
+2-layer 7B-width lit-llama ``.pth`` with a reference-format LoRA ``.pth``,
+whose greedy tokens must equal the in-process ``generate``'s; then, the int4
+model freed, three greedy requests through ``generate`` on int8 weights,
+which decodes per op (short context, S = 2048, and S = 2048 on the int8 KV
+cache). Then the training path: K10 (the
 flash-attention backward) against its plain version, a 2-layer full-width
 training step kernel path against plain path, 7 steps of 8-layer full-width
 pretraining at T = 2048 through ``training.loop.train`` on LITPKDS chunks, and
@@ -50,6 +57,10 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
     # plain versions, in another order: the bf16 outputs differ by an ulp or two
     "K7": (2e-2, 2e-2),
     "K9": (2e-2, 2e-2),
+    # K1 and K7 with the LoRA operand: the same rounding points, the update
+    # summed in f32 in another order
+    "K1 LoRA": (2e-2, 2e-2),
+    "K7 LoRA": (2e-2, 2e-2),
     "K8": (2e-2, 2e-2),  # y; the caches must be identical
     # K6 rounds the same f32 sum times the scale as its plain version, summed in
     # another order: an ulp of an O(10) value
@@ -124,7 +135,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
     from lit_llama_tpu_torch.models import generate as gen
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.ops import _build, fused_layer, quant_matmul
@@ -133,8 +144,9 @@ def main() -> int:
     from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
     from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
     from lit_llama_tpu_torch.serve import DecodeEngine
+    from lit_llama_tpu_torch.tools import probe_kernels
     from lit_llama_tpu_torch.utils.device import device_peaks
-    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params, random_lora_overlay
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -207,7 +219,8 @@ def main() -> int:
     counters = {"K1": fused_layer.decode_layers_fused, "K2": fused_layer.lm_head_fused,
                 "K3": quant_matmul.matmul_int4, "K4": fa.flash_attention, "K5": da.decode_attention,
                 "K6": quant_matmul.matmul_int8, "K7": fused_layer.block_head_fused,
-                "K8": da.decode_attention_write, "K9": fused_layer.block_tail_fused}
+                "K8": da.decode_attention_write, "K9": fused_layer.block_tail_fused,
+                "K1 LoRA": fused_layer.k1_lora, "K7 LoRA": fused_layer.k7_lora}
 
     gcpu = torch.Generator().manual_seed(SEED)
 
@@ -230,6 +243,23 @@ def main() -> int:
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         lp0 = params["h"][0]
         results = {}
+        # the same model with a seeded LoRA overlay (r = 8, alpha 16, q and v; B
+        # drawn, not zero): each c_attn gains the folded operand as
+        # prepare_fused_params folds it into an overlaid layer once its q/k
+        # columns are permuted, and shares every other tensor with `params`
+        lcfg = cfg.replace(lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0))
+        overlay = random_lora_overlay(cfg7.replace(lora=lcfg.lora), seed=SEED + 2, device=dev)["h"]["attn"]["c_attn"]
+        params_l = dict(params, h=[
+            {**lp, "attn": {**lp["attn"], "c_attn": fused_layer.prepare_lora_operands(
+                {**lp["attn"]["c_attn"], "lora_a": overlay["lora_a"][j], "lora_b": overlay["lora_b"][j]},
+                lcfg.lora, D, hs)}}
+            for j, lp in enumerate(params["h"])])
+        del overlay
+        lp0l = params_l["h"][0]
+        R8 = lp0l["attn"]["c_attn"]["lora_af"].shape[1]
+        lora_bytes, lora_ops = D * R8 * 2 + R8 * 3 * D * 2, 2 * (D * R8 + R8 * 3 * D)
+        log(f"LoRA overlay on the 7B int4 model: r = 8 on q and v, R8 = {R8} operand columns, "
+            f"{lora_bytes / 2**20:.2f} MiB a block")
 
         def q4_bytes(K, N, g=gs):
             return K // 2 * N + 2 * (K // g) * N * 4
@@ -307,7 +337,39 @@ def main() -> int:
                           library_ms=None)
                 k1["bound_ms"], k1["bound_by"] = bound_ms(nbytes, ops, f32_peak)
         results["K1"] = dict(k1, max_abs_err=max(errs))
-        del kc0, vc0, kv, rkv
+
+        # ---- 4b. K1 with the LoRA operand vs plain: the same block, S = 2048 -------
+        errs = []
+        for pos in (0, 1000, 2047, 2053):
+            x = randn(1, D)
+            cos, sin = rope_half_row(rope, min(pos, cfg.block_size - 1), hs)
+            kv, rkv, bkv = ({"k": kc0.clone(), "v": vc0.clone()} for _ in range(3))
+            out, _ = fused_layer.decode_layers_fused(x, [lp0l], [kv], cos, sin, pos % S, pos, lcfg)
+            ref, _ = fused_layer.decode_layers_fused_ref(x, [lp0l], [rkv], cos, sin, pos % S, pos, lcfg)
+            errs.append(max_err(out, ref, "K1 LoRA"))
+            max_err(kv["k"], rkv["k"], "K1 cache")
+            max_err(kv["v"], rkv["v"], "K1 cache")
+            # the update is live: the v row written (v has one) moves far beyond the cache tolerance
+            fused_layer.decode_layers_fused(x, [lp0], [bkv], cos, sin, pos % S, pos, cfg)
+            moved = float((bkv["v"][0, :, pos % S] - kv["v"][0, :, pos % S]).float().abs().max())
+            assert moved > 10 * TOL["K1 cache"][0], f"K1 LoRA pos={pos}: the operand moves v by {moved:.3g} only"
+            if pos == 2047:
+                visible = min(pos, S - 1) + 1
+                nbytes = layer_bytes + lora_bytes + 2 * H * visible * hs * 2
+                ops = layer_ops + lora_ops + 4 * H * visible * hs
+                with_op = lambda: fused_layer.decode_layers_fused(x, [lp0l], [kv], cos, sin, pos % S, pos, lcfg)
+                without = lambda: fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg)
+                ms_w = [time_ms(with_op), time_ms(without), time_ms(without), time_ms(with_op)]
+                k1l = dict(shape=f"one 7B block, S={S}, pos={pos}, R8={R8}", ms=(ms_w[0] + ms_w[3]) / 2,
+                           ms_without_operand=(ms_w[1] + ms_w[2]) / 2, library_ms=None,
+                           plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(
+                               x, [lp0l], [rkv], cos, sin, pos % S, pos, lcfg), 3))
+                k1l["bound_ms"], k1l["bound_by"] = bound_ms(nbytes, ops, f32_peak)
+                log(f"K1 with the LoRA operand, S={S} pos={pos}: {ms_w[0] * 1e3:.1f} / {ms_w[3] * 1e3:.1f} us, "
+                    f"without {ms_w[1] * 1e3:.1f} / {ms_w[2] * 1e3:.1f} us (timed with, without, without, with); "
+                    f"bound {k1l['bound_ms'] * 1e3:.1f} us with it, {bound_ms(nbytes - lora_bytes, ops - lora_ops, f32_peak)[0] * 1e3:.1f} without")
+        results["K1 LoRA"] = dict(k1l, max_abs_err=max(errs))
+        del kc0, vc0, kv, rkv, bkv
 
         # ---- 5. K2 vs plain -------------------------------------------------------
         x = randn(1, D)
@@ -360,6 +422,29 @@ def main() -> int:
         results["K9"] = dict(k9, max_abs_err=max(errs9))
         del odd_params
 
+        # ---- 5b'. K7 with the LoRA operand vs plain, B = 1, 8, 32, 64 -------------
+        errs7l = []
+        for B in (1, 8, 32, 64):
+            ha, _ = halves_args(lp0l, lcfg, B)
+            errs7l.append(max_err(fused_layer.block_head_fused(*ha), fused_layer.block_head_fused_ref(*ha), "K7 LoRA"))
+            bare = fused_layer.block_head_fused_ref(*ha[:4], lp0["attn"]["c_attn"], cfg)
+            moved = float((bare.float() - fused_layer.block_head_fused_ref(*ha).float()).abs().max())
+            assert moved > 10 * TOL["K7 LoRA"][0], f"K7 LoRA B={B}: the operand moves the output by {moved:.3g} only"
+            if B == 32:
+                hb = ha[:4] + (lp0["attn"]["c_attn"], cfg)
+                ms_w = [time_ms(lambda: fused_layer.block_head_fused(*ha)), time_ms(lambda: fused_layer.block_head_fused(*hb)),
+                        time_ms(lambda: fused_layer.block_head_fused(*hb)), time_ms(lambda: fused_layer.block_head_fused(*ha))]
+                b7l = bound_ms(B * D * 2 + D * 2 + q4_bytes(D, 3 * D) + lora_bytes + 2 * B * hs * 4 + B * 3 * D * 2,
+                               2 * B * D * 3 * D + B * lora_ops, tc_peak)
+                k7l = dict(shape=f"B={B} D={D} -> 3D (c_attn), R8={R8}", ms=(ms_w[0] + ms_w[3]) / 2,
+                           ms_without_operand=(ms_w[1] + ms_w[2]) / 2, library_ms=None,
+                           plain_ms=time_ms(lambda: fused_layer.block_head_fused_ref(*ha), 3),
+                           bound_ms=b7l[0], bound_by=b7l[1])
+                log(f"K7 with the LoRA operand, B={B}: {ms_w[0] * 1e3:.1f} / {ms_w[3] * 1e3:.1f} us, without "
+                    f"{ms_w[1] * 1e3:.1f} / {ms_w[2] * 1e3:.1f} us (with, without, without, with); bound "
+                    f"{b7l[0] * 1e3:.1f} us ({b7l[1]})")
+        results["K7 LoRA"] = dict(k7l, max_abs_err=max(errs7l))
+
         # ---- 5c. K8 vs plain through both entries: cache write + attention -------
         entries = {"K8": da.decode_attention_write_pipelined, "K8b": da.decode_attention_write_pallas}
         errs8 = dict.fromkeys(entries, 0.0)
@@ -402,55 +487,56 @@ def main() -> int:
         for key in entries:
             results[key]["max_abs_err"] = errs8[key]
 
-        # ---- 6. full width, depth cut to 2 blocks: kernel path vs plain path ------
-        p2 = dict(params, h=params["h"][:2])
-        c2 = cfg.replace(n_layer=2)
-        prompt = torch.randint(0, cfg.vocab_size, (1, 37), generator=gcpu).to(dev)
-        caches = {plain: llama.init_kv_cache(c2, 1, 64, device=dev) for plain in (False, True)}
-        logits = {plain: llama.forward(p2, prompt, c2, rope_cache=rope, kv_cache=caches[plain],
-                                       prefill_from_zero=True, plain=plain)[0] for plain in (False, True)}
+        for tag, pp, cc in (("", params, cfg), (" with LoRA", params_l, lcfg)):
+            # ---- 6. full width, depth cut to 2 blocks: kernel path vs plain path ------
+            p2 = dict(pp, h=pp["h"][:2])
+            c2 = cc.replace(n_layer=2)
+            prompt = torch.randint(0, cfg.vocab_size, (1, 37), generator=gcpu).to(dev)
+            caches = {plain: llama.init_kv_cache(c2, 1, 64, device=dev) for plain in (False, True)}
+            logits = {plain: llama.forward(p2, prompt, c2, rope_cache=rope, kv_cache=caches[plain],
+                                           prefill_from_zero=True, plain=plain)[0] for plain in (False, True)}
 
-        errs = [model_err(logits[False], logits[True], "2-layer prefill")]
-        tok = logits[False][0, -1:].float().argmax(-1)
-        for step in range(8):
-            pos = prompt.shape[1] + step
-            cos, sin = rope_half_row(rope, pos, hs)
-            step_logits = {}
-            for plain in (False, True):
-                layer = fused_layer.decode_layers_fused_ref if plain else fused_layer.decode_layers_fused
-                head = fused_layer.lm_head_fused_ref if plain else fused_layer.lm_head_fused
-                x = params["wte"][tok].to(torch.bfloat16)
-                for lp, kv in zip(p2["h"], caches[plain]):
-                    x, _ = layer(x, [lp], [kv], cos, sin, pos % 64, pos, c2)
-                step_logits[plain] = head(x, params["ln_f"], params["lm_head"], c2)
-            errs.append(model_err(step_logits[False], step_logits[True], f"2-layer decode step {step}"))
-            tok = step_logits[False].float().argmax(-1)
-        log(f"2-layer 7B-width model, kernel vs plain path: prefill max |dlogit| {errs[0]:.4g}, "
-            f"8 decode steps max {max(errs[1:]):.4g}")
-        del caches, logits
+            errs = [model_err(logits[False], logits[True], f"2-layer{tag} prefill")]
+            tok = logits[False][0, -1:].float().argmax(-1)
+            for step in range(8):
+                pos = prompt.shape[1] + step
+                cos, sin = rope_half_row(rope, pos, hs)
+                step_logits = {}
+                for plain in (False, True):
+                    layer = fused_layer.decode_layers_fused_ref if plain else fused_layer.decode_layers_fused
+                    head = fused_layer.lm_head_fused_ref if plain else fused_layer.lm_head_fused
+                    x = params["wte"][tok].to(torch.bfloat16)
+                    for lp, kv in zip(p2["h"], caches[plain]):
+                        x, _ = layer(x, [lp], [kv], cos, sin, pos % 64, pos, c2)
+                    step_logits[plain] = head(x, params["ln_f"], params["lm_head"], c2)
+                errs.append(model_err(step_logits[False], step_logits[True], f"2-layer{tag} decode step {step}"))
+                tok = step_logits[False].float().argmax(-1)
+            log(f"2-layer 7B-width model{tag}, kernel vs plain path: prefill max |dlogit| {errs[0]:.4g}, "
+                f"8 decode steps max {max(errs[1:]):.4g}")
+            del caches, logits
 
-        # ---- 6b. the same 2 blocks, serving step: 3 slots at their own positions ----
-        S6, lens6 = 64, (10, 37, 60)  # the third slot passes S during the 8 steps: its ring wraps
-        caches = {plain: llama.init_kv_cache(c2, 3, S6, device=dev) for plain in (False, True)}
-        first = []
-        for b, n in enumerate(lens6):
-            p6 = torch.randint(0, cfg.vocab_size, (1, n), generator=gcpu).to(dev)
-            for plain in (False, True):
-                view = [{name: t[b : b + 1] for name, t in kv.items()} for kv in caches[plain]]
-                lg = llama.forward(p2, p6, c2, rope_cache=rope, kv_cache=view, prefill_from_zero=True, plain=plain)[0]
-                if not plain:
-                    first.append(lg[0, -1].float().argmax())
-        tok6 = torch.stack(first)
-        pos6 = torch.tensor(lens6, dtype=torch.int32, device=dev)
-        errs = []
-        for step in range(8):
-            lg = {plain: llama.forward(p2, tok6[:, None], c2, rope_cache=rope, slot_pos=pos6,
-                                       kv_cache=caches[plain], plain=plain)[0][:, -1] for plain in (False, True)}
-            errs.append(model_err(lg[False], lg[True], f"2-layer serving step {step}"))
-            tok6, pos6 = lg[False].float().argmax(-1), pos6 + 1
-        log(f"2-layer 7B-width serving step (K7, K8, K9, K3), kernel vs plain path, slots at {lens6} "
-            f"of S={S6}: 8 steps max |dlogit| {max(errs):.4g}")
-        del caches, lg
+            # ---- 6b. the same 2 blocks, serving step: 3 slots at their own positions ----
+            S6, lens6 = 64, (10, 37, 60)  # the third slot passes S during the 8 steps: its ring wraps
+            caches = {plain: llama.init_kv_cache(c2, 3, S6, device=dev) for plain in (False, True)}
+            first = []
+            for b, n in enumerate(lens6):
+                p6 = torch.randint(0, cfg.vocab_size, (1, n), generator=gcpu).to(dev)
+                for plain in (False, True):
+                    view = [{name: t[b : b + 1] for name, t in kv.items()} for kv in caches[plain]]
+                    lg = llama.forward(p2, p6, c2, rope_cache=rope, kv_cache=view, prefill_from_zero=True, plain=plain)[0]
+                    if not plain:
+                        first.append(lg[0, -1].float().argmax())
+            tok6 = torch.stack(first)
+            pos6 = torch.tensor(lens6, dtype=torch.int32, device=dev)
+            errs = []
+            for step in range(8):
+                lg = {plain: llama.forward(p2, tok6[:, None], c2, rope_cache=rope, slot_pos=pos6,
+                                           kv_cache=caches[plain], plain=plain)[0][:, -1] for plain in (False, True)}
+                errs.append(model_err(lg[False], lg[True], f"2-layer{tag} serving step {step}"))
+                tok6, pos6 = lg[False].float().argmax(-1), pos6 + 1
+            log(f"2-layer 7B-width serving step{tag} (K7, K8, K9, K3), kernel vs plain path, slots at {lens6} "
+                f"of S={S6}: 8 steps max |dlogit| {max(errs):.4g}")
+            del caches, lg
 
         # ---- 7. the full model: a few greedy requests ------------------------------
         full = {}
@@ -478,8 +564,8 @@ def main() -> int:
             out = gen.generate(params, prompt, new, config=cfg, max_seq_length=s, temperature=0.0)
             got = {k: fn.launches for k, fn in counters.items()}
             prefill_s, total_s = wall_s(params, cfg, prompt, 1, s), wall_s(params, cfg, prompt, new, s)
-            want = {"K1": cfg.n_layer * (new - 1), "K2": new - 1, "K3": 4 * cfg.n_layer + 1, "K4": cfg.n_layer,
-                    "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
+            want = dict.fromkeys(counters, 0)
+            want.update({"K1": cfg.n_layer * (new - 1), "K2": new - 1, "K3": 4 * cfg.n_layer + 1, "K4": cfg.n_layer})
             assert got == want, f"request T={T} S={s}: launches {got}, expected {want}"
             assert out.shape == (T + new,) and int(out.min()) >= 0 and int(out.max()) < V, "bad tokens"
             for k in totals:
@@ -490,8 +576,41 @@ def main() -> int:
             log(f"request prompt {T} S={S_used}: prefill {prefill_s * 1e3:.1f} ms, "
                 f"decode {tok_s:.1f} tok/s ({new} new tokens, launches {got})")
 
-        # ---- 8. the serving path: 64 requests through a 32-slot engine ---------------
+        # ---- 7b. the same model with the LoRA overlay: greedy requests beside the same
+        # requests without it (timed without, with, with, without) ----------------------
         L = cfg.n_layer
+        full_lora = {}
+        gen.generate(params_l, ref_prompt, 4, config=lcfg, temperature=0.0)  # warm-up, not counted
+        for T, s in ((8, None), (128, 2048)):
+            prompt = torch.randint(0, cfg.vocab_size, (T,), generator=gcpu)
+            for fn in counters.values():
+                fn.launches = 0
+            out = gen.generate(params_l, prompt, new, config=lcfg, max_seq_length=s, temperature=0.0)
+            got = {k: fn.launches for k, fn in counters.items()}
+            want = dict.fromkeys(counters, 0)
+            want.update({"K1": L * (new - 1), "K1 LoRA": L * (new - 1), "K2": new - 1, "K3": 4 * L + 1, "K4": L})
+            assert got == want, f"LoRA request T={T} S={s}: launches {got}, expected {want}"
+            assert out.shape == (T + new,) and int(out.min()) >= 0 and int(out.max()) < V, "bad tokens"
+            base_out = gen.generate(params, prompt, new, config=cfg, max_seq_length=s, temperature=0.0)
+            differ = int((out != base_out).sum())
+            for k in totals:
+                totals[k] += got[k]
+            tok_s, pre_ms = {}, {}
+            for p_, c_ in ((params, cfg), (params_l, lcfg), (params_l, lcfg), (params, cfg)):
+                prefill_s, total_s = wall_s(p_, c_, prompt, 1, s), wall_s(p_, c_, prompt, new, s)
+                tok_s.setdefault("lora" if c_.lora else "base", []).append((new - 1) / (total_s - prefill_s))
+                pre_ms.setdefault("lora" if c_.lora else "base", []).append(prefill_s * 1e3)
+            S_used = gen.plan_seq_length(lcfg, T + new, s)
+            full_lora[f"T={T},S={S_used}"] = dict(decode_tok_s=tok_s["lora"], decode_tok_s_without=tok_s["base"],
+                                                   prefill_ms=pre_ms["lora"], prefill_ms_without=pre_ms["base"],
+                                                   tokens_differing_from_base=differ)
+            log(f"LoRA request prompt {T} S={S_used}: decode {tok_s['lora'][0]:.1f} / {tok_s['lora'][1]:.1f} tok/s, "
+                f"without LoRA {tok_s['base'][0]:.1f} / {tok_s['base'][1]:.1f} tok/s; prefill "
+                f"{pre_ms['lora'][0]:.1f} / {pre_ms['lora'][1]:.1f} ms, without {pre_ms['base'][0]:.1f} / "
+                f"{pre_ms['base'][1]:.1f} ms (timed without, with, with, without); {differ} of {T + new} tokens "
+                f"differ from the model without it; launches {got}")
+
+        # ---- 8. the serving path: 64 requests through a 32-slot engine ---------------
         n_req, new_e, slots, S_e = 64, 32, 32, 256
         rng = np.random.default_rng(SEED)
         lens = np.exp(rng.uniform(np.log(8), np.log(max(9, S_e // 2)), n_req)).astype(int)  # log-uniform in [8, 128]
@@ -508,8 +627,9 @@ def main() -> int:
         wall = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in counters.items()}
         steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
-        want = {"K1": 0, "K2": 0, "K3": prefills * (4 * L + 1) + steps, "K4": L * prefills, "K5": 0, "K6": 0,
-                "K7": L * steps, "K8": L * steps, "K9": L * steps}
+        want = dict.fromkeys(counters, 0)
+        want.update({"K3": prefills * (4 * L + 1) + steps, "K4": L * prefills, "K7": L * steps, "K8": L * steps,
+                     "K9": L * steps})
         assert got == want, f"engine: launches {got}, expected {want}"
         assert prefills == n_req and steps > 0 and sorted(done) == ids and not engine.has_work()
         for i, p in zip(ids, prompts):
@@ -531,14 +651,168 @@ def main() -> int:
             f"TTFT p50 {serving['ttft_p50_ms']:.0f} ms, p95 {serving['ttft_p95_ms']:.0f} ms (host clock); "
             f"{steps} decode steps, {prefills} prefills, launches {got}")
 
-        return results, totals, full, serving
+        del engine
+        # ---- 8b. the serving path with LoRA: the same 64 requests, K7 with its operand
+        engine = DecodeEngine(params_l, lcfg, max_batch=slots, max_seq_length=S_e, steps_per_sync=8)
+        engine.warmup()
+        torch.cuda.synchronize()
+        steps0, prefills0 = engine.decode_steps, engine.prefills
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ids = [engine.submit(p, new_e) for p in prompts]
+        done = engine.run()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
+        want = dict.fromkeys(counters, 0)
+        want.update({"K3": prefills * (4 * L + 1) + steps, "K4": L * prefills, "K7": L * steps,
+                     "K7 LoRA": L * steps, "K8": L * steps, "K9": L * steps})
+        assert got == want, f"LoRA engine: launches {got}, expected {want}"
+        assert prefills == n_req and steps > 0 and sorted(done) == ids and not engine.has_work()
+        for i in (ids[0], ids[-1]):  # the first token comes from the same prefill as generate's
+            alone = gen.generate(params_l, prompts[i - ids[0]], 1, config=lcfg, temperature=0.0)
+            assert int(alone[-1]) == done[i].generated[0], f"LoRA request {i}: first token differs from generate's"
+        for k in totals:
+            totals[k] += got[k]
+        n_tok = sum(len(r.generated) for r in done.values())
+        ttfts = sorted(r.ttft for r in done.values())
+        serving_lora = dict(decode_steps=steps, prefills=prefills, wall_s=wall, tok_s=n_tok / wall,
+                            ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3, ttft_p95_ms=ttfts[int(len(ttfts) * 0.95)] * 1e3)
+        log(f"engine with LoRA, {slots} slots, S={S_e}, the same {n_req} requests: {n_tok} tokens in {wall:.2f} s = "
+            f"{n_tok / wall:.1f} tok/s aggregate; TTFT p50 {serving_lora['ttft_p50_ms']:.0f} ms, p95 "
+            f"{serving_lora['ttft_p95_ms']:.0f} ms (host clock); {steps} decode steps, launches {got}")
+        # the same requests once more, with LoRA and then without: the four engine
+        # runs go without, with, with, without
+        for tag, p_, c_, rec in (("with", params_l, lcfg, serving_lora), ("without", params, cfg, serving)):
+            engine = DecodeEngine(p_, c_, max_batch=slots, max_seq_length=S_e, steps_per_sync=8)
+            engine.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in prompts:
+                engine.submit(p, new_e)
+            n_tok = sum(len(r.generated) for r in engine.run().values())
+            rec["tok_s_again"] = n_tok / (time.perf_counter() - t0)
+            log(f"engine {tag} LoRA again: {rec['tok_s_again']:.1f} tok/s aggregate")
 
-    results, totals, full, serving = int4_paths()
+        return results, totals, full, serving, full_lora, serving_lora
 
-
+    results, totals, full, serving, full_lora, serving_lora = int4_paths()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"int4 model and caches freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
+
+    # ---- 8c. the probes P1-P5: the tool's cases, then each kernel vs plain, timed --
+    probe_ids = {"dot_nt": "P1", "iota_mask_dots": "P2", "reshape3": "P3", "mv_small_n": "P4", "concat": "P5"}
+    for fn, _, _ in probe_kernels.CASES.values():
+        fn.launches = 0
+    for name in probe_kernels.CASES:
+        assert probe_kernels.main(["--case", name]) == 0
+    for name, key in probe_ids.items():
+        totals[key] = probe_kernels.CASES[name][0].launches
+    proc = subprocess.run([sys.executable, "-m", "lit_llama_tpu_torch.tools.probe_kernels", "--all"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.count(": OK (") == 5, f"probe_kernels --all:\n{proc.stdout}{proc.stderr[-2000:]}"
+    log("probe_kernels --all (a process a case):\n" + proc.stdout.strip())
+    for name, key in probe_ids.items():
+        fn, ref, _ = probe_kernels.CASES[name]
+        args = probe_kernels.case_inputs(name, dev)
+        got, want = fn(*args), ref(*args)
+        err = float((got.float() - want.float()).abs().max())
+        atol, rtol = probe_kernels.TOL[name]
+        assert not bool(((got.float() - want.float()).abs() > atol + rtol * want.float().abs()).any()), f"{key} {name}: {err}"
+        if name == "mv_small_n":
+            x, w = args
+            nbytes = x.numel() * 2 + sum(w[k].numel() * w[k].element_size() for k in fused_layer._DECODE_KEYS) + got.numel() * 4
+            ops = 2 * x.numel() * got.shape[1]
+            lib = None
+        else:
+            nbytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
+            ops = {"dot_nt": 2 * got.numel() * 128, "reshape3": 2 * got.numel() * 128,
+                   "iota_mask_dots": 2 * 4 * 256 * 128 + 2 * 4 * 256 * 64, "concat": got.numel()}[name]
+            a0 = args[0]
+            lib = {"dot_nt": lambda: torch.matmul(a0, args[1].t()),
+                   "reshape3": lambda: torch.matmul(a0, args[1].reshape(-1, 128).t()),
+                   "iota_mask_dots": lambda: torch.bmm(a0[:, None, :], args[1].reshape(4, 64, 128).transpose(1, 2)),
+                   "concat": None}[name]
+            if name == "concat":
+                scale = (torch.arange(512, device=dev) // 128 + 1).float()
+                lib = lambda: a0 * scale
+        b = bound_ms(nbytes, ops, f32_peak)
+        results[key] = dict(shape=name, ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: ref(*args), 3),
+                            library_ms=time_ms(lib) if lib else None, bound_ms=b[0], bound_by=b[1], max_abs_err=err)
+        log(f"{key} {name}: {results[key]['ms'] * 1e3:.1f} us (bound {b[0] * 1e3:.3f} us, {b[1]}), plain "
+            f"{results[key]['plain_ms'] * 1e3:.1f} us, max |err| {err:.3g}")
+
+    # ---- 8d. the entry points in subprocesses: generate.base and generate.lora ------
+    import tempfile
+
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data import sp_model
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.utils.convert import lora_overlay_to_sd, pytree_to_lit
+    from lit_llama_tpu_torch.utils.loader import load_model
+
+    work_e = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    # a BPE tokenizer of 128 pieces, written by the port's serialize_model; the
+    # model's vocabulary is the same 128, so every id it generates decodes
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = [sp_model.Piece("<unk>", 0.0, sp_model.UNKNOWN), sp_model.Piece("<s>", 0.0, sp_model.CONTROL),
+              sp_model.Piece("</s>", 0.0, sp_model.CONTROL), sp_model.Piece(sp_model.WS, -1.0)]
+    pieces += [sp_model.Piece(c, -2.0 - i) for i, c in enumerate(letters + "?.,'")]
+    merges = [sp_model.WS + c for c in letters] + [a + b for a in "aeiou" for b in letters]
+    pieces += [sp_model.Piece(m, -100.0 - i) for i, m in enumerate(merges[: 128 - len(pieces)])]
+    assert len(pieces) == 128
+    (work_e / "tokenizer.model").write_bytes(sp_model.serialize_model(sp_model.SPModel(pieces=pieces, model_type=2)))
+    ce = LLaMAConfig(n_layer=2, n_head=32, n_embd=4096, vocab_size=128, param_dtype="bfloat16",
+                     compute_dtype="bfloat16", lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0))
+    dense = llama.init_params(ce.replace(lora=None), torch.Generator(device=dev).manual_seed(SEED + 3), device=dev)
+    torch.save(pytree_to_lit(dense, ce), work_e / "lit-llama.pth")
+    del dense
+    (work_e / "config.json").write_text(json.dumps(dict(n_layer=2, n_head=32, n_embd=4096, vocab_size=128)))
+    overlay_e = random_lora_overlay(ce, seed=SEED + 4, device=dev)
+    torch.save(lora_overlay_to_sd(overlay_e, ce), work_e / "lora.pth")
+    tok_e = Tokenizer(work_e / "tokenizer.model")
+    new_e4 = 24
+    entry_runs = {}
+    for entry in ("base", "lora"):
+        params_e, cfg_e = load_model(work_e / "lit-llama.pth", "gptq.int4", device=dev)
+        if entry == "lora":
+            params_e = lora_mod.load_lora_state(params_e, overlay_e)
+            cfg_e = cfg_e.replace(lora=ce.lora)
+            enc = tok_e.encode(sft.generate_prompt({"instruction": "What food do lamas eat?", "input": ""}))
+        else:
+            enc = tok_e.encode("Hello, my name is")
+        params_e, cfg_e = fused_layer.maybe_prepare_fused(llama.unstack_layers(params_e), cfg_e)
+        assert cfg_e.rope_layout == "half", "the entry point's model should take the fused step"
+        fused_layer.k1_lora.launches = 0
+        want_e = gen.generate(params_e, enc, new_e4, config=cfg_e, temperature=0.0, top_k=200,
+                              eos_id=tok_e.eos_id if entry == "lora" else None).tolist()
+        assert fused_layer.k1_lora.launches == (2 * (len(want_e) - len(enc) - 1) if entry == "lora" else 0)
+        del params_e
+        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.generate.{entry}", "--checkpoint_path",
+               str(work_e / "lit-llama.pth"), "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize",
+               "gptq.int4", "--temperature", "0", "--max_new_tokens", str(new_e4)]
+        if entry == "lora":
+            cmd += ["--lora_path", str(work_e / "lora.pth")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        took = time.perf_counter() - t0
+        assert proc.returncode == 0, f"generate.{entry} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        got_e = json.loads(proc.stderr.split("Token ids" + (" 1" if entry == "base" else "") + ": ")[-1].splitlines()[0])
+        assert got_e == want_e, f"generate.{entry}: tokens {got_e} differ from the in-process generate's {want_e}"
+        assert proc.stdout.strip(), f"generate.{entry} printed no text"
+        entry_runs[entry] = dict(seconds=took, new_tokens=len(got_e) - len(enc))
+        log(f"python -m lit_llama_tpu_torch.generate.{entry} (2 layers at 7B width, int4 at load"
+            f"{', reference-format LoRA .pth' if entry == 'lora' else ''}): exit 0 in {took:.1f} s, "
+            f"{len(got_e) - len(enc)} greedy tokens equal to the in-process generate's; text {proc.stdout.strip()[:80]!r}")
+    import shutil
+
+    shutil.rmtree(work_e)
+    del overlay_e
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 9. the per-op int8 path: the 7B int8 model, K6 vs plain ---------------
     cfg8 = LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int8")
@@ -929,6 +1203,8 @@ def main() -> int:
     kernels = []
     sources = {
         "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
+        "K1 LoRA": ("decode_layers_fused with the LoRA operand (lora_down + lora_up)",
+                    "lit_llama_tpu/ops/fused_layer.py:567"),
         "K2": ("lm_head_fused", "lit_llama_tpu/ops/fused_layer.py:894"),
         "K3": ("matmul_int4", "lit_llama_tpu/ops/quant_matmul_pallas.py:172"),
         "K4": ("flash_attention", "lit_llama_tpu/ops/flash_attention.py:52"),
@@ -936,17 +1212,26 @@ def main() -> int:
         "K5q": ("decode_attention (int8 cache)", "lit_llama_tpu/ops/decode_attention.py:44"),
         "K6": ("matmul_int8", "lit_llama_tpu/ops/quant_matmul_pallas.py:48"),
         "K7": ("block_head_fused", "lit_llama_tpu/ops/fused_layer.py:956"),
+        "K7 LoRA": ("block_head_fused with the LoRA operand (ax in the prologue, the update in the epilogue)",
+                    "lit_llama_tpu/ops/fused_layer.py:970"),
         "K8": ("decode_attention_write_pipelined", "lit_llama_tpu/ops/decode_attention.py:473"),
         "K8b": ("decode_attention_write_pallas", "lit_llama_tpu/ops/decode_attention.py:226"),
         "K9": ("block_tail_fused", "lit_llama_tpu/ops/fused_layer.py:981"),
         "K10dq": ("flash_backward_dq (flash-attention backward, dQ)", "lit_llama_tpu/ops/flash_attention.py:182"),
         "K10dkv": ("flash_backward_dkv (flash-attention backward, dK and dV)",
                    "lit_llama_tpu/ops/flash_attention.py:216"),
+        "P1": ("probe dot_nt", "scripts/probe_mosaic.py:39"),
+        "P2": ("probe iota_mask_dots", "scripts/probe_mosaic.py:57"),
+        "P3": ("probe reshape3", "scripts/probe_mosaic.py:86"),
+        "P4": ("probe mv_small_n (K1's int4 matvec at N = 256)", "scripts/probe_mosaic.py:105"),
+        "P5": ("probe concat", "scripts/probe_mosaic.py:139"),
     }
     files = {"K1": "fused_layer.cu", "K2": "fused_layer.cu", "K3": "quant_matmul.cu", "K4": "flash_attention.cu",
              "K5": "decode_attention.cu", "K5q": "decode_attention.cu", "K6": "quant_matmul_int8.cu",
              "K7": "serve_layer.cu", "K8": "decode_attention.cu", "K8b": "decode_attention.cu",
-             "K9": "serve_layer.cu", "K10dq": "flash_attention.cu", "K10dkv": "flash_attention.cu"}
+             "K9": "serve_layer.cu", "K10dq": "flash_attention.cu", "K10dkv": "flash_attention.cu",
+             "K1 LoRA": "fused_layer.cu", "K7 LoRA": "serve_layer.cu", "P1": "probe.cu", "P2": "probe.cu",
+             "P3": "probe.cu", "P4": "probe.cu", "P5": "probe.cu"}
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     for key in sources:
@@ -957,9 +1242,11 @@ def main() -> int:
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"ms_without_operand": r["ms_without_operand"]} if "ms_without_operand" in r else {}),
         })
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
-    print(json.dumps({"requests": full, "serving": serving, "requests_int8": full8,
+    print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
+                      "entry_points": entry_runs, "requests_int8": full8,
                       "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)

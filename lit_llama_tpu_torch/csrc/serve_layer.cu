@@ -46,6 +46,16 @@
 // ~250 registers leave two warps per scheduler, which wait on the chains of
 // dependent mma and conversion instructions. The next step is a tile that
 // needs fewer registers per warp (A from shared memory, warps split over N).
+//
+// K7's LoRA operand (the Pallas kernel's _add_lora_delta on the B normed rows,
+// before _rot_half_lanes: qkv += (h @ lora_af) @ lora_bf in f32) cannot come
+// after the entry, since RoPE and the bf16 rounding sit in the epilogue. So:
+//   rows_prologue also writes ax (B, R8) = h @ lora_af, h the unrounded
+//     normed row, from a second pass over its row (R8 sums of K products);
+//   rows_int4 stages ax and the block's columns of lora_bf (R8, 3D) in shared
+//     memory and adds ax[row] . lora_bf[:, col] to each reduced sum before
+//     the epilogue, so a column and its RoPE partner both carry the update.
+// Bound: bytes, D * R8 * 2 + R8 * 3D * 2 more (0.5 MB at 7B, R8 = 16).
 
 #include "mma.cuh"
 
@@ -62,12 +72,16 @@ __device__ __forceinline__ float load_in(const void* p, int in_bf16, size_t i) {
                  : reinterpret_cast<const float*>(p)[i];
 }
 
+constexpr int LORA_MAX_R8 = 64;  // checked by the Python wrapper
+
 // Row blockIdx.x of x (B, K), f32 or bf16: h = [rms_norm](x); xb = bf16(h);
-// gx[g] = sum of h over group g, f32.
+// gx[g] = sum of h over group g, f32. With la (K, R8) bf16 not null, also
+// ax[blockIdx.x][r] = sum over k of h[k] * la[k][r], f32.
 __global__ void __launch_bounds__(THREADS)
 rows_prologue_kernel(const void* __restrict__ x, int in_bf16,
                      const __nv_bfloat16* __restrict__ norm_w, float eps, int K, int gs,
-                     __nv_bfloat16* __restrict__ xb, float* __restrict__ gx) {
+                     __nv_bfloat16* __restrict__ xb, float* __restrict__ gx,
+                     const __nv_bfloat16* __restrict__ la, int R8, float* __restrict__ ax) {
   __shared__ float red[WARPS];
   __shared__ float rnorm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -103,6 +117,30 @@ rows_prologue_kernel(const void* __restrict__ x, int in_bf16,
     s = warp_sum(s);
     if (lane == 0) gx[(size_t)blockIdx.x * G + g] = s;
   }
+  if (la == nullptr) return;
+  __shared__ float lred[WARPS][LORA_MAX_R8];
+  for (int r0 = 0; r0 < R8; r0 += 8) {
+    float p[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int k = tid; k < K; k += THREADS) {
+      float h = load_in(x, in_bf16, base + k);
+      if (norm_w != nullptr) h = h * r * bf16_to_f32(norm_w[k]);
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(la + (size_t)k * R8 + r0));
+      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] += h * bf16_to_f32(wb[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float t = warp_sum(p[j]);
+      if (lane == 0) lred[warp][r0 + j] = t;
+    }
+  }
+  __syncthreads();
+  if (tid < R8) {
+    float t = 0.f;
+    for (int w = 0; w < WARPS; ++w) t += lred[w][tid];
+    ax[(size_t)blockIdx.x * R8 + tid] = t;
+  }
 }
 
 // out = xb @ dequant(w) with an epilogue. xb (B, K) bf16, gx (B, G) f32 from
@@ -111,7 +149,9 @@ rows_prologue_kernel(const void* __restrict__ x, int in_bf16,
 // c1 = sb * 2P + q * 4 NT and the others P further (sb, q from blockIdx.x).
 // MT m16-tiles per warp; past 32 rows the warps 4..7 take rows 32...
 //   EPI_ROPE: N = 3D, P = 64; out_bf16 (B, N): columns below rope_cols are
-//     rotated with the slot's cos/sin rows (B, 128), sin signed.
+//     rotated with the slot's cos/sin rows (B, 128), sin signed. With R8 > 0
+//     each sum first gains ax[row] . lb[:, col] (ax (B, R8) f32, lb (R8, N)
+//     bf16), the LoRA operand.
 //   EPI_RESIDUAL: P = 4 NT (the halves adjoin); out = acc + res (B, N), to
 //     out_f32 and/or out_bf16.
 //   EPI_SWIGLU: N = 2I, P = I; out_f32 (B, I) = silu(gate) * up.
@@ -121,9 +161,11 @@ rows_int4_kernel(const __nv_bfloat16* __restrict__ xb, const float* __restrict__
                  const uint8_t* __restrict__ wt, const float* __restrict__ st,
                  const float* __restrict__ zt, int B, int K, int N, int gs, int epi, int P,
                  const float* __restrict__ cosr, const float* __restrict__ sinr, int rope_cols,
-                 const void* res, int res_bf16, float* out_f32, __nv_bfloat16* out_bf16) {
+                 const void* res, int res_bf16, float* out_f32, __nv_bfloat16* out_bf16,
+                 const float* __restrict__ ax, const __nv_bfloat16* __restrict__ lb, int R8) {
   constexpr int BN = 8 * NT, HW = 4 * NT, ROWS = 16 * MT;
-  extern __shared__ __align__(16) float red[];  // [WARPS][ROWS][BN]
+  // [WARPS][ROWS][BN], then with R8 > 0 axs [B][R8] and lbs [R8][BN]
+  extern __shared__ __align__(16) float red[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g_ = lane / 4, t = lane % 4;
   const int Kh = K / 2, G = K / gs, Gh = G / 2;
@@ -229,6 +271,14 @@ rows_int4_kernel(const __nv_bfloat16* __restrict__ xb, const float* __restrict__
     }
   }
 
+  float* axs = red + (size_t)WARPS * ROWS * BN;
+  float* lbs = axs + (size_t)B * R8;
+  for (int e = tid; e < B * R8; e += THREADS) axs[e] = ax[e];
+  for (int e = tid; e < R8 * BN; e += THREADS) {
+    const int lc = e % BN;
+    lbs[e] = bf16_to_f32(lb[(size_t)(e / BN) * N + (lc < HW ? c1 + lc : c2 + lc - HW)]);
+  }
+
   // the warps' partial sums meet in shared memory, in a fixed order
   float* mine = red + (size_t)warp * ROWS * BN;
 #pragma unroll
@@ -245,6 +295,11 @@ rows_int4_kernel(const __nv_bfloat16* __restrict__ xb, const float* __restrict__
     float* slot = red + ((size_t)(row / 32) * KW * ROWS + row % 32) * BN + lc;
     float v = slot[0];
     for (int k2 = 1; k2 < KW; ++k2) v += slot[(size_t)k2 * ROWS * BN];
+    if (R8 > 0) {
+      float d = 0.f;
+      for (int r = 0; r < R8; ++r) d += axs[row * R8 + r] * lbs[r * BN + lc];
+      v += d;
+    }
     slot[0] = v;
   }
   __syncthreads();
@@ -286,8 +341,8 @@ template <int NT, int MT>
 int launch_rows_tile(const void* xb, const void* gx, const void* wt, const void* st, const void* zt,
                      int B, int K, int N, int gs, int epi, int P, const void* cosr,
                      const void* sinr, int rope_cols, const void* res, int res_bf16, void* out_f32,
-                     void* out_bf16, cudaStream_t stream) {
-  const int smem = WARPS * 16 * MT * 8 * NT * (int)sizeof(float);
+                     void* out_bf16, const void* ax, const void* lb, int R8, cudaStream_t stream) {
+  const int smem = (WARPS * 16 * MT * 8 * NT + B * R8 + R8 * 8 * NT) * (int)sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rows_int4_kernel<NT, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -296,7 +351,8 @@ int launch_rows_tile(const void* xb, const void* gx, const void* wt, const void*
   rows_int4_kernel<NT, MT><<<N / (8 * NT), THREADS, smem, stream>>>(
       (const __nv_bfloat16*)xb, (const float*)gx, (const uint8_t*)wt, (const float*)st,
       (const float*)zt, B, K, N, gs, epi, P, (const float*)cosr, (const float*)sinr, rope_cols, res,
-      res_bf16, (float*)out_f32, (__nv_bfloat16*)out_bf16);
+      res_bf16, (float*)out_f32, (__nv_bfloat16*)out_bf16, (const float*)ax,
+      (const __nv_bfloat16*)lb, R8);
   return (int)cudaGetLastError();
 }
 
@@ -312,16 +368,17 @@ double wave_fill(int blocks) {
 // leave half of the second wave idle; the c_proj products have too few
 // columns). The wrappers check 1 <= B <= 64, K % 128 == 0, gs in {64, 128,
 // 256}, (K/2) % gs == 0, N % 64 == 0 and, for EPI_SWIGLU, (N/2) % 32 == 0.
+// R8 is 0 (ax and lb unused) but on K7's product with a LoRA operand.
 int launch_rows(const void* xb, const void* gx, const void* wt, const void* st, const void* zt,
                 int B, int K, int N, int gs, int epi, const void* cosr, const void* sinr,
                 int rope_cols, const void* res, int res_bf16, void* out_f32, void* out_bf16,
-                cudaStream_t stream) {
+                const void* ax, const void* lb, int R8, cudaStream_t stream) {
   const bool wide = wave_fill(N / 64) >= wave_fill(N / 32);
   const int HW = wide ? 32 : 16;
   const int P = epi == EPI_ROPE ? HS / 2 : epi == EPI_SWIGLU ? N / 2 : HW;
 #define LLT_ROWS(NT, MT)                                                                         \
   return launch_rows_tile<NT, MT>(xb, gx, wt, st, zt, B, K, N, gs, epi, P, cosr, sinr, rope_cols, \
-                                  res, res_bf16, out_f32, out_bf16, stream)
+                                  res, res_bf16, out_f32, out_bf16, ax, lb, R8, stream)
   if (wide) {
     if (B <= 16) LLT_ROWS(8, 1);
     LLT_ROWS(8, 2);
@@ -332,9 +389,10 @@ int launch_rows(const void* xb, const void* gx, const void* wt, const void* st, 
 }
 
 int launch_prologue(const void* x, int in_bf16, const void* norm_w, int B, int K, int gs, void* xb,
-                    void* gx, cudaStream_t stream) {
+                    void* gx, const void* la, int R8, void* ax, cudaStream_t stream) {
   rows_prologue_kernel<<<B, THREADS, 0, stream>>>(x, in_bf16, (const __nv_bfloat16*)norm_w, 1e-5f,
-                                                  K, gs, (__nv_bfloat16*)xb, (float*)gx);
+                                                  K, gs, (__nv_bfloat16*)xb, (float*)gx,
+                                                  (const __nv_bfloat16*)la, R8, (float*)ax);
   return (int)cudaGetLastError();
 }
 
@@ -342,15 +400,19 @@ int launch_prologue(const void* x, int in_bf16, const void* norm_w, int B, int K
 
 // qkv (B, 3D) bf16 = rope(rms_norm(x, rms1) @ dequant(c_attn)), x (B, D)
 // bf16, cosr/sinr (B, 128) f32 (sin signed), head size 128. Scratch: xb
-// (B, D) bf16, gx (B, D / gs) f32.
+// (B, D) bf16, gx (B, D / gs) f32. With la not null, the LoRA operand la
+// (D, R8) and lb (R8, 3D) bf16 adds (h @ la) @ lb before RoPE; ax (B, R8) f32
+// is its scratch.
 LLT_EXPORT int k7_block_head(const void* x, const void* rms1, const void* ca_w, const void* ca_s,
                              const void* ca_z, const void* cosr, const void* sinr, void* xb,
-                             void* gx, void* qkv, int B, int D, int gs, void* stream) {
+                             void* gx, void* qkv, const void* la, const void* lb, void* ax, int R8,
+                             int B, int D, int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_prologue(x, 1, rms1, B, D, gs, xb, gx, st);
+  if (la == nullptr) R8 = 0;
+  int err = launch_prologue(x, 1, rms1, B, D, gs, xb, gx, la, R8, ax, st);
   if (err) return err;
   return launch_rows(xb, gx, ca_w, ca_s, ca_z, B, D, 3 * D, gs, EPI_ROPE, cosr, sinr, 2 * D,
-                     nullptr, 0, nullptr, qkv, st);
+                     nullptr, 0, nullptr, qkv, ax, lb, R8, st);
 }
 
 // out (B, D) bf16 = the block after its attention: xs = x + y @ c_proj;
@@ -363,18 +425,18 @@ LLT_EXPORT int k9_block_tail(const void* x, const void* y, const void* rms2, con
                              const void* mp_s, const void* mp_z, void* xb, void* gx, void* xs,
                              void* gg, void* out, int B, int D, int I, int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_prologue(y, 1, nullptr, B, D, gs, xb, gx, st);
+  int err = launch_prologue(y, 1, nullptr, B, D, gs, xb, gx, nullptr, 0, nullptr, st);
   if (err) return err;
   err = launch_rows(xb, gx, cp_w, cp_s, cp_z, B, D, D, gs, EPI_RESIDUAL, nullptr, nullptr, 0, x, 1,
-                    xs, nullptr, st);
+                    xs, nullptr, nullptr, nullptr, 0, st);
   if (err) return err;
-  err = launch_prologue(xs, 0, rms2, B, D, gs, xb, gx, st);
+  err = launch_prologue(xs, 0, rms2, B, D, gs, xb, gx, nullptr, 0, nullptr, st);
   if (err) return err;
   err = launch_rows(xb, gx, f12_w, f12_s, f12_z, B, D, 2 * I, gs, EPI_SWIGLU, nullptr, nullptr, 0,
-                    nullptr, 0, gg, nullptr, st);
+                    nullptr, 0, gg, nullptr, nullptr, nullptr, 0, st);
   if (err) return err;
-  err = launch_prologue(gg, 0, nullptr, B, I, gs, xb, gx, st);
+  err = launch_prologue(gg, 0, nullptr, B, I, gs, xb, gx, nullptr, 0, nullptr, st);
   if (err) return err;
   return launch_rows(xb, gx, mp_w, mp_s, mp_z, B, I, D, gs, EPI_RESIDUAL, nullptr, nullptr, 0, xs,
-                     0, nullptr, out, st);
+                     0, nullptr, out, nullptr, nullptr, 0, st);
 }

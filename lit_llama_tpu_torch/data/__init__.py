@@ -1,2 +1,2 @@
 """Data (counterpart of lit_llama_tpu/data/): the LITPKDS packed token
-dataset."""
+dataset, the SentencePiece tokenizer and the instruction prompt."""

@@ -40,6 +40,7 @@ from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
 from lit_llama_tpu_torch.ops.norm import rms_norm
 from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope_cache, slot_rope_rows
+from lit_llama_tpu_torch.peft import lora
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
@@ -49,7 +50,8 @@ KVCache = List[Dict[str, torch.Tensor]]
 
 def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None, device=None) -> Params:
     """Random init, normal(0, 0.02/sqrt(2*n_layer)) for the linears and the
-    embedding, ones for the norms; layers stacked on a leading axis."""
+    embedding, ones for the norms; layers stacked on a leading axis. With
+    ``config.lora`` the c_attn leaves gain LoRA A and B (``peft.lora``)."""
     dev = resolve_device(device)
     std = 0.02 / math.sqrt(2 * config.n_layer)
     dtype = torch_dtype(config.param_dtype)
@@ -58,7 +60,7 @@ def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None
     def normal(*shape):
         return (torch.randn(shape, generator=generator, device=dev) * std).to(dtype)
 
-    return {
+    params = {
         "wte": normal(V, D),
         "h": {
             "rms_1": torch.ones((L, D), dtype=dtype, device=dev),
@@ -73,6 +75,9 @@ def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None
         "ln_f": torch.ones((D,), dtype=dtype, device=dev),
         "lm_head": {"w": normal(D, V)},
     }
+    if config.lora is not None:
+        lora.add_lora_params(params, config, generator)
+    return params
 
 
 def init_kv_cache(config: LLaMAConfig, batch_size: int, max_seq_length: int, dtype=None,
@@ -162,6 +167,8 @@ def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv,
     B, T, _ = x.shape
     hs = config.head_size
     qkv = linear(attn["c_attn"], x, plain=plain)
+    if "lora_a" in attn["c_attn"]:
+        qkv = qkv + lora.lora_delta(attn["c_attn"], x, config.lora)
     H = qkv.shape[-1] // 3 // hs
     rot = apply_rope_half if config.rope_layout == "half" else apply_rope
     # q and k rotate in one call, as 2H heads: half the small launches of two calls

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lit_llama_tpu_torch"
 SOURCES = ("quant_matmul", "quant_matmul_int8", "flash_attention", "fused_layer", "serve_layer",
-           "decode_attention")
+           "decode_attention", "probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

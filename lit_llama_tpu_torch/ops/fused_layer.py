@@ -36,6 +36,13 @@ multiplies the input rounded to the compute dtype by the exact nibbles with
 f32 accumulation, and takes the zero-point term from f32 group sums of the
 unrounded input; q stays f32; k and v are rounded only when stored; scores
 and the softmax are f32.
+
+LoRA: ``prepare_fused_params`` folds a layer's overlay into two dense
+operands of c_attn (``prepare_lora_operands``): ``lora_af`` (D, R8) and
+``lora_bf`` (R8, 3D), scaling folded in, q/k columns in the half basis. K1
+and K7 add ``(h @ lora_af) @ lora_bf`` in f32 to the QKV product before RoPE,
+h the unrounded normed row, as the Pallas kernels' ``_add_lora_delta``; the
+kernels that do it count their launches apart (``k1_lora``, ``k7_lora``).
 """
 
 from __future__ import annotations
@@ -55,14 +62,28 @@ CHUNK = 64  # cache slots per attention block (csrc/fused_layer.cu)
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {
-    "k1_decode_layer": [_P, _I, _P, _P] + [_P] * 12 + [_P] * 4 + [_P] * 6 + [_I] * 7 + [_P],
+    "k1_decode_layer": [_P, _I, _P, _P] + [_P] * 12 + [_P] * 4 + [_P] * 6 + [_P] * 3 + [_I] * 8 + [_P],
     "k2_lm_head": [_P] * 6 + [_I] * 3 + [_P],
 }
 _SERVE_SIGS = {
-    "k7_block_head": [_P] * 10 + [_I] * 3 + [_P],
+    "k7_block_head": [_P] * 13 + [_I] * 4 + [_P],
     "k9_block_tail": [_P] * 17 + [_I] * 4 + [_P],
 }
 MAX_SLOTS = 64  # rows a serving kernel takes (csrc/serve_layer.cu)
+MAX_LORA_R8 = 64  # LoRA operand columns the kernels take (LORA_MAX_R8 in csrc/)
+LORA_THREADS = 256  # rows of lora_af per block of K1's lora_down (csrc/fused_layer.cu)
+
+
+class LaunchCounter:
+    """Launch count of kernels that run inside another wrapper's entry, kept
+    apart from that wrapper's own count."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+k1_lora = LaunchCounter()  # K1's LoRA operand: one per block that has it
+k7_lora = LaunchCounter()  # K7's LoRA operand: one per block-head call that has it
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +123,15 @@ def _decode_attention_ref(q, kc, vc, limit: int) -> torch.Tensor:
     return (p[:, :, None] * vc.float()).sum(dim=1) / l
 
 
+def _lora_ref(h: torch.Tensor, qkv: torch.Tensor, ca: Params) -> torch.Tensor:
+    """qkv + (h @ lora_af) @ lora_bf in f32 where c_attn carries the folded
+    LoRA operand (the Pallas kernels' ``_add_lora_delta``), else qkv."""
+    _lora_operand(ca, "LoRA")
+    if "lora_af" not in ca:
+        return qkv
+    return qkv + (h @ ca["lora_af"].float()) @ ca["lora_bf"].float()
+
+
 def decode_layers_fused_ref(x, lps, kvs, cosf, sinf, write_pos: int, limit: int, config):
     """Plain version of :func:`decode_layers_fused` (same in-place cache update)."""
     D, H, hs = config.n_embd, config.n_head, config.head_size
@@ -110,7 +140,8 @@ def decode_layers_fused_ref(x, lps, kvs, cosf, sinf, write_pos: int, limit: int,
     xs = x.float()
     for lp, kv in zip(lps, kvs):
         attn, mlp = lp["attn"], lp["mlp"]
-        qkv = mv_int4_ref(_rms_rows(xs, lp["rms_1"]), attn["c_attn"], cd)
+        h = _rms_rows(xs, lp["rms_1"])
+        qkv = _lora_ref(h, mv_int4_ref(h, attn["c_attn"], cd), attn["c_attn"])
         q, k, v = qkv.reshape(3, H, hs)
         q = q * cosf + torch.roll(q, hs // 2, dims=-1) * sinf
         k = k * cosf + torch.roll(k, hs // 2, dims=-1) * sinf
@@ -133,7 +164,8 @@ def block_head_fused_ref(x, rms1, cos, sin, ca: Params, config):
     """Plain version of :func:`block_head_fused`."""
     D, hs = config.n_embd, config.head_size
     B = x.shape[0]
-    qkv = mv_int4_ref(_rms_rows(x.float(), rms1), ca, x.dtype)
+    h = _rms_rows(x.float(), rms1)
+    qkv = _lora_ref(h, mv_int4_ref(h, ca, x.dtype), ca)
     qk = qkv[:, : 2 * D].reshape(B, -1, hs)
     qk = qk * cos[:, None] + torch.roll(qk, hs // 2, dims=-1) * sin[:, None]
     return torch.cat([qk.reshape(B, 2 * D), qkv[:, 2 * D :]], dim=-1).to(x.dtype)
@@ -158,8 +190,6 @@ _DECODE_KEYS = ("qw_t", "qscale_t", "qzero_t")
 
 def _check_q4(w: Params, K: int, N: int, gs: int, what: str):
     """The kernels read the decode layout added by prepare_fused_params."""
-    if "lora_a" in w:
-        raise NotImplementedError(f"{what}: the LoRA operands of K1 are a later slice")
     if gs not in (64, 128, 256) or K % gs or (K // gs) % 2:
         raise ValueError(f"{what}: needs gs in (64, 128, 256) and an even group count (K={K} gs={gs})")
     if "qw_t" not in w:
@@ -174,6 +204,29 @@ def _check_q4(w: Params, K: int, N: int, gs: int, what: str):
     for t in (qw, qs, qz):
         if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: weights must be contiguous, 16-byte aligned CUDA tensors")
+
+
+def _lora_operand(ca: Params, what: str, D: int = 0):
+    """The folded LoRA operand of c_attn as (lora_af, lora_bf, R8), or (None,
+    None, 0) without one. A raw overlay (lora_a) that was not folded raises:
+    the kernels would leave its update out. With ``D`` the operand is checked
+    as the kernels take it."""
+    if "lora_af" not in ca:
+        if "lora_a" in ca:
+            raise ValueError(f"{what}: c_attn holds a LoRA overlay that prepare_fused_params did not fold "
+                             "(set config.lora before preparing)")
+        return None, None, 0
+    la, lb = ca["lora_af"], ca["lora_bf"]
+    R8 = la.shape[-1]
+    if D:
+        if R8 % 8 or not 0 < R8 <= MAX_LORA_R8:
+            raise ValueError(f"{what}: the LoRA operand needs a multiple of 8 up to {MAX_LORA_R8} columns, got {R8}")
+        for t, shape in ((la, (D, R8)), (lb, (R8, 3 * D))):
+            if t.dtype != torch.bfloat16 or t.shape != shape or not t.is_cuda or not t.is_contiguous() \
+                    or t.data_ptr() % 16:
+                raise ValueError(f"{what}: the LoRA operand must be contiguous, 16-byte aligned bf16 CUDA "
+                                 f"tensors {(D, R8)} and {(R8, 3 * D)}, got {t.dtype} {tuple(t.shape)}")
+    return la, lb, R8
 
 
 def _check_layout(config):
@@ -230,10 +283,13 @@ def decode_layers_fused(
     xs = torch.empty(D, **f32)
     gg = torch.empty(I, **f32)
     x_out = torch.empty_like(x)
+    loras = [_lora_operand(lp["attn"]["c_attn"], "K1 c_attn", D) for lp in lps]
+    R8max = max(r for _, _, r in loras)
+    lora_part = torch.empty((-(-D // LORA_THREADS)) * R8max, **f32) if R8max else None
     lib = _build.library("fused_layer", _SIGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     n = len(lps)
-    for j, (lp, kv) in enumerate(zip(lps, kvs)):
+    for j, (lp, kv, (la, lb, R8)) in enumerate(zip(lps, kvs, loras)):
         a, m = lp["attn"], lp["mlp"]
         ws = [a["c_attn"], a["c_proj"], m["c_fc12"], m["c_proj"]]
         err = lib.k1_decode_layer(
@@ -243,9 +299,12 @@ def decode_layers_fused(
             kv["k"].data_ptr(), kv["v"].data_ptr(), cosf.data_ptr(), sinf.data_ptr(),
             qkv.data_ptr(), part.data_ptr(), y.data_ptr(), xs.data_ptr(), gg.data_ptr(),
             x_out.data_ptr() if j == n - 1 else None,
+            la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None,
+            lora_part.data_ptr() if R8 else None, R8,
             D, I, H, S, gs, int(write_pos), int(limit), stream,
         )
         _build.check(err, "K1 decode_layers_fused")
+        k1_lora.launches += bool(R8)
     decode_layers_fused.launches += 1
     return x_out, list(kvs)
 
@@ -308,10 +367,9 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
     x (B, D) compute dtype; rms1 (D,); cos/sin (B, hs) f32 rows at each
     slot's position (``rope.slot_rope_rows``, sin signed); ca the prepared
     c_attn. Returns the rotated fused qkv (B, 3D) in x.dtype: q and k rotated,
-    v as it is. A CPU tensor takes the plain version; a CUDA tensor launches
-    K7 or raises."""
-    if "lora_af" in ca or "lora_a" in ca:
-        raise NotImplementedError("K7: the LoRA operands of the block head are a later slice")
+    v as it is. With the folded LoRA operand in ``ca`` (``lora_af``,
+    ``lora_bf``) the update is added before the rotation. A CPU tensor takes
+    the plain version; a CUDA tensor launches K7 or raises."""
     if not x.is_cuda:
         return block_head_fused_ref(x, rms1, cos, sin, ca, config)
     B = x.shape[0]
@@ -323,16 +381,20 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
         if t.dtype != torch.float32 or t.shape != (B, 128) or not t.is_contiguous() or not t.is_cuda:
             raise ValueError(f"K7 takes contiguous f32 ({B}, 128) cos/sin rows on the card")
     _check_q4(ca, D, 3 * D, gs, "K7 c_attn")
+    la, lb, R8 = _lora_operand(ca, "K7 c_attn", D)
     xb = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
     gx = torch.empty((B, D // gs), dtype=torch.float32, device=x.device)
     qkv = torch.empty((B, 3 * D), dtype=torch.bfloat16, device=x.device)
+    ax = torch.empty((B, R8), dtype=torch.float32, device=x.device) if R8 else None
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k7_block_head(
         x.data_ptr(), rms1.data_ptr(), *[ca[key].data_ptr() for key in _DECODE_KEYS],
         cos.data_ptr(), sin.data_ptr(), xb.data_ptr(), gx.data_ptr(), qkv.data_ptr(),
+        la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None, ax.data_ptr() if R8 else None, R8,
         B, D, gs, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "K7 block_head_fused")
+    k7_lora.launches += bool(R8)
     block_head_fused.launches += 1
     return qkv
 
@@ -384,11 +446,14 @@ block_tail_fused.launches = 0
 def use_serve_fused(config, layer_params: Params) -> bool:
     """Whether the batched serving step takes the fused block halves (K7, K8,
     K9): int4 weights with c_fc12 fused, in the half-rotation basis, head size
-    128. The JAX package also asks its backend, a slot-count cap and three
-    environment switches; the card always takes the kernels."""
+    128, and a LoRA overlay folded into K7's operand. The JAX package also
+    asks its backend, a slot-count cap and three environment switches; the
+    card always takes the kernels."""
     if config.rope_layout != "half" or config.head_size != 128:
         return False
     c_attn = layer_params.get("attn", {}).get("c_attn", {})
+    if config.lora is not None and "lora_af" not in c_attn:
+        return False
     return "qzero" in c_attn and "c_fc12" in layer_params.get("mlp", {})
 
 
@@ -421,11 +486,18 @@ def permute_qk_columns(c_attn: Params, D: int, hs: int) -> Params:
 
 
 def fused_layer_supported(config, params) -> bool:
-    """Whether the fused decode path (K1/K2 on the card) takes this model."""
+    """Whether the fused decode path (K1/K2 on the card) takes this model. A
+    LoRA model qualifies once its overlay is loaded (prepare_fused_params
+    folds it into the kernels' operand); an adapter model does not."""
     if config.quantize != "int4" or config.kv_cache_dtype is not None:
         return False
-    if config.adapter is not None or config.lora is not None:
+    if config.adapter is not None:
         return False
+    h = params.get("h")
+    if config.lora is not None:
+        lp0 = h[0] if isinstance(h, (list, tuple)) else h
+        if "lora_a" not in (lp0 or {}).get("attn", {}).get("c_attn", {}):
+            return False
     if config.head_size != 128:
         return False
     D, I, gs = config.n_embd, config.intermediate_size, config.quant_groupsize
@@ -436,7 +508,6 @@ def fused_layer_supported(config, params) -> bool:
             return False
     if D % 4 or I % 4:
         return False
-    h = params.get("h")
     if not isinstance(h, (list, tuple)):
         return False
     lp = h[0]
@@ -463,12 +534,48 @@ def add_decode_layout(params: Params) -> Params:
     return out
 
 
+def prepare_lora_operands(c_attn: Params, lora_cfg, D: int, hs: int) -> Params:
+    """The folded LoRA operand of K1 and K7, added to a c_attn whose q/k
+    columns are already in the half basis.
+
+    The update qkv += scaling * zero_pad((x @ A) grouped by B)
+    (``peft.lora.lora_delta``) becomes two dense matrices:
+    ``lora_af`` (D, R8), A zero-padded to a multiple of 8 columns, and
+    ``lora_bf`` (R8, 3D), each enabled group's B block in its q/k/v output
+    slot with ``scaling`` folded in and the q/k sections permuted to the half
+    basis, both in A's dtype. The stored ``lora_b`` q/k groups are permuted
+    the same way, so the per-op prefill gives the same rotated update."""
+    a, b = c_attn["lora_a"], c_attn["lora_b"]  # (D, n_en * r), (n_en, r, D)
+    n_en, r = b.shape[0], b.shape[1]
+    R = n_en * r
+    R8 = -(-R // 8) * 8
+    head_perm = _head_perm(D, hs).to(b.device)
+    bf = torch.zeros((R, 3 * D), dtype=torch.float32, device=b.device)
+    b_perm = []
+    g = 0
+    for i, enabled in enumerate(lora_cfg.enable):  # groups are (q, k, v)
+        if not enabled:
+            continue
+        bg = b[g].float()
+        if i < 2:  # q and k columns live in the half-rotation basis
+            bg = bg[..., head_perm]
+        b_perm.append(bg)
+        bf[g * r : (g + 1) * r, i * D : (i + 1) * D] = bg * lora_cfg.scaling
+        g += 1
+    out = dict(c_attn)
+    out["lora_b"] = torch.stack(b_perm).to(b.dtype)
+    out["lora_af"] = F.pad(a.float(), (0, R8 - R)).to(a.dtype)
+    out["lora_bf"] = F.pad(bf, (0, 0, 0, R8 - R)).to(a.dtype)
+    return out
+
+
 def prepare_fused_params(params: Params, config) -> Tuple[Params, Any]:
     """Unstacked int4 params -> the fused decode layout: c_attn q/k columns
-    permuted to the half-rotation basis, and the kernels' decode copy of every
-    int4 linear (add_decode_layout). Returns (params, config with
-    ``rope_layout="half"``), so the prefill forward applies the matching
-    rotation."""
+    permuted to the half-rotation basis, a LoRA overlay (with ``config.lora``)
+    folded into the kernels' operand (prepare_lora_operands), and the
+    kernels' decode copy of every int4 linear (add_decode_layout). Returns
+    (params, config with ``rope_layout="half"``), so the prefill forward
+    applies the matching rotation."""
     D, hs = config.n_embd, config.head_size
     out = dict(params)
     layers = []
@@ -476,7 +583,18 @@ def prepare_fused_params(params: Params, config) -> Tuple[Params, Any]:
         lp = dict(lp)
         attn = dict(lp["attn"])
         attn["c_attn"] = permute_qk_columns(dict(attn["c_attn"]), D, hs)
+        if "lora_a" in attn["c_attn"] and config.lora is not None:
+            attn["c_attn"] = prepare_lora_operands(attn["c_attn"], config.lora, D, hs)
         lp["attn"] = attn
         layers.append(lp)
     out["h"] = layers
     return add_decode_layout(out), config.replace(rope_layout="half")
+
+
+def maybe_prepare_fused(params: Params, config) -> Tuple[Params, Any]:
+    """The entry points' dispatch: unstacked params that the fused path takes
+    (fused_layer_supported) are prepared once; anything else, and params
+    already prepared, come back as they are."""
+    if config.rope_layout == "half" or not fused_layer_supported(config, params):
+        return params, config
+    return prepare_fused_params(params, config)

@@ -40,6 +40,7 @@ import torch
 
 from lit_llama_tpu_torch.models import llama
 from lit_llama_tpu_torch.models.config import LLaMAConfig
+from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused
 from lit_llama_tpu_torch.ops.rope import build_rope_cache
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
@@ -100,11 +101,12 @@ class DecodeEngine:
         mesh=None,
         device=None,
     ):
-        """``params``: the inference layout on ``device`` (the card when
-        None): ``llama.unstack_layers`` and, for int4 weights,
-        ``fused_layer.prepare_fused_params`` with the config it returns. Such
-        layers decode through the fused block halves; any other layout takes
-        the plain blocks.
+        """``params``: the weights on ``device`` (the card when None),
+        stacked or unstacked, with a LoRA overlay where ``config.lora`` says
+        so. Int4 weights that the fused step takes are prepared as
+        ``fused_layer.maybe_prepare_fused`` does (once; prepared params pass
+        as they are) and decode through the fused block halves, K7 with the
+        LoRA operand; any other layout takes the plain blocks.
 
         ``prefill_chunk`` / ``prefill_budget``: admission control, so that a
         burst of long prompts cannot starve the decodes in flight. A prompt
@@ -122,7 +124,10 @@ class DecodeEngine:
         self.device = resolve_device(device)
         if params["wte"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['wte'].device}, the engine was asked for {self.device}")
-        self.params = llama.unstack_layers(params)
+        # int4 layers the fused step takes are prepared here, as the JAX engine
+        # does (a no-op for params already prepared); a LoRA overlay is folded
+        # into K7's operand on the way
+        self.params, config = maybe_prepare_fused(llama.unstack_layers(params), config)
         self.config = config
         self.B = max_batch
         self.S = min(max_seq_length or config.block_size, config.block_size)

@@ -1,12 +1,13 @@
 """Where one batched serving step's time goes on the card.
 
-    python -m lit_llama_tpu_torch.tools.profile_serve [--layers 32] [--seq 256] [--batch 8 32]
+    python -m lit_llama_tpu_torch.tools.profile_serve [--layers 32] [--seq 256] [--batch 8 32] [--lora]
 
 Builds the 7B int4 model on random weights and, for each ``--batch`` B, a
 ``DecodeEngine`` of B slots whose slots all hold a running request (prompts of
 ``--prompt`` tokens). It then runs decode chunks through the engine's own
 ``_step`` (``llama.forward(slot_pos=...)``: K7, K8 and K9 per block, K3 for
-the lm_head, argmax on the device) and prints: the host wall time of a step
+the lm_head, argmax on the device; ``--lora`` adds a seeded LoRA overlay,
+r = 8, alpha 16, q and v, which K7 takes as its LoRA operand) and prints: the host wall time of a step
 (ending in the chunk's copy to the host), the device time per kernel name from
 ``torch.profiler``, and the device's busy share of the step (kernel time /
 wall time). Needs a CUDA card.
@@ -55,7 +56,8 @@ def profile_batch(params, cfg, B: int, seq: int, prompt: int, chunk: int, chunks
             rows.append((dev_us / steps, evt.count / steps, evt.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"7B int4 serving step, {cfg.n_layer} layers, B={B} slots, S={seq}, positions from {prompt}, "
+    lora = ", LoRA r=8 on q and v" if cfg.lora else ""
+    print(f"7B int4 serving step{lora}, {cfg.n_layer} layers, B={B} slots, S={seq}, positions from {prompt}, "
           f"{chunk} steps per sync: wall {wall_us:.1f} us/step ({B * 1e6 / wall_us:.1f} tok/s aggregate), "
           f"device busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f} % of the wall time)")
     for us, count, name in rows:
@@ -70,19 +72,23 @@ def main() -> None:
     ap.add_argument("--prompt", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=8, help="decode steps per host sync")
     ap.add_argument("--chunks", type=int, default=3, help="chunks timed and profiled")
+    ap.add_argument("--lora", action="store_true", help="a LoRA overlay (K7's LoRA operand)")
     args = ap.parse_args()
 
-    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.ops import fused_layer
+    from lit_llama_tpu_torch.peft.lora import load_lora_state
     from lit_llama_tpu_torch.utils.device import resolve_device
-    from lit_llama_tpu_torch.utils.random_params import random_int4_params
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_lora_overlay
 
     dev = resolve_device(None)
-    cfg = LLaMAConfig.from_name("7B", n_layer=args.layers, param_dtype="bfloat16",
-                                compute_dtype="bfloat16", quantize="int4")
-    params, cfg = fused_layer.prepare_fused_params(
-        llama.unstack_layers(random_int4_params(cfg, seed=0, device=dev)), cfg)
+    cfg = LLaMAConfig.from_name("7B", n_layer=args.layers, param_dtype="bfloat16", compute_dtype="bfloat16",
+                                quantize="int4", lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0) if args.lora else None)
+    params = random_int4_params(cfg, seed=0, device=dev)
+    if args.lora:
+        params = load_lora_state(params, random_lora_overlay(cfg, seed=1, device=dev))
+    params, cfg = fused_layer.prepare_fused_params(llama.unstack_layers(params), cfg)
     print(torch.cuda.get_device_name(0))
     for B in args.batch:
         profile_batch(params, cfg, B, args.seq, args.prompt, args.chunk, args.chunks)

@@ -1,0 +1,146 @@
+"""lit-llama state dicts <-> the port's parameter tree (counterpart of the
+lit-llama and LoRA parts of lit_llama_tpu/utils/convert.py).
+
+The tree is the JAX package's: linear weights transposed to (in, out), layers
+stacked on a leading axis, the vocabulary padded to ``padded_vocab_size``.
+A state dict holds lit-llama names in torch orientation (out, in). Values are
+torch tensors (``torch.load`` of a ``.pth``, memory-mapped) or anything
+``torch.as_tensor`` takes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from lit_llama_tpu_torch.models.config import LLaMAConfig
+from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
+
+_MLP = ("c_fc1", "c_fc2", "c_proj")
+
+
+def _tensor(t) -> torch.Tensor:
+    return t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+
+
+def lit_to_pytree(sd: Mapping[str, Any], config: LLaMAConfig, dtype=None, device=None) -> Dict[str, Any]:
+    """lit-llama state dict -> the stacked tree in ``dtype`` (the config's
+    param dtype when None) on ``device`` (the card when None). Each tensor
+    goes to the device on its own, so the host holds no second copy of the
+    model; the embedding and lm_head are zero-padded to the padded
+    vocabulary."""
+    dt = torch_dtype(dtype or config.param_dtype)
+    dev = resolve_device(device)
+    L, V = config.n_layer, config.padded_vocab_size
+
+    def get(name, transpose=False):
+        t = _tensor(sd[name]).to(dev, dt)
+        return t.t() if transpose else t
+
+    def pad_vocab(t):
+        return torch.cat([t, t.new_zeros((V - t.shape[0],) + tuple(t.shape[1:]))]) if t.shape[0] < V else t
+
+    def stack(suffix, transpose=True):
+        return torch.stack([get(f"transformer.h.{i}.{suffix}", transpose) for i in range(L)])
+
+    return {
+        "wte": pad_vocab(get("transformer.wte.weight")),
+        "ln_f": get("transformer.ln_f.scale"),
+        "lm_head": {"w": pad_vocab(get("lm_head.weight")).t().contiguous()},
+        "h": {
+            "rms_1": stack("rms_1.scale", False),
+            "rms_2": stack("rms_2.scale", False),
+            "attn": {"c_attn": {"w": stack("attn.c_attn.weight")}, "c_proj": {"w": stack("attn.c_proj.weight")}},
+            "mlp": {name: {"w": stack(f"mlp.{name}.weight")} for name in _MLP},
+        },
+    }
+
+
+def pytree_to_lit(params: Dict[str, Any], config: LLaMAConfig) -> Dict[str, torch.Tensor]:
+    """The stacked dense tree -> a lit-llama state dict (CPU tensors, torch
+    orientation), for ``torch.save``."""
+    h = params["h"]
+
+    def cpu(t):
+        return t.detach().cpu().contiguous()
+
+    out = {"transformer.wte.weight": cpu(params["wte"]), "transformer.ln_f.scale": cpu(params["ln_f"]),
+           "lm_head.weight": cpu(params["lm_head"]["w"].t())}
+    for i in range(config.n_layer):
+        out[f"transformer.h.{i}.rms_1.scale"] = cpu(h["rms_1"][i])
+        out[f"transformer.h.{i}.rms_2.scale"] = cpu(h["rms_2"][i])
+        out[f"transformer.h.{i}.attn.c_attn.weight"] = cpu(h["attn"]["c_attn"]["w"][i].t())
+        out[f"transformer.h.{i}.attn.c_proj.weight"] = cpu(h["attn"]["c_proj"]["w"][i].t())
+        for name in _MLP:
+            out[f"transformer.h.{i}.mlp.{name}.weight"] = cpu(h["mlp"][name]["w"][i].t())
+    return out
+
+
+def llama_model_lookup(sd: Mapping[str, Any]) -> str:
+    """The preset of a checkpoint from its embedding width."""
+    embd_to_name = {4096: "7B", 5120: "13B", 6656: "30B", 8192: "65B"}
+    for key in ("transformer.wte.weight", "tok_embeddings.weight", "model.embed_tokens.weight"):
+        if key in sd:
+            width = _tensor(sd[key]).shape[1]
+            if width not in embd_to_name:
+                raise ValueError(f"no preset has an embedding width of {width}; give config.json or model_size")
+            return embd_to_name[width]
+    raise ValueError("cannot find an embedding weight in the checkpoint")
+
+
+# ---------------------------------------------------------------------------
+# Reference-format LoRA checkpoints <-> the overlay tree
+# ---------------------------------------------------------------------------
+
+
+def peft_sd_kind(sd: Mapping[str, Any]) -> Optional[str]:
+    """'lora' (``*.lora_A`` / ``*.lora_B`` entries), 'adapter'
+    (``*.adapter_wte.weight`` / ``*.gating_factor``) or None."""
+    for name in sd:
+        if "lora_A" in name or "lora_B" in name:
+            return "lora"
+        if "adapter_wte" in name or "gating_factor" in name:
+            return "adapter"
+    return None
+
+
+def lora_sd_to_overlay(sd: Mapping[str, Any], config: LLaMAConfig, dtype=None,
+                       device=None) -> Tuple[Dict[str, Any], int]:
+    """Reference LoRA state dict -> ({"h": {"attn": {"c_attn": {"lora_a",
+    "lora_b"}}}}, r).
+
+    Reference layout per layer: ``lora_A`` (n_en * r, D), one (r, D) block per
+    enabled group, rows [q; v] for the default groups; ``lora_B``
+    (n_en * D, r). Ours: ``lora_a`` (L, D, n_en * r) = lora_A^T stacked and
+    ``lora_b`` (L, n_en, r, D) with b[g] = lora_B[g D:(g + 1) D]^T. The rank
+    comes from the weights."""
+    dt = torch_dtype(dtype or config.param_dtype)
+    dev = resolve_device(device)
+    enable = config.lora.enable if config.lora is not None else (True, False, True)
+    n_en = sum(enable)
+    a_list, b_list = [], []
+    r = None
+    for i in range(config.n_layer):
+        A = _tensor(sd[f"transformer.h.{i}.attn.c_attn.lora_A"]).float()
+        B = _tensor(sd[f"transformer.h.{i}.attn.c_attn.lora_B"]).float()
+        r = A.shape[0] // n_en
+        group = B.shape[0] // n_en  # n_embd for the fused c_attn
+        a_list.append(A.t())
+        b_list.append(torch.stack([B[g * group : (g + 1) * group].t() for g in range(n_en)]))
+    overlay = {"h": {"attn": {"c_attn": {"lora_a": torch.stack(a_list).to(dev, dt),
+                                         "lora_b": torch.stack(b_list).to(dev, dt)}}}}
+    return overlay, int(r)
+
+
+def lora_overlay_to_sd(overlay: Dict[str, Any], config: LLaMAConfig) -> Dict[str, torch.Tensor]:
+    """The overlay tree -> a reference-format LoRA state dict (CPU f32
+    tensors)."""
+    c_attn = overlay["h"]["attn"]["c_attn"]
+    a = c_attn["lora_a"].detach().float().cpu()  # (L, D, n_en * r)
+    b = c_attn["lora_b"].detach().float().cpu()  # (L, n_en, r, D)
+    out = {}
+    for i in range(a.shape[0]):
+        out[f"transformer.h.{i}.attn.c_attn.lora_A"] = a[i].t().contiguous()
+        out[f"transformer.h.{i}.attn.c_attn.lora_B"] = torch.cat([b[i, g].t() for g in range(b.shape[1])])
+    return out

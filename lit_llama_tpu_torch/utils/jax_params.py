@@ -6,7 +6,8 @@ returns the same keys and layout with torch tensors on ``device``;
 ``params_to_numpy`` goes the other way, bf16 leaves as their uint16 bit
 patterns (``.view(ml_dtypes.bfloat16)`` on the JAX side gives the values). The
 kernels' relayout of the TPU toolchain (``qscale_b``/``qzero_b`` from
-``blocked_scales``) is dropped. ``cache_from_numpy`` does the same for a
+``blocked_scales``) is dropped; LoRA leaves (``lora_a``, ``lora_b`` and the
+folded ``lora_af``, ``lora_bf``) come across like any other. ``cache_from_numpy`` does the same for a
 per-layer KV cache. Nothing here imports JAX.
 """
 

@@ -9,7 +9,9 @@ scale drawn from U[0.002, 0.006] and a zero from U[-0.04, -0.02] for each
 [-127, 127] and a scale drawn from U[0.0002, 0.0004] for each output column.
 The scales vary so that a kernel that reads the wrong group, nibble plane or
 column of them disagrees with its plain version. Normal(0, 0.02) embedding,
-unit norms. Built from a seeded ``torch.Generator`` on the target device;
+unit norms. A LoRA overlay (``random_lora_overlay``) has A as the JAX
+package initialises it and B drawn too, not zero: with B = 0 the update
+vanishes and a kernel that dropped it would still agree. Built from a seeded ``torch.Generator`` on the target device;
 dense 7B weights are never materialised.
 """
 
@@ -75,3 +77,20 @@ def random_int8_params(config: LLaMAConfig, seed: int = 0, device=None):
         return {"qw": qw, "qscale": uniform((*lead, 1, out_f), 0.0002, 0.0004)}
 
     return _random_tree(config, seed, device, q8)
+
+
+def random_lora_overlay(config: LLaMAConfig, seed: int = 0, device=None):
+    """Stacked LoRA overlay for ``peft.lora.load_lora_state``, at
+    ``config.lora``'s rank and groups: ``lora_a`` (L, D, n_en * r) from
+    U[-1/sqrt(D), 1/sqrt(D)] (the JAX package's init), ``lora_b``
+    (L, n_en, r, D) from N(0, 0.1)."""
+    cfg = config.lora
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    L, D, n_en = config.n_layer, config.n_embd, sum(cfg.enable)
+    dtype = torch_dtype(config.param_dtype)
+    bound = D ** -0.5
+    a = torch.empty((L, D, n_en * cfg.r), dtype=torch.float32, device=dev).uniform_(-bound, bound, generator=gen)
+    b = torch.randn((L, n_en, cfg.r, D), generator=gen, device=dev) * 0.1
+    return {"h": {"attn": {"c_attn": {"lora_a": a.to(dtype), "lora_b": b.to(dtype)}}}}

@@ -128,9 +128,12 @@ def test_block_tail_ref_matches_pallas(layers, geom, B, dtype):
 
 
 def test_block_head_refuses_lora(layers):
+    """K7 takes a LoRA overlay only as the operand prepare_fused_params folds
+    (lora_af, lora_bf): a raw overlay would have its update left out, so it
+    is refused."""
     _, _, tlp, tc = layers["even"]
-    ca = {**tlp["attn"]["c_attn"], "lora_af": torch.zeros(512, 8)}
-    with pytest.raises(NotImplementedError):
+    ca = {**tlp["attn"]["c_attn"], "lora_a": torch.zeros(512, 8), "lora_b": torch.zeros(2, 4, 512)}
+    with pytest.raises(ValueError, match="did not fold"):
         tfl.block_head_fused(torch.zeros(1, 512), tlp["rms_1"], torch.ones(1, 128), torch.zeros(1, 128), ca, tc)
 
 
