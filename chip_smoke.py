@@ -25,8 +25,17 @@ flash-attention backward) against its plain version, a 2-layer full-width
 training step kernel path against plain path, 7 steps of 8-layer full-width
 pretraining at T = 2048 through ``training.loop.train`` on LITPKDS chunks, and
 the ``pretrain.redpajama`` entry point saving and resuming in a subprocess.
-The launch counters, set to 0 before each path and read after it, prove that
-the path ran through the kernels. Any failure raises and exits nonzero.
+Then every input the Pallas entries take beyond bf16 at head size 128: K7/K9
+past 64 slots and 128 requests through a 128-slot engine (each request's
+tokens equal to a 32-slot engine's); a LoRA operand of 128 columns in bf16
+and f32; f32 norm weights through ``generate.base`` on an f32 native
+directory; f32 compute in every kernel and through whole paths (the 32-layer
+int4 model, the serving engine, int8 per op, a training step), each against
+its plain path; head size 256 in K4, K5 and K10; and the routing of shapes
+the JAX package's gates leave to XLA (head size 64, widths that are no
+multiple of 256) to the plain versions. The launch counters, set to 0 before
+each path and read after it, prove that the path ran through the kernels.
+Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
 limit; one JSON line {"kernels": [...]} with each kernel's launches on the
@@ -73,9 +82,21 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
     # a scale not applied moves most values by more
     "K5": (1e-3, 2e-2),
 }
+# f32 compute: the kernels and their plain versions take the same f32 inputs
+# and round nowhere else; their f32 sums run in another order, so outputs of
+# size ~1-10 differ in the last few f32 bits (the card runs: up to ~6e-5 on
+# K6's O(20) sums at K = 4096)
+TOL_F32 = (1e-4, 1e-4)
+# head size 256: the bf16 tolerances of head size 128 (the same rounding points)
+TOL["K4 hs256"], TOL["K5 hs256"] = TOL["K4"], TOL["K5"]
 # 2-layer full-width model, kernel path vs plain path: per-op errors of the
 # table above compound through 2 blocks and the lm_head
 TOL_MODEL = (5e-2, 5e-2)
+# f32 compute through whole models, kernel path vs plain path (the same
+# tokens fed to both): max |dlogit| <= TOL_MODEL_F32 * max |logit|. f32 sums
+# in another order compound through the layers; a kernel that dropped a
+# group, a chunk or a row moves the logits by orders more
+TOL_MODEL_F32 = 1e-3
 # K10, bf16, held row by row (a query's dq, a key's dk or dv: the last axis):
 # |kernel - plain| <= row * rowmax + rel * |plain|, with rowmax the row's
 # largest |plain|, at least floor * the output's largest. Both round P and dS
@@ -168,6 +189,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    def int4_bytes(K, N, g=128):
+        """Bytes of an int4 linear: the packed nibbles and f32 scale/zero planes."""
+        return K // 2 * N + 2 * (K // g) * N * 4
+
     def bound_ms(nbytes, ops, peak):
         return max(nbytes / bw, ops / peak) * 1e3, ("bytes" if nbytes / bw >= ops / peak else "operations")
 
@@ -207,6 +232,57 @@ def main() -> int:
         assert err <= limit, f"{what}: max |dlogit| {err:.3g} > {limit:.3g}"
         return err
 
+    def max_err32(got, want, what):
+        """f32 kernel output against its plain version, TOL_F32."""
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"{what}: non-finite kernel output"
+        err = (got - want).abs()
+        bad = err > TOL_F32[0] + TOL_F32[1] * want.abs()
+        assert not bad.any(), f"{what}: {int(bad.sum())} values beyond the f32 tolerance, max err {err.max():.3g}"
+        return float(err.max())
+
+    def side_by_side(params, config, prompt, n_new, S, fused):
+        """Greedy decoding on the kernel path and the plain path with the same
+        tokens fed to both (the plain path's choice), so the logits stay
+        comparable after a flip. Returns (max |dlogit| / max |logit| over the
+        prefill and every step, kernel-path launches by counter, the steps
+        where the two argmaxes differ with the plain top-2 gap there). The
+        fused path decodes through K1/K2 (their plain versions), the per-op
+        path through forward(input_pos)."""
+        cd = getattr(torch, config.compute_dtype)
+        rope_c = build_rope_cache(config.block_size, config.head_size, device=dev)
+        caches = {plain: llama.init_kv_cache(config, 1, S, cd, device=dev) for plain in (False, True)}
+        for fn in counters.values():
+            fn.launches = 0
+        lg = {plain: llama.forward(params, prompt[None], config, rope_cache=rope_c, kv_cache=caches[plain],
+                                   prefill_from_zero=True, plain=plain)[0][0, -1:].float() for plain in (False, True)}
+        worst, flips = 0.0, []
+        T = prompt.shape[0]
+        for i in range(n_new):
+            assert torch.isfinite(lg[False]).all(), f"step {i}: non-finite logits"
+            worst = max(worst, float((lg[False] - lg[True]).abs().max() / lg[True].abs().max()))
+            top2 = lg[True][0].topk(2)
+            if int(lg[False].argmax()) != int(top2.indices[0]):
+                flips.append((i, float(top2.values[0] - top2.values[1])))
+            if i == n_new - 1:
+                break
+            tok, pos = lg[True].argmax(-1), T + i
+            for plain in (False, True):
+                if fused:
+                    layer = fused_layer.decode_layers_fused_ref if plain else fused_layer.decode_layers_fused
+                    head = fused_layer.lm_head_fused_ref if plain else fused_layer.lm_head_fused
+                    cos, sin = rope_half_row(rope_c, min(pos, config.block_size - 1), config.head_size)
+                    x = params["wte"][tok].to(cd)
+                    for lp, kv in zip(params["h"], caches[plain]):
+                        x, _ = layer(x, [lp], [kv], cos, sin, pos % S, pos, config)
+                    lg[plain] = head(x, params["ln_f"], params["lm_head"], config).float()
+                else:
+                    lg[plain] = llama.forward(params, tok[None], config, rope_cache=rope_c, input_pos=[pos],
+                                              kv_cache=caches[plain], plain=plain)[0][0].float()
+        got = {k: fn.launches for k, fn in counters.items()}
+        del caches
+        return worst, got, flips
+
     def wall_s(params, config, prompt, n_new, s, reps=3):
         """Median host time of a greedy request (generate ends in a copy to the host)."""
         times = []
@@ -223,6 +299,7 @@ def main() -> int:
                 "K1 LoRA": fused_layer.k1_lora, "K7 LoRA": fused_layer.k7_lora}
 
     gcpu = torch.Generator().manual_seed(SEED)
+    entry_inputs = {}  # readings of the paths that take every input the Pallas entries take
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gcpu) * scale).to(dev, torch.bfloat16)
@@ -695,6 +772,360 @@ def main() -> int:
             rec["tok_s_again"] = n_tok / (time.perf_counter() - t0)
             log(f"engine {tag} LoRA again: {rec['tok_s_again']:.1f} tok/s aggregate")
 
+        # ---- 8e. past 64 slots: K7 and K9 at B = 65, 96, 128 vs plain ---------
+        errs7w, errs9w = [], []
+        for B in (65, 96, 128):
+            ha, ta = halves_args(lp0, cfg, B)
+            errs7w.append(max_err(fused_layer.block_head_fused(*ha), fused_layer.block_head_fused_ref(*ha), "K7"))
+            errs9w.append(max_err(fused_layer.block_tail_fused(*ta), fused_layer.block_tail_fused_ref(*ta), "K9"))
+        ha64, ta64 = halves_args(lp0, cfg, 64)
+        # timed 64, 128, 128, 64 in one call
+        ms7 = [time_ms(lambda: fused_layer.block_head_fused(*h_)) for h_ in (ha64, ha, ha, ha64)]
+        ms9 = [time_ms(lambda: fused_layer.block_tail_fused(*t_)) for t_ in (ta64, ta, ta, ta64)]
+        for key, msx, args_, ref_fn, nbytes, ops in (
+                ("K7 B>64", ms7, ha, fused_layer.block_head_fused_ref,
+                 128 * D * 2 + D * 2 + q4_bytes(D, 3 * D) + 2 * 128 * hs * 4 + 128 * 3 * D * 2, 2 * 128 * D * 3 * D),
+                ("K9 B>64", ms9, ta, fused_layer.block_tail_fused_ref,
+                 2 * 128 * D * 2 + D * 2 + q4_bytes(D, D) + q4_bytes(D, 2 * I) + q4_bytes(I, D) + 128 * D * 2,
+                 2 * 128 * (D * D + 2 * I * D + I * D))):
+            b_ = bound_ms(nbytes, ops, tc_peak)
+            results[key] = dict(shape=f"B=128 D={D}" + (" -> 3D (c_attn)" if key.startswith("K7") else f" I={I}"),
+                                ms=(msx[1] + msx[2]) / 2, ms_at_b64=(msx[0] + msx[3]) / 2, library_ms=None,
+                                plain_ms=time_ms(lambda: ref_fn(*args_), 3), bound_ms=b_[0], bound_by=b_[1],
+                                max_abs_err=max(errs7w if key.startswith("K7") else errs9w))
+            log(f"{key[:2]} at B=128: {msx[1] * 1e3:.1f} / {msx[2] * 1e3:.1f} us, at B=64 {msx[0] * 1e3:.1f} / "
+                f"{msx[3] * 1e3:.1f} us (timed 64, 128, 128, 64); bound at 128 {b_[0] * 1e3:.1f} us ({b_[1]}); "
+                f"B = 65, 96, 128 vs plain max err {results[key]['max_abs_err']:.3g}")
+
+        # ---- 8f. 128 requests at once through a 128-slot engine, each request's
+        # tokens against the same request's in a 32-slot engine ------------------------
+        n_a, new_a, S_a = 128, 16, 256
+        rng_a = np.random.default_rng(SEED + 10)
+        lens_a = np.exp(rng_a.uniform(np.log(8), np.log(128), n_a)).astype(int)  # log-uniform in [8, 128]
+        prompts_a = [rng_a.integers(1, cfg.vocab_size, size=int(n)).astype(np.int64) for n in lens_a]
+        toks_a = {}
+        for slots in (128, 32):
+            engine = DecodeEngine(params, cfg, max_batch=slots, max_seq_length=S_a, steps_per_sync=8)
+            assert engine.serve_fused, f"a {slots}-slot engine should take K7-K9"
+            engine.warmup()
+            torch.cuda.synchronize()
+            steps0, prefills0 = engine.decode_steps, engine.prefills
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            ids = [engine.submit(p, new_a) for p in prompts_a]
+            done = engine.run()
+            wall = time.perf_counter() - t0
+            got = {k: fn.launches for k, fn in counters.items()}
+            steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
+            want = dict.fromkeys(counters, 0)
+            want.update({"K3": prefills * (4 * L + 1) + steps, "K4": L * prefills, "K7": L * steps,
+                         "K8": L * steps, "K9": L * steps})
+            assert got == want, f"{slots}-slot engine: launches {got}, expected {want}"
+            assert prefills == n_a and sorted(done) == ids and not engine.has_work()
+            toks_a[slots] = [done[i].generated for i in ids]
+            assert all(len(t) == new_a and min(t) >= 0 and max(t) < V for t in toks_a[slots])
+            n_tok = sum(len(t) for t in toks_a[slots])
+            ttfts = sorted(done[i].ttft for i in ids)
+            entry_inputs[f"serving_{slots}_slots"] = dict(
+                requests=n_a, slots=slots, S=S_a, new_tokens=new_a, prompt_tokens=int(lens_a.sum()),
+                decode_steps=steps, prefills=prefills, wall_s=wall, tok_s=n_tok / wall,
+                ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3, cache_gib=2 * L * slots * H * S_a * hs * 2 / 2**30)
+            log(f"engine, {slots} slots, S={S_a}, {n_a} requests at once (prompts {lens_a.min()}..{lens_a.max()}, "
+                f"{new_a} new tokens): {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s aggregate, TTFT p50 "
+                f"{entry_inputs[f'serving_{slots}_slots']['ttft_p50_ms']:.0f} ms (host clock); {steps} decode steps; "
+                f"launches {got}")
+            if slots == 128:
+                totals["K7 B>64"], totals["K9 B>64"] = got["K7"], got["K9"]
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        differ = [i for i in range(n_a) if toks_a[128][i] != toks_a[32][i]]
+        assert not differ, f"requests {differ[:10]} got other tokens in the 128-slot engine than in the 32-slot one"
+        log(f"each of the {n_a} requests got the same {new_a} tokens in the 128-slot and the 32-slot engine")
+
+        # ---- 8g. LoRA at r = 64 on q and v (R8 = 128), the operand bf16 and f32 --
+        lcfg64 = cfg.replace(lora=LoRAConfig(r=64, alpha=16.0, dropout=0.0))
+        ov64 = random_lora_overlay(cfg7.replace(param_dtype="float32", lora=lcfg64.lora), seed=SEED + 5,
+                                   device=dev)["h"]["attn"]["c_attn"]
+        params_w = {}
+        for odt in ("float32", "bfloat16"):
+            lay = []
+            for j, lp in enumerate(params["h"]):
+                ca = fused_layer.prepare_lora_operands(
+                    {**lp["attn"]["c_attn"], "lora_a": ov64["lora_a"][j], "lora_b": ov64["lora_b"][j]},
+                    lcfg64.lora, D, hs)
+                ca["lora_af"], ca["lora_bf"] = (ca[k].to(getattr(torch, odt)) for k in ("lora_af", "lora_bf"))
+                lay.append({**lp, "attn": {**lp["attn"], "c_attn": ca}})
+            params_w[odt] = dict(params, h=lay)
+        del ov64
+        kc1, vc1 = randn(1, H, S, hs, scale=0.3), randn(1, H, S, hs, scale=0.3)
+        R8w = params_w["bfloat16"]["h"][0]["attn"]["c_attn"]["lora_af"].shape[1]
+        assert R8w == 128, R8w
+        wbytes = {odt: (D * R8w + R8w * 3 * D) * (4 if odt == "float32" else 2) for odt in params_w}
+        wops = 2 * (D * R8w + R8w * 3 * D)
+        for odt, pw in params_w.items():
+            tag = "" if odt == "bfloat16" else " f32"
+            lpw = pw["h"][0]
+            errs = []
+            for pos in (0, 2047, 2053):
+                x = randn(1, D)
+                cos, sin = rope_half_row(rope, min(pos, cfg.block_size - 1), hs)
+                kv, rkv = ({"k": kc1.clone(), "v": vc1.clone()} for _ in range(2))
+                out, _ = fused_layer.decode_layers_fused(x, [lpw], [kv], cos, sin, pos % S, pos, lcfg64)
+                ref, _ = fused_layer.decode_layers_fused_ref(x, [lpw], [rkv], cos, sin, pos % S, pos, lcfg64)
+                errs.append(max_err(out, ref, "K1 LoRA"))
+                max_err(kv["v"], rkv["v"], "K1 cache")
+                bare = {"k": kc1.clone(), "v": vc1.clone()}
+                fused_layer.decode_layers_fused_ref(x, [lp0], [bare], cos, sin, pos % S, pos, cfg)
+                moved = float((bare["v"][0, :, pos % S] - rkv["v"][0, :, pos % S]).float().abs().max())
+                assert moved > 10 * TOL["K1 cache"][0], f"K1 LoRA R8=128{tag}: the operand moves v by {moved:.3g} only"
+            visible = S
+            b1 = bound_ms(layer_bytes + wbytes[odt] + 2 * H * visible * hs * 2, layer_ops + wops + 4 * H * visible * hs,
+                          f32_peak)
+            results[f"K1 LoRA R8=128{tag}"] = dict(
+                shape=f"one 7B block, S={S}, pos=2053, R8={R8w}, {odt} operand", max_abs_err=max(errs),
+                ms=time_ms(lambda: fused_layer.decode_layers_fused(x, [lpw], [kv], cos, sin, pos % S, pos, lcfg64)),
+                plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(x, [lpw], [rkv], cos, sin, pos % S, pos,
+                                                                             lcfg64), 3),
+                library_ms=None, bound_ms=b1[0], bound_by=b1[1])
+            errs = []
+            for B in (8, 32, 128):
+                ha, _ = halves_args(lpw, lcfg64, B)
+                errs.append(max_err(fused_layer.block_head_fused(*ha), fused_layer.block_head_fused_ref(*ha),
+                                    "K7 LoRA"))
+                if B == 32:
+                    ha32 = ha
+            b7w = bound_ms(32 * D * 2 + D * 2 + q4_bytes(D, 3 * D) + wbytes[odt] + 2 * 32 * hs * 4 + 32 * 3 * D * 2,
+                           2 * 32 * D * 3 * D + 32 * wops, tc_peak)
+            results[f"K7 LoRA R8=128{tag}"] = dict(
+                shape=f"B=32 D={D} -> 3D (c_attn), R8={R8w}, {odt} operand", max_abs_err=max(errs),
+                ms=time_ms(lambda: fused_layer.block_head_fused(*ha32)),
+                plain_ms=time_ms(lambda: fused_layer.block_head_fused_ref(*ha32), 3), library_ms=None,
+                bound_ms=b7w[0], bound_by=b7w[1])
+            # one generation request (prompt 8, S = 80, 32 tokens) and the LoRA engine
+            # on phase 8's 64 requests
+            prompt_w = torch.randint(0, cfg.vocab_size, (8,), generator=gcpu)
+            for fn in counters.values():
+                fn.launches = 0
+            out_w = gen.generate(pw, prompt_w, 32, config=lcfg64, max_seq_length=80, temperature=0.0)
+            got = {k: fn.launches for k, fn in counters.items()}
+            want = dict.fromkeys(counters, 0)
+            want.update({"K1": L * 31, "K1 LoRA": L * 31, "K2": 31, "K3": 4 * L + 1, "K4": L})
+            assert got == want, f"LoRA R8=128{tag} request: launches {got}, expected {want}"
+            assert out_w.shape == (40,) and int(out_w.min()) >= 0 and int(out_w.max()) < V
+            totals[f"K1 LoRA R8=128{tag}"] = got["K1 LoRA"]
+            engine = DecodeEngine(pw, lcfg64, max_batch=slots, max_seq_length=S_e, steps_per_sync=8)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            ids = [engine.submit(p, new_e) for p in prompts]
+            done = engine.run()
+            wall = time.perf_counter() - t0
+            got = {k: fn.launches for k, fn in counters.items()}
+            steps = engine.decode_steps
+            assert got["K7 LoRA"] == got["K7"] == L * steps and engine.prefills == n_req, f"LoRA R8=128 engine: {got}"
+            totals[f"K7 LoRA R8=128{tag}"] = got["K7 LoRA"]
+            n_tok = sum(len(done[i].generated) for i in ids)
+            entry_inputs[f"lora_r64_{odt}"] = dict(request_tokens=out_w.tolist()[8:], engine_tok_s=n_tok / wall,
+                                             engine_steps=steps)
+            log(f"LoRA r = 64 on q and v (R8 = {R8w}), {odt} operand: K1 vs plain max err "
+                f"{results[f'K1 LoRA R8=128{tag}']['max_abs_err']:.3g}, {results[f'K1 LoRA R8=128{tag}']['ms'] * 1e3:.1f}"
+                f" us at S={S} (bound {b1[0] * 1e3:.1f}); K7 max err {results[f'K7 LoRA R8=128{tag}']['max_abs_err']:.3g}, "
+                f"{results[f'K7 LoRA R8=128{tag}']['ms'] * 1e3:.1f} us at B=32 (bound {b7w[0] * 1e3:.1f}); a request "
+                f"(prompt 8, S=80, 32 tokens) with launches {want}; the LoRA engine on phase 8's {n_req} requests: "
+                f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s, {steps} steps, K7 LoRA launches "
+                f"{got['K7 LoRA']}")
+            del engine
+        del params_w, pw, lpw, kc1, vc1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 8h. f32 compute on the int4 model: K3, K4, K1, K2, K7, K8, K9 vs plain
+        cfg32 = cfg.replace(compute_dtype="float32")
+
+        def randf(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gcpu) * scale).to(dev)
+
+        errs = []
+        for M in (8, 128):
+            for lname, w, K in linears:
+                x = randf(M, K)
+                args = (x, w["qw"], w["qscale"], w["qzero"], torch.float32)
+                errs.append(max_err32(quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args),
+                                      f"K3 f32 M={M} {lname}"))
+                if M == 128 and lname == "c_fc12":
+                    N = w["qw"].shape[1]
+                    wd = dequantize_int4(w, torch.float32)
+                    b3 = bound_ms(M * K * 4 + q4_bytes(K, N) + M * N * 4, 2 * M * K * N, f32_peak)
+                    results["K3 f32"] = dict(shape=f"M={M} K={K} N={N} (c_fc12), f32", ms=time_ms(
+                        lambda: quant_matmul.matmul_int4(*args)), plain_ms=time_ms(
+                        lambda: quant_matmul.matmul_int4_ref(*args), 3), library_ms=time_ms(lambda: torch.matmul(x, wd)),
+                        bound_ms=b3[0], bound_by=b3[1])
+                    del wd
+        results["K3 f32"]["max_abs_err"] = max(errs)
+        errs = []
+        for T in (128, 200):
+            q, k, v = (randf(1, H, T, hs) for _ in range(3))
+            o, lse = fa.flash_attention(q, k, v)
+            ro, rlse = fa.flash_attention_ref(q, k, v)
+            errs.append(max_err32(o, ro, f"K4 f32 T={T}"))
+            max_err32(lse, rlse, f"K4 f32 lse T={T}")
+        k4f32_err = entry_inputs["k4_f32_err_t128_t200"] = max(errs)
+        errs = []
+        kcf, vcf = randf(1, H, S, hs, scale=0.3), randf(1, H, S, hs, scale=0.3)
+        for pos in (0, 1000, 2047, 2053):
+            x = randf(1, D)
+            cos, sin = rope_half_row(rope, min(pos, cfg.block_size - 1), hs)
+            kv, rkv = ({"k": kcf.clone(), "v": vcf.clone()} for _ in range(2))
+            out, _ = fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg32)
+            ref, _ = fused_layer.decode_layers_fused_ref(x, [lp0], [rkv], cos, sin, pos % S, pos, cfg32)
+            errs.append(max_err32(out, ref, f"K1 f32 pos={pos}"))
+            max_err32(kv["k"], rkv["k"], "K1 f32 cache")
+            max_err32(kv["v"], rkv["v"], "K1 f32 cache")
+        b1 = bound_ms(layer_bytes + 2 * H * S * hs * 4, layer_ops + 4 * H * S * hs, f32_peak)
+        results["K1 f32"] = dict(
+            shape=f"one 7B block, S={S}, pos=2053, f32 row and cache", max_abs_err=max(errs), library_ms=None,
+            ms=time_ms(lambda: fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg32)),
+            plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(x, [lp0], [rkv], cos, sin, pos % S, pos,
+                                                                         cfg32), 3),
+            bound_ms=b1[0], bound_by=b1[1])
+        del kcf, vcf, kv, rkv
+        x = randf(1, D)
+        head_args = (x, params["ln_f"], params["lm_head"], cfg32)
+        b2 = bound_ms(D * 4 + D * 2 + q4_bytes(D, V) + V * 4, 2 * D * V, f32_peak)
+        results["K2 f32"] = dict(
+            shape=f"D={D} V={V}, f32", library_ms=None, bound_ms=b2[0], bound_by=b2[1],
+            max_abs_err=max_err32(fused_layer.lm_head_fused(*head_args), fused_layer.lm_head_fused_ref(*head_args),
+                                  "K2 f32"),
+            ms=time_ms(lambda: fused_layer.lm_head_fused(*head_args)),
+            plain_ms=time_ms(lambda: fused_layer.lm_head_fused_ref(*head_args), 3))
+        # K2 with an f32 ln_f (bf16 compute) at the 7B vocabulary: phase 8d' runs
+        # it at V = 128 on the f32 checkpoint
+        x = randn(1, D)
+        ln32 = (1.0 + 0.3 * torch.randn(D, generator=gcpu)).to(dev)
+        head_args = (x, ln32, params["lm_head"], cfg)
+        b2 = bound_ms(D * 2 + D * 4 + q4_bytes(D, V) + V * 2, 2 * D * V, f32_peak)
+        results["K2 f32 norms"] = dict(
+            shape=f"D={D} V={V}, f32 ln_f, bf16 compute", library_ms=None, bound_ms=b2[0], bound_by=b2[1],
+            max_abs_err=max_err(fused_layer.lm_head_fused(*head_args), fused_layer.lm_head_fused_ref(*head_args), "K2"),
+            ms=time_ms(lambda: fused_layer.lm_head_fused(*head_args)),
+            plain_ms=time_ms(lambda: fused_layer.lm_head_fused_ref(*head_args), 3))
+        errs7f, errs9f = [], []
+        for B in (1, 8, 32, 65):
+            x, y = randf(B, D), randf(B, D)
+            pos = torch.randint(0, cfg.block_size + 100, (B,), generator=gcpu).to(dev, torch.int32)
+            cos, sin = slot_rope_rows(rope, pos)
+            ha = (x, lp0["rms_1"], cos, sin, lp0["attn"]["c_attn"], cfg32)
+            ta = (x, y, lp0["rms_2"], lp0["attn"]["c_proj"], lp0["mlp"]["c_fc12"], lp0["mlp"]["c_proj"], cfg32)
+            errs7f.append(max_err32(fused_layer.block_head_fused(*ha), fused_layer.block_head_fused_ref(*ha),
+                                    f"K7 f32 B={B}"))
+            errs9f.append(max_err32(fused_layer.block_tail_fused(*ta), fused_layer.block_tail_fused_ref(*ta),
+                                    f"K9 f32 B={B}"))
+            if B == 32:
+                b7 = bound_ms(B * D * 4 + D * 2 + q4_bytes(D, 3 * D) + 2 * B * hs * 4 + B * 3 * D * 4,
+                              2 * B * D * 3 * D, f32_peak)
+                b9 = bound_ms(2 * B * D * 4 + D * 2 + q4_bytes(D, D) + q4_bytes(D, 2 * I) + q4_bytes(I, D) + B * D * 4,
+                              2 * B * (D * D + 2 * I * D + I * D), f32_peak)
+                results["K7 f32"] = dict(shape=f"B={B} D={D} -> 3D (c_attn), f32", library_ms=None,
+                                         ms=time_ms(lambda: fused_layer.block_head_fused(*ha)),
+                                         plain_ms=time_ms(lambda: fused_layer.block_head_fused_ref(*ha), 3),
+                                         bound_ms=b7[0], bound_by=b7[1])
+                results["K9 f32"] = dict(shape=f"B={B} D={D} I={I}, f32", library_ms=None,
+                                         ms=time_ms(lambda: fused_layer.block_tail_fused(*ta)),
+                                         plain_ms=time_ms(lambda: fused_layer.block_tail_fused_ref(*ta), 3),
+                                         bound_ms=b9[0], bound_by=b9[1])
+        results["K7 f32"]["max_abs_err"], results["K9 f32"]["max_abs_err"] = max(errs7f), max(errs9f)
+        errs8 = []
+        for B, S8 in ((32, 256), (8, 2048)):
+            qkv = randf(B, 3 * D)
+            q8, kn8, vn8 = (qkv[:, i * D : (i + 1) * D].reshape(B, H, 1, hs) for i in range(3))
+            kc0, vc0 = randf(B, H, S8, hs, scale=0.5), randf(B, H, S8, hs, scale=0.5)
+            full_pos = torch.randint(S8 - 1, 2 * S8, (B,), generator=gcpu).to(dev, torch.int32)
+            mixed = torch.randint(0, 3 * S8, (B,), generator=gcpu)
+            mixed[:4] = torch.tensor([0, S8 - 1, S8, 64])
+            for pos8 in (mixed.to(dev, torch.int32), full_pos):
+                kc, vc, rk, rv = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+                y8, _, _ = da.decode_attention_write(q8, kn8, vn8, kc, vc, pos8)
+                ry8, _, _ = da.decode_attention_write_ref(q8, kn8, vn8, rk, rv, pos8)
+                errs8.append(max_err32(y8, ry8, f"K8 f32 B={B} S={S8}"))
+                assert torch.equal(kc, rk) and torch.equal(vc, rv), f"K8 f32 B={B} S={S8}: caches differ"
+            if B == 32:
+                b8 = bound_ms(2 * B * H * S8 * hs * 4 + 4 * B * D * 4 + 2 * B * D * 4 + B * 4, 4 * B * H * S8 * hs,
+                              f32_peak)
+                rows8 = torch.arange(B, device=dev)
+                wp8 = (full_pos % S8).long()
+                vis8 = (torch.arange(S8, device=dev)[None, :] <= full_pos[:, None])[:, None, None, :]
+
+                def library_call():
+                    kc[rows8, :, wp8] = kn8[:, :, 0]
+                    vc[rows8, :, wp8] = vn8[:, :, 0]
+                    return F.scaled_dot_product_attention(q8, kc, vc, attn_mask=vis8)
+
+                results["K8 f32"] = dict(
+                    shape=f"B={B} H={H} S={S8} hs={hs}, every row visible, f32",
+                    ms=time_ms(lambda: da.decode_attention_write(q8, kn8, vn8, kc, vc, full_pos)),
+                    plain_ms=time_ms(lambda: da.decode_attention_write_ref(q8, kn8, vn8, rk, rv, full_pos), 3),
+                    library_ms=time_ms(library_call), bound_ms=b8[0], bound_by=b8[1])
+            del kc0, vc0, kc, vc, rk, rv
+        results["K8 f32"]["max_abs_err"] = max(errs8)
+        log("f32 compute vs plain, 7B shapes (tolerance |err| <= 1e-4 + 1e-4 |plain|): "
+            + ", ".join(f"{k} max err {results[k]['max_abs_err']:.3g}, {results[k]['ms'] * 1e3:.1f} us (plain "
+                        f"{results[k]['plain_ms'] * 1e3:.1f}, bound {results[k]['bound_ms'] * 1e3:.1f} {results[k]['bound_by']})"
+                        for k in ("K3 f32", "K1 f32", "K2 f32", "K7 f32", "K9 f32", "K8 f32"))
+            + f"; K4 f32 at T = 128, 200 max err {k4f32_err:.3g}")
+
+        # ---- 8i. the whole model in f32 compute: a single stream with an f32 cache
+        # at S = 2048, kernel path vs plain path; then the 32-slot engine --------------
+        prompt_f = torch.randint(0, cfg.vocab_size, (64,), generator=gcpu).to(dev)
+        worst, got, flips = side_by_side(params, cfg32, prompt_f, 16, 2048, fused=True)
+        want = dict.fromkeys(counters, 0)
+        want.update({"K1": L * 15, "K2": 15, "K3": 4 * L + 1, "K4": L})
+        assert got == want, f"f32 single stream: launches {got}, expected {want}"
+        assert worst <= TOL_MODEL_F32, f"f32 single stream: max |dlogit| / max |logit| = {worst:.3g}"
+        for key in ("K1", "K2", "K3", "K4"):
+            totals[f"{key} f32"] = got[key]
+        entry_inputs["f32_single_stream"] = dict(layers=L, prompt=64, new_tokens=16, S=2048, rel_logit_err=worst,
+                                           argmax_flips=flips, launches=got)
+        log(f"32-layer 7B int4 model, f32 compute, f32 cache S=2048 ({2 * L * H * 2048 * hs * 4 / 2**30:.2f} GiB), "
+            f"prompt 64 + 16 greedy tokens, kernel vs plain path (same tokens fed): max |dlogit| / max |logit| "
+            f"{worst:.3g} (limit {TOL_MODEL_F32}); argmax differs at {flips or 'no step'}; launches {got}")
+        assert not flips or all(gap <= 2 * TOL_MODEL_F32 for _, gap in flips), f"f32 greedy tokens differ: {flips}"
+        # the serving step in f32: 4 layers, 32 slots at their own positions, vs plain
+        p4 = dict(params, h=params["h"][:4])
+        c4 = cfg32.replace(n_layer=4)
+        caches = {plain: llama.init_kv_cache(c4, 32, S_e, device=dev) for plain in (False, True)}
+        pos32 = torch.randint(0, 2 * S_e, (32,), generator=gcpu).to(dev, torch.int32)
+        tok32 = torch.randint(0, cfg.vocab_size, (32,), generator=gcpu).to(dev)
+        worst = 0.0
+        for step in range(4):
+            lg = {plain: llama.forward(p4, tok32[:, None], c4, rope_cache=rope, slot_pos=pos32, kv_cache=caches[plain],
+                                       plain=plain)[0][:, -1].float() for plain in (False, True)}
+            worst = max(worst, float((lg[False] - lg[True]).abs().max() / lg[True].abs().max()))
+            tok32, pos32 = lg[True].argmax(-1), pos32 + 1
+        assert worst <= TOL_MODEL_F32, f"f32 serving step: max |dlogit| / max |logit| = {worst:.3g}"
+        del caches, lg, p4
+        engine = DecodeEngine(params, cfg32, max_batch=32, max_seq_length=S_e, steps_per_sync=8)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ids = [engine.submit(p, 16) for p in prompts[:32]]
+        done = engine.run()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        steps = engine.decode_steps
+        assert got["K7"] == got["K8"] == got["K9"] == L * steps > 0, f"f32 engine: launches {got}"
+        for key in ("K7", "K8", "K9"):
+            totals[f"{key} f32"] = got[key]
+        n_tok = sum(len(done[i].generated) for i in ids)
+        entry_inputs["f32_serving"] = dict(slots=32, requests=32, new_tokens=16, tok_s=n_tok / wall, steps=steps,
+                                     step_rel_logit_err=worst)
+        log(f"f32 serving: 4 layers at 32 slots kernel vs plain, 4 steps max |dlogit| / max |logit| {worst:.3g}; "
+            f"the 32-layer engine (32 slots, S={S_e}, 32 requests x 16 tokens): {n_tok / wall:.1f} tok/s, launches {got}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
         return results, totals, full, serving, full_lora, serving_lora
 
     results, totals, full, serving, full_lora, serving_lora = int4_paths()
@@ -807,6 +1238,103 @@ def main() -> int:
         log(f"python -m lit_llama_tpu_torch.generate.{entry} (2 layers at 7B width, int4 at load"
             f"{', reference-format LoRA .pth' if entry == 'lora' else ''}): exit 0 in {took:.1f} s, "
             f"{len(got_e) - len(enc)} greedy tokens equal to the in-process generate's; text {proc.stdout.strip()[:80]!r}")
+
+    # ---- 8d'. f32 norm weights: an f32 native checkpoint directory at 7B width
+    # (2 layers; norm weights drawn, not ones, as a trained f32 checkpoint holds
+    # them) through generate.base --quantize gptq.int4, which keeps the stored f32
+    # norms beside bf16 compute; then K7 and K9 on them through an engine ------------
+    from lit_llama_tpu_torch.utils.checkpoint import save_checkpoint
+
+    meta_n = dict(n_layer=2, n_head=32, n_embd=4096, vocab_size=128)
+    dense_n = llama.init_params(LLaMAConfig(**meta_n), torch.Generator(device=dev).manual_seed(SEED + 6), device=dev)
+    gn = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for tree_, name in ((dense_n["h"], "rms_1"), (dense_n["h"], "rms_2"), (dense_n, "ln_f")):
+        tree_[name] = 1.0 + 0.3 * torch.randn(tree_[name].shape, generator=gn, device=dev)
+    save_checkpoint(work_e / "native", {"params": dense_n}, metadata={"config": meta_n})
+    del dense_n
+    params_n, cfg_n = load_model(work_e / "native", "gptq.int4", device=dev)
+    assert params_n["h"]["rms_1"].dtype == torch.float32 and cfg_n.compute_dtype == "bfloat16"
+    params_n, cfg_n = fused_layer.maybe_prepare_fused(llama.unstack_layers(params_n), cfg_n)
+    assert cfg_n.rope_layout == "half", "the f32-norm model should take the fused step"
+    enc = tok_e.encode("Hello, my name is")
+    for fn in counters.values():
+        fn.launches = 0
+    want_n = gen.generate(params_n, enc, new_e4, config=cfg_n, temperature=0.0, top_k=200).tolist()
+    got = {k: fn.launches for k, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    # the lm_head (4096 -> 128) is no width a multiple of 256: its plain version runs
+    want.update({"K1": 2 * (new_e4 - 1), "K2": new_e4 - 1, "K3": 4 * 2, "K4": 2})
+    assert got == want, f"f32-norm request: launches {got}, expected {want}"
+    totals["K1 f32 norms"], totals["K2 f32 norms"] = got["K1"], got["K2"]
+    cmd = [sys.executable, "-m", "lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(work_e / "native"),
+           "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize", "gptq.int4", "--temperature", "0",
+           "--max_new_tokens", str(new_e4)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    assert proc.returncode == 0, f"generate.base on the f32 native directory exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    got_n = json.loads(proc.stderr.split("Token ids 1: ")[-1].splitlines()[0])
+    assert got_n == want_n, f"generate.base (f32 norms): tokens {got_n} differ from the in-process generate's {want_n}"
+    entry_runs["base_f32_norms"] = dict(seconds=took, new_tokens=len(got_n) - len(enc))
+    # K1, K2, K7 and K9 on the f32 norm weights vs plain, at 7B shapes
+    Dn, In, Hn = 4096, cfg_n.intermediate_size, 32
+    lpn = params_n["h"][0]
+    Sn = 2048
+    rope_n = build_rope_cache(cfg_n.block_size, 128, device=dev)
+    kcn, vcn = randn(1, Hn, Sn, 128, scale=0.3), randn(1, Hn, Sn, 128, scale=0.3)
+    errs = []
+    for pos in (0, 2047):
+        x = randn(1, Dn)
+        cos, sin = rope_half_row(rope_n, pos, 128)
+        kv, rkv = ({"k": kcn.clone(), "v": vcn.clone()} for _ in range(2))
+        out, _ = fused_layer.decode_layers_fused(x, [lpn], [kv], cos, sin, pos, pos, cfg_n)
+        ref, _ = fused_layer.decode_layers_fused_ref(x, [lpn], [rkv], cos, sin, pos, pos, cfg_n)
+        errs.append(max_err(out, ref, "K1"))
+        max_err(kv["v"], rkv["v"], "K1 cache")
+    wn = int4_bytes(Dn, 3 * Dn) + int4_bytes(Dn, Dn) + int4_bytes(Dn, 2 * In) + int4_bytes(In, Dn)
+    on = 2 * (3 * Dn * Dn + Dn * Dn + 2 * In * Dn + In * Dn)
+    b1 = bound_ms(wn + 2 * Dn * 4 + 2 * Dn * 2 + 2 * Hn * Sn * 128 * 2, on + 4 * Hn * Sn * 128, f32_peak)
+    results["K1 f32 norms"] = dict(
+        shape=f"one 7B block, S={Sn}, pos=2047, f32 rms_1/rms_2, bf16 compute", max_abs_err=max(errs),
+        ms=time_ms(lambda: fused_layer.decode_layers_fused(x, [lpn], [kv], cos, sin, pos, pos, cfg_n)),
+        plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(x, [lpn], [rkv], cos, sin, pos, pos, cfg_n), 3),
+        library_ms=None, bound_ms=b1[0], bound_by=b1[1])
+    del kcn, vcn, kv, rkv
+    head_args = (randn(1, Dn), params_n["ln_f"], params_n["lm_head"], cfg_n)
+    results["K2 f32 norms"]["max_abs_err"] = max(
+        results["K2 f32 norms"]["max_abs_err"],
+        max_err(fused_layer.lm_head_fused(*head_args), fused_layer.lm_head_fused_ref(*head_args), "K2"))
+    Bn = 32
+    xn, yn = randn(Bn, Dn), randn(Bn, Dn)
+    cos, sin = slot_rope_rows(rope_n, torch.randint(0, 2048, (Bn,), generator=gcpu).to(dev, torch.int32))
+    ha = (xn, lpn["rms_1"], cos, sin, lpn["attn"]["c_attn"], cfg_n)
+    ta = (xn, yn, lpn["rms_2"], lpn["attn"]["c_proj"], lpn["mlp"]["c_fc12"], lpn["mlp"]["c_proj"], cfg_n)
+    for key, fn_, ref_, args_, nb, ops in (
+            ("K7 f32 norms", fused_layer.block_head_fused, fused_layer.block_head_fused_ref, ha,
+             Bn * Dn * 2 + Dn * 4 + int4_bytes(Dn, 3 * Dn) + 2 * Bn * 128 * 4 + Bn * 3 * Dn * 2, 2 * Bn * Dn * 3 * Dn),
+            ("K9 f32 norms", fused_layer.block_tail_fused, fused_layer.block_tail_fused_ref, ta,
+             2 * Bn * Dn * 2 + Dn * 4 + int4_bytes(Dn, Dn) + int4_bytes(Dn, 2 * In) + int4_bytes(In, Dn) + Bn * Dn * 2,
+             2 * Bn * (Dn * Dn + 2 * In * Dn + In * Dn))):
+        b_ = bound_ms(nb, ops, tc_peak)
+        results[key] = dict(shape=f"B={Bn} D={Dn}, f32 norm weight, bf16 compute", library_ms=None,
+                            max_abs_err=max_err(fn_(*args_), ref_(*args_), key[:2]), ms=time_ms(lambda: fn_(*args_)),
+                            plain_ms=time_ms(lambda: ref_(*args_), 3), bound_ms=b_[0], bound_by=b_[1])
+    engine = DecodeEngine(params_n, cfg_n, max_batch=8, max_seq_length=64, steps_per_sync=4)
+    for fn in counters.values():
+        fn.launches = 0
+    ids = [engine.submit(np.asarray(enc, np.int64)[: 3 + i], 8) for i in range(8)]
+    done = engine.run()
+    got = {k: fn.launches for k, fn in counters.items()}
+    assert got["K7"] == got["K9"] == 2 * engine.decode_steps > 0, f"f32-norm engine: launches {got}"
+    totals["K7 f32 norms"], totals["K9 f32 norms"] = got["K7"], got["K9"]
+    log(f"f32 norm weights (drawn, not ones) under bf16 compute: python -m lit_llama_tpu_torch.generate.base on a "
+        f"2-layer 7B-width f32 native directory with --quantize gptq.int4 exits 0 in {took:.1f} s with "
+        f"{len(got_n) - len(enc)} greedy tokens equal to the in-process generate's (K1 {totals['K1 f32 norms']}, "
+        f"K2 {totals['K2 f32 norms']} launches); vs plain: "
+        + ", ".join(f"{k} max err {results[k]['max_abs_err']:.3g}, {results[k]['ms'] * 1e3:.1f} us"
+                    for k in ("K1 f32 norms", "K2 f32 norms", "K7 f32 norms", "K9 f32 norms"))
+        + f"; an 8-slot engine on them: K7 {got['K7']}, K9 {got['K9']} launches")
+    del engine, params_n, lpn, ha, ta, xn, yn
     import shutil
 
     shutil.rmtree(work_e)
@@ -954,6 +1482,92 @@ def main() -> int:
         log(f"int8 request prompt {T} S={S_used} {kvd or 'bf16'} KV cache: prefill {prefill_s * 1e3:.1f} ms, "
             f"decode {tok_s:.1f} tok/s ({new} new tokens, launches K4 {got['K4']}, K5 {got['K5']}, K6 {got['K6']})")
 
+
+    # ---- 12b. f32 compute on the int8 model: K6 and K5 vs plain, then 8 layers
+    # per op on an f32 cache and on an int8 cache, kernel path vs plain path --------
+    cfg8f = cfg8.replace(compute_dtype="float32")
+
+    def randf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gcpu) * scale).to(dev)
+
+    errs = []
+    for lname, w in (("c_attn", lp8["attn"]["c_attn"]), ("attn.c_proj", lp8["attn"]["c_proj"]),
+                     ("c_fc12", lp8["mlp"]["c_fc12"]), ("mlp.c_proj", lp8["mlp"]["c_proj"]),
+                     ("lm_head", params8["lm_head"])):
+        K, N = w["qw"].shape
+        for M in (1, 8, 200):
+            x = randf(M, K)
+            args = (x, w["qw"], w["qscale"], torch.float32)
+            errs.append(max_err32(quant_matmul.matmul_int8(*args), quant_matmul.matmul_int8_ref(*args),
+                                  f"K6 f32 M={M} {lname}"))
+        if lname == "c_fc12":
+            wd = dequantize_int8(w, torch.float32)
+            for M in (1, 128):
+                x = randf(M, K)
+                args = (x, w["qw"], w["qscale"], torch.float32)
+                b6 = bound_ms(M * K * 4 + K * N + N * 4 + M * N * 4, 2 * M * K * N, f32_peak)
+                row = dict(shape=f"M={M} K={K} N={N} (c_fc12), f32", ms=time_ms(lambda: quant_matmul.matmul_int8(*args)),
+                           plain_ms=time_ms(lambda: quant_matmul.matmul_int8_ref(*args), 3),
+                           library_ms=time_ms(lambda: torch.matmul(x, wd)), bound_ms=b6[0], bound_by=b6[1])
+                if M == 1:
+                    results["K6 f32"] = row
+                entry_inputs[f"k6_f32_c_fc12_M{M}"] = row
+            del wd
+    results["K6 f32"]["max_abs_err"] = max(errs)
+    errs5 = {"K5 f32": 0.0, "K5q f32": 0.0}
+    S5 = 2048
+    q5 = randf(1, 1, H, hs).transpose(1, 2)
+    kf, vf = randf(1, H, S5, hs, scale=0.5), randf(1, H, S5, hs, scale=0.5)
+    (kq, ksc), (vq, vsc) = llama._quantize_kv(kf), llama._quantize_kv(vf)
+    every_row = torch.full((1,), S5 - 1, dtype=torch.int32, device=dev)
+    vis5 = (torch.arange(S5, device=dev)[None, :] <= every_row[:, None])[:, None, None, :]
+    for key, (k5, v5, ks5, vs5) in (("K5 f32", (kf, vf, None, None)), ("K5q f32", (kq, vq, ksc, vsc))):
+        for lims in ([0], [S5 // 2 + 7], [S5 - 1], [S5 + 5]):
+            lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+            errs5[key] = max(errs5[key], max_err32(da.decode_attention(q5, k5, v5, ks5, vs5, lim),
+                                                   da.decode_attention_ref(q5, k5, v5, ks5, vs5, lim), key))
+        quant = ks5 is not None
+        nbytes = 2 * H * S5 * hs * (1 if quant else 4) + (2 * H * S5 * 4 if quant else 0) + 2 * H * hs * 4 + 4
+        b5 = bound_ms(nbytes, 4 * H * S5 * hs, f32_peak)
+        kd, vd = ((kq.float() * ksc), (vq.float() * vsc)) if quant else (kf, vf)
+        results[key] = dict(
+            shape=f"B=1 H={H} S={S5} hs={hs}, f32 q, {'int8' if quant else 'f32'} cache, every row visible",
+            ms=time_ms(lambda: da.decode_attention(q5, k5, v5, ks5, vs5, every_row)),
+            plain_ms=time_ms(lambda: da.decode_attention_ref(q5, k5, v5, ks5, vs5, every_row), 3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kd, vd, attn_mask=vis5)),
+            bound_ms=b5[0], bound_by=b5[1], max_abs_err=errs5[key])
+        del kd, vd
+    del kf, vf, kq, vq, ksc, vsc, k5, v5, ks5, vs5
+    p8l = dict(params8, h=params8["h"][:8])
+    runs8 = {}
+    for kvd in (None, "int8"):
+        c8l = cfg8f.replace(n_layer=8, kv_cache_dtype=kvd)
+        prompt_f = torch.randint(0, cfg8.vocab_size, (64,), generator=gcpu).to(dev)
+        worst, got, flips = side_by_side(p8l, c8l, prompt_f, 16, 2048, fused=False)
+        want = dict.fromkeys(counters, 0)
+        want.update({"K4": 8, "K5": 8 * 15, "K6": (4 * 8 + 1) * 16})
+        assert got == want, f"f32 int8 per-op, {kvd or 'f32'} cache: launches {got}, expected {want}"
+        # on the int8 cache each path quantizes its own new k/v rows: f32 sums in
+        # another order move a value across a rounding midpoint now and then, and
+        # that entry then differs by one int8 step (1/127 of its row's largest),
+        # so this run is held to the bf16 model tolerance, the f32 cache to f32's
+        tol = TOL_MODEL[1] if kvd else TOL_MODEL_F32
+        assert worst <= tol, f"f32 int8 per-op, {kvd or 'f32'} cache: rel logit err {worst:.3g} > {tol}"
+        assert not flips or all(gap <= 2 * tol for _, gap in flips), f"f32 int8 tokens differ: {flips}"
+        totals["K5q f32" if kvd else "K5 f32"] = got["K5"]
+        totals["K6 f32"] = totals.get("K6 f32", 0) + got["K6"]
+        runs8[kvd or "f32"] = dict(rel_logit_err=worst, argmax_flips=flips, launches=got)
+    entry_inputs["f32_int8_per_op"] = runs8
+    del p8l
+    log("f32 compute on the int8 model vs plain: "
+        + ", ".join(f"{k} max err {results[k]['max_abs_err']:.3g}, {results[k]['ms'] * 1e3:.1f} us (plain "
+                    f"{results[k]['plain_ms'] * 1e3:.1f}, library {results[k]['library_ms'] * 1e3:.1f}, bound "
+                    f"{results[k]['bound_ms'] * 1e3:.1f} {results[k]['bound_by']})" for k in ("K6 f32", "K5 f32", "K5q f32"))
+        + f"; K6 f32 at M=128 (c_fc12) {entry_inputs['k6_f32_c_fc12_M128']['ms'] * 1e3:.1f} us, torch.matmul f32 "
+        f"{entry_inputs['k6_f32_c_fc12_M128']['library_ms'] * 1e3:.1f} us; 8 layers per op, prompt 64 + 16 tokens, S=2048: "
+        + ", ".join(f"{k} cache max |dlogit| / max |logit| {r['rel_logit_err']:.3g}, flips {r['argmax_flips'] or 'none'}"
+                    for k, r in runs8.items()))
+
     del params8, lp8
     gc.collect()
     torch.cuda.empty_cache()
@@ -1099,6 +1713,75 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 14b. f32 compute: K4 and K10 vs plain at (1, 32, 2048, 128), then one
+    # training step at the phase-15 width, 2 layers, kernel path vs plain path ------
+    T = 2048
+    q, k, v, do = (randf(1, H, T, hs) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v)
+    ro, rlse = fa.flash_attention_ref(q, k, v)
+    err4 = max_err32(o, ro, "K4 f32")
+    max_err32(lse, rlse, "K4 f32 lse")
+    got = fa.flash_attention_backward(q, k, v, ro, rlse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, ro, rlse, do)
+    errs = [max_err32(g, w, f"K10 {n} f32") for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+    nrow, pairs = H * T, H * T * (T + 1) // 2
+    b4 = bound_ms(4 * nrow * hs * 4 + nrow * 4, 4 * hs * pairs, f32_peak)
+    b_dq = bound_ms(5 * nrow * hs * 4 + nrow * 4 + nrow * hs * 4 + nrow * 4, 3 * 2 * hs * pairs, f32_peak)
+    b_dkv = bound_ms(4 * nrow * hs * 4 + 2 * nrow * 4 + 2 * nrow * hs * 4, 4 * 2 * hs * pairs, f32_peak)
+    dq, dd = fa.flash_backward_dq(q, k, v, ro, rlse, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True), 5)
+    plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, ro, rlse, do), 3)
+    shape = f"B=1 H={H} T={T} hs={hs}, f32"
+    results["K4 f32"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
+                             plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+                             bound_ms=b4[0], bound_by=b4[1], max_abs_err=max(err4, entry_inputs["k4_f32_err_t128_t200"]))
+    results["K10dq f32"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, ro, rlse, do), 5),
+                                plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1],
+                                max_abs_err=errs[0])
+    results["K10dkv f32"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, rlse, dd), 5),
+                                 plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                                 max_abs_err=max(errs[1:]))
+    del q, k, v, do, o, lse, ro, rlse, got, want, dq, dd, qs, ks, vs, sdpa_out
+    c14f = cfgt.replace(n_layer=2, compute_dtype="float32")
+    p14 = llama.init_params(c14f, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    leaves = step_lib.tree_leaves(p14)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    grads, losses = {}, {}
+    for plain in (False, True):
+        for fn in counters.values():
+            fn.launches = 0
+        fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+        loss = step_lib.loss_fn(p14, ids14[0], tgt14[0], c14f, remat=True, remat_policy="dots", plain=plain)
+        grads[plain] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        losses[plain] = float(loss.detach())
+        if not plain:
+            n3 = (fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+            assert n3 == (4, 2, 2), f"f32 training step: K4/K10 launches {n3}, expected (4, 2, 2)"
+        del loss
+    gerr = {n: float((g - grads[True][n]).abs().max() / grads[True][n].abs().max()) for n, g in grads[False].items()}
+    assert all(e <= TOL_MODEL_F32 for e in gerr.values()), f"f32 training grads: {gerr}"
+    assert abs(losses[False] - losses[True]) <= 1e-5 * abs(losses[True]), f"f32 training loss {losses}"
+    totals["K4 f32"] += 4
+    totals["K10dq f32"], totals["K10dkv f32"] = 2, 2
+    entry_inputs["f32_training_step"] = dict(losses=losses, grad_rel_err=gerr)
+    log("f32 compute, K4 and K10 at (1, 32, 2048, 128) vs plain: "
+        + ", ".join(f"{k} max err {results[k]['max_abs_err']:.3g}, {results[k]['ms'] * 1e3:.1f} us (plain "
+                    f"{results[k]['plain_ms'] * 1e3:.1f}, SDPA f32 {results[k]['library_ms'] * 1e3:.1f}, bound "
+                    f"{results[k]['bound_ms'] * 1e3:.1f} {results[k]['bound_by']})"
+                    for k in ("K4 f32", "K10dq f32", "K10dkv f32"))
+        + f"; 2-layer 7B-width training forward + backward in f32 (T=2048, remat dots), kernel vs plain: loss "
+        f"{losses[False]:.6f} vs {losses[True]:.6f}, per leaf max |dgrad| / max |grad| up to {max(gerr.values()):.3g}")
+    for t in leaves.values():
+        t.requires_grad_(False)
+    del p14, leaves, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 15. 8 layers at full width: pretraining through the library path --------
     import tempfile
 
@@ -1200,6 +1883,184 @@ def main() -> int:
 
     shutil.rmtree(work)
 
+    # ---- 17. head size 256: K4, K5 and K10 at (1, 16, 2048, 256) vs plain, then a
+    # 2-layer model with 16 heads of 256 (n_embd 4096): prefill, per-op decode and a
+    # training step through the kernels -------------------------------------------
+    Be, He, Te, hse = 1, 16, 2048, 256
+    nrow, pairs = Be * He * Te, Be * He * Te * (Te + 1) // 2
+    for dt in (torch.bfloat16, torch.float32):
+        f32 = dt == torch.float32
+        tag = " f32" if f32 else ""
+        q, k, v, do = ((torch.randn((Be, He, Te, hse), generator=gcpu)).to(dev, dt) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v)
+        ro, rlse = fa.flash_attention_ref(q, k, v)
+        e4 = max_err32(o, ro, "K4 hs256 f32") if f32 else max_err(o, ro, "K4 hs256")
+        max_err32(lse, rlse, "K4 hs256 lse")
+        got = fa.flash_attention_backward(q, k, v, o, lse, do)
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        e10 = [max_err32(g, w, f"K10 {n} hs256 f32") if f32 else k10_err(g, w, f"K10 {n} hs256")[0]
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        q5 = q[:, :, -1:].contiguous()
+        kc5, vc5 = k * 0.5, v * 0.5
+        e5 = 0.0
+        for lims in ([0], [Te // 2 + 7], [Te - 1], [Te + 5]):
+            lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+            g5, w5 = da.decode_attention(q5, kc5, vc5, None, None, lim), da.decode_attention_ref(q5, kc5, vc5, None, None, lim)
+            e5 = max(e5, max_err32(g5, w5, "K5 hs256 f32") if f32 else max_err(g5, w5, "K5 hs256"))
+        log(f"head size 256, {'f32' if f32 else 'bf16'}, at (1, 16, 2048, 256) vs plain: K4 max err {e4:.3g}, K10 "
+            f"dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5:.3g}")
+        if f32:
+            continue
+        es = 2  # bytes of an element
+        peak = tc_peak  # bf16 products on the tensor cores
+        b4 = bound_ms(4 * nrow * hse * es + nrow * 4, 4 * hse * pairs, peak)
+        b_dq = bound_ms(5 * nrow * hse * es + nrow * 4 + nrow * hse * es + nrow * 4, 3 * 2 * hse * pairs, peak)
+        b_dkv = bound_ms(4 * nrow * hse * es + 2 * nrow * 4 + 2 * nrow * hse * es, 4 * 2 * hse * pairs, peak)
+        b5 = bound_ms(2 * He * Te * hse * es + 2 * He * hse * es + 4, 4 * He * Te * hse, f32_peak)
+        dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True), 5)
+        plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3)
+        shape = f"B={Be} H={He} T={Te} hs={hse}"
+        all_rows = torch.full((1,), Te - 1, dtype=torch.int32, device=dev)
+        results["K4 hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
+                                   plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+                                   bound_ms=b4[0], bound_by=b4[1], max_abs_err=e4)
+        results["K10dq hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do), 5),
+                                      plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1],
+                                      max_abs_err=e10[0])
+        results["K10dkv hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd), 5),
+                                       plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                                       max_abs_err=max(e10[1:]))
+        results["K5 hs256"] = dict(shape=f"B=1 H={He} S={Te} hs={hse}, bf16 cache, every row visible",
+                                   ms=time_ms(lambda: da.decode_attention(q5, kc5, vc5, None, None, all_rows)),
+                                   plain_ms=time_ms(lambda: da.decode_attention_ref(q5, kc5, vc5, None, None, all_rows), 3),
+                                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kc5, vc5)),
+                                   bound_ms=b5[0], bound_by=b5[1], max_abs_err=e5)
+        log("head size 256, bf16, timed: " + ", ".join(
+            f"{key} {results[key]['ms'] * 1e3:.1f} us (plain {results[key]['plain_ms'] * 1e3:.1f}, library "
+            f"{results[key]['library_ms'] * 1e3:.1f}, bound {results[key]['bound_ms'] * 1e3:.1f} {results[key]['bound_by']})"
+            for key in ("K4 hs256", "K10dq hs256", "K10dkv hs256", "K5 hs256")))
+        del dq, dd, qs, ks, vs, sdpa_out
+    del q, k, v, do, o, lse, ro, rlse, got, want, q5, kc5, vc5
+    c256 = LLaMAConfig(n_layer=2, n_head=16, n_embd=4096, param_dtype="bfloat16", compute_dtype="bfloat16")
+    assert c256.head_size == 256
+    p256 = llama.unstack_layers(llama.init_params(c256, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev))
+    worst, got, flips = side_by_side(p256, c256, torch.randint(0, c256.vocab_size, (64,), generator=gcpu).to(dev),
+                                     8, 128, fused=False)
+    want = dict.fromkeys(counters, 0)
+    want.update({"K4": 2, "K5": 2 * 7})
+    assert got == want, f"head size 256 model: launches {got}, expected {want}"
+    assert worst <= TOL_MODEL[1], f"head size 256 model: max |dlogit| / max |logit| {worst:.3g}"
+    totals["K4 hs256"], totals["K5 hs256"] = got["K4"], got["K5"]
+    p256s = llama.init_params(c256, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
+    toks256 = torch.randint(0, c256.vocab_size, (1, 513), generator=gcpu).to(dev)
+    leaves = step_lib.tree_leaves(p256s)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    grads = {}
+    for plain in (False, True):
+        fa.flash_attention.launches = fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+        loss = step_lib.loss_fn(p256s, toks256[:, :-1], toks256[:, 1:], c256, remat=True, remat_policy="dots",
+                                plain=plain)
+        grads[plain] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        if not plain:
+            n3 = (fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+            assert n3 == (4, 2, 2), f"head size 256 training step: K4/K10 launches {n3}, expected (4, 2, 2)"
+        del loss
+    gerr = {n: float((g - grads[True][n]).norm() / grads[True][n].norm()) for n, g in grads[False].items()}
+    assert all(e <= TOL_TRAIN_GRAD["rms"] for e in gerr.values()), f"head size 256 grads: {gerr}"
+    totals["K4 hs256"] += 4
+    totals["K10dq hs256"], totals["K10dkv hs256"] = 2, 2
+    entry_inputs["head_size_256_model"] = dict(rel_logit_err=worst, argmax_flips=flips, launches=got, grad_rms_err=gerr)
+    log(f"2-layer model with 16 heads of 256 (n_embd 4096), bf16: prompt 64 + 8 greedy tokens per op, kernel vs "
+        f"plain path max |dlogit| / max |logit| {worst:.3g}, flips {flips or 'none'}, launches {got}; a training "
+        f"forward + backward at T=512: per leaf RMS(dgrad) / RMS(grad) up to {max(gerr.values()):.3g}")
+    for t in leaves.values():
+        t.requires_grad_(False)
+    del p256, p256s, leaves, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 18. routing: where the JAX package's shape gate leaves Pallas, the plain
+    # version runs, decided before any launch ----------------------------------------
+    from lit_llama_tpu_torch.ops.attention import flash_route
+    from lit_llama_tpu_torch.ops.decode_attention import decode_route
+    from lit_llama_tpu_torch.ops.quant_matmul import quant_route
+
+    routing = {}
+    # f1: 4 layers, 16 heads of 64 (n_embd 1024), bf16 dense: no attention kernel
+    cf1 = LLaMAConfig(n_layer=4, n_head=16, n_embd=1024, param_dtype="bfloat16", compute_dtype="bfloat16")
+    assert not flash_route(64, 64, cf1.head_size, True) and not decode_route(cf1.head_size)
+    pf1 = llama.unstack_layers(llama.init_params(cf1, torch.Generator(device=dev).manual_seed(SEED + 9), device=dev))
+    prompt = torch.randint(0, cf1.vocab_size, (1, 64), generator=gcpu).to(dev)
+    caches = {plain: llama.init_kv_cache(cf1, 1, 128, device=dev) for plain in (False, True)}
+    for fn in counters.values():
+        fn.launches = 0
+    lg = {plain: llama.forward(pf1, prompt, cf1, kv_cache=caches[plain], prefill_from_zero=True, plain=plain)[0]
+          for plain in (False, True)}
+    equal = torch.equal(lg[False], lg[True])
+    tok = lg[False][:, -1].argmax(-1)
+    for step in range(4):
+        lg = {plain: llama.forward(pf1, tok[None], cf1, input_pos=[64 + step], kv_cache=caches[plain],
+                                   plain=plain)[0] for plain in (False, True)}
+        equal = equal and torch.equal(lg[False], lg[True])
+        tok = lg[False][:, -1].argmax(-1)
+    got = {k: fn.launches for k, fn in counters.items()}
+    assert equal, "head size 64: the kernel path's logits differ from the plain path's"
+    assert all(v == 0 for v in got.values()), f"head size 64: launches {got}, expected none"
+    routing["hs64_dense"] = dict(logits_equal=True, launches=got)
+    del pf1, caches, lg
+    # f2: int4, 3 heads of 128 (n_embd 384, gs 64): no width a multiple of 256
+    cf2 = LLaMAConfig(n_layer=4, n_head=3, n_embd=384, vocab_size=1000, param_dtype="bfloat16",
+                      compute_dtype="bfloat16", quantize="int4", quant_groupsize=64)
+    assert not quant_route(cf2.n_embd, 3 * cf2.n_embd) and not quant_route(cf2.intermediate_size, cf2.n_embd)
+    pf2, cf2p = fused_layer.maybe_prepare_fused(
+        llama.unstack_layers(random_int4_params(cf2, seed=SEED + 11, device=dev)), cf2)
+    prompt = torch.randint(0, cf2.vocab_size, (64,), generator=gcpu).to(dev)
+    worst, got, flips = side_by_side(pf2, cf2p, prompt, 16, 128, fused=cf2p.rope_layout == "half")
+    assert got["K3"] == got["K5"] == got["K6"] == 0 and got["K4"] == cf2.n_layer, f"widths 384/1152: launches {got}"
+    assert worst <= TOL_MODEL[1], f"widths 384/1152: max |dlogit| / max |logit| {worst:.3g}"
+    routing["int4_width_384"] = dict(rel_logit_err=worst, flips=flips, launches=got)
+    del pf2
+    # f3: int4 at 7B width, 2 layers, gs 32: K3 takes groups that split its 64-row k-step
+    cf3 = LLaMAConfig.from_name("7B", n_layer=2, param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int4",
+                                quant_groupsize=32)
+    pf3 = llama.unstack_layers(random_int4_params(cf3, seed=SEED + 12, device=dev))
+    assert not fused_layer.fused_layer_supported(cf3, pf3)  # K1 takes gs 64, 128, 256: decode per op
+    worst, got, flips = side_by_side(pf3, cf3, torch.randint(0, cf3.vocab_size, (64,), generator=gcpu).to(dev), 8,
+                                     128, fused=False)
+    want = dict.fromkeys(counters, 0)
+    want.update({"K3": (4 * 2 + 1) * 8, "K4": 2, "K5": 2 * 7})
+    assert got == want, f"gs 32: launches {got}, expected {want}"
+    assert worst <= TOL_MODEL[1], f"gs 32: max |dlogit| / max |logit| {worst:.3g}"
+    totals["K3 gs=32"] = got["K3"]
+    routing["int4_gs32"] = dict(rel_logit_err=worst, flips=flips, launches=got)
+    w3 = pf3["h"][0]["mlp"]["c_fc12"]
+    K3_, N3_ = 2 * w3["qw"].shape[0], w3["qw"].shape[1]
+    x3 = randn(128, K3_)
+    args3 = (x3, w3["qw"], w3["qscale"], w3["qzero"])
+    wd3 = dequantize_int4(w3, torch.bfloat16)
+    b3 = bound_ms(128 * K3_ * 2 + int4_bytes(K3_, N3_, 32) + 128 * N3_ * 2, 2 * 128 * K3_ * N3_, tc_peak)
+    results["K3 gs=32"] = dict(shape=f"M=128 K={K3_} N={N3_} (c_fc12), gs 32",
+                               max_abs_err=max_err(quant_matmul.matmul_int4(*args3), quant_matmul.matmul_int4_ref(*args3), "K3"),
+                               ms=time_ms(lambda: quant_matmul.matmul_int4(*args3)),
+                               plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args3), 3),
+                               library_ms=time_ms(lambda: torch.matmul(x3, wd3)), bound_ms=b3[0], bound_by=b3[1])
+    del pf3, wd3, x3, args3, w3
+    entry_inputs["routing"] = routing
+    log(f"routing: head size 64 (dense, 4 layers): logits equal to the plain path's bit for bit, launches "
+        f"{routing['hs64_dense']['launches']}; int4 at widths 384/1152/1024 (4 layers): K3 {routing['int4_width_384']['launches']['K3']}, "
+        f"K4 {routing['int4_width_384']['launches']['K4']}, K1 {routing['int4_width_384']['launches']['K1']} launches, "
+        f"max |dlogit| / max |logit| {routing['int4_width_384']['rel_logit_err']:.3g}; int4 gs 32 at 7B width: K3 "
+        f"{totals['K3 gs=32']} launches, K3 at M=128 {results['K3 gs=32']['ms'] * 1e3:.1f} us vs plain max err "
+        f"{results['K3 gs=32']['max_abs_err']:.3g}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     kernels = []
     sources = {
         "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
@@ -1234,20 +2095,29 @@ def main() -> int:
              "P3": "probe.cu", "P4": "probe.cu", "P5": "probe.cu"}
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
-    for key in sources:
+    # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
+    # case: each variant's launches are its wrapper's count on a path that runs only
+    # that variant (the 128-slot engine, the f32 paths, the head size 256 model, ...)
+    variants = ["K7 B>64", "K9 B>64", "K1 LoRA R8=128", "K1 LoRA R8=128 f32", "K7 LoRA R8=128",
+                "K7 LoRA R8=128 f32", "K1 f32 norms", "K2 f32 norms", "K7 f32 norms", "K9 f32 norms", "K1 f32",
+                "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
+                "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K3 gs=32"]
+    for key in list(sources) + variants:
+        base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))
         r = results[key]
         kernels.append({
-            "name": f"{labels.get(key, key)} {sources[key][0]}", "route": "cuda",
-            "source": f"lit_llama_tpu_torch/csrc/{files[key]}", "replaces": sources[key][1],
+            "name": f"{labels.get(base, base)}{key[len(base):]} "
+                    + (sources[base][0] if key == base else sources[base][0].split(" (")[0]), "route": "cuda",
+            "source": f"lit_llama_tpu_torch/csrc/{files[base]}", "replaces": sources[base][1],
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **({"ms_without_operand": r["ms_without_operand"]} if "ms_without_operand" in r else {}),
+            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64") if k in r},
         })
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
-                      "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training}))
+                      "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,30 @@
 
 __device__ __forceinline__ float bf16_to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// Element conversions of the kernels that take bf16 or f32 (the compute dtype)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Eight consecutive elements (16-byte aligned for bf16, 32 for f32) as f32
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = __bfloat162float(b[j]);
+}
+__device__ __forceinline__ void load8(const float* p, float* o) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p)), b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

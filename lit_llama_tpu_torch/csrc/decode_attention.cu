@@ -26,18 +26,19 @@
 // its chunk; no other block touches that row. Row s is visible iff
 // s <= slot_pos, so a slot at or past S - 1 sees the whole ring.
 // Simple first: no cp.async/TMA pipeline, scores on the CUDA cores.
+// f32 compute (q.dtype f32): T = float below, the same kernel on an f32 cache.
 
 #include "attention_chunk.cuh"
 
 namespace {
 
-// q, kn, vn: (B, H, 128) bf16 with a slot stride (elements) each; caches
-// (B, H, S, 128) bf16, row slot_pos % S written in place; part (B, H, nch,
-// ATT_PART) f32.
+// q, kn, vn: (B, H, 128) of T (bf16 or f32) with a slot stride (elements)
+// each; caches (B, H, S, 128) of T, row slot_pos % S written in place; part
+// (B, H, nch, ATT_PART) f32.
+template <typename T>
 __global__ void __launch_bounds__(ATT_HS)
-write_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kn,
-                          const __nv_bfloat16* __restrict__ vn, int q_stride, int k_stride,
-                          int v_stride, __nv_bfloat16* kc, __nv_bfloat16* vc,
+write_attn_partial_kernel(const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn,
+                          int q_stride, int k_stride, int v_stride, T* kc, T* vc,
                           const int* __restrict__ slot_pos, float* __restrict__ part, int H, int S,
                           float scale) {
   __shared__ __align__(16) float q_s[ATT_HS];
@@ -50,7 +51,7 @@ write_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int wp = limit % S;
   const size_t cbase = ((size_t)b * H + h) * (size_t)S * ATT_HS;
 
-  q_s[d] = bf16_to_f32(q[(size_t)b * q_stride + h * ATT_HS + d]);
+  q_s[d] = to_f32(q[(size_t)b * q_stride + h * ATT_HS + d]);
   if (wp >= s0 && wp < s0 + ATT_CHUNK) {
     kc[cbase + (size_t)wp * ATT_HS + d] = kn[(size_t)b * k_stride + h * ATT_HS + d];
     vc[cbase + (size_t)wp * ATT_HS + d] = vn[(size_t)b * v_stride + h * ATT_HS + d];
@@ -58,37 +59,48 @@ write_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   __syncthreads();  // q_s and the new cache row are visible to the block
 
   const int n = min(ATT_CHUNK, last - s0 + 1);
-  attn_chunk_partial(q_s, kc + cbase, vc + cbase, s0, n, scale,
-                     part + (((size_t)b * H + h) * nch + c) * ATT_PART);
+  attn_chunk_partial<T>(q_s, kc + cbase, vc + cbase, s0, n, scale,
+                        part + (((size_t)b * H + h) * nch + c) * ATT_PART);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(ATT_HS)
 write_attn_combine_kernel(const float* __restrict__ part, const int* __restrict__ slot_pos,
-                          __nv_bfloat16* __restrict__ y, int H, int S, int nch_max) {
+                          T* __restrict__ y, int H, int S, int nch_max) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int nch = min(max(slot_pos[b], 0), S - 1) / ATT_CHUNK + 1;
   const float* pp = part + ((size_t)b * H + h) * nch_max * ATT_PART;
-  y[((size_t)b * H + h) * ATT_HS + d] = __float2bfloat16_rn(attn_combine(pp, nch, d));
+  y[((size_t)b * H + h) * ATT_HS + d] = from_f32<T>(attn_combine(pp, nch, d));
+}
+
+template <typename T>
+int launch_write_attn(const void* q, const void* kn, const void* vn, int q_stride, int k_stride,
+                      int v_stride, void* kc, void* vc, const void* slot_pos, void* part, void* y, int B,
+                      int H, int S, cudaStream_t st) {
+  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
+  write_attn_partial_kernel<T><<<dim3(H, nch, B), ATT_HS, 0, st>>>(
+      (const T*)q, (const T*)kn, (const T*)vn, q_stride, k_stride, v_stride, (T*)kc, (T*)vc,
+      (const int*)slot_pos, (float*)part, H, S, (float)(1.0 / sqrt((double)ATT_HS)));
+  write_attn_combine_kernel<T><<<dim3(H, B), ATT_HS, 0, st>>>((const float*)part, (const int*)slot_pos,
+                                                             (T*)y, H, S, nch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, kn, vn: bf16, element (b, h, d) at b * stride + h * 128 + d. kc, vc
-// (B, H, S, 128) bf16 contiguous. slot_pos (B) int32 on the device. part:
-// scratch of B * H * ceil(S / 64) * 130 floats. y (B, H, 128) bf16 contiguous.
+// q, kn, vn: bf16 (cbf16 = 1) or f32, element (b, h, d) at b * stride +
+// h * 128 + d. kc, vc (B, H, S, 128) of the same dtype, contiguous. slot_pos
+// (B) int32 on the device. part: scratch of B * H * ceil(S / 64) * 130
+// floats. y (B, H, 128) contiguous, of the same dtype.
 LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const void* vn,
                                          int q_stride, int k_stride, int v_stride, void* kc,
                                          void* vc, const void* slot_pos, void* part, void* y, int B,
-                                         int H, int S, void* stream) {
+                                         int H, int S, int cbf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
-  write_attn_partial_kernel<<<dim3(H, nch, B), ATT_HS, 0, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn, q_stride,
-      k_stride, v_stride, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc, (const int*)slot_pos,
-      (float*)part, H, S, (float)(1.0 / sqrt((double)ATT_HS)));
-  write_attn_combine_kernel<<<dim3(H, B), ATT_HS, 0, st>>>((const float*)part, (const int*)slot_pos,
-                                                          (__nv_bfloat16*)y, H, S, nch);
-  return (int)cudaGetLastError();
+  return cbf16 ? launch_write_attn<__nv_bfloat16>(q, kn, vn, q_stride, k_stride, v_stride, kc, vc, slot_pos,
+                                                  part, y, B, H, S, st)
+               : launch_write_attn<float>(q, kn, vn, q_stride, k_stride, v_stride, kc, vc, slot_pos, part,
+                                          y, B, H, S, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -117,6 +129,11 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
 // f32 softmax weight before it is rounded; l is floored at 1e-30, so a row
 // with limit < 0 gives zeros.
 // Simple first: v is read one element per thread and row, no cp.async ring.
+//
+// f32 compute (q.dtype f32): the products and the softmax weights stay f32
+// (no rounding), on an f32 cache or an int8 one. Head size 128 or 256 (a
+// template parameter, HS threads a block): each slot's score takes HS / 64
+// threads of 64 elements each.
 
 namespace {
 
@@ -163,24 +180,61 @@ __device__ __forceinline__ float half_row_dot(const int8_t* kr, const __nv_bfloa
   return dot;
 }
 
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_bf16(int8_t v) { return __float2bfloat16_rn((float)v); }
+// 64 f32 cache elements times 64 f32 query elements, summed in f32
+__device__ __forceinline__ float half_row_dot(const float* kr, const float* q) {
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float4 k4 = reinterpret_cast<const float4*>(kr)[j];
+    dot += k4.x * q[4 * j] + k4.y * q[4 * j + 1] + k4.z * q[4 * j + 2] + k4.w * q[4 * j + 3];
+  }
+  return dot;
+}
 
-// CT: the cache's element type, __nv_bfloat16 (ks, vs unused) or int8_t.
-// q (B, H, 128) bf16 with a batch stride; kc, vc (B, H, S, 128); ks, vs
-// (B, H, S) f32; limit (B) int32; part (B, H, nch, ATT_PART) f32.
-template <typename CT>
-__global__ void __launch_bounds__(ATT_HS)
-decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
-                           const CT* __restrict__ kc, const CT* __restrict__ vc,
-                           const float* __restrict__ ks, const float* __restrict__ vs,
-                           const int* __restrict__ limit, float* __restrict__ part, int H, int S,
-                           float scale) {
-  constexpr bool QUANT = sizeof(CT) == 1;
-  __shared__ __align__(16) __nv_bfloat16 q_s[ATT_HS];
+// 64 int8 cache elements (exact in f32) times 64 f32 query elements
+__device__ __forceinline__ float half_row_dot(const int8_t* kr, const float* q) {
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 kv = reinterpret_cast<const uint4*>(kr)[j];
+    const uint32_t w[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dot += (float)(int8_t)((w[e / 4] >> (8 * (e % 4))) & 0xFFu) * q[16 * j + e];
+  }
+  return dot;
+}
+
+// the bf16 query as bf16 pairs, the f32 query as it is
+__device__ __forceinline__ const __nv_bfloat162* query_view(const __nv_bfloat16* q) {
+  return reinterpret_cast<const __nv_bfloat162*>(q);
+}
+__device__ __forceinline__ const float* query_view(const float* q) { return q; }
+
+// w * v rounded to the compute dtype QT, as f32
+__device__ __forceinline__ float weighted(__nv_bfloat16 w, __nv_bfloat16 v) { return __bfloat162float(__hmul(w, v)); }
+__device__ __forceinline__ float weighted(__nv_bfloat16 w, int8_t v) {
+  return __bfloat162float(__hmul(w, __float2bfloat16_rn((float)v)));
+}
+__device__ __forceinline__ float weighted(float w, float v) { return w * v; }
+__device__ __forceinline__ float weighted(float w, int8_t v) { return w * (float)v; }
+
+// QT: the compute dtype of q, the products and y (bf16 or f32); CT: the
+// cache's element type, QT (ks, vs unused) or int8_t. HS: the head size, 128
+// or 256, and the block's thread count. q (B, H, HS) with a batch stride;
+// kc, vc (B, H, S, HS); ks, vs (B, H, S) f32; limit (B) int32; part
+// (B, H, nch, HS + 2) f32.
+template <typename QT, typename CT, int HS>
+__global__ void __launch_bounds__(HS)
+decode_attn_partial_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc,
+                           const CT* __restrict__ vc, const float* __restrict__ ks,
+                           const float* __restrict__ vs, const int* __restrict__ limit,
+                           float* __restrict__ part, int H, int S, float scale) {
+  constexpr bool QUANT = sizeof(CT) == 1 && sizeof(QT) != 1;
+  constexpr int TPS = HS / 64, NW = HS / 32;  // threads a slot, warps a block
+  __shared__ __align__(16) QT q_s[HS];
   __shared__ float sc[ATT_CHUNK];
-  __shared__ __nv_bfloat16 w_s[ATT_CHUNK];
-  __shared__ float red[4];
+  __shared__ QT w_s[ATT_CHUNK];
+  __shared__ float red[NW];
   const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int last = min(limit[b], S - 1);
@@ -189,17 +243,16 @@ decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
   const int n = min(ATT_CHUNK, last - s0 + 1);
   const size_t row0 = ((size_t)b * H + h) * (size_t)S + s0;  // first cache row of the chunk
 
-  q_s[tid] = q[(size_t)b * q_stride + h * ATT_HS + tid];
+  q_s[tid] = q[(size_t)b * q_stride + h * HS + tid];
   __syncthreads();
 
-  {  // scores: two threads per cache row, half a row each
-    const int slot = tid >> 1, half = tid & 1;
+  {  // scores: TPS threads per cache row, 64 elements each
+    const int slot = tid / TPS, part_ = tid % TPS;
     float dot = 0.f;
-    if (slot < n)
-      dot = half_row_dot(kc + (row0 + slot) * ATT_HS + half * (ATT_HS / 2),
-                         reinterpret_cast<const __nv_bfloat162*>(q_s) + half * (ATT_HS / 4));
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-    if (half == 0 && slot < n) {
+    if (slot < n) dot = half_row_dot(kc + (row0 + slot) * HS + part_ * 64, query_view(q_s + part_ * 64));
+#pragma unroll
+    for (int o = 1; o < TPS; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (part_ == 0 && slot < n) {
       if (QUANT) dot *= ks[row0 + slot];
       sc[slot] = dot * scale;
     }
@@ -209,22 +262,26 @@ decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
   m = warp_max(m);
   if (lane == 0) red[warp] = m;
   __syncthreads();
-  m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
   __syncthreads();
   float p = 0.f;
   if (tid < n) {
     p = __expf(sc[tid] - m);
-    w_s[tid] = __float2bfloat16_rn(QUANT ? p * vs[row0 + tid] : p);
+    w_s[tid] = from_f32<QT>(QUANT ? p * vs[row0 + tid] : p);
   }
   float l = warp_sum(p);
   if (lane == 0) red[warp] = l;
   __syncthreads();  // red and w_s are visible to the block
-  l = red[0] + red[1] + red[2] + red[3];
+  l = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) l += red[w];
   float acc = 0.f;
-  const CT* vr = vc + row0 * ATT_HS + tid;
+  const CT* vr = vc + row0 * HS + tid;
 #pragma unroll 8
-  for (int i = 0; i < n; ++i) acc += __bfloat162float(__hmul(w_s[i], to_bf16(vr[(size_t)i * ATT_HS])));
-  float* pp = part + (((size_t)b * H + h) * nch + c) * ATT_PART;
+  for (int i = 0; i < n; ++i) acc += weighted(w_s[i], vr[(size_t)i * HS]);
+  float* pp = part + (((size_t)b * H + h) * nch + c) * (HS + 2);
   if (tid == 0) {
     pp[0] = m;
     pp[1] = l;
@@ -232,39 +289,62 @@ decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q, int q_stride,
   pp[2 + tid] = acc;
 }
 
-__global__ void __launch_bounds__(ATT_HS)
+template <typename QT, int HS>
+__global__ void __launch_bounds__(HS)
 decode_attn_combine_kernel(const float* __restrict__ part, const int* __restrict__ limit,
-                           __nv_bfloat16* __restrict__ y, int H, int S, int nch_max) {
+                           QT* __restrict__ y, int H, int S, int nch_max) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int last = min(limit[b], S - 1);
   const int nch = last < 0 ? 0 : last / ATT_CHUNK + 1;
-  const float* pp = part + ((size_t)b * H + h) * nch_max * ATT_PART;
-  y[((size_t)b * H + h) * ATT_HS + d] = __float2bfloat16_rn(attn_combine(pp, nch, d));
+  const float* pp = part + ((size_t)b * H + h) * nch_max * (HS + 2);
+  y[((size_t)b * H + h) * HS + d] = from_f32<QT>(attn_combine(pp, nch, d, HS + 2));
+}
+
+template <typename QT, typename CT, int HS>
+int launch_decode_attn(const void* q, int q_stride, const void* k, const void* v, const void* ks,
+                       const void* vs, const void* limit, void* part, void* y, int B, int H, int S,
+                       cudaStream_t st) {
+  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  decode_attn_partial_kernel<QT, CT, HS><<<dim3(H, nch, B), HS, 0, st>>>(
+      (const QT*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs,
+      (const int*)limit, (float*)part, H, S, scale);
+  decode_attn_combine_kernel<QT, HS><<<dim3(H, B), HS, 0, st>>>((const float*)part, (const int*)limit,
+                                                              (QT*)y, H, S, nch);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT, int HS>
+int launch_decode_attn_c(const void* q, int q_stride, const void* k, const void* v, const void* ks,
+                         const void* vs, const void* limit, void* part, void* y, int B, int H, int S,
+                         int quantized, cudaStream_t st) {
+  return quantized ? launch_decode_attn<QT, int8_t, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, st)
+                   : launch_decode_attn<QT, QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, st);
 }
 
 }  // namespace
 
-// q: bf16, element (b, h, d) at b * q_stride + h * 128 + d. k, v (B, H, S, 128)
-// contiguous, bf16 (quantized == 0; ks, vs ignored) or int8 with ks, vs
-// (B, H, S) f32. limit (B) int32 on the device: row s is visible to batch row
-// b iff s <= limit[b]. part: scratch of B * H * ceil(S / 64) * 130 floats.
-// y (B, H, 128) bf16 contiguous.
+// q: bf16 (cbf16 = 1) or f32, element (b, h, d) at b * q_stride + h * hs + d.
+// k, v (B, H, S, hs) contiguous, of q's dtype (quantized == 0; ks, vs
+// ignored) or int8 with ks, vs (B, H, S) f32. hs 128 or 256. limit (B) int32
+// on the device: row s is visible to batch row b iff s <= limit[b]. part:
+// scratch of B * H * ceil(S / 64) * (hs + 2) floats. y (B, H, hs) contiguous,
+// of q's dtype.
 LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, const void* v,
                                    const void* ks, const void* vs, const void* limit, void* part,
-                                   void* y, int B, int H, int S, int quantized, void* stream) {
+                                   void* y, int B, int H, int S, int quantized, int cbf16, int hs,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
-  const float scale = (float)(1.0 / sqrt((double)ATT_HS));
-  const dim3 grid(H, nch, B);
-  if (quantized)
-    decode_attn_partial_kernel<int8_t><<<grid, ATT_HS, 0, st>>>(
-        (const __nv_bfloat16*)q, q_stride, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
-        (const float*)vs, (const int*)limit, (float*)part, H, S, scale);
-  else
-    decode_attn_partial_kernel<__nv_bfloat16><<<grid, ATT_HS, 0, st>>>(
-        (const __nv_bfloat16*)q, q_stride, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, nullptr,
-        nullptr, (const int*)limit, (float*)part, H, S, scale);
-  decode_attn_combine_kernel<<<dim3(H, B), ATT_HS, 0, st>>>((const float*)part, (const int*)limit,
-                                                           (__nv_bfloat16*)y, H, S, nch);
-  return (int)cudaGetLastError();
+#define LLT_K5(QT, HS) \
+  return launch_decode_attn_c<QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, quantized, st)
+  if (hs == 128) {
+    if (cbf16) LLT_K5(__nv_bfloat16, 128);
+    LLT_K5(float, 128);
+  }
+  if (hs == 256) {
+    if (cbf16) LLT_K5(__nv_bfloat16, 256);
+    LLT_K5(float, 256);
+  }
+#undef LLT_K5
+  return (int)cudaErrorInvalidValue;
 }

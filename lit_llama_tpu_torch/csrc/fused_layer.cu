@@ -49,9 +49,19 @@
 // runs between steps 1 and 2 when the layer has one, as two more kernels:
 //   1a. lora_down: one row of lora_af (D, R8) per thread, h recomputed from
 //       x with the same norm as the prologue; the block's R8 column sums go
-//       to part (blocks, R8), f32, in a fixed order
-//   1b. lora_up: ax = the sum of part's rows; one qkv column per thread
-//       adds ax @ lora_bf[:, n] (lora_bf (R8, 3D), scaling folded in)
+//       to part (blocks, R8), f32, in a fixed order, 64 columns a pass, so
+//       any R8 fits the block's shared memory
+//   1b. lora_up: ax = the sum of part's rows (R8 floats of dynamic shared
+//       memory); one qkv column per thread adds ax @ lora_bf[:, n] (lora_bf
+//       (R8, 3D), scaling folded in)
+// The operand is bf16 or f32 (a template parameter), read as it is stored
+// and summed in f32, as the Pallas kernel's astype(f32).
+//
+// f32 compute (the Pallas kernel's cdtype = f32): the matvecs take the input
+// unrounded, the cache and the output row are f32, and the attention reads
+// the f32 cache; everything else is the bf16 path's, which already sums and
+// keeps its intermediates in f32. The norm weights are bf16 or f32, applied
+// in f32 (_rms_norm_rows).
 // Bound: bytes, D * R8 * 2 + R8 * 3D * 2 (0.5 MB at 7B, R8 = 16: 0.16 us at
 // 3.35 TB/s); the two launches' latency is most of their time.
 
@@ -64,12 +74,14 @@ constexpr int HS = ATT_HS;
 constexpr int CHUNK = ATT_CHUNK;  // cache slots per attention block
 
 // Block (head h, chunk c) of one decode token's attention. qkv (3D) f32 in
-// the half-rotation basis; caches (H, S, 128) bf16, updated in place at
-// write_pos. Writes the chunk's running max, sum and unnormalised output.
+// the half-rotation basis; caches (H, S, 128) of CT (the compute dtype, bf16
+// or f32), updated in place at write_pos. Writes the chunk's running max, sum
+// and unnormalised output.
+template <typename CT>
 __global__ void __launch_bounds__(128)
 attn_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf,
-                    const float* __restrict__ sinf, __nv_bfloat16* kc, __nv_bfloat16* vc,
-                    float* __restrict__ part, int D, int S, int write_pos, int limit, float scale) {
+                    const float* __restrict__ sinf, CT* kc, CT* vc, float* __restrict__ part, int D,
+                    int S, int write_pos, int limit, float scale) {
   __shared__ __align__(16) float q_s[HS];
   const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y;
   const int d = threadIdx.x;  // one head element per thread
@@ -80,15 +92,15 @@ attn_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ cos
   const int s0 = c * CHUNK;
   if (write_pos >= s0 && write_pos < s0 + CHUNK) {
     const float* kq = qkv + D + h * HS;
-    kc[cbase + (size_t)write_pos * HS + d] = __float2bfloat16_rn(kq[d] * cosf[d] + kq[partner] * sinf[d]);
-    vc[cbase + (size_t)write_pos * HS + d] = __float2bfloat16_rn(qkv[2 * D + h * HS + d]);
+    kc[cbase + (size_t)write_pos * HS + d] = from_f32<CT>(kq[d] * cosf[d] + kq[partner] * sinf[d]);
+    vc[cbase + (size_t)write_pos * HS + d] = from_f32<CT>(qkv[2 * D + h * HS + d]);
   }
   __syncthreads();  // q_s and the new cache row are visible to the block
 
   const int last = min(limit, S - 1);
   const int n = min(CHUNK, last - s0 + 1);  // visible slots of this chunk (>= 1)
-  attn_chunk_partial(q_s, kc + cbase, vc + cbase, s0, n, scale,
-                     part + ((size_t)h * nch + c) * ATT_PART);
+  attn_chunk_partial<CT>(q_s, kc + cbase, vc + cbase, s0, n, scale,
+                         part + ((size_t)h * nch + c) * ATT_PART);
 }
 
 __global__ void __launch_bounds__(128)
@@ -99,17 +111,19 @@ attn_combine_kernel(const float* __restrict__ part, float* __restrict__ y, int n
 
 constexpr int LORA_THREADS = 256;
 constexpr int LORA_WARPS = LORA_THREADS / 32;
-constexpr int LORA_MAX_R8 = 64;  // checked by the Python wrapper
+constexpr int LORA_RC = 64;  // operand columns a pass of lora_down reduces
 
 // part[blockIdx.x][r] = sum over this block's rows k of h[k] * la[k][r], with
-// h = rms_norm(x, norm_w) in f32 (not rounded). la (K, R8) bf16, R8 % 8 == 0.
+// h = rms_norm(x, norm_w) in f32 (not rounded). la (K, R8) of LT (bf16 or
+// f32), R8 % 8 == 0, any R8: the columns go in passes of LORA_RC.
+template <typename LT>
 __global__ void __launch_bounds__(LORA_THREADS)
-lora_down_kernel(const void* __restrict__ x, int in_bf16, const __nv_bfloat16* __restrict__ norm_w,
-                 float eps, const __nv_bfloat16* __restrict__ la, int K, int R8,
+lora_down_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict__ norm_w,
+                 int norm_bf16, float eps, const LT* __restrict__ la, int K, int R8,
                  float* __restrict__ part) {
   __shared__ float wred[LORA_WARPS];
   __shared__ float rn;
-  __shared__ float red[LORA_WARPS][LORA_MAX_R8];
+  __shared__ float red[LORA_WARPS][LORA_RC];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float ss = 0.f;
   for (int k = tid; k < K; k += LORA_THREADS) {
@@ -127,105 +141,130 @@ lora_down_kernel(const void* __restrict__ x, int in_bf16, const __nv_bfloat16* _
   __syncthreads();
   const int k = blockIdx.x * LORA_THREADS + tid;
   const bool ok = k < K;
-  const float h = ok ? load_in(x, in_bf16, k) * rn * bf16_to_f32(norm_w[k]) : 0.f;
-  for (int r0 = 0; r0 < R8; r0 += 8) {
-    float p[8];
-    if (ok) {
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(la + (size_t)k * R8 + r0));
-      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(&w);
+  const float h = ok ? load_in(x, in_bf16, k) * rn * load_in(norm_w, norm_bf16, k) : 0.f;
+  for (int c0 = 0; c0 < R8; c0 += LORA_RC) {
+    const int nc = min(LORA_RC, R8 - c0);
+    for (int r0 = 0; r0 < nc; r0 += 8) {
+      float p[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (ok) {
+        load8(la + (size_t)k * R8 + c0 + r0, p);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) p[j] = h * bf16_to_f32(wb[j]);
-    } else {
+        for (int j = 0; j < 8; ++j) p[j] *= h;
+      }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) p[j] = 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const float t = warp_sum(p[j]);
+        if (lane == 0) red[warp][r0 + j] = t;
+      }
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float t = warp_sum(p[j]);
-      if (lane == 0) red[warp][r0 + j] = t;
+    __syncthreads();
+    if (tid < nc) {
+      float t = 0.f;
+      for (int w = 0; w < LORA_WARPS; ++w) t += red[w][tid];
+      part[blockIdx.x * R8 + c0 + tid] = t;
     }
-  }
-  __syncthreads();
-  if (tid < R8) {
-    float t = 0.f;
-    for (int w = 0; w < LORA_WARPS; ++w) t += red[w][tid];
-    part[blockIdx.x * R8 + tid] = t;
+    __syncthreads();  // red is free for the next pass
   }
 }
 
-// out[n] += sum_r ax[r] * lb[r][n], ax[r] = sum of part[b][r] over nb blocks.
-// lb (R8, N) bf16.
+// out[n] += sum_r ax[r] * lb[r][n], ax[r] = sum of part[b][r] over nb blocks
+// (R8 floats of dynamic shared memory). lb (R8, N) of LT.
+template <typename LT>
 __global__ void __launch_bounds__(LORA_THREADS)
-lora_up_kernel(const float* __restrict__ part, int nb, const __nv_bfloat16* __restrict__ lb, int R8,
-               int N, float* out) {
-  __shared__ float ax[LORA_MAX_R8];
+lora_up_kernel(const float* __restrict__ part, int nb, const LT* __restrict__ lb, int R8, int N,
+               float* out) {
+  extern __shared__ float ax[];
   const int tid = threadIdx.x;
-  if (tid < R8) {
+  for (int r = tid; r < R8; r += LORA_THREADS) {
     float t = 0.f;
-    for (int b = 0; b < nb; ++b) t += part[b * R8 + tid];
-    ax[tid] = t;
+    for (int b = 0; b < nb; ++b) t += part[b * R8 + r];
+    ax[r] = t;
   }
   __syncthreads();
   const int n = blockIdx.x * LORA_THREADS + tid;
   if (n >= N) return;
   float d = 0.f;
-  for (int r = 0; r < R8; ++r) d += ax[r] * bf16_to_f32(lb[(size_t)r * N + n]);
+  for (int r = 0; r < R8; ++r) d += ax[r] * to_f32(lb[(size_t)r * N + n]);
   out[n] += d;
+}
+
+template <typename LT>
+int launch_lora(const void* x_in, int in_bf16, const void* rms1, int norm_bf16, const void* la,
+                const void* lb, void* lora_part, int R8, int D, void* qkv, cudaStream_t st) {
+  const int nb = (D + LORA_THREADS - 1) / LORA_THREADS;
+  lora_down_kernel<LT><<<nb, LORA_THREADS, 0, st>>>(x_in, in_bf16, rms1, norm_bf16, 1e-5f,
+                                                    (const LT*)la, D, R8, (float*)lora_part);
+  const size_t smem = (size_t)R8 * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(lora_up_kernel<LT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  lora_up_kernel<LT><<<(3 * D + LORA_THREADS - 1) / LORA_THREADS, LORA_THREADS, smem, st>>>(
+      (const float*)lora_part, nb, (const LT*)lb, R8, 3 * D, (float*)qkv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One block of a decode entry. x_in: (D) bf16 (in_bf16 = 1, the entry's first
-// block) or the f32 residual xs itself (in_bf16 = 0). Weights in the decode
-// layout (qw_t, qscale_t, qzero_t per linear). Scratch: qkv (3D), part
-// (H * ceil(S/128) * 130), y (D), gg (I) f32; xs (D) f32 holds the residual
-// on return. x_out (D) bf16 is written when not null. With la not null, the
-// LoRA operand la (D, R8) and lb (R8, 3D) bf16 updates qkv before RoPE;
-// lora_part is its scratch, (ceil(D / 256), R8) f32.
+// One block of a decode entry. x_in: (D) bf16 (in_bf16 = 1) or f32: the
+// entry's row, or the f32 residual xs itself. cbf16: the compute dtype is
+// bf16 (else f32): the matvecs' inputs are rounded to it, the caches (H, S,
+// 128) and x_out (D) hold it. rms1/rms2 (D) bf16 (norm_bf16 = 1) or f32.
+// Weights in the decode layout (qw_t, qscale_t, qzero_t per linear).
+// Scratch: qkv (3D), part (H * ceil(S/64) * 130), y (D), gg (I) f32; xs (D)
+// f32 holds the residual on return. x_out is written when not null. With la
+// not null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16 (lora_bf16 = 1)
+// or f32, R8 % 8 == 0, updates qkv before RoPE; lora_part is its scratch,
+// (ceil(D / 256), R8) f32.
 LLT_EXPORT int k1_decode_layer(const void* x_in, int in_bf16, const void* rms1, const void* rms2,
-                               const void* ca_w, const void* ca_s, const void* ca_z,
-                               const void* cp_w, const void* cp_s, const void* cp_z,
-                               const void* f12_w, const void* f12_s, const void* f12_z,
-                               const void* mp_w, const void* mp_s, const void* mp_z, void* kc,
-                               void* vc, const void* cosf, const void* sinf, void* qkv, void* part,
-                               void* y, void* xs, void* gg, void* x_out, const void* la,
-                               const void* lb, void* lora_part, int R8, int D, int I, int H, int S,
-                               int gs, int write_pos, int limit, void* stream) {
+                               int norm_bf16, int cbf16, const void* ca_w, const void* ca_s,
+                               const void* ca_z, const void* cp_w, const void* cp_s,
+                               const void* cp_z, const void* f12_w, const void* f12_s,
+                               const void* f12_z, const void* mp_w, const void* mp_s,
+                               const void* mp_z, void* kc, void* vc, const void* cosf,
+                               const void* sinf, void* qkv, void* part, void* y, void* xs, void* gg,
+                               void* x_out, const void* la, const void* lb, void* lora_part, int R8,
+                               int lora_bf16, int D, int I, int H, int S, int gs, int write_pos,
+                               int limit, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_gemv(x_in, in_bf16, rms1, ca_w, ca_s, ca_z, D, 3 * D, gs, EPI_NONE, nullptr, 0,
-                        qkv, nullptr, st);
+  int err = launch_gemv(Gemv{x_in, in_bf16, rms1, norm_bf16, ca_w, ca_s, ca_z, D, 3 * D, gs, EPI_NONE,
+                             nullptr, 0, cbf16, qkv, nullptr}, st);
   if (err) return err;
   if (la != nullptr) {
-    const int nb = (D + LORA_THREADS - 1) / LORA_THREADS;
-    lora_down_kernel<<<nb, LORA_THREADS, 0, st>>>(x_in, in_bf16, (const __nv_bfloat16*)rms1, 1e-5f,
-                                                  (const __nv_bfloat16*)la, D, R8,
-                                                  (float*)lora_part);
-    lora_up_kernel<<<(3 * D + LORA_THREADS - 1) / LORA_THREADS, LORA_THREADS, 0, st>>>(
-        (const float*)lora_part, nb, (const __nv_bfloat16*)lb, R8, 3 * D, (float*)qkv);
-    err = (int)cudaGetLastError();
+    err = lora_bf16 ? launch_lora<__nv_bfloat16>(x_in, in_bf16, rms1, norm_bf16, la, lb, lora_part, R8, D, qkv, st)
+                    : launch_lora<float>(x_in, in_bf16, rms1, norm_bf16, la, lb, lora_part, R8, D, qkv, st);
     if (err) return err;
   }
   const int nch = (limit < S - 1 ? limit : S - 1) / CHUNK + 1;
-  attn_partial_kernel<<<dim3(H, nch), 128, 0, st>>>((const float*)qkv, (const float*)cosf,
-                                                    (const float*)sinf, (__nv_bfloat16*)kc,
-                                                    (__nv_bfloat16*)vc, (float*)part, D, S,
-                                                    write_pos, limit, (float)(1.0 / sqrt((double)HS)));
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  if (cbf16)
+    attn_partial_kernel<__nv_bfloat16><<<dim3(H, nch), 128, 0, st>>>(
+        (const float*)qkv, (const float*)cosf, (const float*)sinf, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
+        (float*)part, D, S, write_pos, limit, scale);
+  else
+    attn_partial_kernel<float><<<dim3(H, nch), 128, 0, st>>>(
+        (const float*)qkv, (const float*)cosf, (const float*)sinf, (float*)kc, (float*)vc, (float*)part, D,
+        S, write_pos, limit, scale);
   attn_combine_kernel<<<H, 128, 0, st>>>((const float*)part, (float*)y, nch);
   err = (int)cudaGetLastError();
   if (err) return err;
-  err = launch_gemv(y, 0, nullptr, cp_w, cp_s, cp_z, D, D, gs, EPI_RESIDUAL, x_in, in_bf16, xs,
-                    nullptr, st);
+  err = launch_gemv(Gemv{y, 0, nullptr, 0, cp_w, cp_s, cp_z, D, D, gs, EPI_RESIDUAL, x_in, in_bf16, cbf16,
+                         xs, nullptr}, st);
   if (err) return err;
-  err = launch_gemv(xs, 0, rms2, f12_w, f12_s, f12_z, D, 2 * I, gs, EPI_SWIGLU, nullptr, 0, gg,
-                    nullptr, st);
+  err = launch_gemv(Gemv{xs, 0, rms2, norm_bf16, f12_w, f12_s, f12_z, D, 2 * I, gs, EPI_SWIGLU, nullptr, 0,
+                         cbf16, gg, nullptr}, st);
   if (err) return err;
-  return launch_gemv(gg, 0, nullptr, mp_w, mp_s, mp_z, I, D, gs, EPI_RESIDUAL, xs, 0, xs, x_out, st);
+  return launch_gemv(Gemv{gg, 0, nullptr, 0, mp_w, mp_s, mp_z, I, D, gs, EPI_RESIDUAL, xs, 0, cbf16, xs,
+                          x_out}, st);
 }
 
-// logits (V) bf16 = rms_norm(x, ln_w) @ dequant(w), x (D) bf16, w in the
-// decode layout.
-LLT_EXPORT int k2_lm_head(const void* x, const void* ln_w, const void* wt, const void* st,
-                          const void* zt, void* logits, int D, int V, int gs, void* stream) {
-  return launch_gemv(x, 1, ln_w, wt, st, zt, D, V, gs, EPI_NONE, nullptr, 0, nullptr, logits,
-                     (cudaStream_t)stream);
+// logits (V) = rms_norm(x, ln_w) @ dequant(w), w in the decode layout. cbf16:
+// x (D) and the logits are bf16, else f32; ln_w (D) bf16 (norm_bf16 = 1) or
+// f32.
+LLT_EXPORT int k2_lm_head(const void* x, const void* ln_w, int norm_bf16, int cbf16, const void* wt,
+                          const void* st, const void* zt, void* logits, int D, int V, int gs,
+                          void* stream) {
+  return launch_gemv(Gemv{x, cbf16, ln_w, norm_bf16, wt, st, zt, D, V, gs, EPI_NONE, nullptr, 0, cbf16,
+                          nullptr, logits}, (cudaStream_t)stream);
 }

@@ -86,21 +86,24 @@ __device__ __forceinline__ void store_tile(Acc& acc, float* Cs, const float* __r
   }
 }
 
-// out[i] = bf16(sum over z of ws[z, i]), times qscale[i % N] where qscale is
-// given; i runs over the M * N results
-static __global__ void splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ qscale,
-                                            __nv_bfloat16* __restrict__ out, size_t MN, int N, int splits) {
+// out[i] = OT(sum over z of ws[z, i]), times qscale[i % N] where qscale is
+// given; i runs over the M * N results; OT the compute dtype, bf16 or f32
+template <typename OT>
+__global__ void splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ qscale,
+                                     OT* __restrict__ out, size_t MN, int N, int splits) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MN; i += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int z = 0; z < splits; ++z) v += ws[z * MN + i];
-    out[i] = __float2bfloat16_rn(qscale != nullptr ? v * qscale[i % N] : v);
+    out[i] = from_f32<OT>(qscale != nullptr ? v * qscale[i % N] : v);
   }
 }
 
-inline void launch_splitk_reduce(const float* ws, const float* qscale, __nv_bfloat16* out, size_t MN, int N,
+template <typename OT>
+inline void launch_splitk_reduce(const float* ws, const float* qscale, OT* out, size_t MN, int N,
                                  int splits, cudaStream_t st) {
   const size_t blocks = (MN + 255) / 256;
-  splitk_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(ws, qscale, out, MN, N, splits);
+  splitk_reduce_kernel<OT><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(ws, qscale, out, MN, N,
+                                                                                       splits);
 }
 
 }  // namespace gemm_tile

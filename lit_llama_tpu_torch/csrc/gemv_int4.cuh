@@ -57,15 +57,18 @@ __device__ __forceinline__ void task_cols(int t, int N, int epi, int* col, bool*
 }
 
 // out = [rms_norm](x) @ dequant(w) with an epilogue, from the column-major
-// decode layout: wt (N, K/2) u8, st/zt (N, G) f32. x is (K) f32 or bf16.
+// decode layout: wt (N, K/2) u8, st/zt (N, G) f32. x is (K) f32 or bf16, the
+// norm weight bf16 or f32 (norm_bf16), applied in f32. cbf16: the compute
+// dtype is bf16, so the products take the input rounded to bf16 and out_c is
+// bf16; else the input stays f32 and out_c is f32.
 // EPI_SWIGLU: N = 2I, warp j computes columns j and I + j, out has I.
 template <int GS>
 __global__ void __launch_bounds__(GEMV_THREADS, GEMV_BLOCKS_PER_SM)
-gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const __nv_bfloat16* __restrict__ norm_w,
-                 float eps, const uint8_t* __restrict__ wt, const float* __restrict__ st,
-                 const float* __restrict__ zt, int K, int N, int epi, const void* res, int res_bf16,
-                 float* out_f32, __nv_bfloat16* __restrict__ out_bf16) {
-  extern __shared__ __align__(16) float xs_s[];  // [K] bf16-rounded input, then gx [G]
+gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict__ norm_w,
+                 int norm_bf16, float eps, const uint8_t* __restrict__ wt,
+                 const float* __restrict__ st, const float* __restrict__ zt, int K, int N, int epi,
+                 const void* res, int res_bf16, int cbf16, float* out_f32, void* out_c) {
+  extern __shared__ __align__(16) float xs_s[];  // [K] input as the products take it, then gx [G]
   const int G = K / GS, Gh = G / 2, Kh = K / 2;
   float* gx = xs_s + K;
   __shared__ float red[GEMV_WARPS];
@@ -100,8 +103,8 @@ gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const __nv_bfloat16* _
     for (int i = lane; i < GS; i += 32) {
       const int k = g * GS + i;
       float h = load_in(x, in_bf16, k);
-      if (norm_w != nullptr) h = h * r * bf16_to_f32(norm_w[k]);
-      xs_s[k] = round_bf16(h);
+      if (norm_w != nullptr) h = h * r * load_in(norm_w, norm_bf16, k);
+      xs_s[k] = cbf16 ? round_bf16(h) : h;
       s += h;
     }
     s = warp_sum(s);
@@ -154,7 +157,12 @@ gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const __nv_bfloat16* _
           float v = acc[c];
           if (epi == EPI_RESIDUAL) v += load_in(res, res_bf16, col[c]);
           if (out_f32 != nullptr) out_f32[col[c]] = v;
-          if (out_bf16 != nullptr) out_bf16[col[c]] = __float2bfloat16_rn(v);
+          if (out_c != nullptr) {
+            if (cbf16)
+              reinterpret_cast<__nv_bfloat16*>(out_c)[col[c]] = __float2bfloat16_rn(v);
+            else
+              reinterpret_cast<float*>(out_c)[col[c]] = v;
+          }
         }
       }
     }
@@ -172,10 +180,23 @@ int sm_count() {
   return n;
 }
 
+// The arguments of one matvec: see gemv_int4_kernel.
+struct Gemv {
+  const void* x;
+  int in_bf16;
+  const void* norm_w;  // nullptr: no RMSNorm prologue
+  int norm_bf16;
+  const void *wt, *st, *zt;
+  int K, N, gs, epi;
+  const void* res;
+  int res_bf16, cbf16;
+  void* out_f32;
+  void* out_c;
+};
+
 template <int GS>
-int launch_gemv_gs(const void* x, int in_bf16, const void* norm_w, const void* wt, const void* st,
-                   const void* zt, int K, int N, int epi, const void* res, int res_bf16,
-                   void* out_f32, void* out_bf16, cudaStream_t stream) {
+int launch_gemv_gs(const Gemv& a, cudaStream_t stream) {
+  const int K = a.K, N = a.N, epi = a.epi;
   const size_t smem = ((size_t)K + K / GS) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(gemv_int4_kernel<GS>,
@@ -186,25 +207,20 @@ int launch_gemv_gs(const void* x, int in_bf16, const void* norm_w, const void* w
   const int need = (tasks + GEMV_WARPS - 1) / GEMV_WARPS, cap = GEMV_BLOCKS_PER_SM * sm_count();
   const int blocks = need < cap ? need : cap;
   gemv_int4_kernel<GS><<<blocks, GEMV_THREADS, smem, stream>>>(
-      x, in_bf16, (const __nv_bfloat16*)norm_w, 1e-5f, (const uint8_t*)wt, (const float*)st,
-      (const float*)zt, K, N, epi, res, res_bf16, (float*)out_f32, (__nv_bfloat16*)out_bf16);
+      a.x, a.in_bf16, a.norm_w, a.norm_bf16, 1e-5f, (const uint8_t*)a.wt, (const float*)a.st,
+      (const float*)a.zt, K, N, epi, a.res, a.res_bf16, a.cbf16, (float*)a.out_f32, a.out_c);
   return (int)cudaGetLastError();
 }
 
 // gs in {64, 128, 256} (checked by the Python wrappers)
-int launch_gemv(const void* x, int in_bf16, const void* norm_w, const void* wt, const void* st,
-                const void* zt, int K, int N, int gs, int epi, const void* res, int res_bf16,
-                void* out_f32, void* out_bf16, cudaStream_t stream) {
-  switch (gs) {
+int launch_gemv(const Gemv& a, cudaStream_t stream) {
+  switch (a.gs) {
     case 64:
-      return launch_gemv_gs<64>(x, in_bf16, norm_w, wt, st, zt, K, N, epi, res, res_bf16, out_f32,
-                                out_bf16, stream);
+      return launch_gemv_gs<64>(a, stream);
     case 128:
-      return launch_gemv_gs<128>(x, in_bf16, norm_w, wt, st, zt, K, N, epi, res, res_bf16, out_f32,
-                                 out_bf16, stream);
+      return launch_gemv_gs<128>(a, stream);
     case 256:
-      return launch_gemv_gs<256>(x, in_bf16, norm_w, wt, st, zt, K, N, epi, res, res_bf16, out_f32,
-                                 out_bf16, stream);
+      return launch_gemv_gs<256>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

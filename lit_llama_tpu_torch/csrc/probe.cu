@@ -86,9 +86,9 @@ LLT_EXPORT int p2_iota_mask_dots(const void* q, const void* k, void* out, void* 
 LLT_EXPORT int p4_mv_small_n(const void* x, const void* wt, const void* st, const void* zt,
                              void* out, int rows, int K, int N, int gs, void* stream) {
   for (int i = 0; i < rows; ++i) {
-    const int err = launch_gemv((const __nv_bfloat16*)x + (size_t)i * K, 1, nullptr, wt, st, zt, K,
-                                N, gs, EPI_NONE, nullptr, 0, (float*)out + (size_t)i * N, nullptr,
-                                (cudaStream_t)stream);
+    const Gemv a{(const __nv_bfloat16*)x + (size_t)i * K, 1, nullptr, 0, wt, st, zt, K, N, gs,
+                 EPI_NONE, nullptr, 0, 1, (float*)out + (size_t)i * N, nullptr};
+    const int err = launch_gemv(a, (cudaStream_t)stream);
     if (err) return err;
   }
   return 0;

@@ -6,7 +6,8 @@
 // Layout (ops/linear.py): qw (K/2, N) bytes, packed row r holds logical row r
 // in its low nibble and row r + K/2 in its high nibble; qscale/qzero (G, N)
 // f32 with G = K/gs, low plane groups [0, G/2), high plane [G/2, G).
-// w = bf16(q * scale + zero), the rounding of matmul_int4_ref.
+// w = bf16(q * scale + zero), the rounding of matmul_int4_ref. Logical row k
+// belongs to group k / gs.
 //
 // Bound on the H100: at prefill M (8..512) the packed weight stream
 // (K*N/2 bytes, plus 8 bytes of scale/zero per group and column) dominates
@@ -17,12 +18,19 @@
 // WMMA, f32 accumulate, split-K with a fixed-order reduce). Each k-step reads one 64-row
 // slab of packed bytes ONCE and dequantizes both nibble planes into shared
 // memory as bf16, against the matching two 64-column slabs of x, so the
-// half-split layout costs no second pass over the weight. A k-step stays
-// inside one group (gs % 64 == 0). The next k-step's x, packed bytes, scales
+// half-split layout costs no second pass over the weight. Where a k-step
+// stays inside one group in both planes (gs % 64 == 0) its scales and zeros
+// are loaded once with the step; otherwise (gs = 32, 16, ..., any gs that the
+// JAX package's shape gate admits) each row loads its own group's (ROW
+// below). The next k-step's x, packed bytes, scales
 // and zeros are loaded into registers while the tensor cores work on the
 // current one, so the global latency overlaps the products. Simple first: no
 // cp.async/TMA ring, no wgmma; those are later work.
+//
+// f32 compute (the Pallas entry's compute dtype f32): the FFMA tile of
+// gemm_f32.cuh on the dequantized f32 weight, k3_matmul_int4_f32 below.
 
+#include "gemm_f32.cuh"
 #include "gemm_tile.cuh"
 
 using namespace gemm_tile;
@@ -41,12 +49,29 @@ struct Stage {
   float s_lo[8], z_lo[8], s_hi[8], z_hi[8];
 };
 
+// the scales and zeros of 8 columns from n in group g
+__device__ __forceinline__ void load_sz8(const float* __restrict__ qscale, const float* __restrict__ qzero,
+                                         int g, int N, int n, bool ok, float* s, float* z) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (ok) {
+      a = __ldg(reinterpret_cast<const float4*>(qscale + (size_t)g * N + n + j));
+      b = __ldg(reinterpret_cast<const float4*>(qzero + (size_t)g * N + n + j));
+    }
+    s[j] = a.x, s[j + 1] = a.y, s[j + 2] = a.z, s[j + 3] = a.w;
+    z[j] = b.x, z[j + 1] = b.y, z[j + 2] = b.z, z[j + 3] = b.w;
+  }
+}
+
+// ROW: the step's rows need not share a group; store_stage loads each row's
+template <bool ROW>
 __device__ __forceinline__ void load_stage(Stage& st, const __nv_bfloat16* __restrict__ x,
                                            const uint8_t* __restrict__ qw,
                                            const float* __restrict__ qscale,
                                            const float* __restrict__ qzero, int M, int N, int K,
                                            int gs, int m0, int n0, int r0, int tid) {
-  const int Kh = K / 2, Gh = (K / gs) / 2;
+  const int Kh = K / 2;
 #pragma unroll
   for (int i = 0; i < A_VECS; ++i) {
     const int v = tid + THREADS * i;  // 0..1023
@@ -64,29 +89,20 @@ __device__ __forceinline__ void load_stage(Stage& st, const __nv_bfloat16* __res
     st.b[i] = make_uint2(0, 0);
     if (ok) st.b[i] = __ldg(reinterpret_cast<const uint2*>(qw + (size_t)(r0 + row0 + 16 * i) * N + n));
   }
-  const int g_lo = r0 / gs, g_hi = Gh + r0 / gs;
-#pragma unroll
-  for (int j = 0; j < 8; j += 4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, c = a, d = a;
-    if (ok) {
-      a = __ldg(reinterpret_cast<const float4*>(qscale + (size_t)g_lo * N + n + j));
-      b = __ldg(reinterpret_cast<const float4*>(qzero + (size_t)g_lo * N + n + j));
-      c = __ldg(reinterpret_cast<const float4*>(qscale + (size_t)g_hi * N + n + j));
-      d = __ldg(reinterpret_cast<const float4*>(qzero + (size_t)g_hi * N + n + j));
-    }
-    st.s_lo[j] = a.x, st.s_lo[j + 1] = a.y, st.s_lo[j + 2] = a.z, st.s_lo[j + 3] = a.w;
-    st.z_lo[j] = b.x, st.z_lo[j + 1] = b.y, st.z_lo[j + 2] = b.z, st.z_lo[j + 3] = b.w;
-    st.s_hi[j] = c.x, st.s_hi[j + 1] = c.y, st.s_hi[j + 2] = c.z, st.s_hi[j + 3] = c.w;
-    st.z_hi[j] = d.x, st.z_hi[j + 1] = d.y, st.z_hi[j + 2] = d.z, st.z_hi[j + 3] = d.w;
-  }
+  if (ROW) return;
+  load_sz8(qscale, qzero, r0 / gs, N, n, ok, st.s_lo, st.z_lo);
+  load_sz8(qscale, qzero, (r0 + Kh) / gs, N, n, ok, st.s_hi, st.z_hi);
 }
 
 __device__ __forceinline__ __nv_bfloat16 dq(uint32_t q, float s, float z) {
   return __float2bfloat16_rn(__fadd_rn(__fmul_rn((float)q, s), z));
 }
 
-__device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, __nv_bfloat16* Bs,
-                                            int tid) {
+template <bool ROW>
+__device__ __forceinline__ void store_stage(Stage& st, __nv_bfloat16* As, __nv_bfloat16* Bs,
+                                            const float* __restrict__ qscale,
+                                            const float* __restrict__ qzero, int N, int K, int gs,
+                                            int n0, int r0, int tid) {
 #pragma unroll
   for (int i = 0; i < A_VECS; ++i) {
     const int v = tid + THREADS * i;
@@ -98,6 +114,11 @@ __device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, 
 #pragma unroll
   for (int i = 0; i < B_ROWS; ++i) {
     const int row = row0 + 16 * i;
+    if (ROW) {
+      const int n = n0 + cg * 8;
+      load_sz8(qscale, qzero, (r0 + row) / gs, N, n, n < N, st.s_lo, st.z_lo);
+      load_sz8(qscale, qzero, (r0 + row + K / 2) / gs, N, n, n < N, st.s_hi, st.z_hi);
+    }
     uint32_t lo[4], hi[4];  // bf16 pairs of columns (2j, 2j + 1)
 #pragma unroll
     for (int j = 0; j < 8; j += 2) {
@@ -117,6 +138,7 @@ __device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, 
 
 // blockIdx.z takes packed rows [z * rows_per_split, (z + 1) * rows_per_split);
 // with one split the bf16 result goes to out, else the f32 partial to ws[z].
+template <bool ROW>
 __global__ void __launch_bounds__(THREADS, 2)
 int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
                  const float* __restrict__ qscale, const float* __restrict__ qzero,
@@ -137,12 +159,12 @@ int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   zero(acc);
 
   Stage st;
-  load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r_begin, tid);
+  load_stage<ROW>(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r_begin, tid);
   for (int r0 = r_begin; r0 < r_end; r0 += BK) {
     __syncthreads();  // the previous step's products are done with the tiles
-    store_stage(st, As, Bs, tid);
+    store_stage<ROW>(st, As, Bs, qscale, qzero, N, K, gs, n0, r0, tid);
     __syncthreads();
-    if (r0 + BK < r_end) load_stage(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r0 + BK, tid);
+    if (r0 + BK < r_end) load_stage<ROW>(st, x, qw, qscale, qzero, M, N, K, gs, m0, n0, r0 + BK, tid);
 #pragma unroll
     for (int p = 0; p < 2; ++p) mma_slab(acc, As + p * BM * LDA, Bs + p * BK * LDB, warp);
   }
@@ -154,12 +176,15 @@ int4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 // x (M, K) bf16, qw (K/2, N) u8, qscale/qzero (K/gs, N) f32 -> out (M, N) bf16.
 // splits > 1 splits K over blockIdx.z (at most `splits` parts of whole
 // 64-row k-steps) and needs ws (splits, M, N) f32.
-// Requires gs % 64 == 0, (K/2) % gs == 0, N % 8 == 0, 16-byte aligned rows
+// Requires K % 128 == 0, K % gs == 0, N % 8 == 0, 16-byte aligned rows
 // (checked by the Python wrapper).
 LLT_EXPORT int k3_matmul_int4(const void* x, const void* qw, const void* qscale, const void* qzero,
                               void* out, void* ws, int M, int N, int K, int gs, int splits,
                               void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(int4_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // one group for the whole 64-row step of both planes
+  const bool row = gs % BK != 0 || (K / 2) % BK != 0;
+  auto kernel = row ? int4_gemm_kernel<true> : int4_gemm_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   // whole k-steps per split; the last split may be shorter, none is empty
@@ -169,10 +194,20 @@ LLT_EXPORT int k3_matmul_int4(const void* x, const void* qw, const void* qscale,
   // M-tiles fastest: the blocks sharing a weight slab run together, so it
   // comes from DRAM once
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
-  int4_gemm_kernel<<<grid, THREADS, SMEM, st>>>(
+  kernel<<<grid, THREADS, SMEM, st>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)qw, (const float*)qscale, (const float*)qzero,
       (__nv_bfloat16*)out, splits > 1 ? (float*)ws : nullptr, M, N, K, gs, per * BK);
   if (splits > 1)
     launch_splitk_reduce((const float*)ws, nullptr, (__nv_bfloat16*)out, (size_t)M * N, N, splits, st);
   return (int)cudaGetLastError();
+}
+
+// f32 compute: out (M, N) f32 = x (M, K) f32 @ (q * scale + zero), the
+// FFMA tile of gemm_f32.cuh, K in up to `splits` parts (ws (splits, M, N)
+// f32). K % gs == 0, K even.
+LLT_EXPORT int k3_matmul_int4_f32(const void* x, const void* qw, const void* qscale, const void* qzero,
+                                  void* out, void* ws, int M, int N, int K, int gs, int splits, void* stream) {
+  return gemm_f32::launch((const float*)x,
+                          gemm_f32::Int4W{(const uint8_t*)qw, (const float*)qscale, (const float*)qzero, K, N, gs},
+                          nullptr, (float*)out, (float*)ws, M, N, K, splits, (cudaStream_t)stream);
 }

@@ -32,7 +32,13 @@
 //   skipped, so K need not be a multiple of the k-step nor N of the tile.
 //   Split-K as above when the output tiles alone are fewer than the SMs.
 // Simple first: no cp.async/TMA ring, no wgmma; those are later work.
+//
+// f32 compute (the Pallas entry's compute dtype f32): at M == 1 the same
+// weight stream with an f32 x and an f32 result (XT below); at M > 1 the FFMA
+// tile of gemm_f32.cuh on the exact f32 weight, the scale applied to the f32
+// sum at the end. Bound at M > 1: operations on the CUDA cores, 67 TF/s.
 
+#include "gemm_f32.cuh"
 #include "gemm_tile.cuh"
 
 using namespace gemm_tile;
@@ -58,10 +64,11 @@ __device__ __forceinline__ void fma_s8x4(float* acc, uint32_t w, float xv) {
 
 // blockIdx.x: the 128-column strip; blockIdx.y: rows [y * rows_per_split,
 // (y + 1) * rows_per_split). With ws the raw f32 sums go to ws[y], else the
-// scaled bf16 result to out.
+// scaled result to out. XT: the compute dtype of x and out, bf16 or f32.
+template <typename XT>
 __global__ void __launch_bounds__(GV_THREADS)
-int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
-                 const float* __restrict__ qscale, __nv_bfloat16* __restrict__ out,
+int8_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ qw,
+                 const float* __restrict__ qscale, XT* __restrict__ out,
                  float* __restrict__ ws, int N, int K, int rows_per_split) {
   __shared__ float red[GV_ROWS][GV_COLS];
   const int tid = threadIdx.x;
@@ -85,7 +92,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
       xv[u] = 0.f;
       if (ok && kk < k_end) {
         w[u] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)kk * N + n));
-        xv[u] = bf16_to_f32(x[kk]);
+        xv[u] = to_f32(x[kk]);
       }
     }
 #pragma unroll
@@ -108,7 +115,7 @@ int8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
       if (ws != nullptr)
         ws[(size_t)blockIdx.y * N + col] = s;
       else
-        out[col] = __float2bfloat16_rn(s * qscale[col]);
+        out[col] = from_f32<XT>(s * qscale[col]);
     }
   }
 }
@@ -209,13 +216,16 @@ int8_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
 
 }  // namespace
 
-// x (M, K) bf16, qw (K, N) int8, qscale (N) f32 -> out (M, N) bf16.
-// splits > 1 splits K over the grid (at most `splits` parts) and needs ws
-// (splits, M, N) f32. Requires K % 8 == 0, N % 16 == 0 and 16-byte aligned
-// operands (checked by the Python wrapper).
+// x (M, K), qw (K, N) int8, qscale (N) f32 -> out (M, N); x and out bf16
+// (cbf16 = 1) or f32. splits > 1 splits K over the grid (at most `splits`
+// parts) and needs ws (splits, M, N) f32. Requires K % 8 == 0, N % 16 == 0 and 16-byte aligned operands
+// (checked by the Python wrapper).
 LLT_EXPORT int k6_matmul_int8(const void* x, const void* qw, const void* qscale, void* out, void* ws,
-                              int M, int N, int K, int splits, void* stream) {
+                              int M, int N, int K, int splits, int cbf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (!cbf16 && M > 1)
+    return gemm_f32::launch((const float*)x, gemm_f32::Int8W{(const int8_t*)qw, N}, (const float*)qscale,
+                            (float*)out, (float*)ws, M, N, K, splits, st);
   const __nv_bfloat16* xp = (const __nv_bfloat16*)x;
   const int8_t* wp = (const int8_t*)qw;
   const float* sp = (const float*)qscale;
@@ -227,8 +237,14 @@ LLT_EXPORT int k6_matmul_int8(const void* x, const void* qw, const void* qscale,
   const int per = (steps + splits - 1) / splits;
   splits = (steps + per - 1) / per;
   float* wsp = splits > 1 ? (float*)ws : nullptr;
+  if (M == 1 && !cbf16) {
+    int8_gemv_kernel<float><<<dim3((N + GV_COLS - 1) / GV_COLS, splits), GV_THREADS, 0, st>>>(
+        (const float*)x, wp, sp, (float*)out, wsp, N, K, per * step);
+    if (splits > 1) launch_splitk_reduce(wsp, sp, (float*)out, (size_t)N, N, splits, st);
+    return (int)cudaGetLastError();
+  }
   if (M == 1) {
-    int8_gemv_kernel<<<dim3((N + GV_COLS - 1) / GV_COLS, splits), GV_THREADS, 0, st>>>(
+    int8_gemv_kernel<__nv_bfloat16><<<dim3((N + GV_COLS - 1) / GV_COLS, splits), GV_THREADS, 0, st>>>(
         xp, wp, sp, op, wsp, N, K, per * step);
   } else {
     // M-tiles fastest: the blocks sharing a weight slab run together, so it

@@ -12,9 +12,14 @@ c_fc2 fused into ``c_fc12``).
 chunk, or one token with the roll-left overflow) and ``slot_pos`` (the
 continuous-batching decode step, one token per slot). A cached single token
 (``input_pos`` with T == 1, and ``slot_pos`` on layers that are not the fused
-int4 layout) attends through ``decode_attention`` (K5 on the card). With
+int4 layout) attends through ``decode_attention`` (K5 on the card) where the
+head size is a multiple of 128 (``decode_route``), else through its plain
+version, as JAX runs ``attention_xla`` there. With
 ``config.kv_cache_dtype == "int8"`` the cache holds int8 rows with one f32
 scale per (batch row, head, position), and K5 reads it as it is.
+
+LLaMA-Adapter (``config.adapter``) is not ported yet: ``init_params`` and
+``forward`` raise ``NotImplementedError`` rather than run the base model.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from lit_llama_tpu_torch.ops.decode_attention import (
     decode_attention_ref,
     decode_attention_write,
     decode_attention_write_ref,
+    decode_route,
 )
 from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
@@ -48,10 +54,18 @@ Params = Dict[str, Any]
 KVCache = List[Dict[str, torch.Tensor]]
 
 
+def _refuse_adapter(config: LLaMAConfig) -> None:
+    if config.adapter is not None:
+        raise NotImplementedError(
+            "LLaMA-Adapter (config.adapter) is not ported yet: its prefix attention is ROADMAP queue 1, "
+            "item 10's rest (adapters v1 and v2); this model would run without it")
+
+
 def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None, device=None) -> Params:
     """Random init, normal(0, 0.02/sqrt(2*n_layer)) for the linears and the
     embedding, ones for the norms; layers stacked on a leading axis. With
     ``config.lora`` the c_attn leaves gain LoRA A and B (``peft.lora``)."""
+    _refuse_adapter(config)
     dev = resolve_device(device)
     std = 0.02 / math.sqrt(2 * config.n_layer)
     dtype = torch_dtype(config.param_dtype)
@@ -184,7 +198,7 @@ def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv,
         else:
             _cache_write(kv, {"k": k, "v": v}, write_pos)
         if limit is not None:
-            attend = decode_attention_ref if plain else decode_attention
+            attend = decode_attention if not plain and decode_route(hs) else decode_attention_ref
             y = attend(q, kv["k"], kv["v"], kv.get("ks"), kv.get("vs"), limit)
         elif attend_len is not None:
             if quant_cache:  # the new rows as the cache gives them back, as the JAX package attends
@@ -293,6 +307,7 @@ def forward(
     the training layout: the layers are views of it, so the grads land on the
     stacked leaves.
     """
+    _refuse_adapter(config)
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
     dev = tokens.device
@@ -313,7 +328,8 @@ def forward(
         if T != 1:
             raise ValueError("slot_pos decode takes one token per slot")
         S = kv_cache[0]["k"].shape[-2]
-        if use_serve_fused(config, layers[0]) and "ks" not in kv_cache[0]:  # K8 reads a bf16 cache
+        # K8 reads a cache in the compute dtype
+        if use_serve_fused(config, layers[0], batch=B) and kv_cache[0]["k"].dtype == cd:
             cos, sin = slot_rope_rows(rope_cache, slot_pos)
             pos32 = slot_pos.to(torch.int32)
             x2d = x[:, 0]

@@ -10,9 +10,13 @@ batch row ``b`` iff ``s <= limit[b]``; ``limit`` stays on the device. On the
 card it takes every cached single-token step of the per-op decode path, at
 any B and S, bf16 and int8 cache alike: the TPU's measured gates (S >= 1024,
 S % 128 == 0, B == 1, int8 left to the dequantizing path) are not carried
-over. The kernel takes bf16 and head size 128; the plain version takes any
-float dtype and head size. Products are rounded to the cache's compute dtype
-(``q.dtype``) and summed in f32, as in the Pallas kernel.
+over. It takes head sizes that are multiples of 128 (``decode_route``, the
+shape condition of JAX's ``use_decode_attention``); the model sends other
+head sizes to the plain version, as JAX runs ``attention_xla`` there. The
+kernel takes bf16 or f32 compute and head size 128 or 256 (``check_decode``);
+the plain version takes any float dtype and head size. Products are rounded
+to the cache's compute dtype (``q.dtype``) and summed in f32, as in the Pallas
+kernel.
 
 ``decode_attention_write`` replaces both Pallas kernels that compute this
 function, ``_pipe_kernel`` (entry ``decode_attention_write_pipelined``, the
@@ -43,9 +47,17 @@ CHUNK = 64  # cache rows per attention block (csrc/attention_chunk.cuh)
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {  # both entries of csrc/decode_attention.cu
-    "k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 3 + [_P],
-    "k5_decode_attention": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
+    "k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P],
+    "k5_decode_attention": [_P, _I] + [_P] * 7 + [_I] * 6 + [_P],
 }
+HEAD_SIZES = (128, 256)  # what K5 takes; K8 takes 128
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def decode_route(hs: int) -> bool:
+    """Whether a cached single-token step attends through K5 on the card: a
+    static predicate on the head size, decided before any launch."""
+    return hs % 128 == 0
 
 
 def decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos):
@@ -66,14 +78,66 @@ def decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos):
     return y[:, :, None, :].to(q.dtype), kc, vc
 
 
-def _slot_stride(t, B, H, hs, what: str) -> int:
+def _slot_stride(t, B, H, hs, dtype, what: str) -> int:
     """Elements between two slots of a (B, H, 1, hs) operand whose heads lie
     side by side (a view into the fused qkv rows is taken as it is)."""
-    if (t.dtype != torch.bfloat16 or t.shape != (B, H, 1, hs) or not t.is_cuda
-            or t.stride(3) != 1 or (H > 1 and t.stride(1) != hs)):
-        raise ValueError(f"{what}: expected bf16 (B, H, 1, {hs}) on the card with its heads adjoining, "
+    if (t.dtype != dtype or t.shape != (B, H, 1, hs) or t.stride(3) != 1 or (H > 1 and t.stride(1) != hs)):
+        raise ValueError(f"{what}: expected {dtype} (B, H, 1, {hs}) with its heads adjoining, "
                          f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
     return t.stride(0) if B > 1 else H * hs
+
+
+def check_decode(q, k, v, ks, vs, limit) -> int:
+    """What K5 takes, on any device; returns q's slot stride. q bf16 or f32
+    (the compute dtype); k and v contiguous (B, H, S, hs) in q's dtype, or
+    int8 with ks and vs (B, H, S, 1) f32; hs 128 or 256; limit (B,) int32.
+    Raises ValueError otherwise."""
+    B, H, S, hs = k.shape
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"K5 takes head size 128 or 256, got {hs}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"K5 takes bf16 or f32 compute, got {q.dtype}")
+    q_stride = _slot_stride(q, B, H, hs, q.dtype, "K5 q")
+    quantized = ks is not None
+    cache_dtype = torch.int8 if quantized else q.dtype
+    for c in (k, v):
+        if c.dtype != cache_dtype or c.shape != (B, H, S, hs) or not c.is_contiguous():
+            raise ValueError(f"K5 takes contiguous {cache_dtype} ({B}, {H}, {S}, {hs}) caches "
+                             f"(int8 with ks and vs, q's dtype without)")
+    if quantized:
+        for c in (ks, vs):
+            if c is None or c.dtype != torch.float32 or c.shape != (B, H, S, 1) or not c.is_contiguous():
+                raise ValueError(f"K5 takes ks and vs as contiguous float32 ({B}, {H}, {S}, 1) tensors")
+    elif vs is not None:
+        raise ValueError("K5 takes ks and vs together")
+    if limit.dtype != torch.int32 or limit.shape != (B,) or not limit.is_contiguous():
+        raise ValueError(f"K5 takes limit as a contiguous int32 ({B},) tensor")
+    return q_stride
+
+
+def check_decode_write(q, k_new, v_new, kc, vc, slot_pos):
+    """What K8 takes, on any device; returns the slot strides of q, k_new and
+    v_new. bf16 or f32 (the compute dtype), head size 128; caches contiguous
+    (B, H, S, 128) in q's dtype; slot_pos (B,) int32. Raises ValueError
+    otherwise."""
+    B, H, S, hs = kc.shape
+    if hs != 128:
+        raise ValueError(f"K8 takes head size 128, got {hs}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"K8 takes bf16 or f32 compute, got {q.dtype}")
+    strides = [_slot_stride(t, B, H, hs, q.dtype, n) for t, n in ((q, "K8 q"), (k_new, "K8 k_new"),
+                                                                  (v_new, "K8 v_new"))]
+    for c in (kc, vc):
+        if c.dtype != q.dtype or c.shape != (B, H, S, hs) or not c.is_contiguous():
+            raise ValueError(f"K8 takes contiguous {q.dtype} ({B}, {H}, {S}, {hs}) caches")
+    if slot_pos.dtype != torch.int32 or slot_pos.shape != (B,) or not slot_pos.is_contiguous():
+        raise ValueError(f"K8 takes slot_pos as a contiguous int32 ({B},) tensor")
+    return strides
+
+
+def _on_card(what: str, *ts) -> None:
+    if not all(t is None or t.is_cuda for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors")
 
 
 def decode_attention_ref(q, k, v, ks, vs, limit):
@@ -109,33 +173,18 @@ def decode_attention(q, k, v, ks, vs, limit):
     K5 or raises."""
     if not q.is_cuda:
         return decode_attention_ref(q, k, v, ks, vs, limit)
+    q_stride = check_decode(q, k, v, ks, vs, limit)
+    _on_card("K5", q, k, v, ks, vs, limit)
     B, H, S, hs = k.shape
-    if hs != 128:
-        raise ValueError(f"K5 takes head size 128, got {hs}")
-    q_stride = _slot_stride(q, B, H, hs, "K5 q")
     quantized = ks is not None
-    cache_dtype = torch.int8 if quantized else torch.bfloat16
-    for c in (k, v):
-        if c.dtype != cache_dtype or c.shape != (B, H, S, hs) or not c.is_contiguous() or not c.is_cuda:
-            raise ValueError(f"K5 takes contiguous {cache_dtype} ({B}, {H}, {S}, {hs}) CUDA caches "
-                             f"(int8 with ks and vs, bf16 without)")
-    if quantized:
-        for c in (ks, vs):
-            if (c is None or c.dtype != torch.float32 or c.shape != (B, H, S, 1) or not c.is_contiguous()
-                    or not c.is_cuda):
-                raise ValueError(f"K5 takes ks and vs as contiguous float32 ({B}, {H}, {S}, 1) CUDA tensors")
-    elif vs is not None:
-        raise ValueError("K5 takes ks and vs together")
-    if limit.dtype != torch.int32 or limit.shape != (B,) or not limit.is_cuda or not limit.is_contiguous():
-        raise ValueError(f"K5 takes limit as a contiguous int32 ({B},) CUDA tensor")
     part = torch.empty(B * H * (-(-S // CHUNK)) * (hs + 2), dtype=torch.float32, device=q.device)
-    y = torch.empty((B, H, 1, hs), dtype=torch.bfloat16, device=q.device)
+    y = torch.empty((B, H, 1, hs), dtype=q.dtype, device=q.device)
     lib = _build.library("decode_attention", _SIGS)
     err = lib.k5_decode_attention(
         q.data_ptr(), q_stride, k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
         limit.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S, int(quantized),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.bfloat16), hs, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K5 decode_attention")
     decode_attention.launches += 1
@@ -157,22 +206,15 @@ def decode_attention_write(q, k_new, v_new, kc, vc, slot_pos):
     """
     if not q.is_cuda:
         return decode_attention_write_ref(q, k_new, v_new, kc, vc, slot_pos)
+    strides = check_decode_write(q, k_new, v_new, kc, vc, slot_pos)
+    _on_card("K8", q, k_new, v_new, kc, vc, slot_pos)
     B, H, S, hs = kc.shape
-    if hs != 128:
-        raise ValueError(f"K8 takes head size 128, got {hs}")
-    strides = [_slot_stride(t, B, H, hs, n) for t, n in ((q, "K8 q"), (k_new, "K8 k_new"), (v_new, "K8 v_new"))]
-    for c in (kc, vc):
-        if c.dtype != torch.bfloat16 or c.shape != (B, H, S, hs) or not c.is_contiguous() or not c.is_cuda:
-            raise ValueError(f"K8 takes contiguous bf16 ({B}, {H}, {S}, {hs}) CUDA caches")
-    if (slot_pos.dtype != torch.int32 or slot_pos.shape != (B,) or not slot_pos.is_cuda
-            or not slot_pos.is_contiguous()):
-        raise ValueError(f"K8 takes slot_pos as a contiguous int32 ({B},) CUDA tensor")
     part = torch.empty(B * H * (-(-S // CHUNK)) * (hs + 2), dtype=torch.float32, device=q.device)
-    y = torch.empty((B, H, 1, hs), dtype=torch.bfloat16, device=q.device)
+    y = torch.empty((B, H, 1, hs), dtype=q.dtype, device=q.device)
     lib = _build.library("decode_attention", _SIGS)
     err = lib.k8_decode_attention_write(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *strides, kc.data_ptr(), vc.data_ptr(),
-        slot_pos.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S,
+        slot_pos.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K8 decode_attention_write")

@@ -4,8 +4,11 @@ versions (counterpart of lit_llama_tpu/ops/flash_attention.py).
 ``flash_attention`` replaces the Pallas ``_flash_kernel``
 (lit_llama_tpu/ops/flash_attention.py, entry ``_flash_forward``) with the
 CUDA kernel in ``csrc/flash_attention.cu``. It serves every causal prefill
-with T > 1 on the card, any T (the kernel masks the ragged last tile), head
-size 128 and bf16 only.
+with T > 1 on the card whose head size is a multiple of 128
+(``ops.attention.flash_route``), any T (the kernel masks the ragged last
+tile), head size 128 or 256: bf16 on the tensor cores, f32 compute on an
+FFMA body of the same source. A larger head size is refused
+(``check_flash``).
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
 ``_flash_dkv_kernel`` (entry ``_flash_backward``) with the two K10 kernels of
@@ -33,10 +36,12 @@ from lit_llama_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 _SIGS = {
-    "k4_flash_forward": [_build.PTR] * 5 + [_build.INT] * 3 + [_build.FLOAT, _build.PTR],
-    "k10_flash_backward_dq": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT, _build.PTR],
-    "k10_flash_backward_dkv": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT, _build.PTR],
+    "k4_flash_forward": [_build.PTR] * 5 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
+    "k10_flash_backward_dq": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
+    "k10_flash_backward_dkv": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
 }
+HEAD_SIZES = (128, 256)  # what the kernels take (csrc/flash_attention.cu)
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -52,14 +57,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return o.to(q.dtype), m + torch.log(l)
 
 
-def _check_rows(what: str, *ts: torch.Tensor) -> None:
-    """The kernels take contiguous bf16 (B, H, T, 128) tensors of one shape."""
+def check_flash(what: str, *ts: torch.Tensor) -> None:
+    """What K4 and K10 take, on any device: contiguous (B, H, T, hs) tensors
+    of one shape and one dtype, bf16 or f32, hs 128 or 256. Raises
+    ValueError otherwise."""
     B, H, T, hs = ts[0].shape
-    if hs != 128:
-        raise ValueError(f"{what} takes head size 128, got {hs}")
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"{what} takes head size 128 or 256, got {hs}")
     for t in ts:
-        if t.dtype != torch.bfloat16 or t.shape != (B, H, T, hs) or not t.is_contiguous():
-            raise ValueError(f"{what} takes contiguous bf16 tensors of one shape (B, H, T, 128)")
+        if t.dtype != ts[0].dtype or t.dtype not in DTYPES or t.shape != (B, H, T, hs) or not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous bf16 or f32 tensors of one shape and dtype "
+                             f"(B, H, T, {hs}), got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_rows(what: str, *ts: torch.Tensor) -> None:
+    check_flash(what, *ts)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -74,7 +88,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     lib = _build.library("flash_attention", _SIGS)
     err = lib.k4_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, T, 1.0 / math.sqrt(hs), torch.cuda.current_stream(q.device).cuda_stream,
+        B, H, T, 1.0 / math.sqrt(hs), int(q.dtype == torch.bfloat16), hs,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K4 flash_attention")
     flash_attention.launches += 1
@@ -117,7 +132,7 @@ def flash_backward_dq(q, k, v, o, lse, do):
     lib = _build.library("flash_attention", _SIGS)
     err = lib.k10_flash_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dd.data_ptr(), dq.data_ptr(), B, H, T, 1.0 / math.sqrt(hs),
+        dd.data_ptr(), dq.data_ptr(), B, H, T, 1.0 / math.sqrt(hs), int(q.dtype == torch.bfloat16), hs,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K10 flash_backward_dq")
@@ -137,7 +152,7 @@ def flash_backward_dkv(q, k, v, do, lse, dd):
     lib = _build.library("flash_attention", _SIGS)
     err = lib.k10_flash_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, T, 1.0 / math.sqrt(hs),
+        dk.data_ptr(), dv.data_ptr(), B, H, T, 1.0 / math.sqrt(hs), int(q.dtype == torch.bfloat16), hs,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K10 flash_backward_dkv")

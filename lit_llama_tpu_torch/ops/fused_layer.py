@@ -14,12 +14,19 @@ What bounds them and how their design answers that is noted in the source.
 for B serving slots, each at its own position. ``block_tail_fused`` replaces
 ``_block_tail_kernel`` (entry ``block_tail_fused``): everything of the block
 after its attention. Both are in ``csrc/serve_layer.cu``; between them runs
-``ops.decode_attention.decode_attention_write``. They take any B from 1 to
-64 (no padding to 8 rows), per-slot (B, hs) cos/sin rows in place of the
-(B, 3D) lane tables, and keep f32 intermediates at every B: the Pallas
-kernel's switch to the compute dtype at 48 rows is a VMEM limit. On the
-serving path q, k and v leave the head in the compute dtype, so q is rounded
-before the attention (K1 keeps it f32).
+``ops.decode_attention.decode_attention_write``. They take any B (no padding
+to 8 rows; ``use_serve_fused`` caps the engine's slots at
+``SERVE_KERNEL_MAX_B``, as the JAX package does), per-slot (B, hs) cos/sin
+rows in place of the (B, 3D) lane tables, and keep f32 intermediates at every
+B: the Pallas kernel's switch to the compute dtype at 48 rows is a VMEM
+limit. On the serving path q, k and v leave the head in the compute dtype, so
+q is rounded before the attention (K1 keeps it f32).
+
+Compute dtypes: bf16 or f32 (the Pallas kernels' ``cdtype``), in every entry;
+the row, the cache and the outputs are in it. Norm weights are bf16 or f32
+and are applied in f32 (``_rms_norm_rows``), never cast at load. In f32, K7
+and K9 read the shared (K/2, N) layout of each linear (their f32 body is an
+FFMA GEMM), K1 and K2 the decode layout as in bf16.
 
 The k/v cache is a plain (1, H, S, hs) tensor updated IN PLACE at
 ``write_pos`` (ring slot, pos % S); slot s is visible iff s <= ``limit``
@@ -42,18 +49,25 @@ operands of c_attn (``prepare_lora_operands``): ``lora_af`` (D, R8) and
 ``lora_bf`` (R8, 3D), scaling folded in, q/k columns in the half basis. K1
 and K7 add ``(h @ lora_af) @ lora_bf`` in f32 to the QKV product before RoPE,
 h the unrounded normed row, as the Pallas kernels' ``_add_lora_delta``; the
-kernels that do it count their launches apart (``k1_lora``, ``k7_lora``).
+kernels that do it count their launches apart (``k1_lora``, ``k7_lora``). The
+operand may have any multiple of 8 columns and be bf16 or f32, as the Pallas
+kernels read it (``astype(f32)``).
+
+Each wrapper's checks of dtypes, shapes and layouts are pure functions
+(``check_decode_layers``, ``check_lm_head``, ``check_block_head``,
+``check_block_tail``) that raise on what the kernels do not take, on any
+device; the wrapper adds the checks of the card (device, alignment).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from lit_llama_tpu_torch.ops import _build
+from lit_llama_tpu_torch.ops import _build, quant_matmul
 
 Params = Dict[str, Any]
 
@@ -62,16 +76,16 @@ CHUNK = 64  # cache slots per attention block (csrc/fused_layer.cu)
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {
-    "k1_decode_layer": [_P, _I, _P, _P] + [_P] * 12 + [_P] * 4 + [_P] * 6 + [_P] * 3 + [_I] * 8 + [_P],
-    "k2_lm_head": [_P] * 6 + [_I] * 3 + [_P],
+    "k1_decode_layer": [_P, _I, _P, _P, _I, _I] + [_P] * 12 + [_P] * 4 + [_P] * 6 + [_P] * 3 + [_I] * 9 + [_P],
+    "k2_lm_head": [_P, _P, _I, _I] + [_P] * 4 + [_I] * 3 + [_P],
 }
 _SERVE_SIGS = {
-    "k7_block_head": [_P] * 13 + [_I] * 4 + [_P],
-    "k9_block_tail": [_P] * 17 + [_I] * 4 + [_P],
+    "k7_block_head": [_P, _P, _I, _I] + [_P] * 11 + [_I] * 2 + [_P] + [_I] * 4 + [_P],
+    "k9_block_tail": [_P] * 3 + [_I] * 2 + [_P] * 15 + [_I] * 7 + [_P],
 }
-MAX_SLOTS = 64  # rows a serving kernel takes (csrc/serve_layer.cu)
-MAX_LORA_R8 = 64  # LoRA operand columns the kernels take (LORA_MAX_R8 in csrc/)
+SERVE_KERNEL_MAX_B = 4096  # slots the engine gives K7-K9 (the JAX package's cap)
 LORA_THREADS = 256  # rows of lora_af per block of K1's lora_down (csrc/fused_layer.cu)
+DTYPES = (torch.bfloat16, torch.float32)  # compute dtypes, norm weights, LoRA operands
 
 
 class LaunchCounter:
@@ -186,31 +200,43 @@ def block_tail_fused_ref(x, y, rms2, cp: Params, f12: Params, mp: Params, config
 
 
 _DECODE_KEYS = ("qw_t", "qscale_t", "qzero_t")
+_SHARED_KEYS = ("qw", "qscale", "qzero")
 
 
-def _check_q4(w: Params, K: int, N: int, gs: int, what: str):
-    """The kernels read the decode layout added by prepare_fused_params."""
+def _check_q4(w: Params, K: int, N: int, gs: int, what: str, keys=_DECODE_KEYS):
+    """The kernels read the decode layout added by prepare_fused_params (the
+    f32 bodies of K7 and K9 the shared (K/2, N) layout, ``keys``)."""
     if gs not in (64, 128, 256) or K % gs or (K // gs) % 2:
         raise ValueError(f"{what}: needs gs in (64, 128, 256) and an even group count (K={K} gs={gs})")
-    if "qw_t" not in w:
-        raise ValueError(f"{what}: no decode layout (qw_t); prepare the params with prepare_fused_params")
-    qw, qs, qz = (w[k] for k in _DECODE_KEYS)
+    if keys[0] not in w:
+        raise ValueError(f"{what}: no {keys[0]}; prepare the params with prepare_fused_params")
+    qw, qs, qz = (w[k] for k in keys)
     G = K // gs
-    if qw.dtype != torch.uint8 or qw.shape != (N, K // 2):
-        raise ValueError(f"{what}: qw_t must be uint8 {(N, K // 2)}, got {qw.dtype} {tuple(qw.shape)}")
+    shape = (N, K // 2) if keys is _DECODE_KEYS else (K // 2, N)
+    if qw.dtype != torch.uint8 or qw.shape != shape:
+        raise ValueError(f"{what}: {keys[0]} must be uint8 {shape}, got {qw.dtype} {tuple(qw.shape)}")
     for t in (qs, qz):
-        if t.dtype != torch.float32 or t.shape != (N, G):
-            raise ValueError(f"{what}: qscale_t/qzero_t must be float32 {(N, G)}")
-    for t in (qw, qs, qz):
-        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{what}: weights must be contiguous, 16-byte aligned CUDA tensors")
+        if t.dtype != torch.float32 or t.shape != ((N, G) if keys is _DECODE_KEYS else (G, N)):
+            raise ValueError(f"{what}: {keys[1]}/{keys[2]} must be float32 of the layout's shape")
+
+
+def _on_card(what: str, *ts):
+    """The card's part of a wrapper's checks: CUDA, contiguous, 16-byte aligned."""
+    for t in ts:
+        if t is not None and (not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{what}: tensors must be contiguous, 16-byte aligned CUDA tensors")
+
+
+def _w_keys(ws, keys=_DECODE_KEYS):
+    return [w[k] for w in ws for k in keys]
 
 
 def _lora_operand(ca: Params, what: str, D: int = 0):
     """The folded LoRA operand of c_attn as (lora_af, lora_bf, R8), or (None,
     None, 0) without one. A raw overlay (lora_a) that was not folded raises:
     the kernels would leave its update out. With ``D`` the operand is checked
-    as the kernels take it."""
+    as the kernels take it: any positive multiple of 8 columns, bf16 or f32,
+    both of one dtype."""
     if "lora_af" not in ca:
         if "lora_a" in ca:
             raise ValueError(f"{what}: c_attn holds a LoRA overlay that prepare_fused_params did not fold "
@@ -219,14 +245,25 @@ def _lora_operand(ca: Params, what: str, D: int = 0):
     la, lb = ca["lora_af"], ca["lora_bf"]
     R8 = la.shape[-1]
     if D:
-        if R8 % 8 or not 0 < R8 <= MAX_LORA_R8:
-            raise ValueError(f"{what}: the LoRA operand needs a multiple of 8 up to {MAX_LORA_R8} columns, got {R8}")
+        if R8 % 8 or R8 <= 0:
+            raise ValueError(f"{what}: the LoRA operand needs a positive multiple of 8 columns, got {R8}")
         for t, shape in ((la, (D, R8)), (lb, (R8, 3 * D))):
-            if t.dtype != torch.bfloat16 or t.shape != shape or not t.is_cuda or not t.is_contiguous() \
-                    or t.data_ptr() % 16:
-                raise ValueError(f"{what}: the LoRA operand must be contiguous, 16-byte aligned bf16 CUDA "
-                                 f"tensors {(D, R8)} and {(R8, 3 * D)}, got {t.dtype} {tuple(t.shape)}")
+            if t.dtype not in DTYPES or t.dtype != la.dtype or t.shape != shape:
+                raise ValueError(f"{what}: the LoRA operand must be bf16 or f32 tensors of one dtype "
+                                 f"{(D, R8)} and {(R8, 3 * D)}, got {t.dtype} {tuple(t.shape)}")
     return la, lb, R8
+
+
+def _check_norm(w, D: int, what: str):
+    if w.dtype not in DTYPES or w.shape != (D,):
+        raise ValueError(f"{what} takes a bf16 or f32 ({D},) norm weight, got {w.dtype} {tuple(w.shape)}")
+
+
+def _check_row(x, B: int, D: int, what: str, dtype=None):
+    if x.dtype not in DTYPES or (dtype is not None and x.dtype != dtype) or x.shape != (B, D) \
+            or not x.is_contiguous():
+        raise ValueError(f"{what} takes contiguous bf16 or f32 ({B}, {D}) rows in the compute dtype, "
+                         f"got {x.dtype} {tuple(x.shape)}")
 
 
 def _check_layout(config):
@@ -234,6 +271,37 @@ def _check_layout(config):
         raise ValueError(f"K1 takes head size 128, got {config.head_size}")
     if config.intermediate_size % 4:
         raise ValueError("K1 needs the intermediate size divisible by 4")
+
+
+def check_decode_layers(x, lps, kvs, cosf, sinf, write_pos: int, limit: int, config):
+    """What K1 takes, on any device. x (1, D) bf16 or f32 (the compute
+    dtype); caches (1, H, S, 128) in x's dtype; norm weights bf16 or f32,
+    rms_1 and rms_2 of one dtype; the prepared decode layout; a LoRA operand
+    of any multiple of 8 columns, bf16 or f32. Raises ValueError otherwise."""
+    _check_layout(config)
+    D, H, hs = config.n_embd, config.n_head, config.head_size
+    I, gs = config.intermediate_size, config.quant_groupsize
+    S = kvs[0]["k"].shape[-2]
+    _check_row(x, 1, D, "K1")
+    for t in (cosf, sinf):
+        if t.dtype != torch.float32 or t.shape != (1, hs) or not t.is_contiguous():
+            raise ValueError("K1 takes contiguous f32 (1, hs) cos/sin rows")
+    if not 0 <= write_pos < S or limit < write_pos:
+        raise ValueError(f"K1: write_pos {write_pos} outside [0, {S}) or above limit {limit}")
+    for lp, kv in zip(lps, kvs):
+        for name in ("k", "v"):
+            c = kv[name]
+            if c.dtype != x.dtype or c.shape != (1, H, S, hs) or not c.is_contiguous():
+                raise ValueError(f"K1 takes contiguous {x.dtype} (1, {H}, {S}, {hs}) caches")
+        for name in ("rms_1", "rms_2"):
+            _check_norm(lp[name], D, "K1")
+        if lp["rms_1"].dtype != lp["rms_2"].dtype:
+            raise ValueError("K1 takes rms_1 and rms_2 of one dtype")
+        _check_q4(lp["attn"]["c_attn"], D, 3 * D, gs, "K1 c_attn")
+        _check_q4(lp["attn"]["c_proj"], D, D, gs, "K1 attn.c_proj")
+        _check_q4(lp["mlp"]["c_fc12"], D, 2 * I, gs, "K1 c_fc12")
+        _check_q4(lp["mlp"]["c_proj"], I, D, gs, "K1 mlp.c_proj")
+        _lora_operand(lp["attn"]["c_attn"], "K1 c_attn", D)
 
 
 def decode_layers_fused(
@@ -251,31 +319,19 @@ def decode_layers_fused(
     the plain version; a CUDA tensor launches K1 or raises."""
     if not x.is_cuda:
         return decode_layers_fused_ref(x, lps, kvs, cosf, sinf, write_pos, limit, config)
-    _check_layout(config)
+    check_decode_layers(x, lps, kvs, cosf, sinf, write_pos, limit, config)
     D, H, hs = config.n_embd, config.n_head, config.head_size
     I, gs = config.intermediate_size, config.quant_groupsize
     S = kvs[0]["k"].shape[-2]
-    if x.dtype != torch.bfloat16 or x.shape != (1, D) or not x.is_contiguous():
-        raise ValueError(f"K1 takes a contiguous bf16 (1, {D}) row, got {x.dtype} {tuple(x.shape)}")
-    for t in (cosf, sinf):
-        if t.dtype != torch.float32 or t.shape != (1, hs) or not t.is_contiguous():
-            raise ValueError("K1 takes contiguous f32 (1, hs) cos/sin rows")
-    if not 0 <= write_pos < S or limit < write_pos:
-        raise ValueError(f"K1: write_pos {write_pos} outside [0, {S}) or above limit {limit}")
-    for lp, kv in zip(lps, kvs):
-        for name in ("k", "v"):
-            c = kv[name]
-            if c.dtype != torch.bfloat16 or c.shape != (1, H, S, hs) or not c.is_contiguous():
-                raise ValueError(f"K1 takes contiguous bf16 (1, {H}, {S}, {hs}) caches")
-        for name in ("rms_1", "rms_2"):
-            if lp[name].dtype != torch.bfloat16 or lp[name].shape != (D,):
-                raise ValueError(f"K1 takes bf16 ({D},) norm weights")
-        _check_q4(lp["attn"]["c_attn"], D, 3 * D, gs, "K1 c_attn")
-        _check_q4(lp["attn"]["c_proj"], D, D, gs, "K1 attn.c_proj")
-        _check_q4(lp["mlp"]["c_fc12"], D, 2 * I, gs, "K1 c_fc12")
-        _check_q4(lp["mlp"]["c_proj"], I, D, gs, "K1 mlp.c_proj")
+    loras = [_lora_operand(lp["attn"]["c_attn"], "K1 c_attn", D) for lp in lps]
+    for lp, kv, (la, lb, _) in zip(lps, kvs, loras):
+        ws = [lp["attn"]["c_attn"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"], lp["mlp"]["c_proj"]]
+        _on_card("K1", x, kv["k"], kv["v"], lp["rms_1"], lp["rms_2"], la, lb, *_w_keys(ws))
+    if not (cosf.is_cuda and sinf.is_cuda):
+        raise ValueError("K1 takes cos/sin rows on the card")
 
     dev = x.device
+    cbf16 = int(x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=dev)
     qkv = torch.empty(3 * D, **f32)
     part = torch.empty(H * (-(-S // CHUNK)) * (hs + 2), **f32)
@@ -283,7 +339,6 @@ def decode_layers_fused(
     xs = torch.empty(D, **f32)
     gg = torch.empty(I, **f32)
     x_out = torch.empty_like(x)
-    loras = [_lora_operand(lp["attn"]["c_attn"], "K1 c_attn", D) for lp in lps]
     R8max = max(r for _, _, r in loras)
     lora_part = torch.empty((-(-D // LORA_THREADS)) * R8max, **f32) if R8max else None
     lib = _build.library("fused_layer", _SIGS)
@@ -293,14 +348,14 @@ def decode_layers_fused(
         a, m = lp["attn"], lp["mlp"]
         ws = [a["c_attn"], a["c_proj"], m["c_fc12"], m["c_proj"]]
         err = lib.k1_decode_layer(
-            (x if j == 0 else xs).data_ptr(), int(j == 0),
-            lp["rms_1"].data_ptr(), lp["rms_2"].data_ptr(),
-            *[w[key].data_ptr() for w in ws for key in _DECODE_KEYS],
+            (x if j == 0 else xs).data_ptr(), int(j == 0 and cbf16),
+            lp["rms_1"].data_ptr(), lp["rms_2"].data_ptr(), int(lp["rms_1"].dtype == torch.bfloat16), cbf16,
+            *[t.data_ptr() for t in _w_keys(ws)],
             kv["k"].data_ptr(), kv["v"].data_ptr(), cosf.data_ptr(), sinf.data_ptr(),
             qkv.data_ptr(), part.data_ptr(), y.data_ptr(), xs.data_ptr(), gg.data_ptr(),
             x_out.data_ptr() if j == n - 1 else None,
             la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None,
-            lora_part.data_ptr() if R8 else None, R8,
+            lora_part.data_ptr() if R8 else None, R8, int(R8 == 0 or la.dtype == torch.bfloat16),
             D, I, H, S, gs, int(write_pos), int(limit), stream,
         )
         _build.check(err, "K1 decode_layers_fused")
@@ -318,24 +373,31 @@ def decode_layer_fused(x, lp, kv, cosf, sinf, write_pos, limit, config):
     return xo, kvs[0]
 
 
+def check_lm_head(x, ln_w, head: Params, config):
+    """What K2 takes, on any device: x (1, D) bf16 or f32, ln_f bf16 or f32,
+    the prepared decode layout. Raises ValueError otherwise."""
+    D, gs = config.n_embd, config.quant_groupsize
+    _check_row(x, 1, D, "K2")
+    _check_norm(ln_w, D, "K2")
+    _check_q4(head, D, head["qw"].shape[-1], gs, "K2 lm_head")
+
+
 def lm_head_fused(x, ln_w, head: Params, config):
     """Final RMSNorm + int4 lm_head for one decode token: (1, D) -> (1, V) in
     x.dtype. A CPU tensor takes the plain version; a CUDA tensor launches K2
     or raises."""
     if not x.is_cuda:
         return lm_head_fused_ref(x, ln_w, head, config)
+    check_lm_head(x, ln_w, head, config)
+    _on_card("K2", x, ln_w, *_w_keys([head]))
     D, gs = config.n_embd, config.quant_groupsize
     V = head["qw"].shape[-1]
-    if x.dtype != torch.bfloat16 or x.shape != (1, D) or not x.is_contiguous():
-        raise ValueError(f"K2 takes a contiguous bf16 (1, {D}) row")
-    if ln_w.dtype != torch.bfloat16 or ln_w.shape != (D,):
-        raise ValueError(f"K2 takes a bf16 ({D},) norm weight")
-    _check_q4(head, D, V, gs, "K2 lm_head")
-    logits = torch.empty((1, V), dtype=torch.bfloat16, device=x.device)
+    logits = torch.empty((1, V), dtype=x.dtype, device=x.device)
     lib = _build.library("fused_layer", _SIGS)
     err = lib.k2_lm_head(
-        x.data_ptr(), ln_w.data_ptr(), *[head[key].data_ptr() for key in _DECODE_KEYS],
-        logits.data_ptr(), D, V, gs, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), ln_w.data_ptr(), int(ln_w.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+        *[t.data_ptr() for t in _w_keys([head])], logits.data_ptr(), D, V, gs,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "K2 lm_head_fused")
     lm_head_fused.launches += 1
@@ -345,20 +407,37 @@ def lm_head_fused(x, ln_w, head: Params, config):
 lm_head_fused.launches = 0
 
 
-def _check_rows(x, B, D, what: str):
-    if x.dtype != torch.bfloat16 or x.shape != (B, D) or not x.is_contiguous() or not x.is_cuda:
-        raise ValueError(f"{what} takes contiguous bf16 ({B}, {D}) CUDA rows, got {x.dtype} {tuple(x.shape)}")
-
-
 def _check_serve_layout(config, B: int, what: str):
     D, I, gs = config.n_embd, config.intermediate_size, config.quant_groupsize
     if config.head_size != 128:
         raise ValueError(f"{what} takes head size 128, got {config.head_size}")
-    if not 1 <= B <= MAX_SLOTS:
-        raise ValueError(f"{what} takes 1 to {MAX_SLOTS} slots, got {B}")
+    if B < 1:
+        raise ValueError(f"{what} takes at least one slot, got {B}")
     if D % 128 or I % 128:
         raise ValueError(f"{what} needs n_embd and the intermediate size divisible by 128 (got {D}, {I})")
     return D, I, gs
+
+
+def _serve_keys(x):
+    """The layout each body of K7 and K9 reads: the decode layout in bf16, the
+    shared one in f32."""
+    return _DECODE_KEYS if x.dtype == torch.bfloat16 else _SHARED_KEYS
+
+
+def check_block_head(x, rms1, cos, sin, ca: Params, config):
+    """What K7 takes, on any device: x (B, D) bf16 or f32 (the compute dtype)
+    at any B >= 1, rms_1 bf16 or f32, (B, 128) f32 cos/sin rows, c_attn's
+    layout for the dtype and a LoRA operand of any multiple of 8 columns,
+    bf16 or f32. Raises ValueError otherwise."""
+    B = x.shape[0]
+    D, _, gs = _check_serve_layout(config, B, "K7")
+    _check_row(x, B, D, "K7")
+    _check_norm(rms1, D, "K7")
+    for t in (cos, sin):
+        if t.dtype != torch.float32 or t.shape != (B, 128) or not t.is_contiguous():
+            raise ValueError(f"K7 takes contiguous f32 ({B}, 128) cos/sin rows")
+    _check_q4(ca, D, 3 * D, gs, "K7 c_attn", _serve_keys(x))
+    _lora_operand(ca, "K7 c_attn", D)
 
 
 def block_head_fused(x, rms1, cos, sin, ca: Params, config):
@@ -372,26 +451,28 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
     the plain version; a CUDA tensor launches K7 or raises."""
     if not x.is_cuda:
         return block_head_fused_ref(x, rms1, cos, sin, ca, config)
+    check_block_head(x, rms1, cos, sin, ca, config)
     B = x.shape[0]
-    D, _, gs = _check_serve_layout(config, B, "K7")
-    _check_rows(x, B, D, "K7")
-    if rms1.dtype != torch.bfloat16 or rms1.shape != (D,):
-        raise ValueError(f"K7 takes a bf16 ({D},) norm weight")
-    for t in (cos, sin):
-        if t.dtype != torch.float32 or t.shape != (B, 128) or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError(f"K7 takes contiguous f32 ({B}, 128) cos/sin rows on the card")
-    _check_q4(ca, D, 3 * D, gs, "K7 c_attn")
+    D, gs = config.n_embd, config.quant_groupsize
+    keys = _serve_keys(x)
     la, lb, R8 = _lora_operand(ca, "K7 c_attn", D)
-    xb = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
-    gx = torch.empty((B, D // gs), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((B, 3 * D), dtype=torch.bfloat16, device=x.device)
-    ax = torch.empty((B, R8), dtype=torch.float32, device=x.device) if R8 else None
+    _on_card("K7", x, rms1, cos, sin, la, lb, *_w_keys([ca], keys))
+    cbf16 = x.dtype == torch.bfloat16
+    dev = x.device
+    xb = torch.empty((B, D), dtype=x.dtype, device=dev)
+    gx = torch.empty((B, D // gs if cbf16 else 3 * D), dtype=torch.float32, device=dev)
+    splits = 1 if cbf16 else quant_matmul.f32_splits(3 * D, D, dev)
+    ws = torch.empty((splits, B, 3 * D), dtype=torch.float32, device=dev) if splits > 1 else None
+    qkv = torch.empty((B, 3 * D), dtype=x.dtype, device=dev)
+    ax = torch.empty((B, R8), dtype=torch.float32, device=dev) if R8 else None
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k7_block_head(
-        x.data_ptr(), rms1.data_ptr(), *[ca[key].data_ptr() for key in _DECODE_KEYS],
+        x.data_ptr(), rms1.data_ptr(), int(rms1.dtype == torch.bfloat16), int(cbf16),
+        *[t.data_ptr() for t in _w_keys([ca], keys)],
         cos.data_ptr(), sin.data_ptr(), xb.data_ptr(), gx.data_ptr(), qkv.data_ptr(),
         la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None, ax.data_ptr() if R8 else None, R8,
-        B, D, gs, torch.cuda.current_stream(x.device).cuda_stream,
+        int(R8 == 0 or la.dtype == torch.bfloat16), None if ws is None else ws.data_ptr(), splits,
+        B, D, gs, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "K7 block_head_fused")
     k7_lora.launches += bool(R8)
@@ -400,6 +481,21 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
 
 
 block_head_fused.launches = 0
+
+
+def check_block_tail(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
+    """What K9 takes, on any device: x and y (B, D) in one compute dtype, bf16
+    or f32, at any B >= 1, rms_2 bf16 or f32, and the layout of the three
+    linears for the dtype. Raises ValueError otherwise."""
+    B = x.shape[0]
+    D, I, gs = _check_serve_layout(config, B, "K9")
+    _check_row(x, B, D, "K9 x")
+    _check_row(y, B, D, "K9 y", x.dtype)
+    _check_norm(rms2, D, "K9")
+    keys = _serve_keys(x)
+    _check_q4(cp, D, D, gs, "K9 attn.c_proj", keys)
+    _check_q4(f12, D, 2 * I, gs, "K9 c_fc12", keys)
+    _check_q4(mp, I, D, gs, "K9 mlp.c_proj", keys)
 
 
 def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
@@ -413,27 +509,32 @@ def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
     launches K9 or raises."""
     if not x.is_cuda:
         return block_tail_fused_ref(x, y, rms2, cp, f12, mp, config)
+    check_block_tail(x, y, rms2, cp, f12, mp, config)
     B = x.shape[0]
-    D, I, gs = _check_serve_layout(config, B, "K9")
-    _check_rows(x, B, D, "K9 x")
-    _check_rows(y, B, D, "K9 y")
-    if rms2.dtype != torch.bfloat16 or rms2.shape != (D,):
-        raise ValueError(f"K9 takes a bf16 ({D},) norm weight")
-    _check_q4(cp, D, D, gs, "K9 attn.c_proj")
-    _check_q4(f12, D, 2 * I, gs, "K9 c_fc12")
-    _check_q4(mp, I, D, gs, "K9 mlp.c_proj")
+    D, I, gs = config.n_embd, config.intermediate_size, config.quant_groupsize
+    keys = _serve_keys(x)
+    _on_card("K9", x, y, rms2, *_w_keys([cp, f12, mp], keys))
+    cbf16 = x.dtype == torch.bfloat16
     dev, W = x.device, max(D, I)
-    xb = torch.empty((B, W), dtype=torch.bfloat16, device=dev)
-    gx = torch.empty((B, W // gs), dtype=torch.float32, device=dev)
+    if cbf16:
+        xb = torch.empty((B, W), dtype=torch.bfloat16, device=dev)
+        gx = torch.empty((B, W // gs), dtype=torch.float32, device=dev)
+    else:
+        xb = torch.empty((B, D), dtype=torch.float32, device=dev)
+        gx = torch.empty((B, max(D, 2 * I)), dtype=torch.float32, device=dev)
+    # K splits of the f32 body's three products (attn c_proj, c_fc12, mlp c_proj)
+    splits = [1, 1, 1] if cbf16 else [quant_matmul.f32_splits(N, K, dev) for K, N in ((D, D), (D, 2 * I), (I, D))]
+    wsize = max(s * N for s, N in zip(splits, (D, 2 * I, D)))
+    ws = torch.empty((wsize, B), dtype=torch.float32, device=dev) if max(splits) > 1 else None
     xs = torch.empty((B, D), dtype=torch.float32, device=dev)
     gg = torch.empty((B, I), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k9_block_tail(
-        x.data_ptr(), y.data_ptr(), rms2.data_ptr(),
-        *[w[key].data_ptr() for w in (cp, f12, mp) for key in _DECODE_KEYS],
+        x.data_ptr(), y.data_ptr(), rms2.data_ptr(), int(rms2.dtype == torch.bfloat16), int(cbf16),
+        *[t.data_ptr() for t in _w_keys([cp, f12, mp], keys)],
         xb.data_ptr(), gx.data_ptr(), xs.data_ptr(), gg.data_ptr(), out.data_ptr(),
-        B, D, I, gs, torch.cuda.current_stream(dev).cuda_stream,
+        None if ws is None else ws.data_ptr(), *splits, B, D, I, gs, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "K9 block_tail_fused")
     block_tail_fused.launches += 1
@@ -443,12 +544,15 @@ def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
 block_tail_fused.launches = 0
 
 
-def use_serve_fused(config, layer_params: Params) -> bool:
+def use_serve_fused(config, layer_params: Params, batch: Optional[int] = None) -> bool:
     """Whether the batched serving step takes the fused block halves (K7, K8,
     K9): int4 weights with c_fc12 fused, in the half-rotation basis, head size
-    128, and a LoRA overlay folded into K7's operand. The JAX package also
-    asks its backend, a slot-count cap and three environment switches; the
-    card always takes the kernels."""
+    128, a LoRA overlay folded into K7's operand, and at most
+    ``SERVE_KERNEL_MAX_B`` slots (``batch``, when known). The JAX package also
+    asks its backend and three environment switches; the card always takes
+    the kernels."""
+    if batch is not None and batch > SERVE_KERNEL_MAX_B:
+        return False
     if config.rope_layout != "half" or config.head_size != 128:
         return False
     c_attn = layer_params.get("attn", {}).get("c_attn", {})

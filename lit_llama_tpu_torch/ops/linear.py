@@ -87,21 +87,24 @@ def matmul_int8_dequant(x, qw, qscale, compute_dtype):
 
 def linear(params: Params, x: torch.Tensor, compute_dtype=None, plain: bool = False):
     """Apply a linear-layer variant. ``x``: (..., in_features). Int4 params
-    go to K3 and int8 params to K6 (``ops.quant_matmul``); ``plain`` runs the
-    kernel's plain version even on a CUDA tensor (the reference path that the
-    chip check compares the kernels against)."""
+    go to K3 and int8 params to K6 (``ops.quant_matmul``) where
+    ``quant_route`` takes their widths, else to the kernel's plain version;
+    ``plain`` runs the plain version even on a CUDA tensor (the reference path
+    that the chip check compares the kernels against)."""
     compute_dtype = compute_dtype or x.dtype
     if "w" in params:
         out = x @ params["w"].to(compute_dtype)
     elif "qzero" in params:
         from lit_llama_tpu_torch.ops import quant_matmul
 
-        fn = quant_matmul.matmul_int4_ref if plain else quant_matmul.matmul_int4
+        kernel = not plain and quant_matmul.quant_route(2 * params["qw"].shape[0], params["qw"].shape[1])
+        fn = quant_matmul.matmul_int4 if kernel else quant_matmul.matmul_int4_ref
         out = fn(x, params["qw"], params["qscale"], params["qzero"], compute_dtype)
     elif "qw" in params:
         from lit_llama_tpu_torch.ops import quant_matmul
 
-        fn = quant_matmul.matmul_int8_ref if plain else quant_matmul.matmul_int8
+        kernel = not plain and quant_matmul.quant_route(*params["qw"].shape)
+        fn = quant_matmul.matmul_int8 if kernel else quant_matmul.matmul_int8_ref
         out = fn(x, params["qw"], params["qscale"], compute_dtype)
     else:
         raise ValueError(f"unrecognized linear params: {sorted(params)}")

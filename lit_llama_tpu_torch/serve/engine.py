@@ -40,7 +40,7 @@ import torch
 
 from lit_llama_tpu_torch.models import llama
 from lit_llama_tpu_torch.models.config import LLaMAConfig
-from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused
+from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused, use_serve_fused
 from lit_llama_tpu_torch.ops.rope import build_rope_cache
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
@@ -130,6 +130,9 @@ class DecodeEngine:
         self.params, config = maybe_prepare_fused(llama.unstack_layers(params), config)
         self.config = config
         self.B = max_batch
+        # whether the decode step takes K7-K9 (at most SERVE_KERNEL_MAX_B slots);
+        # llama.forward asks the same of the slot count it is given
+        self.serve_fused = use_serve_fused(config, self.params["h"][0], batch=max_batch)
         self.S = min(max_seq_length or config.block_size, config.block_size)
         self.top_k = None if top_k is None else min(top_k, config.padded_vocab_size)
         self.steps_per_sync = max(1, steps_per_sync)

@@ -68,3 +68,19 @@ def test_flash_kernel_matches_plain(rng, cuda, T):
     torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
     with pytest.raises(ValueError):
         tflash.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(), v[..., :64].contiguous())
+
+
+# f32 compute and head size 256 take the FFMA body; bf16 at 128 the tensor cores
+@pytest.mark.parametrize("dtype,hs", [("float32", 128), ("bfloat16", 256), ("float32", 256)])
+@pytest.mark.parametrize("T", [65, 200])
+def test_flash_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, T):
+    cd = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, T, hs)).astype(np.float32)).to(cuda, cd) for _ in range(3))
+    before = tflash.flash_attention.launches
+    o, lse = tflash.flash_attention(q, k, v)
+    ro, rlse = tflash.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1 and o.dtype == cd
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)

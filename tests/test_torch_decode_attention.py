@@ -162,3 +162,26 @@ def test_decode_attention_kernel_raises_on_what_it_does_not_take(rng, cuda):
     with pytest.raises(ValueError):  # limit on the host's dtype
         tda.decode_attention(q, k, v, None, None, limit.long())
     assert tensor_from_numpy(np.zeros(2, np.float32), cuda).is_cuda
+
+
+# f32 compute (f32 or int8 cache) and head size 256 (bf16 and f32)
+@pytest.mark.parametrize("dtype,hs", [("float32", 128), ("bfloat16", 256), ("float32", 256)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, quantized):
+    cd = getattr(torch, dtype)
+    B, H, S, limits = 3, 4, 300, [0, 150, 400]
+    mk = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    q = mk(B, H, 1, hs).to(cd)
+    if quantized:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, size=(B, H, S, hs)).astype(np.int8)).to(cuda) for _ in "kv")
+        ks, vs = (mk(B, H, S, 1).abs() * 0.01 for _ in "kv")
+    else:
+        k, v, ks, vs = mk(B, H, S, hs).to(cd), mk(B, H, S, hs).to(cd), None, None
+    limit = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, ks, vs, limit)
+    want = tda.decode_attention_ref(q, k, v, ks, vs, limit)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1 and got.shape == (B, H, 1, hs) and got.dtype == cd
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else TOL_CARD
+    torch.testing.assert_close(got.float(), want.float(), **tol)

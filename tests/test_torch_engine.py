@@ -196,3 +196,44 @@ def test_engine_prepared_int4_on_int8_cache_matches_jax_engine(model):
     got, eng = _port_engine_tokens(tparams, tc.replace(kv_cache_dtype="int8"), prompts, 8, **kw)
     assert got == [done[i].generated for i in ids]
     assert eng.cache[0]["k"].dtype == torch.int8 and bool(eng.cache[0]["ks"].any())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_engine_past_64_slots_matches_fewer_slots_on_the_card(model, cuda, compute):
+    """70 requests at once through a 72-slot engine on the card (K7 and K9 past
+    64 rows, in f32 and bf16 compute): each request's greedy tokens equal the
+    same request's in an 8-slot engine. A row's sums do not depend on the
+    slot count (K7 and K9 split K the same way in every 32-row tile, K8 and
+    the lm_head work per row), so the tokens are equal, not close."""
+    from lit_llama_tpu_torch.ops import fused_layer as tfl
+
+    _, _, tparams, tc = model
+    tc = tc.replace(compute_dtype=compute)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    params = to(tfl.add_decode_layout(tparams))  # the layout K7 and K9 read in bf16
+    rng = np.random.default_rng(72)
+    prompts = [rng.integers(1, 128, size=int(n)).astype(np.int64) for n in rng.integers(3, 20, size=70)]
+    toks = {}
+    for slots in (72, 8):
+        eng = DecodeEngine(params, tc, max_batch=slots, max_seq_length=64, steps_per_sync=4, device=cuda)
+        assert eng.serve_fused
+        before = tfl.block_head_fused.launches
+        ids = [eng.submit(p, 5) for p in prompts]
+        done = eng.run()
+        assert tfl.block_head_fused.launches > before
+        toks[slots] = [done[i].generated for i in ids]
+    assert toks[72] == toks[8]

@@ -191,8 +191,8 @@ def test_k10_kernel_rejects_what_it_does_not_take(cuda):
     o, lse = tflash.flash_attention(q, k, v)
     with pytest.raises(ValueError):  # head size 64
         tflash.flash_attention_backward(*(t[..., :64].contiguous() for t in (q, k, v, o)), lse, do[..., :64].contiguous())
-    with pytest.raises(ValueError):  # f32
-        tflash.flash_attention_backward(q.float(), k.float(), v.float(), o.float(), lse, do.float())
+    with pytest.raises(ValueError):  # q in another dtype than the rest
+        tflash.flash_attention_backward(q.float(), k, v, o, lse, do)
     with pytest.raises(ValueError):  # not contiguous
         tflash.flash_attention_backward(q, k, v, o, lse, do.transpose(-1, -2).contiguous().transpose(-1, -2))
 
@@ -232,3 +232,31 @@ def test_k10_kernel_model_grads_match_plain(cuda):
           + ", ".join(f"{n} {a:.3g} / {b:.3g}" for n, (a, b) in readings.items()))
     for name, (by_max, by_rms) in readings.items():
         assert by_max <= TOL_CARD_GRAD["max"] and by_rms <= TOL_CARD_GRAD["rms"], (name, readings)
+
+
+# f32 compute and head size 256: the FFMA bodies of K4 and K10 against their
+# plain versions, row by row as above (bf16), or to 1e-4 of the output's
+# largest value (f32: the sums differ in order only)
+@pytest.mark.parametrize("dtype,hs", [("float32", 128), ("bfloat16", 256), ("float32", 256)])
+@pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200)])
+def test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T):
+    cd = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(T)
+    q, k, v, do = (torch.randn(B, H, T, hs, generator=g).to(cuda, cd) for _ in range(4))
+    o, lse = tflash.flash_attention(q, k, v)
+    before = (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches)
+    got = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    want = tflash.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        assert gt.dtype == cd and torch.isfinite(gt).all()
+        if dtype == "float32":
+            err = float((gt - w).abs().max())
+            assert err <= 1e-4 * max(1.0, float(w.abs().max())), f"{name}: max err {err:.3g}"
+        else:
+            err, need = _card_err(gt, w)
+            assert need <= TOL_CARD["row"], f"{name}: row part {need:.3g} needed, max err {err:.3g}"
+    again = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    for gt, a in zip(got, again):
+        assert torch.equal(gt, a)

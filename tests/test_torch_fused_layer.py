@@ -161,6 +161,49 @@ def test_decode_layer_ref_matches_pallas_odd_half_groups():
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=2e-3, atol=2e-3)
 
 
+def test_decode_layers_and_head_ref_f32_norm_weights_match_pallas_bf16(prepared):
+    """bf16 compute with f32 norm weights that are not ones (as a trained f32
+    checkpoint holds them): both packages apply the weight in f32 before the
+    row is rounded (``_rms_norm_rows``), so K1's and K2's plain versions
+    agree with the interpret-mode Pallas kernels to the bf16 bound of the
+    test above. K1 and K2 on the card take these weights as they are."""
+    fparams, fcfg, tparams, tc = prepared
+    bcfg, tbcfg = fcfg.replace(compute_dtype="bfloat16"), tc.replace(compute_dtype="bfloat16")
+    rng = np.random.default_rng(17)
+    norms = [{n: (1.0 + 0.3 * rng.normal(size=(fcfg.n_embd,))).astype(np.float32) for n in ("rms_1", "rms_2")}
+             for _ in range(2)]
+    ln_f = (1.0 + 0.3 * rng.normal(size=(fcfg.n_embd,))).astype(np.float32)
+    jlayers = [{**lp, **{n: jnp.asarray(w) for n, w in nw.items()}} for lp, nw in zip(fparams["h"], norms)]
+    tlayers = [{**lp, **{n: torch.from_numpy(w) for n, w in nw.items()}} for lp, nw in zip(tparams["h"], norms)]
+    x, k, v = _inputs(rng, fcfg)
+    pos, hs = 70, fcfg.head_size
+    kb, vb = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+    cosj, sinj = j_rope_row(j_rope_cache(fcfg.block_size, hs), jnp.int32(pos), hs)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jkvs = jfl.decode_layers_fused(
+            jnp.asarray(x, jnp.bfloat16), jlayers, [{"k": jfl.pack_kv(kb), "v": jfl.pack_kv(vb)}] * 2,
+            cosj, sinj, jnp.int32(pos), jnp.int32(pos), bcfg)
+        jlog = jfl.lm_head_fused(jout, jnp.asarray(ln_f), fparams["lm_head"], bcfg)
+    tk = torch.from_numpy(np.array(kb.astype(jnp.float32))).to(torch.bfloat16)
+    tv = torch.from_numpy(np.array(vb.astype(jnp.float32))).to(torch.bfloat16)
+    kvs = [{"k": tk.clone(), "v": tv.clone()} for _ in range(2)]
+    cost, sint = rope_half_row(build_rope_cache(tc.block_size, hs), pos, hs)
+    tout, tkvs = tfl.decode_layers_fused(torch.from_numpy(x).to(torch.bfloat16), tlayers, kvs, cost, sint, pos,
+                                         pos, tbcfg)
+    for j in range(2):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tkvs[j][name].float().numpy(),
+                                       np.asarray(jfl.unpack_kv(jkvs[j][name]).astype(jnp.float32)),
+                                       rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(tout.float().numpy(), np.asarray(jout.astype(jnp.float32)), rtol=2e-2, atol=2e-2)
+    tlog = tfl.lm_head_fused(tout, torch.from_numpy(ln_f), tparams["lm_head"], tbcfg)
+    assert tlog.dtype == torch.bfloat16
+    np.testing.assert_allclose(tlog.float().numpy(), np.asarray(jlog.astype(jnp.float32)), rtol=2e-2, atol=2e-2)
+    decode = tfl.add_decode_layout({**tparams, "h": tlayers})  # the layout the kernels read
+    tfl.check_decode_layers(tout, decode["h"], kvs, cost, sint, pos, pos, tbcfg)
+    tfl.check_lm_head(tout, torch.from_numpy(ln_f), decode["lm_head"], tbcfg)
+
+
 def test_lm_head_ref_matches_pallas(prepared):
     fparams, fcfg, tparams, tc = prepared
     x = (np.random.default_rng(3).normal(size=(1, fcfg.n_embd))).astype(np.float32)
@@ -256,3 +299,41 @@ def _to(tree, device):
     if isinstance(tree, (list, tuple)):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.parametrize("compute,norm", [("bfloat16", "float32"), ("float32", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("pos", [37, 259])
+def test_decode_layers_kernel_f32_compute_and_norms(prepared, cuda, compute, norm, pos):
+    """K1 and K2 on the card against their plain versions in f32 compute (f32
+    row, cache and logits) and with f32 norm weights, S = 256. In f32 the
+    kernel and its plain version differ only in the order of f32 sums: 1e-4.
+    Random norm weights, so a weight read as the other dtype would fail."""
+    _, fcfg, tparams, tc = prepared
+    cd, nd = getattr(torch, compute), getattr(torch, norm)
+    tc = tc.replace(compute_dtype=compute)
+    g = torch.Generator().manual_seed(pos)
+    rnd = lambda: (1.0 + 0.3 * torch.randn(tc.n_embd, generator=g)).to(cuda, nd)
+    params = _to(tfl.add_decode_layout(tparams), cuda)
+    params["h"] = [{**lp, "rms_1": rnd(), "rms_2": rnd()} for lp in params["h"]]
+    rng = np.random.default_rng(pos)
+    Sg, H, hs = 256, tc.n_head, tc.head_size
+    mk = lambda: torch.from_numpy(rng.normal(size=(1, H, Sg, hs)).astype(np.float32)).to(cuda, cd)
+    kvs = [{"k": mk(), "v": mk()} for _ in range(2)]
+    ref_kvs = [{n: c.clone() for n, c in kv.items()} for kv in kvs]
+    x = torch.from_numpy(rng.normal(size=(1, tc.n_embd)).astype(np.float32)).to(cuda, cd)
+    cos, sin = rope_half_row(build_rope_cache(tc.block_size, hs, device=cuda), min(pos, 255), hs)
+    tol = dict(rtol=1e-4, atol=1e-4) if compute == "float32" else dict(rtol=2e-2, atol=2e-2)
+    before = tfl.decode_layers_fused.launches, tfl.lm_head_fused.launches
+    out, _ = tfl.decode_layers_fused(x, params["h"], kvs, cos, sin, pos % Sg, pos, tc)
+    ref, _ = tfl.decode_layers_fused_ref(x, params["h"], ref_kvs, cos, sin, pos % Sg, pos, tc)
+    ln = rnd()
+    logits = tfl.lm_head_fused(out, ln, params["lm_head"], tc)
+    want = tfl.lm_head_fused_ref(out, ln, params["lm_head"], tc)
+    torch.cuda.synchronize()
+    assert (tfl.decode_layers_fused.launches, tfl.lm_head_fused.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == cd and logits.dtype == cd
+    for kv, rkv in zip(kvs, ref_kvs):
+        torch.testing.assert_close(kv["k"].float(), rkv["k"].float(), **tol)
+        torch.testing.assert_close(kv["v"].float(), rkv["v"].float(), **tol)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(logits.float(), want.float(), **tol)

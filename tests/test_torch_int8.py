@@ -159,10 +159,25 @@ def test_matmul_int8_kernel_matches_plain(rng, cuda, M, K, N):
 def test_matmul_int8_kernel_raises_on_what_it_does_not_take(rng, cuda):
     q = {k: v.to(cuda) for k, v in _quantized(rng, 256, 256).items()}
     x = torch.zeros((2, 256), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(TypeError):
-        tqm.matmul_int8(x.float(), q["qw"], q["qscale"], torch.float32)
+    with pytest.raises(TypeError):  # x not in the compute dtype
+        tqm.matmul_int8(x.float(), q["qw"], q["qscale"], torch.bfloat16)
     with pytest.raises(ValueError):
         tqm.matmul_int8(x, q["qw"][:, :250].contiguous(), q["qscale"][:, :250].contiguous())
     with pytest.raises(ValueError):
         tqm.matmul_int8(x[:, :128].contiguous(), q["qw"], q["qscale"])
     assert tensor_from_numpy(np.zeros(3, np.int8), cuda).dtype == torch.int8
+
+
+# f32 compute: the weight stream at M = 1 (split K at (4096, 4096)) and the
+# FFMA tile at M > 1; the f32 sums differ in order only
+@pytest.mark.parametrize("M", [1, 8, 200])
+@pytest.mark.parametrize("K,N", [(1000, 1040), (4096, 4096)])
+def test_matmul_int8_kernel_f32(rng, cuda, M, K, N):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N).items()}
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda)
+    before = tqm.matmul_int8.launches
+    got = tqm.matmul_int8(x, q["qw"], q["qscale"], torch.float32)
+    want = tqm.matmul_int8_ref(x, q["qw"], q["qscale"], torch.float32)
+    torch.cuda.synchronize()
+    assert tqm.matmul_int8.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -264,6 +264,79 @@ def test_block_head_lora_ref_matches_pallas(lora_model, B):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def wide_lora_model():
+    """One prepared layer with r = 64 on q and v: a 128-column operand (R8 =
+    128, past the 64 the kernels took before), f32 as stored."""
+    cfg = LLaMAConfig(block_size=256, vocab_size=128, n_layer=1, n_head=4, n_embd=512, quantize="int4",
+                      quant_groupsize=128, lora=LoRAConfig(r=64, alpha=16.0, dropout=0.0))
+    fparams, fcfg = jfl.prepare_fused_params(jllama.unstack_layers(jllama.quantize_params(_lora_dense(cfg), cfg)),
+                                             cfg)
+    assert fparams["h"][0]["attn"]["c_attn"]["lora_af"].shape == (512, 128)
+    return fparams["h"][0], fcfg, to_port(fparams)["h"][0], port_config(fcfg)
+
+
+def _operand_as(lp, dtype, jax_side):
+    """The layer with its LoRA operand stored in ``dtype`` (both packages read
+    it as f32)."""
+    ca = dict(lp["attn"]["c_attn"])
+    for key in ("lora_af", "lora_bf"):
+        ca[key] = ca[key].astype(dtype) if jax_side else ca[key].to(getattr(torch, dtype))
+    return {**lp, "attn": {**lp["attn"], "c_attn": ca}}
+
+
+@pytest.mark.parametrize("operand", ["float32", "bfloat16"])
+def test_decode_layer_wide_lora_ref_matches_pallas(wide_lora_model, operand):
+    """The plain K1 with a 128-column operand, f32 or bf16, against the
+    interpret-mode Pallas kernel (f32 compute, the tolerances above); the
+    port's check takes the operand as K1 on the card takes it."""
+    jlp, fcfg, tlp, tc = wide_lora_model
+    jlp, tlp = _operand_as(jlp, operand, True), _operand_as(tlp, operand, False)
+    D, H, hs, pos = 512, 4, 128, 37
+    rng = np.random.default_rng(23)
+    k = (rng.normal(size=(1, H, S, hs)) * 0.3).astype(np.float32)
+    v = (rng.normal(size=(1, H, S, hs)) * 0.3).astype(np.float32)
+    x = (rng.normal(size=(1, D)) * 0.5).astype(np.float32)
+    cosj, sinj = j_rope_row(j_rope_cache(fcfg.block_size, hs), jnp.int32(pos), hs)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jkv = jfl.decode_layer_fused(jnp.asarray(x), jlp, {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+                                           cosj, sinj, jnp.int32(pos), jnp.int32(pos), fcfg)
+    cos, sin = rope_half_row(build_rope_cache(tc.block_size, hs), pos, hs)
+    kv = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    out, _ = tfl.decode_layer_fused(torch.from_numpy(x), tlp, kv, cos, sin, pos, pos, tc)
+    np.testing.assert_allclose(kv["v"].numpy(), np.asarray(jkv["v"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(kv["k"].numpy(), np.asarray(jkv["k"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=2e-3, atol=2e-3)
+    tfl.check_decode_layers(torch.from_numpy(x), tfl.add_decode_layout({"h": [tlp], "lm_head": {}})["h"], [kv],
+                            cos, sin, pos, pos, tc)
+
+
+@pytest.mark.parametrize("operand", ["float32", "bfloat16"])
+def test_block_head_wide_lora_ref_matches_pallas(wide_lora_model, operand):
+    """The plain K7 with a 128-column operand, f32 or bf16, against the
+    interpret-mode Pallas kernel at 8 slots, f32 to 1e-4 (q/k columns as in
+    test_block_head_lora_ref_matches_pallas)."""
+    jlp, cfg, tlp, tc = wide_lora_model
+    jlp, tlp = _operand_as(jlp, operand, True), _operand_as(tlp, operand, False)
+    B, D, H, hs = 8, 512, 4, 128
+    rng = np.random.default_rng(29)
+    x = (rng.normal(size=(B, D)) * 0.5).astype(np.float32)
+    pos = rng.integers(0, 300, size=B).astype(np.int32)
+    rope = jnp.take(j_rope_cache(cfg.block_size, hs), jnp.clip(pos, 0, cfg.block_size - 1), axis=0)
+    cos3, sin3 = jllama._slot_rope_tables(rope[:, None], cfg)
+    run = lambda c3, s3: np.asarray(jfl.block_head_fused(
+        jnp.asarray(x), jlp["rms_1"], c3, s3, jlp["attn"]["c_attn"], B=B, D=D, gs=128, cdtype="float32",
+        interpret=True), np.float32)
+    rotated, raw = run(cos3, sin3), run(jnp.ones_like(cos3), jnp.zeros_like(sin3))
+    qk = apply_rope_half(jnp.asarray(raw[:, : 2 * D]).reshape(B, 1, 2 * H, hs), rope[:, None])
+    want = np.concatenate([np.asarray(qk).reshape(B, 2 * D), rotated[:, 2 * D :]], axis=-1)
+    cos, sin = slot_rope_rows(build_rope_cache(tc.block_size, hs), torch.from_numpy(pos))
+    got = tfl.block_head_fused(torch.from_numpy(x), tlp["rms_1"], cos, sin, tlp["attn"]["c_attn"], tc)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    tfl.check_block_head(torch.from_numpy(x), tlp["rms_1"], cos, sin,
+                         tfl.add_decode_layout({"h": [tlp], "lm_head": {}})["h"][0]["attn"]["c_attn"], tc)
+
+
 # ---------------------------------------------------------------------------
 # Generation and serving
 # ---------------------------------------------------------------------------
@@ -312,20 +385,25 @@ def test_engine_lora_matches_jax_engine(lora_model, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _card_lora_layers(n_embd, n_head, n_layer, device, seed=3):
+def _card_lora_layers(n_embd, n_head, n_layer, device, seed=3, r=8, operand="bfloat16"):
     """Prepared int4 layers with a LoRA operand on the card: dense init (std
     0.02 / sqrt(2 L), as the other K1 card tests) quantized at load, the
-    overlay's A at its init and B drawn, bf16."""
+    overlay's A at its init and B drawn, bf16 norms and compute; the operand
+    (R8 = 2 r columns for r on q and v) in ``operand``."""
     cfg = tcfg.LLaMAConfig(block_size=512, vocab_size=1000, n_layer=n_layer, n_head=n_head, n_embd=n_embd,
-                           quantize="int4", quant_groupsize=128, param_dtype="bfloat16", compute_dtype="bfloat16",
-                           lora=tcfg.LoRAConfig(r=8, alpha=16.0, dropout=0.0))
+                           quantize="int4", quant_groupsize=128, param_dtype=operand, compute_dtype="bfloat16",
+                           lora=tcfg.LoRAConfig(r=r, alpha=16.0, dropout=0.0))
     from lit_llama_tpu_torch.utils.random_params import random_lora_overlay
 
     dense = tllama.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
     dense["h"]["attn"]["c_attn"]["lora_b"] = random_lora_overlay(cfg, seed=seed + 1, device="cpu")["h"]["attn"][
         "c_attn"]["lora_b"]
     params, tc = tfl.prepare_fused_params(tllama.unstack_layers(tllama.quantize_params(dense, cfg)), cfg)
-    return [_to(lp, device) for lp in params["h"]], tc
+    layers = [_to(lp, device) for lp in params["h"]]
+    for lp in layers:
+        lp["rms_1"], lp["rms_2"] = lp["rms_1"].to(torch.bfloat16), lp["rms_2"].to(torch.bfloat16)
+        assert lp["attn"]["c_attn"]["lora_af"].dtype == getattr(torch, operand)
+    return layers, tc.replace(param_dtype="bfloat16")
 
 
 def _to(tree, device):
@@ -391,3 +469,37 @@ def test_k7_lora_kernel_matches_plain(cuda, n_embd, n_head, B):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
     bare = tfl.block_head_fused_ref(x, lp["rms_1"], cos, sin, _without_operand(lp)["attn"]["c_attn"], tc)
     assert float((bare.float() - want.float()).abs().max()) > 0.2
+
+
+@pytest.mark.parametrize("operand", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [8, 65])
+def test_wide_lora_kernels_match_plain(cuda, operand, B):
+    """K1 and K7 on the card with a 128-column operand (r = 64 on q and v),
+    bf16 or f32, against their plain versions (the tolerances of the tests
+    above); K7 past 64 slots as well. The update moves the outputs by more
+    than ten times the tolerance, so a kernel that left columns out fails."""
+    layers, tc = _card_lora_layers(512, 4, 1, cuda, r=64, operand=operand)
+    lp = layers[0]
+    assert lp["attn"]["c_attn"]["lora_af"].shape == (512, 128)
+    rng = np.random.default_rng(B)
+    bf = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = bf(B, 512)
+    pos = torch.from_numpy(rng.integers(0, 600, size=B).astype(np.int32)).to(cuda)
+    cos, sin = slot_rope_rows(build_rope_cache(tc.block_size, 128, device=cuda), pos)
+    args = (x, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], tc)
+    before = tfl.k7_lora.launches, tfl.k1_lora.launches
+    got, want = tfl.block_head_fused(*args), tfl.block_head_fused_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    bare = tfl.block_head_fused_ref(x, lp["rms_1"], cos, sin, _without_operand(lp)["attn"]["c_attn"], tc)
+    assert float((bare.float() - want.float()).abs().max()) > 0.2
+    Sg, p = 256, 300
+    kv = {"k": bf(1, 4, Sg, 128), "v": bf(1, 4, Sg, 128)}
+    rkv = {n: c.clone() for n, c in kv.items()}
+    c1, s1 = rope_half_row(build_rope_cache(tc.block_size, 128, device=cuda), p, 128)
+    out, _ = tfl.decode_layers_fused(x[:1], [lp], [kv], c1, s1, p % Sg, p, tc)
+    ref, _ = tfl.decode_layers_fused_ref(x[:1], [lp], [rkv], c1, s1, p % Sg, p, tc)
+    torch.cuda.synchronize()
+    assert (tfl.k7_lora.launches, tfl.k1_lora.launches) == (before[0] + 1, before[1] + 1)
+    for name in ("k", "v"):
+        torch.testing.assert_close(kv[name].float(), rkv[name].float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)

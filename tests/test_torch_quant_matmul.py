@@ -54,5 +54,28 @@ def test_matmul_int4_kernel_matches_plain(rng, cuda, M, K, N):
     torch.cuda.synchronize()
     assert tqm.matmul_int4.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-    with pytest.raises(TypeError):
-        tqm.matmul_int4(x.float(), q["qw"], q["qscale"], q["qzero"], torch.float32)
+    with pytest.raises(TypeError):  # x not in the compute dtype
+        tqm.matmul_int4(x.float(), q["qw"], q["qscale"], q["qzero"], torch.bfloat16)
+
+
+# f32 compute (the FFMA tile) at 7B's c_attn K and odd shapes; bf16 and f32
+# at group sizes whose groups split the 64-row k-step (16, 32) and at one
+# group for all of K (gs = -1), which the JAX package's shape gate admits
+@pytest.mark.parametrize("dtype,gs", [("float32", 128), ("float32", 32), ("bfloat16", 32), ("bfloat16", 16),
+                                      ("bfloat16", -1), ("float32", -1)])
+@pytest.mark.parametrize("M", [1, 8, 200])
+def test_matmul_int4_kernel_f32_and_any_group_size(rng, cuda, dtype, gs, M):
+    from lit_llama_tpu_torch.ops.linear import quantize_int4
+
+    K, N = 1024, 1040
+    q = {k: v.to(cuda) for k, v in quantize_int4(torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)) * 0.02,
+                                                 gs).items()}
+    cd = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda, cd)
+    before = tqm.matmul_int4.launches
+    got = tqm.matmul_int4(x, q["qw"], q["qscale"], q["qzero"], cd)
+    want = tqm.matmul_int4_ref(x, q["qw"], q["qscale"], q["qzero"], cd)
+    torch.cuda.synchronize()
+    assert tqm.matmul_int4.launches == before + 1 and got.dtype == cd
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -74,7 +74,9 @@ def _rope_rows(cfg, tc, positions):
 
 HEAD_CASES = [("even", 1, "float32"), ("even", 3, "float32"), ("even", 8, "float32"),
               ("even", 48, "float32"), ("odd", 3, "float32"), ("even", 3, "bfloat16"),
-              ("even", 48, "bfloat16")]
+              ("even", 48, "bfloat16"),
+              # past 64 slots: K7 and K9 walk the slots in tiles of 64 rows
+              ("even", 65, "float32"), ("even", 96, "bfloat16"), ("even", 128, "float32")]
 
 
 @pytest.mark.parametrize("geom,B,dtype", HEAD_CASES)
@@ -125,6 +127,40 @@ def test_block_tail_ref_matches_pallas(layers, geom, B, dtype):
                                tlp["mlp"]["c_fc12"], tlp["mlp"]["c_proj"], tc)
     assert got.dtype == tdt and got.shape == (B, cfg.n_embd)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B", [8, 65])
+def test_block_halves_ref_f32_norm_weights_match_pallas_bf16(layers, B):
+    """bf16 compute with f32 norm weights that are not ones: K7's and K9's
+    plain versions apply them in f32, as the Pallas kernels' _rms_norm_rows,
+    to the bf16 tolerance. The Pallas head's q/k columns are taken with
+    identity tables and rotated by apply_rope_half, as in the test above."""
+    from lit_llama_tpu.ops.rope import apply_rope_half
+
+    jlp, cfg, tlp, tc = layers["even"]
+    D, H, hs = cfg.n_embd, cfg.n_head, cfg.head_size
+    rng = np.random.default_rng(300 + B)
+    r1, r2 = ((1.0 + 0.3 * rng.normal(size=(D,))).astype(np.float32) for _ in range(2))
+    x = (rng.normal(size=(B, D)) * 0.5).astype(np.float32)
+    y = (rng.normal(size=(B, D)) * 0.5).astype(np.float32)
+    positions = rng.integers(0, 300, size=B)
+    cos3, sin3, cos, sin = _rope_rows(cfg, tc, positions)
+    raw = np.asarray(jfl.block_head_fused(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(r1), jnp.ones_like(cos3), jnp.zeros_like(sin3),
+        jlp["attn"]["c_attn"], B=B, D=D, gs=cfg.quant_groupsize, cdtype="bfloat16", interpret=True), np.float32)
+    rope = jnp.take(j_rope_cache(cfg.block_size, hs), jnp.clip(positions, 0, cfg.block_size - 1), axis=0)
+    qk = apply_rope_half(jnp.asarray(raw[:, : 2 * D]).reshape(B, 1, 2 * H, hs), rope[:, None])
+    want = np.concatenate([np.asarray(qk).reshape(B, 2 * D), raw[:, 2 * D :]], axis=-1)
+    xb = _as_torch(x, torch.bfloat16)
+    got = tfl.block_head_fused(xb, torch.from_numpy(r1), cos, sin, tlp["attn"]["c_attn"], tc)
+    np.testing.assert_allclose(got.float().numpy(), want, **TOL["bfloat16"])
+    want = jfl.block_tail_fused(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16), jnp.asarray(r2), jlp["attn"]["c_proj"],
+        jlp["mlp"]["c_fc12"], jlp["mlp"]["c_proj"], B=B, D=D, I=cfg.intermediate_size, gs=cfg.quant_groupsize,
+        cdtype="bfloat16", interpret=True)
+    got = tfl.block_tail_fused(xb, _as_torch(y, torch.bfloat16), torch.from_numpy(r2), tlp["attn"]["c_proj"],
+                               tlp["mlp"]["c_fc12"], tlp["mlp"]["c_proj"], tc)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL["bfloat16"])
 
 
 def test_block_head_refuses_lora(layers):
@@ -225,7 +261,7 @@ def _card_layer(n_embd, n_head, cuda, seed):
 
 
 @pytest.mark.parametrize("n_embd,n_head", [(512, 4), (1792, 14)])
-@pytest.mark.parametrize("B", [1, 8, 17, 32, 64])
+@pytest.mark.parametrize("B", [1, 8, 17, 32, 64, 65, 96, 128])
 def test_block_head_and_tail_kernels_match_plain(cuda, n_embd, n_head, B):
     """K7 and K9 on the card against their plain versions at bf16; 14 heads of
     128 give n_embd 1792 (7 groups per plane) and I = 4864 (19), odd as 7B's
@@ -270,3 +306,53 @@ def test_decode_attention_write_kernel_matches_plain(cuda, entry, S, positions):
     assert tda.decode_attention_write.launches == before + 1 and gk is kc
     assert torch.equal(kc, rk) and torch.equal(vc, rv)
     torch.testing.assert_close(y.float(), ry.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("compute,norm", [("bfloat16", "float32"), ("float32", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("B", [8, 65])
+def test_block_head_and_tail_kernels_f32_compute_and_norms(cuda, compute, norm, B):
+    """K7 and K9 on the card against their plain versions in f32 compute (the
+    FFMA body on the shared layout: the f32 sums differ in order only, 1e-4)
+    and with f32 norm weights (random, applied in f32)."""
+    lp, tc = _card_layer(1792, 14, cuda, 5)
+    cd, nd = getattr(torch, compute), getattr(torch, norm)
+    tc = tc.replace(compute_dtype=compute)
+    g = torch.Generator().manual_seed(B)
+    lp = {**lp, "rms_1": (1.0 + 0.3 * torch.randn(1792, generator=g)).to(cuda, nd),
+          "rms_2": (1.0 + 0.3 * torch.randn(1792, generator=g)).to(cuda, nd)}
+    rng = np.random.default_rng(B)
+    mk = lambda: torch.from_numpy(rng.normal(size=(B, 1792)).astype(np.float32)).to(cuda, cd)
+    x, y = mk(), mk()
+    pos = torch.from_numpy(rng.integers(0, 600, size=B).astype(np.int32)).to(cuda)
+    cos, sin = slot_rope_rows(build_rope_cache(tc.block_size, 128, device=cuda), pos)
+    tol = dict(rtol=1e-4, atol=1e-4) if compute == "float32" else dict(rtol=2e-2, atol=2e-2)
+    before = tfl.block_head_fused.launches, tfl.block_tail_fused.launches
+    args = (x, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], tc)
+    got = tfl.block_head_fused(*args)
+    assert got.dtype == cd
+    torch.testing.assert_close(got.float(), tfl.block_head_fused_ref(*args).float(), **tol)
+    args = (x, y, lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"], lp["mlp"]["c_proj"], tc)
+    torch.testing.assert_close(tfl.block_tail_fused(*args).float(), tfl.block_tail_fused_ref(*args).float(), **tol)
+    torch.cuda.synchronize()
+    assert (tfl.block_head_fused.launches, tfl.block_tail_fused.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_decode_attention_write_kernel_f32(cuda):
+    """K8 on the card in f32 compute (f32 q and cache) against its plain
+    version: the caches equal, y to 1e-4 (f32 sums in another order)."""
+    positions = [0, 5, 255, 256 + 7, 3, 511 + 256, 64, 63]
+    rng = np.random.default_rng(9)
+    B, H, hs, S = len(positions), 4, 128, 256
+    f32 = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    qkv = f32(B, 3 * H * hs)
+    q, kn, vn = (qkv[:, i * H * hs : (i + 1) * H * hs].reshape(B, H, 1, hs) for i in range(3))
+    kc, vc = f32(B, H, S, hs), f32(B, H, S, hs)
+    rk, rv = kc.clone(), vc.clone()
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    before = tda.decode_attention_write.launches
+    y, _, _ = tda.decode_attention_write(q, kn, vn, kc, vc, pos)
+    ry, _, _ = tda.decode_attention_write_ref(q, kn, vn, rk, rv, pos)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_write.launches == before + 1 and y.dtype == torch.float32
+    assert torch.equal(kc, rk) and torch.equal(vc, rv)
+    torch.testing.assert_close(y, ry, rtol=1e-4, atol=1e-4)
