@@ -31,9 +31,13 @@ tokens equal to a 32-slot engine's); a LoRA operand of 128 columns in bf16
 and f32; f32 norm weights through ``generate.base`` on an f32 native
 directory; f32 compute in every kernel and through whole paths (the 32-layer
 int4 model, the serving engine, int8 per op, a training step), each against
-its plain path; head size 256 in K4, K5 and K10; and the routing of shapes
-the JAX package's gates leave to XLA (head size 64, widths that are no
-multiple of 256) to the plain versions. The launch counters, set to 0 before
+its plain path; head sizes 256, 384 and 512 in K4, K5 and K10 (kernels and
+2-layer models); and the routing of shapes the JAX package's gates leave to
+XLA (head size 64, widths that are no multiple of 256) to the plain
+versions. K3 and K6 at M > 1 (prefill) run on one Hopper mainloop (wgmma,
+TMA); each is timed at M = 8, 128 and 200 on the five 7B linears beside
+torch.matmul on the dequantized bf16 weight, and a row's output must be the
+same bits at M = 8 and M = 200 and on a rerun. The launch counters, set to 0 before
 each path and read after it, prove that the path ran through the kernels.
 Any failure raises and exits nonzero.
 
@@ -87,8 +91,10 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
 # size ~1-10 differ in the last few f32 bits (the card runs: up to ~6e-5 on
 # K6's O(20) sums at K = 4096)
 TOL_F32 = (1e-4, 1e-4)
-# head size 256: the bf16 tolerances of head size 128 (the same rounding points)
-TOL["K4 hs256"], TOL["K5 hs256"] = TOL["K4"], TOL["K5"]
+# head sizes 256, 384 and 512: the bf16 tolerances of head size 128 (the same
+# rounding points; past 256 the scores are summed a 128-column chunk at a time)
+for _hs in (256, 384, 512):
+    TOL[f"K4 hs{_hs}"], TOL[f"K5 hs{_hs}"] = TOL["K4"], TOL["K5"]
 # 2-layer full-width model, kernel path vs plain path: per-op errors of the
 # table above compound through 2 blocks and the lm_head
 TOL_MODEL = (5e-2, 5e-2)
@@ -300,6 +306,15 @@ def main() -> int:
 
     gcpu = torch.Generator().manual_seed(SEED)
     entry_inputs = {}  # readings of the paths that take every input the Pallas entries take
+    k3_shapes = {}
+
+    def rows_equal(fn, x, w_args, what):
+        """A row's output is the same bits at M = 200 and at M = 8 (the K split
+        comes from N and K alone), and a rerun repeats every bit."""
+        full_out = fn(x, *w_args)
+        assert torch.equal(full_out, fn(x, *w_args)), f"{what}: a rerun at M = {x.shape[0]} differs"
+        assert torch.equal(full_out[:8], fn(x[:8].contiguous(), *w_args)), f"{what}: rows at M = 8 differ from M = 200"
+        entry_inputs.setdefault("rows_equal_across_m", []).append(what)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gcpu) * scale).to(dev, torch.bfloat16)
@@ -341,28 +356,33 @@ def main() -> int:
         def q4_bytes(K, N, g=gs):
             return K // 2 * N + 2 * (K // g) * N * 4
 
-        # ---- 2. K3 vs plain ------------------------------------------------------
+        # ---- 2. K3 vs plain, at M = 8, 128 and 200 (the Hopper mainloop of
+        # gemm_sm90.cuh), each shape timed beside torch.matmul on the dequantized
+        # bf16 weight; a row's output the same bits at M = 8 and M = 200 and on a rerun
         linears = [("c_attn", lp0["attn"]["c_attn"], D), ("attn.c_proj", lp0["attn"]["c_proj"], D),
                    ("c_fc12", lp0["mlp"]["c_fc12"], D), ("mlp.c_proj", lp0["mlp"]["c_proj"], I),
                    ("lm_head", params["lm_head"], D)]
         errs = []
-        for M in (8, 128):
-            for lname, w, K in linears:
-                N = w["qw"].shape[1]
+        for lname, w, K in linears:
+            N = w["qw"].shape[1]
+            wd = dequantize_int4(w, torch.bfloat16)
+            for M in (8, 128, 200):
                 x = randn(M, K)
                 args = (x, w["qw"], w["qscale"], w["qzero"])
                 errs.append(max_err(quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args), "K3"))
                 ms = time_ms(lambda: quant_matmul.matmul_int4(*args))
-                bms, _ = bound_ms(M * K * 2 + q4_bytes(K, N) + M * N * 2, 2 * M * K * N, tc_peak)
-                log(f"K3 M={M} {lname} {K}->{N}: {ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us")
+                lib = time_ms(lambda: torch.matmul(x, wd))
+                b3 = bound_ms(M * K * 2 + q4_bytes(K, N) + M * N * 2, 2 * M * K * N, tc_peak)
+                k3_shapes[f"{lname} {K}->{N} M={M}"] = dict(ms=ms, bound_ms=b3[0], bound_by=b3[1], library_ms=lib)
+                log(f"K3 M={M} {lname} {K}->{N}: {ms * 1e3:.1f} us, bound {b3[0] * 1e3:.1f} us ({b3[1]}), "
+                    f"torch.matmul on the dequantized bf16 weight {lib * 1e3:.1f} us")
                 if M == 128 and lname == "c_fc12":
-                    wd = dequantize_int4(w, torch.bfloat16)
-                    k3 = dict(shape=f"M={M} K={K} N={N} (c_fc12)", ms=ms,
+                    k3 = dict(shape=f"M={M} K={K} N={N} (c_fc12)", ms=ms, library_ms=lib,
                               plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args), 3),
-                              library_ms=time_ms(lambda: torch.matmul(x, wd)))
-                    k3["bound_ms"], k3["bound_by"] = bound_ms(
-                        M * K * 2 + q4_bytes(K, N) + M * N * 2, 2 * M * K * N, tc_peak)
-                    del wd
+                              bound_ms=b3[0], bound_by=b3[1])
+                if M == 200 and lname in ("c_attn", "c_fc12"):
+                    rows_equal(quant_matmul.matmul_int4, x, args[1:], f"K3 {lname}")
+            del wd
         results["K3"] = dict(k3, max_abs_err=max(errs))
 
         # ---- 3. K4 vs plain ------------------------------------------------------
@@ -1377,8 +1397,15 @@ def main() -> int:
                 k6 = dict(shape=f"M={M} K={K} N={N} (c_fc12, one decode token)", ms=ms, library_ms=lib,
                           plain_ms=time_ms(lambda: quant_matmul.matmul_int8_ref(*args), 3),
                           bound_ms=b6[0], bound_by=b6[1])
+            if M == 128 and lname == "c_fc12":
+                k6m = dict(shape=f"M={M} K={K} N={N} (c_fc12, prefill)", ms=ms, library_ms=lib,
+                           plain_ms=time_ms(lambda: quant_matmul.matmul_int8_ref(*args), 3),
+                           bound_ms=b6[0], bound_by=b6[1], max_abs_err=errs[-1])
+            if M == 200 and lname in ("c_attn", "c_fc12", "odd"):
+                rows_equal(quant_matmul.matmul_int8, x, args[1:], f"K6 {lname}")
         del wd
     results["K6"] = dict(k6, max_abs_err=max(errs))
+    results["K6 M>1"] = k6m
     del odd8, linears8
 
     # ---- 10. K5 vs plain: bf16 cache and int8 cache ------------------------------
@@ -1447,9 +1474,12 @@ def main() -> int:
 
     # ---- 12. the per-op path on the full model: three greedy requests -------------
     ref_prompt = torch.randint(0, cfg8.vocab_size, (8,), generator=gcpu)
+    quant_matmul.matmul_int8.launches = 0
     both = [llama.forward(params8, ref_prompt[None].to(dev), cfg8, rope_cache=rope,
                           kv_cache=llama.init_kv_cache(cfg8, 1, 16, device=dev), prefill_from_zero=True,
                           plain=plain)[0].float() for plain in (False, True)]
+    k6_prefill = quant_matmul.matmul_int8.launches  # the kernel path's prefill: every K6 launch at M = 8
+    assert k6_prefill == 4 * L + 1, f"int8 prefill: {k6_prefill} K6 launches, expected {4 * L + 1}"
     assert torch.isfinite(both[0]).all(), "32-layer int8 prefill: non-finite logits"
     rel = float((both[0] - both[1]).abs().max() / both[1].abs().max())
     log(f"32-layer int8 prefill (8 tokens), kernel vs plain path: max |dlogit| / max |logit| = {rel:.4g}")
@@ -1460,7 +1490,7 @@ def main() -> int:
     gen.generate(params8, ref_prompt, 4, config=cfg8, temperature=0.0)  # warm-up, not counted
     torch.cuda.synchronize()
     full8 = {}
-    totals.update({"K5": 0, "K5q": 0, "K6": 0})
+    totals.update({"K5": 0, "K5q": 0, "K6": 0, "K6 M>1": k6_prefill})
     for T, s, kvd in ((8, None, None), (128, 2048, None), (128, 2048, "int8")):
         c8 = cfg8.replace(kv_cache_dtype=kvd)
         prompt = torch.randint(0, cfg8.vocab_size, (T,), generator=gcpu)
@@ -1883,107 +1913,114 @@ def main() -> int:
 
     shutil.rmtree(work)
 
-    # ---- 17. head size 256: K4, K5 and K10 at (1, 16, 2048, 256) vs plain, then a
-    # 2-layer model with 16 heads of 256 (n_embd 4096): prefill, per-op decode and a
-    # training step through the kernels -------------------------------------------
-    Be, He, Te, hse = 1, 16, 2048, 256
-    nrow, pairs = Be * He * Te, Be * He * Te * (Te + 1) // 2
-    for dt in (torch.bfloat16, torch.float32):
-        f32 = dt == torch.float32
-        tag = " f32" if f32 else ""
-        q, k, v, do = ((torch.randn((Be, He, Te, hse), generator=gcpu)).to(dev, dt) for _ in range(4))
-        o, lse = fa.flash_attention(q, k, v)
-        ro, rlse = fa.flash_attention_ref(q, k, v)
-        e4 = max_err32(o, ro, "K4 hs256 f32") if f32 else max_err(o, ro, "K4 hs256")
-        max_err32(lse, rlse, "K4 hs256 lse")
-        got = fa.flash_attention_backward(q, k, v, o, lse, do)
-        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
-        e10 = [max_err32(g, w, f"K10 {n} hs256 f32") if f32 else k10_err(g, w, f"K10 {n} hs256")[0]
-               for n, g, w in zip(("dq", "dk", "dv"), got, want)]
-        q5 = q[:, :, -1:].contiguous()
-        kc5, vc5 = k * 0.5, v * 0.5
-        e5 = 0.0
-        for lims in ([0], [Te // 2 + 7], [Te - 1], [Te + 5]):
-            lim = torch.tensor(lims, dtype=torch.int32, device=dev)
-            g5, w5 = da.decode_attention(q5, kc5, vc5, None, None, lim), da.decode_attention_ref(q5, kc5, vc5, None, None, lim)
-            e5 = max(e5, max_err32(g5, w5, "K5 hs256 f32") if f32 else max_err(g5, w5, "K5 hs256"))
-        log(f"head size 256, {'f32' if f32 else 'bf16'}, at (1, 16, 2048, 256) vs plain: K4 max err {e4:.3g}, K10 "
-            f"dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5:.3g}")
-        if f32:
-            continue
-        es = 2  # bytes of an element
-        peak = tc_peak  # bf16 products on the tensor cores
-        b4 = bound_ms(4 * nrow * hse * es + nrow * 4, 4 * hse * pairs, peak)
-        b_dq = bound_ms(5 * nrow * hse * es + nrow * 4 + nrow * hse * es + nrow * 4, 3 * 2 * hse * pairs, peak)
-        b_dkv = bound_ms(4 * nrow * hse * es + 2 * nrow * 4 + 2 * nrow * hse * es, 4 * 2 * hse * pairs, peak)
-        b5 = bound_ms(2 * He * Te * hse * es + 2 * He * hse * es + 4, 4 * He * Te * hse, f32_peak)
-        dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
-        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True), 5)
-        plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3)
-        shape = f"B={Be} H={He} T={Te} hs={hse}"
-        all_rows = torch.full((1,), Te - 1, dtype=torch.int32, device=dev)
-        results["K4 hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
-                                   plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
-                                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
-                                   bound_ms=b4[0], bound_by=b4[1], max_abs_err=e4)
-        results["K10dq hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do), 5),
-                                      plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1],
-                                      max_abs_err=e10[0])
-        results["K10dkv hs256"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd), 5),
-                                       plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                                       max_abs_err=max(e10[1:]))
-        results["K5 hs256"] = dict(shape=f"B=1 H={He} S={Te} hs={hse}, bf16 cache, every row visible",
-                                   ms=time_ms(lambda: da.decode_attention(q5, kc5, vc5, None, None, all_rows)),
-                                   plain_ms=time_ms(lambda: da.decode_attention_ref(q5, kc5, vc5, None, None, all_rows), 3),
-                                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kc5, vc5)),
-                                   bound_ms=b5[0], bound_by=b5[1], max_abs_err=e5)
-        log("head size 256, bf16, timed: " + ", ".join(
-            f"{key} {results[key]['ms'] * 1e3:.1f} us (plain {results[key]['plain_ms'] * 1e3:.1f}, library "
-            f"{results[key]['library_ms'] * 1e3:.1f}, bound {results[key]['bound_ms'] * 1e3:.1f} {results[key]['bound_by']})"
-            for key in ("K4 hs256", "K10dq hs256", "K10dkv hs256", "K5 hs256")))
-        del dq, dd, qs, ks, vs, sdpa_out
-    del q, k, v, do, o, lse, ro, rlse, got, want, q5, kc5, vc5
-    c256 = LLaMAConfig(n_layer=2, n_head=16, n_embd=4096, param_dtype="bfloat16", compute_dtype="bfloat16")
-    assert c256.head_size == 256
-    p256 = llama.unstack_layers(llama.init_params(c256, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev))
-    worst, got, flips = side_by_side(p256, c256, torch.randint(0, c256.vocab_size, (64,), generator=gcpu).to(dev),
-                                     8, 128, fused=False)
-    want = dict.fromkeys(counters, 0)
-    want.update({"K4": 2, "K5": 2 * 7})
-    assert got == want, f"head size 256 model: launches {got}, expected {want}"
-    assert worst <= TOL_MODEL[1], f"head size 256 model: max |dlogit| / max |logit| {worst:.3g}"
-    totals["K4 hs256"], totals["K5 hs256"] = got["K4"], got["K5"]
-    p256s = llama.init_params(c256, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
-    toks256 = torch.randint(0, c256.vocab_size, (1, 513), generator=gcpu).to(dev)
-    leaves = step_lib.tree_leaves(p256s)
-    for t in leaves.values():
-        t.requires_grad_(True)
-    grads = {}
-    for plain in (False, True):
-        fa.flash_attention.launches = fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
-        loss = step_lib.loss_fn(p256s, toks256[:, :-1], toks256[:, 1:], c256, remat=True, remat_policy="dots",
-                                plain=plain)
-        grads[plain] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        torch.cuda.synchronize()
-        if not plain:
-            n3 = (fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
-            assert n3 == (4, 2, 2), f"head size 256 training step: K4/K10 launches {n3}, expected (4, 2, 2)"
-        del loss
-    gerr = {n: float((g - grads[True][n]).norm() / grads[True][n].norm()) for n, g in grads[False].items()}
-    assert all(e <= TOL_TRAIN_GRAD["rms"] for e in gerr.values()), f"head size 256 grads: {gerr}"
-    totals["K4 hs256"] += 4
-    totals["K10dq hs256"], totals["K10dkv hs256"] = 2, 2
-    entry_inputs["head_size_256_model"] = dict(rel_logit_err=worst, argmax_flips=flips, launches=got, grad_rms_err=gerr)
-    log(f"2-layer model with 16 heads of 256 (n_embd 4096), bf16: prompt 64 + 8 greedy tokens per op, kernel vs "
-        f"plain path max |dlogit| / max |logit| {worst:.3g}, flips {flips or 'none'}, launches {got}; a training "
-        f"forward + backward at T=512: per leaf RMS(dgrad) / RMS(grad) up to {max(gerr.values()):.3g}")
-    for t in leaves.values():
-        t.requires_grad_(False)
-    del p256, p256s, leaves, grads
-    gc.collect()
-    torch.cuda.empty_cache()
+    # ---- 17. head sizes past 128: K4, K5 and K10 vs plain at (1, 16, 2048, 256) and,
+    # on the chunked kernels, (1, 8, 1024, 384) and (1, 8, 1024, 512), then for each a
+    # 2-layer model (16 heads of 256, 8 of 384 or 512): prefill, per-op decode and a
+    # training step through the kernels --------------------------------------------
+    for hse, He, Te, D_e in ((256, 16, 2048, 4096), (384, 8, 1024, 3072), (512, 8, 1024, 4096)):
+        Be, hk = 1, f"hs{hse}"
+        nrow, pairs = Be * He * Te, Be * He * Te * (Te + 1) // 2
+        for dt in (torch.bfloat16, torch.float32):
+            f32 = dt == torch.float32
+            q, k, v, do = ((torch.randn((Be, He, Te, hse), generator=gcpu)).to(dev, dt) for _ in range(4))
+            o, lse = fa.flash_attention(q, k, v)
+            ro, rlse = fa.flash_attention_ref(q, k, v)
+            e4 = max_err32(o, ro, f"K4 {hk} f32") if f32 else max_err(o, ro, f"K4 {hk}")
+            max_err32(lse, rlse, f"K4 {hk} lse")
+            got = fa.flash_attention_backward(q, k, v, o, lse, do)
+            want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+            e10 = [max_err32(g, w, f"K10 {n} {hk} f32") if f32 else k10_err(g, w, f"K10 {n} {hk}")[0]
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+            q5 = q[:, :, -1:].contiguous()
+            kc5, vc5 = k * 0.5, v * 0.5
+            e5 = 0.0
+            for lims in ([0], [Te // 2 + 7], [Te - 1], [Te + 5]):
+                lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+                g5 = da.decode_attention(q5, kc5, vc5, None, None, lim)
+                w5 = da.decode_attention_ref(q5, kc5, vc5, None, None, lim)
+                e5 = max(e5, max_err32(g5, w5, f"K5 {hk} f32") if f32 else max_err(g5, w5, f"K5 {hk}"))
+            log(f"head size {hse}, {'f32' if f32 else 'bf16'}, at ({Be}, {He}, {Te}, {hse}) vs plain: K4 max err "
+                f"{e4:.3g}, K10 dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5:.3g}")
+            if f32:
+                continue
+            es = 2  # bytes of an element
+            peak = tc_peak  # bf16 products on the tensor cores
+            b4 = bound_ms(4 * nrow * hse * es + nrow * 4, 4 * hse * pairs, peak)
+            b_dq = bound_ms(5 * nrow * hse * es + nrow * 4 + nrow * hse * es + nrow * 4, 3 * 2 * hse * pairs, peak)
+            b_dkv = bound_ms(4 * nrow * hse * es + 2 * nrow * 4 + 2 * nrow * hse * es, 4 * 2 * hse * pairs, peak)
+            b5 = bound_ms(2 * He * Te * hse * es + 2 * He * hse * es + 4, 4 * He * Te * hse, f32_peak)
+            dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+            qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True), 5)
+            plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3)
+            shape = f"B={Be} H={He} T={Te} hs={hse}"
+            all_rows = torch.full((1,), Te - 1, dtype=torch.int32, device=dev)
+            results[f"K4 {hk}"] = dict(
+                shape=shape, ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
+                plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+                bound_ms=b4[0], bound_by=b4[1], max_abs_err=e4)
+            results[f"K10dq {hk}"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do), 5),
+                                          plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1],
+                                          max_abs_err=e10[0])
+            results[f"K10dkv {hk}"] = dict(shape=shape,
+                                           ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd), 5),
+                                           plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                                           max_abs_err=max(e10[1:]))
+            results[f"K5 {hk}"] = dict(
+                shape=f"B=1 H={He} S={Te} hs={hse}, bf16 cache, every row visible",
+                ms=time_ms(lambda: da.decode_attention(q5, kc5, vc5, None, None, all_rows)),
+                plain_ms=time_ms(lambda: da.decode_attention_ref(q5, kc5, vc5, None, None, all_rows), 3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kc5, vc5)),
+                bound_ms=b5[0], bound_by=b5[1], max_abs_err=e5)
+            log(f"head size {hse}, bf16, timed: " + ", ".join(
+                f"{key} {results[key]['ms'] * 1e3:.1f} us (plain {results[key]['plain_ms'] * 1e3:.1f}, library "
+                f"{results[key]['library_ms'] * 1e3:.1f}, bound {results[key]['bound_ms'] * 1e3:.1f} "
+                f"{results[key]['bound_by']})" for key in (f"K4 {hk}", f"K10dq {hk}", f"K10dkv {hk}", f"K5 {hk}")))
+            del dq, dd, qs, ks, vs, sdpa_out
+        del q, k, v, do, o, lse, ro, rlse, got, want, q5, kc5, vc5
+        ce = LLaMAConfig(n_layer=2, n_head=D_e // hse, n_embd=D_e, param_dtype="bfloat16", compute_dtype="bfloat16")
+        assert ce.head_size == hse
+        pe = llama.unstack_layers(llama.init_params(ce, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev))
+        worst, got, flips = side_by_side(pe, ce, torch.randint(0, ce.vocab_size, (64,), generator=gcpu).to(dev),
+                                         8, 128, fused=False)
+        want = dict.fromkeys(counters, 0)
+        want.update({"K4": 2, "K5": 2 * 7})
+        assert got == want, f"head size {hse} model: launches {got}, expected {want}"
+        assert worst <= TOL_MODEL[1], f"head size {hse} model: max |dlogit| / max |logit| {worst:.3g}"
+        totals[f"K4 {hk}"], totals[f"K5 {hk}"] = got["K4"], got["K5"]
+        pes = llama.init_params(ce, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev)
+        toks_e = torch.randint(0, ce.vocab_size, (1, 513), generator=gcpu).to(dev)
+        leaves = step_lib.tree_leaves(pes)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        grads = {}
+        for plain in (False, True):
+            fa.flash_attention.launches = fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+            loss = step_lib.loss_fn(pes, toks_e[:, :-1], toks_e[:, 1:], ce, remat=True, remat_policy="dots",
+                                    plain=plain)
+            grads[plain] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            torch.cuda.synchronize()
+            if not plain:
+                n3 = (fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+                assert n3 == (4, 2, 2), f"head size {hse} training step: K4/K10 launches {n3}, expected (4, 2, 2)"
+            del loss
+        gerr = {n: float((g - grads[True][n]).norm() / grads[True][n].norm()) for n, g in grads[False].items()}
+        assert all(e <= TOL_TRAIN_GRAD["rms"] for e in gerr.values()), f"head size {hse} grads: {gerr}"
+        totals[f"K4 {hk}"] += 4
+        totals[f"K10dq {hk}"], totals[f"K10dkv {hk}"] = 2, 2
+        entry_inputs[f"head_size_{hse}_model"] = dict(rel_logit_err=worst, argmax_flips=flips, launches=got,
+                                                      grad_rms_err=gerr)
+        log(f"2-layer model with {ce.n_head} heads of {hse} (n_embd {D_e}), bf16: prompt 64 + 8 greedy tokens per "
+            f"op, kernel vs plain path max |dlogit| / max |logit| {worst:.3g}, flips {flips or 'none'}, launches "
+            f"{got}; a training forward + backward at T=512: per leaf RMS(dgrad) / RMS(grad) up to "
+            f"{max(gerr.values()):.3g}")
+        for t in leaves.values():
+            t.requires_grad_(False)
+        del pe, pes, leaves, grads
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- 18. routing: where the JAX package's shape gate leaves Pallas, the plain
     # version runs, decided before any launch ----------------------------------------
@@ -2050,6 +2087,17 @@ def main() -> int:
                                ms=time_ms(lambda: quant_matmul.matmul_int4(*args3)),
                                plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args3), 3),
                                library_ms=time_ms(lambda: torch.matmul(x3, wd3)), bound_ms=b3[0], bound_by=b3[1])
+    x3 = randn(200, K3_)  # M = 200: every row of a 200-token tile, each scale row of a k-step its own
+    args3 = (x3, w3["qw"], w3["qscale"], w3["qzero"])
+    e200 = max_err(quant_matmul.matmul_int4(*args3), quant_matmul.matmul_int4_ref(*args3), "K3")
+    rows_equal(quant_matmul.matmul_int4, x3, args3[1:], "K3 c_fc12 gs 32")
+    b200 = bound_ms(200 * K3_ * 2 + int4_bytes(K3_, N3_, 32) + 200 * N3_ * 2, 2 * 200 * K3_ * N3_, tc_peak)
+    k3_shapes[f"c_fc12 gs 32 {K3_}->{N3_} M=200"] = dict(
+        ms=time_ms(lambda: quant_matmul.matmul_int4(*args3)), bound_ms=b200[0], bound_by=b200[1],
+        library_ms=time_ms(lambda: torch.matmul(x3, wd3)), max_abs_err=e200)
+    log("K3 gs 32, M=200 c_fc12: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                                             k3_shapes[f"c_fc12 gs 32 {K3_}->{N3_} M=200"].items()
+                                             if k.endswith("ms")))
     del pf3, wd3, x3, args3, w3
     entry_inputs["routing"] = routing
     log(f"routing: head size 64 (dense, 4 layers): logits equal to the plain path's bit for bit, launches "
@@ -2101,7 +2149,9 @@ def main() -> int:
     variants = ["K7 B>64", "K9 B>64", "K1 LoRA R8=128", "K1 LoRA R8=128 f32", "K7 LoRA R8=128",
                 "K7 LoRA R8=128 f32", "K1 f32 norms", "K2 f32 norms", "K7 f32 norms", "K9 f32 norms", "K1 f32",
                 "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
-                "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K3 gs=32"]
+                "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
+                "K5 hs384", "K10dq hs384", "K10dkv hs384", "K4 hs512", "K5 hs512", "K10dq hs512", "K10dkv hs512",
+                "K3 gs=32", "K6 M>1"]
     for key in list(sources) + variants:
         base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))
         r = results[key]
@@ -2117,7 +2167,7 @@ def main() -> int:
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
-                      "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training, "entry_inputs": entry_inputs}))
+                      "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

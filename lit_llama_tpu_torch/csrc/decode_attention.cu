@@ -133,7 +133,8 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
 // f32 compute (q.dtype f32): the products and the softmax weights stay f32
 // (no rounding), on an f32 cache or an int8 one. Head size 128 or 256 (a
 // template parameter, HS threads a block): each slot's score takes HS / 64
-// threads of 64 elements each.
+// threads of 64 elements each. Past 256, any multiple of 128: a fixed block
+// of 128 threads, each walking hs / 128 head elements (the wide kernels).
 
 namespace {
 
@@ -322,11 +323,124 @@ int launch_decode_attn_c(const void* q, int q_stride, const void* k, const void*
                    : launch_decode_attn<QT, QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, st);
 }
 
+// Past head size 256 (any multiple of 128): a fixed block of 128 threads.
+// Two threads score a cache row, each walking half of it in pieces of 64
+// elements; a thread then owns head elements tid, tid + 128, ... of the v sum.
+// The query sits in dynamic shared memory (hs elements). The arithmetic is
+// the kernel's above.
+constexpr int WIDE_THREADS = 128;
+
+template <typename QT, typename CT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+decode_attn_wide_partial_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc,
+                                const CT* __restrict__ vc, const float* __restrict__ ks,
+                                const float* __restrict__ vs, const int* __restrict__ limit,
+                                float* __restrict__ part, int H, int S, int hs, float scale) {
+  constexpr bool QUANT = sizeof(CT) == 1 && sizeof(QT) != 1;
+  constexpr int NW = WIDE_THREADS / 32;
+  extern __shared__ __align__(16) unsigned char q_raw[];
+  QT* q_s = reinterpret_cast<QT*>(q_raw);  // [hs]
+  __shared__ float sc[ATT_CHUNK];
+  __shared__ QT w_s[ATT_CHUNK];
+  __shared__ float red[NW];
+  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int last = min(limit[b], S - 1);
+  const int s0 = c * ATT_CHUNK;
+  if (s0 > last) return;  // the whole chunk is past this row's limit
+  const int n = min(ATT_CHUNK, last - s0 + 1);
+  const size_t row0 = ((size_t)b * H + h) * (size_t)S + s0;
+
+  for (int d = tid; d < hs; d += WIDE_THREADS) q_s[d] = q[(size_t)b * q_stride + (size_t)h * hs + d];
+  __syncthreads();
+
+  {  // scores: two threads per cache row, half a row each in pieces of 64
+    const int slot = tid / 2, half = tid % 2;
+    float dot = 0.f;
+    if (slot < n)
+      for (int p0 = half * (hs / 2); p0 < (half + 1) * (hs / 2); p0 += 64)
+        dot += half_row_dot(kc + (row0 + slot) * hs + p0, query_view(q_s + p0));
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    if (half == 0 && slot < n) {
+      if (QUANT) dot *= ks[row0 + slot];
+      sc[slot] = dot * scale;
+    }
+  }
+  __syncthreads();
+  float m = tid < n ? sc[tid] : LLT_NEG_INF;
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();
+  float p = 0.f;
+  if (tid < n) {
+    p = __expf(sc[tid] - m);
+    w_s[tid] = from_f32<QT>(QUANT ? p * vs[row0 + tid] : p);
+  }
+  float l = warp_sum(p);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();  // red and w_s are visible to the block
+  l = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) l += red[w];
+  float* pp = part + (((size_t)b * H + h) * nch + c) * (hs + 2);
+  for (int d = tid; d < hs; d += WIDE_THREADS) {
+    float acc = 0.f;
+    const CT* vr = vc + row0 * hs + d;
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) acc += weighted(w_s[i], vr[(size_t)i * hs]);
+    pp[2 + d] = acc;
+  }
+  if (tid == 0) {
+    pp[0] = m;
+    pp[1] = l;
+  }
+}
+
+template <typename QT>
+__global__ void __launch_bounds__(WIDE_THREADS)
+decode_attn_wide_combine_kernel(const float* __restrict__ part, const int* __restrict__ limit,
+                                QT* __restrict__ y, int H, int S, int hs, int nch_max) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int last = min(limit[b], S - 1);
+  const int nch = last < 0 ? 0 : last / ATT_CHUNK + 1;
+  const float* pp = part + ((size_t)b * H + h) * nch_max * (hs + 2);
+  for (int d = threadIdx.x; d < hs; d += WIDE_THREADS)
+    y[((size_t)b * H + h) * hs + d] = from_f32<QT>(attn_combine(pp, nch, d, hs + 2));
+}
+
+template <typename QT, typename CT>
+int launch_decode_attn_wide(const void* q, int q_stride, const void* k, const void* v, const void* ks,
+                            const void* vs, const void* limit, void* part, void* y, int B, int H, int S, int hs,
+                            cudaStream_t st) {
+  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
+  const float scale = (float)(1.0 / sqrt((double)hs));
+  const int smem = hs * (int)sizeof(QT);
+  decode_attn_wide_partial_kernel<QT, CT><<<dim3(H, nch, B), WIDE_THREADS, smem, st>>>(
+      (const QT*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs, (const int*)limit,
+      (float*)part, H, S, hs, scale);
+  decode_attn_wide_combine_kernel<QT><<<dim3(H, B), WIDE_THREADS, 0, st>>>((const float*)part, (const int*)limit,
+                                                                           (QT*)y, H, S, hs, nch);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT>
+int launch_decode_attn_wide_c(const void* q, int q_stride, const void* k, const void* v, const void* ks,
+                              const void* vs, const void* limit, void* part, void* y, int B, int H, int S, int hs,
+                              int quantized, cudaStream_t st) {
+  return quantized
+             ? launch_decode_attn_wide<QT, int8_t>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs, st)
+             : launch_decode_attn_wide<QT, QT>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs, st);
+}
+
 }  // namespace
 
 // q: bf16 (cbf16 = 1) or f32, element (b, h, d) at b * q_stride + h * hs + d.
 // k, v (B, H, S, hs) contiguous, of q's dtype (quantized == 0; ks, vs
-// ignored) or int8 with ks, vs (B, H, S) f32. hs 128 or 256. limit (B) int32
+// ignored) or int8 with ks, vs (B, H, S) f32. hs any multiple of 128. limit (B) int32
 // on the device: row s is visible to batch row b iff s <= limit[b]. part:
 // scratch of B * H * ceil(S / 64) * (hs + 2) floats. y (B, H, hs) contiguous,
 // of q's dtype.
@@ -346,5 +460,10 @@ LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, c
     LLT_K5(float, 256);
   }
 #undef LLT_K5
+  if (hs > 256 && hs % 128 == 0)
+    return cbf16 ? launch_decode_attn_wide_c<__nv_bfloat16>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,
+                                                            quantized, st)
+                 : launch_decode_attn_wide_c<float>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,
+                                                    quantized, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,8 @@
 // never visited; the diagonal tile and the ragged last tile (T % 64 != 0)
 // are masked in the kernel, so T need not be a multiple of the tile.
 //
-// Head size (HS, a template parameter): 128 or 256 in bf16. At 256 a warp's
+// Head size (HS, a template parameter): 128 or 256 in bf16 (past 256, the
+// chunked kernels near the end of the file). At 256 a warp's
 // (16 x 256) f32 O accumulator takes 128 registers, so Q's fragments are read
 // from a shared tile at each k-step instead of held in registers; the
 // backward kernels split their output columns in halves of 128 over the grid
@@ -876,37 +877,679 @@ int mma_backward_dkv(const void* q, const void* k, const void* v, const void* do
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head sizes past 256 (any multiple of 128 that JAX's gate sends), K4 and
+// K10 in bf16 and f32. The output's head columns are split over the grid in
+// chunks of 128 (WIDE = 128), as the backward kernels split theirs above; the
+// inputs pass through shared memory in chunks of 128 columns while the f32
+// score tile (and dP) builds up, so shared memory and registers do not grow
+// with hs. Each output chunk recomputes the scores over the full head: the
+// score work is hs / 128 times the single-pass kernels', acceptable while no
+// model the repo supports has such a head. The arithmetic, the rounding and
+// the masks are those of the kernels above.
+
+constexpr int WIDE = 128, WLD = WIDE + 8;  // columns a chunk; bf16 elements a shared chunk row
+
+// rows r0.. (64, zeros past T) x columns c0..c0 + 127 of a (T, hs) bf16
+// tensor into dst [64][WLD]
+__device__ __forceinline__ void stage_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int T, int hs,
+                                            int c0, int tid) {
+#pragma unroll
+  for (int i = 0; i < 64 * (WIDE / 8) / THREADS; ++i) {
+    const int vec = tid + THREADS * i;
+    const int r = vec / (WIDE / 8), c = (vec % (WIDE / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * hs + c0 + c);
+    *reinterpret_cast<uint4*>(dst + r * WLD + c) = val;
+  }
+}
+
+// acc[j] (16 rows of the warp x 8 n-tiles of 8 rows of B) += A (16 rows from
+// a_row0 of As) B^T (64 rows of Bs), over one chunk of 128 columns
+__device__ __forceinline__ void chunk_nt(float (*acc)[4], const __nv_bfloat16* As, int a_row0,
+                                        const __nv_bfloat16* Bs, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < WIDE / 16; ++kk) {
+    uint32_t a[4];
+    frag_a_smem(a, As, WLD, a_row0, kk, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t* brow = reinterpret_cast<const uint32_t*>(Bs + (j * 8 + g) * WLD);
+      mma_bf16(acc[j], a, brow[(kk * 16 + 2 * t) / 2], brow[(kk * 16 + 8 + 2 * t) / 2]);
+    }
+  }
+}
+
+// acc (16 x 128) += P (16 x 64, the C layout of p) V (64 x 128 of Vs)
+__device__ __forceinline__ void chunk_pv(float (*acc)[4], const float (*p)[4], const __nv_bfloat16* Vs, int g,
+                                        int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * WLD;
+    const __nv_bfloat16* v8 = Vs + (kk * 16 + 8 + 2 * t) * WLD;
+#pragma unroll
+    for (int n = 0; n < WIDE / 8; ++n) {
+      const int col = n * 8 + g;
+      mma_bf16(acc[n], pa, pack_bf16(v0[col], v0[WLD + col]), pack_bf16(v8[col], v8[WLD + col]));
+    }
+  }
+}
+
+constexpr int WIDE_FWD_SMEM = 3 * 64 * WLD * 2, WIDE_DQ_SMEM = 4 * 64 * WLD * 2,
+              WIDE_DKV_SMEM = 4 * 64 * WLD * 2 + 2 * 64 * 4;
+
+// K4 past head size 256: a block per (64-row q tile x 128-column chunk, head, batch)
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int T, int hs, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = Qs + 64 * WLD;
+  __nv_bfloat16* Vs = Ks + 64 * WLD;
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs;
+  const int row0 = qt * BQ + warp * 16 + g, row1 = row0 + 8;
+
+  float oacc[WIDE / 8][4];
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m0 = LLT_NEG_INF, m1 = LLT_NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * BKV;
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {  // S = Q K^T over the head, a chunk at a time
+      __syncthreads();
+      stage_chunk(Qs, q + base, qt * BQ, T, hs, d0, tid);
+      stage_chunk(Ks, k + base, k0, T, hs, d0, tid);
+      __syncthreads();
+      chunk_nt(s, Qs, warp * 16, Ks, g, t);
+    }
+    stage_chunk(Vs, v + base, k0, T, hs, c_off, tid);  // Vs is not read before the sync below
+    float mt0 = LLT_NEG_INF, mt1 = LLT_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + j * 8 + 2 * t + e;
+        const bool kin = key < T;
+        s[j][e] = (kin && key <= row0) ? s[j][e] * scale : LLT_NEG_INF;
+        s[j][2 + e] = (kin && key <= row1) ? s[j][2 + e] * scale : LLT_NEG_INF;
+        mt0 = fmaxf(mt0, s[j][e]);
+        mt1 = fmaxf(mt1, s[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, o2));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, o2));
+    }
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = __expf(s[j][0] - mn0);
+      s[j][1] = __expf(s[j][1] - mn0);
+      s[j][2] = __expf(s[j][2] - mn1);
+      s[j][3] = __expf(s[j][3] - mn1);
+      ls0 += s[j][0] + s[j][1];
+      ls1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+#pragma unroll
+    for (int n = 0; n < WIDE / 8; ++n) {
+      oacc[n][0] *= a0;
+      oacc[n][1] *= a0;
+      oacc[n][2] *= a1;
+      oacc[n][3] *= a1;
+    }
+    __syncthreads();  // Vs is staged
+    chunk_pv(oacc, s, Vs, g, t);
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) {
+    const int col = c_off + n * 8 + 2 * t;
+    if (row0 < T)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * hs + col) =
+          __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
+    if (row1 < T)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * hs + col) =
+          __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
+  }
+  if (t == 0 && c_off == 0) {  // every chunk computes the same lse; the first writes it
+    const size_t lbase = ((size_t)b * H + h) * (size_t)T;
+    if (row0 < T) lse[lbase + row0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (row1 < T) lse[lbase + row1] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
+}
+
+// D = rowsum(dO * O) in f32 at any head size, one warp per row
+template <typename T_>
+__global__ void wide_dot_kernel(const T_* __restrict__ o, const T_* __restrict__ dout, float* __restrict__ dd,
+                                int rows, int hs) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < hs; d += 32) s += to_f32(o[(size_t)row * hs + d]) * to_f32(dout[(size_t)row * hs + d]);
+  s = warp_sum(s);
+  if (lane == 0) dd[row] = s;
+}
+
+// K10 dQ past head size 256: a block per (64-row q tile x 128-column chunk, head, batch)
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ dd,
+                         __nv_bfloat16* __restrict__ dq, int H, int T, int hs, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ds = Qs + 64 * WLD;
+  __nv_bfloat16* Ks = Ds + 64 * WLD;
+  __nv_bfloat16* Vs = Ks + 64 * WLD;
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
+  const int row0 = qt * BQ + warp * 16 + g, row1 = row0 + 8;
+  const float lse0 = row0 < T ? lse[lbase + row0] : 0.f, lse1 = row1 < T ? lse[lbase + row1] : 0.f;
+  const float dd0 = row0 < T ? dd[lbase + row0] : 0.f, dd1 = row1 < T ? dd[lbase + row1] : 0.f;
+
+  float acc[WIDE / 8][4];
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * BKV;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {  // S = Q K^T and dP = dO V^T, a chunk at a time
+      __syncthreads();
+      stage_chunk(Qs, q + base, qt * BQ, T, hs, d0, tid);
+      stage_chunk(Ds, dout + base, qt * BQ, T, hs, d0, tid);
+      stage_chunk(Ks, k + base, k0, T, hs, d0, tid);
+      stage_chunk(Vs, v + base, k0, T, hs, d0, tid);
+      __syncthreads();
+      chunk_nt(s, Qs, warp * 16, Ks, g, t);
+      chunk_nt(dp, Ds, warp * 16, Vs, g, t);
+    }
+    __syncthreads();  // every warp is done with Ks
+    stage_chunk(Ks, k + base, k0, T, hs, c_off, tid);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + j * 8 + 2 * t + e;
+        const bool kin = key < T;
+        const float p0 = (kin && key <= row0) ? __expf(s[j][e] * scale - lse0) : 0.f;
+        const float p1 = (kin && key <= row1) ? __expf(s[j][2 + e] * scale - lse1) : 0.f;
+        s[j][e] = p0 * (dp[j][e] - dd0);
+        s[j][2 + e] = p1 * (dp[j][2 + e] - dd1);
+      }
+    }
+    __syncthreads();  // the K chunk at c_off is staged
+    chunk_pv(acc, s, Ks, g, t);  // dQ[:, c_off ..] += bf16(dS) K
+  }
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) {
+    const int col = c_off + n * 8 + 2 * t;
+    if (row0 < T)
+      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row0 * hs + col) =
+          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+    if (row1 < T)
+      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row1 * hs + col) =
+          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// K10 dK/dV past head size 256: a block per (64-key tile x 128-column chunk,
+// head, batch), the transposed tiles S^T = K Q^T and dP^T = V dO^T as above
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dd,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int T, int hs,
+                          float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + 64 * WLD;
+  __nv_bfloat16* Qs = Vs + 64 * WLD;
+  __nv_bfloat16* Ds = Qs + 64 * WLD;  // dO chunk
+  float* Ls = reinterpret_cast<float*>(Ds + 64 * WLD);
+  float* DDs = Ls + 64;
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
+  const int kw = warp * 16, key0 = kt * BKV + kw + g, key1 = key0 + 8;
+
+  float dka[WIDE / 8][4], dva[WIDE / 8][4];
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+  const int n_qt = (T + BQ - 1) / BQ;
+  for (int qt = kt; qt < n_qt; ++qt) {
+    const int qs0 = qt * BQ;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {
+      __syncthreads();
+      stage_chunk(Ks, k + base, kt * BKV, T, hs, d0, tid);
+      stage_chunk(Vs, v + base, kt * BKV, T, hs, d0, tid);
+      stage_chunk(Qs, q + base, qs0, T, hs, d0, tid);
+      stage_chunk(Ds, dout + base, qs0, T, hs, d0, tid);
+      if (d0 == 0 && tid < BQ) {
+        const bool in = qs0 + tid < T;
+        Ls[tid] = in ? lse[lbase + qs0 + tid] : 0.f;
+        DDs[tid] = in ? dd[lbase + qs0 + tid] : 0.f;
+      }
+      __syncthreads();
+      chunk_nt(s, Ks, kw, Qs, g, t);
+      chunk_nt(dp, Vs, kw, Ds, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * t + e, qi = qs0 + c;
+        const float l = Ls[c], d = DDs[c];
+        const bool qin = qi < T;
+        const float p0 = (qin && qi >= key0) ? __expf(s[j][e] * scale - l) : 0.f;
+        const float p1 = (qin && qi >= key1) ? __expf(s[j][2 + e] * scale - l) : 0.f;
+        s[j][e] = p0;
+        s[j][2 + e] = p1;
+        dp[j][e] = p0 * (dp[j][e] - d);
+        dp[j][2 + e] = p1 * (dp[j][2 + e] - d);
+      }
+    }
+    __syncthreads();  // every warp is done with Qs, Ds and Ls
+    stage_chunk(Qs, q + base, qs0, T, hs, c_off, tid);
+    stage_chunk(Ds, dout + base, qs0, T, hs, c_off, tid);
+    __syncthreads();
+    chunk_pv(dva, s, Ds, g, t);   // dV[:, c_off ..] += bf16(P^T) dO_i
+    chunk_pv(dka, dp, Qs, g, t);  // dK[:, c_off ..] += bf16(dS^T) Q_i
+  }
+#pragma unroll
+  for (int n = 0; n < WIDE / 8; ++n) {
+    const int col = c_off + n * 8 + 2 * t;
+    if (key0 < T) {
+      const size_t off = base + (size_t)key0 * hs + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    }
+    if (key1 < T) {
+      const size_t off = base + (size_t)key1 * hs + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+// The FFMA bodies past head size 256 (f32 compute): the blocks of simt_fwd,
+// simt_dq and simt_dkv above, each also over one 128-column output chunk,
+// the dot products summed over the head a staged chunk at a time.
+constexpr int SW_LD = WIDE + 1;  // f32 elements a shared chunk row
+
+// rows [r0, r0 + n) x columns c0..c0 + 127 of a (T, hs) f32 tensor into dst
+// [n][SW_LD], zeros past T
+__device__ __forceinline__ void simt_chunk(float* dst, const float* src, int r0, int n, int T, int hs, int c0,
+                                           int tid) {
+  for (int e = tid; e < n * WIDE; e += SIMT_THREADS) {
+    const int r = e / WIDE, d = e % WIDE;
+    dst[r * SW_LD + d] = r0 + r < T ? src[(size_t)(r0 + r) * hs + c0 + d] : 0.f;
+  }
+}
+
+constexpr int SW_FWD_SMEM = ((SIMT_BR + 2 * SIMT_BC) * SW_LD + SIMT_BR * SIMT_BC) * 4;
+constexpr int SW_DQ_SMEM = ((2 * SIMT_BR + 2 * SIMT_BC) * SW_LD + SIMT_BR * SIMT_BC) * 4;
+constexpr int SW_DKV_SMEM = ((2 * SIMT_BR + 2 * SIMT_BC) * SW_LD + 2 * SIMT_BR * SIMT_BC + 2 * SIMT_BC) * 4;
+
+__global__ void __launch_bounds__(SIMT_THREADS)
+simt_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, float* __restrict__ lse, int H, int T, int hs, float scale) {
+  constexpr int NJ = WIDE / 8;
+  extern __shared__ float sm[];
+  float* Qs = sm;                    // [BR][SW_LD]
+  float* Ks = Qs + SIMT_BR * SW_LD;  // [BC][SW_LD]
+  float* Vs = Ks + SIMT_BC * SW_LD;  // [BC][SW_LD]
+  float* Ps = Vs + SIMT_BC * SW_LD;  // [BR][BC]
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
+  const int q0 = (blockIdx.x / nspl) * SIMT_BR, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs;
+  const int row = q0 + r;
+  float acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+  float m = LLT_NEG_INF, l = 0.f;
+  const int kend = min(T, q0 + SIMT_BR);
+  for (int k0 = 0; k0 < kend; k0 += SIMT_BC) {
+    float s[SIMT_BC / 8];
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) s[j] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {
+      __syncthreads();
+      simt_chunk(Qs, q + base, q0, SIMT_BR, T, hs, d0, tid);
+      simt_chunk(Ks, k + base, k0, SIMT_BC, T, hs, d0, tid);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SIMT_BC / 8; ++j) {
+        const float* qr = Qs + r * SW_LD;
+        const float* kr = Ks + (c + 8 * j) * SW_LD;
+#pragma unroll 8
+        for (int d = 0; d < WIDE; ++d) s[j] += qr[d] * kr[d];
+      }
+    }
+    float mt = LLT_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) {
+      const int key = k0 + c + 8 * j;
+      s[j] = (key < T && key <= row) ? s[j] * scale : LLT_NEG_INF;
+      mt = fmaxf(mt, s[j]);
+    }
+    mt = row8_max(mt);
+    const float mn = fmaxf(m, mt), alpha = __expf(m - mn);
+    m = mn;
+    float ls = 0.f;
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) {
+      const float p = __expf(s[j] - mn);
+      ls += p;
+      Ps[r * SIMT_BC + c + 8 * j] = p;
+    }
+    l = l * alpha + row8_sum(ls);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[j] *= alpha;
+    __syncthreads();  // every thread is done with Ks
+    simt_chunk(Vs, v + base, k0, SIMT_BC, T, hs, c_off, tid);
+    __syncthreads();  // Vs and Ps are visible
+#pragma unroll 4
+    for (int kk = 0; kk < SIMT_BC; ++kk) {
+      const float p = Ps[r * SIMT_BC + kk];
+      const float* vr = Vs + kk * SW_LD + c;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[j] += p * vr[8 * j];
+    }
+  }
+  if (row >= T) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) o[base + (size_t)row * hs + c_off + c + 8 * j] = acc[j] * inv;
+  if (c == 0 && c_off == 0) lse[((size_t)b * H + h) * (size_t)T + row] = m + logf(fmaxf(l, 1e-30f));
+}
+
+__global__ void __launch_bounds__(SIMT_THREADS)
+simt_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
+                    float* __restrict__ dq, int H, int T, int hs, float scale) {
+  constexpr int NJ = WIDE / 8;
+  extern __shared__ float sm[];
+  float* Qs = sm;                    // [BR][SW_LD]
+  float* Ds = Qs + SIMT_BR * SW_LD;  // dO [BR][SW_LD]
+  float* Ks = Ds + SIMT_BR * SW_LD;  // [BC][SW_LD]
+  float* Vs = Ks + SIMT_BC * SW_LD;  // [BC][SW_LD]
+  float* Ss = Vs + SIMT_BC * SW_LD;  // dS [BR][BC]
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
+  const int q0 = (blockIdx.x / nspl) * SIMT_BR, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
+  const int row = q0 + r;
+  const float lr = row < T ? lse[lbase + row] : 0.f, dr = row < T ? dd[lbase + row] : 0.f;
+  float acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
+  const int kend = min(T, q0 + SIMT_BR);
+  for (int k0 = 0; k0 < kend; k0 += SIMT_BC) {
+    float sdot[SIMT_BC / 8], pdot[SIMT_BC / 8];
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) sdot[j] = pdot[j] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {
+      __syncthreads();
+      simt_chunk(Qs, q + base, q0, SIMT_BR, T, hs, d0, tid);
+      simt_chunk(Ds, dout + base, q0, SIMT_BR, T, hs, d0, tid);
+      simt_chunk(Ks, k + base, k0, SIMT_BC, T, hs, d0, tid);
+      simt_chunk(Vs, v + base, k0, SIMT_BC, T, hs, d0, tid);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SIMT_BC / 8; ++j) {
+        const float* qr = Qs + r * SW_LD;
+        const float* dr_ = Ds + r * SW_LD;
+        const float* kr = Ks + (c + 8 * j) * SW_LD;
+        const float* vr = Vs + (c + 8 * j) * SW_LD;
+#pragma unroll 8
+        for (int d = 0; d < WIDE; ++d) {
+          sdot[j] += qr[d] * kr[d];
+          pdot[j] += dr_[d] * vr[d];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) {
+      const int key = k0 + c + 8 * j;
+      const float p = (row < T && key < T && key <= row) ? __expf(sdot[j] * scale - lr) : 0.f;
+      Ss[r * SIMT_BC + c + 8 * j] = p * (pdot[j] - dr);
+    }
+    __syncthreads();  // every thread is done with Ks
+    simt_chunk(Ks, k + base, k0, SIMT_BC, T, hs, c_off, tid);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < SIMT_BC; ++kk) {
+      const float ds = Ss[r * SIMT_BC + kk];
+      const float* kr = Ks + kk * SW_LD + c;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[j] += ds * kr[8 * j];
+    }
+  }
+  if (row >= T) return;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) dq[base + (size_t)row * hs + c_off + c + 8 * j] = acc[j] * scale;
+}
+
+__global__ void __launch_bounds__(SIMT_THREADS)
+simt_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
+                     float* __restrict__ dk, float* __restrict__ dv, int H, int T, int hs, float scale) {
+  constexpr int NJ = WIDE / 8;
+  extern __shared__ float sm[];
+  float* Ks = sm;                       // [BR][SW_LD]: the block's 16 keys
+  float* Vs = Ks + SIMT_BR * SW_LD;     // [BR][SW_LD]
+  float* Qs = Vs + SIMT_BR * SW_LD;     // [BC][SW_LD]: a tile of 32 queries
+  float* Ds = Qs + SIMT_BC * SW_LD;     // dO [BC][SW_LD]
+  float* Ps = Ds + SIMT_BC * SW_LD;     // P^T [BR][BC]
+  float* Ss = Ps + SIMT_BR * SIMT_BC;   // dS^T [BR][BC]
+  float* Ls = Ss + SIMT_BR * SIMT_BC;   // lse [BC]
+  float* DDs = Ls + SIMT_BC;            // D [BC]
+  const int nspl = hs / WIDE;
+  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
+  const int k0 = (blockIdx.x / nspl) * SIMT_BR, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
+  const int key = k0 + r;
+  float dka[NJ], dva[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
+  for (int qs0 = k0 / SIMT_BC * SIMT_BC; qs0 < T; qs0 += SIMT_BC) {
+    float sdot[SIMT_BC / 8], pdot[SIMT_BC / 8];
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) sdot[j] = pdot[j] = 0.f;
+    for (int d0 = 0; d0 < hs; d0 += WIDE) {
+      __syncthreads();
+      simt_chunk(Ks, k + base, k0, SIMT_BR, T, hs, d0, tid);
+      simt_chunk(Vs, v + base, k0, SIMT_BR, T, hs, d0, tid);
+      simt_chunk(Qs, q + base, qs0, SIMT_BC, T, hs, d0, tid);
+      simt_chunk(Ds, dout + base, qs0, SIMT_BC, T, hs, d0, tid);
+      if (d0 == 0 && tid < SIMT_BC) {
+        const bool in = qs0 + tid < T;
+        Ls[tid] = in ? lse[lbase + qs0 + tid] : 0.f;
+        DDs[tid] = in ? dd[lbase + qs0 + tid] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SIMT_BC / 8; ++j) {
+        const float* kr = Ks + r * SW_LD;
+        const float* vr = Vs + r * SW_LD;
+        const float* qr = Qs + (c + 8 * j) * SW_LD;
+        const float* dr_ = Ds + (c + 8 * j) * SW_LD;
+#pragma unroll 8
+        for (int d = 0; d < WIDE; ++d) {
+          sdot[j] += kr[d] * qr[d];
+          pdot[j] += vr[d] * dr_[d];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SIMT_BC / 8; ++j) {
+      const int cq = c + 8 * j, qi = qs0 + cq;
+      const float p = (qi < T && key < T && qi >= key) ? __expf(sdot[j] * scale - Ls[cq]) : 0.f;
+      Ps[r * SIMT_BC + cq] = p;
+      Ss[r * SIMT_BC + cq] = p * (pdot[j] - DDs[cq]);
+    }
+    __syncthreads();  // every thread is done with Qs and Ds
+    simt_chunk(Qs, q + base, qs0, SIMT_BC, T, hs, c_off, tid);
+    simt_chunk(Ds, dout + base, qs0, SIMT_BC, T, hs, c_off, tid);
+    __syncthreads();
+#pragma unroll 4
+    for (int qq = 0; qq < SIMT_BC; ++qq) {
+      const float p = Ps[r * SIMT_BC + qq], ds = Ss[r * SIMT_BC + qq];
+      const float* dr_ = Ds + qq * SW_LD + c;
+      const float* qr = Qs + qq * SW_LD + c;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        dva[j] += p * dr_[8 * j];
+        dka[j] += ds * qr[8 * j];
+      }
+    }
+  }
+  if (key >= T) return;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const size_t off = base + (size_t)key * hs + c_off + c + 8 * j;
+    dk[off] = dka[j] * scale;
+    dv[off] = dva[j];
+  }
+}
+
+// the launches past head size 256: cbf16 picks the tensor-core kernels or
+// the FFMA bodies
+int wide_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T, int hs,
+                 float scale, bool cbf16, cudaStream_t st) {
+  const int nspl = hs / WIDE;
+  if (cbf16) {
+    int err = set_smem(flash_fwd_wide_kernel, WIDE_FWD_SMEM);
+    if (err) return err;
+    flash_fwd_wide_kernel<<<dim3((T + BQ - 1) / BQ * nspl, H, B), THREADS, WIDE_FWD_SMEM, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse,
+        H, T, hs, scale);
+  } else {
+    int err = set_smem(simt_fwd_wide_kernel, SW_FWD_SMEM);
+    if (err) return err;
+    simt_fwd_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_FWD_SMEM, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, T, hs, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+int wide_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                     void* dd, void* dq, int B, int H, int T, int hs, float scale, bool cbf16, cudaStream_t st) {
+  const int rows = B * H * T, nspl = hs / WIDE;
+  if (cbf16) {
+    wide_dot_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
+                                                                   (const __nv_bfloat16*)dout, (float*)dd, rows, hs);
+    int err = set_smem(flash_bwd_dq_wide_kernel, WIDE_DQ_SMEM);
+    if (err) return err;
+    flash_bwd_dq_wide_kernel<<<dim3((T + BQ - 1) / BQ * nspl, H, B), THREADS, WIDE_DQ_SMEM, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+        (const float*)lse, (const float*)dd, (__nv_bfloat16*)dq, H, T, hs, scale);
+  } else {
+    wide_dot_kernel<float><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows, hs);
+    int err = set_smem(simt_dq_wide_kernel, SW_DQ_SMEM);
+    if (err) return err;
+    simt_dq_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DQ_SMEM, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
+        (float*)dq, H, T, hs, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+int wide_backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* dd, void* dk, void* dv, int B, int H, int T, int hs, float scale, bool cbf16,
+                      cudaStream_t st) {
+  const int nspl = hs / WIDE;
+  if (cbf16) {
+    int err = set_smem(flash_bwd_dkv_wide_kernel, WIDE_DKV_SMEM);
+    if (err) return err;
+    flash_bwd_dkv_wide_kernel<<<dim3((T + BKV - 1) / BKV * nspl, H, B), THREADS, WIDE_DKV_SMEM, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+        (const float*)lse, (const float*)dd, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, T, hs, scale);
+  } else {
+    int err = set_smem(simt_dkv_wide_kernel, SW_DKV_SMEM);
+    if (err) return err;
+    simt_dkv_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DKV_SMEM, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
+        (float*)dk, (float*)dv, H, T, hs, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 // (dtype, head size) -> the tensor-core kernels (bf16) or the FFMA bodies (f32)
-#define LLT_FLASH(MMA, SIMT, ...)                                             \
+#define LLT_FLASH(MMA, SIMT, WIDE_FN, ...)                                    \
   do {                                                                        \
     if (hs == 128) return cbf16 ? MMA<128>(__VA_ARGS__) : SIMT<128>(__VA_ARGS__); \
     if (hs == 256) return cbf16 ? MMA<256>(__VA_ARGS__) : SIMT<256>(__VA_ARGS__); \
+    if (hs > 256 && hs % WIDE == 0) return WIDE_FN;                           \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)
 
 }  // namespace
 
-// q, k, v, o (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs 128 or
-// 256; lse (B, H, T) f32.
+// q, k, v, o (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs any
+// multiple of 128; lse (B, H, T) f32.
 LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_forward, simt_forward, q, k, v, o, lse, B, H, T, scale, (cudaStream_t)stream);
+  LLT_FLASH(mma_forward, simt_forward,
+            wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k, v, o, lse, B, H,
+            T, scale, (cudaStream_t)stream);
 }
 
 // K10, first half: D = rowsum(dO * O) into dd (B, H, T) f32, then dq. q, k,
-// v, o, dout, dq (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs 128
-// or 256; lse (B, H, T) f32.
+// v, o, dout, dq (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs any
+// multiple of 128; lse (B, H, T) f32.
 LLT_EXPORT int k10_flash_backward_dq(const void* q, const void* k, const void* v, const void* o,
                                      const void* dout, const void* lse, void* dd, void* dq, int B,
                                      int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_backward_dq, simt_backward_dq, q, k, v, o, dout, lse, dd, dq, B, H, T, scale,
-            (cudaStream_t)stream);
+  LLT_FLASH(mma_backward_dq, simt_backward_dq,
+            wide_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k,
+            v, o, dout, lse, dd, dq, B, H, T, scale, (cudaStream_t)stream);
 }
 
 // K10, second half: dk and dv from the dd that k10_flash_backward_dq wrote.
 LLT_EXPORT int k10_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                       const void* lse, const void* dd, void* dk, void* dv, int B,
                                       int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_backward_dkv, simt_backward_dkv, q, k, v, dout, lse, dd, dk, dv, B, H, T, scale,
-            (cudaStream_t)stream);
+  LLT_FLASH(mma_backward_dkv, simt_backward_dkv,
+            wide_backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q,
+            k, v, dout, lse, dd, dk, dv, B, H, T, scale, (cudaStream_t)stream);
 }

@@ -16,11 +16,11 @@
 // dequantized int4 weight is q * scale + zero rounded as the plain version
 // rounds it (f32 product, then f32 sum). K may be split over blockIdx.z (the
 // split count comes from N and K alone, so a row's sums do not depend on M);
-// the splits' f32 partials are summed in a fixed order by gemm_tile's
+// the splits' f32 partials are summed in a fixed order by splitk.cuh's
 // splitk_reduce_kernel, which applies the column scale. No double buffering.
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "splitk.cuh"
 
 namespace gemm_f32 {
 
@@ -126,7 +126,7 @@ inline int launch(const float* x, W w, const float* colscale, float* out, float*
   splits = (steps + per - 1) / per;
   gemm_kernel<W><<<dim3((M + BM - 1) / BM, (N + BN - 1) / BN, splits), THREADS, 0, st>>>(
       x, w, colscale, out, splits > 1 ? ws : nullptr, M, N, K, per * BK);
-  if (splits > 1) gemm_tile::launch_splitk_reduce<float>(ws, colscale, out, (size_t)M * N, N, splits, st);
+  if (splits > 1) splitk::launch_splitk_reduce<float>(ws, colscale, out, (size_t)M * N, N, splits, st);
   return (int)cudaGetLastError();
 }
 

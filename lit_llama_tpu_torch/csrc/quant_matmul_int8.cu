@@ -14,7 +14,7 @@
 // the weight stream still dominates the bytes and the tensor-core work is
 // 2 * M * K * N; the two bounds meet near M = 300.
 //
-// Design: one entry, two bodies chosen by M.
+// Design: two bodies chosen by M, each behind its own entry.
 //  M == 1, a weight stream: a block of 256 threads owns a strip of 128
 //   columns and a range of rows; eight threads read one row's 128 bytes as
 //   16-byte vectors, 32 rows per step and four steps in flight per thread;
@@ -24,14 +24,14 @@
 //   over blockIdx.y so that every SM has work at N = 4096; the f32 partials
 //   are summed in a fixed order by splitk_reduce_kernel, so the result does
 //   not depend on the schedule.
-//  M > 1, a tensor-core product: the 64 x 128 output tile of gemm_tile.cuh,
-//   shared with K3 (bf16 WMMA, f32 accumulate, the scale in store_tile). A
-//   k-step converts a 64-row slab of int8 to bf16 in shared memory; the next
-//   step's operands are loaded into registers while the tensor cores work on
-//   the current one. Rows past K and columns past N are zero-filled or
-//   skipped, so K need not be a multiple of the k-step nor N of the tile.
-//   Split-K as above when the output tiles alone are fewer than the SMs.
-// Simple first: no cp.async/TMA ring, no wgmma; those are later work.
+//  M > 1, a tensor-core product: the Hopper mainloop of gemm_sm90.cuh,
+//   shared with K3 (tokens as wgmma's n, x by TMA and the int8 bytes by
+//   cp.async into a ring of stages, converted exactly to bf16 by the
+//   consumer warpgroup beside the wgmmas of the stage before, the column
+//   scale on the f32 sum in the epilogue). Rows past K and columns past N are
+//   zero-filled or skipped, so K need not be a multiple of the k-step nor N
+//   of the tile. K is split by N and K alone (gemm_plan), so a row's output
+//   does not depend on M.
 //
 // f32 compute (the Pallas entry's compute dtype f32): at M == 1 the same
 // weight stream with an f32 x and an f32 result (XT below); at M > 1 the FFMA
@@ -39,9 +39,7 @@
 // sum at the end. Bound at M > 1: operations on the CUDA cores, 67 TF/s.
 
 #include "gemm_f32.cuh"
-#include "gemm_tile.cuh"
-
-using namespace gemm_tile;
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -120,138 +118,47 @@ int8_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ qw,
   }
 }
 
-// ---- M > 1 -----------------------------------------------------------------
-
-constexpr int SMEM_AB = (BM * LDA + BK * LDB) * 2;
-constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;  // 33792 bytes, static
-constexpr int A_VECS = BM * BK / 8 / THREADS;   // 16-byte x vectors per thread: 2
-constexpr int B_VECS = BK * BN / 16 / THREADS;  // 16-byte weight vectors per thread: 2
-
-// one k-step's operands in registers
-struct Stage {
-  uint4 a[A_VECS];
-  uint4 b[B_VECS];
-};
-
-// rows [k0, k0 + BK) of the block's tiles; rows at or past k_end, x rows at
-// or past M and columns at or past N read as zero (K % 8 == 0 and
-// N % 16 == 0: a vector is wholly in or out)
-__device__ __forceinline__ void load_stage(Stage& st, const __nv_bfloat16* __restrict__ x,
-                                           const int8_t* __restrict__ qw, int M, int N, int K,
-                                           int m0, int n0, int k0, int k_end, int tid) {
-#pragma unroll
-  for (int i = 0; i < A_VECS; ++i) {
-    const int v = tid + THREADS * i;
-    const int m = v / (BK / 8), kc = (v % (BK / 8)) * 8;
-    st.a[i] = make_uint4(0, 0, 0, 0);
-    if (m0 + m < M && k0 + kc < k_end)
-      st.a[i] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + k0 + kc));
-  }
-#pragma unroll
-  for (int i = 0; i < B_VECS; ++i) {
-    const int v = tid + THREADS * i;
-    const int row = v / (BN / 16), n = n0 + (v % (BN / 16)) * 16;
-    st.b[i] = make_uint4(0, 0, 0, 0);
-    if (k0 + row < k_end && n < N)
-      st.b[i] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)(k0 + row) * N + n));
-  }
-}
-
-// the four int8 of w as two bf16 pairs (exact)
-__device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn((float)(int8_t)(w & 0xFFu), (float)(int8_t)((w >> 8) & 0xFFu));
-  const __nv_bfloat162 hi = __floats2bfloat162_rn((float)(int8_t)((w >> 16) & 0xFFu), (float)(int8_t)(w >> 24));
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-}
-
-__device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As, __nv_bfloat16* Bs, int tid) {
-#pragma unroll
-  for (int i = 0; i < A_VECS; ++i) {
-    const int v = tid + THREADS * i;
-    const int m = v / (BK / 8), kc = (v % (BK / 8)) * 8;
-    *reinterpret_cast<uint4*>(As + m * LDA + kc) = st.a[i];
-  }
-#pragma unroll
-  for (int i = 0; i < B_VECS; ++i) {
-    const int v = tid + THREADS * i;
-    const int row = v / (BN / 16), c = (v % (BN / 16)) * 16;
-    const uint2 p0 = s8x4_to_bf16x4(st.b[i].x), p1 = s8x4_to_bf16x4(st.b[i].y);
-    const uint2 p2 = s8x4_to_bf16x4(st.b[i].z), p3 = s8x4_to_bf16x4(st.b[i].w);
-    *reinterpret_cast<uint4*>(Bs + row * LDB + c) = make_uint4(p0.x, p0.y, p1.x, p1.y);
-    *reinterpret_cast<uint4*>(Bs + row * LDB + c + 8) = make_uint4(p2.x, p2.y, p3.x, p3.y);
-  }
-}
-
-// blockIdx.z takes rows [z * rows_per_split, (z + 1) * rows_per_split) of K
-// (whole k-steps). With ws the raw f32 tile goes to ws[z], else the scaled
-// bf16 result to out.
-__global__ void __launch_bounds__(THREADS, 2)
-int8_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
-                 const float* __restrict__ qscale, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ ws, int M, int N, int K, int rows_per_split) {
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][LDA]
-  __nv_bfloat16* Bs = As + BM * LDA;                             // [BK][LDB]
-  float* Cs = reinterpret_cast<float*>(smem);                    // [BM][LDC]
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * rows_per_split;
-  const int k_end = min(K, k_begin + rows_per_split);
-
-  Acc acc;
-  zero(acc);
-
-  Stage st;
-  load_stage(st, x, qw, M, N, K, m0, n0, k_begin, k_end, tid);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous step's products are done with the tiles
-    store_stage(st, As, Bs, tid);
-    __syncthreads();
-    if (k0 + BK < k_end) load_stage(st, x, qw, M, N, K, m0, n0, k0 + BK, k_end, tid);
-    mma_slab(acc, As, Bs, warp);
-  }
-  store_tile(acc, Cs, qscale, out, ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * M * N, M, N, m0, n0, tid);
-}
-
 }  // namespace
 
-// x (M, K), qw (K, N) int8, qscale (N) f32 -> out (M, N); x and out bf16
-// (cbf16 = 1) or f32. splits > 1 splits K over the grid (at most `splits`
-// parts) and needs ws (splits, M, N) f32. Requires K % 8 == 0, N % 16 == 0 and 16-byte aligned operands
+// M == 1 (bf16 or f32) and M > 1 in f32: x (M, K), qw (K, N) int8, qscale
+// (N) f32 -> out (M, N); x and out bf16 (cbf16 = 1) or f32. splits > 1
+// splits K over the grid (at most `splits` parts) and needs ws (splits, M,
+// N) f32. Requires K % 8 == 0, N % 16 == 0 and 16-byte aligned operands
 // (checked by the Python wrapper).
 LLT_EXPORT int k6_matmul_int8(const void* x, const void* qw, const void* qscale, void* out, void* ws,
                               int M, int N, int K, int splits, int cbf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!cbf16 && M > 1)
+  if (M > 1 && cbf16) return (int)cudaErrorInvalidValue;  // k6_matmul_int8_sm90
+  if (M > 1)
     return gemm_f32::launch((const float*)x, gemm_f32::Int8W{(const int8_t*)qw, N}, (const float*)qscale,
                             (float*)out, (float*)ws, M, N, K, splits, st);
-  const __nv_bfloat16* xp = (const __nv_bfloat16*)x;
-  const int8_t* wp = (const int8_t*)qw;
-  const float* sp = (const float*)qscale;
-  __nv_bfloat16* op = (__nv_bfloat16*)out;
   if (splits < 1) splits = 1;
   // whole steps per split; the last split may be shorter, none is empty
-  const int step = M == 1 ? GV_ROWS : BK;
-  const int steps = (K + step - 1) / step;
+  const int steps = (K + GV_ROWS - 1) / GV_ROWS;
   const int per = (steps + splits - 1) / splits;
   splits = (steps + per - 1) / per;
   float* wsp = splits > 1 ? (float*)ws : nullptr;
-  if (M == 1 && !cbf16) {
-    int8_gemv_kernel<float><<<dim3((N + GV_COLS - 1) / GV_COLS, splits), GV_THREADS, 0, st>>>(
-        (const float*)x, wp, sp, (float*)out, wsp, N, K, per * step);
-    if (splits > 1) launch_splitk_reduce(wsp, sp, (float*)out, (size_t)N, N, splits, st);
-    return (int)cudaGetLastError();
-  }
-  if (M == 1) {
-    int8_gemv_kernel<__nv_bfloat16><<<dim3((N + GV_COLS - 1) / GV_COLS, splits), GV_THREADS, 0, st>>>(
-        xp, wp, sp, op, wsp, N, K, per * step);
+  const dim3 grid((N + GV_COLS - 1) / GV_COLS, splits);
+  if (cbf16) {
+    int8_gemv_kernel<__nv_bfloat16><<<grid, GV_THREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, (const int8_t*)qw, (const float*)qscale, (__nv_bfloat16*)out, wsp, N, K,
+        per * GV_ROWS);
+    if (splits > 1) splitk::launch_splitk_reduce(wsp, (const float*)qscale, (__nv_bfloat16*)out, (size_t)N, N, splits, st);
   } else {
-    // M-tiles fastest: the blocks sharing a weight slab run together, so it
-    // comes from DRAM once
-    int8_gemm_kernel<<<dim3((M + BM - 1) / BM, (N + BN - 1) / BN, splits), THREADS, 0, st>>>(
-        xp, wp, sp, op, wsp, M, N, K, per * step);
+    int8_gemv_kernel<float><<<grid, GV_THREADS, 0, st>>>((const float*)x, (const int8_t*)qw, (const float*)qscale,
+                                                          (float*)out, wsp, N, K, per * GV_ROWS);
+    if (splits > 1) splitk::launch_splitk_reduce(wsp, (const float*)qscale, (float*)out, (size_t)N, N, splits, st);
   }
-  if (splits > 1) launch_splitk_reduce(wsp, sp, op, (size_t)M * N, N, splits, st);
   return (int)cudaGetLastError();
+}
+
+// M > 1 in bf16: x (M, K) bf16 @ qw (K, N) int8, times qscale (N) -> out
+// (M, N) bf16, through the plan of ops/quant_matmul.py gemm_plan (nt
+// tokens a token tile, `stages` ring stages, K in `splits` parts of
+// `per` 64-row k-steps, ws (splits, M, N) f32 where splits > 1).
+LLT_EXPORT int k6_matmul_int8_sm90(const void* x, const void* qw, const void* qscale, void* out, void* ws,
+                                   int M, int N, int K, int nt, int stages, int splits, int per, void* stream) {
+  sm90::Params p{(const uint8_t*)qw, (const float*)qscale, nullptr, (__nv_bfloat16*)out,
+                 splits > 1 ? (float*)ws : nullptr, M, N, K, 1, 1, 0, (K + 63) / 64, per, stages};
+  return sm90::launch<false>(x, p, nt, splits, (cudaStream_t)stream);
 }

@@ -13,7 +13,8 @@ S % 128 == 0, B == 1, int8 left to the dequantizing path) are not carried
 over. It takes head sizes that are multiples of 128 (``decode_route``, the
 shape condition of JAX's ``use_decode_attention``); the model sends other
 head sizes to the plain version, as JAX runs ``attention_xla`` there. The
-kernel takes bf16 or f32 compute and head size 128 or 256 (``check_decode``);
+kernel takes bf16 or f32 compute and every head size that is a multiple of
+128 (``check_decode``);
 the plain version takes any float dtype and head size. Products are rounded
 to the cache's compute dtype (``q.dtype``) and summed in f32, as in the Pallas
 kernel.
@@ -50,7 +51,7 @@ _SIGS = {  # both entries of csrc/decode_attention.cu
     "k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P],
     "k5_decode_attention": [_P, _I] + [_P] * 7 + [_I] * 6 + [_P],
 }
-HEAD_SIZES = (128, 256)  # what K5 takes; K8 takes 128
+HEAD_SIZE_STEP = 128  # K5 takes every head size that is a multiple; K8 takes 128
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -90,11 +91,12 @@ def _slot_stride(t, B, H, hs, dtype, what: str) -> int:
 def check_decode(q, k, v, ks, vs, limit) -> int:
     """What K5 takes, on any device; returns q's slot stride. q bf16 or f32
     (the compute dtype); k and v contiguous (B, H, S, hs) in q's dtype, or
-    int8 with ks and vs (B, H, S, 1) f32; hs 128 or 256; limit (B,) int32.
-    Raises ValueError otherwise."""
+    int8 with ks and vs (B, H, S, 1) f32; hs a multiple of 128 (the head
+    sizes ``decode_route`` sends); limit (B,) int32. Raises ValueError
+    otherwise."""
     B, H, S, hs = k.shape
-    if hs not in HEAD_SIZES:
-        raise ValueError(f"K5 takes head size 128 or 256, got {hs}")
+    if hs <= 0 or hs % HEAD_SIZE_STEP:
+        raise ValueError(f"K5 takes a head size that is a multiple of {HEAD_SIZE_STEP}, got {hs}")
     if q.dtype not in DTYPES:
         raise ValueError(f"K5 takes bf16 or f32 compute, got {q.dtype}")
     q_stride = _slot_stride(q, B, H, hs, q.dtype, "K5 q")

@@ -6,9 +6,10 @@ versions (counterpart of lit_llama_tpu/ops/flash_attention.py).
 CUDA kernel in ``csrc/flash_attention.cu``. It serves every causal prefill
 with T > 1 on the card whose head size is a multiple of 128
 (``ops.attention.flash_route``), any T (the kernel masks the ragged last
-tile), head size 128 or 256: bf16 on the tensor cores, f32 compute on an
-FFMA body of the same source. A larger head size is refused
-(``check_flash``).
+tile), any head size that is a multiple of 128 (``check_flash``): bf16 on
+the tensor cores, f32 compute on an FFMA body of the same source; past 256
+the kernels split the output's head columns over the grid in chunks of 128
+and recompute the scores once a chunk.
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
 ``_flash_dkv_kernel`` (entry ``_flash_backward``) with the two K10 kernels of
@@ -40,7 +41,7 @@ _SIGS = {
     "k10_flash_backward_dq": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
     "k10_flash_backward_dkv": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
 }
-HEAD_SIZES = (128, 256)  # what the kernels take (csrc/flash_attention.cu)
+HEAD_SIZE_STEP = 128  # the kernels take every head size that is a multiple (csrc/flash_attention.cu)
 DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -59,11 +60,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def check_flash(what: str, *ts: torch.Tensor) -> None:
     """What K4 and K10 take, on any device: contiguous (B, H, T, hs) tensors
-    of one shape and one dtype, bf16 or f32, hs 128 or 256. Raises
-    ValueError otherwise."""
+    of one shape and one dtype, bf16 or f32, hs a multiple of 128 (the
+    head sizes ``flash_route`` sends). Raises ValueError otherwise."""
     B, H, T, hs = ts[0].shape
-    if hs not in HEAD_SIZES:
-        raise ValueError(f"{what} takes head size 128 or 256, got {hs}")
+    if hs <= 0 or hs % HEAD_SIZE_STEP:
+        raise ValueError(f"{what} takes a head size that is a multiple of {HEAD_SIZE_STEP}, got {hs}")
     for t in ts:
         if t.dtype != ts[0].dtype or t.dtype not in DTYPES or t.shape != (B, H, T, hs) or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous bf16 or f32 tensors of one shape and dtype "

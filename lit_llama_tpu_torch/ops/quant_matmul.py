@@ -9,8 +9,9 @@ where its in and out widths are multiples of 256 (``quant_route``, the shape
 condition of JAX's ``_use_pallas``), at any M and any group size: the TPU's
 measured M thresholds are not carried over. Elsewhere ``ops.linear`` runs the
 plain version, as JAX runs ``matmul_int4_xla`` there. bf16 compute takes the
-tensor cores, f32 compute an FFMA tile (``gemm_f32.cuh``). What bounds it and
-how its design answers that is noted in the source.
+Hopper mainloop (``csrc/gemm_sm90.cuh``: wgmma, TMA and cp.async, launched by
+the plan of ``gemm_plan``), f32 compute an FFMA tile (``gemm_f32.cuh``). What
+bounds it and how its design answers that is noted in the source.
 
 ``matmul_int4_ref`` is the plain version, the counterpart of
 ``matmul_int4_xla``: dequantize to the compute dtype, then one product with
@@ -20,7 +21,7 @@ float32 accumulation, rounded to the compute dtype.
 ``matmul_int8``) with the CUDA kernel in ``csrc/quant_matmul_int8.cu``. On the
 card an int8 linear takes it where ``quant_route`` holds, decode (M = 1) and
 prefill alike, at any M, in bf16 or f32 compute: the TPU's M <= 128 gate is
-not carried over.
+not carried over. At M > 1 in bf16 it runs K3's mainloop (``gemm_plan``).
 
 ``matmul_int8_ref`` is K6's plain version, in the Pallas kernel's own
 arithmetic: x and the int8 weight in the compute dtype, the sum over K in
@@ -33,32 +34,91 @@ before the product.)
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from lit_llama_tpu_torch.ops import _build
 from lit_llama_tpu_torch.ops.linear import dequantize_int4
 
-_SIGS = {"k3_matmul_int4": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR],
+_SIGS = {"k3_matmul_int4": [_build.PTR] * 6 + [_build.INT] * 9 + [_build.PTR],
          "k3_matmul_int4_f32": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR]}
-_SIGS8 = {"k6_matmul_int8": [_build.PTR] * 5 + [_build.INT] * 5 + [_build.PTR]}
+_SIGS8 = {"k6_matmul_int8": [_build.PTR] * 5 + [_build.INT] * 5 + [_build.PTR],
+          "k6_matmul_int8_sm90": [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR]}
 DTYPES = (torch.bfloat16, torch.float32)
-_BM, _BN, _BK = 64, 128, 64  # the tile of both GEMM kernels (csrc/quant_matmul*.cu)
+_BN = 128  # the column tile of the f32 GEMM (csrc/gemm_f32.cuh)
 _GV_COLS = 128  # columns per block of K6's M == 1 body
+H100_SMS = 132
+
+# The Hopper mainloop (csrc/gemm_sm90.cuh): 128 weight columns a block (64 a
+# consumer warpgroup), k-steps of 64 logical rows, a token tile of one of
+# SM90_TILES tokens (wgmma's n; csrc/wgmma.cuh has each)
+SM90_BN, SM90_STEP, SM90_MAX_SMEM = 128, 64, 232448
+SM90_TILES = (8, 16, 32, 64, 96, 128, 160, 192, 224, 256)
+
+
+class GemmPlan(NamedTuple):
+    """How K3, and K6 at M > 1, launch in bf16: a token tile of ``nt``
+    tokens (``token_tiles`` of them over M), ``stages`` ring stages, ``gr``
+    scale rows a plane of a stage spans (int4), K in ``splits`` parts of
+    ``per`` k-steps of 64 logical rows, ``smem`` bytes a block."""
+    nt: int
+    token_tiles: int
+    stages: int
+    gr: int
+    splits: int
+    per: int
+    smem: int
+
+
+def _sm90_smem(int4: bool, nt: int, stages: int, gr: int) -> int:
+    """A block's shared memory (csrc/gemm_sm90.cuh smem_bytes)."""
+    bn = SM90_BN
+    stage = -(-(nt * 2 * 64 + (32 * bn + gr * 16 * bn if int4 else 64 * bn)) // 1024) * 1024
+    return 1024 + 2 * 2 * 2 * 32 * 64 * 2 + stages * stage + stages * 16
+
+
+def gemm_plan(M: int, N: int, K: int, gs: int = 0, sm_count: int = H100_SMS) -> GemmPlan:
+    """The launch plan of the Hopper mainloop, a pure function of the shapes:
+    int4 where ``gs`` (the group size) is given, int8 where it is 0.
+
+    The K split comes from N and K alone (about one wave of blocks over the
+    SMs from the 128-column tiles, each split at least 8 k-steps), so a row's
+    sums are added in the same order at any M. The token tile is the
+    narrowest of SM90_TILES that holds M split evenly into tiles of at most
+    256 (narrower where the scale rows of a group size under 32 leave no
+    room); the ring is as deep as shared memory allows, at most 8 stages,
+    with two blocks to an SM up to 128-token tiles."""
+    if M < 1 or N < 1 or K < 1:
+        raise ValueError(f"gemm_plan takes positive shapes, got M={M} N={N} K={K}")
+    int4 = gs > 0
+    steps = -(-K // SM90_STEP)
+    tiles = -(-N // SM90_BN)
+    splits = max(1, min(int(sm_count / tiles + 0.5), steps // 8))
+    per = -(-steps // splits)
+    splits = -(-steps // per)  # none empty
+    gr = min(K // gs, 1 if gs % 32 == 0 else 31 // gs + 2) if int4 else 0
+    rows = -(-M // -(-M // SM90_TILES[-1]))  # M split evenly into tiles of at most 256
+    i = next(j for j, t in enumerate(SM90_TILES) if t >= rows)
+    while True:
+        nt = SM90_TILES[i]
+        fixed = _sm90_smem(int4, nt, 0, gr)
+        stage = _sm90_smem(int4, nt, 1, gr) - fixed
+        budget = SM90_MAX_SMEM if nt > 128 else SM90_MAX_SMEM // 2 - 1024
+        stages = min(8, (budget - fixed) // stage)
+        if stages < 3:
+            stages = min(8, (SM90_MAX_SMEM - fixed) // stage)
+        if stages >= 2 or i == 0:
+            break
+        i -= 1  # the scale rows of a tiny group size leave no room: a narrower token tile
+    if stages < 2:
+        raise ValueError(f"gemm_plan: no ring of two stages fits (M={M} N={N} K={K} gs={gs})")
+    return GemmPlan(nt, -(-M // nt), stages, gr, splits, per, _sm90_smem(int4, nt, stages, gr))
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _gemm_splits(M: int, N: int, k_rows: int, device) -> int:
-    """K splits of the tiled kernels (K3, and K6 at M > 1) that bring the grid
-    to about two blocks per SM when the output tiles alone are fewer (small-N
-    linears at prefill M). ``k_rows``: the weight rows a block walks (K/2
-    packed rows for int4)."""
-    tiles = -(-M // _BM) * -(-N // _BN)
-    return max(1, min(2 * _sm_count(device) // tiles, k_rows // _BK // 4))
 
 
 def f32_splits(N: int, K: int, device) -> int:
@@ -135,12 +195,12 @@ def matmul_int4(x, qw, qscale, qzero, compute_dtype=torch.bfloat16):
         _build.check(err, "K3 matmul_int4 (f32)")
         matmul_int4.launches += 1
         return out.reshape(*lead, N)
-    splits = _gemm_splits(M, N, K // 2, x.device)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+    plan = gemm_plan(M, N, K, gs, _sm_count(x.device))
+    ws = torch.empty((plan.splits, M, N), dtype=torch.float32, device=x.device) if plan.splits > 1 else None
     err = lib.k3_matmul_int4(
         x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), qzero.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, gs, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), M, N, K, gs, plan.nt, plan.stages, plan.gr, plan.splits,
+        plan.per, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "K3 matmul_int4")
     matmul_int4.launches += 1
@@ -194,16 +254,23 @@ def matmul_int8(x, qw, qscale, compute_dtype=torch.bfloat16):
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     cbf16 = x.dtype == torch.bfloat16
-    if M == 1:
-        splits = _gemv_splits_int8(N, K, x.device)
-    else:
-        splits = _gemm_splits(M, N, K, x.device) if cbf16 else f32_splits(N, K, x.device)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     lib = _build.library("quant_matmul_int8", _SIGS8)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if M > 1 and cbf16:
+        plan = gemm_plan(M, N, K, 0, _sm_count(x.device))
+        ws = torch.empty((plan.splits, M, N), dtype=torch.float32, device=x.device) if plan.splits > 1 else None
+        err = lib.k6_matmul_int8_sm90(
+            x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), M, N, K, plan.nt, plan.stages, plan.splits, plan.per, stream,
+        )
+        _build.check(err, "K6 matmul_int8")
+        matmul_int8.launches += 1
+        return out.reshape(*lead, N)
+    splits = _gemv_splits_int8(N, K, x.device) if M == 1 else f32_splits(N, K, x.device)
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     err = lib.k6_matmul_int8(
         x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits, int(cbf16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        None if ws is None else ws.data_ptr(), M, N, K, splits, int(cbf16), stream,
     )
     _build.check(err, "K6 matmul_int8")
     matmul_int8.launches += 1

@@ -38,6 +38,17 @@ def test_flash_ref_matches_pallas(rng, T):
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-4, atol=1e-4)
 
 
+def test_flash_ref_matches_pallas_head_size_384(rng):
+    """Head size 384, which the JAX gate sends to the Pallas kernel as it does
+    128 (the card's chunked kernels take it): the plain version holds."""
+    q, k, v = _qkv(rng, 1, 2, 128, hs=384)
+    with pltpu.force_tpu_interpret_mode():
+        jo, jlse = jflash._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128, 128)
+    to, tlse = tflash.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("T,S,causal", [(7, 7, True), (3, 12, False)])
 def test_attention_ref_matches_xla(rng, T, S, causal):
     q = rng.normal(size=(2, 3, T, 128)).astype(np.float32)
@@ -74,6 +85,24 @@ def test_flash_kernel_matches_plain(rng, cuda, T):
 @pytest.mark.parametrize("dtype,hs", [("float32", 128), ("bfloat16", 256), ("float32", 256)])
 @pytest.mark.parametrize("T", [65, 200])
 def test_flash_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, T):
+    cd = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, T, hs)).astype(np.float32)).to(cuda, cd) for _ in range(3))
+    before = tflash.flash_attention.launches
+    o, lse = tflash.flash_attention(q, k, v)
+    ro, rlse = tflash.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1 and o.dtype == cd
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+# past head size 256: the chunked kernels (128 output columns a block, the
+# scores summed a 128-column chunk at a time), bf16 and f32
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hs", [384, 512])
+@pytest.mark.parametrize("T", [65, 200])
+def test_flash_kernel_head_sizes_past_256(rng, cuda, dtype, hs, T):
     cd = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, T, hs)).astype(np.float32)).to(cuda, cd) for _ in range(3))
     before = tflash.flash_attention.launches

@@ -95,6 +95,29 @@ def test_decode_attention_ref_int8_matches_pallas(rng, B, S, limits, dtype):
     assert torch.equal(tda.decode_attention(_t(q, tdt), _t(k8), _t(v8), _t(ks), _t(vs), _t(limit)), got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_ref_matches_pallas_head_size_384(rng, dtype, quantized):
+    """Head size 384, which the JAX gate sends to the Pallas kernel (the
+    card's kernel takes it with a fixed block walking the head): the plain
+    version holds, bf16 or int8 cache."""
+    B, H, S, hs, limits = 2, 2, 256, 384, [100, 300]
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    limit = np.asarray(limits, np.int32)
+    if quantized:
+        (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+        jk, jv, jks, jvs = jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks), jnp.asarray(vs)
+        tk, tv, tks, tvs = _t(k), _t(v), _t(ks), _t(vs)
+    else:
+        jk, jv, jks, jvs = jnp.asarray(kf).astype(jdt), jnp.asarray(vf).astype(jdt), None, None
+        tk, tv, tks, tvs = _t(kf, tdt), _t(vf, tdt), None, None
+    want = decode_attention_pallas(jnp.asarray(q).astype(jdt), jk, jv, jks, jvs, jnp.asarray(limit), interpret=True)
+    got = tda.decode_attention_ref(_t(q, tdt), tk, tv, tks, tvs, _t(limit))
+    assert got.shape == (B, H, 1, hs) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **TOL[dtype])
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_attention_ref_matches_masked_attention(rng, quantized):
     """Against what the JAX package runs where it does not dispatch the
@@ -185,3 +208,11 @@ def test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, qua
     assert tda.decode_attention.launches == before + 1 and got.shape == (B, H, 1, hs) and got.dtype == cd
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else TOL_CARD
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# past head size 256: a fixed block of 128 threads walking the head
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hs", [384, 512])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_kernel_head_sizes_past_256(rng, cuda, dtype, hs, quantized):
+    test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, quantized)

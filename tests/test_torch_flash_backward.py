@@ -93,6 +93,21 @@ def test_bwd_ref_matches_pallas_bf16(T):
         np.testing.assert_allclose(g.float().numpy(), _np32(w), **TOL_BF16)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_pallas_head_size_384(dtype):
+    """Head size 384, which the JAX gate sends to the Pallas pair: the plain
+    backward holds, at the tolerances of head size 128."""
+    q, k, v, do = _inputs(7, 1, 2, 128, hs=384)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    o, lse, want = _jax_backward(q, k, v, do, jdt)
+    tq, tk, tv, tdo = _to_torch([q, k, v, do], tdt)
+    to = torch.from_numpy(_np32(o)).to(tdt)  # bf16 values are exact in f32 and back
+    got = tflash.flash_attention_bwd_ref(tq, tk, tv, to, torch.from_numpy(_np32(lse)), tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(), _np32(w), **(TOL_F32 if dtype == "float32" else TOL_BF16))
+
+
 @pytest.mark.parametrize("T", [128, 384])
 def test_function_grads_match_jax_grad(T):
     """jax.grad through the custom_vjp of flash_attention (Pallas forward and
@@ -260,3 +275,12 @@ def test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T):
     again = tflash.flash_attention_backward(q, k, v, o, lse, do)
     for gt, a in zip(got, again):
         assert torch.equal(gt, a)
+
+
+# past head size 256: the chunked kernels (128 output columns a block, the
+# scores and dP summed a 128-column chunk at a time), held as above
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hs", [384, 512])
+@pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200)])
+def test_k10_kernel_head_sizes_past_256(cuda, dtype, hs, B, H, T):
+    test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T)

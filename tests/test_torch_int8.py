@@ -181,3 +181,35 @@ def test_matmul_int8_kernel_f32(rng, cuda, M, K, N):
     torch.cuda.synchronize()
     assert tqm.matmul_int8.launches == before + 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+MS = [2, 7, 8, 9, 127, 128, 129, 200, 256, 257, 512]
+
+
+# the Hopper mainloop (csrc/gemm_sm90.cuh) at every token tile it picks and
+# across token tiles (M > 256), at 7B widths and an odd one (K = 1000: the
+# last k-step is short; N = 1040: the last 128-column tile has 16 columns)
+@pytest.mark.parametrize("K,N", [(4096, 12288), (11008, 4096), (1000, 1040)])
+def test_matmul_int8_kernel_every_token_tile(rng, cuda, K, N):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N).items()}
+    x = torch.from_numpy(rng.normal(size=(max(MS), K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    for M in MS:
+        xm = x[:M].contiguous()
+        before = tqm.matmul_int8.launches
+        got = tqm.matmul_int8(xm, q["qw"], q["qscale"])
+        want = tqm.matmul_int8_ref(xm, q["qw"], q["qscale"])
+        torch.cuda.synchronize()
+        assert tqm.matmul_int8.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"], msg=f"M={M}")
+
+
+# a row's output is the same bits at any M > 1 (the K split comes from N and
+# K alone) and on a rerun
+@pytest.mark.parametrize("K,N", [(4096, 4096), (11008, 4096), (1000, 1040)])
+def test_matmul_int8_kernel_rows_equal_across_m(rng, cuda, K, N):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N).items()}
+    x = torch.from_numpy(rng.normal(size=(512, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    full = tqm.matmul_int8(x, q["qw"], q["qscale"])
+    assert torch.equal(full, tqm.matmul_int8(x, q["qw"], q["qscale"]))
+    for M in (8, 200):
+        assert torch.equal(full[:M], tqm.matmul_int8(x[:M].contiguous(), q["qw"], q["qscale"])), M

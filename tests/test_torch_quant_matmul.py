@@ -79,3 +79,38 @@ def test_matmul_int4_kernel_f32_and_any_group_size(rng, cuda, dtype, gs, M):
     assert tqm.matmul_int4.launches == before + 1 and got.dtype == cd
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+MS = [2, 7, 8, 9, 127, 128, 129, 200, 256, 257, 512]
+
+
+# the Hopper mainloop (csrc/gemm_sm90.cuh) at every token tile it picks and
+# across token tiles (M > 256), at 7B widths and odd ones (N = 1040: the last
+# 128-column tile has 16 columns; N = 1032, rows of N bytes that TMA cannot
+# describe, takes the cp.async copies), group sizes that split (8, 32) or fill
+# (64, 128) a 32-row plane of a k-step
+@pytest.mark.parametrize("K,N,gs", [(4096, 12288, 128), (11008, 4096, 128), (1024, 1040, 32), (1024, 1040, 64),
+                                    (1536, 1040, 128), (1024, 1032, 8)])
+def test_matmul_int4_kernel_every_token_tile(rng, cuda, K, N, gs):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N, gs).items()}
+    x = torch.from_numpy(rng.normal(size=(max(MS), K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    for M in MS:
+        xm = x[:M].contiguous()
+        before = tqm.matmul_int4.launches
+        got = tqm.matmul_int4(xm, q["qw"], q["qscale"], q["qzero"])
+        want = tqm.matmul_int4_ref(xm, q["qw"], q["qscale"], q["qzero"])
+        torch.cuda.synchronize()
+        assert tqm.matmul_int4.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2, msg=f"M={M}")
+
+
+# a row's output is the same bits at any M (the K split comes from N and K
+# alone, ops/quant_matmul.py gemm_plan) and on a rerun
+@pytest.mark.parametrize("K,N,gs", [(4096, 4096, 128), (11008, 4096, 128), (1024, 1040, 32)])
+def test_matmul_int4_kernel_rows_equal_across_m(rng, cuda, K, N, gs):
+    q = {k: v.to(cuda) for k, v in _quantized(rng, K, N, gs).items()}
+    x = torch.from_numpy(rng.normal(size=(512, K)).astype(np.float32)).to(cuda, torch.bfloat16)
+    full = tqm.matmul_int4(x, q["qw"], q["qscale"], q["qzero"])
+    assert torch.equal(full, tqm.matmul_int4(x, q["qw"], q["qscale"], q["qzero"]))
+    for M in (8, 200):
+        assert torch.equal(full[:M], tqm.matmul_int4(x[:M].contiguous(), q["qw"], q["qscale"], q["qzero"])), M

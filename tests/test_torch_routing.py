@@ -88,21 +88,17 @@ def test_quant_route_is_jax_shape_gate(jax_on_tpu, K, N):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_checks_take_what_the_route_sends(dtype):
-    """K4/K10 and K5 take every head size the route sends them up to 256, in
-    bf16 and f32; head size 384, which the route would send too, is refused
-    (ROADMAP queue 2)."""
-    for hs in HEAD_SIZES + [384]:
+    """K4/K10 and K5 take every head size the route sends them, 384 and 512
+    among them, in bf16 and f32; a head size that is no multiple of 128,
+    which the route never sends, is refused."""
+    for hs in HEAD_SIZES + [384, 512]:
         for T in (2, 65, 200):
             if not tattention.flash_route(T, T, hs, True):
                 continue
             t = torch.zeros(2, 3, T, hs, dtype=dtype)
-            if hs > 256:
-                with pytest.raises(ValueError, match="head size"):
-                    tfa.check_flash("K4", t, t, t)
-                continue
             tfa.check_flash("K4", t, t, t)
             tfa.check_flash("K10", t, t, t, t, t)
-        if not tda.decode_route(hs) or hs > 256:
+        if not tda.decode_route(hs):
             continue
         B, H, S = 3, 2, 100
         q = torch.zeros(B, H, 1, hs, dtype=dtype)
@@ -111,6 +107,13 @@ def test_attention_checks_take_what_the_route_sends(dtype):
                          None, None, lim)
         i8, sc = torch.zeros(B, H, S, hs, dtype=torch.int8), torch.zeros(B, H, S, 1)
         tda.check_decode(q, i8, i8, sc, sc, lim)
+    for hs in (64, 96, 192, 320):
+        assert not tattention.flash_route(8, 8, hs, True) and not tda.decode_route(hs)
+        t = torch.zeros(1, 2, 8, hs, dtype=dtype)
+        with pytest.raises(ValueError, match="head size"):
+            tfa.check_flash("K4", t, t, t)
+        with pytest.raises(ValueError, match="head size"):
+            tda.check_decode(torch.zeros(1, 2, 1, hs, dtype=dtype), t, t, None, None, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):  # q and the cache disagree
         tfa.check_flash("K4", torch.zeros(1, 1, 4, 128), torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16),
                         torch.zeros(1, 1, 4, 128))
