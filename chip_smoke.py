@@ -37,7 +37,10 @@ XLA (head size 64, widths that are no multiple of 256) to the plain
 versions. K3 and K6 at M > 1 (prefill) run on one Hopper mainloop (wgmma,
 TMA); each is timed at M = 8, 128 and 200 on the five 7B linears beside
 torch.matmul on the dequantized bf16 weight, and a row's output must be the
-same bits at M = 8 and M = 200 and on a rerun. The launch counters, set to 0 before
+same bits at M = 8 and M = 200 and on a rerun. K4 and K10 in bf16 at head
+size 128 run on Hopper kernels too (wgmma, TMA, an mbarrier ring); K4 is
+also timed at the training shape (B = 1 and 2, T = 2048) beside SDPA's
+causal forward, K10 at B = 2 beside B = 1. The launch counters, set to 0 before
 each path and read after it, prove that the path ran through the kernels.
 Any failure raises and exits nonzero.
 
@@ -402,6 +405,32 @@ def main() -> int:
                           library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)))
                 k4["bound_ms"], k4["bound_by"] = bound_ms(nbytes, ops, tc_peak)
         results["K4"] = dict(k4, max_abs_err=max(errs))
+        # K4 at the training shape (phase 15's micro-batch 2, and 1), where
+        # it launches 2 L A times a step, beside SDPA's causal forward; its
+        # inputs come from a generator of their own, so that the phases after
+        # this one draw what they drew before it was added
+        k4t = {}
+        g4 = torch.Generator().manual_seed(SEED + 1)
+        for B in (1, 2):
+            q, k, v = (torch.randn((B, H, 2048, hs), generator=g4).to(dev, torch.bfloat16) for _ in range(3))
+            o, lse = fa.flash_attention(q, k, v)
+            ro, rlse = fa.flash_attention_ref(q, k, v)
+            err = max_err(o, ro, "K4")
+            max_err(lse, rlse, "K4 lse")
+            nbytes, ops = 4 * B * H * 2048 * hs * 2 + B * H * 2048 * 4, 4 * hs * B * H * 2048 * 2049 // 2
+            b4 = bound_ms(nbytes, ops, tc_peak)
+            ms, lib = time_ms(lambda: fa.flash_attention(q, k, v)), time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            log(f"K4 (B, H, T) = {(B, H, 2048)}: {ms * 1e3:.1f} us, SDPA causal {lib * 1e3:.1f} us, bound "
+                f"{b4[0] * 1e3:.1f} us ({b4[1]}); max err {err:.3g}")
+            if B == 1:
+                k4t = dict(shape=f"B=1 H={H} T=2048 hs={hs}", ms=ms, library_ms=lib, bound_ms=b4[0], bound_by=b4[1],
+                           plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3), max_abs_err=err)
+            else:
+                k4t.update(ms_at_b2=ms, library_ms_at_b2=lib, bound_ms_at_b2=b4[0],
+                           max_abs_err=max(k4t["max_abs_err"], err))
+            del q, k, v, o, lse, ro, rlse
+        results["K4 T2048"] = k4t
 
         # ---- 4. K1 vs plain: one 7B block, S = 2048 ------------------------------
         S = 2048
@@ -1674,6 +1703,32 @@ def main() -> int:
                             for n, e in zip("qkv", fn_errs)))
             del qs, ks, vs, sdpa_out, xs, refs, dq, dd
         del q, k, v, do, o, lse, got, want, again
+    # the training micro-batch, (2, 32, 2048): held and timed beside B = 1
+    # (inputs from a generator of their own, as K4's at T = 2048 in phase 3)
+    g10 = torch.Generator().manual_seed(SEED + 2)
+    q, k, v, do = (torch.randn((2, H, 2048, hs), generator=g10).to(dev, torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        errs10[name] = max(errs10[name], k10_err(g, w, f"K10 {name} (B, H, T) = {(2, H, 2048)}")[0])
+        assert torch.equal(g, a), f"K10 {name} at B = 2: two runs differ (the kernels use no atomics)"
+    nrow, pairs = 2 * H * 2048, 2 * H * 2048 * 2049 // 2
+    b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
+    b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+    dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+    ms_dq = time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do))
+    ms_dkv = time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    log(f"K10 at (B, H, T, hs) = {(2, H, 2048, hs)}: dq {ms_dq * 1e3:.1f} us (bound {b_dq[0] * 1e3:.1f}), dkv "
+        f"{ms_dkv * 1e3:.1f} us (bound {b_dkv[0] * 1e3:.1f}); SDPA causal backward {lib10 * 1e3:.1f} us; held "
+        f"row by row, a second run identical")
+    results["K10dq"].update(ms_at_b2=ms_dq, bound_ms_at_b2=b_dq[0], library_ms_at_b2=lib10)
+    results["K10dkv"].update(ms_at_b2=ms_dkv, bound_ms_at_b2=b_dkv[0], library_ms_at_b2=lib10)
+    del q, k, v, do, o, lse, got, want, again, dq, dd, qs, ks, vs, sdpa_out
     results["K10dq"]["max_abs_err"] = errs10["dq"]
     results["K10dkv"]["max_abs_err"] = max(errs10["dk"], errs10["dv"])
 
@@ -1875,6 +1930,7 @@ def main() -> int:
         f"N = {n_mfu / 1e9:.3f} B (non-embedding + lm_head), recompute not counted; peak memory "
         f"{peak15 / 2**30:.2f} GiB (max_memory_allocated); launches {got}")
     totals["K4"] += got["K4"]
+    totals["K4 T2048"] = got["K4"]  # every K4 launch of training is at T = 2048
     totals["K10dq"], totals["K10dkv"] = got["K10dq"], got["K10dkv"]
     del st15, opt15, batches
     gc.collect()
@@ -2142,11 +2198,14 @@ def main() -> int:
              "K1 LoRA": "fused_layer.cu", "K7 LoRA": "serve_layer.cu", "P1": "probe.cu", "P2": "probe.cu",
              "P3": "probe.cu", "P4": "probe.cu", "P5": "probe.cu"}
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
+    # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
+    hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
+              "K10dkv": "flash_sm90.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
     # that variant (the 128-slot engine, the f32 paths, the head size 256 model, ...)
-    variants = ["K7 B>64", "K9 B>64", "K1 LoRA R8=128", "K1 LoRA R8=128 f32", "K7 LoRA R8=128",
+    variants = ["K4 T2048", "K7 B>64", "K9 B>64", "K1 LoRA R8=128", "K1 LoRA R8=128 f32", "K7 LoRA R8=128",
                 "K7 LoRA R8=128 f32", "K1 f32 norms", "K2 f32 norms", "K7 f32 norms", "K9 f32 norms", "K1 f32",
                 "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
                 "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
@@ -2158,11 +2217,12 @@ def main() -> int:
         kernels.append({
             "name": f"{labels.get(base, base)}{key[len(base):]} "
                     + (sources[base][0] if key == base else sources[base][0].split(" (")[0]), "route": "cuda",
-            "source": f"lit_llama_tpu_torch/csrc/{files[base]}", "replaces": sources[base][1],
+            "source": f"lit_llama_tpu_torch/csrc/{hopper.get(key, files[base])}", "replaces": sources[base][1],
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64") if k in r},
+            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64", "ms_at_b2", "library_ms_at_b2", "bound_ms_at_b2")
+               if k in r},
         })
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,

@@ -4,28 +4,31 @@
 // K4 replaces lit_llama_tpu/ops/flash_attention.py _flash_kernel (entry
 // _flash_forward / flash_attention).
 //
-// Bound on the H100: at prefill lengths (T <= 2048, hs = 128) the causal
-// score and PV products, 2 * 2 * T * T/2 * hs per head, outweigh the bytes
-// (q, k, v read once, o written once); exp and the row bookkeeping run on the
-// CUDA cores beside them.
+// Bound on the H100: at prefill lengths (T <= 2048) the causal score and PV
+// products, 2 * 2 * T * T/2 * hs per head, outweigh the bytes (q, k, v read
+// once, o written once); exp and the row bookkeeping run on the CUDA cores
+// beside them.
 //
-// Design (FlashAttention-2 shape): one block per (q-tile of 64 rows, head,
-// batch), 4 warps, each warp owns 16 query rows. Q stays in registers as
-// mma.sync A fragments; K and V tiles of 64 keys go through shared memory.
+// Which body runs (the entries at the end of the file): bf16 at head size
+// 128, the size of every LLaMA preset, takes the Hopper kernels of
+// flash_sm90.cuh (wgmma, TMA, an mbarrier ring); bf16 at 256 the mma.sync
+// bodies below; past 256 the chunked kernels near the end of the file; f32
+// compute the FFMA bodies.
+//
+// The mma.sync bodies (FlashAttention-2 shape): one block per (q-tile of 64
+// rows, head, batch), 4 warps, each warp owns 16 query rows. K and V tiles of
+// 64 keys go through shared memory, and so does Q (a warp's (16 x 256) f32 O
+// accumulator takes 128 registers, which leaves none for Q's fragments).
 // S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32 accumulate);
 // the running max and sum stay in f32 registers, P is rounded to bf16 for
 // the PV product as the Pallas kernel does. Tiles above the diagonal are
 // never visited; the diagonal tile and the ragged last tile (T % 64 != 0)
-// are masked in the kernel, so T need not be a multiple of the tile.
-//
-// Head size (HS, a template parameter): 128 or 256 in bf16 (past 256, the
-// chunked kernels near the end of the file). At 256 a warp's
-// (16 x 256) f32 O accumulator takes 128 registers, so Q's fragments are read
-// from a shared tile at each k-step instead of held in registers; the
+// are masked in the kernel, so T need not be a multiple of the tile. The
 // backward kernels split their output columns in halves of 128 over the grid
 // (each half recomputes S and dP over the full head), so their accumulators
-// stay (16 x 128). f32 compute takes the FFMA bodies further below.
+// stay (16 x 128).
 
+#include "flash_sm90.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -52,23 +55,6 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// A fragments (16 rows from row0, all HS / 16 k-steps) from global memory
-template <int HS>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[HS / 16][4], const __nv_bfloat16* src, int row0,
-                                            int T, int g, int t) {
-  const int r0 = row0 + g, r1 = row0 + g + 8;
-  const uint32_t* p0 = reinterpret_cast<const uint32_t*>(src + (size_t)r0 * HS);
-  const uint32_t* p1 = reinterpret_cast<const uint32_t*>(src + (size_t)r1 * HS);
-#pragma unroll
-  for (int kk = 0; kk < HS / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = r0 < T ? p0[c / 2] : 0u;
-    a[kk][1] = r1 < T ? p1[c / 2] : 0u;
-    a[kk][2] = r0 < T ? p0[(c + 8) / 2] : 0u;
-    a[kk][3] = r1 < T ? p1[(c + 8) / 2] : 0u;
-  }
-}
-
 // The A fragment of rows row0 + g (+ 8) at k-step kk from a shared tile
 __device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* tile, int ld, int row0, int kk,
                                             int g, int t) {
@@ -79,7 +65,7 @@ __device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* ti
 }
 
 template <int HS>
-constexpr int fwd_smem() { return (2 * BKV + (HS > 128 ? BQ : 0)) * ld_of<HS>() * 2; }
+constexpr int fwd_smem() { return (2 * BKV + BQ) * ld_of<HS>() * 2; }
 
 template <int HS>
 __global__ void __launch_bounds__(THREADS)
@@ -87,11 +73,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int H, int T, float scale) {
   constexpr int KS = HS / 16, NO = HS / 8, LD = ld_of<HS>();
-  constexpr bool QREG = HS == 128;  // Q's fragments in registers, else read from Qs
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;  // [BQ][LD] past head size 128
+  __nv_bfloat16* Qs = Vs + BKV * LD;  // [BQ][LD]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -100,11 +85,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int q0 = qt * BQ + warp * 16;
   const int row0 = q0 + g, row1 = q0 + g + 8;
 
-  uint32_t qa[QREG ? KS : 1][4];
-  if constexpr (QREG)
-    load_a_rows<HS>(qa, q + base, q0, T, g, t);
-  else
-    stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);  // visible after the loop's first sync
+  stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);  // visible after the loop's first sync
 
   float oacc[NO][4];
 #pragma unroll
@@ -125,12 +106,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t af[4];
-      const uint32_t* a = af;
-      if constexpr (QREG)
-        a = qa[kk];
-      else
-        frag_a_smem(af, Qs, LD, warp * 16, kk, g, t);
+      uint32_t a[4];
+      frag_a_smem(a, Qs, LD, warp * 16, kk, g, t);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t* krow = reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD);
@@ -235,11 +212,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 // Design: the FlashAttention-2 recompute scheme in two kernels and no
 // atomics, as the Pallas pair: every output element is summed by one thread
 // in a fixed order, so the result repeats bit for bit from run to run.
-//  - bwd_dot: D = rowsum(dO * O) in f32, one warp per row (JAX computes it in
-//    XLA before its kernels).
+//  - bwd_dot: D = rowsum(dO * O) in f32, one warp per row at head size 128
+//    (JAX computes it in XLA before its kernels), before flash_sm90.cuh's dq.
 //  - bwd_dq: one block per (64-row Q tile i, 128 output columns, head,
-//    batch), 4 warps of 16 rows. Q and dO stay in registers as mma A
-//    fragments (in shared memory past head size 128); a loop over the KV tiles
+//    batch), 4 warps of 16 rows. Q and dO are staged in shared memory; a loop over the KV tiles
 //    j <= i (the TPU's sequential inner grid axis) stages K_j and V_j in
 //    shared memory, recomputes S and dP on mma.sync m16n8k16, P = exp(S *
 //    scale - lse) under the causal and ragged masks, dS = P * (dP - D) in
@@ -251,7 +227,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 //    that P^T and dS^T come out of the accumulators already in the A layout of
 //    the next products. K_j and V_j stay in shared memory for the whole loop
 //    over Q tiles i >= j, which stages Q_i, dO_i, lse_i and D_i beside them
-//    (70 KB of dynamic shared memory at head size 128, 133 KB at 256: K and V
+//    (133 KB of dynamic shared memory at head size 256: K and V
 //    fragments in registers as well would leave no room under 255 registers
 //    for the two (16 x 128) f32 accumulators). dV += bf16(P^T) dO_i, dK +=
 //    bf16(dS^T) Q_i.
@@ -280,7 +256,7 @@ __global__ void flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
 }
 
 template <int HS>
-constexpr int dq_smem() { return (2 * BKV + (HS > 128 ? 2 * BQ : 0)) * ld_of<HS>() * 2; }
+constexpr int dq_smem() { return (2 * BKV + 2 * BQ) * ld_of<HS>() * 2; }
 
 template <int HS>
 __global__ void __launch_bounds__(THREADS)
@@ -289,11 +265,10 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                     const float* __restrict__ lse, const float* __restrict__ dd,
                     __nv_bfloat16* __restrict__ dq, int H, int T, float scale) {
   constexpr int KS = HS / 16, LD = ld_of<HS>(), NSPL = HS / NCOL;
-  constexpr bool QREG = HS == 128;  // Q's and dO's fragments in registers, else read from Qs, Ds
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;  // past head size 128: [BQ][LD] each
+  __nv_bfloat16* Qs = Vs + BKV * LD;  // [BQ][LD] each
   __nv_bfloat16* Ds = Qs + BQ * LD;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -304,14 +279,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int q0 = qt * BQ + warp * 16;
   const int row0 = q0 + g, row1 = q0 + g + 8;
 
-  uint32_t qa[QREG ? KS : 1][4], da[QREG ? KS : 1][4];
-  if constexpr (QREG) {
-    load_a_rows<HS>(qa, q + base, q0, T, g, t);
-    load_a_rows<HS>(da, dout + base, q0, T, g, t);
-  } else {  // visible after the loop's first sync
-    stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);
-    stage_tile<HS>(Ds, dout + base, qt * BQ, T, tid);
-  }
+  stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);  // visible after the loop's first sync
+  stage_tile<HS>(Ds, dout + base, qt * BQ, T, tid);
   const float lse0 = row0 < T ? lse[lbase + row0] : 0.f, lse1 = row1 < T ? lse[lbase + row1] : 0.f;
   const float dd0 = row0 < T ? dd[lbase + row0] : 0.f, dd1 = row1 < T ? dd[lbase + row1] : 0.f;
 
@@ -332,15 +301,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qf[4], df[4];
-      const uint32_t *qa_ = qf, *da_ = df;
-      if constexpr (QREG) {
-        qa_ = qa[kk];
-        da_ = da[kk];
-      } else {
-        frag_a_smem(qf, Qs, LD, warp * 16, kk, g, t);
-        frag_a_smem(df, Ds, LD, warp * 16, kk, g, t);
-      }
+      uint32_t qa_[4], da_[4];
+      frag_a_smem(qa_, Qs, LD, warp * 16, kk, g, t);
+      frag_a_smem(da_, Ds, LD, warp * 16, kk, g, t);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t* krow = reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD);
@@ -850,12 +813,8 @@ template <int HS>
 int mma_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                     const void* lse, void* dd, void* dq, int B, int H, int T, float scale, cudaStream_t st) {
   const int rows = B * H * T;
-  if constexpr (HS == 128)
-    flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
-                                                         (float*)dd, rows);
-  else
-    simt_dot_kernel<__nv_bfloat16, HS><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
-                                                                       (const __nv_bfloat16*)dout, (float*)dd, rows);
+  simt_dot_kernel<__nv_bfloat16, HS><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
+                                                                     (const __nv_bfloat16*)dout, (float*)dd, rows);
   constexpr int smem = dq_smem<HS>();
   int err = set_smem(flash_bwd_dq_kernel<HS>, smem);
   if (err) return err;
@@ -1514,10 +1473,20 @@ int wide_backward_dkv(const void* q, const void* k, const void* v, const void* d
   return (int)cudaGetLastError();
 }
 
-// (dtype, head size) -> the tensor-core kernels (bf16) or the FFMA bodies (f32)
-#define LLT_FLASH(MMA, SIMT, WIDE_FN, ...)                                    \
+// K10's first half on the Hopper kernels: D, then dq
+int sm90_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                     void* dd, void* dq, int B, int H, int T, float scale, cudaStream_t st) {
+  const int rows = B * H * T;
+  flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+                                                       (float*)dd, rows);
+  return fa90::backward_dq(q, k, v, dout, lse, dd, dq, B, H, T, scale, st);
+}
+
+// (dtype, head size) -> the Hopper kernels (bf16, 128), the mma.sync bodies
+// (bf16, 256), the chunked kernels (past 256) or the FFMA bodies (f32)
+#define LLT_FLASH(SM90_FN, MMA, SIMT, WIDE_FN, ...)                           \
   do {                                                                        \
-    if (hs == 128) return cbf16 ? MMA<128>(__VA_ARGS__) : SIMT<128>(__VA_ARGS__); \
+    if (hs == 128) return cbf16 ? SM90_FN : SIMT<128>(__VA_ARGS__);            \
     if (hs == 256) return cbf16 ? MMA<256>(__VA_ARGS__) : SIMT<256>(__VA_ARGS__); \
     if (hs > 256 && hs % WIDE == 0) return WIDE_FN;                           \
     return (int)cudaErrorInvalidValue;                                        \
@@ -1526,10 +1495,11 @@ int wide_backward_dkv(const void* q, const void* k, const void* v, const void* d
 }  // namespace
 
 // q, k, v, o (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs any
-// multiple of 128; lse (B, H, T) f32.
+// multiple of 128; lse (B, H, T) f32. bq: the query rows a block of the
+// Hopper kernel (bf16, hs 128), 64 or 128 (ops/flash_attention.py flash_plan).
 LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int B, int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_forward, simt_forward,
+                                int B, int H, int T, float scale, int cbf16, int hs, int bq, void* stream) {
+  LLT_FLASH(fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, (cudaStream_t)stream), mma_forward, simt_forward,
             wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k, v, o, lse, B, H,
             T, scale, (cudaStream_t)stream);
 }
@@ -1540,7 +1510,8 @@ LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, voi
 LLT_EXPORT int k10_flash_backward_dq(const void* q, const void* k, const void* v, const void* o,
                                      const void* dout, const void* lse, void* dd, void* dq, int B,
                                      int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_backward_dq, simt_backward_dq,
+  LLT_FLASH(sm90_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, scale, (cudaStream_t)stream), mma_backward_dq,
+            simt_backward_dq,
             wide_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k,
             v, o, dout, lse, dd, dq, B, H, T, scale, (cudaStream_t)stream);
 }
@@ -1549,7 +1520,8 @@ LLT_EXPORT int k10_flash_backward_dq(const void* q, const void* k, const void* v
 LLT_EXPORT int k10_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                       const void* lse, const void* dd, void* dk, void* dv, int B,
                                       int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(mma_backward_dkv, simt_backward_dkv,
+  LLT_FLASH(fa90::backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, scale, (cudaStream_t)stream),
+            mma_backward_dkv, simt_backward_dkv,
             wide_backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q,
             k, v, dout, lse, dd, dk, dv, B, H, T, scale, (cudaStream_t)stream);
 }

@@ -6,10 +6,12 @@ versions (counterpart of lit_llama_tpu/ops/flash_attention.py).
 CUDA kernel in ``csrc/flash_attention.cu``. It serves every causal prefill
 with T > 1 on the card whose head size is a multiple of 128
 (``ops.attention.flash_route``), any T (the kernel masks the ragged last
-tile), any head size that is a multiple of 128 (``check_flash``): bf16 on
-the tensor cores, f32 compute on an FFMA body of the same source; past 256
-the kernels split the output's head columns over the grid in chunks of 128
-and recompute the scores once a chunk.
+tile), any head size that is a multiple of 128 (``check_flash``). bf16 at
+head size 128, every LLaMA preset's, runs on the Hopper kernels of
+``csrc/flash_sm90.cuh`` (wgmma, TMA, an mbarrier ring), tiled as
+``flash_plan`` says; bf16 at 256 on mma.sync bodies; f32 compute on FFMA
+bodies of the same source; past 256 the kernels split the output's head
+columns over the grid in chunks of 128 and recompute the scores once a chunk.
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
 ``_flash_dkv_kernel`` (entry ``_flash_backward``) with the two K10 kernels of
@@ -29,6 +31,7 @@ round.
 from __future__ import annotations
 
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -37,12 +40,90 @@ from lit_llama_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 _SIGS = {
-    "k4_flash_forward": [_build.PTR] * 5 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
+    "k4_flash_forward": [_build.PTR] * 5 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 3 + [_build.PTR],
     "k10_flash_backward_dq": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
     "k10_flash_backward_dkv": [_build.PTR] * 8 + [_build.INT] * 3 + [_build.FLOAT] + [_build.INT] * 2 + [_build.PTR],
 }
 HEAD_SIZE_STEP = 128  # the kernels take every head size that is a multiple (csrc/flash_attention.cu)
 DTYPES = (torch.bfloat16, torch.float32)
+H100_SMS = 132
+
+# The Hopper kernels (csrc/flash_sm90.cuh, bf16 at head size 128): rows a
+# tile and ring stages of each kernel, as the source has them
+SM90_HS = 128
+FWD_KV_ROWS, FWD_STAGES = 128, 3  # K4: keys a KV tile under every plan
+DQ_Q_ROWS, DQ_KV_ROWS, DQ_STAGES = 128, 64, 4
+DKV_KV_ROWS, DKV_Q_ROWS, DKV_STAGES = 128, 64, 3
+SM90_MAX_SMEM = 232448  # what a block may use on the H100
+
+
+def _tile_bytes(rows: int) -> int:
+    return rows * SM90_HS * 2
+
+
+def sm90_smem(kernel: str, q_rows: int = 128) -> int:
+    """Dynamic shared memory of a Hopper kernel ("fwd" at ``q_rows`` query
+    rows a block, "dq", "dkv"): 1024 bytes of alignment slack, its tiles and
+    its mbarriers (``fwd_smem``, ``dq_smem``, ``dkv_smem`` in the source)."""
+    if kernel == "fwd":
+        return 1024 + _tile_bytes(q_rows) + FWD_STAGES * 2 * _tile_bytes(FWD_KV_ROWS) + (4 * FWD_STAGES + 1) * 8
+    if kernel == "dq":
+        return 1024 + 2 * _tile_bytes(DQ_Q_ROWS) + DQ_STAGES * 2 * _tile_bytes(DQ_KV_ROWS) + (4 * DQ_STAGES + 1) * 8
+    if kernel == "dkv":
+        stage = 2 * _tile_bytes(DKV_Q_ROWS) + 1024  # Q_i, dO_i, their lse and D rows
+        return 1024 + 2 * _tile_bytes(DKV_KV_ROWS) + DKV_STAGES * stage + (2 * DKV_STAGES + 1) * 8
+    raise ValueError(f"no Hopper flash kernel {kernel!r}")
+
+
+class FlashPlan(NamedTuple):
+    """Which body K4 and K10 run for a shape, and K4's tiling there: ``body``
+    is "sm90" (bf16 at head size 128: csrc/flash_sm90.cuh), "mma" (bf16 at
+    256), "chunked" (past 256) or "ffma" (f32 compute). On "sm90" a K4 block
+    takes ``q_rows`` query rows (a consumer warpgroup for each 64) against
+    KV tiles of ``kv_rows`` keys, with ``smem`` bytes of shared memory; the
+    other bodies have tilings of their own (0 here)."""
+    body: str
+    q_rows: int = 0
+    kv_rows: int = 0
+    smem: int = 0
+
+
+def flash_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = torch.bfloat16) -> FlashPlan:
+    """The body and K4 tiling for (B, H, T, hs, dtype), a pure function of
+    the shapes. On the Hopper kernels a block takes 64 query rows (one
+    consumer warpgroup) where the blocks of 64 rows all fit on the SMs at
+    once, else 128 (two consumer warpgroups, which keep an SM's tensor cores
+    busier). At T = 200 and 32 heads, 128 blocks of 64 rows beat 64 blocks of
+    128, which leave half of 132 SMs idle; at T = 512, 256 blocks of 64 rows
+    take two waves and 128 blocks of 128 rows one. The KV tile is 128 keys
+    under either plan, so a query row runs the same steps of the online
+    softmax, and gets the same bits, whichever plan its shape picks."""
+    if B < 1 or H < 1 or T < 1:
+        raise ValueError(f"flash_plan takes positive shapes, got B={B} H={H} T={T}")
+    if dtype != torch.bfloat16:
+        return FlashPlan("ffma" if hs <= 256 else "chunked")
+    if hs != SM90_HS:
+        return FlashPlan("mma" if hs == 256 else "chunked")
+    q_rows = 64 if B * H * -(-T // 64) <= H100_SMS else 128
+    return FlashPlan("sm90", q_rows, FWD_KV_ROWS, sm90_smem("fwd", q_rows))
+
+
+def sm90_blocks(kernel: str, T: int, q_rows: int = 128) -> List[Tuple[int, range]]:
+    """The grid rows of a Hopper kernel over one head, in launch order
+    (``blockIdx.y``): each block's own tile and the tiles its loop visits, as
+    csrc/flash_sm90.cuh computes them. "fwd" (``q_rows`` query rows a block)
+    and "dq" own a Q tile and visit the KV tiles up to its diagonal, the last
+    Q tile first; "dkv" owns a KV tile of 128 keys and visits the Q tiles of
+    64 rows at or below it, the first KV tile first. Blocks are issued
+    heaviest first."""
+    if kernel in ("fwd", "dq"):
+        rows, kv = (q_rows, FWD_KV_ROWS) if kernel == "fwd" else (DQ_Q_ROWS, DQ_KV_ROWS)
+        n = -(-T // rows)
+        return [(qt, range(-(-min((qt + 1) * rows, T) // kv))) for qt in (n - 1 - y for y in range(n))]
+    if kernel == "dkv":
+        n = -(-T // DKV_KV_ROWS)
+        return [(kt, range(kt * DKV_KV_ROWS // DKV_Q_ROWS, -(-T // DKV_Q_ROWS))) for kt in range(n)]
+    raise ValueError(f"no Hopper flash kernel {kernel!r}")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -84,12 +165,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         return flash_attention_ref(q, k, v)
     _check_rows("K4", q, k, v)
     B, H, T, hs = q.shape
+    plan = flash_plan(B, H, T, hs, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T, 1), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention", _SIGS)
     err = lib.k4_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, T, 1.0 / math.sqrt(hs), int(q.dtype == torch.bfloat16), hs,
+        B, H, T, 1.0 / math.sqrt(hs), int(q.dtype == torch.bfloat16), hs, plan.q_rows,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K4 flash_attention")

@@ -24,9 +24,9 @@ import torch
 
 # kernel name -> group, first match wins
 GROUPS = (
-    ("K4 flash forward", r"flash_fwd_kernel"),
-    ("K10 dq (+ D pre-pass)", r"flash_bwd_dq_kernel|flash_bwd_dot_kernel"),
-    ("K10 dkv", r"flash_bwd_dkv_kernel"),
+    ("K4 flash forward", r"flash_fwd_kernel|fa90::fwd_kernel"),
+    ("K10 dq (+ D pre-pass)", r"flash_bwd_dq_kernel|flash_bwd_dot_kernel|fa90::dq_kernel"),
+    ("K10 dkv", r"flash_bwd_dkv_kernel|fa90::dkv_kernel"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|cutlass|xmma|sm90_|sm80_|cublas"),
 )
 

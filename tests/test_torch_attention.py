@@ -113,3 +113,28 @@ def test_flash_kernel_head_sizes_past_256(rng, cuda, dtype, hs, T):
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(o.float(), ro.float(), **tol)
     torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+
+
+# bf16 at head size 128 runs on the Hopper kernel (csrc/flash_sm90.cuh): ragged
+# T on either side of its 64- and 128-row tiles, B = 2, a rerun, and both tile
+# plans, under which a query row runs the same steps and so gets the same bits
+@pytest.mark.parametrize("T", [65, 127, 129, 200, 2047, 2048])
+def test_flash_sm90_kernel_matches_plain(rng, cuda, T, monkeypatch):
+    B, H = 2, 4
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _qkv(rng, B, H, T))
+    plan = tflash.flash_plan(B, H, T)
+    assert plan.body == "sm90"
+    before = tflash.flash_attention.launches
+    o, lse = tflash.flash_attention(q, k, v)
+    ro, rlse = tflash.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+    again = tflash.flash_attention(q, k, v)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    other = plan._replace(q_rows=192 - plan.q_rows, smem=tflash.sm90_smem("fwd", 192 - plan.q_rows))
+    monkeypatch.setattr(tflash, "flash_plan", lambda *a, **kw: other)
+    o2, lse2 = tflash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), f"plans {plan.q_rows} and {other.q_rows} rows differ"

@@ -284,3 +284,26 @@ def test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T):
 @pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200)])
 def test_k10_kernel_head_sizes_past_256(cuda, dtype, hs, B, H, T):
     test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T)
+
+
+# bf16 at head size 128 runs on the Hopper kernels (csrc/flash_sm90.cuh): ragged
+# T on either side of their 64- and 128-row tiles, B = 2, held row by row as
+# above, and a rerun gives the same bits (no atomics)
+@pytest.mark.parametrize("T", [65, 127, 129, 200, 2047, 2048])
+def test_k10_sm90_kernels_match_plain(cuda, T):
+    B, H = 2, 4
+    q, k, v, do = _to_torch(_inputs(T + 1, B, H, T), torch.bfloat16, cuda)
+    o, lse = tflash.flash_attention(q, k, v)
+    before = (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches)
+    got = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    want = tflash.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        err, need = _card_err(g, w)
+        print(f"K10 {name} at {(B, H, T)}: max err {err:.3g}, row part needed {need:.3g}")
+        assert need <= TOL_CARD["row"], f"{name}: row part {need:.3g} needed, max err {err:.3g}"
+    again = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
