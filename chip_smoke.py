@@ -40,8 +40,17 @@ torch.matmul on the dequantized bf16 weight, and a row's output must be the
 same bits at M = 8 and M = 200 and on a rerun. K4 and K10 in bf16 at head
 size 128 run on Hopper kernels too (wgmma, TMA, an mbarrier ring); K4 is
 also timed at the training shape (B = 1 and 2, T = 2048) beside SDPA's
-causal forward, K10 at B = 2 beside B = 1. The launch counters, set to 0 before
-each path and read after it, prove that the path ran through the kernels.
+causal forward, K10 at B = 2 beside B = 1. In bf16, K5 and K1's attention run
+one split body (cp.async rings, the splits merged in the same launch by the
+last block to arrive) and K1's and K2's int4 matvec runs on the tensor cores;
+K5 is timed at B = 8 beside B = 1 and each of its rows must be the same bits
+alone as among 8, K1 is held at positions on both sides of a split boundary
+and past S. Phase 6c reads phase 6b's serving step on eight prompt seeds,
+without and with LoRA (with LoRA also on the prompts that once failed 6b):
+each kernel against its plain version on the plain path's inputs, layer by
+layer, and both bf16 paths against the plain path in f32 compute. The launch
+counters, set to 0 before each path and read after it, prove that the path
+ran through the kernels.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -82,7 +91,10 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
     # another order: an ulp of an O(10) value
     "K6": (2e-2, 2e-2),
     # K5 rounds every product to bf16 as its plain version does, but takes each
-    # softmax weight relative to its 64-row chunk's maximum before rounding it.
+    # softmax weight relative to another maximum before rounding it (the split
+    # body: the running maximum of a warp's tiles of 16 or 32 rows, as the
+    # Pallas kernel's running maximum over its blocks; the first port's bodies,
+    # f32 and head sizes past 256: the 64-row chunk's), not the row's.
     # With every row of a long cache visible the outputs are small means
     # (|y| <= 0.05 at S = 2048, 0.3 at S = 72), so the absolute part is set from
     # the errors seen there (2.4e-4 to 9.8e-4): a chunk left out of the merge or
@@ -148,6 +160,104 @@ def log(*a):
     print(*a, flush=True)
 
 
+SEEDS_6C = tuple(range(1000, 1008))  # phase 6c: the prompt seeds phase 6b was read at
+
+
+def serving_layer_check(p2, c2, rope, dev, prompts_from, tol, lens=(10, 37, 60), S=64, steps=8):
+    """Phase 6c for one prompt seed: phase 6b's 2-layer serving step (3 slots
+    at their own positions of a 64-row cache, 8 steps), read three ways.
+
+    ``reading_6b``: the kernel path against the plain path, each from its own
+    prefill, max |dlogit| over the steps (phase 6b's reading). ``per_kernel``:
+    on the plain path's inputs, at each of the 2 layers and 8 steps, each
+    kernel against its plain version (K7, or K7 LoRA with the LoRA operand
+    when ``c2.lora``; K8 with its cache write; K9; K3 for the lm_head), the
+    largest error by kernel and the share of its tolerance ``tol[key]``
+    (atol + rtol * |plain|) it used; the caches must be equal.
+    ``distance_to_f32``: both bf16 paths and the plain path in f32 compute on
+    the same weights, prompts and tokens (the bf16 plain path's choice): the
+    max |dlogit| of each bf16 path from the f32 one. The prompts are drawn as
+    phases 6 and 6b draw them, phase 6's 37-token prompt first, then one per
+    slot, from ``prompts_from``: a seed, or a CPU generator in the state
+    phase 6 would find."""
+    import torch
+
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import decode_attention as da
+    from lit_llama_tpu_torch.ops import fused_layer, quant_matmul
+    from lit_llama_tpu_torch.ops.norm import rms_norm
+    from lit_llama_tpu_torch.ops.rope import slot_rope_rows
+
+    seed = prompts_from if isinstance(prompts_from, int) else "of the shifted generator"
+    g = torch.Generator().manual_seed(seed) if isinstance(prompts_from, int) else prompts_from
+    V, D, H, hs = c2.vocab_size, c2.n_embd, c2.n_head, c2.head_size
+    k7 = "K7 LoRA" if c2.lora is not None else "K7"
+    torch.randint(0, V, (1, 37), generator=g)  # phase 6's prompt
+    prompts = [torch.randint(0, V, (1, n), generator=g).to(dev) for n in lens]
+    c32 = c2.replace(compute_dtype="float32")
+    paths = {"kernel": (c2, False), "plain": (c2, True), "f32": (c32, True)}
+    caches = {}
+    first = []
+    for name, (c, plain) in paths.items():
+        caches[name] = llama.init_kv_cache(c, len(lens), S, getattr(torch, c.compute_dtype), device=dev)
+        for b, p in enumerate(prompts):
+            view = [{n: t[b : b + 1] for n, t in kv.items()} for kv in caches[name]]
+            lg = llama.forward(p2, p, c, rope_cache=rope, kv_cache=view, prefill_from_zero=True, plain=plain)[0]
+            if name == "plain":
+                first.append(lg[0, -1].float().argmax())
+    tok = torch.stack(first)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    errs = {k: 0.0 for k in (k7, "K8", "K9", "K3")}
+    share = dict.fromkeys(errs, 0.0)
+    reading, to_f32 = 0.0, {"kernel": 0.0, "plain": 0.0}
+
+    def held(got, want, key):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"6c seed {seed}: {key} non-finite"
+        err = (got - want).abs()
+        atol, rtol = tol[key]
+        errs[key] = max(errs[key], float(err.max()))
+        share[key] = max(share[key], float((err / (atol + rtol * want.abs())).max()))
+
+    for _ in range(steps):
+        lg = {name: llama.forward(p2, tok[:, None], c, rope_cache=rope, slot_pos=pos, kv_cache=caches[name],
+                                  plain=plain)[0][:, -1].float() for name, (c, plain) in paths.items()}
+        reading = max(reading, float((lg["kernel"] - lg["plain"]).abs().max()))
+        for name in to_f32:
+            to_f32[name] = max(to_f32[name], float((lg[name] - lg["f32"]).abs().max()))
+        tok, pos = lg["plain"].argmax(-1), pos + 1
+    # per kernel, on the plain path's inputs: a fresh plain run of the same steps
+    cache = llama.init_kv_cache(c2, len(lens), S, device=dev)
+    for b, p in enumerate(prompts):
+        view = [{n: t[b : b + 1] for n, t in kv.items()} for kv in cache]
+        llama.forward(p2, p, c2, rope_cache=rope, kv_cache=view, prefill_from_zero=True, plain=True)
+    tok = torch.stack(first)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        cos, sin = slot_rope_rows(rope, pos)
+        x2d = p2["wte"][tok].to(torch.bfloat16)
+        for lp, kv in zip(p2["h"], cache):
+            ha = (x2d, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], c2)
+            qkv = fused_layer.block_head_fused_ref(*ha)
+            held(fused_layer.block_head_fused(*ha), qkv, k7)
+            q, k, v = (qkv[:, i * D : (i + 1) * D].reshape(len(lens), H, 1, hs) for i in range(3))
+            kc, vc = kv["k"].clone(), kv["v"].clone()
+            y_k, _, _ = da.decode_attention_write(q, k, v, kc, vc, pos)
+            y, _, _ = da.decode_attention_write_ref(q, k, v, kv["k"], kv["v"], pos)
+            held(y_k, y, "K8")
+            assert torch.equal(kc, kv["k"]) and torch.equal(vc, kv["v"]), f"6c seed {seed}: K8 caches differ"
+            ta = (x2d, y.reshape(len(lens), D), lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"],
+                  lp["mlp"]["c_proj"], c2)
+            x2d = fused_layer.block_tail_fused_ref(*ta)
+            held(fused_layer.block_tail_fused(*ta), x2d, "K9")
+        xn = rms_norm(x2d[:, None], p2["ln_f"])[:, 0]
+        head = (xn, p2["lm_head"]["qw"], p2["lm_head"]["qscale"], p2["lm_head"]["qzero"])
+        logits = quant_matmul.matmul_int4_ref(*head)
+        held(quant_matmul.matmul_int4(*head), logits, "K3")
+        tok, pos = logits.float().argmax(-1), pos + 1
+    return dict(seed=seed, reading_6b=reading, per_kernel=errs, tolerance_share=share, distance_to_f32=to_f32)
+
+
 def main() -> int:
     import gc
 
@@ -174,7 +284,7 @@ def main() -> int:
     from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
     from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
     from lit_llama_tpu_torch.serve import DecodeEngine
-    from lit_llama_tpu_torch.tools import probe_kernels
+    from lit_llama_tpu_torch.tools import devtime, probe_kernels
     from lit_llama_tpu_torch.utils.device import device_peaks
     from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params, random_lora_overlay
 
@@ -183,10 +293,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 1. set-up ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = devtime.card_name_and_power_limit()
     log(smi)
     bw, tc_peak, f32_peak = device_peaks(kind)
     log(f"peaks for {kind}: {bw / 1e12} TB/s, {tc_peak / 1e12} TF/s bf16, {f32_peak / 1e12} TF/s f32")
@@ -205,24 +312,12 @@ def main() -> int:
     def bound_ms(nbytes, ops, peak):
         return max(nbytes / bw, ops / peak) * 1e3, ("bytes" if nbytes / bw >= ops / peak else "operations")
 
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    time_us = devtime.make_timer(dev)
 
     def time_ms(fn, iters=20):
-        """Median device time of fn over iters runs, L2 flushed before each.
-        A spin on the card ahead of the start event keeps it busy while the
-        host enqueues fn, so the host's time in the wrapper is not counted."""
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)  # ~0.5 ms of device cycles
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[len(times) // 2]
+        """Median device time of fn over iters runs, L2 flushed before each
+        (tools/devtime.py)."""
+        return time_us(fn, iters) / 1e3
 
     def max_err(got, want, key):
         got, want = got.float(), want.float()
@@ -440,8 +535,15 @@ def main() -> int:
                        + 2 * D * 2 + 2 * hs * 4 + 2 * D * 2 + 2 * H * hs * 2)
         layer_ops = 2 * (3 * D * D + D * D + 2 * I * D + I * D)
         errs = []
-        for pos in (0, 1000, 2047, 2053):
-            x = randn(1, D)
+        # 2053: past S, the ring wrapped; then 255 and 256: both sides of a split
+        # boundary (256 rows a split at S = 2048, decode_attention.decode_plan),
+        # their rows from a generator of their own, so that the phases after this
+        # one draw what they drew before these were added
+        split = da.decode_plan(S, hs).split_rows
+        g_split = torch.Generator().manual_seed(SEED + 4)
+        for pos in (0, 1000, 2047, 2053, split - 1, split):
+            x = randn(1, D) if pos in (0, 1000, 2047, 2053) else torch.randn(
+                (1, D), generator=g_split).to(dev, torch.bfloat16)
             cos, sin = rope_half_row(rope, min(pos, cfg.block_size - 1), hs)
             kv = {"k": kc0.clone(), "v": vc0.clone()}
             rkv = {"k": kc0.clone(), "v": vc0.clone()}
@@ -455,7 +557,8 @@ def main() -> int:
             ops = layer_ops + 4 * H * visible * hs
             call = lambda: fused_layer.decode_layers_fused(x, [lp0], [kv], cos, sin, pos % S, pos, cfg)
             ms = time_ms(call, 20)
-            log(f"K1 S={S} pos={pos}: {ms * 1e3:.1f} us, bound {bound_ms(nbytes, ops, f32_peak)[0] * 1e3:.1f} us")
+            log(f"K1 S={S} pos={pos}: {ms * 1e3:.1f} us, bound {bound_ms(nbytes, ops, f32_peak)[0] * 1e3:.1f} us, "
+                f"max err {errs[-1]:.3g}")
             if pos == 2047:
                 k1 = dict(shape=f"one 7B block, S={S}, pos={pos} ({visible} slots visible)", ms=ms,
                           plain_ms=time_ms(lambda: fused_layer.decode_layers_fused_ref(
@@ -614,6 +717,16 @@ def main() -> int:
             results[key]["max_abs_err"] = errs8[key]
 
         for tag, pp, cc in (("", params, cfg), (" with LoRA", params_l, lcfg)):
+            if tag:
+                # for phase 6c: the prompts phases 6 and 6b drew here when phase 4
+                # drew two more rows from this generator (their failure on the
+                # LoRA step, 0.398 > 0.341, is read again below). Each draw takes
+                # a fixed count of the generator's stream, so that state is this
+                # one advanced by the two rows
+                g_shifted = torch.Generator()
+                g_shifted.set_state(gcpu.get_state())
+                for _ in range(2):
+                    torch.randn((1, D), generator=g_shifted)
             # ---- 6. full width, depth cut to 2 blocks: kernel path vs plain path ------
             p2 = dict(pp, h=pp["h"][:2])
             c2 = cc.replace(n_layer=2)
@@ -663,6 +776,26 @@ def main() -> int:
             log(f"2-layer 7B-width serving step{tag} (K7, K8, K9, K3), kernel vs plain path, slots at {lens6} "
                 f"of S={S6}: 8 steps max |dlogit| {max(errs):.4g}")
             del caches, lg
+
+        # ---- 6c. phase 6b's serving step on the prompt seeds it was read at, without
+        # and with LoRA (and with LoRA on the prompts that failed it once): the
+        # reading, each kernel against its plain version on the plain path's inputs
+        # (layer by layer, step by step, each within its own TOL), and both bf16
+        # paths' distance from the plain path in f32 compute -------------------------
+        six_c = {}
+        for tag, pp, cc, draws in (("", params, cfg, SEEDS_6C), (" with LoRA", params_l, lcfg, SEEDS_6C + (g_shifted,))):
+            p2, c2 = dict(pp, h=pp["h"][:2]), cc.replace(n_layer=2)
+            six_c[tag.strip() or "without LoRA"] = rs = [serving_layer_check(p2, c2, rope, dev, d, TOL) for d in draws]
+            for r in rs:
+                log(f"6c{tag} seed {r['seed']}: 6b reading {r['reading_6b']:.4g}; per kernel max err "
+                    + ", ".join(f"{k} {v:.3g} ({r['tolerance_share'][k]:.2f} of TOL)"
+                                for k, v in r["per_kernel"].items())
+                    + f"; from the f32 plain path: kernel {r['distance_to_f32']['kernel']:.4g}, "
+                    f"plain {r['distance_to_f32']['plain']:.4g}")
+                bad = [k for k, v in r["tolerance_share"].items() if v > 1.0]
+                assert not bad, f"6c{tag} seed {r['seed']}: {bad} beyond their tolerance on the plain path's inputs"
+        entry_inputs["serving_6c"] = six_c
+        del p2, c2
 
         # ---- 7. the full model: a few greedy requests ------------------------------
         full = {}
@@ -1473,6 +1606,17 @@ def main() -> int:
                     shape=f"B={B} H={H} S={S5} hs={hs}, {cache_name} cache, every row visible", ms=ms5,
                     plain_ms=time_ms(lambda: da.decode_attention_ref(q5, k5, v5, ks5, vs5, every_row), 3),
                     library_ms=lib5, bound_ms=b5[0], bound_by=b5[1])
+            if B == 8:
+                results[key].update(ms_at_b8=ms5, library_ms_at_b8=lib5, bound_ms_at_b8=b5[0])
+                # a row's output is the same bits alone (B = 1) as among 8 rows: the
+                # splits depend on S and hs alone
+                lim = torch.tensor(limit_sets[0], dtype=torch.int32, device=dev)
+                y8 = da.decode_attention(q5, k5, v5, ks5, vs5, lim)
+                for b in range(B):
+                    one = [t if t is None else t[b : b + 1].contiguous() for t in (q5, k5, v5, ks5, vs5)]
+                    assert torch.equal(da.decode_attention(*one, lim[b : b + 1]), y8[b : b + 1]), \
+                        f"K5 {cache_name}: row {b} (limit {limit_sets[0][b]}) differs at B = 1 and B = 8"
+                entry_inputs.setdefault("k5_rows_equal_at_b1_and_b8", []).append(cache_name)
             del kd, vd
         del kf, vf, kq, vq, ksc, vsc, k5, v5, ks5, vs5
     for key in errs5:
@@ -2200,7 +2344,7 @@ def main() -> int:
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
-              "K10dkv": "flash_sm90.cuh"}
+              "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
@@ -2221,7 +2365,8 @@ def main() -> int:
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64", "ms_at_b2", "library_ms_at_b2", "bound_ms_at_b2")
+            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64", "ms_at_b2", "library_ms_at_b2", "bound_ms_at_b2",
+                                 "ms_at_b8", "library_ms_at_b8", "bound_ms_at_b8")
                if k in r},
         })
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"

@@ -1,5 +1,6 @@
 // Single-query attention over a ring cache in chunks of 64 slots, shared by
-// K1 (one stream) and K8 (one query per serving slot): a block of 128
+// K8 (one query per serving slot) and K1 in f32 compute (in bf16 K1 runs the
+// split body of decode_sm90.cuh): a block of 128
 // threads takes one (head, chunk), writes the chunk's running max, sum and
 // unnormalised output; a second pass merges the chunks of a head.
 #pragma once

@@ -50,3 +50,63 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// ---- Hopper's asynchronous copies and programmatic dependent launch -------
+// A 16-byte (or 4-byte) cp.async into shared memory; src_bytes = 0 fills the
+// destination with zeros (a row or column past the tensor's end).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Programmatic dependent launch: a kernel launched with launch_pdl may start
+// while the kernel before it on the stream runs. It reads nothing that kernel
+// writes, and writes nothing, before pdl_wait() returns (the kernel before it
+// has finished and its writes are visible); pdl_trigger() lets the kernel
+// after it start. Both are no-ops in a kernel launched the usual way. A
+// kernel triggers after its own wait, so at most one kernel waits ahead of
+// the one that runs, holding its blocks' registers and shared memory.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// Once per kernel and device (ready: the call site's flags by device): the
+// largest dynamic shared memory a block may take, and the largest
+// shared-memory carveout of the SM, so that as many blocks fit as the shared
+// memory allows (the CUDA runtime may otherwise pick a smaller carveout).
+template <typename K>
+int allow_smem(int* ready, K kernel) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || ready[dev & 15]) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)  // 227 KB a block, its static shared memory included
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024 - (int)fa.sharedSizeBytes);
+  ready[dev & 15] = e == cudaSuccess;
+  return (int)e;
+}
+
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}

@@ -29,6 +29,7 @@
 // f32 compute (q.dtype f32): T = float below, the same kernel on an f32 cache.
 
 #include "attention_chunk.cuh"
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -116,19 +117,24 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
 // B = 1, S = 2048 in bf16 and 17.3 MB in int8 with its scales; the
 // arithmetic is four operations per cache element.
 //
-// Design: the Pallas kernel walks the cache blocks of a head in order and
-// carries (m, l, acc) in scratch; at B = 1 that order would leave all but 32
-// blocks idle here, so every (head, 64-row chunk, batch row) is a block of
-// its own, writes its chunk's (m, l, acc) and a second kernel merges the
-// chunks of a head (the partial layout and the merge are K1's and K8's,
-// attention_chunk.cuh). limit is read from device memory: the grid covers
-// every chunk, and a block whose chunk lies wholly past limit[b] exits at
-// once, so a step costs no host sync. The arithmetic is the Pallas kernel's:
+// Design: in bf16 compute at head size 128 or 256 (every preset), the split
+// body of decode_sm90.cuh (its ROUNDED arithmetic): the cache of a (batch
+// row, head) in at most 8 splits whose size depends on S alone, a block of
+// four warps a split streaming k and v through cp.async rings, the splits
+// merged in the same launch by the last block to arrive. The rest (f32
+// compute, head sizes past 256) keeps the first port's bodies below: the
+// Pallas kernel walks the cache blocks of a head in order and carries
+// (m, l, acc) in scratch; at B = 1 that order would leave all but 32 blocks
+// idle here, so every (head, 64-row chunk, batch row) is a block of its own,
+// writes its chunk's (m, l, acc) and a second kernel merges the chunks of a
+// head (the partial layout and the merge are K8's, attention_chunk.cuh).
+// limit is read from device memory: the grid covers every split or chunk,
+// and a block whose rows lie wholly past limit[b] exits at once, so a step
+// costs no host sync. The arithmetic is the Pallas kernel's:
 // each product k * q and w * v is rounded to bf16 (the cache's compute dtype)
 // and summed in f32; the k scale multiplies the f32 score, the v scale the
 // f32 softmax weight before it is rounded; l is floored at 1e-30, so a row
 // with limit < 0 gives zeros.
-// Simple first: v is read one element per thread and row, no cp.async ring.
 //
 // f32 compute (q.dtype f32): the products and the softmax weights stay f32
 // (no rounding), on an f32 cache or an int8 one. Head size 128 or 256 (a
@@ -442,23 +448,30 @@ int launch_decode_attn_wide_c(const void* q, int q_stride, const void* k, const 
 // k, v (B, H, S, hs) contiguous, of q's dtype (quantized == 0; ks, vs
 // ignored) or int8 with ks, vs (B, H, S) f32. hs any multiple of 128. limit (B) int32
 // on the device: row s is visible to batch row b iff s <= limit[b]. part:
-// scratch of B * H * ceil(S / 64) * (hs + 2) floats. y (B, H, hs) contiguous,
-// of q's dtype.
+// scratch of B * H * dsm90::n_splits(S) * (hs + 2) floats (bf16 at head size
+// 128 or 256) or B * H * ceil(S / 64) * (hs + 2) (the rest); counter: B * H
+// int32, zeros, left zeros (bf16 at 128 or 256; else unused). y (B, H, hs)
+// contiguous, of q's dtype.
 LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, const void* v,
                                    const void* ks, const void* vs, const void* limit, void* part,
-                                   void* y, int B, int H, int S, int quantized, int cbf16, int hs,
-                                   void* stream) {
+                                   void* counter, void* y, int B, int H, int S, int quantized, int cbf16,
+                                   int hs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+#define LLT_K5_SPLIT(CT, HS) \
+  return dsm90::launch_k5<CT, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, st)
+  if (cbf16 && hs == 128) {
+    if (quantized) LLT_K5_SPLIT(int8_t, 128);
+    LLT_K5_SPLIT(__nv_bfloat16, 128);
+  }
+  if (cbf16 && hs == 256) {
+    if (quantized) LLT_K5_SPLIT(int8_t, 256);
+    LLT_K5_SPLIT(__nv_bfloat16, 256);
+  }
+#undef LLT_K5_SPLIT
 #define LLT_K5(QT, HS) \
   return launch_decode_attn_c<QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, quantized, st)
-  if (hs == 128) {
-    if (cbf16) LLT_K5(__nv_bfloat16, 128);
-    LLT_K5(float, 128);
-  }
-  if (hs == 256) {
-    if (cbf16) LLT_K5(__nv_bfloat16, 256);
-    LLT_K5(float, 256);
-  }
+  if (hs == 128 && !cbf16) LLT_K5(float, 128);
+  if (hs == 256 && !cbf16) LLT_K5(float, 256);
 #undef LLT_K5
   if (hs > 256 && hs % 128 == 0)
     return cbf16 ? launch_decode_attn_wide_c<__nv_bfloat16>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,

@@ -12,37 +12,34 @@
 //
 // Design: the Pallas kernel ran the block as one program with manual DMA; on
 // the card one entry launches a fixed sequence of kernels, so each can spread
-// over all SMs:
-//   1. gemv_int4 with an RMSNorm prologue (rms_1) -> qkv, f32
-//   2. attn_partial: per (head, 64-slot chunk) block: half-basis RoPE of q
-//      (and, in the chunk holding write_pos, of k, with the bf16 k/v row
-//      write), then softmax over the chunk's slots <= limit
-//   3. attn_combine: merges the chunks' (max, sum, acc) per head -> y, f32
-//   4. gemv_int4 with a residual epilogue (attn c_proj) -> xs, f32
-//   5. gemv_int4 with an RMSNorm prologue (rms_2) and a SiLU(gate) * up
-//      epilogue (c_fc12: a warp owns columns j and I + j) -> gg, f32
-//   6. gemv_int4 with a residual epilogue (mlp c_proj) -> xs, f32, and the
+// over all SMs. In bf16 compute (the main path) five launches, chained by
+// programmatic dependent launch (each kernel asks for the weights or cache
+// rows it needs before it waits on the kernel before it, csrc/common.cuh):
+//   1. the int4 matvec with an RMSNorm prologue (rms_1) -> qkv, f32
+//   2. the split attention (decode_sm90.cuh, its F32 arithmetic): per
+//      (split, head) block, half-basis RoPE of q (and, in the split holding
+//      write_pos, of k, with the bf16 k/v row write before that split is
+//      read), the online softmax over the split's slots <= limit, and the
+//      merge of the splits by the last block of a head to arrive -> y, f32
+//   3. the matvec with a residual epilogue (attn c_proj) -> xs, f32
+//   4. the matvec with an RMSNorm prologue (rms_2) and a SiLU(gate) * up
+//      epilogue (c_fc12: a block owns gate columns j.. j + 7 and up I + j..)
+//      -> gg, f32
+//   5. the matvec with a residual epilogue (mlp c_proj) -> xs, f32, and the
 //      bf16 output row on the last block of an entry
-// gemv_int4 reads the decode layout that prepare_fused_params adds: each
+// The matvec (gemv_sm90.cuh: tensor cores, a cp.async ring, its design noted
+// there) reads the decode layout that prepare_fused_params adds: each
 // column's packed bytes contiguous (qw_t (N, K/2)) and its scale/zero rows
-// (qscale_t, qzero_t (N, G)). A warp owns two columns and walks K in 16-byte
-// loads (the loop over them unrolled four times), so any N spreads over the
-// whole card without a cross-block reduction, and the column sums end in one
-// warp shuffle reduction. Each block first writes the
-// bf16-rounded, optionally normalised input to shared memory as f32, with its
-// f32 group sums. The nibble products run in f32 on the bf16-rounded input
+// (qscale_t, qzero_t (N, G)). The nibble products take the bf16-rounded input
 // (exact, as the MXU products of the Pallas kernel), the zero-point term
 // comes from f32 group sums of the unrounded input, and the residual stays
-// f32 inside the block, as in the Pallas kernel. Nibbles become floats by the
-// exponent trick (no integer-to-float conversions, which run at a quarter
-// rate). The blocks are persistent (two per SM), so the prologue is paid
-// once per block. (Measured on the H100 against this form, in one call: an
-// L2 prefetch of each warp's next columns, loads batched explicitly ahead of
-// their products, and three blocks per SM were each slower.)
-// attn_partial gives each pair of threads one cache slot of its 64-slot
-// chunk for the score (8 independent 16-byte loads of half the k row each)
-// and each thread one head element for the weighted sum of v.
-// Simple first: no cp.async or TMA pipeline; later work.
+// f32 inside the block, as in the Pallas kernel.
+// f32 compute keeps the first port's six launches: the FFMA matvec of
+// gemv_int4.cuh (a warp owns two columns and walks K in 16-byte loads;
+// nibbles become floats by the exponent trick; persistent blocks, two per
+// SM), and attn_partial (a block per (head, 64-slot chunk): a pair of
+// threads scores a slot, a thread owns a head element of the v sum) with
+// attn_combine merging the chunks (attention_chunk.cuh).
 //
 // The LoRA operand (the Pallas kernel's _add_lora_delta after the QKV
 // matvec: qkv += (h @ lora_af) @ lora_bf in f32, h the unrounded normed row)
@@ -66,7 +63,8 @@
 // 3.35 TB/s); the two launches' latency is most of their time.
 
 #include "attention_chunk.cuh"
-#include "gemv_int4.cuh"
+#include "decode_sm90.cuh"
+#include "gemv_sm90.cuh"
 
 namespace {
 
@@ -212,8 +210,9 @@ int launch_lora(const void* x_in, int in_bf16, const void* rms1, int norm_bf16, 
 // bf16 (else f32): the matvecs' inputs are rounded to it, the caches (H, S,
 // 128) and x_out (D) hold it. rms1/rms2 (D) bf16 (norm_bf16 = 1) or f32.
 // Weights in the decode layout (qw_t, qscale_t, qzero_t per linear).
-// Scratch: qkv (3D), part (H * ceil(S/64) * 130), y (D), gg (I) f32; xs (D)
-// f32 holds the residual on return. x_out is written when not null. With la
+// Scratch: qkv (3D), part (H * ceil(S/64) * 130 floats in f32 compute,
+// H * dsm90::n_splits(S) * 130 in bf16), y (D), gg (I) f32; counter (H)
+// int32, zeros, left zeros (bf16); xs (D) f32 holds the residual on return. x_out is written when not null. With la
 // not null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16 (lora_bf16 = 1)
 // or f32, R8 % 8 == 0, updates qkv before RoPE; lora_part is its scratch,
 // (ceil(D / 256), R8) f32.
@@ -223,7 +222,7 @@ LLT_EXPORT int k1_decode_layer(const void* x_in, int in_bf16, const void* rms1, 
                                const void* cp_z, const void* f12_w, const void* f12_s,
                                const void* f12_z, const void* mp_w, const void* mp_s,
                                const void* mp_z, void* kc, void* vc, const void* cosf,
-                               const void* sinf, void* qkv, void* part, void* y, void* xs, void* gg,
+                               const void* sinf, void* qkv, void* part, void* counter, void* y, void* xs, void* gg,
                                void* x_out, const void* la, const void* lb, void* lora_part, int R8,
                                int lora_bf16, int D, int I, int H, int S, int gs, int write_pos,
                                int limit, void* stream) {
@@ -236,18 +235,19 @@ LLT_EXPORT int k1_decode_layer(const void* x_in, int in_bf16, const void* rms1, 
                     : launch_lora<float>(x_in, in_bf16, rms1, norm_bf16, la, lb, lora_part, R8, D, qkv, st);
     if (err) return err;
   }
-  const int nch = (limit < S - 1 ? limit : S - 1) / CHUNK + 1;
-  const float scale = (float)(1.0 / sqrt((double)HS));
-  if (cbf16)
-    attn_partial_kernel<__nv_bfloat16><<<dim3(H, nch), 128, 0, st>>>(
-        (const float*)qkv, (const float*)cosf, (const float*)sinf, (__nv_bfloat16*)kc, (__nv_bfloat16*)vc,
-        (float*)part, D, S, write_pos, limit, scale);
-  else
+  const int last = limit < S - 1 ? limit : S - 1;
+  if (cbf16) {
+    err = dsm90::launch_k1_attn((const float*)qkv, (const float*)cosf, (const float*)sinf, (__nv_bfloat16*)kc,
+                                (__nv_bfloat16*)vc, (float*)part, (int*)counter, (float*)y, D, H, S, write_pos, last,
+                                st);
+  } else {
+    const int nch = last / CHUNK + 1;
     attn_partial_kernel<float><<<dim3(H, nch), 128, 0, st>>>(
         (const float*)qkv, (const float*)cosf, (const float*)sinf, (float*)kc, (float*)vc, (float*)part, D,
-        S, write_pos, limit, scale);
-  attn_combine_kernel<<<H, 128, 0, st>>>((const float*)part, (float*)y, nch);
-  err = (int)cudaGetLastError();
+        S, write_pos, limit, (float)(1.0 / sqrt((double)HS)));
+    attn_combine_kernel<<<H, 128, 0, st>>>((const float*)part, (float*)y, nch);
+    err = (int)cudaGetLastError();
+  }
   if (err) return err;
   err = launch_gemv(Gemv{y, 0, nullptr, 0, cp_w, cp_s, cp_z, D, D, gs, EPI_RESIDUAL, x_in, in_bf16, cbf16,
                          xs, nullptr}, st);

@@ -1,7 +1,8 @@
-// The int4 matvec of K1 and K2 (and of the small-N probe): one row x (K) times
-// dequant(w) from the column-major decode layout, with an optional RMSNorm
-// prologue and a residual or SiLU(gate) * up epilogue. The design is noted in
-// fused_layer.cu.
+// The int4 matvec of K1 and K2 (and of the small-N probe) in f32 compute, on
+// the CUDA cores (FFMA): one row x (K) times dequant(w) from the column-major
+// decode layout, with an optional RMSNorm prologue and a residual or
+// SiLU(gate) * up epilogue. The design is noted in fused_layer.cu; bf16
+// compute runs on the tensor cores (gemv_sm90.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -58,16 +59,16 @@ __device__ __forceinline__ void task_cols(int t, int N, int epi, int* col, bool*
 
 // out = [rms_norm](x) @ dequant(w) with an epilogue, from the column-major
 // decode layout: wt (N, K/2) u8, st/zt (N, G) f32. x is (K) f32 or bf16, the
-// norm weight bf16 or f32 (norm_bf16), applied in f32. cbf16: the compute
-// dtype is bf16, so the products take the input rounded to bf16 and out_c is
-// bf16; else the input stays f32 and out_c is f32.
+// norm weight bf16 or f32 (norm_bf16), applied in f32. f32 compute: the
+// products take the input as it is, and out_f32 and out_c (either may be
+// null) are f32.
 // EPI_SWIGLU: N = 2I, warp j computes columns j and I + j, out has I.
 template <int GS>
 __global__ void __launch_bounds__(GEMV_THREADS, GEMV_BLOCKS_PER_SM)
 gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict__ norm_w,
                  int norm_bf16, float eps, const uint8_t* __restrict__ wt,
                  const float* __restrict__ st, const float* __restrict__ zt, int K, int N, int epi,
-                 const void* res, int res_bf16, int cbf16, float* out_f32, void* out_c) {
+                 const void* res, int res_bf16, float* out_f32, float* out_c) {
   extern __shared__ __align__(16) float xs_s[];  // [K] input as the products take it, then gx [G]
   const int G = K / GS, Gh = G / 2, Kh = K / 2;
   float* gx = xs_s + K;
@@ -79,7 +80,7 @@ gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict
   const int ntasks = epi == EPI_SWIGLU ? N / 2 : (N + CPW - 1) / CPW;
   const int stride = gridDim.x * GEMV_WARPS;
 
-  // prologue: optional RMSNorm scale, bf16-rounded input, f32 group sums
+  // prologue: optional RMSNorm scale, the input, f32 group sums
   float r = 1.f;
   if (norm_w != nullptr) {
     float ss = 0.f;
@@ -104,7 +105,7 @@ gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict
       const int k = g * GS + i;
       float h = load_in(x, in_bf16, k);
       if (norm_w != nullptr) h = h * r * load_in(norm_w, norm_bf16, k);
-      xs_s[k] = cbf16 ? round_bf16(h) : h;
+      xs_s[k] = h;
       s += h;
     }
     s = warp_sum(s);
@@ -157,12 +158,7 @@ gemv_int4_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict
           float v = acc[c];
           if (epi == EPI_RESIDUAL) v += load_in(res, res_bf16, col[c]);
           if (out_f32 != nullptr) out_f32[col[c]] = v;
-          if (out_c != nullptr) {
-            if (cbf16)
-              reinterpret_cast<__nv_bfloat16*>(out_c)[col[c]] = __float2bfloat16_rn(v);
-            else
-              reinterpret_cast<float*>(out_c)[col[c]] = v;
-          }
+          if (out_c != nullptr) out_c[col[c]] = v;
         }
       }
     }
@@ -208,12 +204,13 @@ int launch_gemv_gs(const Gemv& a, cudaStream_t stream) {
   const int blocks = need < cap ? need : cap;
   gemv_int4_kernel<GS><<<blocks, GEMV_THREADS, smem, stream>>>(
       a.x, a.in_bf16, a.norm_w, a.norm_bf16, 1e-5f, (const uint8_t*)a.wt, (const float*)a.st,
-      (const float*)a.zt, K, N, epi, a.res, a.res_bf16, a.cbf16, (float*)a.out_f32, a.out_c);
+      (const float*)a.zt, K, N, epi, a.res, a.res_bf16, (float*)a.out_f32, (float*)a.out_c);
   return (int)cudaGetLastError();
 }
 
-// gs in {64, 128, 256} (checked by the Python wrappers)
-int launch_gemv(const Gemv& a, cudaStream_t stream) {
+// The FFMA body (f32 compute; gemv_sm90.cuh's launch_gemv picks it). gs in
+// {64, 128, 256} (checked by the Python wrappers)
+int launch_gemv_ffma(const Gemv& a, cudaStream_t stream) {
   switch (a.gs) {
     case 64:
       return launch_gemv_gs<64>(a, stream);

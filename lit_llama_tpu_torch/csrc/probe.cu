@@ -6,15 +6,15 @@
 // the remote compiler fail. Here each is one small CUDA kernel that computes
 // the same function, so a probe run says whether the construct builds,
 // launches and agrees with its plain PyTorch version on this card. P4 runs
-// the int4 matvec device code of K1 (gemv_int4.cuh) at N = 256, fewer
-// columns than one wave of its blocks has warps.
+// the int4 matvec of K1 in bf16 (gemv_sm90.cuh) at N = 256: 16 blocks of 16
+// columns.
 //
 // Bound: launch latency; the largest probe moves 128 KB.
 //
 // Shapes (the JAX script's): H = 4 heads, ROWS = 64 slots a head, HS = 128;
 // P4 K = 512, N = 256, group size 128, 8 rows; P5 (8, 512).
 
-#include "gemv_int4.cuh"
+#include "gemv_sm90.cuh"
 
 namespace {
 

@@ -14,7 +14,10 @@ over. It takes head sizes that are multiples of 128 (``decode_route``, the
 shape condition of JAX's ``use_decode_attention``); the model sends other
 head sizes to the plain version, as JAX runs ``attention_xla`` there. The
 kernel takes bf16 or f32 compute and every head size that is a multiple of
-128 (``check_decode``);
+128 (``check_decode``); in bf16 at head size 128 or 256 it runs the split body
+of csrc/decode_sm90.cuh, whose splits ``decode_plan`` gives from S and hs
+alone (a row's bits do not depend on the batch), with a scratch and arrival
+counters the wrapper owns (``k5_scratch``, ``arrival_counters``);
 the plain version takes any float dtype and head size. Products are rounded
 to the cache's compute dtype (``q.dtype``) and summed in f32, as in the Pallas
 kernel.
@@ -38,21 +41,84 @@ softmax are f32, and the probabilities stay f32 for the weighted sum.
 from __future__ import annotations
 
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from lit_llama_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-CHUNK = 64  # cache rows per attention block (csrc/attention_chunk.cuh)
+CHUNK = 64  # cache rows per attention block of the first port's bodies (csrc/attention_chunk.cuh)
+# the split body (csrc/decode_sm90.cuh): a split is a multiple of SPLIT_QUANTUM
+# rows, at most MAX_SPLITS a (batch row, head); a block of SPLIT_WARPS warps,
+# each streaming tiles of SPLIT_LOADS 16-byte pieces a lane through a ring of
+# SPLIT_STAGES tiles
+SPLIT_QUANTUM, MAX_SPLITS = 64, 8
+SPLIT_WARPS, SPLIT_LOADS, SPLIT_STAGES = 4, 8, 2
+SPLIT_HEAD_SIZES = (128, 256)
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {  # both entries of csrc/decode_attention.cu
     "k8_decode_attention_write": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_I] * 4 + [_P],
-    "k5_decode_attention": [_P, _I] + [_P] * 7 + [_I] * 6 + [_P],
+    "k5_decode_attention": [_P, _I] + [_P] * 8 + [_I] * 6 + [_P],
 }
 HEAD_SIZE_STEP = 128  # K5 takes every head size that is a multiple; K8 takes 128
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+class DecodePlan(NamedTuple):
+    """How the split body cuts a (batch row, head)'s cache: ``split_rows``
+    rows a split (a block), ``n_splits`` splits."""
+
+    split_rows: int
+    n_splits: int
+
+
+def decode_plan(S: int, hs: int) -> DecodePlan:
+    """The splits of the single-query attention of K5 and K1 on the card
+    (``split_rows`` / ``n_splits`` in csrc/decode_sm90.cuh): a pure function
+    of the cache length and the head size, never of the batch or the limit,
+    so a row's output has the same bits at any B. At most ``MAX_SPLITS``
+    splits, each a multiple of ``SPLIT_QUANTUM`` rows."""
+    if S < 1 or hs not in SPLIT_HEAD_SIZES:
+        raise ValueError(f"the split body takes S >= 1 and a head size in {SPLIT_HEAD_SIZES}, got S={S} hs={hs}")
+    rows = -(-(-(-S // MAX_SPLITS)) // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    return DecodePlan(rows, -(-S // rows))
+
+
+def uses_split_body(hs: int, dtype: torch.dtype) -> bool:
+    """Whether K5 (and K1's attention) run the split body: bf16 compute at
+    head size 128 or 256; f32 and wider heads keep the first port's bodies."""
+    return dtype == torch.bfloat16 and hs in SPLIT_HEAD_SIZES
+
+
+def k5_scratch(B: int, H: int, S: int, hs: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(floats of the partial scratch, int32 arrival counters) K5 takes."""
+    if uses_split_body(hs, dtype):
+        return B * H * decode_plan(S, hs).n_splits * (hs + 2), B * H
+    return B * H * (-(-S // CHUNK)) * (hs + 2), 0
+
+
+_counters: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def arrival_counters(n: int, device) -> torch.Tensor:
+    """A persistent int32 buffer of at least ``n`` zeros on ``device``, for
+    the current stream: the split body's arrival counters. Each launch
+    leaves them at zero (the last block of a (batch row, head) resets its
+    own), so the launches of one stream, which run in order, share a buffer;
+    launches on two streams would count into each other's, so each stream has
+    its own. It grows (a new zeroed buffer) when a launch needs more."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+    key = (device.type, device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def decode_route(hs: int) -> bool:
@@ -179,14 +245,18 @@ def decode_attention(q, k, v, ks, vs, limit):
     _on_card("K5", q, k, v, ks, vs, limit)
     B, H, S, hs = k.shape
     quantized = ks is not None
-    part = torch.empty(B * H * (-(-S // CHUNK)) * (hs + 2), dtype=torch.float32, device=q.device)
+    if uses_split_body(hs, q.dtype) and (q.data_ptr() % 16 or q_stride % 8):
+        raise ValueError("K5 takes q 16-byte aligned, each batch row's at a multiple of 8 elements")
+    n_part, n_count = k5_scratch(B, H, S, hs, q.dtype)
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    counter = arrival_counters(n_count, q.device) if n_count else None
     y = torch.empty((B, H, 1, hs), dtype=q.dtype, device=q.device)
     lib = _build.library("decode_attention", _SIGS)
     err = lib.k5_decode_attention(
         q.data_ptr(), q_stride, k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
-        limit.data_ptr(), part.data_ptr(), y.data_ptr(), B, H, S, int(quantized),
-        int(q.dtype == torch.bfloat16), hs, torch.cuda.current_stream(q.device).cuda_stream,
+        limit.data_ptr(), part.data_ptr(), counter.data_ptr() if n_count else None, y.data_ptr(), B, H, S,
+        int(quantized), int(q.dtype == torch.bfloat16), hs, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "K5 decode_attention")
     decode_attention.launches += 1

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -58,6 +57,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
+    import devtime  # beside this file
     import torch
     import torch.nn.functional as F
 
@@ -70,21 +70,7 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.build(["flash_attention"])
     g = torch.Generator().manual_seed(args.seed)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-
-    def time_us(fn, iters=20):
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) * 1e3)
-        return sorted(times)[len(times) // 2]
+    time_us = devtime.make_timer(dev)
 
     def inputs(B, T, n):
         return [torch.randn(B, H, T, HS, generator=g).to(dev, torch.bfloat16) for _ in range(n)]
@@ -110,8 +96,7 @@ def main() -> int:
         r["dq_plus_dkv_us"] = r["dq_us"] + r["dkv_us"]
         k10[f"B={B} T={T}"] = r
         del qs, ks, vs, out
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = devtime.card_name_and_power_limit()
     print(json.dumps({"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                       "k4": k4, "k10": k10}))
     return 0

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -42,6 +41,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
+    import devtime  # beside this file
     import torch
 
     if not torch.cuda.is_available():
@@ -53,21 +53,7 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.build(["quant_matmul", "quant_matmul_int8"])
     g = torch.Generator().manual_seed(args.seed)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-
-    def time_us(fn, iters=20):
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) * 1e3)
-        return sorted(times)[len(times) // 2]
+    time_us = devtime.make_timer(dev)
 
     def bound_us(nbytes, ops):
         return max(nbytes / BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e6
@@ -90,8 +76,7 @@ def main() -> int:
                 k6_bound_us=bound_us(io + K * N + N * 4, 2 * M * K * N))
         del q4, q8, w4, w8
     out = {"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0),
-           "power_limit": subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
-                                         capture_output=True, text=True).stdout.strip(),
+           "nvidia_smi": devtime.card_name_and_power_limit(),
            "shapes": shapes}
     if args.prefill:
         out["prefill_ms"] = prefill_ms(torch, dev, args.seed)

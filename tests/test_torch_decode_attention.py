@@ -9,10 +9,12 @@ product is rounded to bf16 on both sides and summed in f32 in another order;
 outputs are O(1) weighted means: 2e-2 + 2e-2 * |want|. The CUDA kernel
 against the plain version, bf16: with every row of a long cache visible the
 outputs are small means (|want| <= 0.05 at S = 2048), and the kernel differs
-from the plain version in taking each softmax weight relative to its 64-row
-chunk's maximum before rounding it to bf16: 1e-3 + 2e-2 * |want|, the
-absolute part from the errors seen on an H100 (2.4e-4 to 9.8e-4), small
-enough that a chunk left out of the merge fails.
+from the plain version in taking each softmax weight relative to another
+maximum before rounding it to bf16 (the split body: the running maximum of a
+warp's tiles, as the Pallas kernel's over its blocks; the 64-row chunk's in
+the first port's bodies): 1e-3 + 2e-2 * |want|, the absolute part from the
+errors seen on an H100 (2.4e-4 to 9.8e-4), small enough that a chunk left out
+of the merge fails.
 """
 
 import jax.numpy as jnp
@@ -216,3 +218,75 @@ def test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, qua
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_attention_kernel_head_sizes_past_256(rng, cuda, dtype, hs, quantized):
     test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, quantized)
+
+
+# the split body (csrc/decode_sm90.cuh, bf16 at head size 128 and 256): limits
+# on both sides of a split boundary (256 rows a split at S = 2048), inside the
+# first split, past S and below 0. Caches: bf16; int8 rows quantized as the
+# int8 cache holds them; uniform random int8 with row scales 0.01 * U(0, 1).
+# On uniform int8 with larger scales (0.03, 0.1) the products reach |v| ~ 4-13
+# and no body holds TOL_CARD's absolute part: the first port's chunk body and
+# the plain version stand 4.5 to 60 times that tolerance from the exact
+# attention there (tools/profile_decode_kernels.py --accuracy, PERF.md)
+@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("cache", ["bf16", "int8 rows", "int8 uniform"])
+def test_decode_attention_kernel_rows_equal_alone_and_in_a_batch(rng, cuda, hs, cache):
+    """A row's output is the same bits alone (B = 1) as among 8 rows, and on
+    a rerun: the splits depend on S and hs alone and the merge takes them in
+    split order, whatever block arrives last."""
+    S = 2048
+    split = tda.decode_plan(S, hs).split_rows
+    limits = [split - 1, split, 3 * split + 5, S - 1, S + 100, 0, 63, -1]
+    B, H = len(limits), 32 if hs == 128 else 16
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    q = _t(q, torch.bfloat16).to(cuda)
+    if cache == "int8 rows":
+        (k, ks), (v, vs) = (tuple(_t(a).to(cuda) for a in _quantize_rows(c * 0.5)) for c in (kf, vf))
+    elif cache == "int8 uniform":
+        k, v = (_t(rng.integers(-127, 128, size=(B, H, S, hs)).astype(np.int8)).to(cuda) for _ in range(2))
+        ks, vs = (_t((0.01 * rng.random((B, H, S, 1))).astype(np.float32)).to(cuda) for _ in range(2))
+    else:
+        k, v, ks, vs = _t(kf * 0.5, torch.bfloat16).to(cuda), _t(vf * 0.5, torch.bfloat16).to(cuda), None, None
+    limit = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    got = tda.decode_attention(q, k, v, ks, vs, limit)
+    torch.testing.assert_close(got.float(), tda.decode_attention_ref(q, k, v, ks, vs, limit).float(), **TOL_CARD)
+    assert torch.equal(got, tda.decode_attention(q, k, v, ks, vs, limit))
+    for b in range(B):
+        one = [t if t is None else t[b : b + 1].contiguous() for t in (q, k, v, ks, vs)]
+        assert torch.equal(tda.decode_attention(*one, limit[b : b + 1]), got[b : b + 1]), (b, limits[b])
+    assert not got[limits.index(-1)].float().abs().any()
+
+
+def test_decode_attention_kernel_leaves_the_counters_at_zero(rng, cuda):
+    """Back-to-back launches of the split body, one whose rows all need a
+    merge and one with every limit inside the first split, leave the
+    arrival counters at zero: the last block of each (row, head) resets its
+    own."""
+    args = _card_case(rng, cuda, 8, 2048, [2047, 1000, 300, 2048, 5000, 700, 1500, 256], False)
+    short = args[:-1] + (torch.tensor([5, 0, 63, 100, 255, 1, 17, 200], dtype=torch.int32, device=cuda),)
+    for call in (args, args, short, args):
+        tda.decode_attention(*call)
+    torch.cuda.synchronize()
+    counters = tda.arrival_counters(8 * 32, cuda)
+    assert int(counters.abs().sum()) == 0
+
+
+def test_decode_attention_kernel_on_two_streams(rng, cuda):
+    """Launches on two streams at once each take their stream's arrival
+    counters, so neither's merge reads the other's counts: every output is
+    the same bits as its launch alone."""
+    limits = [2047, 1000, 300, 2048, 5000, 700, 1500, 256]
+    args = [_card_case(rng, cuda, 8, 2048, limits, quantized) for quantized in (False, True)]
+    want = [tda.decode_attention(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in args]
+    got, bufs = [], []
+    for _ in range(10):  # interleaved, so the two streams' blocks run together
+        for s, a in zip(streams, args):
+            with torch.cuda.stream(s):
+                got.append(tda.decode_attention(*a))
+                bufs.append(tda.arrival_counters(1, cuda))
+    torch.cuda.synchronize()
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    for i, out in enumerate(got):
+        assert torch.equal(out, want[i % 2]), i

@@ -129,12 +129,14 @@ def test_plan_refuses_empty_shapes():
 
 
 def test_span_tool_instruments_each_kernel():
-    """tools/flash_spans.py finds each kernel's consumer code in the source it
+    """tools/spans.py finds each kernel's consumer code in the source it
     instruments: spans in all three kernels, the totals at each one's end."""
-    from lit_llama_tpu_torch.tools import flash_spans
+    from lit_llama_tpu_torch.tools import spans
 
-    text = flash_spans.instrument(SOURCE.read_text())
+    text = spans.instrument(SOURCE.read_text(), spans.FLASH).replace(spans.HEAD, "")
     for k in range(3):
-        assert text.count(f"SPAN({k}, ") >= 8, k
-        assert text.count(f"g_spans[{k}][13]") == 1, k
-    assert text.count("unsigned long long t_mark = clk()") == 3
+        body = text.split(f"SPAN_BEGIN({k}, t128 == 0)")[1].split("SPAN_END(")[0]
+        assert body.count("SPAN(") >= 8, k
+    assert text.count("SPAN_BEGIN(") == 3 and text.count("SPAN_END(") == 3
+    with pytest.raises(ValueError):  # an anchor the source no longer has
+        spans.instrument(SOURCE.read_text(), spans.FLASH._replace(rules=(("no_such_call(", "SPAN(1);", "after"),)))

@@ -337,3 +337,35 @@ def test_decode_layers_kernel_f32_compute_and_norms(prepared, cuda, compute, nor
         torch.testing.assert_close(kv["v"].float(), rkv["v"].float(), **tol)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     torch.testing.assert_close(logits.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("pos", [255, 256, 2047, 2300])
+def test_decode_layers_kernel_at_split_boundaries(prepared, cuda, pos):
+    """K1 in bf16 (the tensor-core matvec and the split attention) against its
+    plain version at S = 2048: positions on both sides of a split boundary
+    (256 rows a split), the last row, and past S (the ring wrapped). Its
+    arrival counters are zeros after the call."""
+    from lit_llama_tpu_torch.ops import decode_attention as tda
+
+    _, fcfg, tparams, tc = prepared
+    tc = tc.replace(compute_dtype="bfloat16", block_size=4096)
+    params = {**tparams, "h": [
+        {**lp, "rms_1": lp["rms_1"].to(torch.bfloat16), "rms_2": lp["rms_2"].to(torch.bfloat16)}
+        for lp in tparams["h"]]}
+    params = _to(tfl.add_decode_layout(params), cuda)
+    rng = np.random.default_rng(pos)
+    Sg, H, hs = 2048, tc.n_head, tc.head_size
+    assert tda.decode_plan(Sg, hs).split_rows == 256
+    mk = lambda: torch.from_numpy((rng.normal(size=(1, H, Sg, hs)) * 0.3).astype(np.float32)).to(cuda, torch.bfloat16)
+    kvs = [{"k": mk(), "v": mk()} for _ in range(2)]
+    ref_kvs = [{n: c.clone() for n, c in kv.items()} for kv in kvs]
+    x = torch.from_numpy(rng.normal(size=(1, tc.n_embd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    cos, sin = rope_half_row(build_rope_cache(tc.block_size, hs, device=cuda), pos, hs)
+    out, _ = tfl.decode_layers_fused(x, params["h"], kvs, cos, sin, pos % Sg, pos, tc)
+    ref, _ = tfl.decode_layers_fused_ref(x, params["h"], ref_kvs, cos, sin, pos % Sg, pos, tc)
+    torch.cuda.synchronize()
+    for kv, rkv in zip(kvs, ref_kvs):
+        torch.testing.assert_close(kv["k"].float(), rkv["k"].float(), rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(kv["v"].float(), rkv["v"].float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert int(tda.arrival_counters(H, cuda).abs().sum()) == 0
