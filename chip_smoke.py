@@ -45,7 +45,11 @@ one split body (cp.async rings, the splits merged in the same launch by the
 last block to arrive) and K1's and K2's int4 matvec runs on the tensor cores;
 K5 is timed at B = 8 beside B = 1 and each of its rows must be the same bits
 alone as among 8, K1 is held at positions on both sides of a split boundary
-and past S. Phase 6c reads phase 6b's serving step on eight prompt seeds,
+and past S. In bf16, K7 and K9 run a chain of a row prologue and one int4
+product kernel a linear on the tensor cores (K splits merged in split order
+by the last block to arrive); phase 5b'' holds each row of K7 and K9 at 7B
+width to the same bits at B = 1, 32 and 128 and times K9's kernels at
+B = 32. Phase 6c reads phase 6b's serving step on eight prompt seeds,
 without and with LoRA (with LoRA also on the prompts that once failed 6b):
 each kernel against its plain version on the plain path's inputs, layer by
 layer, and both bf16 paths against the plain path in f32 compute. The launch
@@ -161,6 +165,11 @@ def log(*a):
 
 
 SEEDS_6C = tuple(range(1000, 1008))  # phase 6c: the prompt seeds phase 6b was read at
+
+
+def kernel_name(signature: str) -> str:
+    """A kernel's name from the profiler's signature of it."""
+    return signature.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0].split("::")[-1]
 
 
 def serving_layer_check(p2, c2, rope, dev, prompts_from, tol, lens=(10, 37, 60), S=64, steps=8):
@@ -650,6 +659,34 @@ def main() -> int:
         results["K7"] = dict(k7, max_abs_err=max(errs7))
         results["K9"] = dict(k9, max_abs_err=max(errs9))
         del odd_params
+
+        # ---- 5b''. a row's K7 / K9 bits at B = 1, 32 and 128 (7B width); K9's
+        # kernels at B = 32. Its inputs leave the shared generator where they
+        # found it, so the later phases draw the data they always drew.
+        state = gcpu.get_state()
+        ha, ta = halves_args(lp0, cfg, 128)
+        gcpu.set_state(state)
+        outs = {}
+        for B in (1, 32, 128):
+            outs[B] = (fused_layer.block_head_fused(ha[0][:B], ha[1], ha[2][:B], ha[3][:B], *ha[4:]),
+                       fused_layer.block_tail_fused(ta[0][:B], ta[1][:B], *ta[2:]))
+        for B in (1, 32):
+            for name, got, ref in zip(("K7", "K9"), outs[B], outs[128]):
+                assert torch.equal(got, ref[:B]), f"{name}: a row's bits at B={B} differ from the 128-slot call's"
+        del outs
+        log("K7 and K9 at 7B width: each row the same bits at B = 1, 32 and 128")
+        try:
+            k9_kernels = devtime.kernel_sequence(
+                lambda: fused_layer.block_tail_fused(ta[0][:32], ta[1][:32], *ta[2:]), time_us)
+            log("K9 at B=32 by kernel (device us from the previous one's end, programmatic dependent launch "
+                "starts each early): " + "; ".join(
+                    f"{kernel_name(k['kernel'])} {k['us'] + min(0.0, k['start_after_previous_end_us']):.1f}"
+                    for k in k9_kernels["sequence"])
+                + f"; first start to last end {k9_kernels['first_start_to_last_end_us']:.1f}")
+        except RuntimeError as e:  # a profiler that keeps dropping records is no fault of the kernels
+            k9_kernels = dict(error=str(e))
+            log(f"K9 at B=32 by kernel: not read ({e})")
+        entry_inputs["k9_kernels_b32"] = k9_kernels
 
         # ---- 5b'. K7 with the LoRA operand vs plain, B = 1, 8, 32, 64 -------------
         errs7l = []
@@ -2320,12 +2357,13 @@ def main() -> int:
         "K5": ("decode_attention (bf16 cache)", "lit_llama_tpu/ops/decode_attention.py:44"),
         "K5q": ("decode_attention (int8 cache)", "lit_llama_tpu/ops/decode_attention.py:44"),
         "K6": ("matmul_int8", "lit_llama_tpu/ops/quant_matmul_pallas.py:48"),
-        "K7": ("block_head_fused", "lit_llama_tpu/ops/fused_layer.py:956"),
-        "K7 LoRA": ("block_head_fused with the LoRA operand (ax in the prologue, the update in the epilogue)",
-                    "lit_llama_tpu/ops/fused_layer.py:970"),
+        "K7": ("block_head_fused (rows_prep_kernel, rows_sm90_kernel)", "lit_llama_tpu/ops/fused_layer.py:956"),
+        "K7 LoRA": ("block_head_fused with the LoRA operand (lora_down_kernel on every SM, the update in "
+                    "rows_sm90_kernel's epilogue)", "lit_llama_tpu/ops/fused_layer.py:970"),
         "K8": ("decode_attention_write_pipelined", "lit_llama_tpu/ops/decode_attention.py:473"),
         "K8b": ("decode_attention_write_pallas", "lit_llama_tpu/ops/decode_attention.py:226"),
-        "K9": ("block_tail_fused", "lit_llama_tpu/ops/fused_layer.py:981"),
+        "K9": ("block_tail_fused (rows_prep_kernel x 2, rows_sm90_kernel x 3, chained by programmatic dependent "
+               "launch)", "lit_llama_tpu/ops/fused_layer.py:981"),
         "K10dq": ("flash_backward_dq (flash-attention backward, dQ)", "lit_llama_tpu/ops/flash_attention.py:182"),
         "K10dkv": ("flash_backward_dkv (flash-attention backward, dK and dV)",
                    "lit_llama_tpu/ops/flash_attention.py:216"),

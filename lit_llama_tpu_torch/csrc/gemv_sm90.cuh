@@ -65,14 +65,6 @@ __device__ __forceinline__ int tile_col(int tile, int r, int N, int epi, bool& o
   return c;
 }
 
-// bits 0-3 and 16-19 of v as an exact bf16 pair
-__device__ __forceinline__ uint32_t nib2(uint32_t v) {
-  uint32_t p = (v & 0x000F000Fu) | 0x43004300u;  // (128 + n0, 128 + n1)
-  const uint32_t bias = 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p), *reinterpret_cast<const __nv_bfloat162*>(&bias));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
 inline size_t smem_bytes(int K, int G) {
   return (size_t)RING * 16 + (size_t)WARPS * STAGES * 32 * 4 + (size_t)K * 2 + (size_t)((G + 3) & ~3) * 4 +
          (size_t)COLS * G * 4 + (size_t)K / 16;

@@ -28,13 +28,12 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two of the four bytes of v (each in [0, 15]) as an exact bf16 pair: byte
-// i under the high byte 0x43 is the bf16 128 + i, and the subtraction of 128
-// is exact. sel = 0x4140 takes bytes 0 and 1, sel = 0x4342 bytes 2 and 3.
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v, uint32_t sel) {
-  uint32_t p = __byte_perm(v, 0x43434343u, sel);
-  const uint32_t bias = 0x43004300u;  // (128.0, 128.0)
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p),
-                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+// Bits 0-3 and 16-19 of v (the low nibbles of bytes 0 and 2) as an exact
+// bf16 pair: under the exponent of 128 a nibble n is the bf16 128 + n, and
+// the subtraction of 128 is exact (nibbles 0-15 are exact in bf16).
+__device__ __forceinline__ uint32_t nib2(uint32_t v) {
+  uint32_t p = (v & 0x000F000Fu) | 0x43004300u;  // (128 + n0, 128 + n1)
+  const uint32_t bias = 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p), *reinterpret_cast<const __nv_bfloat162*>(&bias));
   return *reinterpret_cast<uint32_t*>(&r);
 }

@@ -6,88 +6,97 @@
 // _block_tail_kernel (entry block_tail_fused: x + c_proj(y), rms_2, c_fc12,
 // SiLU(gate) * up, mlp c_proj + residual).
 //
-// Bound on the H100: bytes, if the products run on the tensor cores. K7
-// streams 28.3 MB of int4 weights and f32 scale/zero planes, K9 85.5 MB, and
-// each weight nibble is used 2 B times: at B = 32 that is 128 operations per
-// byte, past the f32 rate of the CUDA cores (20 per byte) and well inside the
-// tensor cores' (295 per byte). So the matvec of K1 widened to B rows would be
-// compute-bound from about ten slots up, and the products here are
-// mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// Bound on the H100. The products read K7's 28.3 MB and K9's 85.5 MB of int4
+// weights with their f32 scale and zero planes; each nibble is used 2 B times
+// on the tensor cores, so at B = 32 they are bound by the bytes (8.8 and 25.8
+// us at 3.35 TB/s) and from about B = 100 by the operations (989 TF/s bf16).
 //
-// Design: one entry launches a short fixed sequence of kernels (K7 two, K9
-// six), as K1 does, instead of the one program with manual DMA of the Pallas
-// kernels:
-//   rows_prologue: per slot row, the optional RMSNorm, the bf16-rounded input
-//     and the f32 group sums of the unrounded input (the zero-point term).
-//   rows_int4: out = xb @ nibbles, per group and plane scaled in f32, plus
-//     the zero-point term, with an epilogue: RoPE (K7), residual (attn and
-//     mlp c_proj) or SiLU(gate) * up (c_fc12).
-// rows_int4 reads the column-major decode layout that K1 reads (qw_t
-// (N, K/2), qscale_t/qzero_t (N, G)): a thread's 16 bytes of one column are
-// 16 k-rows of the low plane and 16 of the high plane, which become mma B
-// fragments in registers (byte -> bf16 by a byte permute under the exponent
-// byte 0x43 and one exact subtraction), with no pass through shared memory
-// and the nibbles exact, as in the Pallas matvec. The order of k inside an
-// mma step is free, so it is chosen to make those 16 bytes four B fragments;
-// the A fragments read the same order from the bf16 rows (L2 resident). Each
-// 64-row step's products go to a fresh accumulator that is scaled by the
-// group's scale for its columns in registers, since the accumulator layout
-// of mma.sync is known. A block owns 32 or 64 output columns and all rows,
-// in tiles of 32 slots; for every tile its 8 warps split K the same way and
-// reduce through shared memory, so no partial sum crosses blocks and a row's
-// result depends neither on the schedule nor on the slot count (a request
-// gets the same tokens in an engine of any size). The block's columns are two
-// halves P apart: P = 64 pairs a RoPE column with its partner, P = I pairs
-// gate column j with up column I + j, so both epilogues stay in the block.
-// f32 intermediates at every B (the Pallas kernel's switch to the compute
-// dtype at 48 rows is a VMEM limit). Simple first: no cp.async/TMA ring, one
-// block per SM, the prologue as a kernel of its own. What holds it back is
-// not the weight stream (with the weight loads taken out it is a fifth
-// faster, and a cp.async ring four steps deep made it slower): 8 warps of
-// ~250 registers leave two warps per scheduler, which wait on the chains of
-// dependent mma and conversion instructions. The next step is a tile that
-// needs fewer registers per warp (A from shared memory, warps split over N).
+// Design (bf16). A chain of small kernels, each launched under programmatic
+// dependent launch (common.cuh launch_pdl), so that a product asks for its
+// first weights before it waits on the kernel before it:
+//   K7: rows_prep (rms_1, the bf16 row, its 64-sums) [-> lora_down] ->
+//       product c_attn (RoPE epilogue [+ the LoRA update]);
+//   K9: rows_prep (y) -> product attn.c_proj (x + ., its sums of squares by
+//       64 columns) -> rows_prep (rms_2 from those sums) -> product c_fc12
+//       (SiLU(gate) * up, written as the next product's bf16 row and 64-sums)
+//       -> product mlp.c_proj (xs + .).
+// The product (rows_sm90_kernel) runs mma.sync m16n8k16 with the weight
+// columns as the 16-row side and the tokens as the n side: a warp owns 16
+// columns, turns its two columns' bytes of a step into bf16 nibbles once for
+// every token tile (exact, by a mask and the exponent of 128), and reads the
+// tokens' fragments from shared memory, where the block's token rows of a
+// k-step are staged once for its 128 columns (the rows are stored with each
+// aligned 4 as (0, 2, 1, 3), the mma's k order, by whoever writes them). A
+// block owns 128 columns (a head under RoPE; 64 gate columns and their 64 up
+// columns under SiLU(gate) * up) and a K split; the splits (from N and K
+// alone: 2 for c_attn, 4 for both c_proj products at 7B) are merged in split
+// order by the last block to arrive, so a row's bits depend neither on B nor
+// on the schedule. Weights, scales and zeros (16-byte runs of the shared
+// layout's (G, N) planes) and token rows come through one cp.async ring, a
+// block barrier a step: 5 steps deep with two blocks an SM, 8 deep where the
+// grid is one wave of one block an SM (both c_proj products).
+// K7's LoRA operand (the Pallas kernel's _add_lora_delta on the normed rows,
+// before the rotation: qkv += (h @ lora_af) @ lora_bf in f32; any multiple of
+// 8 columns R8, bf16 or f32): rows_prep also writes h in f32, lora_down makes
+// ax = h @ lora_af, and the c_attn product's epilogue adds ax @ lora_bf to each
+// reduced sum, LORA_R operand columns a pass, before RoPE. Any slot count: the
+// product walks the slots in tiles of 8 to 128 rows; norm weights bf16 or
+// f32, applied in f32.
+// Arithmetic, as the Pallas kernels': exact bf16(h) x nibble products summed
+// in f32, each step's sums times the group's f32 scale, plus the zero-point
+// term from f32 sums of the unrounded h (by 64 rows, times the group's zero);
+// f32 residual and MLP intermediates at every B.
 //
-// K7's LoRA operand (the Pallas kernel's _add_lora_delta on the B normed rows,
-// before _rot_half_lanes: qkv += (h @ lora_af) @ lora_bf in f32) cannot come
-// after the entry, since RoPE and the bf16 rounding sit in the epilogue. So:
-//   rows_prologue also writes ax (B, R8) = h @ lora_af, h the unrounded
-//     normed row, from a second pass over its row (R8 sums of K products);
-//   rows_int4 stages ax and the block's columns of lora_bf (R8, 3D) in shared
-//     memory and adds ax[row] . lora_bf[:, col] to each reduced sum before
-//     the epilogue, so a column and its RoPE partner both carry the update.
-// Bound: bytes, D * R8 * 2 + R8 * 3D * 2 more (0.5 MB at 7B, R8 = 16). Any
-// R8 (a multiple of 8): the prologue reduces the columns 64 at a time, and
-// rows_int4 stages ax and lora_bf in passes of 64 columns, so the shared
-// memory does not grow with R8. The operand is bf16 or f32 (a template
-// parameter), summed in f32.
 //
-// Any number of slots: rows_int4 walks the slots in tiles of 32 rows inside
-// the block (the body above for each tile), so one launch serves any B. The
-// block's weight columns are read again for each tile, from L2 after the
-// first (a c_attn block's columns are 128 KB; the whole c_attn 28 MB of the
-// 50 MB L2). The prologue is one block per row at any B.
-//
-// Norm weights bf16 or f32, applied in f32 (_rms_norm_rows).
+// What became of the five things that held the previous design back (its
+// rows_int4 and rows_prologue kernels; measured on an NVIDIA H100 80GB HBM3
+// at 700 W by tools/profile_serve_kernels.py and tools/spans.py rows, the
+// previous design beside):
+//   1. every block re-read all token rows from L2 at each 64-byte step: the
+//      rows are staged once a block and step for 128 columns (a quarter of
+//      the previous L2 traffic at c_attn);
+//   2. 250-register warps that waited on chains of conversions and mma: the
+//      nibbles are converted once per warp and step for every token tile
+//      (the previous spans: conversion 30-49 % of a warp), 128 registers and
+//      two blocks an SM up to 64 slots;
+//   3. eight launches in series (K9 six, K7 two): now K9 five and K7 two
+//      (three with LoRA), chained by programmatic dependent launch; the bf16
+//      rounding and the 64-sums of mlp.c_proj's row fold into c_fc12's
+//      epilogue, rms_2's sums of squares into attn.c_proj's;
+//   4. 2.6-2.9 waves: every grid is one wave (c_attn 192 and c_fc12 172
+//      blocks at two an SM; both c_proj products 128 blocks with a deeper
+//      ring);
+//   5. the LoRA operand's one block a row: lora_down takes 8 columns and 256
+//      rows of lora_af a block on every SM, and the update is spread over the
+//      epilogue's threads (K7 at R8 = 128, B = 32: 171.0 -> 90.1 us bf16,
+//      255.4 -> 91.3 f32).
+// The route: the products at B = 32 (c_attn, attn.c_proj, c_fc12,
+// mlp.c_proj) take 38.6, 21.9, 54.9 and 30.8 us here; K3's wgmma / TMA
+// mainloop (gemm_sm90.cuh) on the same rows 55.0, 23.4, 81.4 and 43.4, so
+// mma.sync with the weights as the 16-row side won: K3 makes the tokens
+// wgmma's n and the weight columns its 64-row A, which the threads convert
+// into shared memory before each product (a pass through shared memory and a
+// barrier a k-step for every tile); here each warp converts its own two
+// columns in registers and only the tokens come from shared memory. K7 at
+// B = 32 46.9 us (previously 60.6, bound
+// 8.8), K9 122.2 (previously 172.3, bound 25.8), B = 128 132.0 / 370.4
+// (previously 165.9 / 504.9). What bounds them now is the warps' own chain a step (mma,
+// the scale and zero-point FMAs, the fragment reads; the ring's wait is 2-4 %
+// of a warp in spans.py rows), not the bytes: 28.3 MB in 38.6 us is 0.7 TB/s.
 //
 // f32 compute (the Pallas kernels' cdtype = f32): the normed row stays f32, so
 // the products cannot be bf16 mma. The f32 body is a fixed sequence of FFMA
-// kernels: rows_prologue writes the f32 row (and ax), the f32 GEMM tile of
-// gemm_f32.cuh multiplies it by the dequantized int4 weight of the shared
+// kernels: rows_prep writes the f32 row (lora_down its ax), the f32 GEMM tile
+// of gemm_f32.cuh multiplies it by the dequantized int4 weight of the shared
 // (K/2, N) layout into an f32 scratch, and rows_epilogue adds the LoRA update
 // and applies RoPE, the residual or SiLU(gate) * up. Bound: operations on the
 // CUDA cores from a few slots up; simple and right first.
-
 #include "gemm_f32.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256, WARPS = 8;
-constexpr int HS = 128;   // head size (RoPE pairs d and d + 64)
-constexpr int STEP = 64;  // packed rows (bytes of a column) per k-step
-constexpr int TILE = 32;  // slots of rows_int4's row tile
-constexpr int LORA_RC = 64;  // LoRA operand columns a pass reduces or stages
+constexpr int HS = 128;  // head size (RoPE pairs d and d + 64)
 
 enum Epilogue { EPI_ROPE = 0, EPI_RESIDUAL = 1, EPI_SWIGLU = 2 };
 
@@ -96,279 +105,545 @@ __device__ __forceinline__ float load_in(const void* p, int in_bf16, size_t i) {
                  : reinterpret_cast<const float*>(p)[i];
 }
 
-// Row blockIdx.x of x (B, K), f32 or bf16: h = [rms_norm](x), the norm
-// weight bf16 or f32 (norm_bf16); xb = h as bf16 (xb_bf16 = 1) or f32; with
-// gx not null, gx[g] = sum of h over group g, f32. With la (K, R8) of LT not
-// null, also ax[blockIdx.x][r] = sum over k of h[k] * la[k][r], f32, 64
-// columns a pass.
-template <typename LT>
-__global__ void __launch_bounds__(THREADS)
-rows_prologue_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict__ norm_w,
-                     int norm_bf16, float eps, int K, int gs, void* __restrict__ xb, int xb_bf16,
-                     float* __restrict__ gx, const LT* __restrict__ la, int R8,
-                     float* __restrict__ ax) {
-  __shared__ float red[WARPS];
+// four consecutive elements (i a multiple of 4) of a bf16 or f32 array as f32
+__device__ __forceinline__ void load4(const void* p, int is_bf16, size_t i, float* o) {
+  if (is_bf16) {
+    const uint2 w = *reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(p) + i);
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&w);
+    o[0] = __low2float(b[0]), o[1] = __high2float(b[0]), o[2] = __low2float(b[1]), o[3] = __high2float(b[1]);
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + i);
+    o[0] = f.x, o[1] = f.y, o[2] = f.z, o[3] = f.w;
+  }
+}
+
+// ---- the rows' prologue ----------------------------------------------------
+constexpr int PREP_THREADS = 128, PREP_K = 4 * PREP_THREADS;  // elements of a row a block
+enum Norm { NORM_NONE = 0, NORM_SELF = 1, NORM_PARTS = 2 };
+
+// Row blockIdx.y, elements blockIdx.x * PREP_K .. + PREP_K of x (B, K), bf16
+// (in_bf16) or f32; K % 128 == 0, so a warp's 128 elements are all in or all
+// out. h = x * r * w with r = 1 (NORM_NONE; w = 1), rsqrt(mean(x^2) + eps) of
+// the row (NORM_SELF) or of the row's sums of squares over each 64 columns in
+// parts (B, K / 64) (NORM_PARTS, the residual product's epilogue wrote them);
+// w bf16 (norm_bf16) or f32. Writes, each where its pointer is not null: xb
+// (B, K) = bf16(h) with each aligned 4 stored in the order (0, 2, 1, 3) (the
+// mma's k order, so a token fragment is one 8-byte read); hsum (B, K / 64),
+// the f32 sums of the unrounded h over each 64; h32 (B, K) = h in f32.
+__global__ void __launch_bounds__(PREP_THREADS)
+rows_prep_kernel(const void* __restrict__ x, int in_bf16, const void* __restrict__ norm_w, int norm_bf16, int norm,
+                 const float* __restrict__ parts, float eps, int K, __nv_bfloat16* __restrict__ xb,
+                 float* __restrict__ hsum, float* __restrict__ h32) {
+  __shared__ float red[PREP_THREADS / 32];
   __shared__ float rnorm;
-  __shared__ float lred[WARPS][LORA_RC];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t base = (size_t)blockIdx.x * K;
-  const int G = K / gs;
+  pdl_wait();
+  pdl_trigger();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t row = blockIdx.y, base = row * (size_t)K;
   float r = 1.f;
-  if (norm_w != nullptr) {
+  if (norm != NORM_NONE) {
     float ss = 0.f;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = load_in(x, in_bf16, base + k);
-      ss += v * v;
+    if (norm == NORM_SELF) {
+      for (int k = 4 * tid; k < K; k += 4 * PREP_THREADS) {
+        float v[4];
+        load4(x, in_bf16, base + k, v);
+        ss += v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
+      }
+    } else {
+      for (int i = tid; i < K / 64; i += PREP_THREADS) ss += parts[row * (K / 64) + i];
     }
     ss = warp_sum(ss);
     if (lane == 0) red[warp] = ss;
     __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < WARPS; ++w) t += red[w];
-      rnorm = rsqrtf(t / (float)K + eps);
-    }
+    if (tid == 0) rnorm = rsqrtf((red[0] + red[1] + red[2] + red[3]) / (float)K + eps);
     __syncthreads();
     r = rnorm;
   }
-  for (int g = warp; g < G; g += WARPS) {
-    float s = 0.f;
-    for (int i = lane; i < gs; i += 32) {
-      const int k = g * gs + i;
-      float h = load_in(x, in_bf16, base + k);
-      if (norm_w != nullptr) h = h * r * load_in(norm_w, norm_bf16, k);
-      if (xb_bf16)
-        reinterpret_cast<__nv_bfloat16*>(xb)[base + k] = __float2bfloat16_rn(h);
-      else
-        reinterpret_cast<float*>(xb)[base + k] = h;
-      s += h;
-    }
-    s = warp_sum(s);
-    if (lane == 0 && gx != nullptr) gx[(size_t)blockIdx.x * G + g] = s;
+  const int k = blockIdx.x * PREP_K + 4 * tid;
+  if (k >= K) return;
+  float h[4];
+  load4(x, in_bf16, base + k, h);
+  if (norm != NORM_NONE) {
+    float w4[4];
+    load4(norm_w, norm_bf16, k, w4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = h[e] * r * w4[e];
   }
-  if (la == nullptr) return;
-  for (int c0 = 0; c0 < R8; c0 += LORA_RC) {
-    const int nc = min(LORA_RC, R8 - c0);
-    for (int r0 = 0; r0 < nc; r0 += 8) {
-      float p[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int k = tid; k < K; k += THREADS) {
-        float h = load_in(x, in_bf16, base + k);
-        if (norm_w != nullptr) h = h * r * load_in(norm_w, norm_bf16, k);
-        float w[8];
-        load8(la + (size_t)k * R8 + c0 + r0, w);
+  if (xb != nullptr)
+    *reinterpret_cast<uint2*>(xb + base + k) = make_uint2(pack_bf16(h[0], h[2]), pack_bf16(h[1], h[3]));
+  if (h32 != nullptr) *reinterpret_cast<float4*>(h32 + base + k) = make_float4(h[0], h[1], h[2], h[3]);
+  if (hsum != nullptr) {
+    float s = (h[0] + h[1]) + (h[2] + h[3]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) p[j] += h * w[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float t = warp_sum(p[j]);
-        if (lane == 0) lred[warp][r0 + j] = t;
-      }
-    }
-    __syncthreads();
-    if (tid < nc) {
-      float t = 0.f;
-      for (int w = 0; w < WARPS; ++w) t += lred[w][tid];
-      ax[(size_t)blockIdx.x * R8 + c0 + tid] = t;
-    }
-    __syncthreads();  // lred is free for the next pass
+    for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if ((lane & 15) == 0) hsum[row * (K / 64) + k / 64] = s;
   }
 }
 
-// out = xb @ dequant(w) with an epilogue. xb (B, K) bf16, gx (B, G) f32 from
-// rows_prologue; wt (N, K/2) u8, st/zt (N, G) f32 (the decode layout).
-// NT n8-tiles per warp: the block owns 8 NT columns, the first 4 NT at
-// c1 = sb * 2P + q * 4 NT and the others P further (sb, q from blockIdx.x).
-// The slots go in tiles of 32 rows, MT m16-tiles per warp (MT = 2 but for a
-// single tile of at most 16); the 8 warps split K.
-//   EPI_ROPE: N = 3D, P = 64; out_bf16 (B, N): columns below rope_cols are
-//     rotated with the slot's cos/sin rows (B, 128), sin signed. With R8 > 0
-//     each sum first gains ax[row] . lb[:, col] (ax (B, R8) f32, lb (R8, N)
-//     of LT), the LoRA operand.
-//   EPI_RESIDUAL: P = 4 NT (the halves adjoin); out = acc + res (B, N), to
-//     out_f32 and/or out_bf16.
-//   EPI_SWIGLU: N = 2I, P = I; out_f32 (B, I) = silu(gate) * up.
-template <int NT, int MT, typename LT>
-__global__ void __launch_bounds__(THREADS, 1)
-rows_int4_kernel(const __nv_bfloat16* __restrict__ xb, const float* __restrict__ gx,
-                 const uint8_t* __restrict__ wt, const float* __restrict__ st,
-                 const float* __restrict__ zt, int B, int K, int N, int gs, int epi, int P,
-                 const float* __restrict__ cosr, const float* __restrict__ sinr, int rope_cols,
-                 const void* res, int res_bf16, float* out_f32, __nv_bfloat16* out_bf16,
-                 const float* __restrict__ ax, const LT* __restrict__ lb, int R8) {
-  constexpr int BN = 8 * NT, HW = 4 * NT, ROWS = 16 * MT;
-  // [WARPS][ROWS][BN], then with R8 > 0 axs [TILE][LORA_RC] and lbs [LORA_RC][BN]
-  extern __shared__ __align__(16) float red[];
-  float* axs = red + (size_t)WARPS * ROWS * BN;
-  float* lbs = axs + TILE * LORA_RC;
+// ---- K7's LoRA operand: ax = h @ la with every SM's help ---------------------
+constexpr int LD_K = 256, LD_C = 8;  // rows and columns of la a block
+
+// ax (B, R8) f32 = h32 (B, D) f32 @ la (D, R8) of LT. Block (c, q) takes
+// columns 8c .. 8c + 7 and rows 256q .. 256q + 255 of la (staged in f32 once)
+// for every row of h, a warp four rows at a time; its partial goes to part
+// (n_q, B, R8) and the last block of column group c to arrive (counter[c])
+// sums the n_q partials in order into ax and resets the counter: bits that
+// depend on neither B nor the order of arrival.
+template <typename LT>
+__global__ void __launch_bounds__(256)
+lora_down_kernel(const float* __restrict__ h32, const LT* __restrict__ la, int B, int D, int R8,
+                 float* __restrict__ part, int* __restrict__ counter, float* __restrict__ ax) {
+  __shared__ float las[LD_K][LD_C + 1];
+  __shared__ int last;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g_ = lane / 4, t = lane % 4;
-  const int Kh = K / 2, G = K / gs, Gh = G / 2;
-  const int bpp = P / HW;  // blocks per pair of halves
-  const int c1 = (blockIdx.x / bpp) * 2 * P + (blockIdx.x % bpp) * HW, c2 = c1 + P;
-  const int nsteps = Kh / STEP;
-
-  const int per = (nsteps + WARPS - 1) / WARPS;
-  const int s_begin = warp * per, s_end = min(nsteps, s_begin + per);
-  for (int rt = 0; rt < B; rt += TILE) {
-    const int Bt = min(TILE, B - rt);  // the tile's rows rt .. rt + Bt - 1
-    const __nv_bfloat16* xbt = xb + (size_t)rt * K;
-    const float* gxt = gx + (size_t)rt * G;
-
-    float acc[NT][MT][4];
+  const int c0 = blockIdx.x * LD_C, k0 = blockIdx.y * LD_K, nq = gridDim.y;
+  for (int i = tid; i < LD_K; i += 256) {  // la does not depend on the kernel before
+    float w[LD_C] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (k0 + i < D) load8(la + (size_t)(k0 + i) * R8 + c0, w);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int c = 0; c < LD_C; ++c) las[i][c] = w[c];
+  }
+  pdl_wait();
+  pdl_trigger();
+  __syncthreads();
+  constexpr int RB = 4, KL = LD_K / 32;  // rows a warp takes at once; elements of a row a lane
+  for (int r0 = RB * warp; r0 < B; r0 += RB * 8) {
+    float hv[RB][KL];  // every load of the RB rows in flight before the first product
 #pragma unroll
-      for (int m = 0; m < MT; ++m) acc[j][m][0] = acc[j][m][1] = acc[j][m][2] = acc[j][m][3] = 0.f;
-
-    for (int step = s_begin; step < s_end; ++step) {
-      const int r0 = step * STEP;
-      const int glo = r0 / gs, ghi = Gh + glo;
-      // A: rows g_ and g_ + 8 of each m-tile, 16 bf16 (k = r0 + 16 t ...) of
-      // each plane as 8 words; mma step s takes words 2s and 2s + 1
-      uint32_t alo[MT][2][8], ahi[MT][2][8];
+    for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int row = 16 * m + 8 * rr + g_;
-          uint4 l0 = make_uint4(0, 0, 0, 0), l1 = l0, h0 = l0, h1 = l0;
-          if (row < Bt) {
-            const uint4* pl = reinterpret_cast<const uint4*>(xbt + (size_t)row * K + r0 + 16 * t);
-            const uint4* ph = reinterpret_cast<const uint4*>(xbt + (size_t)row * K + Kh + r0 + 16 * t);
-            l0 = __ldg(pl), l1 = __ldg(pl + 1), h0 = __ldg(ph), h1 = __ldg(ph + 1);
-          }
-          alo[m][rr][0] = l0.x, alo[m][rr][1] = l0.y, alo[m][rr][2] = l0.z, alo[m][rr][3] = l0.w;
-          alo[m][rr][4] = l1.x, alo[m][rr][5] = l1.y, alo[m][rr][6] = l1.z, alo[m][rr][7] = l1.w;
-          ahi[m][rr][0] = h0.x, ahi[m][rr][1] = h0.y, ahi[m][rr][2] = h0.z, ahi[m][rr][3] = h0.w;
-          ahi[m][rr][4] = h1.x, ahi[m][rr][5] = h1.y, ahi[m][rr][6] = h1.z, ahi[m][rr][7] = h1.w;
-        }
-      // B: 16 packed rows (r0 + 16 t ...) of column g_ of each n-tile
-      uint4 w[NT];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = (j < NT / 2 ? c1 + 8 * j : c2 + 8 * (j - NT / 2)) + g_;
-        w[j] = __ldg(reinterpret_cast<const uint4*>(wt + (size_t)col * Kh + r0 + 16 * t));
-      }
-      const bool first = r0 % gs == 0;  // the group's zero-point term goes with its first step
-      float gl[MT][2] = {}, gh[MT][2] = {};
-      if (first) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int row = 16 * m + 8 * rr + g_;
-            gl[m][rr] = row < Bt ? gxt[(size_t)row * G + glo] : 0.f;
-            gh[m][rr] = row < Bt ? gxt[(size_t)row * G + ghi] : 0.f;
-          }
+      for (int u = 0; u < KL; ++u) {
+        const int i = lane + 32 * u;
+        hv[rr][u] = r0 + rr < B && k0 + i < D ? h32[(size_t)(r0 + rr) * D + k0 + i] : 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float plo[MT][4], phi[MT][4];
+    for (int rr = 0; rr < RB; ++rr) {
+      float p[LD_C] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          plo[m][0] = plo[m][1] = plo[m][2] = plo[m][3] = 0.f;
-          phi[m][0] = phi[m][1] = phi[m][2] = phi[m][3] = 0.f;
-        }
-        const uint32_t ws[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
+      for (int u = 0; u < KL; ++u)
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const uint32_t lo = ws[s] & 0x0F0F0F0Fu, hi = (ws[s] >> 4) & 0x0F0F0F0Fu;
-          const uint32_t bl0 = nibbles_bf16x2(lo, 0x4140), bl1 = nibbles_bf16x2(lo, 0x4342);
-          const uint32_t bh0 = nibbles_bf16x2(hi, 0x4140), bh1 = nibbles_bf16x2(hi, 0x4342);
+        for (int c = 0; c < LD_C; ++c) p[c] = fmaf(hv[rr][u], las[lane + 32 * u][c], p[c]);
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            const uint32_t al[4] = {alo[m][0][2 * s], alo[m][1][2 * s], alo[m][0][2 * s + 1],
-                                    alo[m][1][2 * s + 1]};
-            const uint32_t ah[4] = {ahi[m][0][2 * s], ahi[m][1][2 * s], ahi[m][0][2 * s + 1],
-                                    ahi[m][1][2 * s + 1]};
-            mma_bf16(plo[m], al, bl0, bl1);
-            mma_bf16(phi[m], ah, bh0, bh1);
-          }
-        }
-        // the accumulator's columns are 2t and 2t + 1 of the tile
-        const int col = (j < NT / 2 ? c1 + 8 * j : c2 + 8 * (j - NT / 2)) + 2 * t;
-        const float* sc0 = st + (size_t)col * G;
-        const float* sc1 = sc0 + G;
-        const float sl[2] = {__ldg(sc0 + glo), __ldg(sc1 + glo)};
-        const float sh[2] = {__ldg(sc0 + ghi), __ldg(sc1 + ghi)};
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][m][i] += plo[m][i] * sl[i & 1] + phi[m][i] * sh[i & 1];
-        if (first) {
-          const float* z0 = zt + (size_t)col * G;
-          const float* z1 = z0 + G;
-          const float zl[2] = {__ldg(z0 + glo), __ldg(z1 + glo)};
-          const float zh[2] = {__ldg(z0 + ghi), __ldg(z1 + ghi)};
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[j][m][i] += gl[m][i >> 1] * zl[i & 1] + gh[m][i >> 1] * zh[i & 1];
-        }
+      for (int c = 0; c < LD_C; ++c) p[c] = warp_sum(p[c]);
+      if (lane == 0 && r0 + rr < B) {
+        float4* dst = reinterpret_cast<float4*>(part + ((size_t)blockIdx.y * B + r0 + rr) * R8 + c0);
+        dst[0] = make_float4(p[0], p[1], p[2], p[3]);
+        dst[1] = make_float4(p[4], p[5], p[6], p[7]);
       }
     }
+  }
+  __threadfence();  // the partial is visible before the count that announces it
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter + blockIdx.x, 1) == nq - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < B * LD_C; e += 256) {
+    const int row = e / LD_C, c = c0 + e % LD_C;
+    float s = 0.f;
+    for (int q = 0; q < nq; ++q) s += __ldcg(part + ((size_t)q * B + row) * R8 + c);
+    ax[(size_t)row * R8 + c] = s;
+  }
+  if (tid == 0) counter[blockIdx.x] = 0;  // ready for the next launch
+}
 
-    // the warps' partial sums meet in shared memory, in a fixed order
-    float* mine = red + (size_t)warp * ROWS * BN;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          mine[(16 * m + 8 * (i >> 1) + g_) * BN + 8 * j + 2 * t + (i & 1)] = acc[j][m][i];
-    __syncthreads();
-    for (int e = tid; e < Bt * BN; e += THREADS) {
-      float* slot = red + e;  // row e / BN, column e % BN of warp 0's part
-      float v = slot[0];
-      for (int k2 = 1; k2 < WARPS; ++k2) v += slot[(size_t)k2 * ROWS * BN];
-      slot[0] = v;
-    }
-    // the LoRA operand, LORA_RC columns a pass: each (row, column) sum stays
-    // with the thread that reduced it
-    for (int c0 = 0; c0 < R8; c0 += LORA_RC) {
-      const int nc = min(LORA_RC, R8 - c0);
-      __syncthreads();  // the previous pass is done with axs and lbs
-      for (int e = tid; e < Bt * nc; e += THREADS)
-        axs[(e / nc) * LORA_RC + e % nc] = ax[(size_t)(rt + e / nc) * R8 + c0 + e % nc];
-      for (int e = tid; e < nc * BN; e += THREADS) {
-        const int lc = e % BN;
-        lbs[e] = to_f32(lb[(size_t)(c0 + e / BN) * N + (lc < HW ? c1 + lc : c2 + lc - HW)]);
+// ---- the int4 products on the tensor cores ---------------------------------
+namespace rs {
+
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int COLS = 16 * WARPS;  // output columns a block: a warp's 16 are the mma's 16 rows
+constexpr int STEP = 64;          // packed bytes of a column a k-step: 64 low-plane and 64 high-plane rows
+constexpr int TROW = 272;         // bytes of a token's k-step in shared memory: 128 low, 128 high, pad
+constexpr int SPLIT_TARGET = 128, MAX_SPLITS = 4, MIN_SPLIT_STEPS = 8;  // K splits (ops/fused_layer.py serve_plan)
+constexpr int ONE_WAVE = 132;     // blocks of a grid that takes the deep ring: one a streaming multiprocessor
+constexpr int TP = COLS + 4;      // floats of a token's row in the epilogue's tile
+constexpr int LORA_R = 32;        // LoRA operand columns the epilogue stages a pass
+
+// steps in the ring for a token tile of 8 NT slots: two blocks an SM share
+// its shared memory up to 64 slots, or (deep) a grid of at most ONE_WAVE
+// blocks has an SM each and a deeper ring. A stage holds the tile's token rows
+// of a step, each warp's 16 columns of the step and their scales and zeros,
+// and the tokens' 64-sums of the step (low, high plane).
+__host__ __device__ constexpr int stages(int nt, bool deep) {
+  return deep ? (nt <= 8 ? 8 : 4) : (nt <= 4 ? 5 : nt == 8 ? 4 : 3);
+}
+__host__ __device__ constexpr int stage_bytes(int nt) {
+  return 8 * nt * TROW + WARPS * 32 * 32 + WARPS * 64 * 4 + 8 * nt * 8;
+}
+__host__ __device__ constexpr int tile_bytes(int nt) {
+  return 8 * nt * TP * 4 + 8 * nt * LORA_R * 4 + LORA_R * COLS * 4;
+}
+__host__ __device__ constexpr int smem_bytes(int nt, bool deep) {
+  return stages(nt, deep) * stage_bytes(nt) > tile_bytes(nt) ? stages(nt, deep) * stage_bytes(nt) : tile_bytes(nt);
+}
+
+// The arguments of one product; see rows_sm90_kernel.
+struct Args {
+  const __nv_bfloat16* xb;  // (B, K) bf16, aligned 4s in the order (0, 2, 1, 3)
+  const float* hsum;        // (B, K / 64) f32 sums of the unrounded row
+  const uint8_t* wt;        // (N, K/2) u8, the decode layout
+  const float *st, *zt;     // (G, N) f32, the shared layout's scale and zero planes
+  int B, K, N, gs, epi, splits;
+  const float *cosr, *sinr;  // EPI_ROPE: (B, 128) f32, sin signed
+  int rope_cols;
+  const void* res;  // EPI_RESIDUAL: (B, N) bf16 (res_bf16) or f32
+  int res_bf16;
+  float* out_f32;            // EPI_RESIDUAL: (B, N); EPI_SWIGLU: the next hsum (B, N / 128)
+  __nv_bfloat16* out_bf16;   // EPI_ROPE / EPI_RESIDUAL: (B, N); EPI_SWIGLU: the next xb (B, N / 2)
+  float* ssq;                // EPI_RESIDUAL: (B, N / 64) sums of squares of out, or null
+  const float* ax;           // EPI_ROPE with R8 > 0: (B, R8) f32 and lb (R8, N), bf16 (lb_bf16) or f32
+  const void* lb;
+  int R8, lb_bf16;
+  float* ws;     // splits > 1: (splits, B, N) f32 partials
+  int* counter;  // splits > 1: gridDim.x arrival counters, zero
+};
+
+// column of the block's local column c (0 .. COLS - 1): a run of COLS, or
+// under EPI_SWIGLU 64 gate columns and their 64 up columns
+__device__ __forceinline__ int col_of(const Args& a, int cb, int c) {
+  if (a.epi == EPI_SWIGLU) return (c < 64 ? 0 : a.N / 2) + cb * 64 + (c & 63);
+  return cb * COLS + c;
+}
+
+// The epilogue of rows row0 .. row0 + Bt - 1 from the tile T [8 NT][TP] of
+// their reduced sums (local columns): the LoRA update, then RoPE, the residual
+// or SiLU(gate) * up; all threads.
+__device__ void epilogue(const Args& a, float* T, int cb, int row0, int Bt, int nt) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (a.R8 > 0) {  // T += ax @ lb[:, columns], LORA_R operand columns a pass
+    float* axs = T + 8 * nt * TP;  // [8 NT][LORA_R]
+    float* lbs = axs + 8 * nt * LORA_R;  // [LORA_R][COLS]
+    const int c = tid % COLS;
+    for (int r0 = 0; r0 < a.R8; r0 += LORA_R) {
+      const int nr = min(LORA_R, a.R8 - r0);  // a multiple of 8
+      __syncthreads();  // the last pass is done with axs and lbs
+      for (int e = tid; e < Bt * LORA_R; e += THREADS) {
+        const int row = e / LORA_R, r = e % LORA_R;
+        axs[e] = r < nr ? a.ax[(size_t)(row0 + row) * a.R8 + r0 + r] : 0.f;
+      }
+      for (int e = tid; e < LORA_R * COLS; e += THREADS) {
+        const int r = e / COLS, cc = e % COLS;
+        const size_t i = (size_t)(r0 + r) * a.N + col_of(a, cb, cc);
+        lbs[e] = r >= nr ? 0.f : a.lb_bf16 ? bf16_to_f32(reinterpret_cast<const __nv_bfloat16*>(a.lb)[i])
+                                            : reinterpret_cast<const float*>(a.lb)[i];
       }
       __syncthreads();
-      for (int e = tid; e < Bt * BN; e += THREADS) {
-        const int row = e / BN, lc = e % BN;
+      float lbr[LORA_R];
+#pragma unroll
+      for (int r = 0; r < LORA_R; ++r) lbr[r] = lbs[r * COLS + c];
+      for (int row = tid / COLS; row < Bt; row += THREADS / COLS) {
+        const float4* ar = reinterpret_cast<const float4*>(axs + row * LORA_R);
         float d = 0.f;
-        for (int r = 0; r < nc; ++r) d += axs[row * LORA_RC + r] * lbs[r * BN + lc];
-        red[(size_t)row * BN + lc] += d;
+#pragma unroll
+        for (int q = 0; q < LORA_R / 4; ++q) {
+          const float4 v = ar[q];
+          d = fmaf(v.x, lbr[4 * q], d);
+          d = fmaf(v.y, lbr[4 * q + 1], d);
+          d = fmaf(v.z, lbr[4 * q + 2], d);
+          d = fmaf(v.w, lbr[4 * q + 3], d);
+        }
+        T[row * TP + c] += d;
       }
     }
     __syncthreads();
-    const int nout = epi == EPI_SWIGLU ? BN / 2 : BN;
-    for (int e = tid; e < Bt * nout; e += THREADS) {
-      const int row = e / nout, lc = e % nout, grow = rt + row;
-      const float* rrow = red + (size_t)row * BN;
-      const int col = lc < HW ? c1 + lc : c2 + lc - HW;
-      float v = rrow[lc];
-      if (epi == EPI_SWIGLU) {
-        out_f32[(size_t)grow * (N / 2) + col] = v * (1.f / (1.f + expf(-v))) * rrow[lc + HW];
-        continue;
-      }
-      if (epi == EPI_ROPE) {
-        if (col < rope_cols) {
-          const int d = col % HS;
-          v = v * cosr[grow * HS + d] + rrow[(lc + HW) % BN] * sinr[grow * HS + d];
-        }
-      } else {
-        v += load_in(res, res_bf16, (size_t)grow * N + col);
-      }
-      if (out_f32 != nullptr) out_f32[(size_t)grow * N + col] = v;
-      if (out_bf16 != nullptr) out_bf16[(size_t)grow * N + col] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();  // the next tile writes red
   }
+  if (a.epi == EPI_ROPE) {
+    for (int e = tid; e < Bt * COLS; e += THREADS) {
+      const int row = e / COLS, c = e % COLS, col = cb * COLS + c, grow = row0 + row;
+      float v = T[row * TP + c];
+      if (col < a.rope_cols)  // the block is one head: d = c, its partner c ^ 64
+        v = fmaf(T[row * TP + (c ^ 64)], a.sinr[grow * HS + c], v * a.cosr[grow * HS + c]);
+      a.out_bf16[(size_t)grow * a.N + col] = __float2bfloat16_rn(v);
+    }
+  } else if (a.epi == EPI_RESIDUAL) {  // a warp a (row, 64 columns), a lane two columns
+    for (int i = warp; i < Bt * 2; i += WARPS) {
+      const int row = i / 2, c = 64 * (i % 2) + 2 * lane, grow = row0 + row;
+      const size_t o = (size_t)grow * a.N + cb * COLS + c;
+      float v0 = T[row * TP + c], v1 = T[row * TP + c + 1];
+      if (a.res_bf16) {
+        const __nv_bfloat162 r2 =
+            *reinterpret_cast<const __nv_bfloat162*>(reinterpret_cast<const __nv_bfloat16*>(a.res) + o);
+        v0 += __low2float(r2), v1 += __high2float(r2);
+      } else {
+        const float2 r2 = *reinterpret_cast<const float2*>(reinterpret_cast<const float*>(a.res) + o);
+        v0 += r2.x, v1 += r2.y;
+      }
+      if (a.out_f32 != nullptr) *reinterpret_cast<float2*>(a.out_f32 + o) = make_float2(v0, v1);
+      if (a.out_bf16 != nullptr) *reinterpret_cast<__nv_bfloat162*>(a.out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
+      if (a.ssq != nullptr) {
+        const float s = warp_sum(v0 * v0 + v1 * v1);
+        if (lane == 0) a.ssq[(size_t)grow * (a.N / 64) + (cb * COLS + 64 * (i % 2)) / 64] = s;
+      }
+    }
+  } else {  // EPI_SWIGLU: a half-warp a row, a lane four gate columns and their up columns
+    const int I = a.N / 2, l = lane % 16, c = 4 * l;
+    for (int b = 2 * warp; b < Bt; b += 2 * WARPS) {
+      const int row = b + lane / 16;
+      const bool ok = row < Bt;
+      float gg[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float gv = ok ? T[row * TP + c + e] : 0.f, u = ok ? T[row * TP + 64 + c + e] : 0.f;
+        gg[e] = gv * (1.f / (1.f + expf(-gv))) * u;
+      }
+      float s = (gg[0] + gg[1]) + (gg[2] + gg[3]);
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (ok) {
+        const size_t grow = row0 + row;
+        *reinterpret_cast<uint2*>(a.out_bf16 + grow * I + cb * 64 + c) =
+            make_uint2(pack_bf16(gg[0], gg[2]), pack_bf16(gg[1], gg[3]));
+        if (l == 0) a.out_f32[grow * (I / 64) + cb] = s;
+      }
+    }
+  }
+}
+
+// out = xb @ dequant(w) with an epilogue, on mma.sync m16n8k16 (bf16 in, f32
+// sums). Block (blockIdx.x, blockIdx.y) = (column block cb, K split sp): the
+// COLS columns of col_of, warp w owning 16 (the mma's rows, g and g + 8 a
+// thread), for the k-steps [sp * nsteps / splits, (sp + 1) * nsteps / splits)
+// of STEP packed bytes. The slots go in tiles of 8 NT rows (the mma's n side,
+// n-tile j the rows 8 j ..); for each tile the block streams its steps through
+// a ring of stages(NT, DEEP) stages by cp.async, a block barrier a step. The
+// tile's sums go to shared memory, then to the epilogue or, with splits > 1,
+// to ws, merged in split order by the last block to arrive.
+template <int NT, bool DEEP>
+__global__ void __launch_bounds__(THREADS, NT <= 8 && !DEEP ? 2 : 1) rows_sm90_kernel(const Args a) {
+  constexpr int BT = 8 * NT, S = stages(NT, DEEP), SB = stage_bytes(NT);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int cb = blockIdx.x, sp = blockIdx.y;
+  const int Kh = a.K / 2, G = a.K / a.gs, Gh = G / 2, K64 = a.K / 64, nsteps = Kh / STEP;
+  const int s0 = sp * nsteps / a.splits, n = (sp + 1) * nsteps / a.splits - s0;
+  const uint8_t* wa = a.wt + (size_t)col_of(a, cb, 16 * warp + g) * Kh + (size_t)s0 * STEP + 16 * t;
+  const uint8_t* wb = a.wt + (size_t)col_of(a, cb, 16 * warp + g + 8) * Kh + (size_t)s0 * STEP + 16 * t;
+  // lane l < 16 copies 4 columns' (16 bytes of a (G, N) row) scales (l < 8)
+  // or zeros of the step's low (l % 8 < 4) or high group: the warp's table of
+  // a step is s_lo, s_hi, z_lo, z_hi of its 16 columns
+  const float* sz = (lane < 8 ? a.st : a.zt) + col_of(a, cb, 16 * warp + 4 * (lane % 4)) +
+                    (size_t)(lane % 8 < 4 ? 0 : Gh) * a.N;
+  const int gshift = a.gs == 64 ? 0 : a.gs == 128 ? 1 : 2;  // step s lies in group s >> gshift of its plane
+  constexpr int TPIECES = (BT * 16 + THREADS - 1) / THREADS;  // 16-byte pieces of token rows a thread copies a step
+  constexpr int OFF_W = BT * TROW, OFF_S = OFF_W + WARPS * 32 * 32, OFF_H = OFF_S + WARPS * 64 * 4;
+
+  auto fetch_w = [&](int j) {  // the warp's weights of step s0 + j into stage j % S, with their scales and zeros
+    uint8_t* stg = smem + (j % S) * SB;
+    uint4* w = reinterpret_cast<uint4*>(stg + OFF_W) + warp * 64;
+    cp_async16(w + lane, wa + (size_t)j * STEP, 16);
+    cp_async16(w + 32 + lane, wb + (size_t)j * STEP, 16);
+    if (lane < 16)
+      cp_async16(reinterpret_cast<float*>(stg + OFF_S) + warp * 64 + 4 * lane,
+                 sz + (size_t)((s0 + j) >> gshift) * a.N, 16);
+  };
+  // a thread's token pieces of a tile: piece tid + THREADS i is token p / 16,
+  // low (p % 16 < 8) or high plane, 16 bytes p % 8; its 64-sum, thread tid <
+  // 2 BT's, token tid / 2, low or high plane
+  const __nv_bfloat16* tsrc[TPIECES];
+  uint32_t tok_ok = 0;  // bit i: piece i is a row of the tile
+  const int tdst = (tid / 16) * TROW + 16 * (tid % 16);  // piece i lands 16 i rows further
+  const float* hsrc = a.hsum;
+  int hbytes = 0;
+  auto tile_pieces = [&](int row0) {
+    tok_ok = 0;
+#pragma unroll
+    for (int i = 0; i < TPIECES; ++i) {
+      const int p = tid + THREADS * i, q = p % 16, row = row0 + p / 16;
+      const bool ok = p < BT * 16 && row < a.B;
+      tsrc[i] = a.xb + (size_t)(ok ? row : 0) * a.K + (q < 8 ? 0 : Kh) + STEP * s0 + 8 * (q % 8);
+      tok_ok |= (uint32_t)ok << i;
+    }
+    const int row = row0 + tid / 2;
+    hbytes = tid < BT * 2 && row < a.B ? 4 : 0;
+    hsrc = a.hsum + (size_t)(hbytes ? row : 0) * K64 + (tid % 2 ? Kh / 64 : 0) + s0;
+  };
+  auto fetch_t = [&](int j) {  // the tile's token rows of step s0 + j and their 64-sums
+    uint8_t* stg = smem + (j % S) * SB;
+#pragma unroll
+    for (int i = 0; i < TPIECES; ++i)
+      if (tid + THREADS * i < BT * 16)
+        cp_async16(stg + tdst + 16 * i * TROW, tsrc[i] + STEP * j, (tok_ok >> i & 1) ? 16 : 0);
+    if (tid < BT * 2) cp_async4(stg + OFF_H + 4 * tid, hsrc + j, hbytes);
+  };
+
+  // the first steps' weights depend on nothing: in flight before the wait
+#pragma unroll 1
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < n) fetch_w(j);
+    cp_async_commit();
+  }
+  pdl_wait();
+  pdl_trigger();
+
+  float* T = reinterpret_cast<float*>(smem);  // the epilogue's tile [BT][TP], in the ring
+  for (int row0 = 0; row0 < a.B; row0 += BT) {
+    const int Bt = min(BT, a.B - row0);
+    if (row0 > 0) {
+#pragma unroll 1
+      for (int j = 0; j < S - 1; ++j) {
+        if (j < n) fetch_w(j);
+        cp_async_commit();
+      }
+    }
+    tile_pieces(row0);
+#pragma unroll 1
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n) fetch_t(j);
+      cp_async_commit();
+    }
+    float acc[NT][4];
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt) acc[jt][0] = acc[jt][1] = acc[jt][2] = acc[jt][3] = 0.f;
+
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // step j is in for every thread; step j - 1's stage is free
+      if (j + S - 1 < n) {
+        fetch_w(j + S - 1);
+        fetch_t(j + S - 1);
+      }
+      cp_async_commit();
+      const uint8_t* stg = smem + (j % S) * SB;
+      const uint4* w = reinterpret_cast<const uint4*>(stg + OFF_W) + warp * 64;
+      const float* sc = reinterpret_cast<const float*>(stg + OFF_S) + warp * 64 + g;
+      const uint4 va = w[lane], vb = w[32 + lane];
+      // (lo, hi) of column g, then of g + 8
+      const float4 s4 = make_float4(sc[0], sc[16], sc[8], sc[24]), z4 = make_float4(sc[32], sc[48], sc[40], sc[56]);
+      const uint32_t A[4] = {va.x, va.y, va.z, va.w}, Bw[4] = {vb.x, vb.y, vb.z, vb.w};
+      uint32_t al[4][4], ah[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        al[m][0] = nib2(A[m]), al[m][1] = nib2(Bw[m]), al[m][2] = nib2(A[m] >> 8), al[m][3] = nib2(Bw[m] >> 8);
+        ah[m][0] = nib2(A[m] >> 4), ah[m][1] = nib2(Bw[m] >> 4), ah[m][2] = nib2(A[m] >> 12),
+        ah[m][3] = nib2(Bw[m] >> 12);
+      }
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const uint8_t* tr = stg + (8 * jt + g) * TROW + 32 * t;  // token 8 jt + g, k 16 t ..
+        const uint4 l0 = reinterpret_cast<const uint4*>(tr)[0], l1 = reinterpret_cast<const uint4*>(tr)[1];
+        const uint4 h0 = reinterpret_cast<const uint4*>(tr + 128)[0], h1 = reinterpret_cast<const uint4*>(tr + 128)[1];
+        const uint32_t bl[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+        const uint32_t bh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        float dl[4] = {0.f, 0.f, 0.f, 0.f}, dh[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          mma_bf16(dl, al[m], bl[2 * m], bl[2 * m + 1]);
+          mma_bf16(dh, ah[m], bh[2 * m], bh[2 * m + 1]);
+        }
+        // 64-sums (low, high) of tokens 8 jt + 2t and + 1 (the accumulator's columns 2t, 2t + 1)
+        const float4 q = *reinterpret_cast<const float4*>(stg + OFF_H + (8 * jt + 2 * t) * 8);
+        float* c = acc[jt];
+        c[0] = fmaf(dl[0], s4.x, c[0]), c[0] = fmaf(dh[0], s4.y, c[0]);
+        c[0] = fmaf(q.x, z4.x, c[0]), c[0] = fmaf(q.y, z4.y, c[0]);
+        c[1] = fmaf(dl[1], s4.x, c[1]), c[1] = fmaf(dh[1], s4.y, c[1]);
+        c[1] = fmaf(q.z, z4.x, c[1]), c[1] = fmaf(q.w, z4.y, c[1]);
+        c[2] = fmaf(dl[2], s4.z, c[2]), c[2] = fmaf(dh[2], s4.w, c[2]);
+        c[2] = fmaf(q.x, z4.z, c[2]), c[2] = fmaf(q.y, z4.w, c[2]);
+        c[3] = fmaf(dl[3], s4.z, c[3]), c[3] = fmaf(dh[3], s4.w, c[3]);
+        c[3] = fmaf(q.z, z4.z, c[3]), c[3] = fmaf(q.w, z4.w, c[3]);
+      }
+    }
+
+    // the tile's sums into T [BT][TP] (the ring's memory)
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) T[(8 * jt + 2 * t + (i & 1)) * TP + 16 * warp + g + 8 * (i >> 1)] = acc[jt][i];
+    __syncthreads();
+    if (a.splits == 1) {
+      epilogue(a, T, cb, row0, Bt, NT);
+    } else {  // the partial to ws [sp][row][cb * COLS + c]
+      for (int e = tid; e < Bt * COLS / 4; e += THREADS) {
+        const int row = e / (COLS / 4), c4 = e % (COLS / 4);
+        *reinterpret_cast<float4*>(a.ws + ((size_t)sp * a.B + row0 + row) * a.N + cb * COLS + 4 * c4) =
+            *reinterpret_cast<const float4*>(T + row * TP + 4 * c4);
+      }
+    }
+    __syncthreads();  // T is the next tile's ring
+  }
+  if (a.splits == 1) return;
+
+  __threadfence();  // the partials are visible before the count that announces them
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.counter + cb, 1) == a.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int row0 = 0; row0 < a.B; row0 += BT) {
+    const int Bt = min(BT, a.B - row0);
+    for (int e = tid; e < Bt * COLS / 4; e += THREADS) {  // the splits in order
+      const int row = e / (COLS / 4), c4 = e % (COLS / 4);
+      float4 v = __ldcg(reinterpret_cast<const float4*>(a.ws + ((size_t)row0 + row) * a.N + cb * COLS + 4 * c4));
+      for (int q = 1; q < a.splits; ++q) {
+        const float4 u =
+            __ldcg(reinterpret_cast<const float4*>(a.ws + ((size_t)q * a.B + row0 + row) * a.N + cb * COLS + 4 * c4));
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(T + row * TP + 4 * c4) = v;
+    }
+    __syncthreads();
+    epilogue(a, T, cb, row0, Bt, NT);
+    __syncthreads();
+  }
+  if (tid == 0) a.counter[cb] = 0;  // ready for the next launch
+}
+
+// K splits of a product, from N and K alone (ops/fused_layer.py serve_plan):
+// doubled while the blocks do not reach SPLIT_TARGET and a split keeps at
+// least MIN_SPLIT_STEPS steps
+inline int plan_splits(int N, int K) {
+  const int blocks = N / COLS, steps = K / 2 / STEP;
+  int s = 1;
+  while (blocks * s < SPLIT_TARGET && s < MAX_SPLITS && steps / (2 * s) >= MIN_SPLIT_STEPS) s *= 2;
+  return s;
+}
+
+template <int NT, bool DEEP>
+int launch_ring(const Args& a, cudaStream_t stream) {
+  static int ready[16];
+  const int err = allow_smem(ready, rows_sm90_kernel<NT, DEEP>);
+  if (err) return err;
+  return launch_pdl(rows_sm90_kernel<NT, DEEP>, dim3(a.N / COLS, a.splits), dim3(THREADS),
+                    (size_t)smem_bytes(NT, DEEP), stream, a);
+}
+
+template <int NT>
+int launch_nt(const Args& a, cudaStream_t stream) {
+  return a.N / COLS * a.splits <= ONE_WAVE ? launch_ring<NT, true>(a, stream) : launch_ring<NT, false>(a, stream);
+}
+
+// The token tile: the fewest n-tiles (1, 2, 4, 8, 16) that hold B, at most 16
+// (128 slots; more go in tiles of 128). The tile decides no sum's order.
+int launch(const Args& a, cudaStream_t stream) {
+  if (a.splits != plan_splits(a.N, a.K)) return (int)cudaErrorInvalidValue;
+  if (a.B <= 8) return launch_nt<1>(a, stream);
+  if (a.B <= 16) return launch_nt<2>(a, stream);
+  if (a.B <= 32) return launch_nt<4>(a, stream);
+  if (a.B <= 64) return launch_nt<8>(a, stream);
+  return launch_nt<16>(a, stream);
+}
+
+}  // namespace rs
+
+int launch_prep(const void* x, int in_bf16, const void* norm_w, int norm_bf16, int norm, const void* parts, int B,
+                int K, void* xb, void* hsum, void* h32, cudaStream_t st) {
+  return launch_pdl(rows_prep_kernel, dim3((K + PREP_K - 1) / PREP_K, B), dim3(PREP_THREADS), 0, st, x, in_bf16,
+                    norm_w, norm_bf16, norm, (const float*)parts, 1e-5f, K, (__nv_bfloat16*)xb, (float*)hsum,
+                    (float*)h32);
+}
+
+int launch_lora_down(const void* h32, const void* la, int lora_bf16, int B, int D, int R8, void* part, void* counter,
+                     void* ax, cudaStream_t st) {
+  const dim3 grid(R8 / LD_C, (D + LD_K - 1) / LD_K);
+  if (lora_bf16)
+    return launch_pdl(lora_down_kernel<__nv_bfloat16>, grid, dim3(256), 0, st, (const float*)h32,
+                      (const __nv_bfloat16*)la, B, D, R8, (float*)part, (int*)counter, (float*)ax);
+  return launch_pdl(lora_down_kernel<float>, grid, dim3(256), 0, st, (const float*)h32, (const float*)la, B, D, R8,
+                    (float*)part, (int*)counter, (float*)ax);
 }
 
 // The f32 body's epilogue, one thread per output element: acc (B, N) f32
@@ -411,89 +686,6 @@ __global__ void rows_epilogue_kernel(const float* __restrict__ acc, int B, int N
   out[e] = v;
 }
 
-int sm_count() {
-  static int n = 0;  // the card's SM count, read once
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
-// The arguments of one rows_int4 product: see rows_int4_kernel.
-struct Rows {
-  const void *xb, *gx, *wt, *st, *zt;
-  int B, K, N, gs, epi;
-  const void *cosr, *sinr;
-  int rope_cols;
-  const void* res;
-  int res_bf16;
-  void *out_f32, *out_bf16;
-  const void *ax, *lb;
-  int R8, lora_bf16;
-};
-
-template <int NT, int MT, typename LT>
-int launch_rows_tile(const Rows& a, int P, cudaStream_t stream) {
-  const int smem = (WARPS * 16 * MT * 8 * NT + (a.R8 > 0 ? TILE * LORA_RC + LORA_RC * 8 * NT : 0)) *
-                   (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rows_int4_kernel<NT, MT, LT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  rows_int4_kernel<NT, MT, LT><<<a.N / (8 * NT), THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)a.xb, (const float*)a.gx, (const uint8_t*)a.wt, (const float*)a.st,
-      (const float*)a.zt, a.B, a.K, a.N, a.gs, a.epi, P, (const float*)a.cosr, (const float*)a.sinr,
-      a.rope_cols, a.res, a.res_bf16, (float*)a.out_f32, (__nv_bfloat16*)a.out_bf16, (const float*)a.ax,
-      (const LT*)a.lb, a.R8);
-  return (int)cudaGetLastError();
-}
-
-template <int NT, int MT>
-int launch_rows_lt(const Rows& a, int P, cudaStream_t stream) {
-  return a.R8 > 0 && !a.lora_bf16 ? launch_rows_tile<NT, MT, float>(a, P, stream)
-                                  : launch_rows_tile<NT, MT, __nv_bfloat16>(a, P, stream);
-}
-
-// Share of the card's block slots that `blocks` blocks, one per SM at a time,
-// keep busy over their waves.
-double wave_fill(int blocks) {
-  const int sms = sm_count();
-  return (double)blocks / (double)((blocks + sms - 1) / sms * sms);
-}
-
-// Blocks of 64 columns where they fill the waves as well as blocks of 32 do
-// (c_fc12: 344 blocks, 2.6 waves), else of 32 (c_attn: 192 blocks of 64 would
-// leave half of the second wave idle; the c_proj products have too few
-// columns). MT = 1 (16 rows a warp) while no row tile passes 16 slots. The
-// wrappers check B >= 1, K % 128 == 0, gs in {64, 128, 256}, (K/2) % gs == 0,
-// N % 64 == 0 and, for EPI_SWIGLU, (N/2) % 32 == 0. R8 is 0 (ax and lb
-// unused) but on K7's product with a LoRA operand.
-int launch_rows(const Rows& a, cudaStream_t stream) {
-  const bool wide = wave_fill(a.N / 64) >= wave_fill(a.N / 32);
-  const int HW = wide ? 32 : 16;
-  const int P = a.epi == EPI_ROPE ? HS / 2 : a.epi == EPI_SWIGLU ? a.N / 2 : HW;
-  if (wide) return a.B <= 16 ? launch_rows_lt<8, 1>(a, P, stream) : launch_rows_lt<8, 2>(a, P, stream);
-  return a.B <= 16 ? launch_rows_lt<4, 1>(a, P, stream) : launch_rows_lt<4, 2>(a, P, stream);
-}
-
-int launch_prologue(const void* x, int in_bf16, const void* norm_w, int norm_bf16, int B, int K, int gs,
-                    void* xb, int xb_bf16, void* gx, const void* la, int lora_bf16, int R8,
-                    void* ax, cudaStream_t stream) {
-  if (la != nullptr && !lora_bf16)
-    rows_prologue_kernel<float><<<B, THREADS, 0, stream>>>(x, in_bf16, norm_w, norm_bf16, 1e-5f, K, gs,
-                                                           xb, xb_bf16, (float*)gx, (const float*)la, R8,
-                                                           (float*)ax);
-  else
-    rows_prologue_kernel<__nv_bfloat16><<<B, THREADS, 0, stream>>>(
-        x, in_bf16, norm_w, norm_bf16, 1e-5f, K, gs, xb, xb_bf16, (float*)gx, (const __nv_bfloat16*)la, R8,
-        (float*)ax);
-  return (int)cudaGetLastError();
-}
-
 // f32 body: acc (B, N) = h (B, K) f32 @ dequant(w), w in the shared (K/2, N)
 // layout, K in up to `splits` parts (ws their partials), then the epilogue
 // into out
@@ -517,75 +709,86 @@ int launch_rows_f32(const float* h, const void* qw, const void* qs, const void* 
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 
 // qkv (B, 3D) = rope(rms_norm(x, rms1) @ dequant(c_attn)), head size 128,
-// any B >= 1. cbf16 = 1: x and qkv bf16, the weight in the decode layout
-// (ca_w, ca_s, ca_z = qw_t, qscale_t, qzero_t), scratch xb (B, D) bf16 and gx
-// (B, D / gs) f32. cbf16 = 0: x and qkv f32, the weight in the shared layout
-// (qw, qscale, qzero), scratch xb (B, D) f32, gx (B, 3D) f32 (the GEMM's
-// sums) and, with splits > 1, ws (splits, B, 3D) f32. rms1 (D) bf16
-// (norm_bf16 = 1) or f32. cosr/sinr (B, 128) f32 (sin signed). With la not
-// null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16 (lora_bf16 = 1) or
-// f32, adds (h @ la) @ lb before RoPE; ax (B, R8) f32 is its scratch.
+// any B >= 1. rms1 (D) bf16 (norm_bf16 = 1) or f32. cos/sin (B, 128) f32 (sin
+// signed). With la not null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16
+// (lora_bf16 = 1) or f32, adds (h @ la) @ lb before RoPE: h32 (B, D) f32 holds
+// h, axpart (D / 256 rounded up, B, R8) f32 the partials of ax (B, R8) f32,
+// counter (R8 / 8) int32 zeros. cbf16 = 1: x and qkv bf16, the weight in the
+// decode layout (ca_w, ca_s, ca_z = qw_t, qscale_t, qzero_t); scratch xb (B, D)
+// bf16, hsum (B, D / 64) f32 and, with splits > 1 (ops/fused_layer.py
+// serve_plan), ws (splits, B, 3D) f32 and counter (3D / 128) zeros. cbf16 = 0:
+// x and qkv f32, the weight in the shared layout (qw, qscale, qzero); h32 (B,
+// D) f32 the normed row, acc (B, 3D) f32 the GEMM's sums, with splits > 1 ws
+// (splits, B, 3D) f32.
 LLT_EXPORT int k7_block_head(const void* x, const void* rms1, int norm_bf16, int cbf16, const void* ca_w,
-                             const void* ca_s, const void* ca_z, const void* cosr, const void* sinr,
-                             void* xb, void* gx, void* qkv, const void* la, const void* lb, void* ax,
-                             int R8, int lora_bf16, void* ws, int splits, int B, int D, int gs, void* stream) {
+                             const void* ca_s, const void* ca_z, const void* cosr, const void* sinr, void* xb,
+                             void* hsum, void* h32, void* acc, void* ws, int splits, void* counter, const void* la,
+                             const void* lb, void* ax, void* axpart, int R8, int lora_bf16, void* qkv, int B, int D,
+                             int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (la == nullptr) R8 = 0;
-  int err = launch_prologue(x, cbf16, rms1, norm_bf16, B, D, gs, xb, cbf16, cbf16 ? gx : nullptr, la,
-                            lora_bf16, R8, ax, st);
+  int err = launch_prep(x, cbf16, rms1, norm_bf16, NORM_SELF, nullptr, B, D, cbf16 ? xb : nullptr,
+                        cbf16 ? hsum : nullptr, R8 > 0 || !cbf16 ? h32 : nullptr, st);
+  if (!err && R8 > 0) err = launch_lora_down(h32, la, lora_bf16, B, D, R8, axpart, counter, ax, st);
   if (err) return err;
   if (!cbf16)
-    return launch_rows_f32((const float*)xb, ca_w, ca_s, ca_z, B, D, 3 * D, gs, gx, ws, splits, EPI_ROPE, cosr,
+    return launch_rows_f32((const float*)h32, ca_w, ca_s, ca_z, B, D, 3 * D, gs, acc, ws, splits, EPI_ROPE, cosr,
                            sinr, 2 * D, nullptr, ax, lb, lora_bf16, R8, qkv, st);
-  return launch_rows(Rows{xb, gx, ca_w, ca_s, ca_z, B, D, 3 * D, gs, EPI_ROPE, cosr, sinr, 2 * D, nullptr,
-                          0, nullptr, qkv, ax, lb, R8, lora_bf16},
-                     st);
+  return rs::launch(rs::Args{(const __nv_bfloat16*)xb, (const float*)hsum, (const uint8_t*)ca_w, (const float*)ca_s,
+                             (const float*)ca_z, B, D, 3 * D, gs, EPI_ROPE, splits, (const float*)cosr,
+                             (const float*)sinr, 2 * D, nullptr, 0, nullptr, (__nv_bfloat16*)qkv, nullptr,
+                             (const float*)ax, lb, R8, lora_bf16, (float*)ws, (int*)counter},
+                    st);
 }
 
 // out (B, D) = the block after its attention: xs = x + y @ c_proj; out = xs +
 // (silu(g) * u) @ mlp c_proj with (g, u) = rms_norm(xs, rms2) @ c_fc12. Any
-// B >= 1. rms2 (D) bf16 (norm_bf16 = 1) or f32. cbf16 = 1: x, y, out bf16,
-// weights in the decode layout; scratch xb (B, max(D, I)) bf16, gx
-// (B, max(D, I) / gs) f32, xs (B, D) f32, gg (B, I) f32. cbf16 = 0: x, y, out
-// f32, weights in the shared layout; scratch xb (B, D) f32, gx (B, max(D, 2I))
-// f32 (the GEMM's sums), xs, gg as above, and ws for the K splits of the
-// three products (s_cp, s_fc, s_mp parts: (max of splits * N, B) f32).
+// B >= 1. rms2 (D) bf16 (norm_bf16 = 1) or f32; xs (B, D) f32 scratch. cbf16 =
+// 1: x, y, out bf16, weights in the decode layout; scratch xb (B, D) and xb2
+// (B, I) bf16, hsum (B, D / 64), hsum2 (B, I / 64) and ssq (B, D / 64) f32,
+// and for the products with s_* > 1 (serve_plan) ws (max of s * N, B) f32 and
+// counter (D / 128) zeros. cbf16 = 0: x, y, out f32, weights in the shared
+// layout; scratch xb (B, D) f32 (the normed row), gg (B, I) f32, acc (B,
+// max(D, 2I)) f32 (the GEMM's sums), ws for the three products' K splits.
 LLT_EXPORT int k9_block_tail(const void* x, const void* y, const void* rms2, int norm_bf16, int cbf16,
                              const void* cp_w, const void* cp_s, const void* cp_z, const void* f12_w,
                              const void* f12_s, const void* f12_z, const void* mp_w, const void* mp_s,
-                             const void* mp_z, void* xb, void* gx, void* xs, void* gg, void* out, void* ws,
-                             int s_cp, int s_fc, int s_mp, int B, int D, int I, int gs, void* stream) {
+                             const void* mp_z, void* xb, void* hsum, void* xb2, void* hsum2, void* ssq, void* xs,
+                             void* gg, void* acc, void* out, void* ws, void* counter, int s_cp, int s_fc, int s_mp,
+                             int B, int D, int I, int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!cbf16) {
-    int err = launch_rows_f32((const float*)y, cp_w, cp_s, cp_z, B, D, D, gs, gx, ws, s_cp, EPI_RESIDUAL,
+    int err = launch_rows_f32((const float*)y, cp_w, cp_s, cp_z, B, D, D, gs, acc, ws, s_cp, EPI_RESIDUAL,
                               nullptr, nullptr, 0, x, nullptr, nullptr, 1, 0, xs, st);
+    if (!err) err = launch_prep(xs, 0, rms2, norm_bf16, NORM_SELF, nullptr, B, D, nullptr, nullptr, xb, st);
+    if (!err)
+      err = launch_rows_f32((const float*)xb, f12_w, f12_s, f12_z, B, D, 2 * I, gs, acc, ws, s_fc, EPI_SWIGLU,
+                            nullptr, nullptr, 0, nullptr, nullptr, nullptr, 1, 0, gg, st);
     if (err) return err;
-    err = launch_prologue(xs, 0, rms2, norm_bf16, B, D, gs, xb, 0, nullptr, nullptr, 1, 0, nullptr, st);
-    if (err) return err;
-    err = launch_rows_f32((const float*)xb, f12_w, f12_s, f12_z, B, D, 2 * I, gs, gx, ws, s_fc, EPI_SWIGLU,
-                          nullptr, nullptr, 0, nullptr, nullptr, nullptr, 1, 0, gg, st);
-    if (err) return err;
-    return launch_rows_f32((const float*)gg, mp_w, mp_s, mp_z, B, I, D, gs, gx, ws, s_mp, EPI_RESIDUAL,
-                           nullptr, nullptr, 0, xs, nullptr, nullptr, 1, 0, out, st);
+    return launch_rows_f32((const float*)gg, mp_w, mp_s, mp_z, B, I, D, gs, acc, ws, s_mp, EPI_RESIDUAL, nullptr,
+                           nullptr, 0, xs, nullptr, nullptr, 1, 0, out, st);
   }
-  int err = launch_prologue(y, 1, nullptr, 1, B, D, gs, xb, 1, gx, nullptr, 1, 0, nullptr, st);
-  if (err) return err;
-  err = launch_rows(Rows{xb, gx, cp_w, cp_s, cp_z, B, D, D, gs, EPI_RESIDUAL, nullptr, nullptr, 0, x, 1, xs,
-                         nullptr, nullptr, nullptr, 0, 1},
-                    st);
-  if (err) return err;
-  err = launch_prologue(xs, 0, rms2, norm_bf16, B, D, gs, xb, 1, gx, nullptr, 1, 0, nullptr, st);
-  if (err) return err;
-  err = launch_rows(Rows{xb, gx, f12_w, f12_s, f12_z, B, D, 2 * I, gs, EPI_SWIGLU, nullptr, nullptr, 0,
-                         nullptr, 0, gg, nullptr, nullptr, nullptr, 0, 1},
-                    st);
-  if (err) return err;
-  err = launch_prologue(gg, 0, nullptr, 1, B, I, gs, xb, 1, gx, nullptr, 1, 0, nullptr, st);
-  if (err) return err;
-  return launch_rows(Rows{xb, gx, mp_w, mp_s, mp_z, B, I, D, gs, EPI_RESIDUAL, nullptr, nullptr, 0, xs, 0,
-                          nullptr, out, nullptr, nullptr, 0, 1},
+  using rs::Args;
+  const __nv_bfloat16 *b1 = (const __nv_bfloat16*)xb, *b2 = (const __nv_bfloat16*)xb2;
+  int err = launch_prep(y, 1, nullptr, 1, NORM_NONE, nullptr, B, D, xb, hsum, nullptr, st);
+  if (!err)
+    err = rs::launch(Args{b1, (const float*)hsum, (const uint8_t*)cp_w, (const float*)cp_s, (const float*)cp_z, B, D,
+                          D, gs, EPI_RESIDUAL, s_cp, nullptr, nullptr, 0, x, 1, (float*)xs, nullptr, (float*)ssq,
+                          nullptr, nullptr, 0, 1, (float*)ws, (int*)counter},
                      st);
+  if (!err) err = launch_prep(xs, 0, rms2, norm_bf16, NORM_PARTS, ssq, B, D, xb, hsum, nullptr, st);
+  if (!err)
+    err = rs::launch(Args{b1, (const float*)hsum, (const uint8_t*)f12_w, (const float*)f12_s, (const float*)f12_z, B,
+                          D, 2 * I, gs, EPI_SWIGLU, s_fc, nullptr, nullptr, 0, nullptr, 0, (float*)hsum2,
+                          (__nv_bfloat16*)xb2, nullptr, nullptr, nullptr, 0, 1, (float*)ws, (int*)counter},
+                     st);
+  if (err) return err;
+  return rs::launch(Args{b2, (const float*)hsum2, (const uint8_t*)mp_w, (const float*)mp_s, (const float*)mp_z, B, I,
+                         D, gs, EPI_RESIDUAL, s_mp, nullptr, nullptr, 0, xs, 0, nullptr, (__nv_bfloat16*)out,
+                         nullptr, nullptr, nullptr, 0, 1, (float*)ws, (int*)counter},
+                    st);
 }

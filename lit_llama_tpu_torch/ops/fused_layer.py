@@ -65,7 +65,7 @@ device; the wrapper adds the checks of the card (device, alignment).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,8 +83,8 @@ _SIGS = {
     "k2_lm_head": [_P, _P, _I, _I] + [_P] * 4 + [_I] * 3 + [_P],
 }
 _SERVE_SIGS = {
-    "k7_block_head": [_P, _P, _I, _I] + [_P] * 11 + [_I] * 2 + [_P] + [_I] * 4 + [_P],
-    "k9_block_tail": [_P] * 3 + [_I] * 2 + [_P] * 15 + [_I] * 7 + [_P],
+    "k7_block_head": [_P, _P, _I, _I] + [_P] * 10 + [_I] + [_P] * 5 + [_I] * 2 + [_P] + [_I] * 3 + [_P],
+    "k9_block_tail": [_P] * 3 + [_I] * 2 + [_P] * 20 + [_I] * 7 + [_P],
 }
 SERVE_KERNEL_MAX_B = 4096  # slots the engine gives K7-K9 (the JAX package's cap)
 LORA_THREADS = 256  # rows of lora_af per block of K1's lora_down (csrc/fused_layer.cu)
@@ -238,21 +238,24 @@ def k1_scratch(H: int, S: int, hs: int, dtype: torch.dtype) -> Tuple[int, int]:
     return H * (-(-S // CHUNK)) * (hs + 2), 0
 
 
+_Q4_SHAPES = {"qw_t": lambda K, N, G: (N, K // 2), "qw": lambda K, N, G: (K // 2, N),
+              "qscale_t": lambda K, N, G: (N, G), "qzero_t": lambda K, N, G: (N, G),
+              "qscale": lambda K, N, G: (G, N), "qzero": lambda K, N, G: (G, N)}
+
+
 def _check_q4(w: Params, K: int, N: int, gs: int, what: str, keys=_DECODE_KEYS):
     """The kernels read the decode layout added by prepare_fused_params (the
-    f32 bodies of K7 and K9 the shared (K/2, N) layout, ``keys``)."""
+    products of K7 and K9 its nibbles with the shared layout's scale and zero
+    planes, their f32 bodies the shared (K/2, N) layout: ``keys``)."""
     if gs not in (64, 128, 256) or K % gs or (K // gs) % 2:
         raise ValueError(f"{what}: needs gs in (64, 128, 256) and an even group count (K={K} gs={gs})")
     if keys[0] not in w:
         raise ValueError(f"{what}: no {keys[0]}; prepare the params with prepare_fused_params")
-    qw, qs, qz = (w[k] for k in keys)
-    G = K // gs
-    shape = (N, K // 2) if keys is _DECODE_KEYS else (K // 2, N)
-    if qw.dtype != torch.uint8 or qw.shape != shape:
-        raise ValueError(f"{what}: {keys[0]} must be uint8 {shape}, got {qw.dtype} {tuple(qw.shape)}")
-    for t in (qs, qz):
-        if t.dtype != torch.float32 or t.shape != ((N, G) if keys is _DECODE_KEYS else (G, N)):
-            raise ValueError(f"{what}: {keys[1]}/{keys[2]} must be float32 of the layout's shape")
+    for k in keys:
+        t, shape = w[k], _Q4_SHAPES[k](K, N, K // gs)
+        dtype = torch.uint8 if k.startswith("qw") else torch.float32
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"{what}: {k} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
 
 
 def _on_card(what: str, *ts):
@@ -260,6 +263,23 @@ def _on_card(what: str, *ts):
     for t in ts:
         if t is not None and (not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{what}: tensors must be contiguous, 16-byte aligned CUDA tensors")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _scratch(dev, *nbytes: int):
+    """A call's scratch in one allocation: the buffer (kept by the caller
+    until the launch is enqueued) and a pointer into it for each size, 16-byte
+    aligned (None for 0). One allocation, not one a tensor, keeps the host's
+    time a serving step below the device's."""
+    offs, total = [], 0
+    for n in nbytes:
+        offs.append(total if n else None)
+        total += -(-n // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=dev)
+    return buf, [None if o is None else buf.data_ptr() + o for o in offs]
 
 
 def _w_keys(ws, keys=_DECODE_KEYS):
@@ -449,6 +469,74 @@ def lm_head_fused(x, ln_w, head: Params, config):
 lm_head_fused.launches = 0
 
 
+# The bf16 products of K7 and K9 (csrc/serve_layer.cu, namespace rs): a block
+# of SERVE_WARPS warps owns SERVE_COLS output columns (under SiLU(gate) * up
+# 64 gate columns and their 64 up columns), a warp 16 of them, for the
+# SERVE_STEP-byte k-steps of its K split, and walks the slots in token tiles
+# (``serve_token_tile``) through a ring of ``serve_stages`` steps. The K
+# splits come from N and K alone (``serve_plan``), so a row's sums depend
+# neither on B nor on the tile. The rows' prologue takes SERVE_PREP_K
+# elements of a row a block; K7's lora_down SERVE_LORA_K rows and
+# SERVE_LORA_C columns of lora_af a block.
+SERVE_WARPS, SERVE_COLS, SERVE_STEP = 8, 128, 64
+SERVE_SPLIT_TARGET, SERVE_MAX_SPLITS, SERVE_MIN_SPLIT_STEPS = 128, 4, 8
+SERVE_PREP_K, SERVE_LORA_K, SERVE_LORA_C = 512, 256, 8
+
+
+class ServePlan(NamedTuple):
+    blocks: int  # column blocks (gridDim.x)
+    splits: int  # K splits (gridDim.y)
+    steps: int  # SERVE_STEP-byte k-steps of a column
+
+    def split_steps(self, sp: int) -> range:
+        """The k-steps split ``sp`` takes."""
+        return range(sp * self.steps // self.splits, (sp + 1) * self.steps // self.splits)
+
+
+def serve_plan(N: int, K: int) -> ServePlan:
+    """How a bf16 product of K7 or K9 cuts its work at K -> N (N = 2I under
+    SiLU(gate) * up): the splits double while the column blocks fall short of
+    SERVE_SPLIT_TARGET and each split keeps SERVE_MIN_SPLIT_STEPS steps, at
+    most SERVE_MAX_SPLITS; the last block of a column block to arrive merges
+    the splits in split order (csrc/serve_layer.cu plan_splits)."""
+    blocks, steps = N // SERVE_COLS, K // 2 // SERVE_STEP
+    splits = 1
+    while blocks * splits < SERVE_SPLIT_TARGET and splits < SERVE_MAX_SPLITS and \
+            steps // (2 * splits) >= SERVE_MIN_SPLIT_STEPS:
+        splits *= 2
+    return ServePlan(blocks, splits, steps)
+
+
+def serve_columns(block: int, N: int, swiglu: bool) -> List[int]:
+    """The columns of a block in its local order (csrc/serve_layer.cu
+    col_of): SERVE_COLS adjacent ones, or under SiLU(gate) * up the gate
+    columns 64 b .. 64 b + 63 then their up columns N/2 + the same."""
+    if swiglu:
+        gate = list(range(64 * block, 64 * block + 64))
+        return gate + [N // 2 + j for j in gate]
+    return list(range(SERVE_COLS * block, SERVE_COLS * (block + 1)))
+
+
+def serve_token_tile(B: int) -> int:
+    """Slots of the products' token tile at B slots: the fewest of 8, 16, 32,
+    64, 128 that hold B, at most 128 (more slots go in tiles of 128)."""
+    return next((t for t in (8, 16, 32, 64) if B <= t), 128)
+
+
+SERVE_ONE_WAVE = 132  # blocks of a product's grid that takes the deep ring (an SM each)
+
+
+def serve_stages(tile: int, deep: bool = False) -> int:
+    """Steps in the products' ring at a token tile (csrc/serve_layer.cu
+    stages): two blocks an SM up to 64 slots, or ``deep`` (a grid of at most
+    SERVE_ONE_WAVE blocks, ``blocks * splits`` of its plan) one block an SM
+    with a deeper ring."""
+    nt = tile // 8
+    if deep:
+        return 8 if nt <= 8 else 4
+    return 5 if nt <= 4 else 4 if nt == 8 else 3
+
+
 def _check_serve_layout(config, B: int, what: str):
     D, I, gs = config.n_embd, config.intermediate_size, config.quant_groupsize
     if config.head_size != 128:
@@ -461,9 +549,10 @@ def _check_serve_layout(config, B: int, what: str):
 
 
 def _serve_keys(x):
-    """The layout each body of K7 and K9 reads: the decode layout in bf16, the
-    shared one in f32."""
-    return _DECODE_KEYS if x.dtype == torch.bfloat16 else _SHARED_KEYS
+    """What each body of K7 and K9 reads: in bf16 the decode layout's nibbles
+    and the shared layout's (G, N) scale and zero planes (a block's columns
+    of a group are one run), in f32 the shared layout."""
+    return ("qw_t", "qscale", "qzero") if x.dtype == torch.bfloat16 else _SHARED_KEYS
 
 
 def check_block_head(x, rms1, cos, sin, ca: Params, config):
@@ -501,19 +590,19 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
     _on_card("K7", x, rms1, cos, sin, la, lb, *_w_keys([ca], keys))
     cbf16 = x.dtype == torch.bfloat16
     dev = x.device
-    xb = torch.empty((B, D), dtype=x.dtype, device=dev)
-    gx = torch.empty((B, D // gs if cbf16 else 3 * D), dtype=torch.float32, device=dev)
-    splits = 1 if cbf16 else quant_matmul.f32_splits(3 * D, D, dev)
-    ws = torch.empty((splits, B, 3 * D), dtype=torch.float32, device=dev) if splits > 1 else None
+    splits = serve_plan(3 * D, D).splits if cbf16 else quant_matmul.f32_splits(3 * D, D, dev)
+    buf, (xb, hsum, h32, acc, ws, ax, axpart) = _scratch(
+        dev, B * D * 2 * cbf16, B * (D // 64) * 4 * cbf16, B * D * 4 * bool(R8 or not cbf16),
+        B * 3 * D * 4 * (not cbf16), splits * B * 3 * D * 4 * (splits > 1), B * R8 * 4,
+        -(-D // SERVE_LORA_K) * B * R8 * 4)
+    counter = decode_attention.arrival_counters(max(3 * D // SERVE_COLS, R8 // SERVE_LORA_C), dev)
     qkv = torch.empty((B, 3 * D), dtype=x.dtype, device=dev)
-    ax = torch.empty((B, R8), dtype=torch.float32, device=dev) if R8 else None
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k7_block_head(
         x.data_ptr(), rms1.data_ptr(), int(rms1.dtype == torch.bfloat16), int(cbf16),
         *[t.data_ptr() for t in _w_keys([ca], keys)],
-        cos.data_ptr(), sin.data_ptr(), xb.data_ptr(), gx.data_ptr(), qkv.data_ptr(),
-        la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None, ax.data_ptr() if R8 else None, R8,
-        int(R8 == 0 or la.dtype == torch.bfloat16), None if ws is None else ws.data_ptr(), splits,
+        cos.data_ptr(), sin.data_ptr(), xb, hsum, h32, acc, ws, splits, counter.data_ptr(),
+        _ptr(la), _ptr(lb), ax, axpart, R8, int(R8 == 0 or la.dtype == torch.bfloat16), qkv.data_ptr(),
         B, D, gs, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "K7 block_head_fused")
@@ -557,26 +646,26 @@ def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
     keys = _serve_keys(x)
     _on_card("K9", x, y, rms2, *_w_keys([cp, f12, mp], keys))
     cbf16 = x.dtype == torch.bfloat16
-    dev, W = x.device, max(D, I)
+    dev = x.device
+    shapes = ((D, D), (D, 2 * I), (I, D))  # (K, N) of attn c_proj, c_fc12, mlp c_proj
     if cbf16:
-        xb = torch.empty((B, W), dtype=torch.bfloat16, device=dev)
-        gx = torch.empty((B, W // gs), dtype=torch.float32, device=dev)
+        splits = [serve_plan(N, K).splits for K, N in shapes]
     else:
-        xb = torch.empty((B, D), dtype=torch.float32, device=dev)
-        gx = torch.empty((B, max(D, 2 * I)), dtype=torch.float32, device=dev)
-    # K splits of the f32 body's three products (attn c_proj, c_fc12, mlp c_proj)
-    splits = [1, 1, 1] if cbf16 else [quant_matmul.f32_splits(N, K, dev) for K, N in ((D, D), (D, 2 * I), (I, D))]
-    wsize = max(s * N for s, N in zip(splits, (D, 2 * I, D)))
-    ws = torch.empty((wsize, B), dtype=torch.float32, device=dev) if max(splits) > 1 else None
-    xs = torch.empty((B, D), dtype=torch.float32, device=dev)
-    gg = torch.empty((B, I), dtype=torch.float32, device=dev)
+        splits = [quant_matmul.f32_splits(N, K, dev) for K, N in shapes]
+    ws = max(s * N for s, (_, N) in zip(splits, shapes)) * B * 4 if max(splits) > 1 else 0
+    # bf16: xb, hsum, xb2, hsum2, ssq; f32: xb (the normed row), gg, acc
+    buf, (xs, xb, hsum, xb2, hsum2, ssq, gg, acc, ws) = _scratch(
+        dev, B * D * 4, B * D * (2 if cbf16 else 4), B * (D // 64) * 4 * cbf16, B * I * 2 * cbf16,
+        B * (I // 64) * 4 * cbf16, B * (D // 64) * 4 * cbf16, B * I * 4 * (not cbf16),
+        B * max(D, 2 * I) * 4 * (not cbf16), ws)
+    counter = decode_attention.arrival_counters(max(N // SERVE_COLS for _, N in shapes), dev)
     out = torch.empty_like(x)
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k9_block_tail(
         x.data_ptr(), y.data_ptr(), rms2.data_ptr(), int(rms2.dtype == torch.bfloat16), int(cbf16),
         *[t.data_ptr() for t in _w_keys([cp, f12, mp], keys)],
-        xb.data_ptr(), gx.data_ptr(), xs.data_ptr(), gg.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), *splits, B, D, I, gs, torch.cuda.current_stream(dev).cuda_stream,
+        xb, hsum, xb2, hsum2, ssq, xs, gg, acc, out.data_ptr(), ws, counter.data_ptr(),
+        *splits, B, D, I, gs, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "K9 block_tail_fused")
     block_tail_fused.launches += 1

@@ -1,10 +1,11 @@
 """Where the warps of the hand-written Hopper kernels spend their cycles:
 clock64 spans in an instrumented copy of the package.
 
-    python lit_llama_tpu_torch/tools/spans.py flash|gemv [--out DIR]
+    python lit_llama_tpu_torch/tools/spans.py flash|gemv|rows [--root DIR] [--out DIR]
 
-Copies the package to DIR (default ``build/spans_<target>``, which the copy's
-kernels build beside), adds spans to the copy's kernel sources from a table
+Copies the package (that of the checkout at ``--root``, by default this one)
+to DIR (default ``build/spans_<target>``, which the copy's kernels build
+beside), adds spans to the copy's kernel sources from a table
 of anchors (lines of the kernel's own code, after or before which a reading
 is taken), runs the kernels and prints one JSON line per kernel and shape.
 One thread per warp or warpgroup takes the readings and adds them atomically
@@ -25,6 +26,15 @@ ring wait, nibble unpacking, mma.sync, scales, epilogue) and in f32 compute
 (``csrc/gemv_int4.cuh``: prologue, loads, the wait for the loads, unpacking
 with the products and scales, epilogue), for each of the block's four
 linears: the cycles a warp takes and the share of each span.
+
+``rows``: the int4 products of K7 and K9 (``csrc/serve_layer.cu``) at B = 32
+on one 7B block (random weights from seed 0): for c_attn, attn.c_proj,
+c_fc12 and mlp.c_proj, the cycles a warp takes and the share of the token-row
+loads, the weight loads (or the ring's wait), the nibble conversion, the mma,
+the scales and zero-point term, the cross-warp reduction or split merge and
+the epilogue. Each kernel the source holds is read (``ROWS_SOURCES``: the
+product kernel of the earlier design, ``rows_int4_kernel``, and its
+successor), so ``--root`` may name a checkout of either.
 """
 
 from __future__ import annotations
@@ -118,7 +128,9 @@ def instrument(src: str, source: Source) -> str:
     if missing:
         raise ValueError(f"spans: {source.file}: anchors not found: {missing}")
     text = "\n".join(out)
-    return text.replace("#pragma once\n", "#pragma once\n" + HEAD, 1)
+    if "#pragma once\n" in text:  # a header: the table once, after its guard
+        return text.replace("#pragma once\n", "#pragma once\n" + HEAD, 1)
+    return HEAD + text
 
 
 FLASH = Source(
@@ -159,10 +171,46 @@ GEMV = (  # rows 0-3: the FFMA body by role; rows 4-7: the tensor-core body
             ("if (epi == EPI_SWIGLU) {", "SPAN(5)", "before")),
            ""),
 )
+ROWS_SOURCES = (
+    Source("serve_layer.cu",
+           (Kernel("rows_int4_kernel(", "const int s_begin = warp * per, s_end = min(nsteps, s_begin + per);",
+                   LANE0, ROLE, "(s_end - s_begin)"),),
+           (("const __nv_bfloat16* xbt = xb + (size_t)rt * K;", "SPAN(6)", "before"),  # the previous tile's tail
+            ("ahi[m][rr][4] = h1.x", "SPAN(6) SPAN_WAIT(alo[0][0][0]) SPAN(0)", "after"),
+            ("w[j] = __ldg(reinterpret_cast<const uint4*>(wt", "SPAN_WAIT(w[j].x) SPAN(1)", "after"),
+            ("const uint32_t bh0 = nibbles_bf16x2(hi, 0x4140)", "SPAN(2)", "after"),
+            ("mma_bf16(phi[m], ah, bh0, bh1);", "SPAN(3)", "after"),
+            ("acc[j][m][i] += plo[m][i] * sl[i & 1] + phi[m][i] * sh[i & 1];", "SPAN(4)", "after"),
+            ("float* mine = red + (size_t)warp * ROWS * BN;", "SPAN(6)", "before"),
+            ("const int nout = epi == EPI_SWIGLU ? BN / 2 : BN;", "SPAN(5)", "before")),
+           "SPAN(7)"),
+    Source("serve_layer.cu",
+           (Kernel("rows_sm90_kernel(", "const int s0 = sp * nsteps / a.splits, n = (sp + 1) * nsteps / a.splits - s0;",
+                   LANE0, "(a.epi == EPI_SWIGLU ? 2 : a.epi == EPI_RESIDUAL ? (a.K == a.N ? 1 : 3) : 0)", "n"),),
+           (("cp_async_wait<S - 2>();", "SPAN(6)", "before"),
+            ("if (j + S - 1 < n) {", "SPAN(0)", "before"),
+            ("const uint8_t* stg = smem + (j % S) * SB;", "SPAN(1)", "before"),
+            ("for (int jt = 0; jt < NT; ++jt) {", "SPAN(2)", "before"),
+            ("const uint4 h0 = reinterpret_cast<const uint4*>(tr + 128)[0]", "SPAN_WAIT(h1.w) SPAN(3)", "after"),
+            ("const float4 q = ", "SPAN_WAIT(__float_as_uint(dh[3])) SPAN(4)", "before"),
+            ("c[3] = fmaf(q.z, z4.z, c[3]), c[3] = fmaf(q.w, z4.w, c[3]);", "SPAN(5)", "after"),
+            ("cp_async_wait<0>();", "SPAN(6)", "before"),
+            ("if (a.splits == 1) {", "SPAN(7)", "before"),
+            ("__syncthreads();  // T is the next tile's ring", "SPAN(8)", "before"),
+            ("if (a.splits == 1) return;", "if (a.splits == 1) { SPAN_END(n) }", "before"),
+            ("if (!last) return;", "SPAN(7) if (!last) { SPAN_END(n) }", "before")),
+           "SPAN(8)"),
+)
+ROWS_SPANS = {"rows_int4_kernel(": ("token rows", "weights", "nibble conversion", "mma", "scales + zero term",
+                                    "reduction / merge", "other", "epilogue"),
+              "rows_sm90_kernel(": ("ring wait + barrier", "copy issue", "scales + nibble conversion",
+                                    "token fragments", "mma", "scales + zero term", "other", "tile out / merge",
+                                    "epilogue")}
 GEMV_SPANS = {0: ("prologue", "loads", "load wait", "unpack + products + scales", "epilogue"),
               1: ("prologue", "ring wait", "unpack", "products (mma.sync)", "scales", "epilogue")}
 TARGETS: Dict[str, Tuple[Tuple[Source, ...], str]] = {"flash": ((FLASH,), "flash_attention"),
-                                                       "gemv": (GEMV, "fused_layer")}
+                                                       "gemv": (GEMV, "fused_layer"),
+                                                       "rows": (ROWS_SOURCES, "serve_layer")}
 
 
 def read(lib, table) -> list:
@@ -230,19 +278,62 @@ def run_gemv(torch, lib, table, smi) -> None:
                                       "share": {names[j]: row[j] / cycles for j in range(len(names)) if row[j]}}))
 
 
+def run_rows(torch, lib, table, smi) -> None:
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import fused_layer
+    from lit_llama_tpu_torch.ops.rope import build_rope_cache, slot_rope_rows
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params
+
+    dev = torch.device("cuda")
+    cfg7 = LLaMAConfig.from_name("7B", n_layer=1, param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int4")
+    params, cfg = fused_layer.prepare_fused_params(
+        llama.unstack_layers(random_int4_params(cfg7, seed=0, device=dev)), cfg7)
+    lp = params["h"][0]
+    g = torch.Generator().manual_seed(0)
+    B = 32
+    x, y = (torch.randn(B, cfg.n_embd, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    pos = torch.randint(0, cfg.block_size, (B,), generator=g).to(dev, torch.int32)
+    cos, sin = slot_rope_rows(build_rope_cache(cfg.block_size, cfg.head_size, device=dev), pos)
+
+    def step():
+        fused_layer.block_head_fused(x, lp["rms_1"], cos, sin, lp["attn"]["c_attn"], cfg)
+        fused_layer.block_tail_fused(x, y, lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"],
+                                     lp["mlp"]["c_proj"], cfg)
+
+    step()
+    torch.cuda.synchronize()
+    read(lib, table)  # clears the table
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    text = (Path(fused_layer.__file__).resolve().parent.parent / "csrc" / "serve_layer.cu").read_text()
+    kernel = next(k for k in ROWS_SPANS if k in text)
+    for role, row in zip(ROLES, read(lib, table)):
+        cycles, warps = row[13], row[15]
+        if warps:
+            print(json.dumps({"kernel": kernel[:-1], "linear": role, "B": B, "nvidia_smi": smi, "warps": warps,
+                              "cycles_a_warp": cycles / warps, "steps_a_warp": row[14] / warps,
+                              "share": {n: row[j] / cycles for j, n in enumerate(ROWS_SPANS[kernel]) if row[j]}}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("target", choices=sorted(TARGETS))
+    ap.add_argument("--root", default=None, help="the checkout whose package is instrumented (default: this one)")
     ap.add_argument("--out", default=None, help="the directory for the instrumented copy of the package")
     args = ap.parse_args()
-    package = Path(__file__).resolve().parents[1]
-    out = Path(args.out or package.parent / "build" / f"spans_{args.target}")
+    here = Path(__file__).resolve().parents[1]
+    package = Path(args.root).resolve() / here.name if args.root else here
+    out = Path(args.out or here.parent / "build" / f"spans_{args.target}")
     shutil.rmtree(out / package.name, ignore_errors=True)
     shutil.copytree(package, out / package.name, ignore=shutil.ignore_patterns("__pycache__"))
     csrc = out / package.name / "csrc"
     sources, library = TARGETS[args.target]
     for source in sources:
-        (csrc / source.file).write_text(instrument((csrc / source.file).read_text(), source))
+        text = (csrc / source.file).read_text()
+        if any(k.name in text for k in source.kernels):  # rows: the kernel this checkout has
+            (csrc / source.file).write_text(instrument(text, source))
     (csrc / f"{library}.cu").write_text((csrc / f"{library}.cu").read_text() + READ)
     sys.path.insert(0, str(out))
     import torch
@@ -259,7 +350,7 @@ def main() -> int:
     table = (ctypes.c_ulonglong * (ROWS * COLS))()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    (run_flash if args.target == "flash" else run_gemv)(torch, lib, table, smi)
+    {"flash": run_flash, "gemv": run_gemv, "rows": run_rows}[args.target](torch, lib, table, smi)
     return 0
 
 

@@ -261,7 +261,7 @@ def _card_layer(n_embd, n_head, cuda, seed):
 
 
 @pytest.mark.parametrize("n_embd,n_head", [(512, 4), (1792, 14)])
-@pytest.mark.parametrize("B", [1, 8, 17, 32, 64, 65, 96, 128])
+@pytest.mark.parametrize("B", [1, 2, 8, 17, 32, 33, 64, 65, 96, 128])
 def test_block_head_and_tail_kernels_match_plain(cuda, n_embd, n_head, B):
     """K7 and K9 on the card against their plain versions at bf16; 14 heads of
     128 give n_embd 1792 (7 groups per plane) and I = 4864 (19), odd as 7B's
@@ -282,6 +282,28 @@ def test_block_head_and_tail_kernels_match_plain(cuda, n_embd, n_head, B):
                                rtol=2e-2, atol=2e-2)
     torch.cuda.synchronize()
     assert (tfl.block_head_fused.launches, tfl.block_tail_fused.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n_embd,n_head", [(512, 4), (2048, 16)])
+def test_block_head_and_tail_kernel_rows_equal_at_any_slot_count(cuda, n_embd, n_head):
+    """A row's K7 and K9 outputs are the same bits at B = 1, 32 and 128 (the
+    products' token tiles of 8, 32 and 128 slots; at n_embd 2048 c_attn and
+    both c_proj products split K), so a request's tokens do not depend on
+    the engine's size."""
+    lp, tc = _card_layer(n_embd, n_head, cuda, 5)
+    rng = np.random.default_rng(11)
+    mk = lambda: torch.from_numpy(rng.normal(size=(128, n_embd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    x, y = mk(), mk()
+    pos = torch.from_numpy(rng.integers(0, 600, size=128).astype(np.int32)).to(cuda)
+    cos, sin = slot_rope_rows(build_rope_cache(tc.block_size, 128, device=cuda), pos)
+    outs = {}
+    for B in (1, 32, 128):
+        outs[B] = (tfl.block_head_fused(x[:B], lp["rms_1"], cos[:B], sin[:B], lp["attn"]["c_attn"], tc),
+                   tfl.block_tail_fused(x[:B], y[:B], lp["rms_2"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"],
+                                        lp["mlp"]["c_proj"], tc))
+    for B in (1, 32):
+        for got, ref in zip(outs[B], outs[128]):
+            assert torch.equal(got, ref[:B]), f"B={B}: a row's bits differ from the 128-slot call's"
 
 
 @pytest.mark.parametrize("entry", sorted(PORT_ENTRIES))
