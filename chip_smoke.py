@@ -54,7 +54,15 @@ without and with LoRA (with LoRA also on the prompts that once failed 6b):
 each kernel against its plain version on the plain path's inputs, layer by
 layer, and both bf16 paths against the plain path in f32 compute. The launch
 counters, set to 0 before each path and read after it, prove that the path
-ran through the kernels.
+ran through the kernels. Phases 19-21 finetune: one step of a 3-layer
+full-width model in LoRA, Adapter v1 and v2, kernel path against plain path;
+K4 and K10 at the finetuning shape (4, 32, 256, 128) beside SDPA; the
+finetuning body (``training.finetune.finetune``) on SFT samples of 30-250
+tokens, micro-batch 4 x 2, in LoRA, Adapter v1 and v2 on the 32-layer 7B
+model and full finetuning on 8 layers (step ms, tokens/s, peak memory;
+frozen leaves unchanged); and ``finetune.lora`` / ``finetune.adapter`` then
+``generate.lora`` / ``generate.adapter`` in subprocesses, greedy tokens
+equal to the in-process ``generate``'s.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -167,6 +175,22 @@ def log(*a):
 SEEDS_6C = tuple(range(1000, 1008))  # phase 6c: the prompt seeds phase 6b was read at
 
 
+def write_tokenizer(path: Path) -> Path:
+    """A BPE tokenizer of 128 pieces (letters, a few marks, word starts and
+    vowel pairs), written by the port's ``serialize_model``."""
+    from lit_llama_tpu_torch.data import sp_model
+
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = [sp_model.Piece("<unk>", 0.0, sp_model.UNKNOWN), sp_model.Piece("<s>", 0.0, sp_model.CONTROL),
+              sp_model.Piece("</s>", 0.0, sp_model.CONTROL), sp_model.Piece(sp_model.WS, -1.0)]
+    pieces += [sp_model.Piece(c, -2.0 - i) for i, c in enumerate(letters + "?.,'")]
+    merges = [sp_model.WS + c for c in letters] + [a + b for a in "aeiou" for b in letters]
+    pieces += [sp_model.Piece(m, -100.0 - i) for i, m in enumerate(merges[: 128 - len(pieces)])]
+    assert len(pieces) == 128
+    path.write_bytes(sp_model.serialize_model(sp_model.SPModel(pieces=pieces, model_type=2)))
+    return path
+
+
 def kernel_name(signature: str) -> str:
     """A kernel's name from the profiler's signature of it."""
     return signature.split("<")[0].split("(anonymous namespace)::")[-1].split("(")[0].split("::")[-1]
@@ -265,6 +289,428 @@ def serving_layer_check(p2, c2, rope, dev, prompts_from, tol, lens=(10, 37, 60),
         held(quant_matmul.matmul_int4(*head), logits, "K3")
         tok, pos = logits.float().argmax(-1), pos + 1
     return dict(seed=seed, reading_6b=reading, per_kernel=errs, tolerance_share=share, distance_to_f32=to_f32)
+
+
+def sft_samples(tok, n: int, seed: int, lo: int = 30, hi: int = 250):
+    """``n`` SFT samples whose lengths are log-uniform in [lo, hi] tokens:
+    random words encoded by ``tok`` (bos first, eos last), the first 40 % of
+    each the prompt, masked out of the labels, as ``data.sft.prepare_sample``
+    lays a sample out."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    out = []
+    for _ in range(n):
+        length = int(round(np.exp(rng.uniform(np.log(lo), np.log(hi)))))
+        text = " ".join("".join(rng.choice(letters, size=int(rng.integers(1, 8)))) for _ in range(length))
+        ids = np.concatenate([np.asarray(tok.encode(text, bos=True, eos=False))[: length - 1], [tok.eos_id]])
+        n_prompt = max(1, int(0.4 * length))
+        labels = ids.copy()
+        labels[:n_prompt] = -1
+        out.append({"input_ids": ids.astype(np.int32), "input_ids_no_response": ids[:n_prompt].astype(np.int32),
+                    "labels": labels.astype(np.int32)})
+    return out
+
+
+def k10_layers(mode: str, n_layer: int) -> int:
+    """Attention backwards (K10) a microbatch runs: autograd skips the first
+    layer's in Adapter v1, where no trainable leaf lies before that layer's
+    attention (its gate and prompt enter after it), and runs every other."""
+    return n_layer - 1 if mode == "adapter" else n_layer
+
+
+def finetune_step_check(dev, counters, cfg, seed: int, lr: float = 1e-3):
+    """Phase 19: one finetuning step of a 3-layer full-width model in LoRA (B
+    drawn, not zero), Adapter v1 and v2 (``gating`` drawn non-zero, so the
+    prompt has a gradient), kernel path against plain path: the loss, each
+    trainable leaf's grad (``TOL_TRAIN_GRAD``) and its update after one AdamW
+    step from zero moments (``TOL_TRAIN_UPDATE`` of lr where the plain grad is
+    clear of 0, as phase 14, plus a bf16 ulp of the value); K4 2 L times
+    (remat recomputes the forward) and K10 ``k10_layers`` times on the kernel
+    path, none on the plain path; frozen leaves unchanged. Inputs come from
+    generators of their own."""
+    import torch
+
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.training import finetune
+    from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves, tree_unflatten
+
+    on_card = dev.type == "cuda"
+    L = cfg.n_layer
+    base = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    frozen0 = {n: t.clone() for n, t in tree_leaves(base).items()}
+    g = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4, 257), generator=g)
+    ids, tgt = toks[..., :-1].to(dev), toks[..., 1:].clone()
+    tgt[..., :100] = -1  # the prompt, masked out of the loss
+    tgt = tgt.to(dev)
+    readings = {}
+    for mode in ("lora", "adapter", "adapter_v2"):
+        params, mcfg, mask, _ = finetune.prepare(mode, tree_unflatten(tree_leaves(base)), cfg, seed=seed)
+        if mode == "lora":
+            b = params["h"]["attn"]["c_attn"]["lora_b"]
+            b.copy_(torch.randn(b.shape, generator=g).to(b) * 0.02)
+        else:
+            gate = params["h"]["gating"]
+            gate.copy_(torch.randn(gate.shape, generator=g).to(gate) * 0.5)
+        leaves = tree_leaves(params)
+        opt = step_lib.make_optimizer(step_lib.TrainConfig(learning_rate=lr, warmup_iters=0, max_iters=10), mask)
+        names = opt.trainable_names(params)
+        init = {n: leaves[n].clone() for n in names}
+        grads, losses, after = {}, {}, {}
+        for plain in (False, True):
+            for n in names:
+                leaves[n].requires_grad_(True)
+            for fn in counters.values():
+                fn.launches = 0
+            fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+            loss = step_lib.loss_fn(params, ids[0], tgt[0], mcfg, remat=True, remat_policy="dots", plain=plain)
+            got = torch.autograd.grad(loss, [leaves[n] for n in names])
+            if on_card:
+                torch.cuda.synchronize()
+            n3 = (fa.flash_attention.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+            want = (0, 0, 0) if plain or not on_card else (2 * L, k10_layers(mode, L), k10_layers(mode, L))
+            assert n3 == want, f"{mode} step, plain={plain}: K4/K10 launches {n3}, expected {want}"
+            grads[plain] = dict(zip(names, got))
+            losses[plain] = float(loss.detach())
+            for n in names:
+                leaves[n].requires_grad_(False)
+            del loss, got
+        gerrs, gabs = {}, {}
+        for n, gk in grads[False].items():
+            w = grads[True][n]
+            assert torch.isfinite(gk).all(), f"{mode}: non-finite grad of {n}"
+            top = float(w.abs().max())
+            assert top > 0, f"{mode}: the plain path gives {n} no grad"
+            gabs[n] = float((gk - w).abs().max())
+            gerrs[n] = (gabs[n] / top, float((gk - w).norm() / w.norm()))
+            assert gerrs[n][0] <= TOL_TRAIN_GRAD["max"] and gerrs[n][1] <= TOL_TRAIN_GRAD["rms"], \
+                f"{mode} grads: {n} off by {gerrs[n][0]:.3g} of its max |grad|, {gerrs[n][1]:.3g} of its RMS"
+        assert abs(losses[False] - losses[True]) <= 1e-2 * abs(losses[True]), f"{mode} loss {losses}"
+        for plain in (False, True):
+            for n in names:
+                leaves[n].copy_(init[n])
+            st = step_lib.init_train_state(params, opt)
+            st, _ = step_lib.train_step(st, ids, tgt, mcfg, opt, True, "dots", plain)
+            after[plain] = {n: leaves[n].clone() for n in names}
+        uerrs = {}
+        for n, w in after[True].items():
+            diff = ((after[False][n] - init[n]) - (w - init[n])).float().abs()
+            may_flip = grads[True][n].abs() <= 2 * gabs[n]
+            # the PEFT leaves keep the base's dtype (bf16): each side's new value
+            # is rounded to bf16, so an ulp of the value (2^-8 of it) comes on top
+            ulp = torch.maximum(w.abs(), init[n].abs()).float() * 2.0**-8
+            bad = diff > lr * (TOL_TRAIN_UPDATE + 2 * may_flip) + ulp
+            assert not bad.any(), f"{mode} train_step: {int(bad.sum())} elements of {n} off, max {float(diff.max()):.3g}"
+            steady = diff[~may_flip]
+            uerrs[n] = float(steady.max()) / lr if steady.numel() else 0.0
+        for n, t in tree_leaves(params).items():
+            if n in frozen0 and n not in names:
+                assert torch.equal(t, frozen0[n]), f"{mode}: frozen leaf {n} changed"
+        readings[mode] = dict(losses=losses, grad_err=gerrs, update_err_over_lr=uerrs)
+        log(f"phase 19, {mode}: one finetuning step of {L} layers at width {cfg.n_embd}, B = 4, T = 256, kernel vs "
+            f"plain path: loss {losses[False]:.5f} vs {losses[True]:.5f}; per trainable leaf max |dgrad| / max |grad| "
+            f"and RMS(dgrad) / RMS(grad): " + ", ".join(f"{n} {a:.3g} / {b:.3g}" for n, (a, b) in gerrs.items())
+            + "; max |dupdate| / lr where the grad is clear of 0: "
+            + ", ".join(f"{n} {v:.3g}" for n, v in uerrs.items()) + "; frozen leaves unchanged")
+        del params, leaves, grads, after, init, opt
+    del base, frozen0
+    return readings
+
+
+def finetune_runs(dev, counters, tok, work: Path, cfg, seed: int, modes, steps: int = 5, accum: int = 2,
+                  micro_batch: int = 4, max_seq_length: int = 256, eval_iters: int = 2):
+    """Phase 20: ``training.finetune.finetune`` on SFT samples of 30-250
+    tokens (``sft_samples``), micro-batch ``micro_batch`` x ``accum``, in each
+    (mode, n_layer) of ``modes`` on the width of ``cfg`` from random weights:
+    ``steps`` steps (the first a warm-up), one validation with its sampled
+    answer. Each run's counters start at 0: K4 and K10 must launch (K10
+    ``k10_layers`` A times a step), and K5 in the sample; losses finite,
+    frozen leaves unchanged bit for bit. Returns per mode: step ms (the
+    median of the steps after the first, host clock ending in the loss's
+    copy), tokens/s of all and of the non-pad tokens, peak memory (less the
+    check's copy of the base), trainable parameters, launches. A full run
+    saves no final checkpoint here (tens of GB of f32 state): the save call
+    is recorded instead."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.training import finetune
+    from lit_llama_tpu_torch.training import loop as loop_lib
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+
+    on_card = dev.type == "cuda"
+    train, test = sft_samples(tok, 64, seed), sft_samples(tok, 16, seed + 1)
+    out = {}
+    for mode, n_layer in modes:
+        mcfg = cfg.replace(n_layer=n_layer, param_dtype="float32" if mode == "full" else cfg.param_dtype)
+        params = llama.init_params(mcfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        before = {n: t.clone() for n, t in tree_leaves(params).items()} if mode != "full" else {}
+        copy_bytes = sum(t.numel() * t.element_size() for t in before.values())
+        recs, saved = [], []
+        save = loop_lib.save_train_checkpoint
+        if mode == "full":
+            loop_lib.save_train_checkpoint = lambda *a, **k: saved.append(a[1])
+        for fn in counters.values():
+            fn.launches = 0
+        fa.flash_backward_dq.launches = fa.flash_backward_dkv.launches = 0
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            state = finetune.finetune(
+                mode, params, mcfg, train, test, tok, work / mode, learning_rate=3e-4 if mode != "full" else 3e-5,
+                weight_decay=0.02 if mode.startswith("adapter") else 0.0, batch_size=micro_batch * accum,
+                micro_batch_size=micro_batch, max_iters=steps, warmup_iters=1, eval_interval=steps,
+                eval_iters=eval_iters, save_interval=0, log_interval=1, max_seq_length=max_seq_length, log_fn=recs.append)
+        finally:
+            loop_lib.save_train_checkpoint = save
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - copy_bytes if on_card else 0  # without the check's copy
+        got = {k: fn.launches for k, fn in counters.items()}
+        got.update({"K10dq": fa.flash_backward_dq.launches, "K10dkv": fa.flash_backward_dkv.launches})
+        losses = [r["loss"] for r in recs if "loss" in r]
+        vals = [r["val_loss"] for r in recs if "val_loss" in r]
+        assert len(losses) == steps and len(vals) == 1 and all(np.isfinite(losses + vals)), f"{mode}: {recs}"
+        if on_card:
+            assert got["K4"] > 0 and got["K5"] > 0 and got["K5"] % n_layer == 0, f"{mode}: launches {got}"
+            assert got["K10dq"] == got["K10dkv"] == k10_layers(mode, n_layer) * accum * steps, f"{mode}: launches {got}"
+            assert all(got[k] == 0 for k in ("K1", "K2", "K3", "K6", "K7", "K8", "K9")), f"{mode}: launches {got}"
+        if mode == "full":
+            assert saved == [finetune.CHECKPOINT_NAMES[mode]], saved
+        else:
+            assert (work / mode / finetune.CHECKPOINT_NAMES[mode]).is_dir()
+        trainable = set(tree_leaves(state.opt_state["mu"]))
+        n_train = sum(t.numel() for n, t in tree_leaves(state.params).items() if n in trainable)
+        for n, t in tree_leaves(state.params).items():
+            if n not in trainable and n in before:  # adapter_active is added frozen, after `before`
+                assert torch.equal(t, before[n]), f"{mode}: frozen leaf {n} changed"
+        # the batches again (finetune draws each with one rng.integers from default_rng(1337))
+        rng = np.random.default_rng(1337)
+        Ts, nonpad = [], []
+        for _ in range(steps):
+            lens = [len(train[i]["input_ids"]) - 1 for i in rng.integers(len(train), size=micro_batch * accum)]
+            T = min(-(-max(lens) // 64) * 64, max_seq_length)
+            Ts.append(T)
+            nonpad.append(sum(min(n_, T) for n_ in lens))
+        dts = [r["dt_ms"] for r in recs if "loss" in r][1:]
+        step_ms = float(np.median(dts))
+        tok_s = float(np.median([micro_batch * accum * T / dt * 1e3 for T, dt in zip(Ts[1:], dts)]))
+        tok_s_real = float(np.median([n_ / dt * 1e3 for n_, dt in zip(nonpad[1:], dts)]))
+        out[mode] = dict(n_layer=n_layer, n_embd=mcfg.n_embd, trainable_params=n_train, steps=steps, T=Ts,
+                         losses=losses, val_loss=vals[0], step_ms=step_ms, step_ms_each=dts, tokens_per_s=tok_s,
+                         nonpad_tokens_per_s=tok_s_real, peak_gib=peak / 2**30, wall_s=wall, launches=got)
+        log(f"phase 20, {mode} finetuning, {n_layer} layers at width {mcfg.n_embd} ({mcfg.param_dtype} weights, "
+            f"{mcfg.compute_dtype} compute), micro-batch {micro_batch} x {accum}, T per step {Ts}: losses {losses}, "
+            f"val {vals[0]}; {n_train} trainable parameters; median step {step_ms:.1f} ms over steps 2-{steps} "
+            f"(host clock, ends in the loss's copy to the host), {tok_s:.0f} tokens/s ({tok_s_real:.0f} non-pad), "
+            f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated less this phase's {copy_bytes / 2**30:.2f} GiB "
+            f"copy of the base for the frozen-leaf check); {wall:.1f} s with the validation and its sample; "
+            f"launches {got}; frozen leaves unchanged")
+        del state, params, before
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def finetune_kernel_times(dev, time_ms, bound_ms, tc_peak, seed: int, B: int = 4, H: int = 32, T: int = 256,
+                          hs: int = 128):
+    """K4 and K10 at the finetuning shape (B, H, T, hs) against their plain
+    versions (K10 row by row, as phase 13), timed beside SDPA's causal forward
+    and backward, with their bounds; inputs from a generator of their own.
+    Returns the three ``results`` rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, T, hs), generator=g).to(dev, torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v)
+    ro, rlse = fa.flash_attention_ref(q, k, v)
+    err4 = max(float((o.float() - ro.float()).abs().max()), 0.0)
+    bad = (o.float() - ro.float()).abs() > TOL["K4"][0] + TOL["K4"][1] * ro.float().abs()
+    assert not bad.any(), f"K4 at {(B, H, T, hs)}: {int(bad.sum())} values beyond tolerance"
+    got = fa.flash_attention_backward(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    errs = []
+    for name, gk, w in zip(("dq", "dk", "dv"), got, want):
+        gk, w = gk.float(), w.float()
+        assert torch.isfinite(gk).all(), f"K10 {name} at {(B, H, T, hs)}: non-finite"
+        err, mag = (gk - w).abs(), w.abs()
+        rowmax = mag.amax(-1, keepdim=True).clamp_min(TOL_K10["floor"] * float(mag.max()))
+        need = float(((err - TOL_K10["rel"] * mag).clamp_min(0) / rowmax).max())
+        assert need <= TOL_K10["row"], f"K10 {name} at {(B, H, T, hs)}: row part {need:.3g} needed"
+        errs.append(float(err.max()))
+    nrow, pairs = B * H * T, B * H * T * (T + 1) // 2
+    b4 = bound_ms(4 * nrow * hs * 2 + nrow * 4, 4 * hs * pairs, tc_peak)
+    b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
+    b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+    dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib10 = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    plain10 = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3)
+    shape = f"B={B} H={H} T={T} hs={hs}"
+    rows = {
+        "K4 T256": dict(shape=shape, ms=time_ms(lambda: fa.flash_attention(q, k, v)), max_abs_err=err4,
+                        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+                        bound_ms=b4[0], bound_by=b4[1]),
+        "K10dq T256": dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do)),
+                           max_abs_err=errs[0], plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1]),
+        "K10dkv T256": dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd)),
+                            max_abs_err=max(errs[1:]), plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0],
+                            bound_by=b_dkv[1]),
+    }
+    log(f"finetuning shape {(B, H, T, hs)}: " + "; ".join(
+        f"{k} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.1f} {r['bound_by']}, plain {r['plain_ms'] * 1e3:.1f}, "
+        f"SDPA {'causal forward' if k.startswith('K4') else 'causal backward (dq, dk, dv)'} {r['library_ms'] * 1e3:.1f}), "
+        f"max err {r['max_abs_err']:.3g}" for k, r in rows.items()))
+    return rows
+
+
+def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_tokens: int = 24):
+    """Phase 21: ``python -m lit_llama_tpu_torch.finetune.lora`` and
+    ``.adapter`` in subprocesses on a lit-llama ``.pth`` of ``cfg`` (random
+    weights) with its ``config.json`` and alpaca samples prepared by
+    ``data.sft`` into ``train.pt`` / ``test.pt``, three steps each; then
+    ``generate.lora`` / ``generate.adapter`` on what they saved, whose greedy
+    tokens must equal the in-process ``generate``'s with the same overlay."""
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.models.config import AdapterConfig, LoRAConfig
+    from lit_llama_tpu_torch.peft import adapter as adapter_mod
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.training.finetune import CHECKPOINT_NAMES
+    from lit_llama_tpu_torch.utils.convert import pytree_to_lit
+    from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
+
+    work.mkdir(parents=True, exist_ok=True)
+    dense = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.save(pytree_to_lit(dense, cfg), work / "lit-llama.pth")
+    del dense
+    (work / "config.json").write_text(json.dumps(dict(n_layer=cfg.n_layer, n_head=cfg.n_head, n_embd=cfg.n_embd,
+                                                      vocab_size=cfg.vocab_size)))
+    tok = Tokenizer(tok_path)
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+
+    def words(k):
+        return " ".join("".join(rng.choice(letters, size=int(rng.integers(1, 8)))) for _ in range(k))
+
+    examples = [{"instruction": words(int(rng.integers(3, 30))), "input": words(5) if i % 3 == 0 else "",
+                 "output": " " + words(int(rng.integers(3, 40)))} for i in range(40)]
+    samples = [sft.prepare_sample(ex, tok, 256) for ex in examples]
+    (work / "data").mkdir(exist_ok=True)
+    sft.save_samples(samples[:32], work / "data" / "train.pt")
+    sft.save_samples(samples[32:], work / "data" / "test.pt")
+    enc = tok.encode(sft.generate_prompt({"instruction": "What food do lamas eat?", "input": ""}))
+    runs = {}
+    for mode, flag in (("lora", "--lora_path"), ("adapter", "--adapter_path")):
+        out = work / f"out_{mode}"
+        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.finetune.{mode}", "--data_dir", str(work / "data"),
+               "--checkpoint_path", str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path), "--out_dir",
+               str(out), "--max_iters", "3", "--batch_size", "8", "--micro_batch_size", "4", "--warmup_iters", "1",
+               "--eval_interval", "3", "--eval_iters", "1", "--save_interval", "100", "--log_interval", "1",
+               "--max_seq_length", "256"]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        took_ft = time.perf_counter() - t0
+        assert proc.returncode == 0, f"finetune.{mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        assert len(losses) == 3 and all(np.isfinite(losses)) and any("val_loss" in r for r in recs), recs
+        ckpt = out / CHECKPOINT_NAMES[mode]
+        params, mcfg = load_model(work / "lit-llama.pth", device=dev)
+        kind, overlay, info = load_peft_checkpoint(ckpt, mcfg, device=dev)
+        assert kind == mode, (kind, info)
+        if kind == "lora":
+            mcfg = mcfg.replace(lora=LoRAConfig(r=info["r"], alpha=16.0, dropout=0.0))
+            params = lora_mod.load_lora_state(params, overlay)
+        else:
+            mcfg = mcfg.replace(adapter=AdapterConfig(v2=info["v2"], prompt_length=info["prompt_length"],
+                                                      start_layer=info["start_layer"]))
+            params = adapter_mod.load_adapter_state(adapter_mod.add_adapter_params(params, mcfg), overlay)
+        want = gen.generate(llama.unstack_layers(params), enc, new_tokens, config=mcfg, temperature=0.0,
+                            eos_id=tok.eos_id, device=dev).tolist()
+        del params, overlay
+        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.generate.{mode}", flag, str(ckpt), "--checkpoint_path",
+               str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path), "--temperature", "0",
+               "--max_new_tokens", str(new_tokens)]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        took_gen = time.perf_counter() - t0
+        assert proc.returncode == 0, f"generate.{mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+        got = json.loads(proc.stderr.split("Token ids: ")[-1].splitlines()[0])
+        assert got == want, f"generate.{mode}: tokens {got} differ from the in-process generate's {want}"
+        runs[mode] = dict(finetune_s=took_ft, generate_s=took_gen, losses=losses, new_tokens=len(got) - len(enc))
+        log(f"phase 21: python -m lit_llama_tpu_torch.finetune.{mode} ({cfg.n_layer} layers at width {cfg.n_embd}, "
+            f"3 steps): exit 0 in {took_ft:.1f} s, losses {losses}; generate.{mode} on its checkpoint: exit 0 in "
+            f"{took_gen:.1f} s, {len(got) - len(enc)} greedy tokens equal to the in-process generate's")
+    return runs
+
+
+def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, cfg=None, modes=None,
+                    entry_cfg=None):
+    """Phases 19-21 on the 7B width (``cfg``: the 7B preset in bf16 unless
+    given): the kernel path against the plain path for one step of each PEFT
+    mode (3 layers), K4 and K10 at the finetuning shape, the finetuning body
+    in each of ``modes`` ((mode, n_layer): LoRA and both adapters at 32
+    layers, full at 8), and the entry points in subprocesses (3 layers).
+    Adds the finetuning-shape rows to ``results`` and their launches on the
+    LoRA run to ``totals``; returns the readings."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+
+    on_card = dev.type == "cuda"
+    cfg = cfg or LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16")
+    modes = modes or (("lora", 32), ("adapter", 32), ("adapter_v2", 32), ("full", 8))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    t0 = time.perf_counter()
+    readings = {"step_check": finetune_step_check(dev, counters, cfg.replace(n_layer=3), SEED + 19)}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        rows = finetune_kernel_times(dev, time_ms, bound_ms, tc_peak, SEED + 20, H=cfg.n_head, hs=cfg.head_size)
+        results.update(rows)
+    tok_path = write_tokenizer(work / "tokenizer.model")
+    readings["runs"] = finetune_runs(dev, counters, Tokenizer(tok_path), work / "runs", cfg, SEED + 21, modes)
+    if on_card:
+        lora = readings["runs"]["lora"]["launches"]
+        totals["K4 T256"], totals["K10dq T256"], totals["K10dkv T256"] = lora["K4"], lora["K10dq"], lora["K10dkv"]
+    readings["entry_points"] = finetune_entry_points(dev, tok_path, work / "entry", SEED + 22,
+                                                     entry_cfg or cfg.replace(n_layer=3))
+    shutil.rmtree(work)
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phases 19-21 (finetuning): {readings['seconds']:.1f} s")
+    return readings
 
 
 def main() -> int:
@@ -1398,23 +1844,15 @@ def main() -> int:
     import tempfile
 
     from lit_llama_tpu_torch.data import sft
-    from lit_llama_tpu_torch.data import sp_model
     from lit_llama_tpu_torch.data.tokenizer import Tokenizer
     from lit_llama_tpu_torch.peft import lora as lora_mod
     from lit_llama_tpu_torch.utils.convert import lora_overlay_to_sd, pytree_to_lit
     from lit_llama_tpu_torch.utils.loader import load_model
 
     work_e = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
-    # a BPE tokenizer of 128 pieces, written by the port's serialize_model; the
-    # model's vocabulary is the same 128, so every id it generates decodes
-    letters = "abcdefghijklmnopqrstuvwxyz"
-    pieces = [sp_model.Piece("<unk>", 0.0, sp_model.UNKNOWN), sp_model.Piece("<s>", 0.0, sp_model.CONTROL),
-              sp_model.Piece("</s>", 0.0, sp_model.CONTROL), sp_model.Piece(sp_model.WS, -1.0)]
-    pieces += [sp_model.Piece(c, -2.0 - i) for i, c in enumerate(letters + "?.,'")]
-    merges = [sp_model.WS + c for c in letters] + [a + b for a in "aeiou" for b in letters]
-    pieces += [sp_model.Piece(m, -100.0 - i) for i, m in enumerate(merges[: 128 - len(pieces)])]
-    assert len(pieces) == 128
-    (work_e / "tokenizer.model").write_bytes(sp_model.serialize_model(sp_model.SPModel(pieces=pieces, model_type=2)))
+    # a BPE tokenizer of 128 pieces; the model's vocabulary is the same 128, so
+    # every id it generates decodes
+    write_tokenizer(work_e / "tokenizer.model")
     ce = LLaMAConfig(n_layer=2, n_head=32, n_embd=4096, vocab_size=128, param_dtype="bfloat16",
                      compute_dtype="bfloat16", lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0))
     dense = llama.init_params(ce.replace(lora=None), torch.Generator(device=dev).manual_seed(SEED + 3), device=dev)
@@ -2346,6 +2784,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 19-21. instruction finetuning: one step per PEFT mode kernel vs plain path,
+    # K4/K10 at the finetuning shape, the finetuning body at 7B width (LoRA, Adapter
+    # v1 and v2 at 32 layers, full at 8), the entry points in subprocesses ----------
+    finetuning = finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals)
+
     kernels = []
     sources = {
         "K1": ("decode_layers_fused", "lit_llama_tpu/ops/fused_layer.py:446"),
@@ -2382,7 +2825,8 @@ def main() -> int:
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
-              "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh"}
+              "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
+              "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
@@ -2392,7 +2836,7 @@ def main() -> int:
                 "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
                 "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
                 "K5 hs384", "K10dq hs384", "K10dkv hs384", "K4 hs512", "K5 hs512", "K10dq hs512", "K10dkv hs512",
-                "K3 gs=32", "K6 M>1"]
+                "K3 gs=32", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256"]
     for key in list(sources) + variants:
         base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))
         r = results[key]
@@ -2410,7 +2854,8 @@ def main() -> int:
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
-                      "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training, "entry_inputs": entry_inputs}))
+                      "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
+                      "finetuning": finetuning, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,7 @@ the JAX ``generate`` does:
   per-layer ring: token ``pos`` is written at ``pos % S`` and sees every slot
   <= pos, so a generation that runs past S keeps the last S positions.
 * Anything else (dense, int8, unprepared int4; stacked or unstacked layers;
-  either rope layout; an int8 KV cache) decodes per op: one
+  either rope layout; an int8 KV cache; an adapter model) decodes per op: one
   ``llama.forward(input_pos=[pos])`` per token, every quantized linear one K3
   or K6 launch and the attention one ``decode_attention`` launch (K5) per
   block on the card. Past S the cache rolls one row left, which keeps the same
@@ -96,8 +96,9 @@ def generate(
     cd = torch_dtype(config.compute_dtype)
     rope_cache = build_rope_cache(config.block_size, config.head_size, device=dev)
     cache = llama.init_kv_cache(config, 1, S, cd, device=dev)
+    # an adapter's prefix term is in no fused kernel: such a model decodes per op
     fused = (config.rope_layout == "half" and isinstance(params.get("h"), (list, tuple))
-             and config.kv_cache_dtype is None)
+             and config.kv_cache_dtype is None and config.adapter is None)
 
     logits, cache = llama.forward(
         params, prompt[None], config, rope_cache=rope_cache, kv_cache=cache,

@@ -18,8 +18,11 @@ version, as JAX runs ``attention_xla`` there. With
 ``config.kv_cache_dtype == "int8"`` the cache holds int8 rows with one f32
 scale per (batch row, head, position), and K5 reads it as it is.
 
-LLaMA-Adapter (``config.adapter``) is not ported yet: ``init_params`` and
-``forward`` raise ``NotImplementedError`` rather than run the base model.
+With ``config.adapter`` (LLaMA-Adapter, ``peft.adapter``) every path adds the
+gated prefix attention to the self-attention's output before ``c_proj``, as
+the JAX ``forward`` does; the fused kernels have no prefix term, so an
+adapter model takes none of them (``use_serve_fused``, the fused step of
+``models.generate``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
 from lit_llama_tpu_torch.ops.norm import rms_norm
 from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope_cache, slot_rope_rows
-from lit_llama_tpu_torch.peft import lora
+from lit_llama_tpu_torch.peft import adapter, lora
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
@@ -54,18 +57,12 @@ Params = Dict[str, Any]
 KVCache = List[Dict[str, torch.Tensor]]
 
 
-def _refuse_adapter(config: LLaMAConfig) -> None:
-    if config.adapter is not None:
-        raise NotImplementedError(
-            "LLaMA-Adapter (config.adapter) is not ported yet: its prefix attention is ROADMAP queue 1, "
-            "item 10's rest (adapters v1 and v2); this model would run without it")
-
-
 def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None, device=None) -> Params:
     """Random init, normal(0, 0.02/sqrt(2*n_layer)) for the linears and the
     embedding, ones for the norms; layers stacked on a leading axis. With
-    ``config.lora`` the c_attn leaves gain LoRA A and B (``peft.lora``)."""
-    _refuse_adapter(config)
+    ``config.lora`` the c_attn leaves gain LoRA A and B (``peft.lora``), with
+    ``config.adapter`` the adapter leaves (``peft.adapter``), both drawn from
+    ``generator`` after the base weights."""
     dev = resolve_device(device)
     std = 0.02 / math.sqrt(2 * config.n_layer)
     dtype = torch_dtype(config.param_dtype)
@@ -91,6 +88,8 @@ def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None
     }
     if config.lora is not None:
         lora.add_lora_params(params, config, generator)
+    if config.adapter is not None:
+        adapter.add_adapter_params(params, config, generator)
     return params
 
 
@@ -99,7 +98,8 @@ def init_kv_cache(config: LLaMAConfig, batch_size: int, max_seq_length: int, dty
     """Zero per-layer caches, (B, H, S, hs) each, in the compute dtype. With
     ``config.kv_cache_dtype == "int8"`` k and v are int8 and each layer also
     holds ``ks`` and ``vs``, (B, H, S, 1) f32 scales: half the bytes of a bf16
-    cache to keep and to read."""
+    cache to keep and to read. An adapter adds no entries
+    (``peft.adapter.init_adapter_cache``)."""
     if config.kv_cache_dtype not in (None, "int8"):
         raise ValueError(f"unknown kv_cache_dtype {config.kv_cache_dtype!r}")
     dev = resolve_device(device)
@@ -168,9 +168,10 @@ def _cache_write(kv, new: Dict[str, torch.Tensor], write_pos) -> None:
             c[torch.arange(rows.shape[0], device=rows.device), :, write_pos] = rows[:, :, 0].to(c.dtype)
 
 
-def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos,
+def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos,
                            attend_len, causal: bool, plain: bool, limit=None):
-    """Fused-QKV attention over the T tokens of ``x``. With ``kv`` the new k/v
+    """Fused-QKV attention of layer ``lp`` over the T tokens of ``x``, with the
+    adapter's prefix term when ``config.adapter`` is set. With ``kv`` the new k/v
     are written in place at ``write_pos`` (quantized first when the cache is
     int8). ``attend_len`` promises a prefill from position 0: the attention is
     causal over the T new rows (of an int8 cache: as they read back from it).
@@ -180,6 +181,7 @@ def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv,
     ``mask``."""
     B, T, _ = x.shape
     hs = config.head_size
+    attn = lp["attn"]
     qkv = linear(attn["c_attn"], x, plain=plain)
     if "lora_a" in attn["c_attn"]:
         qkv = qkv + lora.lora_delta(attn["c_attn"], x, config.lora)
@@ -209,6 +211,8 @@ def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv,
             k, v = kv["k"].to(q.dtype), kv["v"].to(q.dtype)
     if y is None:
         y = attention(q, k, v, mask, causal=causal, plain=plain)
+    if config.adapter is not None:
+        y = adapter.prefix_attention(lp, q, y, config)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
     return linear(attn["c_proj"], y, plain=plain)
 
@@ -216,7 +220,7 @@ def _causal_self_attention(attn: Params, x, rope, mask, config: LLaMAConfig, kv,
 def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, attend_len=None,
            causal: bool = False, plain: bool = False, limit=None):
     """One pre-norm residual block."""
-    x = x + _causal_self_attention(lp["attn"], rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
+    x = x + _causal_self_attention(lp, rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
                                    write_pos, attend_len, causal, plain, limit)
     return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain)
 
@@ -307,7 +311,6 @@ def forward(
     the training layout: the layers are views of it, so the grads land on the
     stacked leaves.
     """
-    _refuse_adapter(config)
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
     dev = tokens.device

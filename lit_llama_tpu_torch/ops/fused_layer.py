@@ -678,11 +678,13 @@ block_tail_fused.launches = 0
 def use_serve_fused(config, layer_params: Params, batch: Optional[int] = None) -> bool:
     """Whether the batched serving step takes the fused block halves (K7, K8,
     K9): int4 weights with c_fc12 fused, in the half-rotation basis, head size
-    128, a LoRA overlay folded into K7's operand, and at most
-    ``SERVE_KERNEL_MAX_B`` slots (``batch``, when known). The JAX package also
-    asks its backend and three environment switches; the card always takes
-    the kernels."""
+    128, a LoRA overlay folded into K7's operand, no adapter (the kernels have
+    no prefix term), and at most ``SERVE_KERNEL_MAX_B`` slots (``batch``, when
+    known). The JAX package also asks its backend and three environment
+    switches; the card always takes the kernels."""
     if batch is not None and batch > SERVE_KERNEL_MAX_B:
+        return False
+    if config.adapter is not None:
         return False
     if config.rope_layout != "half" or config.head_size != 128:
         return False

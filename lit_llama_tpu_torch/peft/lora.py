@@ -41,10 +41,19 @@ def add_lora_params(params: Params, config: LLaMAConfig, generator: Optional[tor
     return params
 
 
-def lora_delta(attn_params: Params, x: torch.Tensor, cfg: LoRAConfig) -> torch.Tensor:
+def lora_delta(attn_params: Params, x: torch.Tensor, cfg: LoRAConfig,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The low-rank QKV update, zero-scattered into the disabled groups:
     x (B, T, D) -> (B, T, 3D) in x.dtype. A and B are cast to x.dtype first,
-    as in the JAX package (no dropout: the port runs no LoRA training yet)."""
+    as in the JAX package. With a ``generator`` (on x's device) and
+    ``cfg.dropout > 0``, x is dropped out first: each entry kept with
+    probability 1 - p and scaled by 1 / (1 - p). Without one (the model's
+    forward, in training too, as the JAX package runs it) there is no
+    dropout."""
+    if generator is not None and cfg.dropout > 0.0:
+        keep = 1.0 - cfg.dropout
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator).bool()
+        x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
     a = attn_params["lora_a"].to(x.dtype)
     b = attn_params["lora_b"].to(x.dtype)
     n_en, r = b.shape[-3], b.shape[-2]

@@ -2,10 +2,15 @@
 
     python -m lit_llama_tpu_torch.tools.profile_train [--n_layer 8] [--micro_batch_size 2] [--accum 2]
         [--block_size 2048] [--remat_policy dots] [--adam_state_dtype bfloat16]
+        [--finetune lora|adapter|adapter_v2|full]
 
 Builds the 7B-width model with the depth cut to ``--n_layer`` (f32 weights,
 bf16 compute, random init from a seed) and random tokens, and runs
-``training.step.train_step`` (remat on). Prints the host wall time of a step
+``training.step.train_step`` (remat on). ``--finetune MODE`` profiles a
+finetuning step instead: the base weights in bf16 (f32 for ``full``) with the
+mode's trainable leaves and mask (``training.finetune.prepare``), the
+sequence ``--block_size`` long (the finetuning runs' 256, say) in a model of
+the preset's context. Prints the host wall time of a step
 (ending in a synchronise), tokens/s and MFU; the device time of the step's
 phases for one microbatch (forward, backward) and of the optimizer update, by
 CUDA events; then, from ``torch.profiler`` over one step, the device time per
@@ -47,21 +52,32 @@ def main() -> None:
     ap.add_argument("--remat_policy", choices=("dots", "full"), default="dots")
     ap.add_argument("--adam_state_dtype", choices=("", "bfloat16"), default="")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--finetune", choices=("", "lora", "adapter", "adapter_v2", "full"), default="")
     args = ap.parse_args()
 
     from lit_llama_tpu_torch import LLaMAConfig
     from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.training import finetune
     from lit_llama_tpu_torch.training import step as step_lib
     from lit_llama_tpu_torch.utils.device import device_peaks, resolve_device
 
     dev = resolve_device(None)
-    cfg = LLaMAConfig.from_name("7B", n_layer=args.n_layer, block_size=args.block_size,
-                                param_dtype="float32", compute_dtype="bfloat16")
-    L, T = cfg.n_layer, cfg.block_size
-    A, B = args.accum, args.micro_batch_size
+    A, B, T = args.accum, args.micro_batch_size, args.block_size
     tc = step_lib.TrainConfig(warmup_iters=1, max_iters=1000, adam_state_dtype=args.adam_state_dtype or None)
-    opt = step_lib.make_optimizer(tc)
-    state = step_lib.init_train_state(llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev), opt)
+    if args.finetune:
+        cfg = LLaMAConfig.from_name("7B", n_layer=args.n_layer, param_dtype="bfloat16", compute_dtype="bfloat16")
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        params, cfg, mask, _ = finetune.prepare(args.finetune, params, cfg)
+        opt = step_lib.make_optimizer(tc, trainable_mask=mask)
+        what = f"{args.finetune} finetuning step ({finetune.count_trainable(params, mask)} trainable parameters)"
+    else:
+        cfg = LLaMAConfig.from_name("7B", n_layer=args.n_layer, block_size=T, param_dtype="float32",
+                                    compute_dtype="bfloat16")
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        opt = step_lib.make_optimizer(tc)
+        what = "train step"
+    L = cfg.n_layer
+    state = step_lib.init_train_state(params, opt)
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (A, B, T + 1), generator=gen, device=dev)
     ids, tgt = toks[..., :-1], toks[..., 1:]
@@ -81,11 +97,11 @@ def main() -> None:
     wall_us = (time.perf_counter() - t0) / args.steps * 1e6
     peak = torch.cuda.max_memory_allocated()
     tokens = A * B * T
-    flops_tok, n_mfu = step_lib.flops_per_token(cfg)
+    flops_tok, n_mfu = step_lib.flops_per_token(cfg.replace(block_size=T))
     kind = torch.cuda.get_device_name(0)
     tc_peak = device_peaks(kind)[1]
     print(kind)
-    print(f"train step, 7B width, {L} layers, T={T}, micro-batch {B} x {A}, remat {args.remat_policy}, "
+    print(f"{what}, 7B width, {L} layers, T={T}, micro-batch {B} x {A}, remat {args.remat_policy}, "
           f"Adam moments {args.adam_state_dtype or 'float32'}: wall {wall_us:.1f} us/step, "
           f"{tokens / wall_us * 1e6:.0f} tokens/s, MFU "
           f"{100 * flops_tok * tokens / (wall_us * 1e-6) / tc_peak:.1f} % of {tc_peak / 1e12:.0f} TF/s "
@@ -93,17 +109,18 @@ def main() -> None:
 
     # phases by CUDA events: one microbatch's forward and backward, one update
     leaves = step_lib.tree_leaves(state.params)
-    for t in leaves.values():
-        t.requires_grad_(True)
+    names = opt.trainable_names(state.params)
+    for n in names:
+        leaves[n].requires_grad_(True)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     loss = step_lib.loss_fn(state.params, ids[0], tgt[0], cfg, True, args.remat_policy)
     ev[1].record()
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
     ev[2].record()
-    for t in leaves.values():
-        t.requires_grad_(False)
-    opt.apply(state.params, {n: g.float() for n, g in zip(leaves, grads)}, state.opt_state)
+    for n in names:
+        leaves[n].requires_grad_(False)
+    opt.apply(state.params, {n: g.float() for n, g in zip(names, grads)}, state.opt_state)
     ev[3].record()
     torch.cuda.synchronize()
     del grads, loss

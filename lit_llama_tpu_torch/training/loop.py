@@ -3,7 +3,8 @@
 
 * true resume: params, optimizer state and the step counter are checkpointed
   (the manifest format of ``utils.checkpoint``; each package resumes only its
-  own optimizer state);
+  own optimizer state); with ``LoopConfig.save_filter`` (PEFT finetuning) a
+  checkpoint holds only the filtered params and the step;
 * SIGTERM/SIGINT save a resumable ``preempt-NNNNNN`` checkpoint at the next
   step boundary and stop;
 * ``metrics.jsonl`` gets the JAX loop's records: {"iter", "loss",
@@ -22,7 +23,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -42,16 +43,24 @@ class LoopConfig:
     eval_iters: int = 100
     save_interval: int = 1000
     profile_at_iter: int = -1  # write a torch.profiler trace of this iteration
+    save_filter: Optional[Callable[[Any], Any]] = None  # params -> the sub-tree a checkpoint keeps
 
 
 _CONFIG_KEYS = ("block_size", "vocab_size", "padded_vocab_size", "n_layer", "n_head", "n_embd",
                 "param_dtype", "compute_dtype", "quantize", "quant_groupsize")
 
 
-def save_train_checkpoint(out_dir: Path, name: str, state: step_lib.TrainState, config: LLaMAConfig) -> Path:
-    """Params + optimizer state + step counter under ``out_dir/name``."""
+def save_train_checkpoint(out_dir: Path, name: str, state: step_lib.TrainState, config: LLaMAConfig,
+                          save_filter: Optional[Callable[[Any], Any]] = None) -> Path:
+    """Params + optimizer state + step counter under ``out_dir/name``; with
+    ``save_filter``, ``save_filter(params)`` and the step, no optimizer state
+    (a PEFT checkpoint, as the JAX package writes it)."""
     path = Path(out_dir) / name
-    tree = {"params": state.params, "opt_state": state.opt_state, "step": np.asarray(state.step, np.int32)}
+    step = np.asarray(state.step, np.int32)
+    if save_filter is not None:
+        tree = {"params": save_filter(state.params), "step": step}
+    else:
+        tree = {"params": state.params, "opt_state": state.opt_state, "step": step}
     meta = {"config": {k: getattr(config, k) for k in _CONFIG_KEYS}}
     ckpt.save_checkpoint(path, tree, metadata=meta)
     return path
@@ -122,7 +131,7 @@ def train(
     try:
         for it in range(start_iter, loop.max_iters):
             if stop_requested["flag"]:
-                save_train_checkpoint(out_dir, f"preempt-{it:06d}", state, config)
+                save_train_checkpoint(out_dir, f"preempt-{it:06d}", state, config, loop.save_filter)
                 break
             try:
                 ids, tgt = next(batches)
@@ -160,7 +169,7 @@ def train(
             if validate_fn is not None and loop.eval_interval and (it + 1) % loop.eval_interval == 0:
                 log_fn({"iter": it, "val_loss": round(float(validate_fn(state)), 4)})
             if loop.save_interval and (it + 1) % loop.save_interval == 0:
-                save_train_checkpoint(out_dir, f"iter-{it + 1:06d}", state, config)
+                save_train_checkpoint(out_dir, f"iter-{it + 1:06d}", state, config, loop.save_filter)
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)

@@ -1,5 +1,5 @@
 """lit-llama state dicts <-> the port's parameter tree (counterpart of the
-lit-llama and LoRA parts of lit_llama_tpu/utils/convert.py).
+lit-llama, LoRA and adapter parts of lit_llama_tpu/utils/convert.py).
 
 The tree is the JAX package's: linear weights transposed to (in, out), layers
 stacked on a leading axis, the vocabulary padded to ``padded_vocab_size``.
@@ -144,3 +144,83 @@ def lora_overlay_to_sd(overlay: Dict[str, Any], config: LLaMAConfig) -> Dict[str
         out[f"transformer.h.{i}.attn.c_attn.lora_A"] = a[i].t().contiguous()
         out[f"transformer.h.{i}.attn.c_attn.lora_B"] = torch.cat([b[i, g].t() for g in range(b.shape[1])])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference-format adapter checkpoints (v1 and v2) -> the overlay tree
+# ---------------------------------------------------------------------------
+
+
+def adapter_sd_to_overlay(sd: Mapping[str, Any], config: LLaMAConfig, dtype=None,
+                          device=None) -> Tuple[Dict[str, Any], int, int, bool]:
+    """Reference adapter state dict -> (overlay, prompt_length, start_layer, v2).
+
+    The reference stores ``attn.adapter_wte.weight`` (aT, D) and
+    ``attn.gating_factor`` only on the layers from its start layer on; an old
+    checkpoint's gate is one scalar, broadcast here to every head, a newer
+    one's is (1, H, 1, 1). The stacked overlay gives the layers below the
+    start zero prompts and gates, and ``adapter_active`` masks them out. v2
+    (any ``adapter_bias`` entry) adds each linear's ``adapter_bias`` /
+    ``adapter_scale`` as ``av2_bias`` / ``av2_scale`` (L, 1, out) (zeros and
+    ones where a layer has none), lm_head's padded to the padded vocabulary
+    (bias 0, scale 1), and the norm weights it holds."""
+    dt = torch_dtype(dtype or config.param_dtype)
+    dev = resolve_device(device)
+    L, D, H = config.n_layer, config.n_embd, config.n_head
+    wte_by_layer: Dict[int, torch.Tensor] = {}
+    gate_by_layer: Dict[int, torch.Tensor] = {}
+    for name, t in sd.items():
+        if ".attn.adapter_wte.weight" in name:
+            wte_by_layer[int(name.split(".")[2])] = _tensor(t).float()
+        elif ".attn.gating_factor" in name:
+            g = _tensor(t).float()
+            gate_by_layer[int(name.split(".")[2])] = g.reshape(-1)[0].expand(H) if g.ndim < 4 else g.reshape(H)
+    if not wte_by_layer:
+        raise ValueError("no adapter_wte entries: not a reference adapter checkpoint")
+    start_layer = min(wte_by_layer)
+    aT = next(iter(wte_by_layer.values())).shape[0]
+    wte = torch.zeros((L, aT, D))
+    gating = torch.zeros((L, H))
+    for i, w in wte_by_layer.items():
+        wte[i] = w
+    for i, g in gate_by_layer.items():
+        gating[i] = g
+    h: Dict[str, Any] = {"adapter_wte": wte, "gating": gating,
+                         "adapter_active": (torch.arange(L) >= start_layer).float()[:, None]}
+    overlay: Dict[str, Any] = {"h": h}
+    is_v2 = any("adapter_bias" in name for name in sd)
+    if is_v2:
+        for lit_name, ours, out_dim in (("attn.c_attn", ("attn", "c_attn"), 3 * D), ("attn.c_proj", ("attn", "c_proj"), D),
+                                        ("mlp.c_fc1", ("mlp", "c_fc1"), config.intermediate_size),
+                                        ("mlp.c_fc2", ("mlp", "c_fc2"), config.intermediate_size),
+                                        ("mlp.c_proj", ("mlp", "c_proj"), D)):
+            bias, scale = torch.zeros((L, 1, out_dim)), torch.ones((L, 1, out_dim))
+            for i in range(L):
+                b = sd.get(f"transformer.h.{i}.{lit_name}.adapter_bias")
+                s = sd.get(f"transformer.h.{i}.{lit_name}.adapter_scale")
+                if b is not None:
+                    bias[i, 0] = _tensor(b).float()
+                if s is not None:
+                    scale[i, 0] = _tensor(s).float()
+            node = h.setdefault(ours[0], {}).setdefault(ours[1], {})
+            node["av2_bias"], node["av2_scale"] = bias, scale
+        V = config.padded_vocab_size
+
+        def pad_cols(t: torch.Tensor, fill: float) -> torch.Tensor:
+            t = _tensor(t).float()[None, :]
+            return torch.cat([t, t.new_full((1, V - t.shape[-1]), fill)], dim=-1) if t.shape[-1] < V else t
+
+        if "lm_head.adapter_bias" in sd:
+            overlay["lm_head"] = {"av2_bias": pad_cols(sd["lm_head.adapter_bias"], 0.0),
+                                  "av2_scale": pad_cols(sd["lm_head.adapter_scale"], 1.0)}
+        for norm in ("rms_1", "rms_2"):
+            rows = [sd.get(f"transformer.h.{i}.{norm}.scale") for i in range(L)]
+            if all(t is not None for t in rows):
+                h[norm] = torch.stack([_tensor(t).float() for t in rows])
+        if "transformer.ln_f.scale" in sd:
+            overlay["ln_f"] = _tensor(sd["transformer.ln_f.scale"]).float()
+
+    def cast(node):
+        return {k: cast(v) for k, v in node.items()} if isinstance(node, dict) else node.to(dev, dt)
+
+    return cast(overlay), int(aT), int(start_layer), is_v2

@@ -112,11 +112,14 @@ def _clamp_groupsize(config: LLaMAConfig) -> LLaMAConfig:
 
 
 def load_peft_checkpoint(path: Path, config: LLaMAConfig, device=None) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
-    """A LoRA checkpoint, as a native directory (a LoRA-only tree) or a
-    reference-format ``.pth`` state dict. Returns ("lora", overlay, {"r": r})
-    with the overlay on ``device`` (the card when None) for
-    ``peft.lora.load_lora_state``; the rank comes from ``lora_b``. Adapter
-    checkpoints (v1 and v2) raise: the port takes them in a later slice."""
+    """A LoRA or adapter checkpoint, as a native directory (the PEFT sub-tree
+    that finetuning saves) or a reference-format ``.pth`` state dict.
+    Returns ``(kind, overlay, info)`` with the overlay on ``device`` (the card
+    when None): ("lora", overlay, {"r": r}) for ``peft.lora.load_lora_state``,
+    the rank from ``lora_b``; ("adapter", overlay, {"prompt_length",
+    "start_layer", "v2"}) for ``peft.adapter.load_adapter_state``. A native
+    adapter directory without ``adapter_active`` (finetuning saves only the
+    trainable leaves) has start layer 0, as in the JAX package."""
     dev = resolve_device(device)
     path = Path(path)
     if path.is_dir():
@@ -126,7 +129,10 @@ def load_peft_checkpoint(path: Path, config: LLaMAConfig, device=None) -> Tuple[
         if "lora_a" in h.get("attn", {}).get("c_attn", {}):
             return "lora", overlay, {"r": int(h["attn"]["c_attn"]["lora_b"].shape[-2])}
         if "adapter_wte" in h:
-            raise NotImplementedError(f"{path} is an adapter checkpoint: adapters are a later slice of the port")
+            # the first active layer (argmax of no active layer is 0, as in the JAX package)
+            start_layer = int(torch.argmax((h["adapter_active"][:, 0] != 0).int())) if "adapter_active" in h else 0
+            return "adapter", overlay, {"prompt_length": int(h["adapter_wte"].shape[1]), "start_layer": start_layer,
+                                        "v2": "av2_bias" in h.get("attn", {}).get("c_attn", {})}
         raise ValueError(f"{path} is not a LoRA or adapter checkpoint")
     sd = _load_pth(path)
     kind = convert.peft_sd_kind(sd)
@@ -134,5 +140,6 @@ def load_peft_checkpoint(path: Path, config: LLaMAConfig, device=None) -> Tuple[
         overlay, r = convert.lora_sd_to_overlay(sd, config, device=dev)
         return "lora", overlay, {"r": r}
     if kind == "adapter":
-        raise NotImplementedError(f"{path} is an adapter checkpoint: adapters are a later slice of the port")
+        overlay, aT, start_layer, v2 = convert.adapter_sd_to_overlay(sd, config, device=dev)
+        return "adapter", overlay, {"prompt_length": aT, "start_layer": start_layer, "v2": v2}
     raise ValueError(f"{path} holds neither LoRA nor adapter entries")

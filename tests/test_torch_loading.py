@@ -1,7 +1,8 @@
 """Loading in the port: a checkpoint written as scripts/make_tiny_checkpoint.py
 writes it (``.pth`` + ``config.json``) and a native directory load into both
 packages with equal tensors; a LoRA overlay in the reference ``.pth`` format
-and as a native directory gives the same tree and rank in both; the
+and as a native directory gives the same tree and rank in both, a reference
+adapter ``.pth`` the same overlay; the
 tokenizer's ids and text equal the JAX Tokenizer's; and the LoRA entry point
 runs on the CPU."""
 
@@ -120,9 +121,15 @@ def test_lora_overlay_both_formats(tmp_path):
     with pytest.raises(ValueError, match="neither"):
         torch.save({"transformer.wte.weight": torch.zeros(2, 2)}, tmp_path / "plain.pth")
         tloader.load_peft_checkpoint(tmp_path / "plain.pth", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter"):
-        torch.save({"transformer.h.0.attn.adapter_wte.weight": torch.zeros(2, 2)}, tmp_path / "adapter.pth")
-        tloader.load_peft_checkpoint(tmp_path / "adapter.pth", cfg, device="cpu")
+    # a reference-format adapter .pth (it once raised): the same overlay and info in both packages
+    adapter_sd = {f"transformer.h.{i}.attn.adapter_wte.weight": torch.randn(10, 64, generator=torch.Generator().manual_seed(i))
+                  for i in (1,)}
+    adapter_sd["transformer.h.1.attn.gating_factor"] = torch.full((1, 4, 1, 1), 0.5)
+    torch.save(adapter_sd, tmp_path / "adapter.pth")
+    jkind, jov, jinfo = jloader.load_peft_checkpoint(tmp_path / "adapter.pth", jcfg)
+    kind, ov, info = tloader.load_peft_checkpoint(tmp_path / "adapter.pth", cfg.replace(lora=None), device="cpu")
+    assert (kind, info) == (jkind, jinfo) == ("adapter", {"prompt_length": 10, "start_layer": 1, "v2": False})
+    _leaves_equal(jov, ov)
 
 
 TEXTS = ["the quick brown fox", "  pack my   box\nwith five", "how vexingly quick daft zebras jump!",

@@ -8,7 +8,8 @@ gates. Where it sends a shape to a kernel, the kernel's pure check (the part
 of the wrapper's checks that does not need the card) takes it, in bf16 and
 f32 compute. The serving kernels take any slot count up to the engine's cap,
 a LoRA operand of any multiple of 8 columns in bf16 or f32, and f32 norm
-weights; a model with an adapter raises rather than run without it.
+weights; a model with an adapter runs its prefix term and takes no fused
+path.
 
 Everything here runs on the CPU: the checks look at dtypes, shapes and
 layouts, not at the device."""
@@ -264,11 +265,19 @@ def test_engine_reports_the_fused_step(fused):
 
 
 def test_adapter_config_raises():
-    """The port has no prefix attention yet: a model with ``config.adapter``
-    raises rather than return the base model's logits."""
-    cfg = LLaMAConfig(block_size=16, vocab_size=64, n_layer=1, n_head=2, n_embd=32, adapter=AdapterConfig())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tllama.init_params(cfg, device="cpu")
-    params = tllama.init_params(cfg.replace(adapter=None), device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter"):
-        tllama.forward(params, torch.zeros(1, 3, dtype=torch.long), cfg)
+    """A model with ``config.adapter`` runs its prefix attention (it once
+    raised, when the port had none): once ``gating`` is non-zero its logits
+    are not the base model's, and the fused paths' predicates refuse it."""
+    cfg = LLaMAConfig(block_size=16, vocab_size=64, n_layer=3, n_head=2, n_embd=32, adapter=AdapterConfig())
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.tensor([[1, 5, 9, 3]])
+    base, _ = tllama.forward(params, toks, cfg.replace(adapter=None))
+    zero_gate, _ = tllama.forward(params, toks, cfg)
+    torch.testing.assert_close(zero_gate, base)  # gating starts at zero: the base model's logits
+    g = torch.Generator().manual_seed(1)
+    params["h"]["gating"].normal_(generator=g)  # as trained: gates and prompt away from their init
+    params["h"]["adapter_wte"].normal_(generator=g)
+    got, _ = tllama.forward(params, toks, cfg)
+    assert float((got - base).abs().max()) > 1e-2 * float(base.abs().max())
+    assert not tfl.use_serve_fused(cfg, {"attn": {"c_attn": {"qzero": None}}, "mlp": {"c_fc12": None}})
+    assert not tfl.fused_layer_supported(cfg.replace(quantize="int4"), params)
