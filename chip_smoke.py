@@ -62,7 +62,20 @@ tokens, micro-batch 4 x 2, in LoRA, Adapter v1 and v2 on the 32-layer 7B
 model and full finetuning on 8 layers (step ms, tokens/s, peak memory;
 frozen leaves unchanged); and ``finetune.lora`` / ``finetune.adapter`` then
 ``generate.lora`` / ``generate.adapter`` in subprocesses, greedy tokens
-equal to the in-process ``generate``'s.
+equal to the in-process ``generate``'s. Phases 22-24 quantize and evaluate:
+GPTQ on 2 layers of 7B width in f32 (calibration 8 x 2048, batch 4, group
+size 128, with and without actorder, spilling to the host without it) on
+the kernel path, where K3 and K4 run in f32, against the plain path (stage
+B's Hessian, each linear's objective ||X(W - What)||, which must also stay
+below round-to-nearest's; a K3 that drops a quarter of its reduction must
+fail both), timed per layer with the walk's launches; the
+perplexity of the 32-layer 7B model in bf16 over four 2048-token windows,
+dense, int4 and int8 (tokens/s, peak memory; one window on 2 layers kernel
+path against plain path); and ``quantize.gptq``, ``evaluate.full``,
+``generate.full``, ``evaluate.lora`` / ``.adapter`` / ``.adapter_v2`` and
+``evaluate.eval_quality`` in subprocesses on phase 21's 3-layer checkpoint
+and directories (the ladder on its first layer), each printed perplexity
+equal to the in-process value.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -664,7 +677,8 @@ def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_t
         assert proc.returncode == 0, f"generate.{mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
         got = json.loads(proc.stderr.split("Token ids: ")[-1].splitlines()[0])
         assert got == want, f"generate.{mode}: tokens {got} differ from the in-process generate's {want}"
-        runs[mode] = dict(finetune_s=took_ft, generate_s=took_gen, losses=losses, new_tokens=len(got) - len(enc))
+        runs[mode] = dict(finetune_s=took_ft, generate_s=took_gen, losses=losses, new_tokens=len(got) - len(enc),
+                          checkpoint=str(ckpt))
         log(f"phase 21: python -m lit_llama_tpu_torch.finetune.{mode} ({cfg.n_layer} layers at width {cfg.n_embd}, "
             f"3 steps): exit 0 in {took_ft:.1f} s, losses {losses}; generate.{mode} on its checkpoint: exit 0 in "
             f"{took_gen:.1f} s, {len(got) - len(enc)} greedy tokens equal to the in-process generate's")
@@ -672,14 +686,16 @@ def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_t
 
 
 def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, cfg=None, modes=None,
-                    entry_cfg=None):
+                    entry_cfg=None, work=None):
     """Phases 19-21 on the 7B width (``cfg``: the 7B preset in bf16 unless
     given): the kernel path against the plain path for one step of each PEFT
     mode (3 layers), K4 and K10 at the finetuning shape, the finetuning body
     in each of ``modes`` ((mode, n_layer): LoRA and both adapters at 32
     layers, full at 8), and the entry points in subprocesses (3 layers).
     Adds the finetuning-shape rows to ``results`` and their launches on the
-    LoRA run to ``totals``; returns the readings."""
+    LoRA run to ``totals``; returns the readings. Works in ``work`` (kept,
+    with the tokenizer and phase 21's ``entry/`` directory) when given, else
+    in a temporary directory it removes."""
     import gc
     import shutil
     import tempfile
@@ -692,7 +708,8 @@ def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, 
     on_card = dev.type == "cuda"
     cfg = cfg or LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16")
     modes = modes or (("lora", 32), ("adapter", 32), ("adapter_v2", 32), ("full", 8))
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    keep = work is not None
+    work = Path(work) if keep else Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
     t0 = time.perf_counter()
     readings = {"step_check": finetune_step_check(dev, counters, cfg.replace(n_layer=3), SEED + 19)}
     gc.collect()
@@ -707,9 +724,564 @@ def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, 
         totals["K4 T256"], totals["K10dq T256"], totals["K10dkv T256"] = lora["K4"], lora["K10dq"], lora["K10dkv"]
     readings["entry_points"] = finetune_entry_points(dev, tok_path, work / "entry", SEED + 22,
                                                      entry_cfg or cfg.replace(n_layer=3))
-    shutil.rmtree(work)
+    if not keep:
+        shutil.rmtree(work)
     readings["seconds"] = time.perf_counter() - t0
     log(f"phases 19-21 (finetuning): {readings['seconds']:.1f} s")
+    return readings
+
+
+# GPTQ (phase 22): kernel path against plain path. Stage B's Hessian (the first
+# one a kernel feeds: K3 for c_attn, K4 for the attention) relative to its
+# largest entry, both paths resident (actorder): f32 sums in another order.
+# (Spilling accumulates stage A's Hessian a batch at a time, as the reference
+# does, which tips a few of c_attn's levels, so the spilled run's stage B
+# inputs differ beyond rounding: its reading is logged.) Each linear's objective
+# ||X(W - What)||, each path's What on its own calibration inputs X (after the
+# first linear they differ: a level that rounding tips feeds another error to
+# every later row and moves the next stage's inputs; under actorder a near-tie
+# in diag(H) reorders the walk): the kernel path's over the plain path's within
+# 1 +- `objective`, and below round-to-nearest's on the same X. Phase 22 also
+# runs a K3 that loses the last quarter of its reduction (a dropped K split)
+# on the first layer, and asserts that both checks refuse it
+TOL_GPTQ = dict(hessian=1e-4, objective=2e-2)
+# phase 22's sizes: the 7B width in f32 at GPTQ_LAYERS layers, calibrated on
+# GPTQ_SAMPLES x GPTQ_T random tokens in batches of GPTQ_BATCH, group size
+# GPTQ_GROUPSIZE
+GPTQ_LAYERS, GPTQ_SAMPLES, GPTQ_T, GPTQ_BATCH, GPTQ_GROUPSIZE = 2, 8, 2048, 4, 128
+# perplexity (phase 23), kernel path against plain path on one 2048-token
+# window: the sum of the NLL, relative (bf16 logits through 2 blocks; the NLL
+# of a near-uniform softmax moves little, so the logits are held as well, to
+# TOL_MODEL)
+TOL_NLL = 1e-3
+# phase 23's sizes: EVAL_WINDOWS windows of EVAL_T tokens on the 32-layer 7B
+# model; kernel against plain path on one window at EVAL_PLAIN_LAYERS layers
+EVAL_WINDOWS, EVAL_T, EVAL_PLAIN_LAYERS = 4, 2048, 2
+# phase 24's sizes: quantize.gptq on ENTRY_SAMPLES x ENTRY_T calibration
+# windows, the evaluations in windows of ENTRY_EVAL_T, ENTRY_NEW_TOKENS greedy
+# tokens from generate.full
+ENTRY_SAMPLES, ENTRY_T, ENTRY_EVAL_T, ENTRY_NEW_TOKENS = 4, 512, 1024, 16
+
+
+def _held(got, want, tol, what: str) -> float:
+    """max |got - want|, asserting |got - want| <= atol + rtol * |want|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), f"{what}: non-finite kernel output"
+    err = (got - want).abs()
+    bad = err > tol[0] + tol[1] * want.abs()
+    assert not bad.any(), f"{what}: {int(bad.sum())} values beyond tolerance, max err {float(err.max()):.3g}"
+    return float(err.max())
+
+
+def _first_layer(node):
+    """A stacked parameter tree (layers on a leading axis) cut to its first layer."""
+    return {k: _first_layer(v) for k, v in node.items()} if isinstance(node, dict) else node[:1]
+
+
+def int4_bytes(K: int, N: int, gs: int = 128) -> int:
+    """Bytes of an int4 linear: the packed nibbles and f32 scale/zero planes."""
+    return K // 2 * N + 2 * (K // gs) * N * 4
+
+
+def gptq_check(dev, counters, time_ms, bound_ms, f32_peak, results, totals, seed: int):
+    """Phase 22: ``quant.gptq.quantize_model_gptq`` on GPTQ_LAYERS layers of
+    the 7B preset in f32 from random weights, calibrated on GPTQ_SAMPLES x
+    GPTQ_T random tokens, with and without actorder, on the kernel path (K3
+    and K4 in f32 feed stages B-E; spilling to the host without actorder, as
+    the full protocol does) and on the plain path; then the first layer once
+    more through a K3 that drops the last quarter of its reduction. Holds
+    stage B's Hessian and each linear's objective between the paths
+    (``TOL_GPTQ``), every kernel-path objective below round-to-nearest's, and
+    asserts that the wrong K3 fails both; counts the calibration launches;
+    times the walk and the rest per layer; counts a walk's launches a row
+    with torch.profiler; on the card, adds the "K3 f32 M8192" and "K4 f32 B4
+    T2048" rows. Returns the readings."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.ops import quant_matmul
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, quantize_int4, unpack_int4
+    from lit_llama_tpu_torch.quant import gptq
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+
+    on_card = dev.type == "cuda"
+    cfg = LLaMAConfig.from_name("7B", n_layer=GPTQ_LAYERS)  # f32 weights and compute
+    L, D, I = cfg.n_layer, cfg.n_embd, cfg.intermediate_size
+    n_samples, T, batch, groupsize = GPTQ_SAMPLES, GPTQ_T, GPTQ_BATCH, GPTQ_GROUPSIZE
+    names = [f"h.{l}.{t}" for l in range(L) for t in gptq._BLOCK_TARGETS] + ["lm_head"]
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    calib = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(n_samples, T))
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    matrix, linear = gptq.gptq_quantize_matrix, gptq.linear
+    rec = {}
+
+    def recorded(w, H, **kw):  # each walk's Hessian and seconds, in quantize_model_gptq's call order
+        sync()
+        t0 = time.perf_counter()
+        out = matrix(w, H, **kw)
+        sync()
+        rec["H"].append(H)
+        rec["walk_s"].append(time.perf_counter() - t0)
+        return out
+
+    def dropped_split(node, x, **kw):
+        """A wrong K3 in the stages: the kernel with the last quarter of K's partial sums lost."""
+        x = x.clone()
+        x[..., 3 * x.shape[-1] // 4:] = 0
+        return linear(node, x, **kw)
+
+    def weight(tree, name):  # on the card, from a spilled tree too
+        if name == "lm_head":
+            return {k: v.to(dev) for k, v in tree["lm_head"].items()}
+        _, l, t = name.split(".", 2)
+        return {k: v[int(l)].to(dev) for k, v in gptq._get(tree["h"], t).items()}
+
+    def run(p, c, actorder, plain, spill):
+        rec.update(H=[], walk_s=[])
+        for fn in counters.values():
+            fn.launches = 0
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()  # the params and the earlier runs' readings
+        sync()
+        t0 = time.perf_counter()
+        out = gptq.quantize_model_gptq(p, c, calib, groupsize=groupsize, batch=batch, actorder=actorder,
+                                       host_spill=spill, plain=plain)
+        sync()
+        total = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        forwards = c.n_layer * -(-n_samples // batch)  # stage B's attention, once a batch and layer
+        if on_card:
+            want = dict.fromkeys(counters, 0)
+            if not plain:
+                want.update({"K3": 5 * forwards, "K4": forwards})
+            assert got == want, f"GPTQ actorder={actorder} plain={plain} spill={spill}: launches {got}, want {want}"
+        log(f"phase 22, GPTQ {c.n_layer} layers actorder={actorder} plain={plain} spill={spill}: {total:.1f} s, "
+            f"launches {got}")
+        return dict(out=out, H=rec["H"], total_s=total, launches=got,
+                    layer_s=(total - rec["walk_s"][-1]) / c.n_layer,
+                    walk_s_per_layer=sum(rec["walk_s"][:-1]) / c.n_layer,
+                    rest_s_per_layer=(total - sum(rec["walk_s"])) / c.n_layer, lm_head_walk_s=rec["walk_s"][-1],
+                    peak_gib=(torch.cuda.max_memory_allocated() - held_before) / 2**30 if on_card else None)
+
+    def objective(w, What, H):
+        d = (w - What).double()
+        return float((0.5 * (d * (H.double() @ d)).sum()).sqrt())
+
+    def h_err(a, b):  # stage B's Hessian (layer 0's attn.c_proj; both paths quantized c_attn from one Hessian)
+        return float((a["H"][1] - b["H"][1]).abs().max() / b["H"][1].abs().max())
+
+    def compare(kern, plain, lins):
+        out = {}
+        for i, name in enumerate(lins):
+            w = weight(params, name)["w"].float()
+            qk, qp = weight(kern["out"], name), weight(plain["out"], name)
+            wk, wp, Hk, Hp = dequantize_int4(qk), dequantize_int4(qp), kern["H"][i], plain["H"][i]
+            out[name] = dict(
+                levels_differing=float((unpack_int4(qk["qw"]) != unpack_int4(qp["qw"])).float().mean()),
+                objective_kernel=objective(w, wk, Hk), objective_plain=objective(w, wp, Hp),
+                objective_rtn=objective(w, dequantize_int4(quantize_int4(w, groupsize)), Hk),
+                objective_kernel_on_plain_inputs=objective(w, wk, Hp),
+                objective_plain_on_kernel_inputs=objective(w, wp, Hk))
+            out[name]["ratio"] = out[name]["objective_kernel"] / out[name]["objective_plain"]
+        return out
+
+    runs = {}  # (actorder, plain): the kernel path without actorder spills to the host
+    gptq.gptq_quantize_matrix = recorded
+    try:
+        for actorder, plain in ((False, False), (False, True), (True, False), (True, True)):
+            runs[(actorder, plain)] = run(params, cfg, actorder, plain, spill=(actorder, plain) == (False, False))
+        gptq.linear = dropped_split
+        wrong = run(dict(params, h=_first_layer(params["h"])), cfg.replace(n_layer=1), False, False, False)
+    finally:
+        gptq.gptq_quantize_matrix, gptq.linear = matrix, linear
+    spilled = runs[(False, False)]
+    assert all(spilled["out"]["h"]["attn"]["c_attn"][k].device.type == "cpu" for k in ("qw", "qscale", "qzero"))
+    assert spilled["out"]["lm_head"]["qw"].device.type == "cpu"
+    h_errs = {a: h_err(runs[(a, False)], runs[(a, True)]) for a in (False, True)}
+    linears = {f"{n} actorder={a}": r for a in (False, True)
+               for n, r in compare(runs[(a, False)], runs[(a, True)], names).items()}
+    # the wrong K3 on the first layer against the plain path's first layer (the same inputs up to there)
+    wrong_h_err = h_err(wrong, runs[(False, True)])
+    wrong_linears = compare(wrong, runs[(False, True)], names[:len(gptq._BLOCK_TARGETS)])
+    readings = dict(
+        shape=f"{L} layers of width {D}, I {I}, V {cfg.padded_vocab_size}, f32; calibration {n_samples} x {T}, "
+              f"batch {batch}, group size {groupsize}",
+        params_gib=sum(t.numel() * t.element_size() for t in tree_leaves(params).values()) / 2**30,
+        stage_b_hessian_err=h_errs, linears=linears,
+        wrong_k3=dict(stage_b_hessian_err=wrong_h_err, linears=wrong_linears),
+        runs={f"actorder={a} plain={p} spill={(a, p) == (False, False)}":
+              {k: v for k, v in r.items() if k not in ("out", "H")} for (a, p), r in runs.items()})
+    readings["runs"]["wrong K3, first layer"] = {k: v for k, v in wrong.items() if k not in ("out", "H")}
+    del wrong
+
+    if on_card:
+        # a walk's launches a row: one 512-row walk (4 blocks) under torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        g = torch.Generator().manual_seed(seed + 1)
+        x = torch.randn(1024, 512, generator=g).to(dev)
+        w = (torch.randn(512, D, generator=g) * 0.02).to(dev)
+        H = gptq.accumulate_hessian(torch.zeros(512, 512, device=dev), x)
+        matrix(w, H, groupsize=groupsize)
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            matrix(w, H, groupsize=groupsize)
+            sync()
+        n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        rows = 4 * D + I  # a layer's rows: c_attn, c_proj, c_fc1, c_fc2 (D each), mlp.c_proj (I)
+        readings["walk_launches_per_row"] = n_kernels / 512
+        readings["walk_launches_per_layer"] = round(n_kernels / 512 * rows)
+
+        # the kernels at the calibration shapes: K3 f32 at M = batch x T, K4 f32 at (batch, H, T, hs)
+        M = batch * T
+        k3 = {}
+        for t in gptq._BLOCK_TARGETS:
+            q = weight(spilled["out"], f"h.0.{t}")
+            K, N = 2 * q["qw"].shape[0], q["qw"].shape[1]
+            x = torch.randn(M, K, generator=g).to(dev)
+            args = (x, q["qw"], q["qscale"], q["qzero"], torch.float32)
+            err = _held(quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args), TOL_F32,
+                        f"K3 f32 M={M} {t}")
+            wd = dequantize_int4(q, torch.float32)
+            b = bound_ms(M * K * 4 + int4_bytes(K, N, groupsize) + M * N * 4, 2 * M * K * N, f32_peak)
+            k3[t] = dict(shape=f"M={M} K={K} N={N} ({t}), f32", max_abs_err=err,
+                         ms=time_ms(lambda: quant_matmul.matmul_int4(*args), 5),
+                         plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args), 3),
+                         library_ms=time_ms(lambda: torch.matmul(x, wd), 5), bound_ms=b[0], bound_by=b[1])
+            del x, args, wd
+        results["K3 f32 M8192"] = k3["attn.c_attn"]
+        totals["K3 f32 M8192"] = spilled["launches"]["K3"]
+        H_, hs = cfg.n_head, cfg.head_size
+        q, k, v = (torch.randn((batch, H_, T, hs), generator=g).to(dev) for _ in range(3))
+        o, lse = fa.flash_attention(q, k, v)
+        ro, rlse = fa.flash_attention_ref(q, k, v)
+        err4 = max(_held(o, ro, TOL_F32, "K4 f32"), _held(lse, rlse, TOL_F32, "K4 f32 lse"))
+        del ro, rlse
+        nrow, pairs = batch * H_ * T, batch * H_ * T * (T + 1) // 2
+        b4 = bound_ms(4 * nrow * hs * 4 + nrow * 4, 4 * hs * pairs, f32_peak)
+        results["K4 f32 B4 T2048"] = dict(
+            shape=f"B={batch} H={H_} T={T} hs={hs}, f32", max_abs_err=err4,
+            ms=time_ms(lambda: fa.flash_attention(q, k, v), 5), plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 2),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+            bound_ms=b4[0], bound_by=b4[1])
+        totals["K4 f32 B4 T2048"] = spilled["launches"]["K4"]
+        readings["k3_f32_shapes"] = k3
+        del q, k, v, o, lse
+        log("phase 22, K3 f32 at the calibration shapes: " + "; ".join(
+            f"{t} {r['ms']:.2f} ms (bound {r['bound_ms']:.2f} {r['bound_by']}, plain {r['plain_ms']:.2f}, "
+            f"torch.matmul {r['library_ms']:.2f}), max err {r['max_abs_err']:.3g}" for t, r in k3.items())
+            + "; K4 f32 at ({}, {}, {}, {}) {:.2f} ms (bound {:.2f}, plain {:.2f}, SDPA {:.2f}), max err {:.3g}".format(
+                batch, H_, T, hs, *(results["K4 f32 B4 T2048"][k] for k in ("ms", "bound_ms", "plain_ms",
+                                                                            "library_ms", "max_abs_err"))))
+    def worst(lins):
+        return max(abs(r["ratio"] - 1) for r in lins.values())
+
+    log(f"phase 22, GPTQ ({readings['shape']}): stage B Hessian kernel vs plain "
+        f"{h_errs[True]:.3g} of its largest entry (actorder; spilling, without it, {h_errs[False]:.3g}); per "
+        f"linear: levels differing kernel vs plain up to {max(r['levels_differing'] for r in linears.values()):.4f}, "
+        f"|objective kernel / plain - 1| up to {worst(linears):.5f}, kernel / round-to-nearest up to "
+        f"{max(r['objective_kernel'] / r['objective_rtn'] for r in linears.values()):.4f}; the wrong K3 on the first "
+        f"layer: stage B Hessian {wrong_h_err:.3g}, |objective / plain - 1| up to {worst(wrong_linears):.5f}; walk "
+        f"launches {readings.get('walk_launches_per_row', 'not measured')} a row, "
+        f"{readings.get('walk_launches_per_layer', 'not measured')} a layer; " + "; ".join(
+            f"{k}: {r['total_s']:.1f} s, {r['layer_s']:.2f} s a layer (walk {r['walk_s_per_layer']:.2f}, the rest "
+            f"{r['rest_s_per_layer']:.2f}), lm_head walk {r['lm_head_walk_s']:.2f} s, peak "
+            f"{r['peak_gib'] if r['peak_gib'] is None else round(r['peak_gib'], 2)} GiB over the params' "
+            f"{readings['params_gib']:.2f} and what earlier runs hold"
+            for k, r in readings["runs"].items()))
+    log("phase 22, per linear (levels differing kernel vs plain; objective kernel / plain / round-to-nearest; the "
+        "kernel path's on the plain path's inputs, the plain path's on the kernel path's): " + "; ".join(
+            f"{n} {r['levels_differing']:.4f}; {r['objective_kernel']:.4g} / {r['objective_plain']:.4g} / "
+            f"{r['objective_rtn']:.4g}; {r['objective_kernel_on_plain_inputs']:.4g}, "
+            f"{r['objective_plain_on_kernel_inputs']:.4g}"
+            for n, r in list(linears.items()) + [(f"wrong K3 {n}", r) for n, r in wrong_linears.items()]))
+    assert h_errs[True] <= TOL_GPTQ["hessian"], f"GPTQ stage B Hessian: kernel vs plain {h_errs[True]:.3g}"
+    for name, r in linears.items():
+        assert abs(r["ratio"] - 1) <= TOL_GPTQ["objective"], f"GPTQ {name}: {r}"
+        assert r["objective_kernel"] < r["objective_rtn"], f"GPTQ {name}: not below round-to-nearest, {r}"
+    assert wrong_h_err > TOL_GPTQ["hessian"], f"the wrong K3 passes the Hessian check: {wrong_h_err:.3g}"
+    assert worst(wrong_linears) > TOL_GPTQ["objective"], f"the wrong K3 passes the objective check: {wrong_linears}"
+    del runs, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return readings
+
+
+def perplexity_check(dev, counters, time_ms, bound_ms, tc_peak, results, totals, seed: int):
+    """Phase 23: ``eval.perplexity`` on the 7B model in bf16 from random
+    weights, over EVAL_WINDOWS windows of EVAL_T random tokens: dense, int4
+    and int8 (round to nearest at load, as ``load_model``
+    quantizes). Tokens/s (host clock around the windows, after one warm-up
+    window) and peak memory each, the launches (K4 a window and layer; K3 or
+    K6 for every quantized linear). On one window the kernel path against
+    the plain path at EVAL_PLAIN_LAYERS layers: the NLL sum (``TOL_NLL``) and
+    the logits (``TOL_MODEL``). On the card, adds the "K3 M2048" and "K6
+    M2048" rows. Returns the readings."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.eval.perplexity import _window_nll, perplexity
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import quant_matmul
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+
+    on_card = dev.type == "cuda"
+    cfg = LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16")
+    L, windows, T, plain_layers = cfg.n_layer, EVAL_WINDOWS, EVAL_T, EVAL_PLAIN_LAYERS
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=windows * T).astype(np.int32)
+    window = torch.from_numpy(tokens[:T][None]).long().to(dev)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    readings, g = {}, torch.Generator().manual_seed(seed + 1)
+    for name, mode in (("dense", None), ("int4", "int4"), ("int8", "int8")):
+        qcfg = cfg if mode is None else cfg.replace(quantize=mode)
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        if mode is not None:
+            params = llama.quantize_params(params, qcfg)
+        params = llama.unstack_layers(params)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        with torch.inference_mode():
+            _window_nll(params, window, qcfg)  # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        params_gib = sum(t.numel() * t.element_size() for t in tree_leaves(params).values()) / 2**30
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated()  # the params and what earlier phases hold
+        sync()
+        t0 = time.perf_counter()
+        ppl = perplexity(params, tokens, qcfg, block_size=T)
+        sync()
+        dt = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        assert np.isfinite(ppl), f"perplexity {name}: {ppl}"
+        if on_card:
+            linears = windows * (4 * L + 1)  # c_attn, c_proj, c_fc12, mlp.c_proj a layer, then lm_head
+            want = dict.fromkeys(counters, 0)
+            want.update({"K4": windows * L, "K3": linears if mode == "int4" else 0, "K6": linears if mode == "int8" else 0})
+            assert got == want, f"perplexity {name}: launches {got}, want {want}"
+        p2, c2 = dict(params, h=params["h"][:plain_layers]), qcfg.replace(n_layer=plain_layers)
+        with torch.inference_mode():
+            lk = llama.forward(p2, window, c2)[0].float()
+            lp = llama.forward(p2, window, c2, plain=True)[0].float()
+            nk, np_ = float(_window_nll(p2, window, c2)[0]), float(_window_nll(p2, window, c2, plain=True)[0])
+        assert torch.isfinite(lk).all(), f"perplexity {name}: non-finite logits"
+        logit_err = float((lk - lp).abs().max() / lp.abs().max())
+        nll_err = abs(nk - np_) / abs(np_)
+        assert nll_err <= TOL_NLL, f"perplexity {name}: NLL sum kernel {nk} vs plain {np_}"
+        assert logit_err <= TOL_MODEL[1], f"perplexity {name}: max |dlogit| / max |logit| {logit_err:.3g}"
+        # peak memory: the params and the evaluation's own working memory
+        readings[name] = dict(perplexity=ppl, seconds=dt, tokens_per_s=windows * T / dt, launches=got,
+                              params_gib=params_gib,
+                              peak_gib=(params_gib + (torch.cuda.max_memory_allocated() - held_before) / 2**30
+                                        if on_card else None),
+                              nll_rel_err_kernel_vs_plain=nll_err, logit_rel_err_kernel_vs_plain=logit_err)
+        if on_card and mode is not None:
+            # the kernel at M = T on each of the four linears of a layer
+            shapes = {}
+            for lin, node in (("c_attn", params["h"][0]["attn"]["c_attn"]), ("c_proj", params["h"][0]["attn"]["c_proj"]),
+                              ("c_fc12", params["h"][0]["mlp"]["c_fc12"]), ("mlp.c_proj", params["h"][0]["mlp"]["c_proj"])):
+                K = node["qw"].shape[0] * (2 if mode == "int4" else 1)
+                N = node["qw"].shape[1]
+                x = torch.randn(T, K, generator=g).to(dev, torch.bfloat16)
+                if mode == "int4":
+                    args = (x, node["qw"], node["qscale"], node["qzero"], torch.bfloat16)
+                    fn, ref, key = quant_matmul.matmul_int4, quant_matmul.matmul_int4_ref, "K3"
+                    wd, nbytes = dequantize_int4(node, torch.bfloat16), int4_bytes(K, N, qcfg.quant_groupsize)
+                else:
+                    args = (x, node["qw"], node["qscale"], torch.bfloat16)
+                    fn, ref, key = quant_matmul.matmul_int8, quant_matmul.matmul_int8_ref, "K6"
+                    wd, nbytes = dequantize_int8(node, torch.bfloat16), K * N + N * 4
+                err = _held(fn(*args), ref(*args), TOL[key], f"{key} M={T} {lin}")
+                b = bound_ms(T * K * 2 + nbytes + T * N * 2, 2 * T * K * N, tc_peak)
+                shapes[lin] = dict(shape=f"M={T} K={K} N={N} ({lin}), bf16", max_abs_err=err,
+                                   ms=time_ms(lambda: fn(*args), 10), plain_ms=time_ms(lambda: ref(*args), 3),
+                                   library_ms=time_ms(lambda: torch.matmul(x, wd), 10), bound_ms=b[0], bound_by=b[1])
+                del x, args, wd
+            key = "K3 M2048" if mode == "int4" else "K6 M2048"
+            results[key] = shapes["c_attn"]
+            totals[key] = got["K3" if mode == "int4" else "K6"]
+            readings[name]["kernel_shapes"] = shapes
+        log(f"phase 23, perplexity {name} ({L} layers at width {cfg.n_embd}, {cfg.compute_dtype}, {windows} windows "
+            f"of {T}): {ppl:.4f} in {dt:.3f} s, {windows * T / dt:.0f} tokens/s (host clock after a warm-up "
+            f"window), peak {readings[name]['peak_gib']} GiB (params {params_gib:.2f}), launches {got}; "
+            f"{plain_layers} layers kernel vs plain "
+            f"on one window: NLL sum {nk:.3f} vs {np_:.3f} ({nll_err:.3g}), max |dlogit| / max |logit| "
+            f"{logit_err:.3g}" + ("; " + "; ".join(
+                f"{k} {r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.1f} {r['bound_by']}, plain "
+                f"{r['plain_ms'] * 1e3:.1f}, torch.matmul {r['library_ms'] * 1e3:.1f}), max err {r['max_abs_err']:.3g}"
+                for k, r in readings[name].get("kernel_shapes", {}).items()) if "kernel_shapes" in readings[name]
+                else ""))
+        del params, p2, lk, lp
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return readings
+
+
+def _run(cmd, dev, timeout=600):
+    """A port entry point in a subprocess (``--device cpu`` off the card);
+    returns (stdout, stderr, seconds)."""
+    cmd = [sys.executable, "-m"] + cmd + (["--device", "cpu"] if dev.type == "cpu" else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, f"{cmd[2]} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    return proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def gptq_entry_points(dev, tok_path: Path, entry: Path, peft_dirs, seed: int):
+    """Phase 24, on phase 21's 3-layer 7B-width ``.pth`` in ``entry`` and its
+    tokenizer: ``python -m lit_llama_tpu_torch.quantize.gptq`` (ENTRY_SAMPLES
+    x ENTRY_T calibration windows of a text file), then ``evaluate.full`` and
+    ``generate.full`` (greedy) on its output; ``evaluate.lora`` and
+    ``evaluate.adapter`` on phase 21's saved directories (``peft_dirs``),
+    ``evaluate.adapter_v2`` on a v2 directory written here as finetuning
+    saves one (the trainable leaves; gates drawn from layer 2 on);
+    ``evaluate.eval_quality`` on a native copy of the base's first layer
+    with ``train.bin`` / ``val.bin`` written here. Each printed perplexity equals the in-process
+    ``perplexity`` on the same loaded params (relative 1e-4: 4 decimals),
+    the greedy tokens the in-process ``generate``'s. Returns the readings."""
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.eval.perplexity import perplexity
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.models.config import AdapterConfig, LoRAConfig
+    from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused
+    from lit_llama_tpu_torch.peft import adapter as adapter_mod
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.training.loop import config_meta
+    from lit_llama_tpu_torch.utils import checkpoint as ckpt
+    from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
+
+    pth, rng = entry / "lit-llama.pth", np.random.default_rng(seed)
+    n_samples, T, eval_T, new_tokens = ENTRY_SAMPLES, ENTRY_T, ENTRY_EVAL_T, ENTRY_NEW_TOKENS
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    (entry / "calib.txt").write_text(" ".join("".join(rng.choice(letters, size=int(rng.integers(1, 8))))
+                                              for _ in range(6000)))
+    V = json.loads((entry / "config.json").read_text())["vocab_size"]
+    val = rng.integers(0, V, size=2 * eval_T).astype(np.uint16)
+    val.tofile(entry / "val.bin")
+    evals = ["--tokenizer_path", str(tok_path), "--data_file", str(entry / "val.bin"), "--block_size", str(eval_T)]
+    readings = {}
+
+    def held(what: str, out: str, params, config) -> float:
+        printed = float(out.split("perplexity:")[1].split()[0])
+        want = perplexity(params, val.astype(np.int32), config, block_size=eval_T)
+        assert abs(printed - want) <= 1e-4 * want, f"{what}: printed perplexity {printed}, in process {want}"
+        return printed
+
+    # quantize -> evaluate -> generate
+    gdir = entry / "gptq"
+    out, err, took = _run(["lit_llama_tpu_torch.quantize.gptq", "--checkpoint_path", str(pth), "--tokenizer_path",
+                           str(tok_path), "--output_path", str(gdir), "--n_samples", str(n_samples), "--block_size",
+                           str(T), "--data_file", str(entry / "calib.txt")], dev)
+    assert f"quantized checkpoint written to {gdir}" in out and ckpt.load_metadata(gdir)["config"]["quantize"] == "int4"
+    readings["quantize.gptq"] = dict(seconds=took, log=[ln for ln in err.splitlines() if "GPTQ done" in ln])
+    params, config = load_model(gdir, device=dev)
+    params = llama.unstack_layers(params)
+    out, _, took = _run(["lit_llama_tpu_torch.evaluate.full", "--checkpoint_path", str(gdir)] + evals, dev)
+    readings["evaluate.full"] = dict(seconds=took, perplexity=held("evaluate.full", out, params, config))
+    tok = Tokenizer(tok_path)
+    prompt = "What food do lamas eat?"
+    enc = tok.encode(sft.generate_prompt({"instruction": prompt, "input": ""}))
+    params, config = maybe_prepare_fused(params, config)
+    want = gen.generate(params, enc, new_tokens, config=config, temperature=0.0, eos_id=tok.eos_id,
+                        device=dev).tolist()
+    del params
+    _, err, took = _run(["lit_llama_tpu_torch.generate.full", "--checkpoint_path", str(gdir), "--tokenizer_path",
+                         str(tok_path), "--prompt", prompt, "--temperature", "0", "--max_new_tokens", str(new_tokens)],
+                        dev)
+    got = json.loads(err.split("Token ids 1: ")[-1].splitlines()[0])
+    assert got == want, f"generate.full: tokens {got} differ from the in-process generate's {want}"
+    readings["generate.full"] = dict(seconds=took, new_tokens=len(got) - len(enc), fused=config.rope_layout == "half")
+
+    # the PEFT evaluations: phase 21's LoRA and Adapter v1 directories, and a v2 directory
+    params, config = load_model(pth, device=dev)
+    v2cfg = config.replace(adapter=AdapterConfig(v2=True))
+    params = adapter_mod.add_adapter_params(params, v2cfg, torch.Generator(device=dev).manual_seed(seed))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    h = params["h"]
+    h["gating"][2:] = torch.randn(h["gating"][2:].shape, generator=g, device=dev).to(h["gating"].dtype)
+    for node in (h["attn"]["c_attn"], h["attn"]["c_proj"], h["mlp"]["c_fc1"], h["mlp"]["c_fc2"],
+                 h["mlp"]["c_proj"], params["lm_head"]):
+        for k, base in (("av2_bias", 0.0), ("av2_scale", 1.0)):
+            node[k] = (base + 0.05 * torch.randn(node[k].shape, generator=g, device=dev)).to(node[k].dtype)
+    ckpt.save_checkpoint(entry / "adapter_v2", {"params": adapter_mod.adapter_state(params, v2=True)})
+    del params
+    for mode, flag, path in (("lora", "--lora_path", peft_dirs["lora"]), ("adapter", "--adapter_path",
+                                                                          peft_dirs["adapter"]),
+                             ("adapter_v2", "--adapter_path", entry / "adapter_v2")):
+        params, config = load_model(pth, device=dev)
+        kind, overlay, info = load_peft_checkpoint(path, config, device=dev)
+        if kind == "lora":
+            config = config.replace(lora=LoRAConfig(r=info["r"], alpha=16.0, dropout=0.0))
+            params = lora_mod.load_lora_state(params, overlay)
+        else:
+            config = config.replace(adapter=AdapterConfig(v2=mode == "adapter_v2" or info["v2"],
+                                                          prompt_length=info["prompt_length"],
+                                                          start_layer=info["start_layer"]))
+            params = adapter_mod.load_adapter_state(adapter_mod.add_adapter_params(params, config), overlay)
+        out, _, took = _run([f"lit_llama_tpu_torch.evaluate.{mode}", flag, str(path), "--checkpoint_path", str(pth)]
+                            + evals, dev)
+        readings[f"evaluate.{mode}"] = dict(seconds=took, perplexity=held(f"evaluate.{mode}", out,
+                                                                         llama.unstack_layers(params), config))
+        del params, overlay
+
+    # the quality ladder (GPTQ and four evaluations) on a native copy of the base's first layer
+    params, config = load_model(pth, device=dev)
+    params, config = dict(params, h=_first_layer(params["h"])), config.replace(n_layer=1)
+    ckpt.save_checkpoint(entry / "native", {"params": params}, metadata={"config": config_meta(config)})
+    del params
+    (entry / "quality").mkdir(exist_ok=True)
+    rng.integers(0, V, size=8 * T).astype(np.uint16).tofile(entry / "quality" / "train.bin")
+    rng.integers(0, V, size=2 * config.block_size).astype(np.uint16).tofile(entry / "quality" / "val.bin")
+    out, _, took = _run(["lit_llama_tpu_torch.evaluate.eval_quality", "--ckpt_dir", str(entry / "native"),
+                         "--data_dir", str(entry / "quality"), "--groupsize", "128", "--n_calib", "4",
+                         "--calib_block", str(T), "--max_windows", "2"], dev)
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert sorted(summary["ppl"]) == ["bf16", "gptq-int4", "int8", "rtn-int4"], summary
+    assert all(np.isfinite(v) for v in summary["ppl"].values()), summary
+    readings["evaluate.eval_quality"] = dict(seconds=took, summary=summary)
+    log(f"phase 24, the entry points in subprocesses on {entry / 'lit-llama.pth'} ({json.loads((entry / 'config.json').read_text())}): " + "; ".join(
+        f"{k} exit 0 in {r['seconds']:.1f} s" + (f", perplexity {r['perplexity']} equal to the in-process value"
+                                                   if "perplexity" in r else "")
+        for k, r in readings.items()) + f"; generate.full's {readings['generate.full']['new_tokens']} greedy tokens "
+        f"(fused step: {readings['generate.full']['fused']}) equal to the in-process generate's; eval_quality "
+        f"{summary}")
+    return readings
+
+
+def gptq_phases(dev, counters, time_ms, bound_ms, tc_peak, f32_peak, results, totals, tok_path: Path, entry: Path,
+                peft_dirs):
+    """Phases 22-24 (GPTQ, perplexity, the entry points); each draws from a
+    generator of its own. Returns the readings."""
+    t0 = time.perf_counter()
+    readings = dict(gptq=gptq_check(dev, counters, time_ms, bound_ms, f32_peak, results, totals, SEED + 23))
+    readings["perplexity"] = perplexity_check(dev, counters, time_ms, bound_ms, tc_peak, results, totals, SEED + 24)
+    readings["entry_points"] = gptq_entry_points(dev, tok_path, entry, peft_dirs, SEED + 25)
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phases 22-24 (GPTQ and evaluation): {readings['seconds']:.1f} s")
     return readings
 
 
@@ -759,10 +1331,6 @@ def main() -> int:
         for line in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-
-    def int4_bytes(K, N, g=128):
-        """Bytes of an int4 linear: the packed nibbles and f32 scale/zero planes."""
-        return K // 2 * N + 2 * (K // g) * N * 4
 
     def bound_ms(nbytes, ops, peak):
         return max(nbytes / bw, ops / peak) * 1e3, ("bytes" if nbytes / bw >= ops / peak else "operations")
@@ -2787,7 +3355,21 @@ def main() -> int:
     # ---- 19-21. instruction finetuning: one step per PEFT mode kernel vs plain path,
     # K4/K10 at the finetuning shape, the finetuning body at 7B width (LoRA, Adapter
     # v1 and v2 at 32 layers, full at 8), the entry points in subprocesses ----------
-    finetuning = finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals)
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
+    finetuning = finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, work=work)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22-24. GPTQ at 7B width (kernel path against plain path, with and without
+    # actorder, then spilling), perplexity of the 7B model dense / int4 / int8, and
+    # quantize -> evaluate -> generate with the evaluate.* entry points in subprocesses
+    entries = finetuning["entry_points"]
+    gptq_eval = gptq_phases(dev, counters, time_ms, bound_ms, tc_peak, f32_peak, results, totals,
+                            work / "tokenizer.model", work / "entry",
+                            {m: Path(entries[m]["checkpoint"]) for m in ("lora", "adapter")})
+    shutil.rmtree(work)
 
     kernels = []
     sources = {
@@ -2826,7 +3408,8 @@ def main() -> int:
     # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
               "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
-              "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh"}
+              "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
+              "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
@@ -2836,7 +3419,8 @@ def main() -> int:
                 "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
                 "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
                 "K5 hs384", "K10dq hs384", "K10dkv hs384", "K4 hs512", "K5 hs512", "K10dq hs512", "K10dkv hs512",
-                "K3 gs=32", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256"]
+                "K3 gs=32", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256", "K3 f32 M8192", "K4 f32 B4 T2048",
+                "K3 M2048", "K6 M2048"]
     for key in list(sources) + variants:
         base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))
         r = results[key]
@@ -2855,7 +3439,7 @@ def main() -> int:
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
                       "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
-                      "finetuning": finetuning, "entry_inputs": entry_inputs}))
+                      "finetuning": finetuning, "gptq_evaluation": gptq_eval, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -49,20 +49,34 @@ def main(
         seed: Random seed for sampling.
         device: cuda (the default) or cpu (the plain PyTorch path).
     """
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+
+    tokenizer_path = Path(tokenizer_path)
+    if not tokenizer_path.is_file():
+        raise FileNotFoundError(tokenizer_path)
+    tokenizer = Tokenizer(tokenizer_path)
+    load_and_sample(checkpoint_path, tokenizer, tokenizer.encode(prompt, bos=True, eos=False), None, num_samples,
+                    max_new_tokens, top_k, temperature, quantize, model_size, kv_cache_dtype, seed, device)
+
+
+def load_and_sample(checkpoint_path, tokenizer, encoded, eos_id, num_samples, max_new_tokens, top_k, temperature,
+                    quantize, model_size, kv_cache_dtype, seed, device) -> None:
+    """Load the checkpoint (int4 prepared for the fused step where it takes
+    it), then print ``num_samples`` samples that continue the token ids
+    ``encoded``, each stopping at ``eos_id`` (None: never), with its time
+    and token ids on stderr, and the peak memory."""
     import torch
 
-    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
     from lit_llama_tpu_torch.models.generate import generate
     from lit_llama_tpu_torch.models.llama import unstack_layers
     from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused
     from lit_llama_tpu_torch.utils.device import resolve_device
     from lit_llama_tpu_torch.utils.loader import load_model
+    from lit_llama_tpu_torch.utils.memory import print_peak_memory
 
-    checkpoint_path, tokenizer_path = Path(checkpoint_path), Path(tokenizer_path)
+    checkpoint_path = Path(checkpoint_path)
     if not checkpoint_path.exists():
         raise FileNotFoundError(checkpoint_path)
-    if not tokenizer_path.is_file():
-        raise FileNotFoundError(tokenizer_path)
     dev = resolve_device(device)
 
     print("Loading model ...", file=sys.stderr)
@@ -73,21 +87,18 @@ def main(
     params, config = maybe_prepare_fused(unstack_layers(params), config)
     print(f"Time to load model: {time.time() - t0:.02f} seconds.", file=sys.stderr)
 
-    tokenizer = Tokenizer(tokenizer_path)
-    encoded = tokenizer.encode(prompt, bos=True, eos=False)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     for i in range(num_samples):
         t0 = time.perf_counter()
         y = generate(params, encoded, max_new_tokens, config=config, temperature=temperature, top_k=top_k,
-                     generator=generator, device=dev)
+                     eos_id=eos_id, generator=generator, device=dev)
         t = time.perf_counter() - t0
         print(tokenizer.decode(y))
         n_new = len(y) - len(encoded)
         print(f"Time for inference {i + 1}: {t:.02f} sec total, {n_new / t:.02f} tokens/sec", file=sys.stderr)
         print(f"Token ids {i + 1}: {y.tolist()}", file=sys.stderr)
-    if dev.type == "cuda":
-        print(f"Memory used: {torch.cuda.max_memory_allocated(dev) / 1e9:.02f} GB", file=sys.stderr)
+    print_peak_memory(dev)
 
 
 if __name__ == "__main__":

@@ -61,9 +61,14 @@ def save_train_checkpoint(out_dir: Path, name: str, state: step_lib.TrainState, 
         tree = {"params": save_filter(state.params), "step": step}
     else:
         tree = {"params": state.params, "opt_state": state.opt_state, "step": step}
-    meta = {"config": {k: getattr(config, k) for k in _CONFIG_KEYS}}
-    ckpt.save_checkpoint(path, tree, metadata=meta)
+    ckpt.save_checkpoint(path, tree, metadata={"config": config_meta(config)})
     return path
+
+
+def config_meta(config: LLaMAConfig) -> Dict[str, Any]:
+    """The config keys a checkpoint's metadata records (the JAX package's
+    ``_config_meta``), which both packages' loaders read."""
+    return {k: getattr(config, k) for k in _CONFIG_KEYS}
 
 
 def load_train_checkpoint(path, optimizer: step_lib.AdamW, device=None) -> step_lib.TrainState:
