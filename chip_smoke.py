@@ -75,7 +75,28 @@ path against plain path); and ``quantize.gptq``, ``evaluate.full``,
 ``generate.full``, ``evaluate.lora`` / ``.adapter`` / ``.adapter_v2`` and
 ``evaluate.eval_quality`` in subprocesses on phase 21's 3-layer checkpoint
 and directories (the ladder on its first layer), each printed perplexity
-equal to the in-process value.
+equal to the in-process value. Phases 25-28 run the entry points that read
+published checkpoints, serve over HTTP and prepare data: seeded 4-layer
+7B-width weights written as Meta's two tensor-parallel shards and as two HF
+``.bin`` files, converted by ``scripts.convert_checkpoint`` and
+``scripts.convert_hf_checkpoint`` in subprocesses, each output equal to the
+seeded weights tensor for tensor; that checkpoint, int4 at load, behind
+``serve.http`` in this process (32 slots, S = 1024): 64 concurrent greedy
+requests of 16-512 prompt tokens and 32-128 new ones, whose tokens equal an
+in-process engine run of the same requests, with K3, K4, K7, K8 and K9's
+launches counted over the HTTP run (tokens/s, TTFT p50 / p99 beside the
+in-process engine's), then ``python -m lit_llama_tpu_torch.serve.http`` as a
+subprocess on the same file (/health, four requests, tokens equal); a
+tokenizer trained by ``scripts.prepare_shakespeare`` (a subprocess) on the
+repo's reference Markdown, the native encoder built and equal to the Python one on the
+whole corpus (both timed), and ``pretrain.shakespeare`` at the 7B width,
+block 1024, 4 layers, batch 2, lr 2e-5: 6 steps in process (the loss falls; K4 and
+K10 launch 2 L and L times a step; ms a step, peak memory), then
+``--resume`` for 2 more in a subprocess; ``scripts.convert_lora_weights`` on
+phase 21's LoRA directory, the merged ``.pth``'s logits within
+``TOL_MODEL`` of the base with the overlay, ``generate.base`` on it in a
+subprocess (greedy tokens equal), and ``scripts.prepare_alpaca`` on a local
+JSON with one ``finetune.lora`` step on its output.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -1282,6 +1303,542 @@ def gptq_phases(dev, counters, time_ms, bound_ms, tc_peak, f32_peak, results, to
     readings["entry_points"] = gptq_entry_points(dev, tok_path, entry, peft_dirs, SEED + 25)
     readings["seconds"] = time.perf_counter() - t0
     log(f"phases 22-24 (GPTQ and evaluation): {readings['seconds']:.1f} s")
+    return readings
+
+
+# phases 25-28: the entry points that read published checkpoints, serve over
+# HTTP, train a tokenizer and pretrain on it, and merge a LoRA. Their sizes:
+# phase 25 converts CONVERT_LAYERS layers of the 7B width (~2.1 GB in bf16);
+# phase 26 serves that checkpoint (int4 at load) from HTTP_SLOTS slots, S =
+# HTTP_S, HTTP_REQUESTS requests of HTTP_PROMPT tokens each way, HTTP_NEW new
+# tokens; phase 27 pretrains SHAKESPEARE_LAYERS layers at block SHAKESPEARE_T
+# for SHAKESPEARE_STEPS steps, then resumes for 2 more
+CONVERT_LAYERS = 4
+HTTP_SLOTS, HTTP_S, HTTP_REQUESTS, HTTP_PROMPT, HTTP_NEW = 32, 1024, 64, (16, 512), (32, 128)
+SHAKESPEARE_LAYERS, SHAKESPEARE_T, SHAKESPEARE_STEPS, SHAKESPEARE_WIDTH = 4, 1024, 6, (4096, 32)  # (n_embd, n_head)
+# the script's constant 6e-4 without warmup moves every weight by ~lr in Adam's
+# first steps, which at width 4096 moves each product by several times its
+# initial scale, and the loss spikes; a step of 2e-5 moves a 4096-wide product
+# by about half what 6e-4 moves the 256-wide one of the CPU tests
+SHAKESPEARE_LR = 2e-5
+TIMEOUT_S = 600  # any subprocess of phases 25-28
+HTTP_TIMEOUT_S = 300  # any HTTP call of phase 26
+
+
+def _host_run(module: str, args, timeout=TIMEOUT_S):
+    """A host-only entry point (no ``--device``) in a subprocess; returns
+    (stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    assert proc.returncode == 0, f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    return proc.stdout, time.perf_counter() - t0
+
+
+def conversion_check(dev, work: Path, seed: int):
+    """Phase 25: seeded lit-llama weights of CONVERT_LAYERS layers at the 7B
+    width in bf16, written as Meta's two tensor-parallel shards
+    (``consolidated.00.pth`` / ``.01.pth``, each tensor split along Meta's
+    dim) and as two HF ``.bin`` files (q and k in HF's rotary layout), are
+    converted by the port's CLIs in subprocesses; each output equals the
+    seeded weights tensor for tensor. Returns the readings and the Meta
+    conversion's ``.pth`` (with a ``config.json`` beside it)."""
+    import shutil
+
+    import torch
+
+    from lit_llama_tpu_torch import LLaMAConfig
+
+    cfg = LLaMAConfig.from_name("7B", n_layer=CONVERT_LAYERS)
+    D, V, I, H = cfg.n_embd, cfg.vocab_size, cfg.intermediate_size, cfg.n_head
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape, base=0.0):
+        return (base + 0.02 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16).cpu()
+
+    sd = {"transformer.wte.weight": w(V, D), "transformer.ln_f.scale": w(D, base=1.0), "lm_head.weight": w(V, D)}
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}."
+        sd.update({p + "rms_1.scale": w(D, base=1.0), p + "rms_2.scale": w(D, base=1.0),
+                   p + "attn.c_attn.weight": w(3 * D, D), p + "attn.c_proj.weight": w(D, D),
+                   p + "mlp.c_fc1.weight": w(I, D), p + "mlp.c_fc2.weight": w(I, D), p + "mlp.c_proj.weight": w(D, I)})
+    n_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+
+    # Meta: two shards, each tensor split along the dim Meta's ranks split it
+    # (norms replicated); HF: q and k in the half-split rotary layout
+    meta = [{}, {}]
+    hf = {}
+
+    def shard(name, t, dim):
+        for s, part in zip(meta, (t, t) if dim is None else t.chunk(2, dim)):
+            s[name] = part.contiguous().clone()
+
+    def hf_layout(t):
+        return t.reshape(H, D // H // 2, 2, D).transpose(1, 2).reshape(D, D).contiguous()
+
+    shard("tok_embeddings.weight", sd["transformer.wte.weight"], 1)
+    shard("output.weight", sd["lm_head.weight"], 0)
+    shard("norm.weight", sd["transformer.ln_f.scale"], None)
+    hf.update({"model.embed_tokens.weight": sd["transformer.wte.weight"], "lm_head.weight": sd["lm_head.weight"],
+               "model.norm.weight": sd["transformer.ln_f.scale"]})
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}."
+        q, k, v = sd[p + "attn.c_attn.weight"].chunk(3)
+        for name, t, dim in (("attention.wq", q, 0), ("attention.wk", k, 0), ("attention.wv", v, 0),
+                             ("attention.wo", sd[p + "attn.c_proj.weight"], 1),
+                             ("feed_forward.w1", sd[p + "mlp.c_fc1.weight"], 0),
+                             ("feed_forward.w2", sd[p + "mlp.c_proj.weight"], 1),
+                             ("feed_forward.w3", sd[p + "mlp.c_fc2.weight"], 0),
+                             ("attention_norm", sd[p + "rms_1.scale"], None), ("ffn_norm", sd[p + "rms_2.scale"], None)):
+            shard(f"layers.{i}.{name}.weight", t, dim)
+        h = f"model.layers.{i}."
+        hf.update({h + "self_attn.q_proj.weight": hf_layout(q), h + "self_attn.k_proj.weight": hf_layout(k),
+                   h + "self_attn.v_proj.weight": v.clone(), h + "self_attn.o_proj.weight": sd[p + "attn.c_proj.weight"],
+                   h + "mlp.gate_proj.weight": sd[p + "mlp.c_fc1.weight"], h + "mlp.up_proj.weight": sd[p + "mlp.c_fc2.weight"],
+                   h + "mlp.down_proj.weight": sd[p + "mlp.c_proj.weight"], h + "input_layernorm.weight": sd[p + "rms_1.scale"],
+                   h + "post_attention_layernorm.weight": sd[p + "rms_2.scale"]})
+    readings = dict(weights_bytes=n_bytes, layers=cfg.n_layer)
+    t0 = time.perf_counter()
+    (work / "meta").mkdir(parents=True)
+    (work / "hf").mkdir()
+    for rank, s in enumerate(meta):
+        torch.save(s, work / "meta" / f"consolidated.{rank:02d}.pth")
+    names = list(hf)
+    for j, part in enumerate((names[: len(names) // 2], names[len(names) // 2 :])):
+        torch.save({n: hf[n] for n in part}, work / "hf" / f"pytorch_model-0000{j + 1}-of-00002.bin")
+    readings["write_inputs_s"] = time.perf_counter() - t0
+    del meta, hf
+
+    outs = {}
+    for kind, module, args in (
+            ("meta", "lit_llama_tpu_torch.scripts.convert_checkpoint",
+             ["--input_dir", work / "meta", "--output_dir", work / "lit_meta", "--dtype", "bfloat16"]),
+            ("hf", "lit_llama_tpu_torch.scripts.convert_hf_checkpoint",
+             ["--checkpoint_dir", work / "hf", "--output_dir", work / "lit_hf"])):
+        _, took = _host_run(module, args)
+        out = work / f"lit_{kind}" / "lit-llama.pth"
+        t0 = time.perf_counter()
+        got = torch.load(out, mmap=True, weights_only=True)
+        assert set(got) == set(sd), f"{kind}: keys {sorted(set(got) ^ set(sd))[:6]} differ"
+        for name, t in sd.items():
+            assert got[name].dtype == t.dtype and torch.equal(got[name], t), f"{kind} conversion: {name} differs"
+        readings[kind] = dict(convert_s=took, check_s=time.perf_counter() - t0,
+                              input_bytes=sum(f.stat().st_size for f in (work / kind).iterdir()),
+                              output_bytes=out.stat().st_size)
+        outs[kind] = out
+        del got
+    shutil.rmtree(work / "meta")
+    shutil.rmtree(work / "hf")
+    shutil.rmtree(work / "lit_hf")
+    (work / "lit_meta" / "config.json").write_text(json.dumps(dict(n_layer=cfg.n_layer, n_head=cfg.n_head,
+                                                                   n_embd=cfg.n_embd, vocab_size=cfg.vocab_size)))
+    log(f"phase 25, conversion of {cfg.n_layer} layers at the 7B width ({n_bytes / 1e9:.2f} GB in bf16; inputs "
+        f"written in {readings['write_inputs_s']:.1f} s): Meta's 2 shards ({readings['meta']['input_bytes'] / 1e9:.2f} "
+        f"GB) -> {readings['meta']['output_bytes'] / 1e9:.2f} GB in {readings['meta']['convert_s']:.1f} s, HF's 2 .bin "
+        f"({readings['hf']['input_bytes'] / 1e9:.2f} GB) -> {readings['hf']['output_bytes'] / 1e9:.2f} GB in "
+        f"{readings['hf']['convert_s']:.1f} s (subprocesses); every tensor equal to the seeded weights")
+    return readings, outs["meta"]
+
+
+def _http_prompts(tok, rng, n: int):
+    """``n`` texts of random words whose token counts (bos included) are
+    log-uniform in HTTP_PROMPT."""
+    import numpy as np
+
+    lo, hi = HTTP_PROMPT
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    texts = []
+    for target in np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(int):
+        words = []
+        while len(tok.encode(" ".join(words))) < target:
+            words.append("".join(rng.choice(letters, size=int(rng.integers(2, 9)))))
+        while len(tok.encode(" ".join(words))) > hi:
+            words.pop()
+        texts.append(" ".join(words))
+    return texts
+
+
+def _post(url: str, body=None, timeout=HTTP_TIMEOUT_S):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _serving_reading(tokens, ttft_ms, wall: float, steps: int) -> dict:
+    """Tokens/s, TTFT p50 / p99 and the useful slots a decode step (tokens
+    from decode steps over the steps: a request's first token comes from its
+    prefill)."""
+    n_tok = sum(len(t) for t in tokens)
+    return dict(tokens=n_tok, wall_s=wall, tok_s=n_tok / wall, ttft_p50_ms=ttft_ms[len(ttft_ms) // 2],
+                ttft_p99_ms=ttft_ms[int(len(ttft_ms) * 0.99)], decode_steps=steps,
+                slots_per_step=(n_tok - len(tokens)) / max(steps, 1))
+
+
+def http_serving_check(dev, counters, totals, ckpt: Path, tok_path: Path, seed: int):
+    """Phase 26: phase 25's ``.pth`` loaded int4 (round to nearest) into a
+    HTTP_SLOTS-slot engine. The same HTTP_REQUESTS greedy requests run in
+    this process (all queued at once), then through the HTTP server on a
+    loopback port (concurrent), then in this process again: the HTTP tokens
+    must equal the in-process ones (a row's bits do not depend on the slot
+    mix, phase 5b''); K3, K4, K7, K8 and K9 launch over the HTTP run. The
+    loop thread's ``step_once`` calls are timed, and each run's useful slots
+    a decode step counted, to show where the HTTP path's time goes. Then
+    ``python -m lit_llama_tpu_torch.serve.http`` in a subprocess on the same
+    file: /health and four requests, tokens equal. Every HTTP call and
+    subprocess has a timeout."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.serve import DecodeEngine
+    from lit_llama_tpu_torch.serve.http import HTTPService
+    from lit_llama_tpu_torch.utils.loader import load_model
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    params, cfg = load_model(ckpt, "gptq.int4", device=dev)
+    load_s = time.perf_counter() - t0
+    tok = Tokenizer(tok_path)
+    rng = np.random.default_rng(seed)
+    texts = _http_prompts(tok, rng, HTTP_REQUESTS)
+    news = rng.integers(HTTP_NEW[0], HTTP_NEW[1] + 1, HTTP_REQUESTS).tolist()
+    lens = [len(tok.encode(t)) for t in texts]
+    engine = DecodeEngine(params, cfg, max_batch=HTTP_SLOTS, max_seq_length=HTTP_S, steps_per_sync=8, device=dev)
+    engine.warmup()
+
+    def in_process():
+        steps0 = engine.decode_steps
+        ids = [engine.submit(tok.encode(t, bos=True), n, eos_id=tok.eos_id) for t, n in zip(texts, news)]
+        t0 = time.perf_counter()
+        done = engine.run()
+        wall = time.perf_counter() - t0
+        toks = [done[i].generated for i in ids]
+        ttft = sorted(done[i].ttft * 1e3 for i in ids)
+        return toks, _serving_reading(toks, ttft, wall, engine.decode_steps - steps0)
+
+    want, before = in_process()
+    svc = HTTPService(engine, tok, "127.0.0.1", 0).start()
+    spans, arrivals = [], []
+    step_once, submit = engine.step_once, engine.submit
+
+    def timed_step_once():
+        t = time.perf_counter()
+        out = step_once()
+        spans.append(time.perf_counter() - t)
+        return out
+
+    def timed_submit(*a, **kw):
+        arrivals.append(time.perf_counter())
+        return submit(*a, **kw)
+
+    engine.step_once, engine.submit = timed_step_once, timed_submit
+    try:
+        # the first urlopen builds urllib's opener (an SSL context: ~40 ms of
+        # held interpreter), which 64 threads at once would each build in turn
+        assert _post(svc.url + "/health") == {"active": 0, "queued": 0}
+        steps0, prefills0 = engine.decode_steps, engine.prefills
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_REQUESTS) as pool:
+            futs = [pool.submit(_post, svc.url + "/generate", {"prompt": t, "max_new_tokens": n, "temperature": 0})
+                    for t, n in zip(texts, news)]
+            replies = [f.result(timeout=HTTP_TIMEOUT_S) for f in futs]
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counters.items()}
+        assert svc.loop_thread.is_alive(), "the server's loop thread died"
+        health = _post(svc.url + "/health")
+        assert health == {"active": 0, "queued": 0}, health
+    finally:
+        svc.shutdown()
+        del engine.step_once, engine.submit
+    steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
+    if on_card:
+        L = cfg.n_layer
+        expect = dict.fromkeys(counters, 0)
+        expect.update({"K3": prefills * (4 * L + 1) + steps, "K4": L * prefills, "K7": L * steps, "K8": L * steps,
+                       "K9": L * steps})
+        assert got == expect, f"HTTP serving: launches {got}, expected {expect}"
+        for k in ("K3", "K4", "K7", "K8", "K9"):
+            totals[k] += got[k]
+    for j, (reply, toks) in enumerate(zip(replies, want)):
+        assert reply["tokens"] == toks, f"request {j}: HTTP tokens differ from the in-process engine's"
+        assert reply["text"] == tok.decode(reply["tokens"])
+    again, after = in_process()
+    assert again == want, "the second in-process run's tokens differ from the first's"
+    http = _serving_reading([r["tokens"] for r in replies], sorted(r["ttft_ms"] for r in replies), wall, steps)
+    http.update(loop_busy_share=sum(spans) / wall, step_once_calls=len(spans), prefills=prefills, launches=got,
+                arrivals_s=[arrivals[0] - t0, arrivals[-1] - t0])
+    readings = dict(load_s=load_s, requests=HTTP_REQUESTS, slots=HTTP_SLOTS, S=HTTP_S,
+                    prompt_tokens=[min(lens), max(lens)], http=http, in_process_before=before,
+                    in_process_after=after)
+    del engine, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the entry point in a subprocess on the same file
+    log_path = ckpt.parent / "serve.log"
+    cmd = [sys.executable, "-m", "lit_llama_tpu_torch.serve.http", "--checkpoint_path", str(ckpt), "--tokenizer_path",
+           str(tok_path), "--quantize", "gptq.int4", "--port", "0", "--max_batch", str(HTTP_SLOTS),
+           "--max_seq_length", str(HTTP_S), "--steps_per_sync", "8"] + ([] if on_card else ["--device", "cpu"])
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        url = None
+        while url is None and time.perf_counter() - t0 < TIMEOUT_S and proc.poll() is None:
+            time.sleep(0.5)
+            up = [ln for ln in log_path.read_text().splitlines() if ln.startswith("serving on ")]
+            url = up[0].split()[-1] if up else None
+        assert url, f"serve.http did not come up:\n{log_path.read_text()[-3000:]}"
+        start_s = time.perf_counter() - t0
+        assert _post(url + "/health") == {"active": 0, "queued": 0}
+        with ThreadPoolExecutor(4) as pool:
+            futs = [pool.submit(_post, url + "/generate", {"prompt": t, "max_new_tokens": n, "temperature": 0})
+                    for t, n in zip(texts[:4], news[:4])]
+            sub = [f.result(timeout=HTTP_TIMEOUT_S) for f in futs]
+        for j, reply in enumerate(sub):
+            assert reply["tokens"] == replies[j]["tokens"], f"serve.http request {j}: tokens differ"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    readings["subprocess"] = dict(start_s=start_s, requests=4)
+
+    def line(r):
+        return (f"{r['tok_s']:.1f} tok/s ({r['tokens']} tokens in {r['wall_s']:.2f} s, {r['decode_steps']} decode steps, "
+                f"{r['slots_per_step']:.1f} useful slots a step), TTFT p50 {r['ttft_p50_ms']:.0f} ms, p99 "
+                f"{r['ttft_p99_ms']:.0f} ms")
+
+    log(f"phase 26, HTTP serving of phase 25's checkpoint (int4 at load in {load_s:.1f} s; {HTTP_SLOTS} slots, S="
+        f"{HTTP_S}; {HTTP_REQUESTS} greedy requests, prompts {min(lens)}..{max(lens)} tokens, {HTTP_NEW[0]}.."
+        f"{HTTP_NEW[1]} new): in process {line(before)}; over HTTP {line(http)}, the loop thread in step_once "
+        f"{http['loop_busy_share']:.1%} of the wall over {http['step_once_calls']} calls, the requests reaching the "
+        f"engine from {http['arrivals_s'][0] * 1e3:.0f} to {http['arrivals_s'][1] * 1e3:.0f} ms; in process again "
+        f"{line(after)}; tokens equal; launches {got}; python -m lit_llama_tpu_torch.serve.http up in "
+        f"{start_s:.1f} s, 4 requests' tokens equal")
+    return readings
+
+
+def shakespeare_check(dev, totals, work: Path, seed: int):
+    """Phase 27: a corpus of the repo's reference Markdown (letters, digits
+    and a few marks) goes through
+    ``scripts.prepare_shakespeare`` in a subprocess (vocabulary 100); the
+    native encoder must have built and give ``encode_py``'s ids on the whole
+    corpus (both timed); then ``pretrain.shakespeare`` at the 7B width,
+    block SHAKESPEARE_T, SHAKESPEARE_LAYERS layers, batch 2, learning rate
+    SHAKESPEARE_LR, for SHAKESPEARE_STEPS steps in this process (the loss must fall, K4 and K10
+    launch L · 2 and L times a step) and ``--resume`` for 2 more in a
+    subprocess."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.native import tokenizer as native_tok
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.pretrain import shakespeare
+
+    on_card = dev.type == "cuda"
+    # the reference documents, which the port's PRs do not edit, so the corpus
+    # (and the run) stays the same from one PR to the next; letters, digits,
+    # space and a few marks, as tiny-shakespeare's character set: a
+    # vocabulary of 100 has room for ~25 merges above them
+    docs = [ROOT / f"{name}.md" for name in ("PAPER", "PAPERS", "SNIPPETS", "SURVEY")]
+    docs += sorted((ROOT / "howto").glob("*.md"))
+    keep = set("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 \n.,;:!?'-()")
+    corpus = "".join(c for c in "\n".join(p.read_text(encoding="utf-8") for p in docs) if c in keep)
+    assert len(corpus) > 10_000, f"only {len(corpus)} characters of Markdown beside chip_smoke.py"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "corpus.txt").write_text(corpus, encoding="utf-8")
+    data = work / "shakespeare"
+    _, prep_s = _host_run("lit_llama_tpu_torch.scripts.prepare_shakespeare",
+                          ["--input_file", work / "corpus.txt", "--destination_path", data, "--vocab_size", 100])
+    assert native_tok.available(), "the native encoder did not build"
+    sp = Tokenizer(data / "tokenizer.model").processor
+    assert sp._native() is not None, "the tokenizer did not take the native encoder"
+    t0 = time.perf_counter()
+    ids = sp.encode(corpus)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_py = sp.encode_py(corpus)
+    py_s = time.perf_counter() - t0
+    assert ids == ids_py, "the native encoder's ids differ from encode_py's"
+    text = (data / "input.txt").read_text()
+    train_ids = np.fromfile(data / "train.bin", np.uint16)
+    assert train_ids.tolist() == sp.encode(text[: int(len(text) * 0.9)]), "train.bin is not the encoded train text"
+
+    fns = {"K4": fa.flash_attention, "K10dq": fa.flash_backward_dq, "K10dkv": fa.flash_backward_dkv}
+    for fn in fns.values():
+        fn.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kw = dict(data_dir=data, n_layer=SHAKESPEARE_LAYERS, n_embd=SHAKESPEARE_WIDTH[0], n_head=SHAKESPEARE_WIDTH[1],
+              block_size=SHAKESPEARE_T, batch_size=2, micro_batch_size=2, learning_rate=SHAKESPEARE_LR, log_interval=1)
+    t0 = time.perf_counter()
+    state = shakespeare.main(out_dir=work / "run", max_iters=SHAKESPEARE_STEPS, device=None if on_card else "cpu", **kw)
+    train_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in fns.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    L, steps = SHAKESPEARE_LAYERS, SHAKESPEARE_STEPS
+    if on_card:
+        want = {"K4": 2 * L * steps, "K10dq": L * steps, "K10dkv": L * steps}
+        assert got == want, f"shakespeare pretraining: K4 / K10 launches {got}, expected {want}"
+        for k in want:
+            totals[k] += got[k]
+    recs = [json.loads(x) for x in (work / "run" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    step_ms = sorted(r["dt_ms"] for r in recs[1:] if "dt_ms" in r)
+    assert len(losses) == steps and np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}"
+    assert int(state.step) == steps and (work / "run" / "final" / "manifest.json").exists()
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    args = ["--data_dir", data, "--out_dir", work / "resumed", "--resume", work / "run" / "final", "--max_iters",
+            steps + 2] + [a for k, v in kw.items() if k != "data_dir" for a in (f"--{k}", v)]
+    _, _, resume_s = _run(["lit_llama_tpu_torch.pretrain.shakespeare", *map(str, args)], dev, TIMEOUT_S)
+    resumed = [json.loads(x) for x in (work / "resumed" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["iter"] for r in resumed] == [steps, steps + 1], resumed
+    readings = dict(corpus_chars=len(corpus), documents=len(docs), tokens=len(ids), prepare_s=prep_s,
+                    encode_native_s=native_s, encode_py_s=py_s, train_s=train_s, losses=losses,
+                    step_ms_median=step_ms[len(step_ms) // 2], peak_gib=peak_gib, launches=got, resume_s=resume_s,
+                    resumed_losses=[r["loss"] for r in resumed])
+    log(f"phase 27, tokenizer and shakespeare: {len(docs)} Markdown files, {len(corpus)} characters -> {len(ids)} "
+        f"tokens (vocabulary 100; prepare_shakespeare {prep_s:.1f} s in a subprocess); encode native {native_s:.3f} s, "
+        f"Python {py_s:.2f} s, ids equal; pretrain.shakespeare {L} layers at width {SHAKESPEARE_WIDTH[0]}, T={SHAKESPEARE_T}, batch 2: "
+        f"{steps} steps in {train_s:.1f} s, median {readings['step_ms_median']:.1f} ms a step after the first, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak {peak_gib and round(peak_gib, 2)} GiB, launches K4 "
+        f"{got['K4']}, K10 {got['K10dq']} + {got['K10dkv']}; --resume for 2 more in {resume_s:.1f} s (subprocess), "
+        f"losses {readings['resumed_losses']}")
+    return readings
+
+
+def merge_and_data_check(dev, work: Path, entry: Path, lora_dir: Path, tok_path: Path, seed: int):
+    """Phase 28: ``scripts.convert_lora_weights`` in a subprocess on phase
+    21's base ``.pth`` and LoRA directory; the merged ``.pth`` loads with
+    ``load_model`` and its logits stand within TOL_MODEL of the base weights
+    with the LoRA overlay (not equal: the merge rounds to bf16 once, the
+    overlay adds its update in the forward); ``generate.base`` on it in a
+    subprocess gives the in-process ``generate``'s greedy tokens. Then
+    ``scripts.prepare_alpaca`` on a local JSON written here, and one step of
+    ``finetune.lora`` on its output in a subprocess."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.models.config import LoRAConfig
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.scripts import prepare_alpaca
+    from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
+
+    on_card = dev.type == "cuda"
+    merged = work / "merged" / "lit-llama.pth"
+    _, _, merge_s = _run(["lit_llama_tpu_torch.scripts.convert_lora_weights", "--lora_path", str(lora_dir),
+                          "--checkpoint_path", str(entry / "lit-llama.pth"), "--output_path", str(merged)], dev,
+                         TIMEOUT_S)
+    shutil.copy(entry / "config.json", merged.parent / "config.json")
+
+    mparams, mcfg = load_model(merged, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, mcfg.vocab_size, (1, 64))).to(dev)
+    with torch.no_grad():
+        got = llama.forward(mparams, tokens, mcfg)[0].float()
+        bparams, bcfg = load_model(entry / "lit-llama.pth", device=dev)
+        base = llama.forward(bparams, tokens, bcfg)[0].float()
+        kind, overlay, info = load_peft_checkpoint(lora_dir, bcfg, device=dev)
+        assert kind == "lora", kind
+        lcfg = bcfg.replace(lora=LoRAConfig(r=info["r"], alpha=16.0, dropout=0.0))
+        want = llama.forward(lora_mod.load_lora_state(bparams, overlay), tokens, lcfg)[0].float()
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    limit = TOL_MODEL[0] + TOL_MODEL[1] * float(want.abs().max())
+    assert err <= limit, f"merged LoRA: max |dlogit| {err:.3g} > {limit:.3g} against the overlay"
+    moved = float((want - base).abs().max())
+    del bparams, overlay, base, want, got
+
+    tok = Tokenizer(tok_path)
+    enc = tok.encode("the lamas eat grass", bos=True)
+    want_ids = gen.generate(llama.unstack_layers(mparams), enc, 16, config=mcfg, temperature=0.0, device=dev).tolist()
+    del mparams
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    _, stderr, gen_s = _run(["lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(merged), "--tokenizer_path",
+                             str(tok_path), "--prompt", "the lamas eat grass", "--temperature", "0",
+                             "--max_new_tokens", "16"], dev, TIMEOUT_S)
+    got_ids = json.loads(stderr.split("Token ids 1: ")[-1].splitlines()[0])
+    assert got_ids == want_ids, f"generate.base (merged): tokens {got_ids} differ from the in-process {want_ids}"
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+
+    def words(k):
+        return " ".join("".join(rng.choice(letters, size=int(rng.integers(1, 8)))) for _ in range(k))
+
+    examples = [{"instruction": words(int(rng.integers(3, 20))), "input": words(4) if i % 3 == 0 else "",
+                 "output": words(int(rng.integers(3, 30)))} for i in range(24)]
+    (work / "alpaca.json").write_text(json.dumps(examples))
+    t0 = time.perf_counter()
+    prepare_alpaca.prepare(destination_path=work / "alpaca", tokenizer_path=tok_path, test_split_size=4,
+                           max_seq_length=256, data_file=work / "alpaca.json")
+    prep_s = time.perf_counter() - t0
+    assert len(sft.load_samples(work / "alpaca" / "train.pt")) == 20
+    _, _, ft_s = _run(["lit_llama_tpu_torch.finetune.lora", "--data_dir", str(work / "alpaca"), "--checkpoint_path",
+                       str(merged), "--tokenizer_path", str(tok_path), "--out_dir", str(work / "ft"), "--max_iters", "1",
+                       "--batch_size", "4", "--micro_batch_size", "4", "--warmup_iters", "1", "--eval_interval", "100",
+                       "--save_interval", "100", "--max_seq_length", "256"], dev, TIMEOUT_S)
+    losses = [json.loads(x)["loss"] for x in (work / "ft" / "metrics.jsonl").read_text().splitlines() if '"loss"' in x]
+    assert len(losses) == 1 and np.isfinite(losses[0]), losses
+    readings = dict(merge_s=merge_s, max_dlogit=err, limit=limit, lora_moved_logits=moved, generate_s=gen_s,
+                    prepare_alpaca_s=prep_s, finetune_s=ft_s, finetune_loss=losses[0])
+    log(f"phase 28: convert_lora_weights on phase 21's LoRA in {merge_s:.1f} s (subprocess); merged logits within "
+        f"{err:.3g} of the overlay's (limit {limit:.3g}; the overlay moves them {moved:.3g} from the base); "
+        f"generate.base on the merged .pth in {gen_s:.1f} s, 16 greedy tokens equal to the in-process generate's; "
+        f"prepare_alpaca {prep_s:.1f} s (in process), finetune.lora 1 step on its output in {ft_s:.1f} s, loss {losses[0]:.4f}")
+    return readings
+
+
+def entry_point_phases(dev, counters, totals, work: Path, entry: Path, lora_dir: Path, tok_path: Path):
+    """Phases 25-28 in ``work`` (removed after); each draws from a generator of
+    its own. Returns the readings."""
+    import gc
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    readings = {}
+    readings["conversion"], pth = conversion_check(dev, work / "convert", SEED + 26)
+    gc.collect()
+    readings["http"] = http_serving_check(dev, counters, totals, pth, tok_path, SEED + 27)
+    shutil.rmtree(work / "convert")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    readings["shakespeare"] = shakespeare_check(dev, totals, work / "shakespeare", SEED + 28)
+    shutil.rmtree(work / "shakespeare")
+    readings["merge_and_data"] = merge_and_data_check(dev, work / "merge", entry, lora_dir, tok_path, SEED + 29)
+    shutil.rmtree(work)
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phases 25-28 (conversion, HTTP serving, tokenizer and shakespeare, merge and data): "
+        f"{readings['seconds']:.1f} s")
     return readings
 
 
@@ -3369,6 +3926,13 @@ def main() -> int:
     gptq_eval = gptq_phases(dev, counters, time_ms, bound_ms, tc_peak, f32_peak, results, totals,
                             work / "tokenizer.model", work / "entry",
                             {m: Path(entries[m]["checkpoint"]) for m in ("lora", "adapter")})
+
+    # ---- 25-28. the entry points that read published checkpoints, serve over HTTP,
+    # train a tokenizer and pretrain on it, merge a LoRA and prepare data: Meta and
+    # HF conversions at 7B width, 64 requests through the HTTP server (in process and
+    # as a subprocess), prepare_shakespeare and pretrain.shakespeare, the LoRA merge
+    entry_points = entry_point_phases(dev, counters, totals, work / "entry_points", work / "entry",
+                                      Path(entries["lora"]["checkpoint"]), work / "tokenizer.model")
     shutil.rmtree(work)
 
     kernels = []
@@ -3439,7 +4003,8 @@ def main() -> int:
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
                       "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
-                      "finetuning": finetuning, "gptq_evaluation": gptq_eval, "entry_inputs": entry_inputs}))
+                      "finetuning": finetuning, "gptq_evaluation": gptq_eval, "conversion_http_data": entry_points,
+                      "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

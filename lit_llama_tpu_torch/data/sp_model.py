@@ -1,4 +1,4 @@
-"""SentencePiece models in pure Python (counterpart of
+"""SentencePiece models (counterpart of
 lit_llama_tpu/data/sp_model.py): proto I/O, BPE and unigram encoding, decode.
 
 * ``parse_model`` / ``serialize_model`` speak the ``sentencepiece_model.proto``
@@ -9,12 +9,15 @@ lit_llama_tpu/data/sp_model.py): proto I/O, BPE and unigram encoding, decode.
   (score-ordered pair merging) and unigram (Viterbi), with byte fallback and
   the whitespace escaping (U+2581) of the C++ normalizer's "identity" rule.
 
-The JAX package also binds a C++ encoder; the port encodes in Python only
-(tokenization runs on the host, once per request).
+``SPModel.encode`` runs the C++ encoder of ``native/fast_tokenizer.cpp``
+(built with the host's compiler on first use) and falls back to the Python
+encoder, ``encode_py``, where it cannot be built or ``LIT_LLAMA_TPU_NO_NATIVE``
+is set; both give the same ids.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
@@ -172,6 +175,13 @@ class SPModel:
     # -- encoding -----------------------------------------------------------
 
     def encode(self, text: str) -> List[int]:
+        enc = self._native()
+        if enc is not None:
+            return enc.encode(text)
+        return self.encode_py(text)
+
+    def encode_py(self, text: str) -> List[int]:
+        """The pure-Python encoder (the C++ one is held against it)."""
         s = self._normalize(text)
         if not s:
             return []
@@ -180,6 +190,20 @@ class SPModel:
         else:
             symbols = self._viterbi(s)
         return self._resolve(symbols)
+
+    def _native(self):
+        """The C++ encoder over this model's pieces, built and bound on first
+        use; None without a toolchain."""
+        if not hasattr(self, "_native_enc"):
+            self._native_enc = None
+            if not os.environ.get("LIT_LLAMA_TPU_NO_NATIVE"):
+                try:
+                    from lit_llama_tpu_torch.native.tokenizer import NativeEncoder
+
+                    self._native_enc = NativeEncoder(self)
+                except Exception:
+                    self._native_enc = None
+        return self._native_enc
 
     def _bpe(self, s: str) -> List[str]:
         """Score-ordered pair merging: repeatedly merge the adjacent pair whose

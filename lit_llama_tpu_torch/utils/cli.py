@@ -5,7 +5,8 @@ One flag per parameter, types from the annotations, defaults from the
 signature, help text from the docstring's ``Args:`` section. The port's entry
 points take a ``device`` parameter, so every one of them has ``--device``:
 left unset they run on the card, ``--device cpu`` runs the plain PyTorch path
-on the CPU.
+on the CPU. An entry point that does no device work (a checkpoint conversion,
+a data preparation) says so with ``@host_only`` and has no ``--device``.
 """
 
 from __future__ import annotations
@@ -56,11 +57,20 @@ def _parse_bool(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
+def host_only(fn: Callable) -> Callable:
+    """Mark an entry point that runs on the host alone: ``cli`` then takes it
+    without a ``device`` parameter."""
+    fn.host_only = True
+    return fn
+
+
 def cli(fn: Callable, args: Optional[list] = None):
     """Parse argv according to ``fn``'s signature and call it."""
     sig = inspect.signature(fn)
-    if "device" not in sig.parameters:
-        raise TypeError(f"{fn.__name__} has no device parameter: the port's entry points take --device")
+    host = getattr(fn, "host_only", False)
+    if host == ("device" in sig.parameters):
+        raise TypeError(f"{fn.__name__}: an entry point takes --device unless it is marked @host_only, "
+                        "and a @host_only one takes no --device")
     try:
         hints = typing.get_type_hints(fn)
     except Exception:

@@ -1,5 +1,6 @@
-"""lit-llama state dicts <-> the port's parameter tree (counterpart of the
-lit-llama, LoRA and adapter parts of lit_llama_tpu/utils/convert.py).
+"""Checkpoint layouts: Meta and HF state dicts -> lit-llama names, and
+lit-llama state dicts <-> the port's parameter tree (counterpart of
+lit_llama_tpu/utils/convert.py).
 
 The tree is the JAX package's: linear weights transposed to (in, out), layers
 stacked on a leading axis, the vocabulary padded to ``padded_vocab_size``.
@@ -22,6 +23,119 @@ _MLP = ("c_fc1", "c_fc2", "c_proj")
 
 def _tensor(t) -> torch.Tensor:
     return t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+
+
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous and spans its whole storage, else a
+    copy: ``torch.save`` writes a view's whole storage."""
+    whole = t.untyped_storage().nbytes() == t.numel() * t.element_size()
+    return t if t.is_contiguous() and t.storage_offset() == 0 and whole else t.contiguous().clone()
+
+
+def hf_permute_back(w: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Undo HF's rotary q/k permutation (half-split layout -> Meta's
+    interleaved pairs); ``w`` is (dim, dim) in torch orientation (out, in)."""
+    dim_out, dim_in = w.shape
+    return w.reshape(n_head, 2, dim_out // n_head // 2, dim_in).transpose(1, 2).reshape(dim_out, dim_in)
+
+
+_HF_LAYER = {
+    "self_attn.o_proj.weight": "attn.c_proj.weight",
+    "mlp.gate_proj.weight": "mlp.c_fc1.weight",
+    "mlp.up_proj.weight": "mlp.c_fc2.weight",
+    "mlp.down_proj.weight": "mlp.c_proj.weight",
+    "input_layernorm.weight": "rms_1.scale",
+    "post_attention_layernorm.weight": "rms_2.scale",
+}
+_HF_TOP = {
+    "model.embed_tokens.weight": "transformer.wte.weight",
+    "model.norm.weight": "transformer.ln_f.scale",
+    "lm_head.weight": "lm_head.weight",
+}
+
+
+def hf_to_lit(sd: Mapping[str, Any], config: LLaMAConfig) -> Dict[str, torch.Tensor]:
+    """HF LLaMA state dict -> lit-llama names (torch orientation, dtypes kept):
+    q and k un-permuted, then q, k, v fused into ``c_attn``. ``rotary_emb.inv_freq``
+    and every key outside ``model.layers.*`` and the three top-level weights
+    are skipped."""
+    out: Dict[str, torch.Tensor] = {}
+    qkv: Dict[int, Dict[str, torch.Tensor]] = {}
+    for name, t in sd.items():
+        if "rotary_emb.inv_freq" in name:
+            continue
+        if name in _HF_TOP:
+            out[_HF_TOP[name]] = _owned(_tensor(t))
+            continue
+        if not name.startswith("model.layers."):
+            continue
+        layer = int(name.split(".")[2])
+        sub = ".".join(name.split(".")[3:])
+        if sub in ("self_attn.q_proj.weight", "self_attn.k_proj.weight", "self_attn.v_proj.weight"):
+            qkv.setdefault(layer, {})[sub.split(".")[1]] = _tensor(t)
+            continue
+        out[f"transformer.h.{layer}.{_HF_LAYER[sub]}"] = _owned(_tensor(t))
+    for layer, parts in qkv.items():
+        q = hf_permute_back(parts["q_proj"], config.n_head)
+        k = hf_permute_back(parts["k_proj"], config.n_head)
+        out[f"transformer.h.{layer}.attn.c_attn.weight"] = torch.cat([q, k, parts["v_proj"]])
+    return out
+
+
+# Meta name -> (lit-llama name, the dim its tensor-parallel shards split;
+# None: replicated on every shard)
+_META_TOP = {
+    "tok_embeddings.weight": ("transformer.wte.weight", 1),
+    "output.weight": ("lm_head.weight", 0),
+    "norm.weight": ("transformer.ln_f.scale", None),
+}
+_META_LAYER = {
+    "attention.wq.weight": ("attn.wq", 0),
+    "attention.wk.weight": ("attn.wk", 0),
+    "attention.wv.weight": ("attn.wv", 0),
+    "attention.wo.weight": ("attn.c_proj.weight", 1),
+    "feed_forward.w1.weight": ("mlp.c_fc1.weight", 0),
+    "feed_forward.w2.weight": ("mlp.c_proj.weight", 1),
+    "feed_forward.w3.weight": ("mlp.c_fc2.weight", 0),
+    "attention_norm.weight": ("rms_1.scale", None),
+    "ffn_norm.weight": ("rms_2.scale", None),
+}
+
+
+def meta_to_lit(shards: list, config: LLaMAConfig, dtype="float32") -> Dict[str, torch.Tensor]:
+    """Meta ``consolidated.*.pth`` state dicts, in rank order -> lit-llama
+    names in ``dtype``. Each tensor-parallel shard is concatenated along its
+    own dim (a replicated norm is taken from the last shard); wq, wk and wv
+    are fused into ``c_attn`` after the merge, which re-interleaves the
+    shards' q, k and v rows as the reference does."""
+    dt = torch_dtype(dtype)
+    merged: Dict[str, Tuple[Optional[int], list]] = {}
+    for shard in shards:
+        for name, t in shard.items():
+            if name in _META_TOP:
+                to_name, dim = _META_TOP[name]
+            elif name.startswith("layers.") and ".".join(name.split(".")[2:]) in _META_LAYER:
+                to_sub, dim = _META_LAYER[".".join(name.split(".")[2:])]
+                to_name = f"transformer.h.{name.split('.')[1]}.{to_sub}"
+            else:
+                continue
+            t = _tensor(t).to(dt)
+            if dim is None:
+                merged[to_name] = (None, [t])
+            else:
+                merged.setdefault(to_name, (dim, []))[1].append(t)
+    out: Dict[str, torch.Tensor] = {}
+    wqkv: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, (dim, parts) in merged.items():
+        t = torch.cat(parts, dim=dim) if len(parts) > 1 else _owned(parts[0])
+        if ".attn.w" in name:
+            base, which = name.rsplit(".", 1)  # ...attn, wq | wk | wv
+            wqkv.setdefault(base, {})[which] = t
+        else:
+            out[name] = t
+    for base, parts in wqkv.items():
+        out[base.replace(".attn", ".attn.c_attn.weight")] = torch.cat([parts["wq"], parts["wk"], parts["wv"]])
+    return out
 
 
 def lit_to_pytree(sd: Mapping[str, Any], config: LLaMAConfig, dtype=None, device=None) -> Dict[str, Any]:
