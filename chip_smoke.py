@@ -96,7 +96,13 @@ K10 launch 2 L and L times a step; ms a step, peak memory), then
 phase 21's LoRA directory, the merged ``.pth``'s logits within
 ``TOL_MODEL`` of the base with the overlay, ``generate.base`` on it in a
 subprocess (greedy tokens equal), and ``scripts.prepare_alpaca`` on a local
-JSON with one ``finetune.lora`` step on its output.
+JSON with one ``finetune.lora`` step on its output. The f32 bodies rebuilt
+for the card (K3's f32 tile, shared with K6 at M > 1 and K7 / K9 in f32, and
+K4's FFMA forward) are held and timed where they were: phases 8h (K3 f32 at
+M = 8 and 128, K4 f32 at T = 128 and 200, K7 / K9 f32), 12b (K6 f32 at M >
+1), 14b (K4 f32 at (1, 32, 2048, 128)), 17 (K4 f32 at head size 256, also
+timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
+SDPA's f32 call runs logged beside the yardsticks).
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -983,6 +989,11 @@ def gptq_check(dev, counters, time_ms, bound_ms, f32_peak, results, totals, seed
             del x, args, wd
         results["K3 f32 M8192"] = k3["attn.c_attn"]
         totals["K3 f32 M8192"] = spilled["launches"]["K3"]
+        # the yardsticks' arithmetic: torch.matmul in f32 without TF32, and the kernels SDPA's f32 call runs
+        readings["allow_tf32"] = dict(cuda_matmul=torch.backends.cuda.matmul.allow_tf32,
+                                      cudnn=torch.backends.cudnn.allow_tf32,
+                                      float32_matmul_precision=torch.get_float32_matmul_precision())
+        assert not torch.backends.cuda.matmul.allow_tf32, "torch.matmul is timed with TF32 allowed"
         H_, hs = cfg.n_head, cfg.head_size
         q, k, v = (torch.randn((batch, H_, T, hs), generator=g).to(dev) for _ in range(3))
         o, lse = fa.flash_attention(q, k, v)
@@ -998,13 +1009,24 @@ def gptq_check(dev, counters, time_ms, bound_ms, f32_peak, results, totals, seed
             bound_ms=b4[0], bound_by=b4[1])
         totals["K4 f32 B4 T2048"] = spilled["launches"]["K4"]
         readings["k3_f32_shapes"] = k3
+        readings["sdpa_f32_kernels"] = []
+        for _ in range(3):  # a trace may come back empty (tools/devtime.py kernel_sequence)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                sync()
+            readings["sdpa_f32_kernels"] = sorted({e.name for e in prof.events()
+                                                   if e.device_type == torch.autograd.DeviceType.CUDA})
+            if readings["sdpa_f32_kernels"]:
+                break
         del q, k, v, o, lse
         log("phase 22, K3 f32 at the calibration shapes: " + "; ".join(
             f"{t} {r['ms']:.2f} ms (bound {r['bound_ms']:.2f} {r['bound_by']}, plain {r['plain_ms']:.2f}, "
             f"torch.matmul {r['library_ms']:.2f}), max err {r['max_abs_err']:.3g}" for t, r in k3.items())
             + "; K4 f32 at ({}, {}, {}, {}) {:.2f} ms (bound {:.2f}, plain {:.2f}, SDPA {:.2f}), max err {:.3g}".format(
                 batch, H_, T, hs, *(results["K4 f32 B4 T2048"][k] for k in ("ms", "bound_ms", "plain_ms",
-                                                                            "library_ms", "max_abs_err"))))
+                                                                            "library_ms", "max_abs_err")))
+            + f"; torch.matmul timed with allow_tf32 {readings['allow_tf32']}; SDPA's f32 call ran "
+            f"{readings['sdpa_f32_kernels']}")
     def worst(lins):
         return max(abs(r["ratio"] - 1) for r in lins.values())
 
@@ -3741,6 +3763,16 @@ def main() -> int:
                 e5 = max(e5, max_err32(g5, w5, f"K5 {hk} f32") if f32 else max_err(g5, w5, f"K5 {hk}"))
             log(f"head size {hse}, {'f32' if f32 else 'bf16'}, at ({Be}, {He}, {Te}, {hse}) vs plain: K4 max err "
                 f"{e4:.3g}, K10 dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5:.3g}")
+            if f32 and hse == 256:  # K4's FFMA body at its second head size
+                b4 = bound_ms(4 * nrow * hse * 4 + nrow * 4, 4 * hse * pairs, f32_peak)
+                k4f = entry_inputs["k4_f32_hs256"] = dict(
+                    shape=f"B={Be} H={He} T={Te} hs={hse}, f32", max_abs_err=e4,
+                    ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
+                    plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+                    bound_ms=b4[0], bound_by=b4[1])
+                log(f"head size 256, f32, K4 timed: {k4f['ms'] * 1e3:.1f} us (plain {k4f['plain_ms'] * 1e3:.1f}, "
+                    f"SDPA f32 {k4f['library_ms'] * 1e3:.1f}, bound {k4f['bound_ms'] * 1e3:.1f} {k4f['bound_by']})")
             if f32:
                 continue
             es = 2  # bytes of an element
@@ -3973,7 +4005,8 @@ def main() -> int:
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
               "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
-              "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh"}
+              "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
+              "K3 f32": "gemm_f32.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only

@@ -489,16 +489,47 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // ---------------------------------------------------------------------------
 // The FFMA bodies of K4 and K10 for f32 compute (no TF32, which keeps about
 // three decimal digits where JAX's f32 path and the plain versions keep f32),
-// at head size (HS) 128 or 256. Simple and right first.
+// at head size (HS) 128 or 256. Everything is f32, as the plain versions in
+// f32 round nowhere. Bound on the H100: operations, on the CUDA cores
+// (67 TF/s f32).
 //
-// Bound on the H100: operations, on the CUDA cores (67 TF/s f32). Every
-// operand tile is staged as f32 in shared memory, rows padded by one word so
-// that the threads of a warp reading one column of several rows hit distinct
-// banks. A block has 128 threads, thread (r, c) = (tid / 8, tid % 8): 8
-// threads share a row, and a thread owns the row's columns c + 8 j, so the
-// row reductions are shuffles among 8 lanes. Everything is f32, as the plain
-// versions in f32 round nowhere.
-//  - simt_fwd: a block per (16 query rows, head, batch); key tiles of 32.
+// K4's forward, ffma_fwd (replaces the Pallas _flash_kernel of
+// lit_llama_tpu/ops/flash_attention.py in f32; GPTQ's calibration forwards
+// run it at (4, 32, 2048, 128)). Its first body read both operands of every
+// score's 128-long dot product from shared memory (two loads an FFMA, one for
+// P V), so shared memory capped it near a quarter of the FFMA rate; a block
+// held 16 query rows, so each head's K and V were staged T / 16 times; and
+// staging was synchronous. This body:
+//  - a block of 256 threads takes FF_BQ = 64 query rows against key tiles of
+//    FF_BKV = 64 (the same under every shape: a row's online softmax takes
+//    the same steps everywhere), visiting only the tiles at or below its
+//    diagonal and masking the diagonal tile and the ragged end;
+//  - blocks are issued heaviest first: blockIdx.y walks the query tiles from
+//    the last, blockIdx.x the (batch, head) pairs;
+//  - Q, and the K and V tiles in the order K_0, V_0, K_1, V_1, ..., come in
+//    row-major by 16-byte cp.async, the tiles into a ring of ff_stages slots
+//    (4 at HS 128, 2 at 256); rows padded to HS + 4 words, so four (eight)
+//    consecutive rows start on distinct 16-byte bank groups;
+//  - S = Q K^T as register-blocked outer products: warp w owns rows
+//    16 (w / 2) .. + 15 and keys 32 (w % 2) .. + 31 of the tile; a thread
+//    rows ry + 4 i and keys cx + 8 j (i, j < 4; ry = lane / 8, cx = lane %
+//    8), and reads four head columns of each as one 16-byte word: 8 shared
+//    loads per 64 FFMA, no bank touched twice;
+//  - the online softmax: the row max and sum over a warp's 8 column lanes by
+//    shuffles, over the row's two warps through shared memory; P goes
+//    through shared memory (rows padded to 72 words);
+//  - O += P V: a thread keeps the same rows and HS / 16 columns (4 x 8 at HS
+//    128), columns cx * 4 + 32 t of its warp's half of the head, so P and V
+//    come as 16-byte words too (12 loads per 128 FFMA at HS 128);
+//  - outputs (o, lse) as the first body wrote them; K10's FFMA bodies below
+//    read that lse.
+//
+// K10's FFMA bodies (simple and right first): every operand tile is staged as
+// f32 in shared memory, rows padded by one word so that the threads of a warp
+// reading one column of several rows hit distinct banks. A block has 128
+// threads, thread (r, c) = (tid / 8, tid % 8): 8 threads share a row, and a
+// thread owns the row's columns c + 8 j, so the row reductions are shuffles
+// among 8 lanes.
 //  - simt_dq: a block per (16 query rows, head, batch); key tiles of 32,
 //    dQ += dS K_j in registers.
 //  - simt_dkv: a block per (16 keys, head, batch); query tiles of 32 at or
@@ -530,71 +561,174 @@ __device__ __forceinline__ float row8_max(float v) {
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
 }
 
+constexpr int FF_BQ = 64, FF_BKV = 64, FF_THREADS = 256;
+constexpr int FF_LDP = FF_BKV + 8;  // f32 words a row of P
+
 template <int HS>
-__global__ void __launch_bounds__(SIMT_THREADS)
-simt_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                float* __restrict__ o, float* __restrict__ lse, int H, int T, float scale) {
-  constexpr int LD = simt_ld<HS>(), NJ = HS / 8;
-  extern __shared__ float sm[];
-  float* Qs = sm;                     // [BR][LD]
-  float* Ks = Qs + SIMT_BR * LD;      // [BC][LD]
-  float* Vs = Ks + SIMT_BC * LD;      // [BC][LD]
-  float* Ps = Vs + SIMT_BC * LD;      // [BR][BC]
-  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
-  const int q0 = blockIdx.x * SIMT_BR, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS;
-  const int row = q0 + r;
-  simt_stage<HS>(Qs, q + base, q0, SIMT_BR, T, tid);
-  float acc[NJ];
+__host__ __device__ constexpr int ff_ld() { return HS + 4; }
+template <int HS>
+__host__ __device__ constexpr int ff_stages() { return HS <= 128 ? 4 : 2; }
+// Q, the ring, P, and each row's max and sum from both of its warps
+template <int HS>
+constexpr int ff_smem() { return ((1 + ff_stages<HS>()) * FF_BQ * ff_ld<HS>() + FF_BQ * FF_LDP + 4 * FF_BQ) * 4; }
+
+template <int HS>
+__global__ void __launch_bounds__(FF_THREADS, 1)
+ffma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ o, float* __restrict__ lse, int T, float scale) {
+  constexpr int LD = ff_ld<HS>(), NS = ff_stages<HS>(), NC = HS / 64;  // NC 16-byte O words a row
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                         // [BQ][LD]
+  float* ring = Qs + FF_BQ * LD;          // NS slots of [BKV][LD]
+  float* Ps = ring + NS * FF_BKV * LD;    // [BQ][LDP]
+  float* red_max = Ps + FF_BQ * FF_LDP;   // [BQ][2]: each warp half's tile max
+  float* red_sum = red_max + 2 * FF_BQ;   // [BQ][2]: each warp half's tile sum
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ry = lane / 8, cx = lane % 8, half = warp % 2;
+  const int r0 = (warp / 2) * 16 + ry;  // this thread's rows: r0 + 4 i
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * FF_BQ;
+  const size_t head = (size_t)blockIdx.x * T;
+  const float *qh = q + head * HS, *kh = k + head * HS, *vh = v + head * HS;
+  const int n_phase = 2 * (qt + 1);  // K_j and V_j for the key tiles j = 0..qt (FF_BKV == FF_BQ)
+
+  auto stage = [&](float* dst, const float* src, int row0) {  // 64 rows of the head, zeros past T
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  float m = LLT_NEG_INF, l = 0.f;
-  const int kend = min(T, q0 + SIMT_BR);  // keys past the block's last row are masked for all
-  for (int k0 = 0; k0 < kend; k0 += SIMT_BC) {
-    __syncthreads();  // the previous tile's products are done
-    simt_stage<HS>(Ks, k + base, k0, SIMT_BC, T, tid);
-    simt_stage<HS>(Vs, v + base, k0, SIMT_BC, T, tid);
-    __syncthreads();
-    float s[SIMT_BC / 8];
-    float mt = LLT_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < SIMT_BC / 8; ++j) {
-      const int key = k0 + c + 8 * j;
-      const float* qr = Qs + r * LD;
-      const float* kr = Ks + (c + 8 * j) * LD;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HS; ++d) dot += qr[d] * kr[d];
-      s[j] = (key < T && key <= row) ? dot * scale : LLT_NEG_INF;
-      mt = fmaxf(mt, s[j]);
+    for (int e = 0; e < FF_BQ * (HS / 4) / FF_THREADS; ++e) {
+      const int c = tid + e * FF_THREADS, r = c / (HS / 4), d = (c % (HS / 4)) * 4;
+      const bool ok = row0 + r < T;
+      cp_async16(dst + r * LD + d, ok ? src + (size_t)(row0 + r) * HS + d : src, ok ? 16 : 0);
     }
-    mt = row8_max(mt);
-    const float mn = fmaxf(m, mt), alpha = __expf(m - mn);
-    m = mn;
-    float ls = 0.f;
+  };
+  auto issue = [&](int u) { stage(ring + (u % NS) * FF_BKV * LD, (u & 1) ? vh : kh, (u / 2) * FF_BKV); };
+
+  stage(Qs, qh, q0);  // in the first group, with K_0
 #pragma unroll
-    for (int j = 0; j < SIMT_BC / 8; ++j) {
-      const float p = __expf(s[j] - mn);
-      ls += p;
-      Ps[r * SIMT_BC + c + 8 * j] = p;
-    }
-    l = l * alpha + row8_sum(ls);
+  for (int u = 0; u < NS - 1; ++u) {
+    if (u < n_phase) issue(u);
+    cp_async_commit();
+  }
+
+  float acc[4][4 * NC];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] *= alpha;
-    __syncthreads();  // Ps is visible to the row's threads
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+  float m[4], l[4], alpha[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = LLT_NEG_INF, l[i] = 0.f, alpha[i] = 1.f;
+
+  for (int u = 0; u < n_phase; ++u) {
+    cp_async_wait<NS - 2>();  // this thread's copies of tile u have landed
+    __syncthreads();          // everyone's; the phase before is done with its slot and with P
+    if (u + NS - 1 < n_phase) issue(u + NS - 1);
+    cp_async_commit();
+    const float* tile = ring + (u % NS) * FF_BKV * LD;
+    const int k0 = (u / 2) * FF_BKV;
+    if (!(u & 1)) {
+      // S = Q K_j^T: rows r0 + 4 i, keys 32 half + cx + 8 j, summed over the head in order
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      const float* qr = Qs + r0 * LD;
+      const float* kr = tile + (32 * half + cx) * LD;
 #pragma unroll 4
-    for (int kk = 0; kk < SIMT_BC; ++kk) {
-      const float p = Ps[r * SIMT_BC + kk];
-      const float* vr = Vs + kk * LD + c;
+      for (int d = 0; d < HS; d += 4) {
+        float4 a[4], b[4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] += p * vr[8 * j];
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qr + 4 * i * LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(kr + 8 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+          }
+      }
+      // scale, causal and ragged masks; each row's max over this half's 32 keys
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + r0 + 4 * i;
+        float mt = LLT_NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + 32 * half + cx + 8 * j;
+          s[i][j] = (key < T && key <= row) ? s[i][j] * scale : LLT_NEG_INF;
+          mt = fmaxf(mt, s[i][j]);
+        }
+        mt = row8_max(mt);
+        if (cx == 0) red_max[(r0 + 4 * i) * 2 + half] = mt;
+      }
+      __syncthreads();  // both halves' maxima
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 4 * i;
+        const float mn = fmaxf(m[i], fmaxf(red_max[r * 2], red_max[r * 2 + 1]));
+        alpha[i] = __expf(m[i] - mn);
+        m[i] = mn;
+        float ls = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = __expf(s[i][j] - mn);
+          ls += p;
+          Ps[r * FF_LDP + 32 * half + cx + 8 * j] = p;
+        }
+        ls = row8_sum(ls);
+        if (cx == 0) red_sum[r * 2 + half] = ls;
+#pragma unroll
+        for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha[i];
+      }
+    } else {
+      // the tile's row sums from both halves (visible since the phase's barrier), then O += P V_j
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 4 * i;
+        l[i] = l[i] * alpha[i] + (red_sum[r * 2] + red_sum[r * 2 + 1]);
+      }
+      const float* pr = Ps + r0 * FF_LDP;
+      const float* vc = tile + half * (HS / 2) + cx * 4;
+#pragma unroll 2
+      for (int c = 0; c < FF_BKV; c += 4) {
+        float4 p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(pr + 4 * i * FF_LDP + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 b[NC];
+#pragma unroll
+          for (int t = 0; t < NC; ++t) b[t] = *reinterpret_cast<const float4*>(vc + (c + e) * LD + 32 * t);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y : e == 2 ? p[i].z : p[i].w;
+#pragma unroll
+            for (int t = 0; t < NC; ++t) {
+              acc[i][4 * t] = fmaf(pe, b[t].x, acc[i][4 * t]);
+              acc[i][4 * t + 1] = fmaf(pe, b[t].y, acc[i][4 * t + 1]);
+              acc[i][4 * t + 2] = fmaf(pe, b[t].z, acc[i][4 * t + 2]);
+              acc[i][4 * t + 3] = fmaf(pe, b[t].w, acc[i][4 * t + 3]);
+            }
+          }
+        }
+      }
     }
   }
-  if (row >= T) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) o[base + (size_t)row * HS + c + 8 * j] = acc[j] * inv;
-  if (c == 0) lse[((size_t)b * H + h) * (size_t)T + row] = m + logf(fmaxf(l, 1e-30f));
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + r0 + 4 * i;
+    if (row >= T) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = o + (head + row) * HS + half * (HS / 2) + cx * 4;
+#pragma unroll
+    for (int t = 0; t < NC; ++t)
+      *reinterpret_cast<float4*>(orow + 32 * t) =
+          make_float4(acc[i][4 * t] * inv, acc[i][4 * t + 1] * inv, acc[i][4 * t + 2] * inv, acc[i][4 * t + 3] * inv);
+    if (half == 0 && cx == 0) lse[head + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
 }
 
 // D = rowsum(dO * O) in f32, one warp per row; T_ bf16 (the tensor-core
@@ -746,8 +880,6 @@ simt_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
 }
 
 template <int HS>
-constexpr int simt_fwd_smem() { return (SIMT_BR * simt_ld<HS>() + 2 * SIMT_BC * simt_ld<HS>() + SIMT_BR * SIMT_BC) * 4; }
-template <int HS>
 constexpr int simt_dq_smem() { return (2 * SIMT_BR * simt_ld<HS>() + 2 * SIMT_BC * simt_ld<HS>() + SIMT_BR * SIMT_BC) * 4; }
 template <int HS>
 constexpr int simt_dkv_smem() {
@@ -761,13 +893,13 @@ int set_smem(K kernel, int bytes) {
 }
 
 template <int HS>
-int simt_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
+int ffma_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
                  float scale, cudaStream_t st) {
-  constexpr int smem = simt_fwd_smem<HS>();
-  int err = set_smem(simt_fwd_kernel<HS>, smem);
+  constexpr int smem = ff_smem<HS>();
+  int err = set_smem(ffma_fwd_kernel<HS>, smem);
   if (err) return err;
-  simt_fwd_kernel<HS><<<dim3((T + SIMT_BR - 1) / SIMT_BR, H, B), SIMT_THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, T, scale);
+  ffma_fwd_kernel<HS><<<dim3(B * H, (T + FF_BQ - 1) / FF_BQ), FF_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1168,8 +1300,9 @@ flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   }
 }
 
-// The FFMA bodies past head size 256 (f32 compute): the blocks of simt_fwd,
-// simt_dq and simt_dkv above, each also over one 128-column output chunk,
+// The FFMA bodies past head size 256 (f32 compute): blocks of 16 query rows
+// (keys for dK/dV) as simt_dq and simt_dkv above, each also over one
+// 128-column output chunk,
 // the dot products summed over the head a staged chunk at a time.
 constexpr int SW_LD = WIDE + 1;  // f32 elements a shared chunk row
 
@@ -1483,7 +1616,8 @@ int sm90_backward_dq(const void* q, const void* k, const void* v, const void* o,
 }
 
 // (dtype, head size) -> the Hopper kernels (bf16, 128), the mma.sync bodies
-// (bf16, 256), the chunked kernels (past 256) or the FFMA bodies (f32)
+// (bf16, 256), the chunked kernels (past 256) or the FFMA bodies (f32: ffma_fwd
+// for K4, simt_dq and simt_dkv for K10)
 #define LLT_FLASH(SM90_FN, MMA, SIMT, WIDE_FN, ...)                           \
   do {                                                                        \
     if (hs == 128) return cbf16 ? SM90_FN : SIMT<128>(__VA_ARGS__);            \
@@ -1499,7 +1633,7 @@ int sm90_backward_dq(const void* q, const void* k, const void* v, const void* o,
 // Hopper kernel (bf16, hs 128), 64 or 128 (ops/flash_attention.py flash_plan).
 LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int T, float scale, int cbf16, int hs, int bq, void* stream) {
-  LLT_FLASH(fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, (cudaStream_t)stream), mma_forward, simt_forward,
+  LLT_FLASH(fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, (cudaStream_t)stream), mma_forward, ffma_forward,
             wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k, v, o, lse, B, H,
             T, scale, (cudaStream_t)stream);
 }

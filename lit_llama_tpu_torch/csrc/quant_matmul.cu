@@ -21,7 +21,9 @@
 // zero, any group size) while the tensor cores multiply the one before.
 //
 // f32 compute (the Pallas entry's compute dtype f32): the FFMA tile of
-// gemm_f32.cuh on the dequantized f32 weight, k3_matmul_int4_f32 below.
+// gemm_f32.cuh (128 x 128 blocks, 8 x 8 sums a thread, x by cp.async into a
+// ring, the weight dequantized once a block and k-step), k3_matmul_int4_f32
+// below.
 
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
@@ -41,11 +43,12 @@ LLT_EXPORT int k3_matmul_int4(const void* x, const void* qw, const void* qscale,
 }
 
 // f32 compute: out (M, N) f32 = x (M, K) f32 @ (q * scale + zero), the
-// FFMA tile of gemm_f32.cuh, K in up to `splits` parts (ws (splits, M, N)
-// f32). K % gs == 0, K even.
+// FFMA tile of gemm_f32.cuh, K in up to `splits` parts added in order into
+// out behind counter (ops/quant_matmul.py f32_plan: its row tiles x column
+// tiles int32 zeros, left at zero). K % gs == 0, K even, N % 4 == 0.
 LLT_EXPORT int k3_matmul_int4_f32(const void* x, const void* qw, const void* qscale, const void* qzero,
-                                  void* out, void* ws, int M, int N, int K, int gs, int splits, void* stream) {
+                                  void* out, void* counter, int M, int N, int K, int gs, int splits, void* stream) {
   return gemm_f32::launch((const float*)x,
                           gemm_f32::Int4W{(const uint8_t*)qw, (const float*)qscale, (const float*)qzero, K, N, gs},
-                          nullptr, (float*)out, (float*)ws, M, N, K, splits, (cudaStream_t)stream);
+                          nullptr, (float*)out, (int*)counter, M, N, K, splits, (cudaStream_t)stream);
 }

@@ -35,8 +35,9 @@
 //
 // f32 compute (the Pallas entry's compute dtype f32): at M == 1 the same
 // weight stream with an f32 x and an f32 result (XT below); at M > 1 the FFMA
-// tile of gemm_f32.cuh on the exact f32 weight, the scale applied to the f32
-// sum at the end. Bound at M > 1: operations on the CUDA cores, 67 TF/s.
+// tile of gemm_f32.cuh (shared with K3 in f32) on the exact f32 weight, the
+// scale applied to the f32 sum at the end. Bound at M > 1: operations on the
+// CUDA cores, 67 TF/s.
 
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
@@ -120,18 +121,15 @@ int8_gemv_kernel(const XT* __restrict__ x, const int8_t* __restrict__ qw,
 
 }  // namespace
 
-// M == 1 (bf16 or f32) and M > 1 in f32: x (M, K), qw (K, N) int8, qscale
-// (N) f32 -> out (M, N); x and out bf16 (cbf16 = 1) or f32. splits > 1
-// splits K over the grid (at most `splits` parts) and needs ws (splits, M,
-// N) f32. Requires K % 8 == 0, N % 16 == 0 and 16-byte aligned operands
-// (checked by the Python wrapper).
+// M == 1 (bf16 or f32): x (1, K), qw (K, N) int8, qscale (N) f32 -> out
+// (1, N); x and out bf16 (cbf16 = 1) or f32. splits > 1 splits K over the
+// grid (at most `splits` parts) and needs ws (splits, 1, N) f32. Requires K %
+// 8 == 0, N % 16 == 0 and 16-byte aligned operands (checked by the Python
+// wrapper).
 LLT_EXPORT int k6_matmul_int8(const void* x, const void* qw, const void* qscale, void* out, void* ws,
                               int M, int N, int K, int splits, int cbf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (M > 1 && cbf16) return (int)cudaErrorInvalidValue;  // k6_matmul_int8_sm90
-  if (M > 1)
-    return gemm_f32::launch((const float*)x, gemm_f32::Int8W{(const int8_t*)qw, N}, (const float*)qscale,
-                            (float*)out, (float*)ws, M, N, K, splits, st);
+  if (M != 1) return (int)cudaErrorInvalidValue;  // k6_matmul_int8_sm90 or k6_matmul_int8_f32
   if (splits < 1) splits = 1;
   // whole steps per split; the last split may be shorter, none is empty
   const int steps = (K + GV_ROWS - 1) / GV_ROWS;
@@ -161,4 +159,14 @@ LLT_EXPORT int k6_matmul_int8_sm90(const void* x, const void* qw, const void* qs
   sm90::Params p{(const uint8_t*)qw, (const float*)qscale, nullptr, (__nv_bfloat16*)out,
                  splits > 1 ? (float*)ws : nullptr, M, N, K, 1, 1, 0, (K + 63) / 64, per, stages};
   return sm90::launch<false>(x, p, nt, splits, (cudaStream_t)stream);
+}
+
+// M > 1 in f32: x (M, K) f32 @ qw (K, N) int8, times qscale (N) -> out (M, N)
+// f32, the FFMA tile of gemm_f32.cuh with K in up to `splits` parts added in
+// order into out behind counter (ops/quant_matmul.py f32_plan: its row tiles
+// x column tiles int32 zeros, left at zero).
+LLT_EXPORT int k6_matmul_int8_f32(const void* x, const void* qw, const void* qscale, void* out, void* counter,
+                                  int M, int N, int K, int splits, void* stream) {
+  return gemm_f32::launch((const float*)x, gemm_f32::Int8W{(const int8_t*)qw, N}, (const float*)qscale,
+                          (float*)out, (int*)counter, M, N, K, splits, (cudaStream_t)stream);
 }

@@ -687,14 +687,14 @@ __global__ void rows_epilogue_kernel(const float* __restrict__ acc, int B, int N
 }
 
 // f32 body: acc (B, N) = h (B, K) f32 @ dequant(w), w in the shared (K/2, N)
-// layout, K in up to `splits` parts (ws their partials), then the epilogue
-// into out
+// layout, K in up to `splits` parts added in order behind counter (the
+// tile's int32 zeros), then the epilogue into out
 int launch_rows_f32(const float* h, const void* qw, const void* qs, const void* qz, int B, int K, int N,
-                    int gs, void* acc, void* ws, int splits, int epi, const void* cosr, const void* sinr,
+                    int gs, void* acc, void* counter, int splits, int epi, const void* cosr, const void* sinr,
                     int rope_cols, const void* res, const void* ax, const void* lb, int lora_bf16, int R8,
                     void* out, cudaStream_t stream) {
   int err = gemm_f32::launch(h, gemm_f32::Int4W{(const uint8_t*)qw, (const float*)qs, (const float*)qz, K, N, gs},
-                             nullptr, (float*)acc, (float*)ws, B, N, K, splits, stream);
+                             nullptr, (float*)acc, (int*)counter, B, N, K, splits, stream);
   if (err) return err;
   const size_t n = (size_t)B * (epi == EPI_SWIGLU ? N / 2 : N);
   const unsigned blocks = (unsigned)((n + 255) / 256);
@@ -722,8 +722,8 @@ int launch_rows_f32(const float* h, const void* qw, const void* qs, const void* 
 // bf16, hsum (B, D / 64) f32 and, with splits > 1 (ops/fused_layer.py
 // serve_plan), ws (splits, B, 3D) f32 and counter (3D / 128) zeros. cbf16 = 0:
 // x and qkv f32, the weight in the shared layout (qw, qscale, qzero); h32 (B,
-// D) f32 the normed row, acc (B, 3D) f32 the GEMM's sums, with splits > 1 ws
-// (splits, B, 3D) f32.
+// D) f32 the normed row, acc (B, 3D) f32 the GEMM's sums, with splits > 1
+// counter the f32 tile's int32 zeros (quant_matmul.f32_plan; ws unused).
 LLT_EXPORT int k7_block_head(const void* x, const void* rms1, int norm_bf16, int cbf16, const void* ca_w,
                              const void* ca_s, const void* ca_z, const void* cosr, const void* sinr, void* xb,
                              void* hsum, void* h32, void* acc, void* ws, int splits, void* counter, const void* la,
@@ -736,7 +736,7 @@ LLT_EXPORT int k7_block_head(const void* x, const void* rms1, int norm_bf16, int
   if (!err && R8 > 0) err = launch_lora_down(h32, la, lora_bf16, B, D, R8, axpart, counter, ax, st);
   if (err) return err;
   if (!cbf16)
-    return launch_rows_f32((const float*)h32, ca_w, ca_s, ca_z, B, D, 3 * D, gs, acc, ws, splits, EPI_ROPE, cosr,
+    return launch_rows_f32((const float*)h32, ca_w, ca_s, ca_z, B, D, 3 * D, gs, acc, counter, splits, EPI_ROPE, cosr,
                            sinr, 2 * D, nullptr, ax, lb, lora_bf16, R8, qkv, st);
   return rs::launch(rs::Args{(const __nv_bfloat16*)xb, (const float*)hsum, (const uint8_t*)ca_w, (const float*)ca_s,
                              (const float*)ca_z, B, D, 3 * D, gs, EPI_ROPE, splits, (const float*)cosr,
@@ -753,7 +753,8 @@ LLT_EXPORT int k7_block_head(const void* x, const void* rms1, int norm_bf16, int
 // and for the products with s_* > 1 (serve_plan) ws (max of s * N, B) f32 and
 // counter (D / 128) zeros. cbf16 = 0: x, y, out f32, weights in the shared
 // layout; scratch xb (B, D) f32 (the normed row), gg (B, I) f32, acc (B,
-// max(D, 2I)) f32 (the GEMM's sums), ws for the three products' K splits.
+// max(D, 2I)) f32 (the GEMM's sums), counter the f32 tiles' int32 zeros for
+// the three products' K splits (quant_matmul.f32_plan; ws unused).
 LLT_EXPORT int k9_block_tail(const void* x, const void* y, const void* rms2, int norm_bf16, int cbf16,
                              const void* cp_w, const void* cp_s, const void* cp_z, const void* f12_w,
                              const void* f12_s, const void* f12_z, const void* mp_w, const void* mp_s,
@@ -762,14 +763,14 @@ LLT_EXPORT int k9_block_tail(const void* x, const void* y, const void* rms2, int
                              int B, int D, int I, int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!cbf16) {
-    int err = launch_rows_f32((const float*)y, cp_w, cp_s, cp_z, B, D, D, gs, acc, ws, s_cp, EPI_RESIDUAL,
+    int err = launch_rows_f32((const float*)y, cp_w, cp_s, cp_z, B, D, D, gs, acc, counter, s_cp, EPI_RESIDUAL,
                               nullptr, nullptr, 0, x, nullptr, nullptr, 1, 0, xs, st);
     if (!err) err = launch_prep(xs, 0, rms2, norm_bf16, NORM_SELF, nullptr, B, D, nullptr, nullptr, xb, st);
     if (!err)
-      err = launch_rows_f32((const float*)xb, f12_w, f12_s, f12_z, B, D, 2 * I, gs, acc, ws, s_fc, EPI_SWIGLU,
+      err = launch_rows_f32((const float*)xb, f12_w, f12_s, f12_z, B, D, 2 * I, gs, acc, counter, s_fc, EPI_SWIGLU,
                             nullptr, nullptr, 0, nullptr, nullptr, nullptr, 1, 0, gg, st);
     if (err) return err;
-    return launch_rows_f32((const float*)gg, mp_w, mp_s, mp_z, B, I, D, gs, acc, ws, s_mp, EPI_RESIDUAL, nullptr,
+    return launch_rows_f32((const float*)gg, mp_w, mp_s, mp_z, B, I, D, gs, acc, counter, s_mp, EPI_RESIDUAL, nullptr,
                            nullptr, 0, xs, nullptr, nullptr, 1, 0, out, st);
   }
   using rs::Args;

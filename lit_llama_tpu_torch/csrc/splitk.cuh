@@ -1,6 +1,7 @@
 // The fixed-order sum of a GEMM's K splits, shared by K6's M == 1 body
-// (quant_matmul_int8.cu), the Hopper mainloop of K3 and K6 at M > 1
-// (gemm_sm90.cuh) and the f32 tile (gemm_f32.cuh): each split writes its raw
+// (quant_matmul_int8.cu) and the Hopper mainloop of K3 and K6 at M > 1
+// (gemm_sm90.cuh); the f32 tile (gemm_f32.cuh) adds its splits in the same
+// order in the kernel, behind a counter. Each split writes its raw
 // f32 partial, and one thread sums a result's partials in split order, so
 // the result does not depend on the schedule.
 #pragma once

@@ -10,7 +10,8 @@ tile), any head size that is a multiple of 128 (``check_flash``). bf16 at
 head size 128, every LLaMA preset's, runs on the Hopper kernels of
 ``csrc/flash_sm90.cuh`` (wgmma, TMA, an mbarrier ring), tiled as
 ``flash_plan`` says; bf16 at 256 on mma.sync bodies; f32 compute on FFMA
-bodies of the same source; past 256 the kernels split the output's head
+bodies of the same source (K4's register-blocked, fed by a cp.async ring,
+tiled as ``flash_plan`` says); past 256 the kernels split the output's head
 columns over the grid in chunks of 128 and recompute the scores once a chunk.
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
@@ -56,6 +57,25 @@ DQ_Q_ROWS, DQ_KV_ROWS, DQ_STAGES = 128, 64, 4
 DKV_KV_ROWS, DKV_Q_ROWS, DKV_STAGES = 128, 64, 3
 SM90_MAX_SMEM = 232448  # what a block may use on the H100
 
+# K4's FFMA body of f32 compute (csrc/flash_attention.cu ffma_fwd_kernel, head
+# size 128 or 256): query rows a block, keys a tile under every shape,
+# threads, and the f32 words of padding a staged row
+FFMA_Q_ROWS, FFMA_KV_ROWS, FFMA_THREADS = 64, 64, 256
+FFMA_PAD, FFMA_P_PAD = 4, 8
+
+
+def ffma_stages(hs: int) -> int:
+    """Slots of the FFMA body's K/V ring (``ff_stages`` in the source)."""
+    return 4 if hs <= 128 else 2
+
+
+def ffma_smem(hs: int) -> int:
+    """Dynamic shared memory of the FFMA body (``ff_smem``): Q and the ring's
+    slots (rows of hs + 4 words), P (rows of 72 words), and each row's max
+    and sum from its two warps."""
+    return ((1 + ffma_stages(hs)) * FFMA_Q_ROWS * (hs + FFMA_PAD)
+            + FFMA_Q_ROWS * (FFMA_KV_ROWS + FFMA_P_PAD) + 4 * FFMA_Q_ROWS) * 4
+
 
 def _tile_bytes(rows: int) -> int:
     return rows * SM90_HS * 2
@@ -78,10 +98,11 @@ def sm90_smem(kernel: str, q_rows: int = 128) -> int:
 class FlashPlan(NamedTuple):
     """Which body K4 and K10 run for a shape, and K4's tiling there: ``body``
     is "sm90" (bf16 at head size 128: csrc/flash_sm90.cuh), "mma" (bf16 at
-    256), "chunked" (past 256) or "ffma" (f32 compute). On "sm90" a K4 block
-    takes ``q_rows`` query rows (a consumer warpgroup for each 64) against
-    KV tiles of ``kv_rows`` keys, with ``smem`` bytes of shared memory; the
-    other bodies have tilings of their own (0 here)."""
+    256), "chunked" (past 256) or "ffma" (f32 compute at head size 128 or
+    256). On "sm90" and "ffma" a K4 block takes ``q_rows`` query rows (on
+    "sm90" a consumer warpgroup for each 64) against KV tiles of ``kv_rows``
+    keys, with ``smem`` bytes of shared memory; the other bodies have tilings
+    of their own (0 here)."""
     body: str
     q_rows: int = 0
     kv_rows: int = 0
@@ -97,11 +118,15 @@ def flash_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = t
     128, which leave half of 132 SMs idle; at T = 512, 256 blocks of 64 rows
     take two waves and 128 blocks of 128 rows one. The KV tile is 128 keys
     under either plan, so a query row runs the same steps of the online
-    softmax, and gets the same bits, whichever plan its shape picks."""
+    softmax, and gets the same bits, whichever plan its shape picks. f32 at
+    head size 128 or 256 takes the FFMA body: 64 query rows against KV tiles
+    of 64 keys at every shape."""
     if B < 1 or H < 1 or T < 1:
         raise ValueError(f"flash_plan takes positive shapes, got B={B} H={H} T={T}")
     if dtype != torch.bfloat16:
-        return FlashPlan("ffma" if hs <= 256 else "chunked")
+        if hs > 256:
+            return FlashPlan("chunked")
+        return FlashPlan("ffma", FFMA_Q_ROWS, FFMA_KV_ROWS, ffma_smem(hs))
     if hs != SM90_HS:
         return FlashPlan("mma" if hs == 256 else "chunked")
     q_rows = 64 if B * H * -(-T // 64) <= H100_SMS else 128
@@ -114,10 +139,13 @@ def sm90_blocks(kernel: str, T: int, q_rows: int = 128) -> List[Tuple[int, range
     csrc/flash_sm90.cuh computes them. "fwd" (``q_rows`` query rows a block)
     and "dq" own a Q tile and visit the KV tiles up to its diagonal, the last
     Q tile first; "dkv" owns a KV tile of 128 keys and visits the Q tiles of
-    64 rows at or below it, the first KV tile first. Blocks are issued
-    heaviest first."""
-    if kernel in ("fwd", "dq"):
-        rows, kv = (q_rows, FWD_KV_ROWS) if kernel == "fwd" else (DQ_Q_ROWS, DQ_KV_ROWS)
+    64 rows at or below it, the first KV tile first. "ffma" is K4's FFMA
+    body of f32 compute (csrc/flash_attention.cu ffma_fwd_kernel), tiled as
+    "fwd" with 64 query rows and KV tiles of 64. Blocks are issued heaviest
+    first."""
+    if kernel in ("fwd", "dq", "ffma"):
+        rows, kv = {"fwd": (q_rows, FWD_KV_ROWS), "dq": (DQ_Q_ROWS, DQ_KV_ROWS),
+                    "ffma": (FFMA_Q_ROWS, FFMA_KV_ROWS)}[kernel]
         n = -(-T // rows)
         return [(qt, range(-(-min((qt + 1) * rows, T) // kv))) for qt in (n - 1 - y for y in range(n))]
     if kernel == "dkv":

@@ -590,12 +590,16 @@ def block_head_fused(x, rms1, cos, sin, ca: Params, config):
     _on_card("K7", x, rms1, cos, sin, la, lb, *_w_keys([ca], keys))
     cbf16 = x.dtype == torch.bfloat16
     dev = x.device
-    splits = serve_plan(3 * D, D).splits if cbf16 else quant_matmul.f32_splits(3 * D, D, dev)
+    if cbf16:
+        splits, tiles = serve_plan(3 * D, D).splits, 3 * D // SERVE_COLS
+    else:  # the f32 tile's splits add in order behind a counter a tile, without a workspace
+        plan = quant_matmul.f32_plan(B, 3 * D, D, gs, quant_matmul._sm_count(dev))
+        splits, tiles = plan.splits, plan.row_tiles * plan.col_tiles
     buf, (xb, hsum, h32, acc, ws, ax, axpart) = _scratch(
         dev, B * D * 2 * cbf16, B * (D // 64) * 4 * cbf16, B * D * 4 * bool(R8 or not cbf16),
-        B * 3 * D * 4 * (not cbf16), splits * B * 3 * D * 4 * (splits > 1), B * R8 * 4,
+        B * 3 * D * 4 * (not cbf16), splits * B * 3 * D * 4 * (splits > 1 and cbf16), B * R8 * 4,
         -(-D // SERVE_LORA_K) * B * R8 * 4)
-    counter = decode_attention.arrival_counters(max(3 * D // SERVE_COLS, R8 // SERVE_LORA_C), dev)
+    counter = decode_attention.arrival_counters(max(tiles, R8 // SERVE_LORA_C), dev)
     qkv = torch.empty((B, 3 * D), dtype=x.dtype, device=dev)
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k7_block_head(
@@ -650,15 +654,17 @@ def block_tail_fused(x, y, rms2, cp: Params, f12: Params, mp: Params, config):
     shapes = ((D, D), (D, 2 * I), (I, D))  # (K, N) of attn c_proj, c_fc12, mlp c_proj
     if cbf16:
         splits = [serve_plan(N, K).splits for K, N in shapes]
-    else:
-        splits = [quant_matmul.f32_splits(N, K, dev) for K, N in shapes]
-    ws = max(s * N for s, (_, N) in zip(splits, shapes)) * B * 4 if max(splits) > 1 else 0
+        tiles = max(N // SERVE_COLS for _, N in shapes)
+        ws = max(s * N for s, (_, N) in zip(splits, shapes)) * B * 4 if max(splits) > 1 else 0
+    else:  # the f32 tile's splits add in order behind a counter a tile, without a workspace
+        plans = [quant_matmul.f32_plan(B, N, K, gs, quant_matmul._sm_count(dev)) for K, N in shapes]
+        splits, tiles, ws = [p.splits for p in plans], max(p.row_tiles * p.col_tiles for p in plans), 0
     # bf16: xb, hsum, xb2, hsum2, ssq; f32: xb (the normed row), gg, acc
     buf, (xs, xb, hsum, xb2, hsum2, ssq, gg, acc, ws) = _scratch(
         dev, B * D * 4, B * D * (2 if cbf16 else 4), B * (D // 64) * 4 * cbf16, B * I * 2 * cbf16,
         B * (I // 64) * 4 * cbf16, B * (D // 64) * 4 * cbf16, B * I * 4 * (not cbf16),
         B * max(D, 2 * I) * 4 * (not cbf16), ws)
-    counter = decode_attention.arrival_counters(max(N // SERVE_COLS for _, N in shapes), dev)
+    counter = decode_attention.arrival_counters(tiles, dev)
     out = torch.empty_like(x)
     lib = _build.library("serve_layer", _SERVE_SIGS)
     err = lib.k9_block_tail(

@@ -10,8 +10,11 @@ condition of JAX's ``_use_pallas``), at any M and any group size: the TPU's
 measured M thresholds are not carried over. Elsewhere ``ops.linear`` runs the
 plain version, as JAX runs ``matmul_int4_xla`` there. bf16 compute takes the
 Hopper mainloop (``csrc/gemm_sm90.cuh``: wgmma, TMA and cp.async, launched by
-the plan of ``gemm_plan``), f32 compute an FFMA tile (``gemm_f32.cuh``). What
-bounds it and how its design answers that is noted in the source.
+the plan of ``gemm_plan``), f32 compute an FFMA tile (``gemm_f32.cuh``:
+register-blocked, cp.async ring, the weight dequantized once a block and
+k-step, K splits added in order in the kernel, launched by the plan of
+``f32_plan``). What bounds it and how its design answers that is noted in
+the source.
 
 ``matmul_int4_ref`` is the plain version, the counterpart of
 ``matmul_int4_xla``: dequantize to the compute dtype, then one product with
@@ -38,17 +41,24 @@ from typing import NamedTuple
 
 import torch
 
-from lit_llama_tpu_torch.ops import _build
+from lit_llama_tpu_torch.ops import _build, decode_attention
 from lit_llama_tpu_torch.ops.linear import dequantize_int4
 
 _SIGS = {"k3_matmul_int4": [_build.PTR] * 6 + [_build.INT] * 9 + [_build.PTR],
          "k3_matmul_int4_f32": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR]}
 _SIGS8 = {"k6_matmul_int8": [_build.PTR] * 5 + [_build.INT] * 5 + [_build.PTR],
-          "k6_matmul_int8_sm90": [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR]}
+          "k6_matmul_int8_sm90": [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR],
+          "k6_matmul_int8_f32": [_build.PTR] * 5 + [_build.INT] * 4 + [_build.PTR]}
 DTYPES = (torch.bfloat16, torch.float32)
-_BN = 128  # the column tile of the f32 GEMM (csrc/gemm_f32.cuh)
 _GV_COLS = 128  # columns per block of K6's M == 1 body
 H100_SMS = 132
+
+# The f32 tile (csrc/gemm_f32.cuh): 128 columns a block, k-steps of 32 rows,
+# x's ring of F32_STAGES steps, 256 threads, two blocks an SM; a block takes
+# the fewest of F32_ROWS rows that hold M, else 128
+F32_BN, F32_BK, F32_STAGES, F32_THREADS = 128, 32, 3, 256
+F32_ROWS = (32, 64, 128)
+F32_SPLIT_MIN_K = 512  # rows of K a split takes at least
 
 # The Hopper mainloop (csrc/gemm_sm90.cuh): 128 weight columns a block (64 a
 # consumer warpgroup), k-steps of 64 logical rows, a token tile of one of
@@ -121,12 +131,53 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def f32_splits(N: int, K: int, device) -> int:
-    """K splits of the f32 GEMM tile (``csrc/gemm_f32.cuh``: K3 and K6 at
-    M > 1 in f32, the f32 bodies of K7 and K9): about two blocks per SM over
-    the 128-column tiles of one 64-row tile, each split at least 512 rows of
-    K. From the widths alone, so a row's sums do not depend on M."""
-    return max(1, min(-(-2 * _sm_count(device) // -(-N // _BN)), K // 512))
+class F32Plan(NamedTuple):
+    """How the f32 tile launches: blocks of ``bm`` rows (``row_tiles`` of them
+    over M) and 128 columns (``col_tiles``), K in ``splits`` parts of ``per``
+    k-steps of 32 rows, ``smem`` bytes a block; ``step_groups``: one (group,
+    column) scale and zero a k-step (32 divides gs), else one a row."""
+    bm: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    per: int
+    smem: int
+    step_groups: bool
+
+
+def f32_smem(bm: int) -> int:
+    """A block's shared memory (csrc/gemm_f32.cuh smem_bytes): x's ring, rows
+    padded to 36 words, two dequantized weight steps, and a ring of the
+    steps' scale and zero rows."""
+    return (F32_STAGES * bm * (F32_BK + 4) + 2 * F32_BK * F32_BN + F32_STAGES * 2 * F32_BN) * 4
+
+
+def f32_plan(M: int, N: int, K: int, gs: int = 0, sm_count: int = H100_SMS) -> F32Plan:
+    """The launch plan of the f32 tile (K3 and K6 at M > 1 in f32, the f32
+    bodies of K7 and K9), a pure function of the shapes; ``gs`` the int4
+    group size (0: int8). The K split comes from N and K alone (about two
+    blocks an SM over the 128-column tiles of one row tile, each split at
+    least 512 rows of K), so a row's sums are added in the same order at any
+    M; the splits of a tile are added into the output in split order."""
+    if M < 1 or N < 1 or K < 1:
+        raise ValueError(f"f32_plan takes positive shapes, got M={M} N={N} K={K}")
+    col_tiles = -(-N // F32_BN)
+    splits = max(1, min(-(-2 * sm_count // col_tiles), K // F32_SPLIT_MIN_K))
+    steps = -(-K // F32_BK)
+    per = -(-steps // splits)
+    splits = -(-steps // per)  # none empty
+    bm = next((r for r in F32_ROWS if r >= M), F32_ROWS[-1])
+    return F32Plan(bm, -(-M // bm), col_tiles, splits, per, f32_smem(bm), gs % F32_BK == 0)
+
+
+def f32_launch(M: int, N: int, K: int, device):
+    """(splits, counter) for an f32-tile launch on ``device``: the plan's
+    split count, and the tiles' arrival counters where K is split (None
+    otherwise)."""
+    plan = f32_plan(M, N, K, 0, _sm_count(device))
+    if plan.splits == 1:
+        return 1, None
+    return plan.splits, decode_attention.arrival_counters(plan.row_tiles * plan.col_tiles, device)
 
 
 def _gemv_splits_int8(N: int, K: int, device) -> int:
@@ -185,11 +236,10 @@ def matmul_int4(x, qw, qscale, qzero, compute_dtype=torch.bfloat16):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _build.library("quant_matmul", _SIGS)
     if x.dtype == torch.float32:
-        splits = f32_splits(N, K, x.device)
-        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+        splits, counter = f32_launch(M, N, K, x.device)
         err = lib.k3_matmul_int4_f32(
             x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), qzero.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), M, N, K, gs, splits,
+            None if counter is None else counter.data_ptr(), M, N, K, gs, splits,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         _build.check(err, "K3 matmul_int4 (f32)")
@@ -266,7 +316,16 @@ def matmul_int8(x, qw, qscale, compute_dtype=torch.bfloat16):
         _build.check(err, "K6 matmul_int8")
         matmul_int8.launches += 1
         return out.reshape(*lead, N)
-    splits = _gemv_splits_int8(N, K, x.device) if M == 1 else f32_splits(N, K, x.device)
+    if M > 1:
+        splits, counter = f32_launch(M, N, K, x.device)
+        err = lib.k6_matmul_int8_f32(
+            x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(),
+            None if counter is None else counter.data_ptr(), M, N, K, splits, stream,
+        )
+        _build.check(err, "K6 matmul_int8 (f32)")
+        matmul_int8.launches += 1
+        return out.reshape(*lead, N)
+    splits = _gemv_splits_int8(N, K, x.device)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     err = lib.k6_matmul_int8(
         x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(),

@@ -1,8 +1,10 @@
 """The tiling of the flash-attention kernels on the card (K4 and K10,
 ``ops.flash_attention.flash_plan`` and ``sm90_blocks``): pure functions of
-the shapes, mirrors of what ``csrc/flash_sm90.cuh`` computes, so what each
-kernel is asked to do is testable here, where the kernels cannot run."""
+the shapes, mirrors of what ``csrc/flash_sm90.cuh`` and K4's FFMA body in
+``csrc/flash_attention.cu`` compute, so what each kernel is asked to do is
+testable here, where the kernels cannot run."""
 
+import math
 import re
 from pathlib import Path
 
@@ -43,7 +45,7 @@ def test_shared_memory_of_each_plan_fits(kernel, q_rows):
     assert smem > tflash.SM90_MAX_SMEM // 2
 
 
-@pytest.mark.parametrize("kernel,q_rows", [("fwd", 64), ("fwd", 128), ("dq", 128), ("dkv", 128)])
+@pytest.mark.parametrize("kernel,q_rows", [("fwd", 64), ("fwd", 128), ("dq", 128), ("dkv", 128), ("ffma", 64)])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 2047, 2048])
 def test_blocks_are_issued_heaviest_first(kernel, q_rows, T):
     """The grid's row index walks the tiles from the one with the most work:
@@ -55,14 +57,15 @@ def test_blocks_are_issued_heaviest_first(kernel, q_rows, T):
     assert own[0] == (0 if kernel == "dkv" else len(blocks) - 1)
 
 
-@pytest.mark.parametrize("kernel,q_rows", [("fwd", 64), ("fwd", 128), ("dq", 128), ("dkv", 128)])
+@pytest.mark.parametrize("kernel,q_rows", [("fwd", 64), ("fwd", 128), ("dq", 128), ("dkv", 128), ("ffma", 64)])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 383, 2047, 2048])
 def test_every_tile_is_visited_once(kernel, q_rows, T):
     """Every block owns one tile, and the tiles own each row once; each
     causal (query, key) pair below T is covered by exactly one visit, and a
     block visits no tile twice and none wholly above its diagonal."""
     rows, kv = {"fwd": (q_rows, tflash.FWD_KV_ROWS), "dq": (tflash.DQ_Q_ROWS, tflash.DQ_KV_ROWS),
-                "dkv": (tflash.DKV_Q_ROWS, tflash.DKV_KV_ROWS)}[kernel]
+                "dkv": (tflash.DKV_Q_ROWS, tflash.DKV_KV_ROWS),
+                "ffma": (tflash.FFMA_Q_ROWS, tflash.FFMA_KV_ROWS)}[kernel]
     blocks = tflash.sm90_blocks(kernel, T, q_rows)
     own = sorted(tile for tile, _ in blocks)
     own_rows = kv if kernel == "dkv" else rows  # the block's own tile: KV in dK/dV, Q otherwise
@@ -102,8 +105,92 @@ def test_k4_kv_tile_is_the_same_under_every_plan():
                                            (256, torch.bfloat16, "mma"), (384, torch.bfloat16, "chunked"),
                                            (512, torch.float32, "chunked")])
 def test_other_head_sizes_and_f32_take_the_present_bodies(hs, dtype, body):
+    """Only the Hopper kernels and K4's FFMA body carry a tiling in the plan."""
     plan = tflash.flash_plan(1, 32, 2048, hs, dtype)
-    assert plan.body == body and plan.q_rows == 0
+    assert plan.body == body
+    if body == "ffma":
+        assert (plan.q_rows, plan.kv_rows, plan.smem) == (64, 64, tflash.ffma_smem(hs))
+    else:
+        assert plan.q_rows == 0
+
+
+@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("B,H,T", SHAPES)
+def test_ffma_tile_is_the_same_at_every_shape(hs, B, H, T):
+    """f32 compute at head size 128 and 256: 64 query rows against KV tiles
+    of 64 keys at every shape, so a row's online softmax takes the same steps
+    everywhere; one block an SM, within the 227 KB a block may take."""
+    plan = tflash.flash_plan(B, H, T, hs, torch.float32)
+    assert plan == tflash.FlashPlan("ffma", tflash.FFMA_Q_ROWS, tflash.FFMA_KV_ROWS, tflash.ffma_smem(hs))
+    assert tflash.SM90_MAX_SMEM // 2 < plan.smem <= tflash.SM90_MAX_SMEM
+    assert tflash.ffma_stages(hs) >= 2
+    # the ring's slots are the most that fit, up to 4
+    assert tflash.ffma_stages(hs) == 4 or plan.smem + tflash.FFMA_Q_ROWS * (hs + tflash.FFMA_PAD) * 4 > tflash.SM90_MAX_SMEM
+
+
+def test_ffma_constants_mirror_the_source():
+    """The Python mirror and csrc/flash_attention.cu name the same tiles, ring
+    and padding of K4's FFMA body."""
+    text = (SOURCE.parent / "flash_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)", text).group(1))
+
+    assert (const("FF_BQ"), const("FF_BKV"), const("FF_THREADS")) == (
+        tflash.FFMA_Q_ROWS, tflash.FFMA_KV_ROWS, tflash.FFMA_THREADS)
+    assert re.search(r"constexpr int FF_LDP = FF_BKV \+ (\d+);", text).group(1) == str(tflash.FFMA_P_PAD)
+    assert re.search(r"constexpr int ff_ld\(\) \{ return HS \+ (\d+); \}", text).group(1) == str(tflash.FFMA_PAD)
+    assert re.search(r"ff_stages\(\) \{ return HS <= 128 \? (\d+) : (\d+); \}", text).groups() == (
+        str(tflash.ffma_stages(128)), str(tflash.ffma_stages(256)))
+    assert "simt_fwd_kernel" not in text  # the FFMA body takes both head sizes
+    # heaviest first: the grid's y walks the query tiles from the last
+    assert "const int qt = gridDim.y - 1 - blockIdx.y" in text
+
+
+def ffma_model(q, k, v):
+    """K4's FFMA body in plain PyTorch, in its order: query tiles of 64 rows,
+    KV tiles of 64 keys up to the diagonal, each tile's row max and sum
+    taken over its two halves of 32 keys (the row's two warps) and merged
+    into the running max, sum and output."""
+    B, H, T, hs = q.shape
+    bq, bk = tflash.FFMA_Q_ROWS, tflash.FFMA_KV_ROWS
+    scale = 1.0 / math.sqrt(hs)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, 1)
+    for q0 in range(0, T, bq):
+        rows = torch.arange(q0, min(q0 + bq, T))
+        m = torch.full((B, H, len(rows), 1), tflash.NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hs)
+        for k0 in range(0, q0 + bq, bk):
+            keys = torch.arange(k0, min(k0 + bk, T))
+            s = q[:, :, rows] @ k[:, :, keys].transpose(-1, -2) * scale
+            s = torch.where(keys[None, :] <= rows[:, None], s, torch.full_like(s, tflash.NEG_INF))
+            halves = [s[..., :32], s[..., 32:]] if len(keys) > 32 else [s]
+            mt = torch.stack([h.amax(-1, keepdim=True) for h in halves]).amax(0)
+            mn = torch.maximum(m, mt)
+            alpha = torch.exp(m - mn)
+            p = torch.exp(s - mn)
+            tile_sum = sum(h.sum(-1, keepdim=True) for h in (p[..., :32], p[..., 32:]) if h.shape[-1])
+            l = l * alpha + tile_sum
+            acc = acc * alpha + p @ v[:, :, keys]
+            m = mn
+        o[:, :, rows] = acc / l.clamp_min(1e-30)
+        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-30))
+    return o, lse
+
+
+@pytest.mark.parametrize("B,H,T,hs", [(1, 2, 200, 128), (2, 1, 64, 128), (1, 1, 129, 256), (1, 2, 1, 128)])
+def test_ffma_tile_order_matches_the_plain_version(B, H, T, hs):
+    """The online softmax merged over KV tiles of 64, in halves of 32, gives
+    flash_attention_ref's (o, lse) within the f32 tolerance the card holds
+    the kernel to (chip_smoke.py TOL_F32: 1e-4 + 1e-4 |plain|)."""
+    g = torch.Generator().manual_seed(B * 1000 + T + hs)
+    q, k, v = (torch.randn(B, H, T, hs, generator=g) for _ in range(3))
+    o, lse = ffma_model(q, k, v)
+    ro, rlse = tflash.flash_attention_ref(q, k, v)
+    for got, want in ((o, ro), (lse, rlse)):
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
 
 
 def test_constants_mirror_the_source():
