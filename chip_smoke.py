@@ -37,7 +37,12 @@ XLA (head size 64, widths that are no multiple of 256) to the plain
 versions. K3 and K6 at M > 1 (prefill) run on one Hopper mainloop (wgmma,
 TMA); each is timed at M = 8, 128 and 200 on the five 7B linears beside
 torch.matmul on the dequantized bf16 weight, and a row's output must be the
-same bits at M = 8 and M = 200 and on a rerun. K4 and K10 in bf16 at head
+same bits at M = 8 and M = 200 and on a rerun. K6 at M = 1 (one kernel a
+call, its K split merged in the kernel, launched under programmatic
+dependent launch) is summed over a decoded token's 4 L + 1 launches beside
+its bound (phase 9b), must give the same bits on a second launch and on two
+streams at once, and must read the x that the kernel launched just before it
+wrote (a copy into its buffer, a chain of K6). K4 and K10 in bf16 at head
 size 128 run on Hopper kernels too (wgmma, TMA, an mbarrier ring); K4 is
 also timed at the training shape (B = 1 and 2, T = 2048) beside SDPA's
 causal forward, K10 at B = 2 beside B = 1. In bf16, K5 and K1's attention run
@@ -3190,6 +3195,56 @@ def main() -> int:
         del wd
     results["K6"] = dict(k6, max_abs_err=max(errs))
     results["K6 M>1"] = k6m
+
+    # ---- 9b. K6 at M = 1 (gemv_int8_sm90.cuh): a decoded token's 4 L + 1 launches
+    # summed beside their bound; equal bits across launches and across two streams
+    # (each has its own workspace and counters); and programmatic dependent launch:
+    # each K6 reads the x that the kernel launched just before it wrote (a copy into
+    # the same buffer, or the K6 before it in a chain), with no synchronisation
+    # between. Inputs from a generator of their own.
+    m1 = {lname: k6_shapes[f"{lname} {w['qw'].shape[0]}->{w['qw'].shape[1]} M=1"] for lname, w in linears8[:5]}
+    block = ("c_attn", "attn.c_proj", "c_fc12", "mlp.c_proj")
+    token = {k: L * sum(m1[n][k] for n in block) + m1["lm_head"][k] for k in ("ms", "bound_ms", "library_ms")}
+    entry_inputs["k6_m1_token"] = dict(token, launches=4 * L + 1, share_of_bound=token["bound_ms"] / token["ms"])
+    log(f"K6 at M = 1, a decoded token's {4 * L + 1} launches: {token['ms']:.3f} ms, bound {token['bound_ms']:.3f} ms "
+        f"({100 * token['bound_ms'] / token['ms']:.1f} % of it), torch.matmul on the dequantized bf16 weights "
+        f"{token['library_ms']:.3f} ms")
+    g9 = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for cdt in (torch.bfloat16, torch.float32):
+        for lname, w in (("attn.c_proj", lp8["attn"]["c_proj"]), ("mlp.c_proj", lp8["mlp"]["c_proj"]), ("odd", odd8)):
+            K = w["qw"].shape[0]
+            x = torch.randn(1, K, generator=g9, device=dev).to(cdt)
+            first = quant_matmul.matmul_int8(x, w["qw"], w["qscale"], cdt)
+            assert torch.equal(first, quant_matmul.matmul_int8(x, w["qw"], w["qscale"], cdt)), \
+                f"K6 M=1 {lname} {cdt}: a second launch differs"
+            streams, outs = [torch.cuda.Stream(dev) for _ in range(2)], [[], []]
+            torch.cuda.synchronize()
+            for _ in range(4):
+                for st, o in zip(streams, outs):
+                    with torch.cuda.stream(st):
+                        o.append(quant_matmul.matmul_int8(x, w["qw"], w["qscale"], cdt))
+            torch.cuda.synchronize()
+            assert all(torch.equal(first, y) for o in outs for y in o), f"K6 M=1 {lname} {cdt}: the streams differ"
+        w = lp8["attn"]["c_proj"]  # square: each output can be the next input
+        xbuf = torch.empty(1, D, dtype=cdt, device=dev)
+        news = [torch.randn(1, D, generator=g9, device=dev).to(cdt) for _ in range(4)]
+        torch.cuda.synchronize()
+        outs = []
+        for nx in news:
+            xbuf.copy_(nx)
+            outs.append(quant_matmul.matmul_int8(xbuf, w["qw"], w["qscale"], cdt))
+        chain = [news[0]]
+        for _ in range(4):
+            chain.append(quant_matmul.matmul_int8(chain[-1], w["qw"], w["qscale"], cdt))
+        torch.cuda.synchronize()
+        check = max_err if cdt == torch.bfloat16 else max_err32
+        for a, y in list(zip(news, outs)) + list(zip(chain, chain[1:])):
+            check(y, quant_matmul.matmul_int8_ref(a, w["qw"], w["qscale"], cdt), "K6" if cdt == torch.bfloat16 else
+                  "K6 f32 M=1 after the kernel that wrote its x")
+    entry_inputs["k6_m1_bits_equal"] = "two launches and two streams, attn.c_proj, mlp.c_proj, odd; bf16 and f32"
+    entry_inputs["k6_m1_sees_x_written_just_before"] = "a copy into x, and a chain of 4 K6 (attn.c_proj); bf16 and f32"
+    log("K6 at M = 1: equal bits across two launches and two streams (attn.c_proj, mlp.c_proj, odd; bf16 and f32); "
+        "each launch reads the x the kernel just before it wrote (copies, a chain of 4), within TOL['K6'] / TOL_F32")
     del odd8, linears8
 
     # ---- 10. K5 vs plain: bf16 cache and int8 cache ------------------------------
@@ -4006,7 +4061,7 @@ def main() -> int:
               "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
-              "K3 f32": "gemm_f32.cuh"}
+              "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only

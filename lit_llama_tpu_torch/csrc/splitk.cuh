@@ -1,7 +1,7 @@
-// The fixed-order sum of a GEMM's K splits, shared by K6's M == 1 body
-// (quant_matmul_int8.cu) and the Hopper mainloop of K3 and K6 at M > 1
-// (gemm_sm90.cuh); the f32 tile (gemm_f32.cuh) adds its splits in the same
-// order in the kernel, behind a counter. Each split writes its raw
+// The fixed-order sum of a GEMM's K splits, used by the Hopper mainloop of K3
+// and K6 at M > 1 (gemm_sm90.cuh); the f32 tile (gemm_f32.cuh) and K6's M == 1
+// body (gemv_int8_sm90.cuh) merge their splits in the kernel, behind a
+// counter. Each split writes its raw
 // f32 partial, and one thread sums a result's partials in split order, so
 // the result does not depend on the schedule.
 #pragma once

@@ -99,26 +99,34 @@ def k5_scratch(B: int, H: int, S: int, hs: int, dtype: torch.dtype) -> Tuple[int
     return B * H * (-(-S // CHUNK)) * (hs + 2), 0
 
 
-_counters: Dict[Tuple[str, int, int], torch.Tensor] = {}
+_buffers: Dict[Tuple[str, int, int, torch.dtype], torch.Tensor] = {}
 
 
-def arrival_counters(n: int, device) -> torch.Tensor:
-    """A persistent int32 buffer of at least ``n`` zeros on ``device``, for
-    the current stream: the split body's arrival counters. Each launch
-    leaves them at zero (the last block of a (batch row, head) resets its
-    own), so the launches of one stream, which run in order, share a buffer;
-    launches on two streams would count into each other's, so each stream has
-    its own. It grows (a new zeroed buffer) when a launch needs more."""
+def stream_buffer(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A persistent buffer of at least ``n`` zeros of ``dtype`` on ``device``,
+    for the current stream: scratch that a kernel keeps across launches (the
+    split bodies' arrival counters, K6's partials at M = 1). The launches of
+    one stream run in order and share a buffer; launches on two streams would
+    write into each other's, so each stream has its own. It grows (a new
+    zeroed buffer) when a launch needs more."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
-    key = (device.type, device.index, stream)
-    buf = _counters.get(key)
+    key = (device.type, device.index, stream, dtype)
+    buf = _buffers.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _counters[key] = buf
+        buf = torch.zeros(max(n, 64), dtype=dtype, device=device)
+        _buffers[key] = buf
     return buf
+
+
+def arrival_counters(n: int, device) -> torch.Tensor:
+    """The current stream's int32 ``stream_buffer`` of at least ``n`` zeros:
+    the split bodies' arrival counters. Each launch leaves them at zero (the
+    last block of a (batch row, head), a tile or a strip resets its own), so
+    every kernel of a stream counts in the same buffer."""
+    return stream_buffer(n, torch.int32, device)
 
 
 def decode_route(hs: int) -> bool:

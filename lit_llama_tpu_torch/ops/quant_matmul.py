@@ -24,7 +24,12 @@ float32 accumulation, rounded to the compute dtype.
 ``matmul_int8``) with the CUDA kernel in ``csrc/quant_matmul_int8.cu``. On the
 card an int8 linear takes it where ``quant_route`` holds, decode (M = 1) and
 prefill alike, at any M, in bf16 or f32 compute: the TPU's M <= 128 gate is
-not carried over. At M > 1 in bf16 it runs K3's mainloop (``gemm_plan``).
+not carried over. At M > 1 in bf16 it runs K3's mainloop (``gemm_plan``); at
+M = 1 the weight stream of ``csrc/gemv_int8_sm90.cuh`` in either dtype, one
+kernel a call over the (strip, K split) blocks of ``gemv8_plan``, its K split
+merged in the kernel through a workspace and arrival counters kept across
+calls (``decode_attention.stream_buffer``), so a call allocates only its
+output.
 
 ``matmul_int8_ref`` is K6's plain version, in the Pallas kernel's own
 arithmetic: x and the int8 weight in the compute dtype, the sum over K in
@@ -46,12 +51,17 @@ from lit_llama_tpu_torch.ops.linear import dequantize_int4
 
 _SIGS = {"k3_matmul_int4": [_build.PTR] * 6 + [_build.INT] * 9 + [_build.PTR],
          "k3_matmul_int4_f32": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR]}
-_SIGS8 = {"k6_matmul_int8": [_build.PTR] * 5 + [_build.INT] * 5 + [_build.PTR],
+_SIGS8 = {"k6_matmul_int8": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR],
           "k6_matmul_int8_sm90": [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR],
           "k6_matmul_int8_f32": [_build.PTR] * 5 + [_build.INT] * 4 + [_build.PTR]}
 DTYPES = (torch.bfloat16, torch.float32)
-_GV_COLS = 128  # columns per block of K6's M == 1 body
 H100_SMS = 132
+
+# K6's M == 1 body (csrc/gemv_int8_sm90.cuh): strips of 256 columns, steps of
+# 32 rows (256 threads, 32 bytes a thread), a ring of 4 steps, two blocks an
+# SM, at least 2 steps a K split
+GEMV8_COLS, GEMV8_ROWS, GEMV8_THREADS, GEMV8_STAGES, GEMV8_BLOCKS_PER_SM = 256, 32, 256, 4, 2
+GEMV8_MIN_STEPS = 2
 
 # The f32 tile (csrc/gemm_f32.cuh): 128 columns a block, k-steps of 32 rows,
 # x's ring of F32_STAGES steps, 256 threads, two blocks an SM; a block takes
@@ -180,10 +190,51 @@ def f32_launch(M: int, N: int, K: int, device):
     return plan.splits, decode_attention.arrival_counters(plan.row_tiles * plan.col_tiles, device)
 
 
-def _gemv_splits_int8(N: int, K: int, device) -> int:
-    """K splits of K6's M == 1 body: about four blocks per SM over the
-    128-column strips, each with at least 256 rows to stream."""
-    return max(1, min(-(-4 * _sm_count(device) // -(-N // _GV_COLS)), K // 256))
+class Gemv8Plan(NamedTuple):
+    """How K6 launches at M = 1: the weight in ``strips`` strips of 256
+    columns, K in ``splits`` ranges of whole 32-row steps (``steps`` of them),
+    one block a (strip, split), ``blocks`` in all; with more than one split,
+    ``ws_floats`` f32 of partials (256 a block) and ``counters`` arrival
+    counters (one a strip)."""
+    strips: int
+    steps: int
+    splits: int
+    blocks: int
+    ws_floats: int
+    counters: int
+
+
+def gemv8_plan(N: int, K: int, sm_count: int = H100_SMS) -> Gemv8Plan:
+    """The launch plan of K6's M = 1 body, a pure function of N, K and the
+    card's SM count: as many K splits as keep the (strip, split) blocks
+    within one wave of GEMV8_BLOCKS_PER_SM blocks an SM, each split at least
+    GEMV8_MIN_STEPS steps. Nothing in it depends on M, the compute dtype or
+    the stream, so on a given card the order in which a column's sums are
+    added depends on N and K alone."""
+    if N < 1 or K < 1:
+        raise ValueError(f"gemv8_plan takes positive shapes, got N={N} K={K}")
+    strips, steps = -(-N // GEMV8_COLS), -(-K // GEMV8_ROWS)
+    splits = max(1, min(GEMV8_BLOCKS_PER_SM * sm_count // strips, steps // GEMV8_MIN_STEPS))
+    blocks = strips * splits
+    return Gemv8Plan(strips, steps, splits, blocks, blocks * GEMV8_COLS if splits > 1 else 0,
+                     strips if splits > 1 else 0)
+
+
+def gemv8_split_rows(plan: Gemv8Plan, split: int):
+    """The rows [first, end) of K that a split sums (whole steps; the last
+    may run past K, where the kernel reads zeros)."""
+    return (split * plan.steps // plan.splits * GEMV8_ROWS, (split + 1) * plan.steps // plan.splits * GEMV8_ROWS)
+
+
+def gemv8_scratch(N: int, K: int, device):
+    """(plan, workspace, counters) of a K6 launch at M = 1 on ``device``: the
+    current stream's f32 partials and int32 arrival counters, kept across
+    calls (None where K is not split)."""
+    plan = gemv8_plan(N, K, _sm_count(device))
+    if plan.splits == 1:
+        return plan, None, None
+    return (plan, decode_attention.stream_buffer(plan.ws_floats, torch.float32, device),
+            decode_attention.arrival_counters(plan.counters, device))
 
 
 def quant_route(in_features: int, out_features: int) -> bool:
@@ -325,11 +376,10 @@ def matmul_int8(x, qw, qscale, compute_dtype=torch.bfloat16):
         _build.check(err, "K6 matmul_int8 (f32)")
         matmul_int8.launches += 1
         return out.reshape(*lead, N)
-    splits = _gemv_splits_int8(N, K, x.device)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+    plan, ws, counter = gemv8_scratch(N, K, x.device)
     err = lib.k6_matmul_int8(
-        x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, splits, int(cbf16), stream,
+        x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if counter is None else counter.data_ptr(), M, N, K, plan.splits, int(cbf16), stream,
     )
     _build.check(err, "K6 matmul_int8")
     matmul_int8.launches += 1

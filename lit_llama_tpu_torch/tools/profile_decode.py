@@ -23,9 +23,12 @@ the union goes to the earliest-started kernel still running, the one a
 dependent launch waits on) beside the sum of its own intervals; the mean
 interval and credited time of each int4 matvec launch by its role in the
 block (both bodies: ``gemv_int4`` in f32, ``gemv_sm90`` in bf16; K6's
-``int8_gemv`` per op), the matvec's share of the busy time and, int4, the
-bytes of the decode layout it reads a token over its credited time; and the
-host's own time per operator name (where a host-bound step spends it).
+``gemv8_kernel`` per op, or ``int8_gemv_kernel`` in a checkout before it),
+the matvec's share of the busy time and, int4, the bytes of the decode
+layout it reads a token over its credited time; int8, K6's kernels a step
+(its matvec and, in the first body, the split sum ``splitk_reduce_kernel``
+that followed each launch) and their credited time; and the host's own time
+per operator name (where a host-bound step spends it).
 Needs a CUDA card.
 """
 
@@ -37,7 +40,8 @@ import time
 from pathlib import Path
 
 # the matvec kernels of the steps: K1/K2's int4 bodies, K6's int8 one
-GEMV_NAMES = {"int4": ("gemv_int4", "gemv_sm90"), "int8": ("int8_gemv",)}
+GEMV_NAMES = {"int4": ("gemv_int4", "gemv_sm90"), "int8": ("int8_gemv", "gemv8_kernel")}
+K6_SPLIT_SUM = "splitk_reduce"  # the first M = 1 body's second kernel (the per-op step runs no other)
 LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc12"), ("mlp", "c_proj"))
 HBM_TB_S = 3.35  # H100 SXM HBM3
 
@@ -159,6 +163,11 @@ def main() -> None:
               f"{sum(c for _, c in ts) / len(ts):8.1f} us credited, over {len(ts)} launches")
     gemv_us = sum(c for _, c in gemvs) / args.steps
     print(f"  gemv in all: {gemv_us:.1f} us/step credited, {100 * gemv_us / busy_us:.1f} % of the busy time")
+    if args.quantize == "int8":  # K6's kernels: the matvec (and the first body's split sum)
+        sums = [c for (a, b, name), c in zip(kernels, credit) if K6_SPLIT_SUM in name]
+        print(f"  K6: {(len(gemvs) + len(sums)) / args.steps:.1f} kernels/step ({len(gemvs) / args.steps:.1f} "
+              f"matvec, {len(sums) / args.steps:.1f} split sum), {(gemv_us * args.steps + sum(sums)) / args.steps:.1f} "
+              f"us/step credited")
     if args.quantize == "int4":  # the decode layout the matvec reads, once a token
         linears = [lp[a][b] for lp in params["h"] for a, b in LINEARS] + [params["lm_head"]]
         nbytes = sum(w[k].nbytes for w in linears for k in ("qw_t", "qscale_t", "qzero_t"))

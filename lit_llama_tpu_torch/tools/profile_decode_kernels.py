@@ -1,9 +1,11 @@
 """Device time of the single-stream decode kernels, K5 (decode attention), K1
-(one fused decode block, and each kernel it launches) and K2 (the lm_head),
-beside the least time the card could take and, for K5, PyTorch's
-scaled_dot_product_attention.
+(one fused decode block, and each kernel it launches), K2 (the lm_head) and
+K6 at M = 1 (the int8 matvec of the per-op step), beside the least time the
+card could take and, for K5, PyTorch's scaled_dot_product_attention, for K6
+``torch.matmul`` on the dequantized weight.
 
-    python lit_llama_tpu_torch/tools/profile_decode_kernels.py [--root DIR] [--tag NAME] [--scan | --accuracy]
+    python lit_llama_tpu_torch/tools/profile_decode_kernels.py [--root DIR] [--tag NAME]
+        [--only k5 k1 k2 k6] [--scan | --accuracy]
 
 Run as a file: ``--root DIR`` imports ``lit_llama_tpu_torch`` from DIR (its
 kernels build beside it), so another checkout, such as the parent commit
@@ -20,7 +22,16 @@ Shapes: K5 at (B, H, S) = (1, 32, 72), (1, 32, 256), (1, 32, 2048) and
 (8, 32, 2048), hs 128, bf16 and int8 cache, every row visible, with SDPA on
 the masked cache (the int8 one dequantized to bf16 first) beside it; K1 at
 S = 256 (pos 255) and S = 2048 (pos 2047), without and with a LoRA operand
-(r = 8 on q and v, R8 = 16); K2 at V = 32 000. Each time is the median
+(r = 8 on q and v, R8 = 16); K2 at V = 32 000; K6 at M = 1 on the five 7B
+int8 linears (c_attn, attn.c_proj, c_fc12, mlp.c_proj, lm_head) and an odd
+shape (1000 -> 1040), in bf16 and in f32 compute (random int8 weights and
+column scales from the seed), with the kernels a call launches (their names,
+from a torch.profiler trace), the largest error against the plain version,
+and a decoded token's sum (32 x the four block linears + the lm_head) beside
+its bound; beside each, the time of a PyTorch reduction that reads the same
+weight bytes once (``read_us``: what streaming them costs this timer), and
+an empty timed region (``empty_us``). ``--only`` times a subset (K1 and K2 share one set-up; K1's
+kernel trace comes with k1). Each time is the median
 device time of 20 launches (CUDA events, the L2 flushed before each, a spin
 on the card ahead of the start event so the host's time in the wrapper is not
 counted). K1's own kernels are timed from a torch.profiler trace of 20 K1
@@ -49,6 +60,9 @@ from pathlib import Path
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 H, HS = 32, 128  # the 7B preset's heads and head size
 K5_SHAPES = ((1, 72), (1, 256), (1, 2048), (8, 2048))
+K6_SHAPES = (("c_attn", 4096, 12288), ("attn.c_proj", 4096, 4096), ("c_fc12", 4096, 22016),
+             ("mlp.c_proj", 11008, 4096), ("lm_head", 4096, 32000), ("odd", 1000, 1040))
+LAYERS = 32  # the 7B preset's blocks: a token runs each block linear 32 times
 K1_SEQS = ((256, 255), (2048, 2047))
 
 
@@ -78,6 +92,8 @@ def main() -> int:
                     help="the directory to import lit_llama_tpu_torch from")
     ap.add_argument("--tag", default="", help="a name for this run in the output")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+", choices=("k5", "k1", "k2", "k6"), default=("k5", "k1", "k2", "k6"),
+                    help="the kernels to time (default: all)")
     ap.add_argument("--scan", action="store_true", help="K2 over V and K5 over S, clean L2")
     ap.add_argument("--accuracy", action="store_true", help="K5 against its plain version and the exact result")
     args = ap.parse_args()
@@ -89,15 +105,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_decode_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
     from lit_llama_tpu_torch.models import llama
-    from lit_llama_tpu_torch.ops import _build, fused_layer
+    from lit_llama_tpu_torch.ops import _build
     from lit_llama_tpu_torch.ops import decode_attention as da
-    from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row
-    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_lora_overlay
 
     dev = torch.device("cuda")
-    _build.build(["fused_layer", "decode_attention"])
+    _build.build(["fused_layer", "decode_attention", "quant_matmul_int8"])
     g = torch.Generator().manual_seed(args.seed)
     time_us = devtime.make_timer(dev)
 
@@ -113,7 +126,58 @@ def main() -> int:
     if args.accuracy:
         return accuracy(args, torch, smi)
 
-    # ---- K5 ----------------------------------------------------------------------
+    out = {"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if "k6" in args.only:
+        out["k6"] = k6_times(args, torch, time_us, devtime, dev, bound_us)
+    if "k5" in args.only:
+        out["k5"] = k5_times(torch, F, time_us, randn, bound_us, dev, llama, da)
+    if "k1" in args.only or "k2" in args.only:
+        out.update(k1_k2_times(args, torch, time_us, randn, bound_us, dev))
+    print(json.dumps(out))
+    return 0
+
+
+def k6_times(args, torch, time_us, devtime, dev, bound_us) -> dict:
+    """K6 at M = 1 in both compute dtypes on K6_SHAPES: device time (writing
+    and reading L2 flush), torch.matmul on the weight dequantized to the
+    compute dtype, the bound, the kernels of a call, the largest error
+    against the plain version; and a decoded token's sum."""
+    from lit_llama_tpu_torch.ops import quant_matmul as qm
+    from lit_llama_tpu_torch.ops.linear import dequantize_int8
+
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xb = 2 if dtype == torch.bfloat16 else 4
+        rows = {}
+        for name, K, N in K6_SHAPES:
+            w = {"qw": torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+                 "qscale": torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g)}
+            x = torch.randn(1, K, generator=g, device=dev).to(dtype)
+            wd = dequantize_int8(w, dtype)
+            call = lambda: qm.matmul_int8(x, w["qw"], w["qscale"], dtype)
+            err = float((call().float() - qm.matmul_int8_ref(x, w["qw"], w["qscale"], dtype).float()).abs().max())
+            try:  # a trace now and then comes back without the kernels
+                kernels = [k["kernel"] for k in devtime.kernel_sequence(call, time_us)["sequence"]]
+            except RuntimeError as e:
+                kernels = str(e)
+            rows[f"{name} {K}->{N}"] = dict(
+                us=time_us(call), us_clean_l2=time_us(call, clean=True),
+                matmul_us=time_us(lambda: torch.matmul(x, wd)), bound_us=bound_us(K * N + N * 4 + (K + N) * xb),
+                read_us=time_us(lambda: w["qw"].view(torch.int32).sum(dtype=torch.int32)),
+                max_abs_err=err, kernels=kernels)
+            del w, wd
+        block = [r for k, r in rows.items() if not k.startswith(("lm_head", "odd"))]
+        head = next(r for k, r in rows.items() if k.startswith("lm_head"))
+        rows["token"] = {key: LAYERS * sum(r[key] for r in block) + head[key]
+                         for key in ("us", "us_clean_l2", "matmul_us", "bound_us", "read_us")}
+        rows["token"]["launches"] = 4 * LAYERS + 1
+        res["bf16" if dtype == torch.bfloat16 else "f32"] = rows
+    res["empty_us"] = time_us(lambda: None)
+    return res
+
+
+def k5_times(torch, F, time_us, randn, bound_us, dev, llama, da) -> dict:
     k5 = {}
     for B, S in K5_SHAPES:
         q = randn(B, 1, H, HS).transpose(1, 2)  # (B, H, 1, hs) as the model hands it over
@@ -131,8 +195,17 @@ def main() -> int:
                 sdpa_us_clean_l2=time_us(sdpa_call, clean=True), bound_us=bound_us(k5_bytes(B, S, ks is not None)))
             del kd, vd
         del kf, vf, kq, vq, ksc, vsc
+    return k5
 
-    # ---- K1 and K2: one 7B block and the lm_head on random int4 weights ----------
+
+def k1_k2_times(args, torch, time_us, randn, bound_us, dev) -> dict:
+    """K1 (without and with LoRA) and K2, and K1's own kernels at S = 2048."""
+    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import fused_layer
+    from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_lora_overlay
+
     cfg7 = LLaMAConfig.from_name("7B", n_layer=1, param_dtype="bfloat16", compute_dtype="bfloat16",
                                  quantize="int4")
     params, cfg = fused_layer.prepare_fused_params(
@@ -192,10 +265,8 @@ def main() -> int:
             gaps = sorted(r[i].time_range.start - r[i - 1].time_range.end for r in runs) if i else [0.0]
             seq.append(dict(kernel=runs[0][i].name[:80], us=durs[len(durs) // 2], gap_before_us=gaps[len(gaps) // 2]))
     spans = sorted(r[-1].time_range.end - r[0].time_range.start for r in runs) if runs else [0.0]
-    print(json.dumps({"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "k5": k5, "k1": k1, "k2": k2,
-                      "k1_kernels_s2048": dict(sequence=seq, first_start_to_last_end_us=spans[len(spans) // 2])}))
-    return 0
+    return {"k1": k1, "k2": k2,
+            "k1_kernels_s2048": dict(sequence=seq, first_start_to_last_end_us=spans[len(spans) // 2])}
 
 
 def scan(args, torch, time_us, randn, smi) -> int:

@@ -2,7 +2,7 @@
 five 7B linears, beside torch.matmul on the dequantized bf16 weight and the
 least time the card could take.
 
-    python lit_llama_tpu_torch/tools/profile_gemm.py [--root DIR] [--prefill] [--tag NAME]
+    python lit_llama_tpu_torch/tools/profile_gemm.py [--root DIR] [--prefill] [--tag NAME] [--m 1 8 128 200]
 
 Run as a file: ``--root DIR`` imports ``lit_llama_tpu_torch`` from DIR (its
 kernels build beside it), so another checkout, such as the parent commit
@@ -15,7 +15,10 @@ wrapper is not counted). ``--prefill`` also times, on the host's clock,
 ``generate`` of one token after prompts of 8, 128 and 200 tokens on the
 32-layer 7B int4 model, and of 8 and 128 tokens on the int8 model (the
 prefill, which takes 129 K3 or K6 launches). Prints one JSON line. Needs a
-CUDA card.
+CUDA card. ``--m`` names the M to time (8, 128 and 200 by default): M = 1 is
+K3's single-token product on the per-op step (a model that takes no fused
+step, such as an adapter model on GPTQ int4 weights, 4 L + 1 launches a
+token) and K6's weight stream.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ def main() -> int:
     ap.add_argument("--prefill", action="store_true", help="also time the 7B int4 and int8 prefill end to end")
     ap.add_argument("--tag", default="", help="a name for this run in the output")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--m", type=int, nargs="+", default=(8, 128, 200), help="the token counts to time")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import devtime  # beside this file
@@ -64,7 +68,7 @@ def main() -> int:
         q4 = {k: v.to(dev) for k, v in quantize_int4(w, GS).items()}
         q8 = {k: v.to(dev) for k, v in quantize_int8(w).items()}
         w4, w8 = dequantize_int4(q4, torch.bfloat16), dequantize_int8(q8, torch.bfloat16)
-        for M in (8, 128, 200):
+        for M in args.m:
             x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
             io = M * K * 2 + M * N * 2
             shapes[f"{name} {K}->{N} M={M}"] = dict(

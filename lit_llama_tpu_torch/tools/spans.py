@@ -1,7 +1,7 @@
 """Where the warps of the hand-written Hopper kernels spend their cycles:
 clock64 spans in an instrumented copy of the package.
 
-    python lit_llama_tpu_torch/tools/spans.py flash|gemv|rows [--root DIR] [--out DIR]
+    python lit_llama_tpu_torch/tools/spans.py flash|gemv|rows|int8 [--root DIR] [--out DIR]
 
 Copies the package (that of the checkout at ``--root``, by default this one)
 to DIR (default ``build/spans_<target>``, which the copy's kernels build
@@ -35,6 +35,21 @@ the scales and zero-point term, the cross-warp reduction or split merge and
 the epilogue. Each kernel the source holds is read (``ROWS_SOURCES``: the
 product kernel of the earlier design, ``rows_int4_kernel``, and its
 successor), so ``--root`` may name a checkout of either.
+
+``int8``: K6 at M = 1 on the five 7B int8 linears and an odd shape (1000 ->
+1040), bf16 and f32 compute (random int8 weights from seed 0): the cycles a
+block takes (one reader, thread 0) and the share of each span. Of the
+later body (``gemv8_kernel`` in ``csrc/gemv_int8_sm90.cuh``): issuing the
+first steps, the wait for the kernel before (programmatic dependent launch),
+loading x for the first steps, the ring's waits, the products, the copies'
+issue, the block's sum over its row lanes and warps, its partial and arrival
+count, the last arrival's merge, and the output.
+Of the first body
+(``int8_gemv_kernel`` in ``csrc/quant_matmul_int8.cu``, at the ``--root``
+of an earlier checkout): the loads' issue, their wait, the products, the
+block's sum and its output; its second kernel (the split sum) has no spans.
+Beside the spans, the kernel's own time by CUDA events, so the cycles a
+block spends can be set against the call.
 """
 
 from __future__ import annotations
@@ -208,9 +223,40 @@ ROWS_SPANS = {"rows_int4_kernel(": ("token rows", "weights", "nibble conversion"
                                     "epilogue")}
 GEMV_SPANS = {0: ("prologue", "loads", "load wait", "unpack + products + scales", "epilogue"),
               1: ("prologue", "ring wait", "unpack", "products (mma.sync)", "scales", "epilogue")}
+# K6 at M = 1: one reader a block (thread 0), a table row a shape
+INT8_SHAPES = (("c_attn", 4096, 12288), ("attn.c_proj", 4096, 4096), ("c_fc12", 4096, 22016),
+               ("mlp.c_proj", 11008, 4096), ("lm_head", 4096, 32000), ("odd", 1000, 1040))
+INT8_ROW = "(N == 12288 ? 0 : N == 4096 ? (K == 4096 ? 1 : 3) : N == 22016 ? 2 : N == 32000 ? 4 : 5)"
+INT8_SOURCES = (
+    Source("gemv_int8_sm90.cuh",
+           (Kernel("gemv8_kernel(", "const bool ok0 = wcol < N, ok1 = wcol + COLS / 2 < N;", "threadIdx.x == 0",
+                   INT8_ROW, "n"),),
+           (("pdl_wait();", "SPAN(0)", "before"),
+            ("pdl_trigger();", "SPAN(1)", "before"),
+            ("float acc[32];", "SPAN(2)", "before"),
+            ("cp_async_wait<STAGES - 1>();", "SPAN(3)", "after"),
+            ("fma_s8x16(acc + 16, w1, xv);", "SPAN(4)", "after"),
+            ("stage = stage == STAGES - 1 ? 0 : stage + 1;", "SPAN(5)", "before"),
+            ("float part = red[tid];", "SPAN(6)", "before"),
+            ("if (splits == 1) {", "SPAN(7)", "before"),
+            ("if (tid == 0) last_block = atomicAdd(", "SPAN(8)", "after"),
+            ("if (tid == 0) counter[strip] = 0;", "SPAN(9)", "after")),
+           "SPAN(10)"),
+    Source("quant_matmul_int8.cu",
+           (Kernel("int8_gemv_kernel(", "const int k_end = min(K, k_begin + rows_per_split);", "threadIdx.x == 0",
+                   INT8_ROW, "(k_end - k_begin)"),),
+           (("fma_s8x4(acc + 0, w[u].x, xv[u]);", "SPAN_WAIT(w[u].x) SPAN(0)", "before"),
+            ("fma_s8x4(acc + 12, w[u].w, xv[u]);", "SPAN(1)", "after")),
+           "SPAN(2)"),
+)
+INT8_SPANS = {"gemv8_kernel(": ("first steps' issue", "wait for the kernel before", "x of the first steps",
+                                "ring wait", "products", "copy issue", "row lanes (shuffles, barrier)", "warp sum",
+                                "partial, fence, arrival count", "merge (last arrival)", "output"),
+              "int8_gemv_kernel(": ("loads (issue and wait)", "products", "block sum and output")}
 TARGETS: Dict[str, Tuple[Tuple[Source, ...], str]] = {"flash": ((FLASH,), "flash_attention"),
                                                        "gemv": (GEMV, "fused_layer"),
-                                                       "rows": (ROWS_SOURCES, "serve_layer")}
+                                                       "rows": (ROWS_SOURCES, "serve_layer"),
+                                                       "int8": (INT8_SOURCES, "quant_matmul_int8")}
 
 
 def read(lib, table) -> list:
@@ -317,6 +363,41 @@ def run_rows(torch, lib, table, smi) -> None:
                               "share": {n: row[j] / cycles for j, n in enumerate(ROWS_SPANS[kernel]) if row[j]}}))
 
 
+def run_int8(torch, lib, table, smi) -> None:
+    import devtime  # beside this file
+    from lit_llama_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    time_us = devtime.make_timer(dev)
+    csrc = Path(qm.__file__).resolve().parent.parent / "csrc"
+    text = "".join(f.read_text() for f in csrc.glob("*.cu*"))
+    kernel = next(k for k in INT8_SPANS if k in text)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip()
+    for dtype in (torch.bfloat16, torch.float32):
+        for row, (name, K, N) in enumerate(INT8_SHAPES):
+            w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            sc = torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g)
+            x = torch.randn(1, K, generator=g, device=dev).to(dtype)
+            call = lambda: qm.matmul_int8(x, w, sc, dtype)
+            call()
+            torch.cuda.synchronize()
+            read(lib, table)  # clears the table
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+            r = read(lib, table)[row]
+            us = time_us(call)
+            cycles, blocks = r[13], r[15]
+            names = INT8_SPANS[kernel]
+            print(json.dumps({"kernel": kernel[:-1], "linear": f"{name} {K}->{N}", "compute": str(dtype),
+                              "nvidia_smi": smi, "clocks_sm": clock, "instrumented_us": us,
+                              "blocks": blocks / 10, "cycles_a_block": cycles / blocks, "steps_a_block": r[14] / blocks,
+                              "share": {n: r[j] / cycles for j, n in enumerate(names) if r[j]}}))
+            del w
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("target", choices=sorted(TARGETS))
@@ -331,6 +412,8 @@ def main() -> int:
     csrc = out / package.name / "csrc"
     sources, library = TARGETS[args.target]
     for source in sources:
+        if not (csrc / source.file).exists():  # int8: the header of the later body
+            continue
         text = (csrc / source.file).read_text()
         if any(k.name in text for k in source.kernels):  # rows: the kernel this checkout has
             (csrc / source.file).write_text(instrument(text, source))
@@ -350,7 +433,7 @@ def main() -> int:
     table = (ctypes.c_ulonglong * (ROWS * COLS))()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    {"flash": run_flash, "gemv": run_gemv, "rows": run_rows}[args.target](torch, lib, table, smi)
+    {"flash": run_flash, "gemv": run_gemv, "rows": run_rows, "int8": run_int8}[args.target](torch, lib, table, smi)
     return 0
 
 
