@@ -42,7 +42,16 @@ call, its K split merged in the kernel, launched under programmatic
 dependent launch) is summed over a decoded token's 4 L + 1 launches beside
 its bound (phase 9b), must give the same bits on a second launch and on two
 streams at once, and must read the x that the kernel launched just before it
-wrote (a copy into its buffer, a chain of K6). K4 and K10 in bf16 at head
+wrote (a copy into its buffer, a chain of K6). K3 at M = 1 runs a body of
+its own (one kernel a call, mma.sync on the nibbles, its K split merged in
+the kernel, programmatic dependent launch): phase 2b times the five 7B
+linears and a decoded token's 4 L + 1 launches beside the bound and
+torch.matmul, holds it to its plain version in bf16 and f32 at gs 128, 32,
+gs = K, N = 1040 and 1032, and checks its bits across launches and streams
+and that it reads the x written just before it; phase 7c drives the per-op
+int4 path (the 32-layer int4 model on the int8 KV cache) through
+``generate`` with its launches asserted, and phase 7d holds that path's
+2-layer model to the plain path. K4 and K10 in bf16 at head
 size 128 run on Hopper kernels too (wgmma, TMA, an mbarrier ring); K4 is
 also timed at the training shape (B = 1 and 2, T = 2048) beside SDPA's
 causal forward, K10 at B = 2 beside B = 1. In bf16, K5 and K1's attention run
@@ -1892,7 +1901,7 @@ def main() -> int:
     from lit_llama_tpu_torch.ops import _build, fused_layer, quant_matmul
     from lit_llama_tpu_torch.ops import decode_attention as da
     from lit_llama_tpu_torch.ops import flash_attention as fa
-    from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8, quantize_int4
     from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
     from lit_llama_tpu_torch.serve import DecodeEngine
     from lit_llama_tpu_torch.tools import devtime, probe_kernels
@@ -2089,6 +2098,101 @@ def main() -> int:
                     rows_equal(quant_matmul.matmul_int4, x, args[1:], f"K3 {lname}")
             del wd
         results["K3"] = dict(k3, max_abs_err=max(errs))
+
+        # ---- 2b. K3 at M = 1 (gemv4_sm90.cuh): the five linears timed beside their
+        # bound and torch.matmul, a decoded token's 4 L + 1 launches summed; each held
+        # to its plain version in bf16 and f32 at gs 128 (the model's), gs 32, gs = K
+        # and N = 1040; equal bits across two launches and two streams (each has its
+        # own workspace and counters); and programmatic dependent launch: each K3
+        # reads the x that the kernel launched just before it wrote (a copy into the
+        # same buffer, or the K3 before it in a chain of 4 on attn.c_proj's shape),
+        # with no synchronisation between. Inputs from a generator of their own.
+        g2b = torch.Generator(device=dev).manual_seed(SEED + 16)
+        L = cfg.n_layer
+        m1, errs1 = {}, []
+        for lname, w, K in linears:
+            N = w["qw"].shape[1]
+            wd = dequantize_int4(w, torch.bfloat16)
+            x = torch.randn(1, K, generator=g2b, device=dev).to(torch.bfloat16)
+            args = (x, w["qw"], w["qscale"], w["qzero"])
+            errs1.append(max_err(quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args), "K3"))
+            xf = x.float()
+            max_err32(quant_matmul.matmul_int4(xf, *args[1:], torch.float32),
+                      quant_matmul.matmul_int4_ref(xf, *args[1:], torch.float32), f"K3 f32 M=1 {lname}")
+            ms = time_ms(lambda: quant_matmul.matmul_int4(*args))
+            lib = time_ms(lambda: torch.matmul(x, wd))
+            b1 = bound_ms(K * 2 + q4_bytes(K, N) + N * 2, 2 * K * N, tc_peak)
+            m1[lname] = dict(ms=ms, bound_ms=b1[0], bound_by=b1[1], library_ms=lib)
+            k3_shapes[f"{lname} {K}->{N} M=1"] = m1[lname]
+            log(f"K3 M=1 {lname} {K}->{N}: {ms * 1e3:.1f} us, bound {b1[0] * 1e3:.1f} us ({b1[1]}), "
+                f"torch.matmul on the dequantized bf16 weight {lib * 1e3:.1f} us")
+            if lname == "c_fc12":
+                k3m1 = dict(shape=f"M=1 K={K} N={N} (c_fc12, one decode token)", ms=ms, library_ms=lib,
+                            plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*args), 3),
+                            bound_ms=b1[0], bound_by=b1[1])
+            del wd
+        block4 = ("c_attn", "attn.c_proj", "c_fc12", "mlp.c_proj")
+        token = {k: L * sum(m1[n][k] for n in block4) + m1["lm_head"][k] for k in ("ms", "bound_ms", "library_ms")}
+        entry_inputs["k3_m1_token"] = dict(token, launches=4 * L + 1, share_of_bound=token["bound_ms"] / token["ms"])
+        log(f"K3 at M = 1, a decoded token's {4 * L + 1} launches: {token['ms']:.3f} ms, bound "
+            f"{token['bound_ms']:.3f} ms ({100 * token['bound_ms'] / token['ms']:.1f} % of it), torch.matmul on the "
+            f"dequantized bf16 weights {token['library_ms']:.3f} ms")
+        odd_w = {}
+        for K, N, g_ in ((D, 3 * D, 32), (I, D, 32), (D, D, D), (D, 1040, gs), (I, 1040, gs), (D, 1032, 8)):
+            wq = quantize_int4(torch.randn(K, N, generator=g2b, device=dev) * 0.02, -1 if g_ == K else g_)
+            odd_w[(K, N, g_)] = wq
+            for cdt in (torch.bfloat16, torch.float32):
+                x = torch.randn(1, K, generator=g2b, device=dev).to(cdt)
+                args = (x, wq["qw"], wq["qscale"], wq["qzero"], cdt)
+                got, want = quant_matmul.matmul_int4(*args), quant_matmul.matmul_int4_ref(*args)
+                if cdt == torch.bfloat16:
+                    errs1.append(max_err(got, want, "K3"))
+                else:
+                    max_err32(got, want, f"K3 f32 M=1 K={K} N={N} gs={g_}")
+        results["K3 M=1"] = dict(k3m1, max_abs_err=max(errs1))
+        for cdt in (torch.bfloat16, torch.float32):
+            for lname, w in (("attn.c_proj", lp0["attn"]["c_proj"]), ("mlp.c_proj", lp0["mlp"]["c_proj"]),
+                             ("N=1040", odd_w[(D, 1040, gs)]), ("gs 32", odd_w[(I, D, 32)])):
+                x = torch.randn(1, 2 * w["qw"].shape[0], generator=g2b, device=dev).to(cdt)
+                wargs = (w["qw"], w["qscale"], w["qzero"], cdt)
+                first = quant_matmul.matmul_int4(x, *wargs)
+                assert torch.equal(first, quant_matmul.matmul_int4(x, *wargs)), \
+                    f"K3 M=1 {lname} {cdt}: a second launch differs"
+                streams, outs = [torch.cuda.Stream(dev) for _ in range(2)], [[], []]
+                torch.cuda.synchronize()
+                for _ in range(4):
+                    for st, o in zip(streams, outs):
+                        with torch.cuda.stream(st):
+                            o.append(quant_matmul.matmul_int4(x, *wargs))
+                torch.cuda.synchronize()
+                assert all(torch.equal(first, y) for o in outs for y in o), f"K3 M=1 {lname} {cdt}: the streams differ"
+            # a square weight whose outputs keep their inputs' scale (std 1 / sqrt(D)), so a
+            # chain's inputs stay O(1) as a model's normalised rows are
+            w = quantize_int4(torch.randn(D, D, generator=g2b, device=dev) * D ** -0.5, gs)
+            wargs = (w["qw"], w["qscale"], w["qzero"], cdt)
+            xbuf = torch.empty(1, D, dtype=cdt, device=dev)
+            news = [torch.randn(1, D, generator=g2b, device=dev).to(cdt) for _ in range(4)]
+            torch.cuda.synchronize()
+            outs = []
+            for nx in news:
+                xbuf.copy_(nx)
+                outs.append(quant_matmul.matmul_int4(xbuf, *wargs))
+            chain = [news[0]]
+            for _ in range(4):
+                chain.append(quant_matmul.matmul_int4(chain[-1], *wargs))
+            torch.cuda.synchronize()
+            for a, y in list(zip(news, outs)) + list(zip(chain, chain[1:])):
+                want = quant_matmul.matmul_int4_ref(a, *wargs)
+                if cdt == torch.bfloat16:
+                    max_err(y, want, "K3")
+                else:
+                    max_err32(y, want, "K3 f32 M=1 after the kernel that wrote its x")
+        del odd_w, w, xbuf, news, outs, chain
+        entry_inputs["k3_m1_bits_equal"] = "two launches and two streams, attn.c_proj, mlp.c_proj, N=1040, gs 32; bf16 and f32"
+        entry_inputs["k3_m1_sees_x_written_just_before"] = "a copy into x, and a chain of 4 K3 (4096 -> 4096); bf16 and f32"
+        log(f"K3 at M = 1: within TOL['K3'] / TOL_F32 of its plain version at the five linears, gs 32, gs = K, "
+            f"N = 1040 and 1032 (bf16 max err {max(errs1):.3g}); equal bits across two launches and two streams; "
+            f"each launch reads the x the kernel just before it wrote (copies, a chain of 4), bf16 and f32")
 
         # ---- 3. K4 vs plain ------------------------------------------------------
         errs = []
@@ -2503,6 +2607,67 @@ def main() -> int:
                 f"{pre_ms['lora'][0]:.1f} / {pre_ms['lora'][1]:.1f} ms, without {pre_ms['base'][0]:.1f} / "
                 f"{pre_ms['base'][1]:.1f} ms (timed without, with, with, without); {differ} of {T + new} tokens "
                 f"differ from the model without it; launches {got}")
+
+        # ---- 7c. the per-op int4 path: the same model on an int8 KV cache decodes per
+        # op (K3 at M = 1 for every linear, K5 on the int8 cache), as generate takes
+        # an int4 model with --kv_cache_dtype int8: greedy requests, launches asserted,
+        # decode tok/s beside the fused step's (phase 7). Prompts from a generator of
+        # their own ----------------------------------------------------------------
+        g7c = torch.Generator().manual_seed(SEED + 17)
+        qcfg = cfg.replace(kv_cache_dtype="int8")
+        full_perop = {}
+        gen.generate(params, ref_prompt, 4, config=qcfg, temperature=0.0)  # warm-up, not counted
+        torch.cuda.synchronize()
+        k3m1_launches = 0
+        for T, s in ((8, 72), (128, 2048)):
+            prompt = torch.randint(0, cfg.vocab_size, (T,), generator=g7c)
+            for fn in counters.values():
+                fn.launches = 0
+            quant_matmul.matmul_int4.gemv_launches = 0
+            out = gen.generate(params, prompt, new, config=qcfg, max_seq_length=s, temperature=0.0)
+            got = {k: fn.launches for k, fn in counters.items()}
+            m1n = quant_matmul.matmul_int4.gemv_launches
+            want = dict.fromkeys(counters, 0)
+            want.update({"K3": (4 * L + 1) * new, "K4": L, "K5": L * (new - 1)})
+            assert got == want, f"per-op int4 request T={T} S={s}: launches {got}, expected {want}"
+            assert m1n == (4 * L + 1) * (new - 1), f"per-op int4 request T={T}: {m1n} K3 launches at M = 1"
+            assert out.shape == (T + new,) and int(out.min()) >= 0 and int(out.max()) < V, "bad tokens"
+            k3m1_launches += m1n
+            prefill_s, total_s = wall_s(params, qcfg, prompt, 1, s), wall_s(params, qcfg, prompt, new, s)
+            S_used = gen.plan_seq_length(qcfg, T + new, s)
+            tok_s = (new - 1) / (total_s - prefill_s)
+            fused_key = f"T={T},S={S_used}" if f"T={T},S={S_used}" in full else next(k for k in full
+                                                                                  if k.startswith(f"T={T},"))
+            fused_tok_s = full[fused_key]["decode_tok_s"]
+            full_perop[f"T={T},S={S_used},kv=int8"] = dict(prefill_ms=prefill_s * 1e3, decode_tok_s=tok_s,
+                                                           fused_step_decode_tok_s=fused_tok_s)
+            log(f"per-op int4 request prompt {T} S={S_used} int8 KV cache: prefill {prefill_s * 1e3:.1f} ms, decode "
+                f"{tok_s:.1f} tok/s (the fused step, phase 7 {fused_key}: {fused_tok_s:.1f} tok/s; {new} new tokens, launches "
+                f"K3 {got['K3']} of which {m1n} at M = 1, K4 {got['K4']}, K5 {got['K5']})")
+        entry_inputs["requests_int4_per_op"] = full_perop
+
+        # ---- 7d. full width, 2 blocks, the per-op int4 path on the int8 cache: kernel
+        # path vs plain path, a 197-token prompt and 8 steps past S = 200 -----------
+        p2, c2 = dict(params, h=params["h"][:2]), qcfg.replace(n_layer=2)
+        S2 = 200
+        prompt = torch.randint(0, cfg.vocab_size, (1, 197), generator=g7c).to(dev)
+        caches = {plain: llama.init_kv_cache(c2, 1, S2, device=dev) for plain in (False, True)}
+        logits = {plain: llama.forward(p2, prompt, c2, rope_cache=rope, kv_cache=caches[plain],
+                                       prefill_from_zero=True, plain=plain)[0] for plain in (False, True)}
+        errs = [model_err(logits[False], logits[True], "2-layer per-op int4 prefill, int8 cache")]
+        tok = logits[False][:, -1].float().argmax(-1)
+        quant_matmul.matmul_int4.gemv_launches = 0
+        for step in range(8):
+            pos = prompt.shape[1] + step
+            lg = {plain: llama.forward(p2, tok[None], c2, rope_cache=rope, input_pos=[pos],
+                                       kv_cache=caches[plain], plain=plain)[0][:, -1] for plain in (False, True)}
+            errs.append(model_err(lg[False], lg[True], f"2-layer per-op int4 decode step {step}, int8 cache"))
+            tok = lg[False].float().argmax(-1)
+        assert quant_matmul.matmul_int4.gemv_launches == 8 * (4 * 2 + 1), "2-layer per-op int4: K3 M=1 launches"
+        entry_inputs["per_op_int4_2_layers"] = dict(prefill=errs[0], decode=max(errs[1:]))
+        log(f"2-layer 7B-width int4 model, per-op path (K3 at M = 1, K4, K5), int8 KV cache, S={S2}, kernel vs "
+            f"plain path: prefill max |dlogit| {errs[0]:.4g}, 8 decode steps (5 past S) max {max(errs[1:]):.4g}")
+        del caches, logits, lg, p2
 
         # ---- 8. the serving path: 64 requests through a 32-slot engine ---------------
         n_req, new_e, slots, S_e = 64, 32, 32, 256
@@ -2943,6 +3108,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        totals["K3 M=1"] = k3m1_launches  # phase 7c's requests: the per-op int4 path
         return results, totals, full, serving, full_lora, serving_lora
 
     results, totals, full, serving, full_lora, serving_lora = int4_paths()
@@ -4061,7 +4227,8 @@ def main() -> int:
               "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
-              "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh"}
+              "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh",
+              "K3 M=1": "gemv4_sm90.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
@@ -4071,7 +4238,7 @@ def main() -> int:
                 "K2 f32", "K3 f32", "K4 f32", "K5 f32", "K5q f32", "K6 f32", "K7 f32", "K8 f32", "K9 f32",
                 "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
                 "K5 hs384", "K10dq hs384", "K10dkv hs384", "K4 hs512", "K5 hs512", "K10dq hs512", "K10dkv hs512",
-                "K3 gs=32", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256", "K3 f32 M8192", "K4 f32 B4 T2048",
+                "K3 gs=32", "K3 M=1", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256", "K3 f32 M8192", "K4 f32 B4 T2048",
                 "K3 M2048", "K6 M2048"]
     for key in list(sources) + variants:
         base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))

@@ -1,4 +1,5 @@
-// K3: int4 weight-only GEMM for M > 1 (prefill), out = x @ dequant(qw).
+// K3: int4 weight-only GEMM, out = x @ dequant(qw): M > 1 (prefill) here,
+// M == 1 (decode) in gemv4_sm90.cuh.
 //
 // Replaces lit_llama_tpu/ops/quant_matmul_pallas.py _int4_kernel (and its
 // _int4_kernel_fused_scale variant), entry matmul_int4.
@@ -27,6 +28,7 @@
 
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
+#include "gemv4_sm90.cuh"
 
 // x (M, K) bf16, qw (K/2, N) u8, qscale/qzero (K/gs, N) f32 -> out (M, N)
 // bf16, through the plan of ops/quant_matmul.py gemm_plan: nt tokens a token
@@ -51,4 +53,18 @@ LLT_EXPORT int k3_matmul_int4_f32(const void* x, const void* qw, const void* qsc
   return gemm_f32::launch((const float*)x,
                           gemm_f32::Int4W{(const uint8_t*)qw, (const float*)qscale, (const float*)qzero, K, N, gs},
                           nullptr, (float*)out, (int*)counter, M, N, K, splits, (cudaStream_t)stream);
+}
+
+// M == 1: out (N) = x (K) @ dequant(qw), bf16 (bf16 != 0) or f32 x and out,
+// the single-token body of gemv4_sm90.cuh over the plan of
+// ops/quant_matmul.py gemv4_plan: strips x splits blocks; with splits > 1,
+// ws (a 256-float partial a block) and counter (an int32 zero a strip, left
+// at zero) are the stream's buffers. K % 128 == 0, gs % 8 == 0, N % 8 == 0.
+LLT_EXPORT int k3_matmul_int4_m1(const void* x, const void* qw, const void* qscale, const void* qzero, void* out,
+                                 void* ws, void* counter, int N, int K, int gs, int splits, int bf16, void* stream) {
+  if (bf16)
+    return gemv4::launch((const __nv_bfloat16*)x, (const uint8_t*)qw, (const float*)qscale, (const float*)qzero,
+                         (__nv_bfloat16*)out, (float*)ws, (int*)counter, N, K, gs, splits, (cudaStream_t)stream);
+  return gemv4::launch((const float*)x, (const uint8_t*)qw, (const float*)qscale, (const float*)qzero, (float*)out,
+                       (float*)ws, (int*)counter, N, K, gs, splits, (cudaStream_t)stream);
 }

@@ -16,6 +16,16 @@ k-step, K splits added in order in the kernel, launched by the plan of
 ``f32_plan``). What bounds it and how its design answers that is noted in
 the source.
 
+At M = 1 (a decode token) ``matmul_int4`` launches the single-token body of
+``csrc/gemv4_sm90.cuh`` instead, in either dtype: one kernel a call over the
+(strip, K split) blocks of ``gemv4_plan``, products on the tensor cores
+(mma.sync, the nibbles exact in bf16), the split merged in the kernel through
+the stream's workspace and arrival counters (``decode_attention.stream_buffer``),
+so a call allocates only its output. Its arithmetic is the Pallas kernel's:
+exact products summed in f32, a group's sum times its f32 scale, the zero
+term from f32 group sums of x. A group size that is no multiple of 8 (an
+octet of rows would hold two groups) keeps the M > 1 bodies at M = 1.
+
 ``matmul_int4_ref`` is the plain version, the counterpart of
 ``matmul_int4_xla``: dequantize to the compute dtype, then one product with
 float32 accumulation, rounded to the compute dtype.
@@ -50,7 +60,8 @@ from lit_llama_tpu_torch.ops import _build, decode_attention
 from lit_llama_tpu_torch.ops.linear import dequantize_int4
 
 _SIGS = {"k3_matmul_int4": [_build.PTR] * 6 + [_build.INT] * 9 + [_build.PTR],
-         "k3_matmul_int4_f32": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR]}
+         "k3_matmul_int4_f32": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR],
+         "k3_matmul_int4_m1": [_build.PTR] * 7 + [_build.INT] * 5 + [_build.PTR]}
 _SIGS8 = {"k6_matmul_int8": [_build.PTR] * 6 + [_build.INT] * 5 + [_build.PTR],
           "k6_matmul_int8_sm90": [_build.PTR] * 5 + [_build.INT] * 7 + [_build.PTR],
           "k6_matmul_int8_f32": [_build.PTR] * 5 + [_build.INT] * 4 + [_build.PTR]}
@@ -62,6 +73,13 @@ H100_SMS = 132
 # SM, at least 2 steps a K split
 GEMV8_COLS, GEMV8_ROWS, GEMV8_THREADS, GEMV8_STAGES, GEMV8_BLOCKS_PER_SM = 256, 32, 256, 4, 2
 GEMV8_MIN_STEPS = 2
+
+# K3's M == 1 body (csrc/gemv4_sm90.cuh): strips of 256 columns (32 a warp),
+# steps of 32 packed rows, 256 threads, 4 steps a warp in flight in registers
+# (each through the warp's 1 KB tile), two blocks an SM, at least 2 steps a K
+# split
+GEMV4_COLS, GEMV4_WCOLS, GEMV4_ROWS, GEMV4_THREADS, GEMV4_STAGES, GEMV4_BLOCKS_PER_SM = 256, 32, 32, 256, 4, 2
+GEMV4_MIN_STEPS = 2
 
 # The f32 tile (csrc/gemm_f32.cuh): 128 columns a block, k-steps of 32 rows,
 # x's ring of F32_STAGES steps, 256 threads, two blocks an SM; a block takes
@@ -237,6 +255,59 @@ def gemv8_scratch(N: int, K: int, device):
             decode_attention.arrival_counters(plan.counters, device))
 
 
+class Gemv4Plan(NamedTuple):
+    """How K3 launches at M = 1: the weight in ``strips`` strips of 256
+    columns, its K/2 packed rows in ``splits`` ranges of whole 32-row steps
+    (``steps`` of them; ``rows`` the most a split holds), one block a (strip,
+    split), ``blocks`` in all; with more than one split, ``ws_floats`` f32 of
+    partials (256 a block) and ``counters`` arrival counters (one a strip)."""
+    strips: int
+    steps: int
+    splits: int
+    blocks: int
+    rows: int
+    ws_floats: int
+    counters: int
+
+
+def gemv4_plan(N: int, K: int, sm_count: int = H100_SMS) -> Gemv4Plan:
+    """The launch plan of K3's M = 1 body, a pure function of N, K and the
+    card's SM count: as many K splits as keep the (strip, split) blocks
+    within one wave of GEMV4_BLOCKS_PER_SM blocks an SM, each split at least
+    GEMV4_MIN_STEPS steps. Nothing in it depends on M, the compute dtype or
+    the stream, so on a given card the order in which a column's sums are
+    added depends on N and K alone."""
+    if N < 1 or K < 2:
+        raise ValueError(f"gemv4_plan takes positive shapes, got N={N} K={K}")
+    strips, steps = -(-N // GEMV4_COLS), -(-(K // 2) // GEMV4_ROWS)
+    splits = max(1, min(GEMV4_BLOCKS_PER_SM * sm_count // strips, steps // GEMV4_MIN_STEPS))
+    blocks = strips * splits
+    return Gemv4Plan(strips, steps, splits, blocks, -(-steps // splits) * GEMV4_ROWS,
+                     blocks * GEMV4_COLS if splits > 1 else 0, strips if splits > 1 else 0)
+
+
+def gemv4_split_rows(plan: Gemv4Plan, split: int):
+    """The packed rows [first, end) that a split sums (whole steps)."""
+    return (split * plan.steps // plan.splits * GEMV4_ROWS, (split + 1) * plan.steps // plan.splits * GEMV4_ROWS)
+
+
+def gemv4_takes(gs: int) -> bool:
+    """Whether K3's M = 1 body takes a group size: an octet of 8 packed rows
+    must lie in one group of each plane."""
+    return gs % 8 == 0
+
+
+def gemv4_scratch(N: int, K: int, device):
+    """(plan, workspace, counters) of a K3 launch at M = 1 on ``device``: the
+    current stream's f32 partials and int32 arrival counters, kept across
+    calls (None where K is not split)."""
+    plan = gemv4_plan(N, K, _sm_count(device))
+    if plan.splits == 1:
+        return plan, None, None
+    return (plan, decode_attention.stream_buffer(plan.ws_floats, torch.float32, device),
+            decode_attention.arrival_counters(plan.counters, device))
+
+
 def quant_route(in_features: int, out_features: int) -> bool:
     """Whether a quantized linear takes its kernel (K3 or K6) on the card: a
     static predicate on the widths, decided before any launch."""
@@ -286,6 +357,17 @@ def matmul_int4(x, qw, qscale, qzero, compute_dtype=torch.bfloat16):
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _build.library("quant_matmul", _SIGS)
+    if M == 1 and gemv4_takes(gs):
+        plan, ws, counter = gemv4_scratch(N, K, x.device)
+        err = lib.k3_matmul_int4_m1(
+            x2.data_ptr(), qw.data_ptr(), qscale.data_ptr(), qzero.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), None if counter is None else counter.data_ptr(), N, K, gs,
+            plan.splits, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "K3 matmul_int4 (M = 1)")
+        matmul_int4.launches += 1
+        matmul_int4.gemv_launches += 1
+        return out.reshape(*lead, N)
     if x.dtype == torch.float32:
         splits, counter = f32_launch(M, N, K, x.device)
         err = lib.k3_matmul_int4_f32(
@@ -309,6 +391,7 @@ def matmul_int4(x, qw, qscale, qzero, compute_dtype=torch.bfloat16):
 
 
 matmul_int4.launches = 0
+matmul_int4.gemv_launches = 0  # of them, the M = 1 body's (csrc/gemv4_sm90.cuh)
 
 
 def matmul_int8_ref(x, qw, qscale, compute_dtype=torch.bfloat16):

@@ -8,7 +8,9 @@ against an S = ``--seq`` cache. ``--quantize int4`` (the default) takes the
 fused step (each block one ``decode_layers_fused`` call, then
 ``lm_head_fused``); ``--quantize int8`` the per-op step
 (``llama.forward(input_pos=[pos])``: K6 for every linear, K5 for the
-attention), with ``--kv int8`` on the int8 KV cache. ``--lora`` (int4) adds a
+attention), with ``--kv int8`` on the int8 KV cache; ``--quantize int4 --kv
+int8`` the per-op int4 step (as ``generate`` takes it for an int4 model on an
+int8 cache: K3 at M = 1 for every linear, K5). ``--lora`` (int4) adds a
 seeded LoRA overlay (r = 8, alpha 16, q and v), which the fused step takes
 as K1's LoRA operand. Run as a file: ``--root DIR`` imports
 ``lit_llama_tpu_torch`` from DIR, so another checkout (the parent commit
@@ -23,12 +25,15 @@ the union goes to the earliest-started kernel still running, the one a
 dependent launch waits on) beside the sum of its own intervals; the mean
 interval and credited time of each int4 matvec launch by its role in the
 block (both bodies: ``gemv_int4`` in f32, ``gemv_sm90`` in bf16; K6's
-``gemv8_kernel`` per op, or ``int8_gemv_kernel`` in a checkout before it),
-the matvec's share of the busy time and, int4, the bytes of the decode
-layout it reads a token over its credited time; int8, K6's kernels a step
-(its matvec and, in the first body, the split sum ``splitk_reduce_kernel``
-that followed each launch) and their credited time; and the host's own time
-per operator name (where a host-bound step spends it).
+``gemv8_kernel`` per op, or ``int8_gemv_kernel`` in a checkout before it;
+K3's ``gemv4_kernel`` per op, or the prefill mainloop ``wq_gemm_kernel`` in
+a checkout before it), the matvec's share of the busy time and, int4, the
+bytes it reads a token (the decode layout in the fused step, the packed
+weights per op) over its credited time; per op, K6's or K3's kernels a step
+(its matvec and, in the earlier bodies, the split sum
+``splitk_reduce_kernel`` that followed a split launch) and their credited
+time; and the host's own time per operator name (where a host-bound step
+spends it).
 Needs a CUDA card.
 """
 
@@ -39,9 +44,10 @@ import sys
 import time
 from pathlib import Path
 
-# the matvec kernels of the steps: K1/K2's int4 bodies, K6's int8 one
-GEMV_NAMES = {"int4": ("gemv_int4", "gemv_sm90"), "int8": ("int8_gemv", "gemv8_kernel")}
-K6_SPLIT_SUM = "splitk_reduce"  # the first M = 1 body's second kernel (the per-op step runs no other)
+# the matvec kernels of the steps: K1/K2's int4 bodies, K6's int8 one, K3's per-op int4 one
+GEMV_NAMES = {"int4": ("gemv_int4", "gemv_sm90"), "int8": ("int8_gemv", "gemv8_kernel"),
+              "int4 per op": ("wq_gemm", "gemv4_kernel")}
+SPLIT_SUM = "splitk_reduce"  # the earlier M = 1 bodies' second kernel (the per-op step runs no other)
 LINEARS = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc12"), ("mlp", "c_proj"))
 HBM_TB_S = 3.35  # H100 SXM HBM3
 
@@ -68,10 +74,9 @@ def main() -> None:
     ap.add_argument("--pos", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
-    if args.kv and args.quantize == "int4":
-        ap.error("--kv int8 goes with --quantize int8: the fused int4 step keeps a plain cache")
-    if args.lora and args.quantize != "int4":
-        ap.error("--lora goes with --quantize int4 (the fused step)")
+    if args.lora and (args.quantize != "int4" or args.kv):
+        ap.error("--lora goes with --quantize int4 and a plain cache (the fused step)")
+    kind = "int4 per op" if args.quantize == "int4" and args.kv else args.quantize
     sys.path.insert(0, args.root)
     import torch
 
@@ -89,7 +94,7 @@ def main() -> None:
                                 lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0) if args.lora else None)
     rope = build_rope_cache(cfg.block_size, cfg.head_size, device=dev)
     tok = torch.tensor([1], device=dev)
-    if args.quantize == "int4":
+    if kind == "int4":
         params = random_int4_params(cfg, seed=0, device=dev)
         if args.lora:
             params = load_lora_state(params, random_lora_overlay(cfg, seed=1, device=dev))
@@ -104,7 +109,8 @@ def main() -> None:
                     x, [lp], [kv], cos, sin, args.pos % args.seq, args.pos, cfg)
             return fused_layer.lm_head_fused(x, params["ln_f"], params["lm_head"], cfg)
     else:
-        params = llama.unstack_layers(random_int8_params(cfg, seed=0, device=dev))
+        random_params = random_int4_params if args.quantize == "int4" else random_int8_params
+        params = llama.unstack_layers(random_params(cfg, seed=0, device=dev))
         cache = llama.init_kv_cache(cfg, 1, args.seq, device=dev)
         pos = min(args.pos, args.seq - 1)  # inside the cache: a position past S would roll it every step
 
@@ -142,7 +148,7 @@ def main() -> None:
     busy_us = sum(credit) / args.steps
     print(torch.cuda.get_device_name(0))
     kv = (f", {args.kv} KV cache" if args.kv else "") + (", LoRA r=8 on q and v" if args.lora else "")
-    print(f"7B {args.quantize} decode step{kv}, {args.layers} layers, S={args.seq}, pos={args.pos}: "
+    print(f"7B {kind} decode step{kv}, {args.layers} layers, S={args.seq}, pos={args.pos}: "
           f"wall {wall_us:.1f} us/step ({1e6 / wall_us:.1f} tok/s), device busy {busy_us:.1f} us "
           f"({100 * busy_us / wall_us:.1f} % of the wall time; the union of the kernels' intervals)")
     for cred, tot, count, name in rows:
@@ -153,8 +159,8 @@ def main() -> None:
     # attn c_proj, c_fc12, mlp c_proj; then the lm_head
     roles = ["c_attn", "attn.c_proj", "c_fc12", "mlp.c_proj"] * args.layers + ["lm_head"]
     gemvs = [(b - a, c) for (a, b, name), c in zip(kernels, credit)
-             if any(g in name for g in GEMV_NAMES[args.quantize])]
-    assert gemvs, f"no matvec kernel ({GEMV_NAMES[args.quantize]}) in the trace"
+             if any(g in name for g in GEMV_NAMES[kind])]
+    assert gemvs, f"no matvec kernel ({GEMV_NAMES[kind]}) in the trace"
     per_role = {}
     for i, (span, c) in enumerate(gemvs):
         per_role.setdefault(roles[i % len(roles)], []).append((span, c))
@@ -163,14 +169,15 @@ def main() -> None:
               f"{sum(c for _, c in ts) / len(ts):8.1f} us credited, over {len(ts)} launches")
     gemv_us = sum(c for _, c in gemvs) / args.steps
     print(f"  gemv in all: {gemv_us:.1f} us/step credited, {100 * gemv_us / busy_us:.1f} % of the busy time")
-    if args.quantize == "int8":  # K6's kernels: the matvec (and the first body's split sum)
-        sums = [c for (a, b, name), c in zip(kernels, credit) if K6_SPLIT_SUM in name]
-        print(f"  K6: {(len(gemvs) + len(sums)) / args.steps:.1f} kernels/step ({len(gemvs) / args.steps:.1f} "
-              f"matvec, {len(sums) / args.steps:.1f} split sum), {(gemv_us * args.steps + sum(sums)) / args.steps:.1f} "
-              f"us/step credited")
-    if args.quantize == "int4":  # the decode layout the matvec reads, once a token
+    if kind != "int4":  # K6's or K3's kernels: the matvec (and the earlier bodies' split sums)
+        sums = [c for (a, b, name), c in zip(kernels, credit) if SPLIT_SUM in name]
+        print(f"  {'K6' if kind == 'int8' else 'K3'}: {(len(gemvs) + len(sums)) / args.steps:.1f} kernels/step "
+              f"({len(gemvs) / args.steps:.1f} matvec, {len(sums) / args.steps:.1f} split sum), "
+              f"{(gemv_us * args.steps + sum(sums)) / args.steps:.1f} us/step credited")
+    if args.quantize == "int4":  # the weight bytes the matvec reads, once a token
         linears = [lp[a][b] for lp in params["h"] for a, b in LINEARS] + [params["lm_head"]]
-        nbytes = sum(w[k].nbytes for w in linears for k in ("qw_t", "qscale_t", "qzero_t"))
+        keys = ("qw_t", "qscale_t", "qzero_t") if kind == "int4" else ("qw", "qscale", "qzero")
+        nbytes = sum(w[k].nbytes for w in linears for k in keys)
         print(f"  gemv reads {nbytes / 1e6:.1f} MB a token: {nbytes / gemv_us / 1e6:.3f} TB/s credited, "
               f"{100 * nbytes / gemv_us / 1e6 / HBM_TB_S:.1f} % of {HBM_TB_S} TB/s")
     print(f"host, self time per operator under the profiler ({sum(r[0] for r in host_rows):.1f} us/step in all):")

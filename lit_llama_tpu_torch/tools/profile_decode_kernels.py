@@ -1,11 +1,12 @@
 """Device time of the single-stream decode kernels, K5 (decode attention), K1
-(one fused decode block, and each kernel it launches), K2 (the lm_head) and
-K6 at M = 1 (the int8 matvec of the per-op step), beside the least time the
-card could take and, for K5, PyTorch's scaled_dot_product_attention, for K6
-``torch.matmul`` on the dequantized weight.
+(one fused decode block, and each kernel it launches), K2 (the lm_head), K6
+at M = 1 (the int8 matvec of the per-op step) and K3 at M = 1 (its int4
+matvec), beside the least time the card could take and, for K5, PyTorch's
+scaled_dot_product_attention, for K6 and K3 ``torch.matmul`` on the
+dequantized weight.
 
     python lit_llama_tpu_torch/tools/profile_decode_kernels.py [--root DIR] [--tag NAME]
-        [--only k5 k1 k2 k6] [--scan | --accuracy]
+        [--only k5 k1 k2 k6 k3] [--scan | --accuracy]
 
 Run as a file: ``--root DIR`` imports ``lit_llama_tpu_torch`` from DIR (its
 kernels build beside it), so another checkout, such as the parent commit
@@ -30,7 +31,10 @@ from a torch.profiler trace), the largest error against the plain version,
 and a decoded token's sum (32 x the four block linears + the lm_head) beside
 its bound; beside each, the time of a PyTorch reduction that reads the same
 weight bytes once (``read_us``: what streaming them costs this timer), and
-an empty timed region (``empty_us``). ``--only`` times a subset (K1 and K2 share one set-up; K1's
+an empty timed region (``empty_us``); K3 at M = 1 the same way on the five
+7B int4 linears (gs 128: random packed nibbles, scales and zeros from the
+seed) and the odd shape 1024 -> 1040, its bound the packed bytes, the f32
+scale and zero planes, x and the output. ``--only`` times a subset (K1 and K2 share one set-up; K1's
 kernel trace comes with k1). Each time is the median
 device time of 20 launches (CUDA events, the L2 flushed before each, a spin
 on the card ahead of the start event so the host's time in the wrapper is not
@@ -62,6 +66,7 @@ H, HS = 32, 128  # the 7B preset's heads and head size
 K5_SHAPES = ((1, 72), (1, 256), (1, 2048), (8, 2048))
 K6_SHAPES = (("c_attn", 4096, 12288), ("attn.c_proj", 4096, 4096), ("c_fc12", 4096, 22016),
              ("mlp.c_proj", 11008, 4096), ("lm_head", 4096, 32000), ("odd", 1000, 1040))
+K3_SHAPES = K6_SHAPES[:5] + (("odd", 1024, 1040),)
 LAYERS = 32  # the 7B preset's blocks: a token runs each block linear 32 times
 K1_SEQS = ((256, 255), (2048, 2047))
 
@@ -92,7 +97,8 @@ def main() -> int:
                     help="the directory to import lit_llama_tpu_torch from")
     ap.add_argument("--tag", default="", help="a name for this run in the output")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", nargs="+", choices=("k5", "k1", "k2", "k6"), default=("k5", "k1", "k2", "k6"),
+    ap.add_argument("--only", nargs="+", choices=("k5", "k1", "k2", "k6", "k3"),
+                    default=("k5", "k1", "k2", "k6", "k3"),
                     help="the kernels to time (default: all)")
     ap.add_argument("--scan", action="store_true", help="K2 over V and K5 over S, clean L2")
     ap.add_argument("--accuracy", action="store_true", help="K5 against its plain version and the exact result")
@@ -110,7 +116,7 @@ def main() -> int:
     from lit_llama_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
-    _build.build(["fused_layer", "decode_attention", "quant_matmul_int8"])
+    _build.build(["fused_layer", "decode_attention", "quant_matmul_int8", "quant_matmul"])
     g = torch.Generator().manual_seed(args.seed)
     time_us = devtime.make_timer(dev)
 
@@ -127,8 +133,9 @@ def main() -> int:
         return accuracy(args, torch, smi)
 
     out = {"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    if "k6" in args.only:
-        out["k6"] = k6_times(args, torch, time_us, devtime, dev, bound_us)
+    for kind in ("k6", "k3"):
+        if kind in args.only:
+            out[kind] = m1_times(args, torch, time_us, devtime, dev, bound_us, kind)
     if "k5" in args.only:
         out["k5"] = k5_times(torch, F, time_us, randn, bound_us, dev, llama, da)
     if "k1" in args.only or "k2" in args.only:
@@ -137,33 +144,46 @@ def main() -> int:
     return 0
 
 
-def k6_times(args, torch, time_us, devtime, dev, bound_us) -> dict:
-    """K6 at M = 1 in both compute dtypes on K6_SHAPES: device time (writing
-    and reading L2 flush), torch.matmul on the weight dequantized to the
-    compute dtype, the bound, the kernels of a call, the largest error
-    against the plain version; and a decoded token's sum."""
+def m1_times(args, torch, time_us, devtime, dev, bound_us, kind: str) -> dict:
+    """K6 (``kind`` "k6", on K6_SHAPES) or K3 ("k3", on K3_SHAPES) at M = 1
+    in both compute dtypes: device time (writing and reading L2 flush),
+    torch.matmul on the weight dequantized to the compute dtype, the bound,
+    the kernels of a call, the largest error against the plain version; and
+    a decoded token's sum."""
     from lit_llama_tpu_torch.ops import quant_matmul as qm
-    from lit_llama_tpu_torch.ops.linear import dequantize_int8
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
+    int8 = kind == "k6"
+    fn, ref, dequant = ((qm.matmul_int8, qm.matmul_int8_ref, dequantize_int8) if int8 else
+                        (qm.matmul_int4, qm.matmul_int4_ref, dequantize_int4))
+
+    def weight(K, N):  # int8 weights and column scales, or int4 nibbles, scales and zeros at gs 128
+        if int8:
+            return {"qw": torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+                    "qscale": torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g)}
+        return {"qw": torch.randint(0, 256, (K // 2, N), generator=g, device=dev, dtype=torch.uint8),
+                "qscale": torch.empty(K // 128, N, device=dev).uniform_(0.0005, 0.0015, generator=g),
+                "qzero": torch.empty(K // 128, N, device=dev).uniform_(-0.012, -0.006, generator=g)}
+
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         xb = 2 if dtype == torch.bfloat16 else 4
         rows = {}
-        for name, K, N in K6_SHAPES:
-            w = {"qw": torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
-                 "qscale": torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g)}
+        for name, K, N in K6_SHAPES if int8 else K3_SHAPES:
+            w = weight(K, N)
             x = torch.randn(1, K, generator=g, device=dev).to(dtype)
-            wd = dequantize_int8(w, dtype)
-            call = lambda: qm.matmul_int8(x, w["qw"], w["qscale"], dtype)
-            err = float((call().float() - qm.matmul_int8_ref(x, w["qw"], w["qscale"], dtype).float()).abs().max())
+            wd = dequant(w, dtype)
+            call = lambda: fn(x, *w.values(), dtype)
+            err = float((call().float() - ref(x, *w.values(), dtype).float()).abs().max())
             try:  # a trace now and then comes back without the kernels
                 kernels = [k["kernel"] for k in devtime.kernel_sequence(call, time_us)["sequence"]]
             except RuntimeError as e:
                 kernels = str(e)
+            nbytes = K * N + N * 4 if int8 else int4_bytes(K, N)
             rows[f"{name} {K}->{N}"] = dict(
                 us=time_us(call), us_clean_l2=time_us(call, clean=True),
-                matmul_us=time_us(lambda: torch.matmul(x, wd)), bound_us=bound_us(K * N + N * 4 + (K + N) * xb),
+                matmul_us=time_us(lambda: torch.matmul(x, wd)), bound_us=bound_us(nbytes + (K + N) * xb),
                 read_us=time_us(lambda: w["qw"].view(torch.int32).sum(dtype=torch.int32)),
                 max_abs_err=err, kernels=kernels)
             del w, wd

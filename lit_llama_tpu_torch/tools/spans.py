@@ -1,7 +1,7 @@
 """Where the warps of the hand-written Hopper kernels spend their cycles:
 clock64 spans in an instrumented copy of the package.
 
-    python lit_llama_tpu_torch/tools/spans.py flash|gemv|rows|int8 [--root DIR] [--out DIR]
+    python lit_llama_tpu_torch/tools/spans.py flash|gemv|rows|int8|int4 [--root DIR] [--out DIR]
 
 Copies the package (that of the checkout at ``--root``, by default this one)
 to DIR (default ``build/spans_<target>``, which the copy's kernels build
@@ -50,6 +50,16 @@ of an earlier checkout): the loads' issue, their wait, the products, the
 block's sum and its output; its second kernel (the split sum) has no spans.
 Beside the spans, the kernel's own time by CUDA events, so the cycles a
 block spends can be set against the call.
+
+``int4``: K3 at M = 1 (``gemv4_kernel`` in ``csrc/gemv4_sm90.cuh``) on the
+five 7B int4 linears (gs 128) and an odd shape (1024 -> 1040), bf16 and f32
+compute (random nibbles, scales and zeros from seed 0): the cycles a block
+takes (one reader, thread 0) and the share of each span: issuing the first
+steps and scales, the wait for the kernel before, x's parts and octet sums,
+the group sums, the wait for a step's loads (its registers stored to the
+warp's tile), the fragments' ldmatrix, the next loads' issue, the products (x words, nibbles, mma), the group flushes, the
+partial and arrival count (or the output of an unsplit block), the last
+arrival's merge, and the end; and the kernel's own time by CUDA events.
 """
 
 from __future__ import annotations
@@ -253,10 +263,35 @@ INT8_SPANS = {"gemv8_kernel(": ("first steps' issue", "wait for the kernel befor
                                 "ring wait", "products", "copy issue", "row lanes (shuffles, barrier)", "warp sum",
                                 "partial, fence, arrival count", "merge (last arrival)", "output"),
               "int8_gemv_kernel(": ("loads (issue and wait)", "products", "block sum and output")}
+# K3 at M = 1: one reader a block (thread 0), a table row a shape (INT8_ROW's)
+INT4_SHAPES = INT8_SHAPES[:5] + (("odd", 1024, 1040),)
+INT4_SOURCES = (
+    Source("gemv4_sm90.cuh",
+           (Kernel("gemv4_kernel(", "const int wc = strip * COLS + warp * WCOLS;", "threadIdx.x == 0", INT8_ROW,
+                   "n"),),
+           (("pdl_wait();", "SPAN(0)", "before"),
+            ("pdl_trigger();", "SPAN(1)", "before"),
+            ("for (int i = tid; i < 2 * GMAX; i += THREADS) {", "SPAN(2)", "before"),
+            ("const bool feeds = g < 2 * NB;", "SPAN(3)", "before"),
+            ("*reinterpret_cast<V*>(tile + piece_dst(i)) = regs[u][i];", "SPAN(4)", "after"),
+            ("ldsm_x4_trans(w[1], tile + swz(lane, 1));", "SPAN(5)", "after"),
+            ("if (j + STAGES < n) fetch(j + STAGES, u);", "SPAN(6)", "after"),
+            ("if constexpr (STEPG) {", "SPAN(7)", "before"),
+            ("check(ROWS, (j + 1) * ROWS);", "SPAN(8)", "after"),
+            ("return;", "SPAN(9) SPAN_END(n)", "before"),
+            ("if (tid == 0) last_block = atomicAdd(", "SPAN(9)", "after"),
+            ("if (tid == 0) counter[strip] = 0;", "SPAN(10)", "after")),
+           "SPAN(11)"),
+)
+INT4_SPANS = ("first steps' and scales' issue", "wait for the kernel before", "x parts and octet sums",
+              "group sums of x", "loads' wait (the step to the warp's tile)", "fragments (ldmatrix)", "load issue",
+              "products (x words, nibbles, mma)", "group flushes", "output, or partial, fence, arrival count",
+              "merge (last arrival)", "end")
 TARGETS: Dict[str, Tuple[Tuple[Source, ...], str]] = {"flash": ((FLASH,), "flash_attention"),
                                                        "gemv": (GEMV, "fused_layer"),
                                                        "rows": (ROWS_SOURCES, "serve_layer"),
-                                                       "int8": (INT8_SOURCES, "quant_matmul_int8")}
+                                                       "int8": (INT8_SOURCES, "quant_matmul_int8"),
+                                                       "int4": (INT4_SOURCES, "quant_matmul")}
 
 
 def read(lib, table) -> list:
@@ -363,24 +398,36 @@ def run_rows(torch, lib, table, smi) -> None:
                               "share": {n: row[j] / cycles for j, n in enumerate(ROWS_SPANS[kernel]) if row[j]}}))
 
 
-def run_int8(torch, lib, table, smi) -> None:
+def run_matvec(torch, lib, table, smi, target: str) -> None:
+    """K6 ("int8") or K3 ("int4") at M = 1: a table row a shape, one reader a
+    block."""
     import devtime  # beside this file
     from lit_llama_tpu_torch.ops import quant_matmul as qm
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     time_us = devtime.make_timer(dev)
-    csrc = Path(qm.__file__).resolve().parent.parent / "csrc"
-    text = "".join(f.read_text() for f in csrc.glob("*.cu*"))
-    kernel = next(k for k in INT8_SPANS if k in text)
+    if target == "int8":
+        csrc = Path(qm.__file__).resolve().parent.parent / "csrc"
+        text = "".join(f.read_text() for f in csrc.glob("*.cu*"))
+        kernel = next(k for k in INT8_SPANS if k in text)
+        names, shapes = INT8_SPANS[kernel], INT8_SHAPES
+    else:
+        kernel, names, shapes = "gemv4_kernel(", INT4_SPANS, INT4_SHAPES
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"], capture_output=True,
                            text=True).stdout.strip()
     for dtype in (torch.bfloat16, torch.float32):
-        for row, (name, K, N) in enumerate(INT8_SHAPES):
-            w = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
-            sc = torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g)
+        for row, (name, K, N) in enumerate(shapes):
+            if target == "int8":
+                w = (torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+                     torch.empty(1, N, device=dev).uniform_(0.0002, 0.0004, generator=g))
+            else:
+                w = (torch.randint(0, 256, (K // 2, N), generator=g, device=dev, dtype=torch.uint8),
+                     torch.empty(K // 128, N, device=dev).uniform_(0.0005, 0.0015, generator=g),
+                     torch.empty(K // 128, N, device=dev).uniform_(-0.012, -0.006, generator=g))
             x = torch.randn(1, K, generator=g, device=dev).to(dtype)
-            call = lambda: qm.matmul_int8(x, w, sc, dtype)
+            fn = qm.matmul_int8 if target == "int8" else qm.matmul_int4
+            call = lambda: fn(x, *w, dtype)
             call()
             torch.cuda.synchronize()
             read(lib, table)  # clears the table
@@ -390,7 +437,6 @@ def run_int8(torch, lib, table, smi) -> None:
             r = read(lib, table)[row]
             us = time_us(call)
             cycles, blocks = r[13], r[15]
-            names = INT8_SPANS[kernel]
             print(json.dumps({"kernel": kernel[:-1], "linear": f"{name} {K}->{N}", "compute": str(dtype),
                               "nvidia_smi": smi, "clocks_sm": clock, "instrumented_us": us,
                               "blocks": blocks / 10, "cycles_a_block": cycles / blocks, "steps_a_block": r[14] / blocks,
@@ -433,7 +479,10 @@ def main() -> int:
     table = (ctypes.c_ulonglong * (ROWS * COLS))()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    {"flash": run_flash, "gemv": run_gemv, "rows": run_rows, "int8": run_int8}[args.target](torch, lib, table, smi)
+    if args.target in ("int8", "int4"):
+        run_matvec(torch, lib, table, smi, args.target)
+    else:
+        {"flash": run_flash, "gemv": run_gemv, "rows": run_rows}[args.target](torch, lib, table, smi)
     return 0
 
 
