@@ -1851,8 +1851,9 @@ def merge_and_data_check(dev, work: Path, entry: Path, lora_dir: Path, tok_path:
 
 
 def entry_point_phases(dev, counters, totals, work: Path, entry: Path, lora_dir: Path, tok_path: Path):
-    """Phases 25-28 in ``work`` (removed after); each draws from a generator of
-    its own. Returns the readings."""
+    """Phases 25-28 in ``work``; each draws from a generator of its own.
+    Returns the readings and phase 25's 4-layer ``.pth`` (phase 31 serves it;
+    the caller removes ``work``)."""
     import gc
     import shutil
 
@@ -1864,18 +1865,711 @@ def entry_point_phases(dev, counters, totals, work: Path, entry: Path, lora_dir:
     readings["conversion"], pth = conversion_check(dev, work / "convert", SEED + 26)
     gc.collect()
     readings["http"] = http_serving_check(dev, counters, totals, pth, tok_path, SEED + 27)
-    shutil.rmtree(work / "convert")
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     readings["shakespeare"] = shakespeare_check(dev, totals, work / "shakespeare", SEED + 28)
     shutil.rmtree(work / "shakespeare")
     readings["merge_and_data"] = merge_and_data_check(dev, work / "merge", entry, lora_dir, tok_path, SEED + 29)
-    shutil.rmtree(work)
+    shutil.rmtree(work / "merge")
     readings["seconds"] = time.perf_counter() - t0
     log(f"phases 25-28 (conversion, HTTP serving, tokenizer and shakespeare, merge and data): "
         f"{readings['seconds']:.1f} s")
-    return readings
+    return readings, pth
+
+
+# ---- phases 29-31 (slice 17): tensor- and data-parallel inference. PAR_RANKS
+# ranks run as processes on the one card over gloo (NCCL refuses two ranks on
+# one card), so these phases check that every rank's kernels take their local
+# shapes and that the sharded model computes the single-card model; they give
+# no scaling figure. Phase 29: TP at mp = 2 on the 7B int4 model, a
+# TP_PROMPT-token prefill and TP_STEPS teacher-forced decode steps held against
+# the single-card per-op path on the same tokens, and the TP kernel path
+# against the TP plain path (TP_PLAIN_STEPS steps): through all 32 blocks in
+# f32 compute (TOL_MODEL_F32: only the order of f32 sums differs), and in bf16
+# at two blocks (TOL_MODEL, the depth it is set for). In bf16 through 32 blocks
+# the rounding compounds: on an H100 the single card's own kernel and plain
+# paths part by 6.0 % of max |logit| on this prompt and TP by 7.7 % (phase 29's
+# readings, PERF.md), so the main path's departure is read beside the single
+# card's, not held to TOL_MODEL. Then every kernel of the main path (K3, K4, K5; K6 on a
+# TP_INT8_LAYERS-layer int8 model) against its plain version on the inputs the
+# path gave it (TOL), and a free-running greedy generate_tp of TP_GEN tokens.
+# Phase 30: DP at dp = 2, phase 8's 64 requests through 32
+# slots, 16 a rank: the tokens equal phase 8's request for request (K7-K9 give
+# a row the same bits at any slot count), K7, K8, K9 and K3 held likewise.
+# Phase 31: generate.lora and serve.http with --model_parallel 2 under torchrun
+# on phase 25's 4-layer checkpoint, each against the same path in the ranks.
+PAR_RANKS = 2
+TP_PROMPT, TP_STEPS, TP_GEN, TP_S, TP_PLAIN_STEPS, TP_INT8_LAYERS = 128, 32, 32, 256, 2, 2
+PAR_HTTP_SLOTS, PAR_HTTP_S, PAR_HTTP_REQUESTS, PAR_HTTP_NEW, PAR_LORA_NEW = 4, 512, 4, 16, 16
+PAR_TIMEOUT_S = 900  # the spawn of phases 29-30 and each torchrun of phase 31
+# the ranks' gloo binds to the loopback device and their store to 127.0.0.1
+PAR_ENV = {"GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "4"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _model_held(got, want, what: str, tol=TOL_MODEL) -> float:
+    """max |dlogit| / max |logit|, asserting max |dlogit| <= tol[0] + tol[1]
+    * max |logit| (TOL_MODEL; (0, TOL_MODEL_F32) in f32)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), f"{what}: non-finite logits"
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= tol[0] + tol[1] * top, f"{what}: max |dlogit| {err:.3g} > {tol[0]} + {tol[1]} * {top:.3g}"
+    return err / top
+
+
+# the kernels of the multi-rank paths: (module, attribute the path calls, plain
+# version, the arguments that change between calls: copied when recorded)
+def _par_kernels():
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import decode_attention as da
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.ops import fused_layer, quant_matmul
+
+    return {"K3": (quant_matmul, "matmul_int4", quant_matmul.matmul_int4_ref, (0,)),
+            "K6": (quant_matmul, "matmul_int8", quant_matmul.matmul_int8_ref, (0,)),
+            "K4": (fa, "flash_attention", fa.flash_attention_ref, (0, 1, 2)),
+            "K5": (llama, "decode_attention", da.decode_attention_ref, (0, 1, 2, 3, 4, 5)),
+            "K7": (fused_layer, "block_head_fused", fused_layer.block_head_fused_ref, (0, 2, 3)),
+            "K8": (llama, "decode_attention_write", da.decode_attention_write_ref, (0, 1, 2, 3, 4, 5)),
+            "K9": (fused_layer, "block_tail_fused", fused_layer.block_tail_fused_ref, (0, 1))}
+
+
+def _recording(keys, run, keep=lambda key, args: True):
+    """``run()`` with the kernels ``keys`` recording the inputs of their first
+    call at each shape (``keep`` filters); returns {(key, shapes...): args}."""
+    import torch
+
+    table, seen, saved = _par_kernels(), {}, {}
+    for key in keys:
+        mod, name, _, changing = table[key]
+        orig = saved[key] = getattr(mod, name)
+
+        def wrapper(*args, _key=key, _orig=orig, _changing=changing):
+            sig = (_key,) + tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
+            if sig not in seen and keep(_key, args):
+                seen[sig] = tuple(a.clone() if i in _changing and torch.is_tensor(a) else a
+                                  for i, a in enumerate(args))
+            return _orig(*args)
+
+        wrapper.__dict__ = orig.__dict__  # the wrapper's own launch count (name.launches += 1) lands on orig's
+        setattr(mod, name, wrapper)
+    try:
+        run()
+    finally:
+        for key, orig in saved.items():
+            setattr(table[key][0], table[key][1], orig)
+    return seen
+
+
+def _hold_recorded(seen) -> dict:
+    """Each recorded call's kernel against its plain version on the same
+    inputs, TOL[key] (K4's o; K8's y, and its caches identical): {key: max
+    abs err}. K5 and K8 average cache rows, and the absolute part of their
+    TOL is set for rows of N(0, 0.5^2) entries (phases 5c, 10): they are held
+    on such q, k, v and caches, at the shapes and positions the path gave
+    them. The path's own rows are larger, and there one bf16 ulp of a
+    softmax weight moves a small mean by more (on an H100, layer 0's cache
+    at the 7B width gave 0.0039 where |y| < 0.15)."""
+    import torch
+
+    table, errs = _par_kernels(), {}
+    gen = torch.Generator().manual_seed(SEED + 30)
+    for sig, args in seen.items():
+        key = sig[0]
+        mod, name, ref, changing = table[key]
+        if key in ("K5", "K8"):
+            args = tuple((torch.randn(a.shape, generator=gen) * 0.5).to(a.device, a.dtype)
+                         if torch.is_tensor(a) and a.is_floating_point() else a for a in args)
+        a_k, a_p = ([a.clone() if i in changing and torch.is_tensor(a) else a for i, a in enumerate(args)]
+                    for _ in range(2))
+        got, want = getattr(mod, name)(*a_k), ref(*a_p)
+        if key == "K8":
+            assert torch.equal(a_k[3], a_p[3]) and torch.equal(a_k[4], a_p[4]), f"K8 {sig[1:]}: caches differ"
+        if isinstance(got, tuple):
+            got, want = got[0], want[0]
+        errs[key] = max(errs.get(key, 0.0), _held(got, want, TOL[key], f"{key} {sig[1:]}"))
+    return errs
+
+
+def _time_recorded(seen, time_us, peaks) -> dict:
+    """Each recorded call of K3 / K6 / K4 / K5 / K7 / K8 / K9 timed (device
+    µs, writing L2 flush) beside its plain version and the PyTorch call that
+    computes the same function, with its bound: {"key shape": reading}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, dequantize_int8
+
+    bw, tc_peak, f32_peak = peaks
+    table, out = _par_kernels(), {}
+
+    def bound(nbytes, ops, peak):
+        t_b, t_o = nbytes / bw, ops / peak
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    for sig, args in seen.items():
+        key = sig[0]
+        mod, name, ref, _ = table[key]
+        kern = getattr(mod, name)
+        library = None
+        if key in ("K3", "K6"):
+            x, qw = args[0], args[1]
+            M, K, N = x.numel() // x.shape[-1], x.shape[-1], qw.shape[-1]
+            if key == "K3":
+                w = dequantize_int4({"qw": qw, "qscale": args[2], "qzero": args[3]}, torch.bfloat16)
+                wbytes = int4_bytes(K, N, K // args[2].shape[0])
+            else:
+                w = dequantize_int8({"qw": qw, "qscale": args[2]}, torch.bfloat16)
+                wbytes = K * N + N * 4
+            x2 = x.reshape(M, K)
+            library = (lambda x2=x2, w=w: torch.matmul(x2, w))
+            shape, b = f"M={M} {K}->{N}", bound(M * K * 2 + wbytes + M * N * 2, 2 * M * K * N, tc_peak)
+        elif key == "K4":
+            q = args[0]
+            B, H, T, hs = q.shape
+            library = (lambda q=q, k=args[1], v=args[2]: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            shape = f"B={B} H={H} T={T} hs={hs}"
+            b = bound(4 * B * H * T * hs * 2 + B * H * T * 4, 2 * B * H * T * T * hs, tc_peak)
+        elif key == "K5":
+            q, kc, vc, limit = args[0], args[1], args[2], args[5]
+            B, H, S, hs = kc.shape
+            vis = (torch.arange(S, device=q.device)[None, :] <= limit[:, None].long())[:, None, None, :]
+            rows = int(vis.sum())  # the rows this call's data makes visible, over the batch
+            library = (lambda q=q, k=kc, v=vc, m=vis: F.scaled_dot_product_attention(q, k, v, attn_mask=m))
+            shape = f"B={B} H={H} S={S} hs={hs}, {rows // B} rows visible"
+            b = bound(2 * H * rows * hs * 2 + 2 * B * H * hs * 2, 4 * H * rows * hs, f32_peak)
+        elif key == "K8":
+            q, kn, vn, kc, vc, pos = args
+            B, H, S, hs = kc.shape
+            rows_b = torch.arange(B, device=q.device)
+            wp = (pos % S).long()
+            vis = (torch.arange(S, device=q.device)[None, :] <= pos[:, None].long())[:, None, None, :]
+            rows = int(vis.sum())
+
+            def library(q=q, kn=kn, vn=vn, kc=kc.clone(), vc=vc.clone(), rows_b=rows_b, wp=wp, vis=vis):
+                kc[rows_b, :, wp] = kn[:, :, 0]  # index_put_
+                vc[rows_b, :, wp] = vn[:, :, 0]
+                return F.scaled_dot_product_attention(q, kc, vc, attn_mask=vis)
+
+            shape = f"B={B} H={H} S={S} hs={hs}, {rows // B} rows visible on average"
+            D = H * hs
+            b = bound(2 * H * rows * hs * 2 + 4 * B * D * 2 + 2 * B * D * 2 + B * 4, 4 * H * rows * hs, f32_peak)
+        elif key == "K7":
+            x, ca, config = args[0], args[4], args[5]
+            B, D = x.shape
+            gs = config.quant_groupsize
+            shape = f"B={B} D={D} -> 3D (c_attn)"
+            b = bound(B * D * 2 + D * 2 + int4_bytes(D, 3 * D, gs) + 2 * B * config.head_size * 4 + B * 3 * D * 2,
+                      2 * B * D * 3 * D, tc_peak)
+        else:  # K9
+            x, config = args[0], args[6]
+            B, D = x.shape
+            I, gs = config.intermediate_size, config.quant_groupsize
+            shape = f"B={B} D={D} I={I}"
+            b = bound(2 * B * D * 2 + D * 2 + int4_bytes(D, D, gs) + int4_bytes(D, 2 * I, gs) + int4_bytes(I, D, gs)
+                      + B * D * 2, 2 * B * (D * D + 2 * I * D + I * D), tc_peak)
+        # K8 writes each slot's row again with the same values: a rerun changes nothing
+        out[f"{key} {shape}"] = dict(
+            key=key, shape=shape, ms=time_us(lambda args=args: kern(*args)) / 1e3,
+            plain_ms=time_us(lambda args=args: ref(*args), 3) / 1e3,
+            library_ms=None if library is None else time_us(library) / 1e3, bound_ms=b[0], bound_by=b[1])
+    return out
+
+
+def _par_job(rank: int, payload) -> dict:
+    """Phases 29-30 on one rank (and the references phase 31 is held to)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import decode_attention as da
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.ops import fused_layer, quant_matmul
+    from lit_llama_tpu_torch.ops.rope import build_rope_cache
+    from lit_llama_tpu_torch.parallel import comm, launch, mesh as mesh_lib, tp
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.serve import DecodeEngine
+    from lit_llama_tpu_torch.tools import devtime
+    from lit_llama_tpu_torch.utils.device import device_peaks
+    from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
+    from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params
+
+    dev = launch.current_device()
+    on_card = dev.type == "cuda"  # off the card (a rehearsal at small widths) nothing launches or is timed
+    assert dist.get_backend() == "gloo" and (dev == torch.device("cuda", 0) or not on_card), (dev, dist.get_backend())
+    lead = rank == 0
+
+    def sync(empty=False):
+        if on_card:
+            torch.cuda.synchronize()
+            if empty:
+                torch.cuda.empty_cache()
+
+    counters = {"K1": fused_layer.decode_layers_fused, "K2": fused_layer.lm_head_fused,
+                "K3": quant_matmul.matmul_int4, "K4": fa.flash_attention, "K5": da.decode_attention,
+                "K6": quant_matmul.matmul_int8, "K7": fused_layer.block_head_fused,
+                "K8": da.decode_attention_write, "K9": fused_layer.block_tail_fused,
+                "K1 LoRA": fused_layer.k1_lora, "K7 LoRA": fused_layer.k7_lora}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        comm.reset_stats()
+        sync()
+
+    def launches():
+        sync()
+        return {k: fn.launches for k, fn in counters.items()}
+
+    time_us = devtime.make_timer(dev) if on_card else None
+    peaks = device_peaks(torch.cuda.get_device_name(0)) if on_card else None
+    out = {"device": str(dev), "backend": dist.get_backend()}
+    widths = payload.get("widths", {})  # the 7B preset, or a rehearsal's small widths
+    cfg7 = LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int4", **widths)
+    L, V = cfg7.n_layer, cfg7.padded_vocab_size
+    out["layers"] = L
+    toks = torch.randint(1, cfg7.vocab_size, (TP_PROMPT + TP_STEPS,), generator=torch.Generator().manual_seed(
+        SEED + 29)).to(dev)
+    rope = build_rope_cache(cfg7.block_size, cfg7.head_size, device=dev)
+
+    # ---- 29. TP at mp = 2 on the 7B int4 model ------------------------------
+    mesh = mesh_lib.make_mesh(data=1, model=PAR_RANKS)
+
+    def single_card(cfg, params, n_steps, plain=False):
+        """The single-card per-op path on ``toks``: the prefill's logits, then
+        each teacher-forced step's (f32, on the host)."""
+        cache = llama.init_kv_cache(cfg, 1, TP_S, device=dev)
+        with torch.no_grad():
+            got = [llama.forward(params, toks[None, :TP_PROMPT], cfg, rope_cache=rope, kv_cache=cache,
+                                 prefill_from_zero=True, plain=plain)[0].float().cpu()]
+            for i in range(n_steps):
+                p = TP_PROMPT + i
+                got.append(llama.forward(params, toks[None, p : p + 1], cfg, rope_cache=rope, input_pos=[p],
+                                         kv_cache=cache, plain=plain)[0].float().cpu())
+        return got
+
+    def tp_logits(cfg, sp, n_steps, plain=False):
+        """The same through the TP forward: the prefill, then ``slot_pos`` steps."""
+        prefill, decode = tp.make_sharded_forwards(cfg, mesh, rope)
+        cache = tp.init_tp_cache(cfg, mesh, 1, TP_S, device=dev)
+        with torch.no_grad():
+            got = [prefill(sp, toks[None, :TP_PROMPT], cache, plain=plain)[0].float()]
+            for i in range(n_steps):
+                p = TP_PROMPT + i
+                got.append(decode(sp, toks[None, p : p + 1], torch.tensor([p], dtype=torch.int32, device=dev),
+                                  cache, plain=plain)[0].float())
+        return got
+
+    def against_single_card(cfg, tol, what):
+        """TP against the single card on the same tokens (rank 0), and the TP
+        kernel path against the TP plain path, each held to ``tol``: max
+        |dlogit| / max |logit| over the prefill and the steps."""
+        full = llama.unstack_layers(random_int4_params(cfg, seed=SEED, device=dev))
+        ref = single_card(cfg, full, TP_STEPS) if lead else None
+        sp = tp.shard_params_tp(full, mesh, cfg)
+        del full
+        got = tp_logits(cfg, sp, TP_STEPS)
+        r = {"kernel_vs_plain": max(_model_held(g, q, f"{what}, TP kernel vs plain path, {i}", tol) for i, (g, q)
+                                    in enumerate(zip(got, tp_logits(cfg, sp, TP_PLAIN_STEPS, plain=True))))}
+        if lead:
+            r["vs_single_card"] = max(_model_held(g.cpu(), w, f"{what}, TP vs the single card, {i}", tol)
+                                      for i, (g, w) in enumerate(zip(got, ref)))
+        return r
+
+    # 29a. the whole depth in f32 compute, where only the order of f32 sums differs
+    out["tp_f32"] = against_single_card(cfg7.replace(param_dtype="float32", compute_dtype="float32"),
+                                        (0.0, TOL_MODEL_F32), f"f32, {L} layers")
+    # 29b. bf16 at TOL_MODEL's depth: two blocks, as phases 6, 7d and 11 hold their paths
+    out["tp_2_layers"] = against_single_card(cfg7.replace(n_layer=min(2, L)), TOL_MODEL, "bf16, 2 layers")
+    sync(empty=True)
+    # 29c. the main path: bf16 through all 32 blocks, its launches counted. bf16
+    # rounding compounds with depth: the single card's own kernel and plain
+    # paths part by as much here, so the departure is read beside theirs
+    full = llama.unstack_layers(random_int4_params(cfg7, seed=SEED, device=dev))
+    if lead:
+        ref = single_card(cfg7, full, TP_STEPS)
+        ref_plain = single_card(cfg7, full, 0, plain=True)
+    t0 = time.perf_counter()
+    sp = tp.shard_params_tp(full, mesh, cfg7)
+    del full
+    gc.collect()
+    sync()
+    out["tp_shard_s"] = time.perf_counter() - t0
+    out["tp_local_gib"] = sum(t.numel() * t.element_size() for t in _tensors(sp)) / 2**30
+
+    def tp_run(n_steps):
+        return tp_logits(cfg7, sp, n_steps)
+
+    zero()
+    t0 = time.perf_counter()
+    got = tp_run(TP_STEPS)
+    wall = time.perf_counter() - t0
+    tp_launch = launches()
+    comm_calls, comm_s = comm.stats["calls"], comm.stats["seconds"]
+    want = dict.fromkeys(counters, 0)
+    want.update(K3=5 * L * (1 + TP_STEPS), K4=L, K5=L * TP_STEPS)  # the local lm_head (V/2 = 16000) runs plain
+    assert tp_launch == want or not on_card, f"rank {rank}, TP: launches {tp_launch}, expected {want}"
+    assert comm_calls == (2 * L + 1) * (1 + TP_STEPS), f"rank {rank}, TP: {comm_calls} collectives"
+    assert all(torch.isfinite(g).all() and g.shape[-1] == V for g in got), "TP: non-finite or misshapen logits"
+    out["tp"] = dict(launches=tp_launch, wall_s=wall, steps=TP_STEPS, prompt=TP_PROMPT, collectives=comm_calls,
+                     collective_s=comm_s)
+    if lead:
+        rel = [float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, ref)]
+        out["tp"].update(vs_single_card=max(rel), vs_single_card_prefill=rel[0],
+                         single_card_kernel_vs_plain_prefill=float((ref[0] - ref_plain[0]).abs().max()
+                                                                   / ref_plain[0].abs().max()),
+                         argmax_agree=float(np.mean([bool((g.cpu().argmax(-1) == w.argmax(-1)).all())
+                                                     for g, w in zip(got[1:], ref[1:])])))
+        del ref, ref_plain
+    del got
+    seen = _recording(("K3", "K4", "K5"), lambda: tp_run(1))
+    out["tp"]["kernel_errs"] = _hold_recorded(seen)
+    dist.barrier()
+    if lead and on_card:  # one rank times while the other waits
+        out["tp"]["kernel_times"] = _time_recorded(seen, time_us, peaks)
+    dist.barrier()
+    del seen
+    # a free-running greedy generation of TP_GEN tokens
+    zero()
+    t0 = time.perf_counter()
+    y = tp.generate_tp(sp, toks[:TP_PROMPT].cpu(), TP_GEN, config=cfg7, mesh=mesh, max_seq_length=TP_S,
+                       temperature=0.0)
+    gen_wall = time.perf_counter() - t0
+    out["generate_tp"] = dict(tokens=y[TP_PROMPT:].tolist(), wall_s=gen_wall, tok_s=TP_GEN / gen_wall,
+                              collective_share=comm.stats["seconds"] / gen_wall, launches=launches())
+    del sp
+    gc.collect()
+    sync(empty=True)
+
+    # ---- 29b. K6 on the TP path: a TP_INT8_LAYERS-layer 7B-width int8 model ---
+    cfg8 = LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16", quantize="int8",
+                                 **{**widths, "n_layer": TP_INT8_LAYERS})
+    sp8 = tp.shard_params_tp(random_int8_params(cfg8, seed=SEED + 3, device=dev), mesh, cfg8)
+    prefill8, decode8 = tp.make_sharded_forwards(cfg8, mesh, rope)
+
+    def int8_run(n_steps, plain=False):
+        cache = tp.init_tp_cache(cfg8, mesh, 1, TP_S, device=dev)
+        with torch.no_grad():
+            got = [prefill8(sp8, toks[None, :16], cache, plain=plain)[0].float()]
+            for i in range(n_steps):
+                got.append(decode8(sp8, toks[None, 16 + i : 17 + i], torch.tensor([16 + i], dtype=torch.int32,
+                                                                               device=dev), cache, plain=plain)[0].float())
+        return got
+
+    zero()
+    got8 = int8_run(4)
+    l8 = launches()
+    assert (l8["K6"] == 5 * TP_INT8_LAYERS * 5 and l8["K5"] == TP_INT8_LAYERS * 4) or not on_card, \
+        f"rank {rank}, TP int8: {l8}"
+    out["tp_int8"] = dict(launches=l8, kernel_vs_plain=max(
+        _model_held(g, p, f"TP int8 kernel vs plain, {i}") for i, (g, p) in enumerate(zip(got8, int8_run(4, True)))))
+    seen = _recording(("K6",), lambda: int8_run(1))
+    out["tp_int8"]["kernel_errs"] = _hold_recorded(seen)
+    dist.barrier()
+    if lead and on_card:
+        out["tp_int8"]["kernel_times"] = _time_recorded(seen, time_us, peaks)
+    dist.barrier()
+    del sp8, seen, got8
+    gc.collect()
+    sync(empty=True)
+
+    # ---- 30. DP at dp = 2: phase 8's 64 requests through 32 slots, 16 a rank ---
+    mesh_dp = mesh_lib.make_mesh(data=PAR_RANKS, model=1)
+    engine = DecodeEngine(random_int4_params(cfg7, seed=SEED, device=dev), cfg7, max_batch=payload["slots"],
+                          max_seq_length=payload["S"], steps_per_sync=8, mesh=mesh_dp, device=dev)
+    assert engine.serve_fused and engine.local_b == payload["slots"] // PAR_RANKS
+    if lead:
+        engine.warmup()
+        engine.stop()
+    else:
+        engine.follow()
+    steps0, prefills0 = engine.decode_steps, engine.prefills
+    finished = {}
+
+    def dp_run():
+        if lead:
+            ids = [engine.submit(p, payload["new"]) for p in payload["prompts"]]
+            finished.update(ids=ids, done=engine.run())
+            engine.stop()
+        else:
+            engine.follow()
+
+    zero()
+    t0 = time.perf_counter()
+    # the kernels' inputs recorded on the way (a copy of each at its first call;
+    # K3 at the logits' 16 rows, not the prefills' widths)
+    seen = _recording(("K3", "K7", "K8", "K9"), dp_run,
+                      keep=lambda key, args: key != "K3" or args[0].shape[:-1] == (engine.local_b, 1))
+    wall = time.perf_counter() - t0
+    dp_launch = launches()
+    steps, prefills = engine.decode_steps - steps0, engine.prefills - prefills0
+    want = dict.fromkeys(counters, 0)
+    want.update(K3=prefills * (4 * L + 1) + steps, K4=L * prefills, K7=L * steps, K8=L * steps, K9=L * steps)
+    assert dp_launch == want or not on_card, f"rank {rank}, DP: launches {dp_launch}, expected {want}"
+    out["dp"] = dict(launches=dp_launch, wall_s=wall, decode_steps=steps, prefills=prefills,
+                     collectives=comm.stats["calls"], collective_s=comm.stats["seconds"])
+    if lead:
+        ids, done = finished["ids"], finished["done"]
+        out["dp"]["tokens"] = [done[i].generated for i in ids]
+        out["dp"]["ttft_ms"] = sorted(done[i].ttft * 1e3 for i in ids)
+    assert {sig[0] for sig in seen} == {"K3", "K7", "K8", "K9"}, sorted(seen)
+    out["dp"]["kernel_errs"] = _hold_recorded(seen)
+    dist.barrier()
+    if lead and on_card:
+        out["dp"]["kernel_times"] = _time_recorded(seen, time_us, peaks)
+    dist.barrier()
+    del engine, seen
+    gc.collect()
+    sync(empty=True)
+
+    # ---- 31 (references): phase 25's checkpoint as the entry points load it ---
+    mesh_tp = mesh_lib.make_mesh(data=1, model=PAR_RANKS)
+    host_dtype = "bfloat16" if on_card else None  # as the entry points load it
+    params, cfg = load_model(Path(payload["pth"]), "gptq.int4", dtype=host_dtype, device="cpu")
+    engine = DecodeEngine(params, cfg, max_batch=PAR_HTTP_SLOTS, max_seq_length=PAR_HTTP_S, steps_per_sync=8,
+                          mesh=mesh_tp, device=dev)
+    del params
+    if lead:
+        ids = [engine.submit(p, PAR_HTTP_NEW, eos_id=payload["eos_id"]) for p in payload["http_prompts"]]
+        done = engine.run()
+        engine.stop()
+        out["http_tokens"] = [done[i].generated for i in ids]
+    else:
+        engine.follow()
+    del engine
+    params, cfg = load_model(Path(payload["pth"]), None, dtype=host_dtype, device="cpu")
+    kind, lora_params, info = load_peft_checkpoint(Path(payload["lora_pth"]), cfg, device="cpu")
+    cfg = cfg.replace(lora=LoRAConfig(r=info["r"], alpha=16.0, dropout=0.0))
+    sp = tp.shard_params_tp(lora_mod.load_lora_state(params, lora_params), mesh_tp, cfg, device=dev)
+    del params, lora_params
+    y = tp.generate_tp(sp, payload["lora_prompt"], PAR_LORA_NEW, config=cfg, mesh=mesh_tp, temperature=0.0,
+                       top_k=200, eos_id=payload["eos_id"])
+    out["lora_tokens"] = y.tolist()
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def _par_entry(rank: int, world: int, port: int, payload, out: str) -> None:
+    """One rank of phases 29-30: the environment torchrun would give it, the
+    port's own launch (one card for both ranks: gloo), the job, its result."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), **PAR_ENV)
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from lit_llama_tpu_torch.parallel import launch
+
+    torch.set_num_threads(int(PAR_ENV["OMP_NUM_THREADS"]))
+    assert launch.maybe_initialize_distributed(payload["device"])
+    try:
+        result = _par_job(rank, payload)
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(out) / f"rank{rank}.pt")
+
+
+def _torchrun(module: str, args, log_path: Path, dev):
+    """``torchrun --nproc_per_node PAR_RANKS -m module args`` (static
+    rendezvous on 127.0.0.1; ``--device cpu`` off the card), output to
+    ``log_path``; returns the Popen."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(PAR_RANKS), "--nnodes", "1",
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), "-m", module, *map(str, args)]
+    cmd += ["--device", "cpu"] if dev.type == "cpu" else []
+    with open(log_path, "w") as f:
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, env={**os.environ, **PAR_ENV})
+
+
+def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, tok_path: Path, work: Path,
+                    widths=None):
+    """Phases 29-31 (see the constants above). ``serving_tokens`` and
+    ``serving_prompts``: phase 8's requests and their tokens; ``pth``: phase
+    25's 4-layer checkpoint (config.json beside it). Returns the readings and
+    the kernel readings for the ``kernels`` line, keyed "K3 TP", ... (none
+    off the card). ``widths`` overrides the 7B preset's (a rehearsal on the
+    CPU at small widths, where launches are not checked and nothing is
+    timed)."""
+    import signal
+    import urllib.request  # noqa: F401 (the HTTP calls of _post)
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from lit_llama_tpu_torch import LLaMAConfig, LoRAConfig
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.utils.convert import lora_overlay_to_sd
+    from lit_llama_tpu_torch.utils.random_params import random_lora_overlay
+
+    t_all = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    tok = Tokenizer(tok_path)
+    cfg4 = LLaMAConfig(**{k: v for k, v in json.loads((pth.parent / "config.json").read_text()).items()
+                          if k in ("block_size", "vocab_size", "n_layer", "n_head", "n_embd")})
+    lora_cfg = cfg4.replace(lora=LoRAConfig(r=8, alpha=16.0, dropout=0.0))
+    lora_pth = work / "lora.pth"
+    torch.save(lora_overlay_to_sd(random_lora_overlay(lora_cfg, seed=SEED + 31, device="cpu"), lora_cfg), lora_pth)
+    rng = np.random.default_rng(SEED + 31)
+    texts = _http_prompts(tok, rng, PAR_HTTP_REQUESTS)
+    lora_instruction = "Name three colours of the rainbow."
+    lora_prompt = tok.encode(sft.generate_prompt({"instruction": lora_instruction, "input": ""}), bos=True, eos=False)
+    payload = dict(device=dev.type, widths=widths or {}, prompts=serving_prompts, slots=32, S=256,
+                   new=len(serving_tokens[0]), pth=str(pth),
+                   lora_pth=str(lora_pth), eos_id=tok.eos_id, lora_prompt=np.asarray(lora_prompt),
+                   http_prompts=[np.asarray(tok.encode(t, bos=True, eos=False)) for t in texts])
+    # ---- 29-30 in PAR_RANKS spawned ranks (the parent built the kernels: they load)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_par_entry, args=(PAR_RANKS, _free_port(), payload, str(work)), nprocs=PAR_RANKS, join=False)
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "phases 29-30: the ranks did not finish in time"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    spawn_s = time.perf_counter() - t0
+    res = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+    lead = res[0]
+    on_card = dev.type == "cuda"
+    for r, o in enumerate(res):
+        assert o["device"] == ("cuda:0" if on_card else "cpu") and o["backend"] == "gloo", (r, o["device"])
+        for what in ("tp", "tp_int8", "dp"):
+            assert o[what]["launches"] == lead[what]["launches"], f"{what}: rank {r}'s launches differ from rank 0's"
+    assert lead["dp"]["tokens"] == serving_tokens, "DP: the tokens differ from phase 8's single-process engine's"
+    tp, dp = lead["tp"], lead["dp"]
+    f32, two = lead["tp_f32"], lead["tp_2_layers"]
+    log(f"phase 29, TP at mp = {PAR_RANKS} (ranks as processes on one card over gloo: no scaling figure; {smi}), "
+        f"a {TP_PROMPT}-token prefill and {TP_STEPS} teacher-forced decode steps, max |dlogit| / max |logit|: "
+        f"{lead['layers']} layers in f32 compute, TP vs the single-card per-op path {f32['vs_single_card']:.3g}, TP kernel vs "
+        f"plain path {f32['kernel_vs_plain']:.3g} (limit {TOL_MODEL_F32}); 2 layers in bf16 {two['vs_single_card']:.4f}"
+        f" and {two['kernel_vs_plain']:.4f} (TOL_MODEL {TOL_MODEL[1]}); {lead['layers']} layers in bf16 (the main path) "
+        f"{tp['vs_single_card']:.4f} ({tp['vs_single_card_prefill']:.4f} on the prefill, where the single card's "
+        f"own kernel and plain paths part by {tp['single_card_kernel_vs_plain_prefill']:.4f}), the greedy token the "
+        f"same at {tp['argmax_agree']:.0%} of the steps; {tp['launches']['K3']} K3 / {tp['launches']['K4']} K4 / "
+        f"{tp['launches']['K5']} K5 launches and {tp['collectives']} collectives a rank; per kernel on the inputs the "
+        f"path gave it {tp['kernel_errs']}; {TP_STEPS + 1} forwards in {tp['wall_s']:.2f} s, collectives "
+        f"{tp['collective_s'] / tp['wall_s']:.1%} of it (host clock); {lead['tp_local_gib']:.2f} GiB of weights a "
+        f"rank")
+    times = {**tp.get("kernel_times", {}), **lead["tp_int8"].get("kernel_times", {}), **dp.get("kernel_times", {})}
+    for k, r in times.items():
+        log(f"  {k}: {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, library "
+            f"{'none' if r['library_ms'] is None else f'{r['library_ms'] * 1e3:.1f} us'}, bound "
+            f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+    g = lead["generate_tp"]
+    log(f"phase 29, generate_tp greedy, {TP_GEN} tokens free-running: {g['tok_s']:.1f} tok/s wall "
+        f"({g['wall_s']:.2f} s), collectives {g['collective_share']:.1%} of the wall (two ranks on one card over "
+        f"gloo: no scaling figure; {smi}); tokens {g['tokens']}")
+    log(f"phase 29b, TP int8 ({TP_INT8_LAYERS} layers at 7B width): K6 {lead['tp_int8']['launches']['K6']} launches "
+        f"a rank, kernel vs plain path {lead['tp_int8']['kernel_vs_plain']:.4f}, per kernel "
+        f"{lead['tp_int8']['kernel_errs']}")
+    n_tok = sum(len(t) for t in dp["tokens"])
+    log(f"phase 30, DP at dp = {PAR_RANKS}: phase 8's {len(serving_prompts)} requests through 32 slots (16 a rank): "
+        f"tokens equal to phase 8's request for request; {n_tok} tokens in {dp['wall_s']:.2f} s = "
+        f"{n_tok / dp['wall_s']:.1f} tok/s wall, TTFT p50 {dp['ttft_ms'][len(dp['ttft_ms']) // 2]:.0f} ms, "
+        f"collectives {dp['collective_s'] / dp['wall_s']:.1%} of the wall (two ranks on one card over gloo: no "
+        f"scaling figure; {smi}); launches a rank {dp['launches']}; per kernel at 16 slots {dp['kernel_errs']}")
+
+    # ---- 31. the entry points under torchrun ---------------------------------
+    t0 = time.perf_counter()
+    log_path = work / "generate_lora.log"
+    proc = _torchrun("lit_llama_tpu_torch.generate.lora",
+                     ["--model_parallel", PAR_RANKS, "--checkpoint_path", pth, "--lora_path", lora_pth,
+                      "--tokenizer_path", tok_path, "--prompt", lora_instruction, "--max_new_tokens", PAR_LORA_NEW,
+                      "--temperature", 0], log_path, dev)
+    rc = proc.wait(timeout=PAR_TIMEOUT_S)
+    text = log_path.read_text()
+    assert rc == 0, f"generate.lora --model_parallel {PAR_RANKS} exited {rc}:\n{text[-3000:]}"
+    ids_lines = [ln for ln in text.splitlines() if "Token ids: " in ln]
+    assert len(ids_lines) == 1, f"generate.lora: {len(ids_lines)} 'Token ids' lines (rank 0 alone prints)"
+    got_ids = json.loads(ids_lines[0].split("Token ids: ", 1)[1])
+    assert got_ids == lead["lora_tokens"], "generate.lora --model_parallel: tokens differ from the ranks' generate_tp"
+    lora_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log_path = work / "serve.log"
+    proc = _torchrun("lit_llama_tpu_torch.serve.http",
+                     ["--model_parallel", PAR_RANKS, "--checkpoint_path", pth, "--tokenizer_path", tok_path,
+                      "--quantize", "gptq.int4", "--port", 0, "--max_batch", PAR_HTTP_SLOTS, "--max_seq_length",
+                      PAR_HTTP_S, "--steps_per_sync", 8], log_path, dev)
+    try:
+        url = None
+        while url is None and time.perf_counter() - t0 < PAR_TIMEOUT_S and proc.poll() is None:
+            time.sleep(0.5)
+            up = [ln for ln in log_path.read_text().splitlines() if ln.startswith("serving on ")]
+            url = up[0].split()[-1] if up else None
+        assert url, f"serve.http --model_parallel {PAR_RANKS} did not come up:\n{log_path.read_text()[-3000:]}"
+        up_s = time.perf_counter() - t0
+        assert _post(url + "/health") == {"active": 0, "queued": 0}
+        with ThreadPoolExecutor(len(texts)) as pool:
+            replies = list(pool.map(lambda t: _post(url + "/generate", {"prompt": t, "max_new_tokens": PAR_HTTP_NEW,
+                                                                       "temperature": 0}), texts))
+        assert [r["tokens"] for r in replies] == lead["http_tokens"], \
+            "serve.http --model_parallel: tokens differ from the ranks' TP engine's"
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+        text = log_path.read_text()
+        assert "[serve] rank 0: stopped" in text and "[serve] rank 1: stopped by rank 0" in text, text[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    http_s = time.perf_counter() - t0
+    log(f"phase 31: torchrun --nproc_per_node {PAR_RANKS} -m lit_llama_tpu_torch.generate.lora --model_parallel "
+        f"{PAR_RANKS} on phase 25's {cfg4.n_layer}-layer checkpoint with a LoRA overlay: exit 0 in {lora_s:.1f} s, "
+        f"{PAR_LORA_NEW} greedy tokens equal to the ranks' generate_tp; serve.http --model_parallel {PAR_RANKS} "
+        f"(int4 at load on the host) up in {up_s:.1f} s, {len(texts)} requests' tokens equal to the ranks' TP "
+        f"engine's, stopped cleanly by SIGTERM on every rank ({http_s:.1f} s); phases 29-31 "
+        f"{time.perf_counter() - t_all:.1f} s (the spawn {spawn_s:.1f} s)")
+
+    # the kernels line: one shape a kernel and path (K3 / K6 the decode step's
+    # c_fc1 shard under TP, K3 the logits at 16 slots under DP), launches a rank
+    pick = {"K3 TP": "M=1 4096->5632", "K6 TP": "M=1 4096->5632", "K3 DP": "M=16 4096->32000"}
+    kernels = {}
+    for tag, block in (("TP", tp), ("TP", lead["tp_int8"]), ("DP", dp)):
+        for r in block.get("kernel_times", {}).values():
+            name = f"{r['key']} {tag}"
+            if r["shape"] == pick.get(name, r["shape"]) and name not in kernels:
+                kernels[name] = dict(r, max_abs_err=block["kernel_errs"][r["key"]],
+                                     launches=block["launches"][r["key"]])
+    assert sorted(kernels) == (["K3 DP", "K3 TP", "K4 TP", "K5 TP", "K6 TP", "K7 DP", "K8 DP", "K9 DP"] if on_card
+                               else []), sorted(kernels)
+    readings = dict(tp={k: v for k, v in tp.items() if k != "kernel_times"}, tp_f32=f32, tp_2_layers=two,
+                    generate_tp=g,
+                    tp_int8={k: v for k, v in lead["tp_int8"].items() if k != "kernel_times"},
+                    dp={k: v for k, v in dp.items() if k not in ("kernel_times", "tokens")},
+                    kernel_times=times,
+                    entry_points=dict(generate_lora_s=lora_s, serve_http_up_s=up_s, serve_http_s=http_s),
+                    spawn_s=spawn_s, seconds=time.perf_counter() - t_all)
+    return readings, kernels
 
 
 def main() -> int:
@@ -2019,6 +2713,7 @@ def main() -> int:
                 "K1 LoRA": fused_layer.k1_lora, "K7 LoRA": fused_layer.k7_lora}
 
     gcpu = torch.Generator().manual_seed(SEED)
+    phase8 = {}  # phase 8's prompts and tokens, for phase 30
     entry_inputs = {}  # readings of the paths that take every input the Pallas entries take
     k3_shapes = {}
 
@@ -2699,6 +3394,7 @@ def main() -> int:
             assert int(alone[-1]) == done[i].generated[0], f"request {i}: first token differs from generate's"
         for k in totals:
             totals[k] += got[k]
+        phase8.update(prompts=prompts, tokens=[done[i].generated for i in ids])  # phase 30's reference
         n_tok = sum(len(r.generated) for r in done.values())
         ttfts = sorted(r.ttft for r in done.values())
         serving = dict(requests=n_req, slots=slots, S=S_e, steps_per_sync=8, new_tokens=new_e,
@@ -4184,8 +4880,12 @@ def main() -> int:
     # train a tokenizer and pretrain on it, merge a LoRA and prepare data: Meta and
     # HF conversions at 7B width, 64 requests through the HTTP server (in process and
     # as a subprocess), prepare_shakespeare and pretrain.shakespeare, the LoRA merge
-    entry_points = entry_point_phases(dev, counters, totals, work / "entry_points", work / "entry",
-                                      Path(entries["lora"]["checkpoint"]), work / "tokenizer.model")
+    entry_points, pth25 = entry_point_phases(dev, counters, totals, work / "entry_points", work / "entry",
+                                             Path(entries["lora"]["checkpoint"]), work / "tokenizer.model")
+    # ---- 29-31. tensor- and data-parallel inference: two ranks as processes on
+    # the one card over gloo (TP at mp = 2, DP at dp = 2, the entry points under torchrun)
+    parallel, par_kernels = parallel_phases(dev, smi, phase8["tokens"], phase8["prompts"], pth25,
+                                            work / "tokenizer.model", work / "parallel")
     shutil.rmtree(work)
 
     kernels = []
@@ -4254,12 +4954,23 @@ def main() -> int:
                                  "ms_at_b8", "library_ms_at_b8", "bound_ms_at_b8")
                if k in r},
         })
+    # phases 29-31: each kernel at the local shapes a rank gives it
+    par_sources = {"K3 TP": "gemv4_sm90.cuh", "K6 TP": "gemv_int8_sm90.cuh", "K4 TP": "flash_sm90.cuh",
+                   "K5 TP": "decode_sm90.cuh", "K3 DP": "gemm_sm90.cuh", "K7 DP": "serve_layer.cu",
+                   "K8 DP": "decode_attention.cu", "K9 DP": "serve_layer.cu"}
+    for name, r in par_kernels.items():
+        base = name.split()[0]
+        kernels.append({
+            "name": f"{name} {sources[base][0].split(' (')[0]} (a rank's local shapes, two ranks on one card)",
+            "route": "cuda", "source": f"lit_llama_tpu_torch/csrc/{par_sources[name]}", "replaces": sources[base][1],
+            **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "shape")}})
     assert all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched"
     print(json.dumps({"requests": full, "serving": serving, "requests_lora": full_lora, "serving_lora": serving_lora,
                       "entry_points": entry_runs, "requests_int8": full8,
                       "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
                       "finetuning": finetuning, "gptq_evaluation": gptq_eval, "conversion_http_data": entry_points,
-                      "entry_inputs": entry_inputs}))
+                      "parallel": parallel, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -60,7 +60,7 @@ def main(
         lora_r: LoRA rank (reference: 8).
         lora_alpha: LoRA alpha (reference: 16).
         lora_dropout: LoRA input dropout (reference: 0.05).
-        data_parallel: Data-parallel size: 1 or -1 (one device; multi-device is still to port).
+        data_parallel: Data-parallel size: 1 or -1 (one device; multi-device training is the next slice).
         model_parallel: Tensor-parallel size: 1 (one device).
         group_by_length: Batch near-equal-length samples to minimize padding.
         device: cuda (the default: the card) or cpu (the plain PyTorch path).

@@ -11,7 +11,12 @@ its rank comes from the weights, ``lora_alpha`` from the flag. With
 dense on top: the fused step takes it as K1's LoRA operand on the card. The
 instruction goes through the alpaca prompt template; the text after
 ``### Response:`` is printed, the time and the generated token ids on
-stderr. One card: ``model_parallel`` other than 1 raises.
+stderr.
+
+``--model_parallel N`` generates across N ranks (tensor parallelism,
+``parallel.tp.generate_tp``), one process a rank under ``torchrun
+--nproc_per_node N``: every rank loads the checkpoint on the host and keeps
+its shard on its device; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -51,11 +56,13 @@ def main(
         top_k: The number of top most probable tokens to consider in the sampling process.
         temperature: A value controlling the randomness of the sampling process (0: greedy).
         seed: Random seed for sampling.
-        model_parallel: Tensor-parallel degree; the port runs on one card (1).
+        model_parallel: Tensor-parallel degree: the ranks of a torchrun world, one process each.
         device: cuda (the default) or cpu (the plain PyTorch path).
     """
-    if model_parallel != 1:
-        raise NotImplementedError("model_parallel > 1: multi-device generation is a later slice of the port")
+    from lit_llama_tpu_torch.parallel import launch
+
+    if model_parallel > 1:
+        launch.require_ranks(model_parallel, "model_parallel")
     import torch
 
     from lit_llama_tpu_torch.data import sft
@@ -68,14 +75,28 @@ def main(
     from lit_llama_tpu_torch.utils.device import resolve_device
     from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
 
-    dev = resolve_device(device)
-    params, config = load_model(Path(checkpoint_path), quantize, device=dev)
-    kind, lora_params, info = load_peft_checkpoint(Path(lora_path), config, device=dev)
+    dev, mesh = resolve_device(device), None
+    if model_parallel > 1:
+        from lit_llama_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=1, model=model_parallel, device=device)
+        dev = launch.current_device()
+    # under TP each rank reads the whole checkpoint on the host (in the card's
+    # dtype) and keeps its shard
+    load_dev = "cpu" if mesh else dev
+    params, config = load_model(Path(checkpoint_path), quantize, dtype="bfloat16" if dev.type == "cuda" else None,
+                                device=load_dev)
+    kind, lora_params, info = load_peft_checkpoint(Path(lora_path), config, device=load_dev)
     if kind != "lora":
         raise ValueError(f"{lora_path} is a {kind} checkpoint, not LoRA")
     config = config.replace(lora=LoRAConfig(r=info["r"], alpha=lora_alpha, dropout=0.0))
     params = lora_mod.load_lora_state(params, lora_params)
-    params, config = maybe_prepare_fused(unstack_layers(params), config)
+    if mesh is not None:
+        from lit_llama_tpu_torch.parallel import tp
+
+        params = tp.shard_params_tp(params, mesh, config, device=dev)
+    else:
+        params, config = maybe_prepare_fused(unstack_layers(params), config)
 
     tokenizer = Tokenizer(tokenizer_path)
     full_prompt = sft.generate_prompt({"instruction": prompt, "input": input})
@@ -84,9 +105,15 @@ def main(
     generator.manual_seed(seed)
 
     t0 = time.perf_counter()
-    y = generate(params, encoded, max_new_tokens, config=config, temperature=temperature, top_k=top_k,
-                 eos_id=tokenizer.eos_id, generator=generator, device=dev)
+    if mesh is not None:
+        y = tp.generate_tp(params, encoded, max_new_tokens, config=config, mesh=mesh, temperature=temperature,
+                           top_k=top_k, eos_id=tokenizer.eos_id, generator=generator)
+    else:
+        y = generate(params, encoded, max_new_tokens, config=config, temperature=temperature, top_k=top_k,
+                     eos_id=tokenizer.eos_id, generator=generator, device=dev)
     t = time.perf_counter() - t0
+    if not launch.is_main_process():
+        return
     output = tokenizer.decode(y).split("### Response:")[-1].strip()
     print(output)
     print(f"Time for inference: {t:.02f} sec total, {(len(y) - len(encoded)) / t:.02f} tokens/sec", file=sys.stderr)

@@ -23,6 +23,11 @@ gated prefix attention to the self-attention's output before ``c_proj``, as
 the JAX ``forward`` does; the fused kernels have no prefix term, so an
 adapter model takes none of them (``use_serve_fused``, the fused step of
 ``models.generate``).
+
+With ``tp_group`` (a model group of ``torch.distributed``, the JAX
+``tp_axis``) the weights are this rank's tensor-parallel shard
+(``parallel.tp``): each block sums its two projections over the group and
+the vocab-sharded logits are gathered (``parallel.comm``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from lit_llama_tpu_torch.ops.fused_layer import use_serve_fused
 from lit_llama_tpu_torch.ops.linear import linear, quantize_int4, quantize_int8
 from lit_llama_tpu_torch.ops.norm import rms_norm
 from lit_llama_tpu_torch.ops.rope import apply_rope, apply_rope_half, build_rope_cache, slot_rope_rows
+from lit_llama_tpu_torch.parallel import comm
 from lit_llama_tpu_torch.peft import adapter, lora
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
@@ -94,17 +100,18 @@ def init_params(config: LLaMAConfig, generator: Optional[torch.Generator] = None
 
 
 def init_kv_cache(config: LLaMAConfig, batch_size: int, max_seq_length: int, dtype=None,
-                  device=None) -> KVCache:
+                  device=None, n_head: Optional[int] = None) -> KVCache:
     """Zero per-layer caches, (B, H, S, hs) each, in the compute dtype. With
     ``config.kv_cache_dtype == "int8"`` k and v are int8 and each layer also
     holds ``ks`` and ``vs``, (B, H, S, 1) f32 scales: half the bytes of a bf16
     cache to keep and to read. An adapter adds no entries
-    (``peft.adapter.init_adapter_cache``)."""
+    (``peft.adapter.init_adapter_cache``). ``n_head`` (default
+    ``config.n_head``) is a tensor-parallel rank's share of the heads."""
     if config.kv_cache_dtype not in (None, "int8"):
         raise ValueError(f"unknown kv_cache_dtype {config.kv_cache_dtype!r}")
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or config.compute_dtype)
-    shape = (batch_size, config.n_head, max_seq_length, config.head_size)
+    shape = (batch_size, n_head or config.n_head, max_seq_length, config.head_size)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -147,13 +154,15 @@ def _layers(params: Params) -> List[Params]:
     return [pick(views, l) for l in range(h["rms_1"].shape[0])]
 
 
-def _mlp(mlp: Params, x: torch.Tensor, plain: bool) -> torch.Tensor:
+def _mlp(mlp: Params, x: torch.Tensor, plain: bool, tp_group=None) -> torch.Tensor:
     if "c_fc12" in mlp:
         fc1, fc2 = linear(mlp["c_fc12"], x, plain=plain).chunk(2, dim=-1)
     else:
         fc1 = linear(mlp["c_fc1"], x, plain=plain)
         fc2 = linear(mlp["c_fc2"], x, plain=plain)
-    return linear(mlp["c_proj"], F.silu(fc1) * fc2, plain=plain)
+    out = linear(mlp["c_proj"], F.silu(fc1) * fc2, plain=plain)
+    # a TP rank holds a slice of the hidden dim: its product is a partial sum
+    return out if tp_group is None else comm.all_reduce(out, tp_group)
 
 
 def _cache_write(kv, new: Dict[str, torch.Tensor], write_pos) -> None:
@@ -169,7 +178,7 @@ def _cache_write(kv, new: Dict[str, torch.Tensor], write_pos) -> None:
 
 
 def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos,
-                           attend_len, causal: bool, plain: bool, limit=None):
+                           attend_len, causal: bool, plain: bool, limit=None, tp_group=None):
     """Fused-QKV attention of layer ``lp`` over the T tokens of ``x``, with the
     adapter's prefix term when ``config.adapter`` is set. With ``kv`` the new k/v
     are written in place at ``write_pos`` (quantized first when the cache is
@@ -178,7 +187,9 @@ def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, w
     ``limit`` ((B,) int32, T == 1) sends the token through
     ``decode_attention`` against the cache as it is stored; otherwise the
     attention runs over the whole cache, dequantized to ``q.dtype``, under
-    ``mask``."""
+    ``mask``. Under ``tp_group`` the heads are this rank's share (H comes
+    from the width of ``c_attn``) and ``c_proj``'s partial sum is summed over
+    the group."""
     B, T, _ = x.shape
     hs = config.head_size
     attn = lp["attn"]
@@ -214,15 +225,16 @@ def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, w
     if config.adapter is not None:
         y = adapter.prefix_attention(lp, q, y, config)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
-    return linear(attn["c_proj"], y, plain=plain)
+    out = linear(attn["c_proj"], y, plain=plain)
+    return out if tp_group is None else comm.all_reduce(out, tp_group)
 
 
 def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, attend_len=None,
-           causal: bool = False, plain: bool = False, limit=None):
+           causal: bool = False, plain: bool = False, limit=None, tp_group=None):
     """One pre-norm residual block."""
     x = x + _causal_self_attention(lp, rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
-                                   write_pos, attend_len, causal, plain, limit)
-    return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain)
+                                   write_pos, attend_len, causal, plain, limit, tp_group)
+    return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain, tp_group)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -274,6 +286,7 @@ def forward(
     plain: bool = False,
     remat: bool = False,
     remat_policy: str = "dots",
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model over (B, T) tokens; returns (logits (B, T, V), cache).
 
@@ -310,7 +323,21 @@ def forward(
     all but the block input with ``"full"``. The stacked (L, ...) tree stays
     the training layout: the layers are views of it, so the grads land on the
     stacked leaves.
+
+    ``tp_group`` (a ``torch.distributed`` group): Megatron-style tensor
+    parallelism over its ranks, with the weights of ``parallel.tp``'s layout
+    (this rank's heads, MLP hidden columns and vocab columns; norms and the
+    embedding whole). Each block all-reduces the outputs of its two
+    projections and the logits are all-gathered along the vocab, so every
+    rank returns the whole (B, T, V). The fused serving blocks (K7-K9) are
+    not taken under a group, as the JAX package gates them: K9 fuses the
+    attention's projection with the MLP, leaving no point for the sum
+    between them. An adapter raises: its prefix attention spans every head.
     """
+    if tp_group is not None and config.adapter is not None:
+        raise NotImplementedError("adapter overlays are not supported under tensor parallelism")
+    if tp_group is not None and remat:
+        raise NotImplementedError("training under tensor parallelism is the next slice of the port")
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
     dev = tokens.device
@@ -332,7 +359,7 @@ def forward(
             raise ValueError("slot_pos decode takes one token per slot")
         S = kv_cache[0]["k"].shape[-2]
         # K8 reads a cache in the compute dtype
-        if use_serve_fused(config, layers[0], batch=B) and kv_cache[0]["k"].dtype == cd:
+        if tp_group is None and use_serve_fused(config, layers[0], batch=B) and kv_cache[0]["k"].dtype == cd:
             cos, sin = slot_rope_rows(rope_cache, slot_pos)
             pos32 = slot_pos.to(torch.int32)
             x2d = x[:, 0]
@@ -382,9 +409,12 @@ def forward(
     else:
         caches = kv_cache if kv_cache is not None else [None] * len(layers)
         for lp, kv in zip(layers, caches):
-            x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit)
+            x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit, tp_group)
     x = rms_norm(x, params["ln_f"])
-    return linear(params["lm_head"], x, plain=plain), kv_cache
+    logits = linear(params["lm_head"], x, plain=plain)
+    if tp_group is not None:
+        logits = comm.all_gather_last(logits, tp_group)
+    return logits, kv_cache
 
 
 def unstack_layers(params: Params) -> Params:
@@ -405,6 +435,18 @@ def unstack_layers(params: Params) -> Params:
         layers.append(lp)
     out["h"] = layers
     return out
+
+
+def unfuse_mlp_layer(lp: Params) -> Params:
+    """A layer with ``c_fc12`` split back into ``c_fc1`` and ``c_fc2`` (views),
+    for layouts that shard the two separately (``parallel.tp``); other
+    layers come back as they are."""
+    mlp = lp.get("mlp", {})
+    if "c_fc12" not in mlp:
+        return lp
+    halves = {k: v.chunk(2, dim=-1) for k, v in mlp["c_fc12"].items()}
+    return {**lp, "mlp": {"c_fc1": {k: v[0] for k, v in halves.items()},
+                          "c_fc2": {k: v[1] for k, v in halves.items()}, "c_proj": mlp["c_proj"]}}
 
 
 _QUANT_TARGETS = ("c_attn", "c_proj", "c_fc1", "c_fc2", "lm_head")

@@ -7,8 +7,8 @@ PackedDatasets of LITPKDS chunks mixed with the LLaMA paper's proportions,
 warmup-cosine LR, gradient accumulation (batch_size / micro_batch_size
 microbatches per step), clip 1.0, AdamW, activation checkpointing of each
 block, periodic validation and checkpoints with true resume. One card:
-``data_parallel`` and ``model_parallel`` other than 1 raise (multi-device is
-still to port). Params start from ``llama.init_params`` with a
+``data_parallel`` and ``model_parallel`` other than 1 raise (multi-device training is
+the next slice). Params start from ``llama.init_params`` with a
 ``torch.Generator`` seeded 1337; ``final`` is saved only when ``max_iters``
 is reached.
 """
@@ -102,7 +102,7 @@ def main(
         eval_interval: Validate every N steps.
         eval_iters: Validation batches per eval.
         log_interval: Log every N steps.
-        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device is still to port).
+        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device training is the next slice).
         model_parallel: Tensor-parallel size: 1 (one card).
         n_layer: Override layer count (the depth cut of a full-width run).
         n_embd: Override width.
@@ -126,7 +126,7 @@ def main(
     if data_parallel not in (1, -1) or model_parallel != 1:
         raise NotImplementedError(
             f"data_parallel={data_parallel}, model_parallel={model_parallel}: the port trains on one "
-            "device (multi-device is still to port)")
+            "device (multi-device training, DP / FSDP, is the next slice; inference runs across ranks)")
     dev = resolve_device(device)
     overrides = {k: v for k, v in (("n_layer", n_layer), ("n_embd", n_embd), ("n_head", n_head),
                                    ("block_size", block_size), ("vocab_size", vocab_size)) if v}

@@ -79,7 +79,7 @@ def main(
         eval_interval: Validate and checkpoint every N steps.
         eval_iters: Validation batches per eval.
         log_interval: Log every N steps.
-        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device is still to port).
+        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device training is the next slice).
         model_parallel: Tensor-parallel size: 1 (one card).
         n_layer: Override layer count.
         n_embd: Override width.
@@ -100,7 +100,7 @@ def main(
     if data_parallel not in (1, -1) or model_parallel != 1:
         raise NotImplementedError(
             f"data_parallel={data_parallel}, model_parallel={model_parallel}: the port trains on one "
-            "device (multi-device is still to port)")
+            "device (multi-device training, DP / FSDP, is the next slice; inference runs across ranks)")
     dev = resolve_device(device)
     overrides = {k: v for k, v in (("n_layer", n_layer), ("n_embd", n_embd), ("n_head", n_head)) if v}
     config = LLaMAConfig.from_name(model_size, block_size=block_size, vocab_size=vocab_size,

@@ -24,8 +24,22 @@ its true length and the engine keeps no ``prefill_buckets``; the cache length
 is taken as given and never shortened (the JAX engine cuts S to a multiple of
 16 for its packed cache); a slot parked in the middle of a chunked prefill
 stays at row S - 1 for the whole decode chunk (the JAX step advances it, and
-past S - 1 its writes wrap into the prompt rows already prefilled); the
-``mesh`` (tensor and data parallel serving) is a later slice.
+past S - 1 its writes wrap into the prompt rows already prefilled).
+
+With a ``mesh`` (``parallel.mesh``: one process a rank) the engine serves
+across ranks, as the JAX engine does across devices. A model axis > 1 shards
+heads, MLP hidden and vocab (``parallel.tp``: TP weights and cache, whole
+prompts, the per-op decode block with K5); a data axis > 1 gives each data
+group B / data slots and the whole weights (its decode takes K7-K9 on its
+slots where one rank holds the model). Rank 0 leads: it alone takes
+``submit``, and each ``step_once`` starts with its plan (the requests
+submitted since the last one, or stop) broadcast to every rank; the other
+ranks run ``follow()``. Every rank then runs the same scheduler on the same
+state, so they cannot drift: admissions and slots follow from the plan, a
+prefill's first token is broadcast from the data group that owns the slot,
+a decode chunk's tokens are gathered from every data group, and the ranks
+of a model group sample from the same gathered logits with generators
+seeded alike.
 """
 
 from __future__ import annotations
@@ -37,11 +51,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lit_llama_tpu_torch.models import llama
 from lit_llama_tpu_torch.models.config import LLaMAConfig
 from lit_llama_tpu_torch.ops.fused_layer import maybe_prepare_fused, use_serve_fused
 from lit_llama_tpu_torch.ops.rope import build_rope_cache
+from lit_llama_tpu_torch.parallel import comm
+from lit_llama_tpu_torch.parallel.mesh import coordinate, mesh_shape, model_group
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 
@@ -118,42 +135,71 @@ class DecodeEngine:
 
         There are no prefill buckets: they bound the JAX engine's compiles,
         and a prompt here prefills at its true length. ``max_seq_length`` is
-        used as given, capped by ``config.block_size``."""
-        if mesh is not None:
-            raise NotImplementedError("tensor- and data-parallel serving (mesh) is a later slice")
+        used as given, capped by ``config.block_size``.
+
+        ``mesh``: a {data, model} ``DeviceMesh`` over the ranks
+        (``parallel.mesh.make_mesh``), every rank building the engine from
+        the same whole ``params``. Model axis > 1: this rank keeps its TP
+        shard (``parallel.tp.shard_params_tp``; ``params`` may lie on the
+        host, and only the shard moves to ``device``) and its heads of the cache,
+        and prompts prefill whole (``prefill_chunk`` 0: the TP prefill runs
+        from position 0 only). Data axis > 1: ``max_batch`` must divide
+        evenly; this rank's data group holds slots [d B/dp, (d + 1) B/dp)."""
+        if mesh is not None and getattr(mesh, "mesh_dim_names", None) != ("data", "model"):
+            raise NotImplementedError("the engine serves across the ranks of a ('data', 'model') DeviceMesh "
+                                      "(parallel.mesh.make_mesh); no other mesh")
         self.device = resolve_device(device)
-        if params["wte"].device.type != self.device.type:
+        dp, mp = mesh_shape(mesh)
+        # a TP rank may take the whole weights from the host: only its shard moves
+        if params["wte"].device.type != self.device.type and not (mp > 1 and params["wte"].device.type == "cpu"):
             raise ValueError(f"params lie on {params['wte'].device}, the engine was asked for {self.device}")
-        # int4 layers the fused step takes are prepared here, as the JAX engine
-        # does (a no-op for params already prepared); a LoRA overlay is folded
-        # into K7's operand on the way
-        self.params, config = maybe_prepare_fused(llama.unstack_layers(params), config)
-        self.config = config
+        if dp > 1 and max_batch % dp:
+            raise ValueError(f"max_batch={max_batch} must be divisible by the mesh data axis ({dp}): slots shard "
+                             "evenly across data groups")
+        self.distributed = dp * mp > 1
+        self.dp, self.mp = dp, mp
+        self.data_index = coordinate(mesh)[0]
+        self.leader = not self.distributed or dist.get_rank() == 0
+        self.tp_group = model_group(mesh)
         self.B = max_batch
+        self.local_b = max_batch // dp
+        self.local = slice(self.data_index * self.local_b, (self.data_index + 1) * self.local_b)
+        if mp > 1:
+            from lit_llama_tpu_torch.parallel import tp
+
+            self.params = tp.shard_params_tp(params, mesh, config, device=self.device)
+        else:
+            # int4 layers the fused step takes are prepared here, as the JAX
+            # engine does (a no-op for params already prepared); a LoRA overlay
+            # is folded into K7's operand on the way
+            self.params, config = maybe_prepare_fused(llama.unstack_layers(params), config)
+        self.config = config
         # whether the decode step takes K7-K9 (at most SERVE_KERNEL_MAX_B slots);
         # llama.forward asks the same of the slot count it is given
-        self.serve_fused = use_serve_fused(config, self.params["h"][0], batch=max_batch)
+        self.serve_fused = mp == 1 and use_serve_fused(config, self.params["h"][0], batch=self.local_b)
         self.S = min(max_seq_length or config.block_size, config.block_size)
         self.top_k = None if top_k is None else min(top_k, config.padded_vocab_size)
         self.steps_per_sync = max(1, steps_per_sync)
-        self.prefill_chunk = min(prefill_chunk or 0, self.S)
+        self.prefill_chunk = 0 if mp > 1 else min(prefill_chunk or 0, self.S)
         self.prefill_budget = prefill_budget
         self.rope = build_rope_cache(config.block_size, config.head_size, device=self.device)
-        self.cache = llama.init_kv_cache(
-            config, self.B, self.S, torch_dtype(config.compute_dtype), device=self.device)
+        self.cache = llama.init_kv_cache(config, self.local_b, self.S, torch_dtype(config.compute_dtype),
+                                         device=self.device, n_head=config.n_head // mp)
         self.slot_pos = np.zeros((self.B,), np.int32)
         self.last_tok = np.zeros((self.B,), np.int64)
         self.temps = np.zeros((self.B,), np.float32)
         self.top_ks = np.zeros((self.B,), np.int32)  # 0 = slot top-k disabled
+        # the ranks of a model group draw alike; each data group its own stream
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(seed + self.data_index)
         # host-side state
         self.slot_req: List[Optional[Request]] = [None] * self.B
         self.queue: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self._ids = itertools.count()
+        self._outbox: List[Request] = []  # rank 0: submitted, not yet in a plan
         self.decode_steps = 0  # device decode steps run
-        self.prefills = 0  # prefill forwards run (whole prompts and chunks)
+        self.prefills = 0  # prefill forwards run on this rank (whole prompts and chunks)
 
     # -- device work ---------------------------------------------------------
 
@@ -164,15 +210,19 @@ class DecodeEngine:
         return _sample_rows(logits.float(), temps, top_ks, self.top_k, self.generator)
 
     @torch.no_grad()
-    def _prefill(self, b: int, tokens: np.ndarray, start: int, req: Request) -> torch.Tensor:
+    def _prefill(self, b: int, tokens: np.ndarray, start: int, req: Request) -> Optional[torch.Tensor]:
         """Prompt tokens [start, start + len(tokens)) of slot ``b``: writes the
         slot's cache rows in place and samples from the last position (only
-        the final chunk's sample is used). Returns the token, on the device."""
+        the final chunk's sample is used). Returns the token, on the device;
+        None on a rank whose data group does not hold the slot."""
+        if not self.local.start <= b < self.local.stop:
+            return None
+        b -= self.local.start
         slot_cache = [{name: c[b : b + 1] for name, c in kv.items()} for kv in self.cache]
         toks = self._on_device(tokens, torch.long)[None]
         if start == 0:
             logits, _ = llama.forward(self.params, toks, self.config, rope_cache=self.rope,
-                                      kv_cache=slot_cache, prefill_from_zero=True)
+                                      kv_cache=slot_cache, prefill_from_zero=True, tp_group=self.tp_group)
         else:
             logits, _ = llama.forward(self.params, toks, self.config, rope_cache=self.rope,
                                       kv_cache=slot_cache, input_pos=range(start, start + len(tokens)))
@@ -183,28 +233,33 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _step(self, n_steps: int) -> np.ndarray:
-        """``n_steps`` decode steps for all slots, wholly on the device: the
-        sampled token feeds the next step's embedding lookup and the positions
-        advance there. Returns the (n_steps, B) tokens after ONE copy to the
-        host."""
-        tok = self._on_device(self.last_tok, torch.long)
-        pos = self._on_device(self.slot_pos, torch.int32)
-        temps = self._on_device(self.temps, torch.float32)
-        top_ks = self._on_device(self.top_ks, torch.int32)
+        """``n_steps`` decode steps for this data group's slots, wholly on the
+        device: the sampled token feeds the next step's embedding lookup and
+        the positions advance there. Returns the (n_steps, B) tokens of every
+        slot after ONE copy to the host (under a data axis > 1, after one
+        gather of every group's tokens)."""
+        local = self.local
+        tok = self._on_device(self.last_tok[local], torch.long)
+        pos = self._on_device(self.slot_pos[local], torch.int32)
+        temps = self._on_device(self.temps[local], torch.float32)
+        top_ks = self._on_device(self.top_ks[local], torch.int32)
         # a slot parked mid-prefill holds row S - 1 for the whole chunk
         advance = self._on_device(
-            [r is not None and r.prefilled >= len(r.prompt) for r in self.slot_req], torch.int32)
-        greedy = not bool((self.temps > 0).any())
+            [r is not None and r.prefilled >= len(r.prompt) for r in self.slot_req[local]], torch.int32)
+        greedy = not bool((self.temps[local] > 0).any())
         toks = []
         for _ in range(n_steps):
             logits, _ = llama.forward(self.params, tok[:, None], self.config, rope_cache=self.rope,
-                                      slot_pos=pos, kv_cache=self.cache)
+                                      slot_pos=pos, kv_cache=self.cache, tp_group=self.tp_group)
             logits = logits[:, -1]
             tok = torch.argmax(logits, dim=-1) if greedy else self._sample(logits, temps, top_ks)
             pos = pos + advance
             toks.append(tok)
         self.decode_steps += n_steps
-        return torch.stack(toks).cpu().numpy()
+        toks = torch.stack(toks)
+        if self.dp > 1:  # (world, n_steps, B / dp): each data group's from its first rank
+            toks = comm.all_gather_stack(toks)[:: self.mp].transpose(0, 1).reshape(n_steps, self.B)
+        return toks.cpu().numpy()
 
     # -- public API ---------------------------------------------------------
 
@@ -222,6 +277,36 @@ class DecodeEngine:
             self.submit(np.ones((n,), np.int64), 2)
             self.run()
 
+    # -- across ranks ---------------------------------------------------------
+
+    def _plan(self) -> bool:
+        """The start of a step across ranks: rank 0 broadcasts the requests
+        submitted since its last plan; every other rank queues them as they
+        are (ids included). Returns False once rank 0 has called ``stop``."""
+        plan = comm.broadcast_object(None if not self.leader else {"new": self._outbox}, src=0,
+                                     device=self.device)
+        if self.leader:
+            self._outbox = []
+        elif plan is not None:
+            self.queue.extend(plan["new"])
+        return plan is not None
+
+    def follow(self) -> Dict[int, Request]:
+        """Every rank but 0: run rank 0's steps until it calls ``stop``.
+        Returns the requests that finished meanwhile, as ``run`` does (their
+        tokens are this rank's copy of rank 0's)."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads: it calls submit / step_once / run, and stop at the end")
+        while self._plan():
+            self._step_body()
+        out, self.finished = self.finished, {}
+        return out
+
+    def stop(self) -> None:
+        """Rank 0: end every other rank's ``follow`` (a no-op on one rank)."""
+        if self.distributed and self.leader:
+            comm.broadcast_object(None, src=0, device=self.device)
+
     def submit(
         self,
         prompt: np.ndarray,
@@ -230,6 +315,8 @@ class DecodeEngine:
         top_k: Optional[int] = None,  # None -> engine default; must be <= the engine cap
         eos_id: Optional[int] = None,
     ) -> int:
+        if not self.leader:
+            raise RuntimeError("rank 0 leads: submit there; this rank follows (DecodeEngine.follow)")
         if top_k is None:
             tk = self.top_k or 0
         else:
@@ -249,6 +336,8 @@ class DecodeEngine:
             prompt = prompt[-limit:]
         req = Request(next(self._ids), prompt, max_new_tokens, temperature, top_k=tk, eos_id=eos_id)
         self.queue.append(req)
+        if self.distributed:
+            self._outbox.append(req)
         return req.id
 
     @property
@@ -263,7 +352,13 @@ class DecodeEngine:
         steps for all active slots, harvest finished requests. Returns the
         newly finished. A slot that finishes mid-chunk decodes garbage for the
         rest of the chunk (discarded; its cache is overwritten by the next
-        occupant's prefill and masked decode)."""
+        occupant's prefill and masked decode). Across ranks, rank 0 calls it
+        and the others follow."""
+        if self.distributed:
+            self._plan()
+        return self._step_body()
+
+    def _step_body(self) -> List[Request]:
         self._admit()
         # parked slots (prefill still in progress) do not decode usefully; skip
         # the device chunk when nothing else is running
@@ -303,7 +398,7 @@ class DecodeEngine:
             self.temps[b] = 0.0
             self.top_ks[b] = 0
             return spent
-        tok = int(tok)  # the copy to the host ends the request's wait for its first token
+        tok = self._first_token(b, tok)
         req.first_token_t = time.perf_counter()
         req.generated.append(tok)
         self.slot_pos[b] = T
@@ -313,6 +408,17 @@ class DecodeEngine:
         if self._finished(req):
             self._retire(b)
         return spent
+
+    def _first_token(self, b: int, tok: Optional[torch.Tensor]) -> int:
+        """Slot ``b``'s first token on the host (the copy ends the request's
+        wait for it); under a data axis > 1 broadcast from the first rank of
+        the data group that holds the slot."""
+        if self.dp > 1:
+            owner = b // self.local_b
+            if tok is None:
+                tok = torch.zeros((), dtype=torch.long, device=self.device)
+            tok = comm.broadcast(tok.reshape(()).long().contiguous(), src=owner * self.mp)
+        return int(tok)
 
     def _admit(self) -> None:
         budget = self.prefill_budget if self.prefill_budget is not None else 1 << 62

@@ -20,17 +20,30 @@ the loop thread dies, requests hang, so callers bound their own calls. Unlike
 it, the listening socket takes a backlog of 128 connections (the JAX server
 keeps ``socketserver``'s 5). ``HTTPService`` builds the server in-process
 (port 0 picks a free one).
+
+``--model_parallel N`` serves one model across N ranks (tensor parallelism,
+``parallel.tp``), one process a rank under ``torchrun --nproc_per_node N``:
+every rank loads the checkpoint on the host and keeps its shard on its
+device; rank 0 serves HTTP and leads the engine, the other ranks follow it
+(``DecodeEngine.follow``). SIGTERM or Ctrl-C on rank 0 stops its server,
+then every rank's engine, and each process exits 0; the followers ignore
+SIGTERM and wait for rank 0's stop. While idle, rank 0 runs an empty step
+every ``IDLE_PLAN_S`` seconds, so the followers' wait for a plan never
+reaches the process group's timeout.
 """
 
 from __future__ import annotations
 
 import json
+import signal
 import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Optional
+
+IDLE_PLAN_S = 10.0
 
 
 class _Server:
@@ -55,10 +68,15 @@ class _Server:
         return self.results.pop(rid)
 
     def loop(self) -> None:
+        last = time.perf_counter()
         while self.running:
             with self.lock:
                 has = self.engine.has_work()
-                done = self.engine.step_once() if has else []
+                # across ranks an idle step now and then keeps the followers' wait short
+                step = has or (self.engine.distributed and time.perf_counter() - last > IDLE_PLAN_S)
+                done = self.engine.step_once() if step else []
+                if step:
+                    last = time.perf_counter()
                 for req in done:
                     self.results[req.id] = req
                     self.events.pop(req.id).set()
@@ -182,32 +200,68 @@ def main(
         max_batch: Concurrent decode slots.
         max_seq_length: KV-cache length (default: model block_size).
         steps_per_sync: Decode steps per host sync (latency/throughput knob).
-        model_parallel: Tensor-parallel degree; the port serves from one card (1).
+        model_parallel: Tensor-parallel degree: the ranks of a torchrun world, one process each.
         kv_cache_dtype: KV-cache storage: None (compute dtype) or "int8" (half memory).
         device: cuda (the default) or cpu (the plain PyTorch path).
     """
-    if model_parallel != 1:
-        raise NotImplementedError("model_parallel > 1: multi-device serving is a later slice of the port")
+    from lit_llama_tpu_torch.parallel import launch
+
+    if model_parallel > 1:
+        launch.require_ranks(model_parallel, "model_parallel")
     from lit_llama_tpu_torch.data.tokenizer import Tokenizer
     from lit_llama_tpu_torch.serve.engine import DecodeEngine
     from lit_llama_tpu_torch.utils.device import resolve_device
     from lit_llama_tpu_torch.utils.loader import load_model
     from lit_llama_tpu_torch.utils.memory import print_peak_memory
 
-    dev = resolve_device(device)
+    dev, mesh = resolve_device(device), None
+    if model_parallel > 1:
+        from lit_llama_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=1, model=model_parallel, device=device)
+        dev = launch.current_device()
     print("Loading model ...", file=sys.stderr)
-    params, config = load_model(Path(checkpoint_path), quantize, model_size, device=dev)
+    # under TP each rank reads the whole checkpoint on the host (in the card's
+    # dtype) and keeps its shard
+    params, config = load_model(Path(checkpoint_path), quantize, model_size,
+                                dtype="bfloat16" if dev.type == "cuda" else None, device="cpu" if mesh else dev)
     if kv_cache_dtype:
         config = config.replace(kv_cache_dtype=kv_cache_dtype)
     tokenizer = Tokenizer(tokenizer_path)
     engine = DecodeEngine(params, config, max_batch=max_batch, max_seq_length=max_seq_length,
-                          steps_per_sync=steps_per_sync, device=dev)
+                          steps_per_sync=steps_per_sync, mesh=mesh, device=dev)
+    del params
+    if not engine.leader:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)  # rank 0's stop ends this rank
+        print(f"[serve] rank {_rank()}: following rank 0", file=sys.stderr, flush=True)
+        engine.follow()
+        print(f"[serve] rank {_rank()}: stopped by rank 0", file=sys.stderr, flush=True)
+        return
     print("warming up (building and loading the kernels)...", file=sys.stderr)
     engine.warmup()
     print_peak_memory(dev)  # weights + slotted KV cache
     service = HTTPService(engine, tokenizer, host, port)
     print(f"serving on {service.url}", file=sys.stderr, flush=True)
-    service.serve_forever()
+    if engine.distributed:
+        signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        service.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        service.shutdown()  # the loop thread first: it alone steps the engine
+        engine.stop()
+    print("[serve] rank 0: stopped", file=sys.stderr, flush=True)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
 
 
 if __name__ == "__main__":

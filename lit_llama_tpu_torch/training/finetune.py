@@ -14,7 +14,7 @@ group-by-length batches from ``default_rng(0)`` per chunk. The LoRA A matrix
 is drawn from a ``torch.Generator`` seeded ``seed`` and the adapter prompt
 from one seeded 7, where JAX draws from ``PRNGKey(seed)`` and ``PRNGKey(7)``.
 One device: ``data_parallel`` other than 1 or -1 and ``model_parallel``
-other than 1 raise (multi-device is still to port).
+other than 1 raise (multi-device training is the next slice).
 """
 
 from __future__ import annotations
@@ -205,7 +205,7 @@ def run(
     if data_parallel not in (1, -1) or model_parallel != 1:
         raise NotImplementedError(
             f"data_parallel={data_parallel}, model_parallel={model_parallel}: the port finetunes on one "
-            "device (multi-device is still to port)")
+            "device (multi-device training, DP / FSDP, is the next slice; inference runs across ranks)")
     from lit_llama_tpu_torch.data.tokenizer import Tokenizer
     from lit_llama_tpu_torch.utils.loader import load_model
 

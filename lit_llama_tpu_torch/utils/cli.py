@@ -7,13 +7,19 @@ points take a ``device`` parameter, so every one of them has ``--device``:
 left unset they run on the card, ``--device cpu`` runs the plain PyTorch path
 on the CPU. An entry point that does no device work (a checkpoint conversion,
 a data preparation) says so with ``@host_only`` and has no ``--device``.
+
+Under ``torchrun`` every rank runs the entry point, and only rank 0 writes
+its standard output (the other ranks' goes to the null device; their
+standard error stays, for their logs and errors).
 """
 
 from __future__ import annotations
 
 import argparse
 import inspect
+import os
 import re
+import sys
 import typing
 from pathlib import Path
 from typing import Callable, Optional
@@ -94,4 +100,6 @@ def cli(fn: Callable, args: Optional[list] = None):
             kwargs["required"] = True
         parser.add_argument(f"--{name}", **kwargs)
     ns = parser.parse_args(args)
+    if int(os.environ.get("RANK", "0")) != 0:
+        sys.stdout = open(os.devnull, "w")
     return fn(**vars(ns))

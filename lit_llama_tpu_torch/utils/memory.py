@@ -22,6 +22,9 @@ def peak_memory_gb(device=None) -> Optional[float]:
 
 
 def print_peak_memory(device=None, file=None) -> None:
+    """The peak on ``file`` (stderr), from rank 0 only under ``torchrun``."""
+    from lit_llama_tpu_torch.parallel.launch import is_main_process
+
     peak = peak_memory_gb(device)
-    if peak is not None:
+    if peak is not None and is_main_process():
         print(f"Peak device memory in use: {peak:.02f} GB", file=file or sys.stderr)
