@@ -72,8 +72,8 @@ ran through the kernels. Phases 19-21 finetune: one step of a 3-layer
 full-width model in LoRA, Adapter v1 and v2, kernel path against plain path;
 K4 and K10 at the finetuning shape (4, 32, 256, 128) beside SDPA; the
 finetuning body (``training.finetune.finetune``) on SFT samples of 30-250
-tokens, micro-batch 4 x 2, in LoRA, Adapter v1 and v2 on the 32-layer 7B
-model and full finetuning on 8 layers (step ms, tokens/s, peak memory;
+tokens, micro-batch 4 x 2, in LoRA, Adapter v1 and v2 on 16 layers of the
+7B model and full finetuning on 8 (step ms, tokens/s, peak memory;
 frozen leaves unchanged); and ``finetune.lora`` / ``finetune.adapter`` then
 ``generate.lora`` / ``generate.adapter`` in subprocesses, greedy tokens
 equal to the in-process ``generate``'s. Phases 22-24 quantize and evaluate:
@@ -116,7 +116,16 @@ K4's FFMA forward) are held and timed where they were: phases 8h (K3 f32 at
 M = 8 and 128, K4 f32 at T = 128 and 200, K7 / K9 f32), 12b (K6 f32 at M >
 1), 14b (K4 f32 at (1, 32, 2048, 128)), 17 (K4 f32 at head size 256, also
 timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
-SDPA's f32 call runs logged beside the yardsticks).
+SDPA's f32 call runs logged beside the yardsticks). Phases 29-31 run
+tensor- and data-parallel inference in two ranks on the one card (see their
+constants). Phases 32-34 train across two ranks on the one card, DP, FSDP
+and TP at the 7B width (4, 8 and 8 layers): three f32 steps at 2 layers
+against the single-process step, one bf16 step at depth read beside the
+single card's kernel vs plain departure, a second step's collectives counted
+(``tools/comm_anatomy.py``), K4 and K10 held and timed at each rank's local
+shapes; then ``finetune.lora`` and ``pretrain.shakespeare`` with
+``--data_parallel 2`` under ``torchrun``, whose final checkpoints choose the
+one-process runs' greedy tokens wherever no near-tie decides them.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -128,6 +137,7 @@ that lacks the package, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -222,8 +232,12 @@ TOL_TRAIN_GRAD = dict(max=2e-2, rms=2e-2)
 TOL_TRAIN_UPDATE = 5e-2
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A finding, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 SEEDS_6C = tuple(range(1000, 1008))  # phase 6c: the prompt seeds phase 6b was read at
@@ -726,6 +740,13 @@ def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_t
     return runs
 
 
+# phase 20's depth for LoRA and Adapter v1 / v2: 16 layers of the 32 (the
+# three runs took ~25 s at 32 layers on an H100), cut when phases 32-34
+# brought the whole script near its time limit; a step's work and launches
+# scale with the depth, and the phase still runs every layer kind
+FINETUNE_PEFT_LAYERS = 16
+
+
 def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, cfg=None, modes=None,
                     entry_cfg=None, work=None):
     """Phases 19-21 on the 7B width (``cfg``: the 7B preset in bf16 unless
@@ -748,7 +769,8 @@ def finetune_phases(dev, counters, time_ms, bound_ms, tc_peak, results, totals, 
 
     on_card = dev.type == "cuda"
     cfg = cfg or LLaMAConfig.from_name("7B", param_dtype="bfloat16", compute_dtype="bfloat16")
-    modes = modes or (("lora", 32), ("adapter", 32), ("adapter_v2", 32), ("full", 8))
+    modes = modes or (("lora", FINETUNE_PEFT_LAYERS), ("adapter", FINETUNE_PEFT_LAYERS),
+                      ("adapter_v2", FINETUNE_PEFT_LAYERS), ("full", 8))
     keep = work is not None
     work = Path(work) if keep else Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
     t0 = time.perf_counter()
@@ -2371,8 +2393,9 @@ def _tensors(tree):
 
 
 def _par_entry(rank: int, world: int, port: int, payload, out: str) -> None:
-    """One rank of phases 29-30: the environment torchrun would give it, the
-    port's own launch (one card for both ranks: gloo), the job, its result."""
+    """One rank of phases 29-30 (or 32-34: ``payload["job"] == "train"``):
+    the environment torchrun would give it, the port's own launch (one card
+    for both ranks: gloo), the job, its result."""
     import os
 
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
@@ -2387,7 +2410,7 @@ def _par_entry(rank: int, world: int, port: int, payload, out: str) -> None:
     torch.set_num_threads(int(PAR_ENV["OMP_NUM_THREADS"]))
     assert launch.maybe_initialize_distributed(payload["device"])
     try:
-        result = _par_job(rank, payload)
+        result = (_train_par_job if payload.get("job") == "train" else _par_job)(rank, payload)
     finally:
         dist.destroy_process_group()
     torch.save(result, Path(out) / f"rank{rank}.pt")
@@ -2570,6 +2593,569 @@ def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, t
                     entry_points=dict(generate_lora_s=lora_s, serve_http_up_s=up_s, serve_http_s=http_s),
                     spawn_s=spawn_s, seconds=time.perf_counter() - t_all)
     return readings, kernels
+
+
+# ---- phases 32-34: training across ranks. TRAIN_PAR's meshes, each
+# with PAR_RANKS ranks as processes on the one card over gloo, as phases 29-31
+# run them: they check that a step over the mesh computes the single-process
+# step on the global batch and that each rank's kernels take their local
+# shapes; they give no scaling figure. The 7B width (n_embd 4096, 32 heads, I
+# 11008, V 32000, T 2048), f32 params, a global micro-batch of TRAIN_PAR_B
+# rows (one a data rank), one microbatch a step. For each mesh: TRAIN_PAR_F32
+# steps at 2 layers in f32 compute against the single-process step on the
+# same batches (TOL_PAR_STEP); one step in bf16 at the mesh's depth, whose
+# departure from the single card's step is read beside the single card's own
+# kernel path against its plain path (bf16 rounding; one AdamW step from zero
+# moments moves an element by about lr times its grad's sign, so the reading
+# is the share of elements that stepped the other way); a second step timed
+# with its collectives counted (tools/comm_anatomy.py); K4 and K10 held to
+# their plain versions on the inputs the path gave them, and timed. 32 layers
+# need 108 GB of f32 state even in one process: the depth is cut, the width is
+# not. Then finetune.lora and pretrain.shakespeare with --data_parallel 2
+# under torchrun, each held to the same entry point run in one process
+# (TOL_PAR_ENTRY): every logged loss; the trained leaves of the final
+# checkpoints, elements stepped apart; and the checkpoints loaded and
+# generated from: their logits, teacher-forced on the one-process run's
+# greedy tokens, within a limit, and their choices equal to that run's
+# model's wherever its top-two gap exceeds twice that limit (two bf16 runs
+# may take a near-tie either way: a model trained two steps from random
+# weights has many).
+TRAIN_PAR = (("32", "DP", 2, 1, False, 4), ("33", "FSDP", 2, 1, True, 8), ("34", "TP-train", 1, 2, False, 8))
+TRAIN_PAR_B, TRAIN_PAR_F32, TRAIN_PAR_LR = 2, 3, 1e-3
+# f32, mesh step vs single-process step: the loss to `loss` (relative); every
+# param within atol_lr * lr + rtol * |p|, but for a share `flips` of a leaf's
+# elements (each within flip_lr * lr), whose grad sits within f32 rounding of
+# zero, where Adam's step of about lr times the sign may go the other way.
+# From the card's readings (PERF.md §6, PR 18): wte 1.8e-5 of its elements
+# (every other leaf under 3e-8), at most 0.19 lr. A fault in one vocab row
+# (3.1e-5 of wte) steps about half of its elements a whole lr or more apart,
+# which flip_lr catches whatever their share
+TOL_PAR_STEP = dict(loss=1e-5, rtol=1e-5, atol_lr=1e-2, flips=5e-5, flip_lr=0.5)
+# the entry points: finetune.lora on phase 25's checkpoint, pretrain.shakespeare
+# at (layers, n_embd, n_head, T, vocabulary) on random tokens
+TRAIN_PAR_ENTRY = dict(steps=2, new_tokens=16, shakespeare=(2, 1024, 8, 1024, 100))
+# --data_parallel 2 against one process, set from the card's readings
+# (PERF.md §6, PR 18), each limit about twice to four times its reading:
+# each logged loss (4 places) to loss_rtol + loss_atol (the train losses read
+# equal, lora's validation after its two bf16 steps 4.9e-4 apart); a run's
+# share of trained elements stepped apart by more than 0.1 lr (read 0.071 %
+# lora, 0.137 % shakespeare), none beyond two sign flips of an Adam step (4
+# lr; read 1.36, 2.5); the largest logit difference on the one-process run's
+# greedy tokens (read 0.0801 lora, beside its checkpoint's own kernel vs
+# plain 0.0719; 0.0078 shakespeare)
+TOL_PAR_ENTRY = dict(loss_rtol=1e-3, loss_atol=1e-4,
+                     lora=dict(apart=3e-3, apart_lr=4.0, logit=0.16),
+                     shakespeare=dict(apart=5e-3, apart_lr=4.0, logit=0.016))
+
+
+def _stepped_apart(got, want, lr: float):
+    """(share of elements that stepped apart by more than 0.1 lr, max |d| /
+    lr, elements) over the leaves of two stepped flat trees, compared where
+    ``got``'s leaves lie."""
+    apart, top, n = 0, 0.0, 0
+    for name, g in got.items():
+        d = (g.float() - want[name].to(g.device).float()).abs()
+        apart += int((d > 0.1 * lr).sum())
+        top = max(top, float(d.max()) / lr)
+        n += d.numel()
+        del d
+    return apart / n, top, n
+
+
+def _entry_held(ref, cfg_ref, got, cfg_got, prompt, n: int, dev, what: str, limit: float) -> dict:
+    """The one-process run's model (``ref``) against the multi-rank run's
+    (``got``): both models' free-running greedy tokens (read); teacher-forced
+    on ``ref``'s, the largest logit difference (within ``limit``, read beside
+    ``ref``'s own kernel path against its plain path) and each model's choice
+    at every new position (equal wherever ``ref``'s top-two logit gap exceeds
+    2 * ``limit``). The readings, with what broke those two under "faults"."""
+    import torch
+
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models import llama
+
+    seq = gen.generate(ref, prompt, n, config=cfg_ref, temperature=0.0, device=dev)
+    other = gen.generate(got, prompt, n, config=cfg_got, temperature=0.0, device=dev)
+    ids = seq[None, :-1].to(dev)
+    with torch.no_grad():
+        a = llama.forward(ref, ids, cfg_ref)[0][0, len(prompt) - 1 :].float()
+        b = llama.forward(got, ids, cfg_got)[0][0, len(prompt) - 1 :].float()
+        c = llama.forward(ref, ids, cfg_ref, plain=True)[0][0, len(prompt) - 1 :].float()
+    top2 = a.topk(2, dim=-1).values
+    gap, diff = top2[:, 0] - top2[:, 1], (a - b).abs().amax(-1)
+    same = a.argmax(-1) == b.argmax(-1)
+    out = dict(tokens=seq[len(prompt):].tolist(), free_running_equal=other.tolist() == seq.tolist(),
+               teacher_forced_equal=int(same.sum()), ties=int((~same).sum()), max_logit_diff=float(diff.max()),
+               kernel_vs_plain_logit_diff=float((a - c).abs().max()), max_gap_apart=float(gap[~same].max())
+               if bool((~same).any()) else None)
+    out["faults"] = ([f"{what}: logits {out['max_logit_diff']:.3g} from the one-process run's (limit {limit})"]
+                     if out["max_logit_diff"] > limit else [])
+    if not bool((same | (gap <= 2 * limit)).all()):
+        out["faults"].append(f"{what}: other tokens at decided positions (gaps {gap[~same].tolist()})")
+    return out
+
+
+def _k10_recorded(seen, time_us, peaks, timed: bool):
+    """Each recorded call of the flash backward (q, k, v, o, lse, do): K10
+    held row by row to its plain version (TOL_K10, as phase 13), and on
+    ``timed`` its two kernels timed beside the plain version and SDPA's
+    causal backward, with their bounds: {"errs": (dq, dk, dv), "times": {...}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+
+    out = {"errs": [0.0, 0.0, 0.0], "times": {}}
+    for sig, (q, k, v, o, lse, do) in seen.items():
+        B, H, T, hs = q.shape
+        got = fa.flash_attention_backward(q, k, v, o, lse, do)
+        want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        for i, (name, gk, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+            gk, w = gk.float(), w.float()
+            assert torch.isfinite(gk).all(), f"K10 {name} at {(B, H, T, hs)}: non-finite"
+            err, mag = (gk - w).abs(), w.abs()
+            rowmax = mag.amax(-1, keepdim=True).clamp_min(TOL_K10["floor"] * float(mag.max()))
+            need = float(((err - TOL_K10["rel"] * mag).clamp_min(0) / rowmax).max())
+            assert need <= TOL_K10["row"], f"K10 {name} at {(B, H, T, hs)}: row part {need:.3g} needed"
+            out["errs"][i] = max(out["errs"][i], float(err.max()))
+        del got, want
+        if not timed:
+            continue
+        bw, tc_peak, _ = peaks
+
+        def bound(nbytes, ops):
+            return max(nbytes / bw, ops / tc_peak) * 1e3, ("bytes" if nbytes / bw >= ops / tc_peak else "operations")
+
+        nrow, pairs = B * H * T, B * H * T * (T + 1) // 2
+        dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib = time_us(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True)) / 1e3
+        plain = time_us(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3) / 1e3
+        shape = f"B={B} H={H} T={T} hs={hs}"
+        for key, fn, b in (("K10dq", lambda: fa.flash_backward_dq(q, k, v, o, lse, do),
+                            bound(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs)),
+                           ("K10dkv", lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd),
+                            bound(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs))):
+            out["times"][key] = dict(key=key, shape=shape, ms=time_us(fn) / 1e3, plain_ms=plain, library_ms=lib,
+                                     bound_ms=b[0], bound_by=b[1])
+        del dq, dd, qs, ks, vs, sdpa_out
+    return out
+
+
+def _train_par_job(rank: int, payload) -> dict:
+    """Phases 32-34 on one rank."""
+    import gc
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.models import llama
+    from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.parallel import comm, launch, mesh as mesh_lib, sharding
+    from lit_llama_tpu_torch.tools import comm_anatomy, devtime
+    from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+    from lit_llama_tpu_torch.utils.device import device_peaks
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32, as the parent's
+    torch.backends.cudnn.allow_tf32 = False
+    dev = launch.current_device()
+    on_card = dev.type == "cuda"
+    assert dist.get_backend() == "gloo" and (dev == torch.device("cuda", 0) or not on_card), (dev, dist.get_backend())
+    lead = rank == 0
+    counters = {"K4": fa.flash_attention, "K10dq": fa.flash_backward_dq, "K10dkv": fa.flash_backward_dkv}
+
+    def sync(empty=False):
+        if empty:
+            gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            if empty:
+                torch.cuda.empty_cache()
+
+    def launches():
+        sync()
+        return {k: fn.launches for k, fn in counters.items()}
+
+    time_us = devtime.make_timer(dev) if on_card else None
+    peaks = device_peaks(torch.cuda.get_device_name(0)) if on_card else None
+    base = LLaMAConfig.from_name("7B", param_dtype="float32", compute_dtype="bfloat16", **payload.get("widths", {}))
+    T, B = base.block_size, TRAIN_PAR_B
+
+    def tc(warmup):
+        return step_lib.TrainConfig(learning_rate=TRAIN_PAR_LR, min_lr=TRAIN_PAR_LR / 10, warmup_iters=warmup,
+                                    max_iters=10)
+
+    def tokens(steps, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(0, base.vocab_size, (steps, 1, B, T + 1), generator=g).to(dev)
+
+    def params_of(cfg):
+        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+    def single(cfg, toks, tcfg, plain=False):
+        """The single-process steps on the global batches: (losses, the
+        stepped params, flat, on the card)."""
+        opt = step_lib.make_optimizer(tcfg)
+        state = step_lib.init_train_state(params_of(cfg), opt)
+        losses = []
+        for t in toks:
+            state, loss = step_lib.train_step(state, t[..., :-1], t[..., 1:], cfg, opt, True, "dots", plain)
+            losses.append(float(loss))
+        params = tree_leaves(state.params)
+        del state, opt
+        sync(empty=True)
+        return losses, params
+
+    # both ranks load the kernels and start the card's libraries at once,
+    # before the phases have one wait on the other
+    t0 = time.perf_counter()
+    warm = base.replace(n_layer=1, n_embd=2 * base.head_size, n_head=2, vocab_size=256)
+    toks = torch.randint(0, 256, (1, 1, T + 1), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = step_lib.make_optimizer(tc(0))
+    state = step_lib.init_train_state(params_of(warm), opt)
+    step_lib.train_step(state, toks[..., :-1], toks[..., 1:], warm, opt)
+    comm.all_reduce(torch.ones(1 << 20, device=dev))
+    del state, toks, opt
+    sync(empty=True)
+    dist.barrier()
+    out = {"device": str(dev), "backend": dist.get_backend(), "warm_up_s": time.perf_counter() - t0}
+    for tag, name, dp, mp, fsdp, depth in TRAIN_PAR:
+        t_phase = time.perf_counter()
+        mesh = mesh_lib.make_mesh(data=dp, model=mp)
+        res = dict(mesh=[dp, mp], fsdp=fsdp, layers=depth, seconds_by_part={})
+        # (a) 2 layers in f32 compute: TRAIN_PAR_F32 steps against the single process
+        t0 = time.perf_counter()
+        c2 = base.replace(n_layer=min(2, depth), compute_dtype="float32")
+        toks = tokens(TRAIN_PAR_F32, SEED + int(tag))
+        if lead:
+            one_losses, one = single(c2, toks, tc(1))
+        dist.barrier()
+        res["seconds_by_part"]["f32 single"] = time.perf_counter() - t0
+        opt = step_lib.make_optimizer(tc(1))
+        local, layout = sharding.shard_params(params_of(c2), mesh, c2, fsdp=fsdp)
+        state = step_lib.init_train_state(local, opt)
+        del local
+        losses, f32_walls = [], []
+        for t in toks:
+            t1 = time.perf_counter()
+            state, loss = step_lib.train_step(state, t[..., :-1], t[..., 1:], c2, opt, layout=layout)
+            losses.append(float(loss))
+            f32_walls.append(time.perf_counter() - t1)
+        res["f32_step_s"] = f32_walls
+        t1 = time.perf_counter()
+        whole = layout.gather(state.params, lead)
+        res["seconds_by_part"]["f32 gather"] = time.perf_counter() - t1
+        del state, opt
+        sync(empty=True)
+        if lead:
+            for a, b in zip(losses, one_losses):
+                assert abs(a - b) <= TOL_PAR_STEP["loss"] * abs(b), f"phase {tag}, f32: losses {losses} vs {one_losses}"
+            worst = {}
+            for n, g in tree_leaves(whole).items():
+                w = one[n]
+                d = (g.to(dev) - w).abs()
+                off = d > TOL_PAR_STEP["atol_lr"] * TRAIN_PAR_LR + TOL_PAR_STEP["rtol"] * w.abs()
+                worst[n] = (float(off.float().mean()), float(d.max()) / TRAIN_PAR_LR, int(off.sum()), d.numel())
+            beyond = {n: v for n, v in worst.items() if v[2]}
+            res["f32"] = dict(losses=losses, single_losses=one_losses,
+                              max_loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses)),
+                              max_lr=max(v[1] for v in worst.values()), leaves_beyond=len(beyond),
+                              max_share=max((v[0] for v in beyond.values()), default=0.0), beyond=beyond)
+            assert all(v[0] <= TOL_PAR_STEP["flips"] and v[1] <= TOL_PAR_STEP["flip_lr"] for v in worst.values()), \
+                f"phase {tag}, f32: leaves off the single process (share, max lr, elements off, elements): {beyond}"
+            del one
+        del whole
+        sync(empty=True)
+        res["seconds_by_part"]["f32"] = time.perf_counter() - t0
+        # (b) bf16 at the phase's depth: one step against the single card's,
+        # whose own kernel and plain paths are read beside
+        t0 = time.perf_counter()
+        cd = base.replace(n_layer=depth)
+        toks = tokens(1, SEED + 100 + int(tag))
+        if lead:
+            (k_loss,), one = single(cd, toks, tc(0))
+            (p_loss,), plain = single(cd, toks, tc(0), plain=True)
+            single_apart = _stepped_apart(plain, one, TRAIN_PAR_LR)
+            del plain
+            sync(empty=True)
+        dist.barrier()
+        res["seconds_by_part"]["single"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        opt = step_lib.make_optimizer(tc(0))
+        local, layout = sharding.shard_params(params_of(cd), mesh, cd, fsdp=fsdp)
+        box = {"state": step_lib.init_train_state(local, opt)}
+        del local
+        sync(empty=True)
+        if on_card:  # the step's peak: the whole params each rank drew before sharding are gone
+            torch.cuda.reset_peak_memory_stats()
+        state_bytes = sum(t.numel() * t.element_size() for k in ("mu", "nu") for t in
+                          tree_leaves(box["state"].opt_state[k]).values())
+        state_bytes += sum(t.numel() * t.element_size() for t in tree_leaves(box["state"].params).values())
+        seen10 = {}
+        orig10 = fa.flash_attention_backward
+
+        def recording10(*args):
+            sig = tuple(tuple(a.shape) for a in args)
+            if sig not in seen10:
+                seen10[sig] = tuple(a.clone() for a in args)
+            return orig10(*args)
+
+        def step():
+            t = toks[0]
+            box["state"], loss = step_lib.train_step(box["state"], t[..., :-1], t[..., 1:], cd, opt, layout=layout)
+            box["loss"] = float(loss)
+
+        # the main path: one step, its launches counted, its wall and its
+        # collectives read, K4's and K10's inputs recorded
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        fa.flash_attention_backward = recording10
+        try:
+            seen4 = _recording(("K4",), lambda: box.update(census=comm_anatomy.census(step, sync)))
+        finally:
+            fa.flash_attention_backward = orig10
+        got = launches()
+        L = cd.n_layer
+        want = {"K4": 2 * L, "K10dq": L, "K10dkv": L} if on_card else dict.fromkeys(counters, 0)
+        assert got == want, f"rank {rank}, phase {tag}: launches {got}, expected {want}"
+        assert math.isfinite(box["loss"]), box["loss"]
+        res.update(launches=got, loss=box["loss"], census=box["census"], state_gib=state_bytes / 2**30,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+                   local_shapes=sorted({str(k[1]) for k in seen4}))
+        # rank 0's peak also holds the single card's stepped params, kept for the comparison below
+        res["reference_gib"] = sum(t.numel() * t.element_size() for t in one.values()) / 2**30 if lead else 0.0
+        if lead:  # rank 0's shards against the same shards of the single card's step
+            mine = tree_leaves(layout.shard(one))
+            del one
+            apart = _stepped_apart(tree_leaves(box["state"].params), mine, TRAIN_PAR_LR)
+            del mine
+            res.update(single_loss=k_loss, single_plain_loss=p_loss, loss_rel=abs(box["loss"] - k_loss) / abs(k_loss),
+                       single_loss_rel=abs(p_loss - k_loss) / abs(k_loss), apart=apart[:2], elements=apart[2],
+                       single_apart=single_apart[:2], single_elements=single_apart[2])
+        box.clear()
+        del opt, layout
+        sync(empty=True)
+        res["seconds_by_part"]["mesh"] = time.perf_counter() - t0
+        # K4 and K10 against their plain versions on the path's inputs (every
+        # rank its own); one rank times while the other waits
+        t0 = time.perf_counter()
+        res["kernel_errs"] = _hold_recorded(seen4) if on_card else {}
+        k10 = _k10_recorded(seen10, time_us, peaks, False) if on_card else {"errs": [0.0] * 3}
+        res["kernel_errs"].update(K10dq=k10["errs"][0], K10dkv=max(k10["errs"][1:]))
+        dist.barrier()
+        if lead and on_card:
+            res["kernel_times"] = {**_time_recorded(seen4, time_us, peaks),
+                                   **_k10_recorded(seen10, time_us, peaks, True)["times"]}
+        dist.barrier()
+        del seen4, seen10
+        sync(empty=True)
+        res["seconds_by_part"]["kernels"] = time.perf_counter() - t0
+        res["seconds"] = time.perf_counter() - t_phase
+        out[name] = res
+    return out
+
+
+def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, widths=None, entry_cfg=None):
+    """Phases 32-34 (see the constants above). ``pth``: phase 25's 4-layer
+    checkpoint (config.json beside it), which finetune.lora trains;
+    ``tok_path``: a tokenizer for its SFT samples. Returns the readings and
+    the kernel readings for the ``kernels`` line, keyed "K4 DP", ... (none off
+    the card). ``widths`` overrides the 7B preset's and ``entry_cfg``
+    pretrain.shakespeare's (layers, n_embd, n_head, T, vocabulary) (a
+    rehearsal on the CPU at small widths, where launches are not checked and
+    nothing is timed)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from lit_llama_tpu_torch.data import sft
+    from lit_llama_tpu_torch.data.tokenizer import Tokenizer
+    from lit_llama_tpu_torch.finetune import lora as lora_entry
+    from lit_llama_tpu_torch.models import generate as gen
+    from lit_llama_tpu_torch.models.config import LoRAConfig
+    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.pretrain import shakespeare
+    from lit_llama_tpu_torch.training.finetune import CHECKPOINT_NAMES
+    from lit_llama_tpu_torch.utils.checkpoint import load_checkpoint, tree_leaves
+    from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
+
+    t_all = time.perf_counter()
+    on_card = dev.type == "cuda"
+    work.mkdir(parents=True, exist_ok=True)
+    payload = dict(job="train", device=dev.type, widths=widths or {})
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_par_entry, args=(PAR_RANKS, _free_port(), payload, str(work)), nprocs=PAR_RANKS, join=False)
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "phases 32-34: the ranks did not finish in time"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    spawn_s = time.perf_counter() - t0
+    res = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+    lead = res[0]
+    for r, o in enumerate(res):
+        assert o["device"] == ("cuda:0" if on_card else "cpu") and o["backend"] == "gloo", (r, o["device"])
+        for _, name, *_ in TRAIN_PAR:
+            assert o[name]["launches"] == lead[name]["launches"], f"{name}: rank {r}'s launches differ from rank 0's"
+            assert o[name]["loss"] == lead[name]["loss"], f"{name}: rank {r}'s loss differs from rank 0's"
+    kernels = {}
+
+    def fmt(gib):
+        return "not measured" if gib is None else f"{gib:.2f}"
+
+    for tag, name, dp, mp_, fsdp, depth in TRAIN_PAR:
+        p = lead[name]
+        f32, c = p["f32"], p["census"]
+        kinds = ", ".join(f"{k['kind']} {k['calls']} ({k['bytes'] / 2**20:.0f} MiB)" for k in c["rows"])
+        log(f"phase {tag}, {name} training at (data, model) = ({dp}, {mp_}) (two ranks as processes on one card over "
+            f"gloo: no scaling figure; {smi}): f32 at 2 layers, {TRAIN_PAR_F32} steps against the single process, "
+            f"losses {f32['losses']} (max rel diff {f32['max_loss_rel']:.3g}), params within "
+            f"{TOL_PAR_STEP['atol_lr']} lr + {TOL_PAR_STEP['rtol']} |p| but in {f32['leaves_beyond']} leaves (a "
+            f"share of at most {f32['max_share']:.3g} of each, limit {TOL_PAR_STEP['flips']}: "
+            + ", ".join(f"{n} {v[2]} of {v[3]}" for n, v in f32["beyond"].items())
+            + f"), max {f32['max_lr']:.3g} lr (limit {TOL_PAR_STEP['flip_lr']}); bf16 at {depth} layers, one step: loss {p['loss']:.5f} vs the single card's "
+            f"{p['single_loss']:.5f} (rel {p['loss_rel']:.3g}; the single card's plain path {p['single_plain_loss']:.5f}, "
+            f"rel {p['single_loss_rel']:.3g}), elements stepped apart by > 0.1 lr: {p['apart'][0]:.4%} (max "
+            f"{p['apart'][1]:.3g} lr; rank 0's {p['elements']} elements) against the single card's kernel vs plain "
+            f"{p['single_apart'][0]:.4%} (max {p['single_apart'][1]:.3g} lr); a rank: params + moments "
+            f"{p['state_gib']:.2f} GiB, peak (max_memory_allocated) rank 1 {fmt(res[1][name]['peak_gib'])} GiB, "
+            f"rank 0 {fmt(p['peak_gib'])} GiB with the single card's {p['reference_gib']:.2f} GiB of stepped "
+            f"params beside; the step {c['wall_s'] * 1e3:.1f} ms wall, collectives {c['share']:.1%} of it (host clock; "
+            f"{c['calls']} calls: {kinds}); launches a rank {p['launches']} at {p['local_shapes']}; per kernel on "
+            f"the path's inputs {p['kernel_errs']}; {p['seconds']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in p["seconds_by_part"].items()) + ")")
+        for r in p.get("kernel_times", {}).values():
+            log(f"  {r['key']} {r['shape']}: {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, library "
+                f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+        if name in ("DP", "TP-train") and on_card:
+            for r in p["kernel_times"].values():
+                kernels[f"{r['key']} {name}"] = dict(r, max_abs_err=p["kernel_errs"][r["key"]],
+                                                      launches=p["launches"][r["key"]])
+    # one process's f32 params + moments at 8 layers, against FSDP's and TP's a rank
+    one_gib = 3 * 4 * sum(t.numel() for t in tree_leaves(_meta_params(widths, 8)).values()) / 2**30
+    for name in ("FSDP", "TP-train"):
+        share = lead[name]["state_gib"] / one_gib
+        assert 0.45 <= share <= 0.6, f"{name}: a rank holds {share:.2f} of one process's params + moments"
+
+    # ---- the entry points under torchrun, both at once, while the one-process
+    # runs they are held to go in this process
+    tok = Tokenizer(tok_path)
+    data = work / "sft"
+    data.mkdir(exist_ok=True)
+    sft.save_samples(sft_samples(tok, 32, SEED + 32), data / "train.pt")
+    sft.save_samples(sft_samples(tok, 8, SEED + 33), data / "test.pt")
+    steps = TRAIN_PAR_ENTRY["steps"]
+    flags = dict(data_dir=data, checkpoint_path=pth, tokenizer_path=tok_path, max_iters=steps, batch_size=4,
+                 micro_batch_size=2, warmup_iters=1, eval_interval=steps, eval_iters=1, save_interval=100,
+                 log_interval=1, max_seq_length=256)
+    layers, width, heads, T_sh, vocab = entry_cfg or TRAIN_PAR_ENTRY["shakespeare"]
+    sh = work / "shakespeare_data"
+    sh.mkdir(exist_ok=True)
+    rng = np.random.default_rng(SEED + 34)
+    for split, n in (("train", 64 * T_sh), ("val", 8 * T_sh)):
+        rng.integers(0, vocab, size=n).astype(np.uint16).tofile(sh / f"{split}.bin")
+    sflags = dict(data_dir=sh, n_layer=layers, n_embd=width, n_head=heads, block_size=T_sh, vocab_size=vocab,
+                  batch_size=2, micro_batch_size=2, max_iters=steps, eval_interval=steps, eval_iters=1,
+                  learning_rate=SHAKESPEARE_LR)
+    t0 = time.perf_counter()
+    procs = {run: _torchrun(module, [a for k, v in f.items() for a in (f"--{k}", v)]
+                            + ["--out_dir", work / run, "--data_parallel", PAR_RANKS], work / f"{run}.log", dev)
+             for run, module, f in (("lora_two", "lit_llama_tpu_torch.finetune.lora", flags),
+                                    ("sh_two", "lit_llama_tpu_torch.pretrain.shakespeare", sflags))}
+    try:
+        t1 = time.perf_counter()
+        lora_entry.main(out_dir=work / "lora_one", device=None if on_card else "cpu", **flags)
+        lora_one_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        shakespeare.main(out_dir=work / "sh_one", device=None if on_card else "cpu", **sflags)
+        sh_one_s = time.perf_counter() - t1
+        for run, proc in procs.items():
+            rc = proc.wait(timeout=PAR_TIMEOUT_S)
+            assert rc == 0, f"{run} (--data_parallel {PAR_RANKS}) exited {rc}:\n{(work / f'{run}.log').read_text()[-3000:]}"
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    entry_s = time.perf_counter() - t0
+    recs = {run: [json.loads(x) for x in (work / run / "metrics.jsonl").read_text().splitlines()]
+            for run in ("lora_one", "lora_two", "sh_one", "sh_two")}
+    faults = []  # checked after the readings are logged
+    for one, two in (("lora_one", "lora_two"), ("sh_one", "sh_two")):
+        assert [(r["iter"], sorted(r)) for r in recs[two]] == [(r["iter"], sorted(r)) for r in recs[one]], recs
+        faults += [f"{two}: {k} {a[k]} at iter {a['iter']}, one process {b[k]}" for a, b in zip(recs[two], recs[one])
+                   for k in ("loss", "val_loss") if k in b
+                   and abs(a[k] - b[k]) > TOL_PAR_ENTRY["loss_atol"] + TOL_PAR_ENTRY["loss_rtol"] * abs(b[k])]
+    base, cfg = load_model(pth, device=dev)
+    enc = tok.encode(sft.generate_prompt({"instruction": "Name three colours of the rainbow.", "input": ""}),
+                     bos=True, eos=False)
+    models, trained = {}, {}
+    for run in ("lora_one", "lora_two"):
+        kind, lp, info = load_peft_checkpoint(work / run / CHECKPOINT_NAMES["lora"], cfg, device=dev)
+        trained[run] = tree_leaves(lp)
+        models[run] = (lora_mod.load_lora_state(base, lp),
+                       cfg.replace(lora=LoRAConfig(r=info["r"], alpha=16.0, dropout=0.0)))
+    lora_lr = inspect.signature(lora_entry.main).parameters["learning_rate"].default
+    apart = {"lora": _stepped_apart(trained["lora_two"], trained["lora_one"], lora_lr)}
+    held = {"lora": _entry_held(*models["lora_one"], *models["lora_two"], enc, TRAIN_PAR_ENTRY["new_tokens"], dev,
+                                "finetune.lora --data_parallel", TOL_PAR_ENTRY["lora"]["logit"])}
+    del base, models, trained
+    models = {}
+    for run in ("sh_one", "sh_two"):
+        final = work / run / "final"
+        assert int(load_checkpoint(final)["step"]) == steps, run
+        models[run] = load_model(final, device=dev)
+    apart["shakespeare"] = _stepped_apart(tree_leaves(models["sh_two"][0]), tree_leaves(models["sh_one"][0]),
+                                          SHAKESPEARE_LR)
+    held["shakespeare"] = _entry_held(*models["sh_one"], *models["sh_two"], [1, 2, 3, 4],
+                                      TRAIN_PAR_ENTRY["new_tokens"], dev, "pretrain.shakespeare --data_parallel",
+                                      TOL_PAR_ENTRY["shakespeare"]["logit"])
+    del models
+    entry = dict(seconds=entry_s, lora_one_s=lora_one_s, shakespeare_one_s=sh_one_s,
+                 losses={k: [r.get("loss", r.get("val_loss")) for r in v] for k, v in recs.items()}, greedy=held,
+                 apart={k: dict(share=v[0], max_lr=v[1], elements=v[2]) for k, v in apart.items()})
+    log(f"phases 32-34, entry points: finetune.lora on phase 25's checkpoint and pretrain.shakespeare ({layers} "
+        f"layers at width {width}, T {T_sh}), {steps} steps each, both under torchrun --data_parallel {PAR_RANKS} "
+        f"at once beside the one-process runs (finetune.lora {lora_one_s:.1f} s, shakespeare {sh_one_s:.1f} s): "
+        f"{entry_s:.1f} s; losses (the last validation) {entry['losses']}; " + "; ".join(
+            f"{k}: trained elements stepped apart by > 0.1 lr {a['share']:.4%} (max {a['max_lr']:.3g} lr, "
+            f"{a['elements']} elements), logits teacher-forced on the one-process run's greedy tokens max "
+            f"{h['max_logit_diff']:.3g} apart (limit {TOL_PAR_ENTRY[k]['logit']}; that checkpoint's kernel vs plain "
+            f"path {h['kernel_vs_plain_logit_diff']:.3g}), the same choice at {h['teacher_forced_equal']} of "
+            f"{h['teacher_forced_equal'] + h['ties']} positions (the others' top-two gaps at most "
+            f"{h['max_gap_apart']}), free-running greedy tokens "
+            f"{'equal to' if h['free_running_equal'] else 'apart from'} the one-process run's"
+            for (k, h), a in zip(held.items(), entry["apart"].values()))
+        + f"; phases 32-34 {time.perf_counter() - t_all:.1f} s (the spawn {spawn_s:.1f} s)")
+    faults += [f"{k}: trained elements apart {a}" for k, a in entry["apart"].items()
+               if a["share"] > TOL_PAR_ENTRY[k]["apart"] or a["max_lr"] > TOL_PAR_ENTRY[k]["apart_lr"]]
+    faults += [f for h in held.values() for f in h["faults"]]
+    assert not faults, "phases 32-34, entry points under --data_parallel: " + "; ".join(faults)
+    readings = {name: {**{k: v for k, v in lead[name].items() if k != "kernel_times"},
+                       "peak_gib_by_rank": [o[name]["peak_gib"] for o in res]} for _, name, *_ in TRAIN_PAR}
+    readings.update(entry_points=entry, spawn_s=spawn_s, seconds=time.perf_counter() - t_all,
+                    kernel_times={name: lead[name].get("kernel_times", {}) for _, name, *_ in TRAIN_PAR})
+    assert sorted(kernels) == (["K10dkv DP", "K10dkv TP-train", "K10dq DP", "K10dq TP-train", "K4 DP", "K4 TP-train"]
+                               if on_card else []), sorted(kernels)
+    return readings, kernels
+
+
+def _meta_params(widths, n_layer: int):
+    """The 7B-width (or ``widths``) training tree at ``n_layer`` layers, on
+    the meta device: its shapes."""
+    from lit_llama_tpu_torch import LLaMAConfig
+    from lit_llama_tpu_torch.models import llama
+
+    cfg = LLaMAConfig.from_name("7B", param_dtype="float32", **{**(widths or {}), "n_layer": n_layer})
+    return llama.init_params(cfg, device="meta")
 
 
 def main() -> int:
@@ -4860,7 +5446,7 @@ def main() -> int:
 
     # ---- 19-21. instruction finetuning: one step per PEFT mode kernel vs plain path,
     # K4/K10 at the finetuning shape, the finetuning body at 7B width (LoRA, Adapter
-    # v1 and v2 at 32 layers, full at 8), the entry points in subprocesses ----------
+    # v1 and v2 at 16 layers, full at 8), the entry points in subprocesses ----------
     import tempfile
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_finetune_"))
@@ -4886,6 +5472,13 @@ def main() -> int:
     # the one card over gloo (TP at mp = 2, DP at dp = 2, the entry points under torchrun)
     parallel, par_kernels = parallel_phases(dev, smi, phase8["tokens"], phase8["prompts"], pth25,
                                             work / "tokenizer.model", work / "parallel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 32-34. training across ranks: DP, FSDP and TP steps of two ranks on the
+    # one card over gloo, then finetune.lora and pretrain.shakespeare under torchrun
+    train_parallel, train_par_kernels = train_parallel_phases(dev, smi, pth25, work / "tokenizer.model",
+                                                              work / "train_parallel")
+    par_kernels.update(train_par_kernels)
     shutil.rmtree(work)
 
     kernels = []
@@ -4957,11 +5550,14 @@ def main() -> int:
     # phases 29-31: each kernel at the local shapes a rank gives it
     par_sources = {"K3 TP": "gemv4_sm90.cuh", "K6 TP": "gemv_int8_sm90.cuh", "K4 TP": "flash_sm90.cuh",
                    "K5 TP": "decode_sm90.cuh", "K3 DP": "gemm_sm90.cuh", "K7 DP": "serve_layer.cu",
-                   "K8 DP": "decode_attention.cu", "K9 DP": "serve_layer.cu"}
+                   "K8 DP": "decode_attention.cu", "K9 DP": "serve_layer.cu", "K4 DP": "flash_sm90.cuh",
+                   "K10dq DP": "flash_sm90.cuh", "K10dkv DP": "flash_sm90.cuh", "K4 TP-train": "flash_sm90.cuh",
+                   "K10dq TP-train": "flash_sm90.cuh", "K10dkv TP-train": "flash_sm90.cuh"}
     for name, r in par_kernels.items():
         base = name.split()[0]
         kernels.append({
-            "name": f"{name} {sources[base][0].split(' (')[0]} (a rank's local shapes, two ranks on one card)",
+            "name": f"{labels.get(base, base)}{name[len(base):]} {sources[base][0].split(' (')[0]} (a rank's local "
+                    "shapes, two ranks on one card)",
             "route": "cuda", "source": f"lit_llama_tpu_torch/csrc/{par_sources[name]}", "replaces": sources[base][1],
             **{k: r[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                  "shape")}})
@@ -4970,7 +5566,7 @@ def main() -> int:
                       "entry_points": entry_runs, "requests_int8": full8,
                       "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
                       "finetuning": finetuning, "gptq_evaluation": gptq_eval, "conversion_http_data": entry_points,
-                      "parallel": parallel, "entry_inputs": entry_inputs}))
+                      "parallel": parallel, "train_parallel": train_parallel, "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

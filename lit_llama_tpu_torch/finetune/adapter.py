@@ -54,8 +54,9 @@ def main(
         save_interval: Checkpoint every N steps.
         log_interval: Log every N steps.
         max_seq_length: Truncation length (see prepare_alpaca.py).
-        data_parallel: Data-parallel size: 1 or -1 (one device; multi-device training is the next slice).
-        model_parallel: Tensor-parallel size: 1 (one device).
+        data_parallel: Data-parallel size (-1: every rank the model axis leaves); more than one needs torchrun
+            (one process a rank).
+        model_parallel: Tensor-parallel size: 1 (the prefix attention is not laid out by head).
         group_by_length: Batch near-equal-length samples to minimize padding.
         device: cuda (the default: the card) or cpu (the plain PyTorch path).
     """

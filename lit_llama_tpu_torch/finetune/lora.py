@@ -60,8 +60,9 @@ def main(
         lora_r: LoRA rank (reference: 8).
         lora_alpha: LoRA alpha (reference: 16).
         lora_dropout: LoRA input dropout (reference: 0.05).
-        data_parallel: Data-parallel size: 1 or -1 (one device; multi-device training is the next slice).
-        model_parallel: Tensor-parallel size: 1 (one device).
+        data_parallel: Data-parallel size (-1: every rank the model axis leaves); more than one needs torchrun
+            (one process a rank, e.g. torchrun --nproc_per_node 2 -m lit_llama_tpu_torch.finetune.lora --data_parallel 2).
+        model_parallel: Tensor-parallel size (the TP layout of generate.lora); the world is data x model ranks.
         group_by_length: Batch near-equal-length samples to minimize padding.
         device: cuda (the default: the card) or cpu (the plain PyTorch path).
     """

@@ -27,7 +27,10 @@ adapter model takes none of them (``use_serve_fused``, the fused step of
 With ``tp_group`` (a model group of ``torch.distributed``, the JAX
 ``tp_axis``) the weights are this rank's tensor-parallel shard
 (``parallel.tp``): each block sums its two projections over the group and
-the vocab-sharded logits are gathered (``parallel.comm``).
+the vocab-sharded logits are gathered (``parallel.comm``). With ``layout``
+(``parallel.sharding.Layout``) the forward trains across ranks: the params
+are this rank's FSDP and TP shards, gathered where they are used, and the
+collectives are differentiable.
 """
 
 from __future__ import annotations
@@ -154,7 +157,25 @@ def _layers(params: Params) -> List[Params]:
     return [pick(views, l) for l in range(h["rms_1"].shape[0])]
 
 
+def _into_group(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """The input of a column-split product: its gradient is summed over the
+    model group (Megatron's f; nothing to do without gradients)."""
+    if tp_group is None or not torch.is_grad_enabled():
+        return x
+    return comm.copy_to_group(x, tp_group)
+
+
+def _sum_group(out: torch.Tensor, tp_group) -> torch.Tensor:
+    """A row-split product's partial sums added over the model group
+    (Megatron's g): differentiable when gradients are on, in place
+    otherwise (the decode paths)."""
+    if tp_group is None:
+        return out
+    return comm.reduce_from_group(out, tp_group) if torch.is_grad_enabled() else comm.all_reduce(out, tp_group)
+
+
 def _mlp(mlp: Params, x: torch.Tensor, plain: bool, tp_group=None) -> torch.Tensor:
+    x = _into_group(x, tp_group)
     if "c_fc12" in mlp:
         fc1, fc2 = linear(mlp["c_fc12"], x, plain=plain).chunk(2, dim=-1)
     else:
@@ -162,7 +183,7 @@ def _mlp(mlp: Params, x: torch.Tensor, plain: bool, tp_group=None) -> torch.Tens
         fc2 = linear(mlp["c_fc2"], x, plain=plain)
     out = linear(mlp["c_proj"], F.silu(fc1) * fc2, plain=plain)
     # a TP rank holds a slice of the hidden dim: its product is a partial sum
-    return out if tp_group is None else comm.all_reduce(out, tp_group)
+    return _sum_group(out, tp_group)
 
 
 def _cache_write(kv, new: Dict[str, torch.Tensor], write_pos) -> None:
@@ -193,6 +214,7 @@ def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, w
     B, T, _ = x.shape
     hs = config.head_size
     attn = lp["attn"]
+    x = _into_group(x, tp_group)
     qkv = linear(attn["c_attn"], x, plain=plain)
     if "lora_a" in attn["c_attn"]:
         qkv = qkv + lora.lora_delta(attn["c_attn"], x, config.lora)
@@ -226,7 +248,7 @@ def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, w
         y = adapter.prefix_attention(lp, q, y, config)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
     out = linear(attn["c_proj"], y, plain=plain)
-    return out if tp_group is None else comm.all_reduce(out, tp_group)
+    return _sum_group(out, tp_group)
 
 
 def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, attend_len=None,
@@ -235,6 +257,13 @@ def _block(lp: Params, x, rope, mask, config: LLaMAConfig, kv, write_pos=None, a
     x = x + _causal_self_attention(lp, rms_norm(x, lp["rms_1"]), rope, mask, config, kv,
                                    write_pos, attend_len, causal, plain, limit, tp_group)
     return x + _mlp(lp["mlp"], rms_norm(x, lp["rms_2"]), plain, tp_group)
+
+
+def _layer_block(lp: Params, x, layout=None, **kwargs):
+    """``_block`` of a training layer; with ``layout`` its leaves are first
+    gathered as the forward uses them (inside the activation checkpoint, so
+    that the backward gathers them again instead of keeping them)."""
+    return _block(layout.use_layer(lp) if layout is not None else lp, x, **kwargs)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -287,6 +316,7 @@ def forward(
     remat: bool = False,
     remat_policy: str = "dots",
     tp_group=None,
+    layout=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model over (B, T) tokens; returns (logits (B, T, V), cache).
 
@@ -333,18 +363,34 @@ def forward(
     not taken under a group, as the JAX package gates them: K9 fuses the
     attention's projection with the MLP, leaving no point for the sum
     between them. An adapter raises: its prefix attention spans every head.
+    With gradients on, the group's sums are ``parallel.comm``'s
+    differentiable collectives (Megatron's f before each column-split
+    product and the lm_head, g after each row-split one).
+
+    ``layout`` (no cache: the training path across ranks) holds this rank's
+    place in a ``(data, model)`` mesh and the layout of ``params``, its
+    shards (``parallel.sharding``): each layer's FSDP leaves are gathered
+    inside its checkpoint region, wte and the lm_head around the lookup and
+    the head; under TP the lookup is vocab-parallel and the tokens' logits
+    come back whole. ``tp_group`` is the layout's model group.
     """
+    if layout is not None:
+        if kv_cache is not None:
+            raise ValueError("the sharded training forward takes no cache")
+        tp_group = layout.model_group
     if tp_group is not None and config.adapter is not None:
         raise NotImplementedError("adapter overlays are not supported under tensor parallelism")
-    if tp_group is not None and remat:
-        raise NotImplementedError("training under tensor parallelism is the next slice of the port")
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
     dev = tokens.device
     if rope_cache is None:
         rope_cache = build_rope_cache(config.block_size, config.head_size, device=dev)
-    x = params["wte"][tokens].to(cd)
-    layers = _layers(params)
+    if layout is not None:
+        x = layout.embed(params["wte"], tokens).to(cd)
+        layers = _layers({**params, "h": layout.use_stacked(params["h"])})
+    else:
+        x = params["wte"][tokens].to(cd)
+        layers = _layers(params)
     write_pos = attend_len = mask = limit = None
     causal = False
 
@@ -399,19 +445,23 @@ def forward(
     else:
         raise ValueError("a forward with kv_cache needs prefill_from_zero, input_pos or slot_pos")
 
-    if remat and kv_cache is None:
-        context = _remat_context(remat_policy)
+    if kv_cache is None and (remat or layout is not None):
+        context = _remat_context(remat_policy) if remat else None
         kwargs = {} if context is None else {"context_fn": context}
         for lp in layers:
-            x = checkpoint(functools.partial(_block, lp, rope=rope, mask=mask, config=config, kv=None,
-                                             causal=True, plain=plain),
-                           x, use_reentrant=False, preserve_rng_state=False, **kwargs)
+            block = functools.partial(_layer_block, lp, layout=layout, rope=rope, mask=mask, config=config,
+                                      kv=None, causal=True, plain=plain, tp_group=tp_group)
+            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False, **kwargs) if remat else block(x)
     else:
         caches = kv_cache if kv_cache is not None else [None] * len(layers)
         for lp, kv in zip(layers, caches):
             x = _block(lp, x, rope, mask, config, kv, write_pos, attend_len, causal, plain, limit, tp_group)
+    if layout is not None:
+        x = rms_norm(x, layout.use_root("ln_f", params["ln_f"]))
+        logits = linear(layout.use_root("lm_head", params["lm_head"]), _into_group(x, tp_group), plain=plain)
+        return layout.logits(logits), None
     x = rms_norm(x, params["ln_f"])
-    logits = linear(params["lm_head"], x, plain=plain)
+    logits = linear(params["lm_head"], _into_group(x, tp_group), plain=plain)
     if tp_group is not None:
         logits = comm.all_gather_last(logits, tp_group)
     return logits, kv_cache

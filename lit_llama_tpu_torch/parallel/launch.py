@@ -106,15 +106,20 @@ def init_single_process(device=None) -> None:
         _initialized, _device = True, dev
 
 
+def world_size() -> int:
+    """The number of ranks ``torchrun`` started (1 without it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def require_ranks(n: int, flag: str) -> None:
     """Raise unless this process is one of a world of ``n`` ranks (``flag``
     names the option that asked for them): the multi-device paths run one
     process a rank, under ``torchrun --nproc_per_node n``."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+    world = world_size()
     if world != n:
         raise NotImplementedError(
-            f"{flag}={n} needs a world of {n} ranks, and this process is one of {world}: multi-device runs one "
-            f"process a rank (torchrun --nproc_per_node {n} -m ...)")
+            f"{flag}={n} needs a world of {n} ranks, and this process is one of {world}: without torchrun the port "
+            f"runs on one device, and multi-device runs one process a rank (torchrun --nproc_per_node {n} -m ...)")
 
 
 def is_main_process() -> bool:

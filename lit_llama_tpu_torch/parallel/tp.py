@@ -89,27 +89,76 @@ def _qkv_col_perm(d3: int, mp: int) -> torch.Tensor:
     return torch.tensor(idx, dtype=torch.long)
 
 
+def qkv_columns(t: torch.Tensor, mp: int, inverse: bool = False) -> torch.Tensor:
+    """``t``'s fused QKV columns (its last axis) in the order that shards over
+    mp ranks, or (``inverse``) back in the order of [q | k | v]."""
+    perm = _qkv_col_perm(t.shape[-1], mp)
+    return t[..., (torch.argsort(perm) if inverse else perm).to(t.device)]
+
+
+# the axis of a dense block weight that holds the MLP hidden dim
+_HIDDEN_AXIS = {"mlp/c_fc1/w": -1, "mlp/c_fc2/w": -1, "mlp/c_proj/w": -2}
+
+
+def hidden_axis(rel: str) -> Optional[int]:
+    """The MLP hidden axis (from the end) of the dense block leaf at ``rel``
+    (its path in a block, such as ``mlp/c_proj/w``), None for other leaves."""
+    return _HIDDEN_AXIS.get(rel)
+
+
+def dense_to_tp(rel: str, t: torch.Tensor, mp: int, hidden: int) -> torch.Tensor:
+    """The dense block leaf at ``rel`` in the layout that shards over mp
+    ranks, for inference and training alike: c_attn's columns permuted
+    (``qkv_columns``), the MLP hidden axis (``hidden`` wide) zero-padded to a
+    multiple of mp. Any leading axes (a stacked leaf); other leaves come back
+    as they are."""
+    if rel == "attn/c_attn/w":
+        return qkv_columns(t, mp)
+    axis = hidden_axis(rel)
+    extra = find_multiple(hidden, mp) - hidden
+    if axis is None or not extra:
+        return t
+    return torch.nn.functional.pad(t, [0, 0] * (-axis - 1) + [0, extra])
+
+
+def dense_from_tp(rel: str, t: torch.Tensor, mp: int, hidden: int) -> torch.Tensor:
+    """``dense_to_tp`` undone: the columns back in place, the padding cut."""
+    if rel == "attn/c_attn/w":
+        return qkv_columns(t, mp, inverse=True)
+    axis = hidden_axis(rel)
+    return t if axis is None else t.narrow(axis, 0, hidden)
+
+
+def _dense_layer_to_tp(lp: Params, mp: int) -> Params:
+    """A dense layer (MLP unfused) in the TP layout (``dense_to_tp``)."""
+    hidden = lp["mlp"]["c_proj"]["w"].shape[-2]
+    out = dict(lp)
+    for part in ("attn", "mlp"):
+        out[part] = {lin: ({k: dense_to_tp(f"{part}/{lin}/{k}", v, mp, hidden) for k, v in leaf.items()}
+                           if isinstance(leaf, dict) else leaf)
+                     for lin, leaf in lp[part].items()}
+    return out
+
+
 def _repack_rows(q: torch.Tensor, mp: int) -> torch.Tensor:
     """(K, N) nibble values -> (K/2, N) bytes, each of the mp row shards
     half-split over its own rows."""
     return torch.cat([pack_int4(s) for s in q.chunk(mp, dim=0)], dim=0)
 
 
+_QUANT_KEYS = ("qw", "qscale", "qzero")
+
+
 def _pad_cols(leaf: Params, n: int) -> Params:
-    """``n`` zero output columns on every weight-like entry of a linear."""
-    return {k: (torch.nn.functional.pad(v, (0, n)) if k in ("w", "qw", "qscale", "qzero") else v)
-            for k, v in leaf.items()}
+    """``n`` zero output columns on every quantized entry of a linear."""
+    return {k: (torch.nn.functional.pad(v, (0, n)) if k in _QUANT_KEYS else v) for k, v in leaf.items()}
 
 
 def _fix_proj(proj: Params, mp: int, gs: int, k_pad: int = 0) -> Params:
-    """A row-sharded ``c_proj``: rows zero-padded to ``k_pad`` (zero-valued
-    groups for int4: scale = zero = 0 dequantizes to exactly 0), and int4
-    re-packed per shard."""
+    """A row-sharded quantized ``c_proj``: rows zero-padded to ``k_pad``
+    (zero-valued groups for int4: scale = zero = 0 dequantizes to exactly
+    0), and int4 re-packed per shard."""
     out = dict(proj)
-    if "w" in proj:
-        if k_pad:
-            out["w"] = torch.nn.functional.pad(proj["w"], (0, 0, 0, k_pad - proj["w"].shape[0]))
-        return out
     if "qzero" not in proj:  # int8: rows as they are
         if k_pad:
             out["qw"] = torch.nn.functional.pad(proj["qw"], (0, 0, 0, k_pad - proj["qw"].shape[0]))
@@ -125,19 +174,16 @@ def _fix_proj(proj: Params, mp: int, gs: int, k_pad: int = 0) -> Params:
 
 
 def _hidden_multiple(proj: Params, mp: int, gs: int) -> int:
-    """What the MLP hidden dim is padded to a multiple of: mp · 2 · gs for
-    int4 (whole half-split group pairs a shard), mp · 256 for int8 (each
-    shard's width a multiple of 256, which ``quant_route`` sends to K6; the
-    JAX package has no int8 TP to follow), mp for dense weights (JAX's)."""
-    if "qzero" in proj:
-        return mp * 2 * gs
-    return mp * 256 if "qw" in proj else mp
+    """What a quantized MLP hidden dim is padded to a multiple of: mp · 2 ·
+    gs for int4 (whole half-split group pairs a shard), mp · 256 for int8
+    (each shard's width a multiple of 256, which ``quant_route`` sends to
+    K6; the JAX package has no int8 TP to follow). Dense weights take mp
+    (JAX's; ``dense_to_tp``)."""
+    return mp * 2 * gs if "qzero" in proj else mp * 256
 
 
 def _rows(proj: Params) -> int:
-    """The contraction width of a (K, N) linear."""
-    if "w" in proj:
-        return proj["w"].shape[-2]
+    """The contraction width of a quantized (K, N) linear."""
     return proj["qw"].shape[-2] * (2 if "qzero" in proj else 1)
 
 
@@ -158,14 +204,11 @@ def prepare_tp_params(params: Params, config: LLaMAConfig, mp: int) -> Params:
     layers = []
     for lp in tree["h"]:
         lp = llama.unfuse_mlp_layer(lp)
+        if "w" in lp["mlp"]["c_proj"]:  # dense (GPTQ quantizes the five linears or none)
+            layers.append(_dense_layer_to_tp(lp, mp))
+            continue
         attn, mlp = dict(lp["attn"]), dict(lp["mlp"])
-        ca = dict(attn["c_attn"])
-        w = ca["w"] if "w" in ca else ca["qw"]
-        perm = _qkv_col_perm(w.shape[-1], mp).to(w.device)
-        for k in ("w", "qw", "qscale", "qzero"):
-            if k in ca:
-                ca[k] = ca[k][..., perm]
-        attn["c_attn"] = ca
+        attn["c_attn"] = {k: (qkv_columns(v, mp) if k in _QUANT_KEYS else v) for k, v in attn["c_attn"].items()}
         attn["c_proj"] = _fix_proj(attn["c_proj"], mp, gs)
         I = _rows(mlp["c_proj"])
         I_pad = find_multiple(I, _hidden_multiple(mlp["c_proj"], mp, gs))

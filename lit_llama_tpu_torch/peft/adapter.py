@@ -35,13 +35,15 @@ def add_adapter_params(params: Params, config: LLaMAConfig, generator: Optional[
     """Attach the adapter leaves to the stacked params, in place: the prompt
     normal(0, 0.02) from ``generator``, the gates zero, ``adapter_active`` 1
     from ``start_layer`` on; with ``config.adapter.v2`` also v2's bias (zeros)
-    and scale (ones)."""
+    and scale (ones). The prompt is drawn on the generator's device and
+    placed beside the layers."""
     cfg = config.adapter
     L, D, H = config.n_layer, config.n_embd, config.n_head
     dtype = torch_dtype(config.param_dtype)
     h = params["h"]
     dev = h["rms_1"].device
-    h["adapter_wte"] = (torch.randn((L, cfg.prompt_length, D), generator=generator, device=dev) * 0.02).to(dtype)
+    draw = dev if generator is None else generator.device
+    h["adapter_wte"] = (torch.randn((L, cfg.prompt_length, D), generator=generator, device=draw) * 0.02).to(dev, dtype)
     h["gating"] = torch.zeros((L, H), dtype=dtype, device=dev)
     h["adapter_active"] = (torch.arange(L, device=dev) >= cfg.start_layer).to(dtype)[:, None]
     if cfg.v2:

@@ -27,7 +27,8 @@ Params = Dict[str, Any]
 def add_lora_params(params: Params, config: LLaMAConfig, generator: Optional[torch.Generator] = None) -> Params:
     """Attach LoRA A and B to the stacked c_attn params, in place: A
     kaiming-uniform (bound 1/sqrt(D), torch's ``kaiming_uniform_(a=sqrt(5))``
-    over fan-in D), B zero, so the update starts at zero."""
+    over fan-in D), B zero, so the update starts at zero. A is drawn on the
+    generator's device and placed beside c_attn."""
     cfg = config.lora
     n_en = sum(cfg.enable)
     c_attn = params["h"]["attn"]["c_attn"]
@@ -35,8 +36,9 @@ def add_lora_params(params: Params, config: LLaMAConfig, generator: Optional[tor
     L, D, r = config.n_layer, config.n_embd, cfg.r
     bound = 1.0 / math.sqrt(D)
     dtype = torch_dtype(config.param_dtype)
-    a = torch.empty((L, D, n_en * r), dtype=torch.float32, device=dev).uniform_(-bound, bound, generator=generator)
-    c_attn["lora_a"] = a.to(dtype)
+    draw = dev if generator is None else generator.device
+    a = torch.empty((L, D, n_en * r), dtype=torch.float32, device=draw).uniform_(-bound, bound, generator=generator)
+    c_attn["lora_a"] = a.to(dev, dtype)
     c_attn["lora_b"] = torch.zeros((L, n_en, r, D), dtype=dtype, device=dev)
     return params
 

@@ -6,11 +6,19 @@ pretrain/redpajama.py: the same flags and defaults).
 PackedDatasets of LITPKDS chunks mixed with the LLaMA paper's proportions,
 warmup-cosine LR, gradient accumulation (batch_size / micro_batch_size
 microbatches per step), clip 1.0, AdamW, activation checkpointing of each
-block, periodic validation and checkpoints with true resume. One card:
-``data_parallel`` and ``model_parallel`` other than 1 raise (multi-device training is
-the next slice). Params start from ``llama.init_params`` with a
-``torch.Generator`` seeded 1337; ``final`` is saved only when ``max_iters``
-is reached.
+block, periodic validation and checkpoints with true resume. Params start
+from ``llama.init_params`` with a ``torch.Generator`` seeded 1337; ``final``
+is saved only when ``max_iters`` is reached.
+
+Across ranks, as the JAX script shards them (``fsdp=True, tp=model_parallel
+> 1``): ``torchrun --nproc_per_node N·M -m lit_llama_tpu_torch.pretrain.redpajama
+--data_parallel N --model_parallel M ...``. Every rank initialises the whole
+model from the same seed and keeps its shard; every rank reads the combined
+stream as one process would (``num_processes=1``) and trains on its data
+rank's rows of each global batch, so a step computes the single-process step
+(the JAX script instead gives each process its own files under several
+processes: ROADMAP.md, queue 3). Checkpoints are gathered into the
+single-process layout; ``--resume`` reads one written on any mesh.
 """
 
 from __future__ import annotations
@@ -102,8 +110,9 @@ def main(
         eval_interval: Validate every N steps.
         eval_iters: Validation batches per eval.
         log_interval: Log every N steps.
-        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device training is the next slice).
-        model_parallel: Tensor-parallel size: 1 (one card).
+        data_parallel: Data-parallel size, the FSDP axis (-1: every rank the model axis leaves); more than one
+            needs torchrun (one process a rank).
+        model_parallel: Tensor-parallel size; the world is data x model ranks.
         n_layer: Override layer count (the depth cut of a full-width run).
         n_embd: Override width.
         n_head: Override head count.
@@ -121,13 +130,11 @@ def main(
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.training import loop as loop_lib
     from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.parallel import launch, sharding
     from lit_llama_tpu_torch.utils.device import resolve_device
 
-    if data_parallel not in (1, -1) or model_parallel != 1:
-        raise NotImplementedError(
-            f"data_parallel={data_parallel}, model_parallel={model_parallel}: the port trains on one "
-            "device (multi-device training, DP / FSDP, is the next slice; inference runs across ranks)")
-    dev = resolve_device(device)
+    mesh = sharding.train_mesh(data_parallel, model_parallel, device)
+    dev = (mesh is not None and launch.current_device()) or resolve_device(device)
     overrides = {k: v for k, v in (("n_layer", n_layer), ("n_embd", n_embd), ("n_head", n_head),
                                    ("block_size", block_size), ("vocab_size", vocab_size)) if v}
     config = LLaMAConfig.from_name(model_size, param_dtype="float32", compute_dtype="bfloat16", **overrides)
@@ -138,25 +145,30 @@ def main(
     tc = step_lib.TrainConfig(learning_rate=learning_rate, min_lr=min_lr, warmup_iters=warmup_iters,
                               max_iters=max_iters, adam_state_dtype=adam_state_dtype or None)
     optimizer = step_lib.make_optimizer(tc)
+    layout = None
+    if mesh is not None:
+        layout = sharding.Layout(mesh, config, llama.init_params(config, device="meta"), fsdp=True)
     if resume is not None:
-        state = loop_lib.load_train_checkpoint(resume, optimizer, device=dev)
+        state = loop_lib.load_train_checkpoint(resume, optimizer, device=dev, layout=layout)
     else:
         gen = torch.Generator(device=dev).manual_seed(1337)
-        state = step_lib.init_train_state(llama.init_params(config, gen, device=dev), optimizer)
+        params = llama.init_params(config, gen, device=dev)
+        state = step_lib.init_train_state(params if layout is None else layout.shard(params), optimizer)
+        del params
 
     validate_fn = None
     if val_data_dir is not None:
         val_gen = create_dataloader(val_data_dir, config.block_size + 1, 1, micro_batch_size, seed=3424)
-        validate_fn = loop_lib.validate_on(val_gen, config, eval_iters)
+        validate_fn = loop_lib.validate_on(val_gen, config, eval_iters, layout)
 
     lc = loop_lib.LoopConfig(out_dir=Path(out_dir), max_iters=max_iters, log_interval=log_interval,
                              eval_interval=eval_interval if validate_fn else 0, eval_iters=eval_iters,
                              save_interval=save_interval, profile_at_iter=profile_at_iter)
     state = loop_lib.train(state, train_gen(), config, optimizer, lc, validate_fn=validate_fn,
-                           remat_policy=remat_policy)
+                           remat_policy=remat_policy, layout=layout)
     if int(state.step) >= max_iters:
         # only a completed run earns "final": a signal stop saved preempt-NNNNNN
-        loop_lib.save_train_checkpoint(Path(out_dir), "final", state, config)
+        loop_lib.save_train_checkpoint(Path(out_dir), "final", state, config, layout=layout)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ the training and the validation batches share, as in the JAX script.
 Validation and a checkpoint every ``eval_interval`` steps; ``final`` only
 when ``max_iters`` is reached. ``--resume`` restores params, optimizer state
 and step, and draws past the batches the run already took, so a resumed run
-trains on what an unbroken one would. One card: ``data_parallel`` other
-than 1 or -1 and ``model_parallel`` other than 1 raise.
+trains on what an unbroken one would. Across ranks (``torchrun``,
+``--data_parallel N --model_parallel M``) the params shard as the JAX script
+shards them (FSDP over data, TP over model): every rank draws the same
+global batches and trains on its data rank's rows, and checkpoints are
+gathered into the single-process layout (``pretrain.redpajama``).
 """
 
 from __future__ import annotations
@@ -79,8 +82,9 @@ def main(
         eval_interval: Validate and checkpoint every N steps.
         eval_iters: Validation batches per eval.
         log_interval: Log every N steps.
-        data_parallel: Data-parallel size: 1 or -1 (one card; multi-device training is the next slice).
-        model_parallel: Tensor-parallel size: 1 (one card).
+        data_parallel: Data-parallel size, the FSDP axis (-1: every rank the model axis leaves); more than one
+            needs torchrun (one process a rank).
+        model_parallel: Tensor-parallel size; the world is data x model ranks.
         n_layer: Override layer count.
         n_embd: Override width.
         n_head: Override head count.
@@ -95,13 +99,11 @@ def main(
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.training import loop as loop_lib
     from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.parallel import launch, sharding
     from lit_llama_tpu_torch.utils.device import resolve_device
 
-    if data_parallel not in (1, -1) or model_parallel != 1:
-        raise NotImplementedError(
-            f"data_parallel={data_parallel}, model_parallel={model_parallel}: the port trains on one "
-            "device (multi-device training, DP / FSDP, is the next slice; inference runs across ranks)")
-    dev = resolve_device(device)
+    mesh = sharding.train_mesh(data_parallel, model_parallel, device)
+    dev = (mesh is not None and launch.current_device()) or resolve_device(device)
     overrides = {k: v for k, v in (("n_layer", n_layer), ("n_embd", n_embd), ("n_head", n_head)) if v}
     config = LLaMAConfig.from_name(model_size, block_size=block_size, vocab_size=vocab_size,
                                    param_dtype="float32", compute_dtype="bfloat16", **overrides)
@@ -112,11 +114,16 @@ def main(
     tc = step_lib.TrainConfig(learning_rate=learning_rate, warmup_iters=0, max_iters=max_iters, decay_lr=False,
                               adam_state_dtype=adam_state_dtype or None)
     optimizer = step_lib.make_optimizer(tc)
+    layout = None
+    if mesh is not None:
+        layout = sharding.Layout(mesh, config, llama.init_params(config, device="meta"), fsdp=True)
     if resume is not None:
-        state = loop_lib.load_train_checkpoint(resume, optimizer, device=dev)
+        state = loop_lib.load_train_checkpoint(resume, optimizer, device=dev, layout=layout)
     else:
         gen = torch.Generator(device=dev).manual_seed(1337)
-        state = step_lib.init_train_state(llama.init_params(config, gen, device=dev), optimizer)
+        params = llama.init_params(config, gen, device=dev)
+        state = step_lib.init_train_state(params if layout is None else layout.shard(params), optimizer)
+        del params
 
     accum = max(1, batch_size // micro_batch_size)
     rng = np.random.default_rng(1337)
@@ -131,12 +138,12 @@ def main(
     lc = loop_lib.LoopConfig(out_dir=Path(out_dir), max_iters=max_iters, log_interval=log_interval,
                              eval_interval=eval_interval, eval_iters=eval_iters, save_interval=eval_interval)
     validate_fn = loop_lib.validate_on(lambda: get_batches(val_data, block_size, accum, micro_batch_size, rng),
-                                       config, eval_iters)
+                                       config, eval_iters, layout)
     state = loop_lib.train(state, get_batches(train_data, block_size, accum, micro_batch_size, rng), config,
-                           optimizer, lc, validate_fn=validate_fn, remat_policy=remat_policy)
+                           optimizer, lc, validate_fn=validate_fn, remat_policy=remat_policy, layout=layout)
     if int(state.step) >= max_iters:
         # only a completed run earns "final": a signal stop saved preempt-NNNNNN
-        loop_lib.save_train_checkpoint(Path(out_dir), "final", state, config)
+        loop_lib.save_train_checkpoint(Path(out_dir), "final", state, config, layout=layout)
     return state
 
 

@@ -12,6 +12,16 @@
   "val_loss"} after each validation;
 * ``profile_at_iter`` writes a ``torch.profiler`` trace of that step to
   ``out_dir/profile/``.
+
+Across ranks (``layout``): rank 0 alone writes ``metrics.jsonl`` and prints;
+``tokens_per_sec`` counts the global batch; validation is the global token
+mean; a checkpoint is gathered into the single-process layout (the TP
+column permutation undone, padding cut) and rank 0 writes it, so it loads
+as a single-process one does, and ``load_train_checkpoint(..., layout=)``
+shards a checkpoint of any mesh onto another. The stop flag is agreed by an
+all-reduce every step: a signal reaches the ranks at different moments, and
+a rank that checkpointed while another waited in the step's collectives
+would hang them both.
 """
 
 from __future__ import annotations
@@ -51,17 +61,32 @@ _CONFIG_KEYS = ("block_size", "vocab_size", "padded_vocab_size", "n_layer", "n_h
 
 
 def save_train_checkpoint(out_dir: Path, name: str, state: step_lib.TrainState, config: LLaMAConfig,
-                          save_filter: Optional[Callable[[Any], Any]] = None) -> Path:
+                          save_filter: Optional[Callable[[Any], Any]] = None, layout=None) -> Path:
     """Params + optimizer state + step counter under ``out_dir/name``; with
     ``save_filter``, ``save_filter(params)`` and the step, no optimizer state
-    (a PEFT checkpoint, as the JAX package writes it)."""
+    (a PEFT checkpoint, as the JAX package writes it). With ``layout`` every
+    rank calls it: the shards are gathered into the single-process layout
+    and rank 0 writes them."""
     path = Path(out_dir) / name
     step = np.asarray(state.step, np.int32)
+    params, opt_state = state.params, state.opt_state
     if save_filter is not None:
-        tree = {"params": save_filter(state.params), "step": step}
-    else:
-        tree = {"params": state.params, "opt_state": state.opt_state, "step": step}
+        params, opt_state = save_filter(params), None
+    if layout is not None:
+        keep = layout.is_main
+        params = layout.gather(params, keep)
+        if opt_state is not None:
+            moments = {k: layout.gather(opt_state[k], keep) for k in ("mu", "nu")}
+            opt_state = {"count": opt_state["count"].cpu(), **moments}
+        if not keep:
+            layout.barrier()
+            return path
+    tree = {"params": params, "step": step}
+    if opt_state is not None:
+        tree["opt_state"] = opt_state
     ckpt.save_checkpoint(path, tree, metadata={"config": config_meta(config)})
+    if layout is not None:
+        layout.barrier()
     return path
 
 
@@ -71,13 +96,16 @@ def config_meta(config: LLaMAConfig) -> Dict[str, Any]:
     return {k: getattr(config, k) for k in _CONFIG_KEYS}
 
 
-def load_train_checkpoint(path, optimizer: step_lib.AdamW, device=None) -> step_lib.TrainState:
+def load_train_checkpoint(path, optimizer: step_lib.AdamW, device=None, layout=None) -> step_lib.TrainState:
     """The state ``save_train_checkpoint`` wrote, on ``device`` (the card when
     None). The optimizer state is read when the checkpoint has one, in the
-    optimizer's own layout and dtype; else it starts afresh."""
+    optimizer's own layout and dtype; else it starts afresh. With
+    ``layout`` (a ``parallel.sharding.Layout`` of the checkpoint's tree) the
+    params and the moments are this rank's shards of them, whatever mesh
+    wrote the checkpoint."""
     dev = resolve_device(device)
-    tree = ckpt.load_checkpoint(path, transform=lambda n, t: t.to(dev))
-    params = tree["params"]
+    tree = ckpt.load_checkpoint(path, transform=lambda n, t: t if layout is not None else t.to(dev))
+    params = tree["params"] if layout is None else layout.shard(tree["params"], dev)
     step = int(tree["step"])
     opt_state = optimizer.init(params)
     if "opt_state" in tree:
@@ -85,6 +113,10 @@ def load_train_checkpoint(path, optimizer: step_lib.AdamW, device=None) -> step_
         got = step_lib.tree_leaves(tree["opt_state"])
         if set(want) != set(got):
             raise ValueError(f"{path}: optimizer state {sorted(got)} does not fit {sorted(want)}")
+        if layout is not None:
+            got = {**step_lib.tree_leaves(layout.shard(tree["opt_state"]["mu"], dev), "mu/"),
+                   **step_lib.tree_leaves(layout.shard(tree["opt_state"]["nu"], dev), "nu/"),
+                   "count": got["count"]}
         for n, t in want.items():
             t.copy_(got[n].reshape(t.shape))
     return step_lib.TrainState(params, opt_state, step)
@@ -101,20 +133,24 @@ def train(
     log_fn: Optional[Callable[[Dict], None]] = None,
     remat: bool = True,
     remat_policy: str = "dots",
+    layout=None,
 ) -> step_lib.TrainState:
     """Run ``train_step`` from ``state.step`` to ``loop.max_iters`` (or until
     ``batches`` ends or a signal asks to stop). Batches are numpy arrays or
-    tensors; they go to the params' device."""
+    tensors; they go to the params' device. With ``layout`` every rank runs
+    it on the same global batches and its own shards of the state."""
     out_dir = Path(loop.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     metrics_path = out_dir / "metrics.jsonl"
     dev = next(iter(step_lib.tree_leaves(state.params).values())).device
+    main = layout is None or layout.is_main
 
     if log_fn is None:
         def log_fn(rec):
-            _default_log(rec)
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if main:
+                _default_log(rec)
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
 
     stop_requested = {"flag": False}
 
@@ -135,22 +171,23 @@ def train(
     it_last = start_iter - 1
     try:
         for it in range(start_iter, loop.max_iters):
-            if stop_requested["flag"]:
-                save_train_checkpoint(out_dir, f"preempt-{it:06d}", state, config, loop.save_filter)
+            stop = stop_requested["flag"] if layout is None else layout.any_rank(stop_requested["flag"], dev)
+            if stop:
+                save_train_checkpoint(out_dir, f"preempt-{it:06d}", state, config, loop.save_filter, layout)
                 break
             try:
                 ids, tgt = next(batches)
             except StopIteration:
                 break
             prof = None
-            if it == loop.profile_at_iter:
+            if it == loop.profile_at_iter and main:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                 prof = profile(activities=acts)
                 prof.__enter__()
             state, loss = step_lib.train_step(state, as_tensor(ids), as_tensor(tgt), config, optimizer, remat,
-                                              remat_policy)
+                                              remat_policy, layout=layout)
             if prof is not None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -174,7 +211,7 @@ def train(
             if validate_fn is not None and loop.eval_interval and (it + 1) % loop.eval_interval == 0:
                 log_fn({"iter": it, "val_loss": round(float(validate_fn(state)), 4)})
             if loop.save_interval and (it + 1) % loop.save_interval == 0:
-                save_train_checkpoint(out_dir, f"iter-{it + 1:06d}", state, config, loop.save_filter)
+                save_train_checkpoint(out_dir, f"iter-{it + 1:06d}", state, config, loop.save_filter, layout)
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
@@ -186,8 +223,10 @@ def _default_log(rec: Dict) -> None:
 
 
 def validate_on(batches_fn: Callable[[], Iterator], config: LLaMAConfig,
-                eval_iters: int) -> Callable[[step_lib.TrainState], float]:
-    """Mean loss over ``eval_iters`` batches from a fresh ``batches_fn()``."""
+                eval_iters: int, layout=None) -> Callable[[step_lib.TrainState], float]:
+    """Mean loss over ``eval_iters`` batches from a fresh ``batches_fn()``;
+    with ``layout`` each batch's global token mean, the rows split over the
+    data ranks (every rank calls it and gets the same value)."""
 
     @torch.no_grad()
     def run(state: step_lib.TrainState) -> float:
@@ -202,7 +241,12 @@ def validate_on(batches_fn: Callable[[], Iterator], config: LLaMAConfig,
             ids, tgt = torch.as_tensor(ids).to(dev, torch.long), torch.as_tensor(tgt).to(dev, torch.long)
             if ids.ndim == 3:  # (A, B, T): the accumulation axis joins the batch
                 ids, tgt = ids.reshape(-1, ids.shape[-1]), tgt.reshape(-1, tgt.shape[-1])
-            losses.append(float(step_lib.loss_fn(state.params, ids, tgt, config, remat=False)))
+            if layout is not None:
+                ids, tgt = layout.local_rows(ids, 0), layout.local_rows(tgt, 0)
+                loss = step_lib.loss_fn(state.params, ids, tgt, config, remat=False, layout=layout)
+                losses.append(float(layout.data_sum(loss)))
+            else:
+                losses.append(float(step_lib.loss_fn(state.params, ids, tgt, config, remat=False)))
         return float(np.mean(losses)) if losses else float("nan")
 
     return run

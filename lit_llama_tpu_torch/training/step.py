@@ -16,6 +16,17 @@ The JAX step is functional. Here ``train_step`` updates the params and the
 Adam moments IN PLACE, leaf by leaf, so no second copy of them is made (at the
 7B width a copy is gigabytes); it returns a new ``TrainState`` holding the same
 tensors. Activation checkpointing is ``llama.forward(remat=True)``.
+
+Across ranks (``layout``, a ``parallel.sharding.Layout``) a step computes what
+the single-process step computes on the GLOBAL batch, as the JAX step does
+under its GSPMD mesh: every rank is given the whole (A, B, T) batch and keeps
+its data rank's B / dp rows; each microbatch's loss is the global token mean
+(the count of valid labels summed over the data group before the division,
+so ranks that hold different numbers of ignored labels weigh them as one
+batch would); the gradients of leaves whole on the data group are summed
+over it (an FSDP leaf's arrive reduce-scattered by the forward's gathers);
+the clip norm sums every shard's squares once; AdamW runs on the local
+shards and their local moments.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 
 from lit_llama_tpu_torch.models import llama
 from lit_llama_tpu_torch.models.config import LLaMAConfig
+from lit_llama_tpu_torch.parallel import comm
 from lit_llama_tpu_torch.utils.checkpoint import tree_leaves, tree_unflatten
 from lit_llama_tpu_torch.utils.device import torch_dtype
 
@@ -110,12 +122,15 @@ class AdamW:
         return {"count": torch.zeros((), dtype=torch.int64, device=dev), "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
-    def apply(self, params: Params, grads: Dict[str, torch.Tensor], state: Dict[str, Any]) -> None:
+    def apply(self, params: Params, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
+              g_norm: Optional[torch.Tensor] = None) -> None:
         """One update, in place: ``grads`` maps each trainable leaf's name to
         its f32 gradient, which is consumed (clipped in place); frozen leaves
         get no update (optax's set_to_zero). Each step below is one in-place
         pass over a leaf where the arithmetic allows, so the update streams
-        each f32 value a few times instead of once per operator."""
+        each f32 value a few times instead of once per operator. ``g_norm``
+        is the gradients' global norm where they are shards of a larger tree
+        (``Layout.global_norm``); by default it is taken over ``grads``."""
         tc = self.tc
         leaves = tree_leaves(params)
         mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
@@ -123,7 +138,8 @@ class AdamW:
         if set(grads) != set(names):
             raise ValueError(f"grads for {sorted(grads)}, trainable leaves {sorted(names)}")
         # clip_by_global_norm: g / ||g|| * max_norm when ||g|| >= max_norm
-        g_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
         clip = float(g_norm) >= tc.grad_clip
         count = int(state["count"]) + 1  # scale_by_adam's count after the increment
         f32 = np.float32  # the bias corrections in f32, as optax takes them
@@ -157,16 +173,23 @@ def make_optimizer(tc: TrainConfig, trainable_mask: Optional[Params] = None) -> 
     return AdamW(tc, trainable_mask)
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = IGNORE_INDEX):
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = IGNORE_INDEX,
+                       group=None):
     """Token-mean cross entropy in f32 skipping ``ignore_index`` labels; 0.0
-    (not NaN) when every label is ignored."""
+    (not NaN) when every label is ignored. With ``group`` (a data group whose
+    ranks hold the other rows of one batch) the count of valid labels is
+    summed over the group first: the result is this rank's share of the
+    batch's mean, and the shares add up to it over the group."""
     valid = targets != ignore_index
     safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, logz - ll, torch.zeros_like(logz))
-    return nll.sum() / valid.sum().clamp(min=1).float()
+    count = valid.sum()
+    if group is not None:
+        count = comm.all_reduce(count.double(), group)
+    return nll.sum() / count.clamp(min=1).float()
 
 
 def shift_labels(input_ids: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,9 +198,12 @@ def shift_labels(input_ids: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.
 
 
 def loss_fn(params: Params, input_ids, targets, config: LLaMAConfig, remat: bool = True,
-            remat_policy: str = "dots", plain: bool = False) -> torch.Tensor:
-    logits, _ = llama.forward(params, input_ids, config, remat=remat, remat_policy=remat_policy, plain=plain)
-    return cross_entropy_loss(logits, targets)
+            remat_policy: str = "dots", plain: bool = False, layout=None) -> torch.Tensor:
+    """The batch's token-mean loss; with ``layout``, this data rank's share
+    of it (``input_ids`` and ``targets`` its rows)."""
+    logits, _ = llama.forward(params, input_ids, config, remat=remat, remat_policy=remat_policy, plain=plain,
+                              layout=layout)
+    return cross_entropy_loss(logits, targets, group=None if layout is None else layout.data_group)
 
 
 def flops_per_token(config: LLaMAConfig) -> Tuple[int, int]:
@@ -195,11 +221,15 @@ def init_train_state(params: Params, optimizer: AdamW) -> TrainState:
 
 def train_step(state: TrainState, input_ids: torch.Tensor, targets: torch.Tensor, config: LLaMAConfig,
                optimizer: AdamW, remat: bool = True, remat_policy: str = "dots",
-               plain: bool = False) -> Tuple[TrainState, torch.Tensor]:
+               plain: bool = False, layout=None) -> Tuple[TrainState, torch.Tensor]:
     """One optimizer step over ``A`` microbatches: ``input_ids`` and
     ``targets`` (A, B, T). The microbatch gradients are summed in f32 and
     divided by A; the loss returned is the mean of the A losses. Updates the
-    params and the optimizer state in place."""
+    params and the optimizer state in place. With ``layout`` the params and
+    the state are this rank's shards, the batch is the global one (every
+    rank passes the same), and every rank returns the global loss."""
+    if layout is not None:
+        input_ids, targets = layout.local_rows(input_ids), layout.local_rows(targets)
     leaves = tree_leaves(state.params)
     names = optimizer.trainable_names(state.params)
     for n, t in leaves.items():
@@ -209,7 +239,7 @@ def train_step(state: TrainState, input_ids: torch.Tensor, targets: torch.Tensor
     acc: Dict[str, torch.Tensor] = {}
     try:
         for a in range(A):
-            loss = loss_fn(state.params, input_ids[a], targets[a], config, remat, remat_policy, plain)
+            loss = loss_fn(state.params, input_ids[a], targets[a], config, remat, remat_policy, plain, layout)
             grads = torch.autograd.grad(loss, [leaves[n] for n in names])
             loss_sum += loss.detach()
             for n, g in zip(names, grads):
@@ -221,7 +251,13 @@ def train_step(state: TrainState, input_ids: torch.Tensor, targets: torch.Tensor
     finally:
         for t in leaves.values():
             t.requires_grad_(False)
+    if layout is not None:
+        layout.sync_grads(acc)
+        loss_sum = layout.data_sum(loss_sum)
     for g in acc.values():
         g.div_(A)
-    optimizer.apply(state.params, acc, state.opt_state)
+    if layout is None:
+        optimizer.apply(state.params, acc, state.opt_state)
+    else:
+        optimizer.apply(state.params, acc, state.opt_state, g_norm=layout.global_norm(acc))
     return TrainState(state.params, state.opt_state, state.step + 1), loss_sum / A

@@ -1,5 +1,7 @@
 """Rank processes for the port's multi-process CPU tests
-(``test_torch_tp.py``, ``test_torch_parallel_serving.py``; not a test file).
+(``test_torch_tp.py``, ``test_torch_parallel_serving.py``,
+``test_torch_sharding.py``, ``test_torch_dist_training.py``; not a test
+file).
 
 ``run(job, world, tmp_path, payload)`` spawns ``world`` ranks that join a
 gloo group through a ``file://`` store under ``tmp_path`` (tests of several
@@ -107,4 +109,195 @@ def engine_runs(rank: int, world: int, payload):
     return out
 
 
-JOBS = {"tp_forwards": tp_forwards, "engine_runs": engine_runs}
+def _mask(kind, params):
+    from lit_llama_tpu_torch.peft import adapter as adapter_mod, lora as lora_mod
+
+    if kind is None:
+        return None
+    if kind == "lora":
+        return lora_mod.trainable_mask(params)
+    return adapter_mod.trainable_mask(params, v2=kind == "adapter_v2")
+
+
+def _gathered_np(layout, tree, keep):
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+
+    whole = layout.gather(tree, keep)
+    return None if whole is None else {n: t.float().numpy() for n, t in tree_leaves(whole).items()}
+
+
+def train_steps(rank: int, world: int, payload):
+    """Each case of ``payload["cases"]`` whose mesh has ``world`` ranks: its
+    params sharded (``Layout``), ``train_step`` on each of its global
+    batches. Every rank returns, a case, the losses and its local params'
+    and moments' bytes; rank 0 also the final params gathered whole
+    (numpy, single-process layout). With ``payload["resume"]``, also
+    ``resume_runs``'s results under "resume"."""
+    torch.set_num_threads(1)  # tiny models: a thread a rank, so that the ranks of the CPU tests do not crowd
+    from lit_llama_tpu_torch.parallel import mesh as mesh_lib, sharding
+    from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+    from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+    out = {}
+    for name, case in payload["cases"].items():
+        dp, mp_ = case["mesh"]
+        if dp * mp_ != world:
+            continue
+        mesh = mesh_lib.make_mesh(data=dp, model=mp_, device="cpu")
+        params = params_from_numpy(case["params"], device="cpu")
+        cfg = case["config"]
+        local, layout = sharding.shard_params(params, mesh, cfg, fsdp=case["fsdp"])
+        opt = step_lib.make_optimizer(step_lib.TrainConfig(**case["tc"]), _mask(case.get("mask"), local))
+        state = step_lib.init_train_state(local, opt)
+        losses = []
+        for ids, tgt in zip(case["ids"], case["tgt"]):
+            state, loss = step_lib.train_step(state, torch.as_tensor(ids).long(), torch.as_tensor(tgt).long(), cfg,
+                                              opt, True, case.get("policy", "dots"), layout=layout)
+            losses.append(float(loss))
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params).values())
+        nbytes += sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                      for t in tree_leaves(state.opt_state[k]).values())
+        out[name] = {"losses": losses, "bytes": nbytes,
+                     "params": _gathered_np(layout, state.params, rank == 0)}
+    if "resume" in payload:
+        out["resume"] = dict(resume_runs(rank, world, payload["resume"]), out=payload["resume"]["out"])
+    return out
+
+
+def _batches(ids, tgt, start: int = 0):
+    for i in range(start, len(ids)):
+        yield ids[i], tgt[i]
+
+
+def resume_runs(rank: int, world: int, payload):
+    """FSDP at (world, 1) through ``loop.train``: an unbroken run of every
+    batch with a checkpoint halfway, then a run resumed from it on the same
+    mesh; and, when asked, a run of every batch that stops at a signal one
+    rank receives. Rank 0 returns the final params of each (gathered)."""
+    torch.set_num_threads(1)  # tiny models: a thread a rank, so that the ranks of the CPU tests do not crowd
+    import os
+    import signal
+
+    from lit_llama_tpu_torch.parallel import mesh as mesh_lib, sharding
+    from lit_llama_tpu_torch.training import loop as loop_lib, step as step_lib
+    from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+    cfg, out_dir = payload["config"], Path(payload["out"])
+    ids, tgt = payload["ids"], payload["tgt"]
+    n = len(ids)
+    mesh = mesh_lib.make_mesh(data=world, model=1, device="cpu")
+    tc = step_lib.TrainConfig(**payload["tc"])
+    res = {}
+
+    def fresh():
+        opt = step_lib.make_optimizer(tc)
+        local, layout = sharding.shard_params(params_from_numpy(payload["params"], device="cpu"), mesh, cfg,
+                                              fsdp=True)
+        return opt, layout, step_lib.init_train_state(local, opt)
+
+    opt, layout, state = fresh()
+    lc = loop_lib.LoopConfig(out_dir=out_dir / "unbroken", max_iters=n, save_interval=n // 2, eval_interval=0)
+    state = loop_lib.train(state, _batches(ids, tgt), cfg, opt, lc, layout=layout)
+    res["unbroken"] = _gathered_np(layout, state.params, rank == 0)
+    res["unbroken_step"] = state.step
+
+    opt = step_lib.make_optimizer(tc)
+    state = loop_lib.load_train_checkpoint(out_dir / "unbroken" / f"iter-{n // 2:06d}", opt, device="cpu",
+                                           layout=layout)
+    lc = loop_lib.LoopConfig(out_dir=out_dir / "resumed", max_iters=n, save_interval=0, eval_interval=0)
+    state = loop_lib.train(state, _batches(ids, tgt, n // 2), cfg, opt, lc, layout=layout)
+    res["resumed"] = _gathered_np(layout, state.params, rank == 0)
+
+    if payload.get("stop_at") is not None:
+        opt, layout, state = fresh()
+
+        def signalled():
+            for i, batch in enumerate(_batches(ids, tgt)):
+                if rank == payload["stop_rank"] and i == payload["stop_at"]:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield batch
+
+        lc = loop_lib.LoopConfig(out_dir=out_dir / "stopped", max_iters=n, save_interval=0, eval_interval=0)
+        state = loop_lib.train(state, signalled(), cfg, opt, lc, layout=layout)
+        res["stopped_step"] = state.step
+    return res
+
+
+def collectives(rank: int, world: int, payload):
+    """The differentiable collectives of ``parallel.comm`` on this rank's
+    slice of ``payload``'s inputs, over the world group: each one's output
+    and input gradient under the upstream gradient ``payload["up"]``, a
+    reduce-scatter, and the calls ``comm.stats`` counted by kind."""
+    from lit_llama_tpu_torch.parallel import comm
+
+    comm.reset_stats()
+    x = torch.as_tensor(payload["x"][rank]).requires_grad_()  # (R, C): this rank's input
+    out = {}
+    for name, fn in (("copy_to_group", lambda t: comm.copy_to_group(t, None)),
+                     ("reduce_from_group", lambda t: comm.reduce_from_group(t, None)),
+                     ("gather_last", lambda t: comm.gather_last(t, None)),
+                     ("gather_dim0", lambda t: comm.gather_dim(t, 0, None))):
+        y = fn(x)
+        (g,) = torch.autograd.grad(y, x, torch.as_tensor(payload["up"][name][rank]))
+        out[name] = (y.detach().numpy(), g.numpy())
+    out["reduce_scatter"] = comm.reduce_scatter(torch.as_tensor(payload["x"][rank]), None).numpy()
+    out["stats"] = {k: dict(v) for k, v in comm.stats["kinds"].items()}
+    return out
+
+
+def sharding_checks(rank: int, world: int, payload):
+    """``parallel.sharding`` and ``parallel.comm`` on ``world`` ranks: each
+    (data, model, fsdp) of ``payload["meshes"]`` with ``world`` ranks, the
+    tree sharded (every rank's local leaves) and gathered back (rank 0's);
+    an adapter tree refused under TP; the differentiable collectives of
+    ``comm`` (``collectives``); one train step's census
+    (``tools.comm_anatomy``) on each mesh of ``payload["census"]``."""
+    torch.set_num_threads(1)  # tiny models: a thread a rank, so that the ranks of the CPU tests do not crowd
+    from lit_llama_tpu_torch.parallel import mesh as mesh_lib, sharding
+    from lit_llama_tpu_torch.tools import comm_anatomy
+    from lit_llama_tpu_torch.training import step as step_lib
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+    from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+    out = {"trips": {}, "census": {}}
+    params = params_from_numpy(payload["params"], device="cpu")
+    for dp, mp_, fsdp in payload["meshes"]:
+        if dp * mp_ != world:
+            continue
+        mesh = mesh_lib.make_mesh(data=dp, model=mp_, device="cpu")
+        local, layout = sharding.shard_params(params, mesh, payload["config"], fsdp=fsdp)
+        whole = layout.gather(local, rank == 0)
+        kept = {n: t.numpy().copy() for n, t in tree_leaves(local).items()}
+        for t in tree_leaves(local).values():
+            t.add_(1)  # a step after the gather: the gathered tree must not move with it
+        out["trips"][(dp, mp_, fsdp)] = {
+            "local": kept,
+            "whole": None if whole is None else {n: t.numpy() for n, t in tree_leaves(whole).items()}}
+        if mp_ > 1 and "adapter_config" in payload:
+            try:
+                sharding.Layout(mesh, payload["adapter_config"], params_from_numpy(payload["adapter_params"], device="cpu"),
+                                fsdp=fsdp)
+            except NotImplementedError as e:
+                out["adapter_refused"] = str(e)
+    if world in payload.get("collectives", {}):
+        out["collectives"] = collectives(rank, world, payload["collectives"][world])
+    for dp, mp_, fsdp in payload.get("census", ()):
+        if dp * mp_ != world:
+            continue
+        mesh = mesh_lib.make_mesh(data=dp, model=mp_, device="cpu")
+        local, layout = sharding.shard_params(params, mesh, payload["config"], fsdp=fsdp)
+        opt = step_lib.make_optimizer(step_lib.TrainConfig(warmup_iters=0, max_iters=4))
+        box = [step_lib.init_train_state(local, opt)]
+        ids = torch.as_tensor(payload["ids"]).long()
+
+        def run():
+            box[0], _ = step_lib.train_step(box[0], ids[..., :-1], ids[..., 1:], payload["config"], opt,
+                                            layout=layout)
+
+        out["census"][(dp, mp_, fsdp)] = comm_anatomy.census(run)
+    return out
+
+
+JOBS = {"tp_forwards": tp_forwards, "engine_runs": engine_runs, "train_steps": train_steps,
+        "resume_runs": resume_runs, "sharding_checks": sharding_checks}
