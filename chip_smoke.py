@@ -104,7 +104,7 @@ subprocess on the same file (/health, four requests, tokens equal); a
 tokenizer trained by ``scripts.prepare_shakespeare`` (a subprocess) on the
 repo's reference Markdown, the native encoder built and equal to the Python one on the
 whole corpus (both timed), and ``pretrain.shakespeare`` at the 7B width,
-block 1024, 4 layers, batch 2, lr 2e-5: 6 steps in process (the loss falls; K4 and
+block 1024, 2 layers, batch 2, lr 2e-5: 6 steps in process (the loss falls; K4 and
 K10 launch 2 L and L times a step; ms a step, peak memory), then
 ``--resume`` for 2 more in a subprocess; ``scripts.convert_lora_weights`` on
 phase 21's LoRA directory, the merged ``.pth``'s logits within
@@ -119,13 +119,22 @@ timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
 SDPA's f32 call runs logged beside the yardsticks). Phases 29-31 run
 tensor- and data-parallel inference in two ranks on the one card (see their
 constants). Phases 32-34 train across two ranks on the one card, DP, FSDP
-and TP at the 7B width (4, 8 and 8 layers): three f32 steps at 2 layers
+and TP at the 7B width (4 layers each): three f32 steps at 2 layers
 against the single-process step, one bf16 step at depth read beside the
 single card's kernel vs plain departure, a second step's collectives counted
 (``tools/comm_anatomy.py``), K4 and K10 held and timed at each rank's local
-shapes; then ``finetune.lora`` and ``pretrain.shakespeare`` with
-``--data_parallel 2`` under ``torchrun``, whose final checkpoints choose the
-one-process runs' greedy tokens wherever no near-tie decides them.
+shapes; phase 35, in the same ranks, Adapter v1 finetuning under TP (4
+layers, start layer 2, the gates drawn non-zero, phase 20's 4 x 256 rows:
+three f32 steps against the single process, one bf16 step's trained
+elements read beside the single card's kernel vs plain, K4 and K10 at the
+local (4, 16, 256, 128)); then ``finetune.lora`` and ``pretrain.shakespeare``
+with ``--data_parallel 2`` and ``finetune.adapter`` with ``--model_parallel
+2`` under ``torchrun``, whose final checkpoints choose the one-process runs'
+greedy tokens wherever no near-tie decides them. Phase 36 runs
+``tools/gptq_65b_dryrun.py`` in a subprocess at the 65B layer shape (one
+layer, 2 x 2048 calibration tokens, the weights on the host): exit 0 under
+its 14 GB cap, its K3 and K4 launches counted; then K3 f32 (M = 4096, 8192
+-> 24576) and K4 f32 at (2, 64, 2048, 128) held and timed.
 Any failure raises and exits nonzero.
 
 Output: findings on earlier lines; one line with the card's name and power
@@ -690,20 +699,18 @@ def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_t
     sft.save_samples(samples[:32], work / "data" / "train.pt")
     sft.save_samples(samples[32:], work / "data" / "test.pt")
     enc = tok.encode(sft.generate_prompt({"instruction": "What food do lamas eat?", "input": ""}))
-    runs = {}
-    for mode, flag in (("lora", "--lora_path"), ("adapter", "--adapter_path")):
+    runs, wants = {}, {}
+    modes = (("lora", "--lora_path"), ("adapter", "--adapter_path"))
+    # both modes' runs at once, then both generations: a subprocess spends most
+    # of its time starting up
+    finetuned = _run_all([[f"lit_llama_tpu_torch.finetune.{mode}", "--data_dir", str(work / "data"),
+                           "--checkpoint_path", str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path),
+                           "--out_dir", str(work / f"out_{mode}"), "--max_iters", "3", "--batch_size", "8",
+                           "--micro_batch_size", "4", "--warmup_iters", "1", "--eval_interval", "3", "--eval_iters",
+                           "1", "--save_interval", "100", "--log_interval", "1", "--max_seq_length", "256"]
+                          for mode, _ in modes], dev)
+    for (mode, flag), (_, _, took_ft) in zip(modes, finetuned):
         out = work / f"out_{mode}"
-        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.finetune.{mode}", "--data_dir", str(work / "data"),
-               "--checkpoint_path", str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path), "--out_dir",
-               str(out), "--max_iters", "3", "--batch_size", "8", "--micro_batch_size", "4", "--warmup_iters", "1",
-               "--eval_interval", "3", "--eval_iters", "1", "--save_interval", "100", "--log_interval", "1",
-               "--max_seq_length", "256"]
-        if dev.type == "cpu":
-            cmd += ["--device", "cpu"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        took_ft = time.perf_counter() - t0
-        assert proc.returncode == 0, f"finetune.{mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
         recs = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
         losses = [r["loss"] for r in recs if "loss" in r]
         assert len(losses) == 3 and all(np.isfinite(losses)) and any("val_loss" in r for r in recs), recs
@@ -718,25 +725,23 @@ def finetune_entry_points(dev, tok_path: Path, work: Path, seed: int, cfg, new_t
             mcfg = mcfg.replace(adapter=AdapterConfig(v2=info["v2"], prompt_length=info["prompt_length"],
                                                       start_layer=info["start_layer"]))
             params = adapter_mod.load_adapter_state(adapter_mod.add_adapter_params(params, mcfg), overlay)
-        want = gen.generate(llama.unstack_layers(params), enc, new_tokens, config=mcfg, temperature=0.0,
-                            eos_id=tok.eos_id, device=dev).tolist()
+        wants[mode] = gen.generate(llama.unstack_layers(params), enc, new_tokens, config=mcfg, temperature=0.0,
+                                   eos_id=tok.eos_id, device=dev).tolist()
         del params, overlay
-        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.generate.{mode}", flag, str(ckpt), "--checkpoint_path",
-               str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path), "--temperature", "0",
-               "--max_new_tokens", str(new_tokens)]
-        if dev.type == "cpu":
-            cmd += ["--device", "cpu"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-        took_gen = time.perf_counter() - t0
-        assert proc.returncode == 0, f"generate.{mode} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
-        got = json.loads(proc.stderr.split("Token ids: ")[-1].splitlines()[0])
-        assert got == want, f"generate.{mode}: tokens {got} differ from the in-process generate's {want}"
-        runs[mode] = dict(finetune_s=took_ft, generate_s=took_gen, losses=losses, new_tokens=len(got) - len(enc),
-                          checkpoint=str(ckpt))
+        runs[mode] = dict(finetune_s=took_ft, losses=losses, checkpoint=str(ckpt))
+    generated = _run_all([[f"lit_llama_tpu_torch.generate.{mode}", flag, runs[mode]["checkpoint"],
+                           "--checkpoint_path", str(work / "lit-llama.pth"), "--tokenizer_path", str(tok_path),
+                           "--temperature", "0", "--max_new_tokens", str(new_tokens)] for mode, flag in modes],
+                         dev, timeout=300)
+    for (mode, _), (_, err, took_gen) in zip(modes, generated):
+        got = json.loads(err.split("Token ids: ")[-1].splitlines()[0])
+        assert got == wants[mode], f"generate.{mode}: tokens {got} differ from the in-process generate's {wants[mode]}"
+        r = runs[mode]
+        r.update(generate_s=took_gen, new_tokens=len(got) - len(enc))
         log(f"phase 21: python -m lit_llama_tpu_torch.finetune.{mode} ({cfg.n_layer} layers at width {cfg.n_embd}, "
-            f"3 steps): exit 0 in {took_ft:.1f} s, losses {losses}; generate.{mode} on its checkpoint: exit 0 in "
-            f"{took_gen:.1f} s, {len(got) - len(enc)} greedy tokens equal to the in-process generate's")
+            f"3 steps): exit 0 in {r['finetune_s']:.1f} s, losses {r['losses']}; generate.{mode} on its checkpoint: "
+            f"exit 0 in {took_gen:.1f} s, {r['new_tokens']} greedy tokens equal to the in-process generate's (each "
+            "pair of subprocesses at once)")
     return runs
 
 
@@ -1225,6 +1230,16 @@ def _run(cmd, dev, timeout=600):
     return proc.stdout, proc.stderr, time.perf_counter() - t0
 
 
+def _run_all(cmds, dev, timeout=600):
+    """``_run`` of each command, all started at once (a subprocess spends
+    most of its time starting up); their results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        futures = [pool.submit(_run, cmd, dev, timeout) for cmd in cmds]
+        return [f.result() for f in futures]
+
+
 def gptq_entry_points(dev, tok_path: Path, entry: Path, peft_dirs, seed: int):
     """Phase 24, on phase 21's 3-layer 7B-width ``.pth`` in ``entry`` and its
     tokenizer: ``python -m lit_llama_tpu_torch.quantize.gptq`` (ENTRY_SAMPLES
@@ -1270,32 +1285,10 @@ def gptq_entry_points(dev, tok_path: Path, entry: Path, peft_dirs, seed: int):
         assert abs(printed - want) <= 1e-4 * want, f"{what}: printed perplexity {printed}, in process {want}"
         return printed
 
-    # quantize -> evaluate -> generate
+    # the inputs of the PEFT evaluations and of the quality ladder: phase 21's
+    # LoRA and Adapter v1 directories, a v2 directory written here, and a native
+    # copy of the base's first layer with its train.bin / val.bin
     gdir = entry / "gptq"
-    out, err, took = _run(["lit_llama_tpu_torch.quantize.gptq", "--checkpoint_path", str(pth), "--tokenizer_path",
-                           str(tok_path), "--output_path", str(gdir), "--n_samples", str(n_samples), "--block_size",
-                           str(T), "--data_file", str(entry / "calib.txt")], dev)
-    assert f"quantized checkpoint written to {gdir}" in out and ckpt.load_metadata(gdir)["config"]["quantize"] == "int4"
-    readings["quantize.gptq"] = dict(seconds=took, log=[ln for ln in err.splitlines() if "GPTQ done" in ln])
-    params, config = load_model(gdir, device=dev)
-    params = llama.unstack_layers(params)
-    out, _, took = _run(["lit_llama_tpu_torch.evaluate.full", "--checkpoint_path", str(gdir)] + evals, dev)
-    readings["evaluate.full"] = dict(seconds=took, perplexity=held("evaluate.full", out, params, config))
-    tok = Tokenizer(tok_path)
-    prompt = "What food do lamas eat?"
-    enc = tok.encode(sft.generate_prompt({"instruction": prompt, "input": ""}))
-    params, config = maybe_prepare_fused(params, config)
-    want = gen.generate(params, enc, new_tokens, config=config, temperature=0.0, eos_id=tok.eos_id,
-                        device=dev).tolist()
-    del params
-    _, err, took = _run(["lit_llama_tpu_torch.generate.full", "--checkpoint_path", str(gdir), "--tokenizer_path",
-                         str(tok_path), "--prompt", prompt, "--temperature", "0", "--max_new_tokens", str(new_tokens)],
-                        dev)
-    got = json.loads(err.split("Token ids 1: ")[-1].splitlines()[0])
-    assert got == want, f"generate.full: tokens {got} differ from the in-process generate's {want}"
-    readings["generate.full"] = dict(seconds=took, new_tokens=len(got) - len(enc), fused=config.rope_layout == "half")
-
-    # the PEFT evaluations: phase 21's LoRA and Adapter v1 directories, and a v2 directory
     params, config = load_model(pth, device=dev)
     v2cfg = config.replace(adapter=AdapterConfig(v2=True))
     params = adapter_mod.add_adapter_params(params, v2cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -1308,9 +1301,54 @@ def gptq_entry_points(dev, tok_path: Path, entry: Path, peft_dirs, seed: int):
             node[k] = (base + 0.05 * torch.randn(node[k].shape, generator=g, device=dev)).to(node[k].dtype)
     ckpt.save_checkpoint(entry / "adapter_v2", {"params": adapter_mod.adapter_state(params, v2=True)})
     del params
-    for mode, flag, path in (("lora", "--lora_path", peft_dirs["lora"]), ("adapter", "--adapter_path",
-                                                                          peft_dirs["adapter"]),
-                             ("adapter_v2", "--adapter_path", entry / "adapter_v2")):
+    peft = (("lora", "--lora_path", peft_dirs["lora"]), ("adapter", "--adapter_path", peft_dirs["adapter"]),
+            ("adapter_v2", "--adapter_path", entry / "adapter_v2"))
+    params, config = load_model(pth, device=dev)
+    params, config1 = dict(params, h=_first_layer(params["h"])), config.replace(n_layer=1)
+    ckpt.save_checkpoint(entry / "native", {"params": params}, metadata={"config": config_meta(config1)})
+    del params
+    (entry / "quality").mkdir(exist_ok=True)
+    rng.integers(0, V, size=8 * T).astype(np.uint16).tofile(entry / "quality" / "train.bin")
+    rng.integers(0, V, size=2 * config1.block_size).astype(np.uint16).tofile(entry / "quality" / "val.bin")
+
+    # the subprocesses in two waves, each started at once: quantize.gptq, the
+    # PEFT evaluations and the ladder; then evaluate.full and generate.full on
+    # the quantized checkpoint
+    prompt = "What food do lamas eat?"
+    first = _run_all([["lit_llama_tpu_torch.quantize.gptq", "--checkpoint_path", str(pth), "--tokenizer_path",
+                       str(tok_path), "--output_path", str(gdir), "--n_samples", str(n_samples), "--block_size",
+                       str(T), "--data_file", str(entry / "calib.txt")]]
+                     + [[f"lit_llama_tpu_torch.evaluate.{mode}", flag, str(path), "--checkpoint_path", str(pth)] + evals
+                        for mode, flag, path in peft]
+                     + [["lit_llama_tpu_torch.evaluate.eval_quality", "--ckpt_dir", str(entry / "native"),
+                         "--data_dir", str(entry / "quality"), "--groupsize", "128", "--n_calib", "4",
+                         "--calib_block", str(T), "--max_windows", "2"]], dev)
+    second = _run_all([["lit_llama_tpu_torch.evaluate.full", "--checkpoint_path", str(gdir)] + evals,
+                       ["lit_llama_tpu_torch.generate.full", "--checkpoint_path", str(gdir), "--tokenizer_path",
+                        str(tok_path), "--prompt", prompt, "--temperature", "0", "--max_new_tokens",
+                        str(new_tokens)]], dev)
+
+    # quantize -> evaluate -> generate
+    out, err, took = first[0]
+    assert f"quantized checkpoint written to {gdir}" in out and ckpt.load_metadata(gdir)["config"]["quantize"] == "int4"
+    readings["quantize.gptq"] = dict(seconds=took, log=[ln for ln in err.splitlines() if "GPTQ done" in ln])
+    params, config = load_model(gdir, device=dev)
+    params = llama.unstack_layers(params)
+    out, _, took = second[0]
+    readings["evaluate.full"] = dict(seconds=took, perplexity=held("evaluate.full", out, params, config))
+    tok = Tokenizer(tok_path)
+    enc = tok.encode(sft.generate_prompt({"instruction": prompt, "input": ""}))
+    params, config = maybe_prepare_fused(params, config)
+    want = gen.generate(params, enc, new_tokens, config=config, temperature=0.0, eos_id=tok.eos_id,
+                        device=dev).tolist()
+    del params
+    _, err, took = second[1]
+    got = json.loads(err.split("Token ids 1: ")[-1].splitlines()[0])
+    assert got == want, f"generate.full: tokens {got} differ from the in-process generate's {want}"
+    readings["generate.full"] = dict(seconds=took, new_tokens=len(got) - len(enc), fused=config.rope_layout == "half")
+
+    # the PEFT evaluations
+    for (mode, flag, path), (out, _, took) in zip(peft, first[1:4]):
         params, config = load_model(pth, device=dev)
         kind, overlay, info = load_peft_checkpoint(path, config, device=dev)
         if kind == "lora":
@@ -1321,28 +1359,17 @@ def gptq_entry_points(dev, tok_path: Path, entry: Path, peft_dirs, seed: int):
                                                           prompt_length=info["prompt_length"],
                                                           start_layer=info["start_layer"]))
             params = adapter_mod.load_adapter_state(adapter_mod.add_adapter_params(params, config), overlay)
-        out, _, took = _run([f"lit_llama_tpu_torch.evaluate.{mode}", flag, str(path), "--checkpoint_path", str(pth)]
-                            + evals, dev)
         readings[f"evaluate.{mode}"] = dict(seconds=took, perplexity=held(f"evaluate.{mode}", out,
                                                                          llama.unstack_layers(params), config))
         del params, overlay
 
-    # the quality ladder (GPTQ and four evaluations) on a native copy of the base's first layer
-    params, config = load_model(pth, device=dev)
-    params, config = dict(params, h=_first_layer(params["h"])), config.replace(n_layer=1)
-    ckpt.save_checkpoint(entry / "native", {"params": params}, metadata={"config": config_meta(config)})
-    del params
-    (entry / "quality").mkdir(exist_ok=True)
-    rng.integers(0, V, size=8 * T).astype(np.uint16).tofile(entry / "quality" / "train.bin")
-    rng.integers(0, V, size=2 * config.block_size).astype(np.uint16).tofile(entry / "quality" / "val.bin")
-    out, _, took = _run(["lit_llama_tpu_torch.evaluate.eval_quality", "--ckpt_dir", str(entry / "native"),
-                         "--data_dir", str(entry / "quality"), "--groupsize", "128", "--n_calib", "4",
-                         "--calib_block", str(T), "--max_windows", "2"], dev)
+    # the quality ladder (GPTQ and four evaluations) on the native copy of the base's first layer
+    out, _, took = first[4]
     summary = json.loads(out.strip().splitlines()[-1])
     assert sorted(summary["ppl"]) == ["bf16", "gptq-int4", "int8", "rtn-int4"], summary
     assert all(np.isfinite(v) for v in summary["ppl"].values()), summary
     readings["evaluate.eval_quality"] = dict(seconds=took, summary=summary)
-    log(f"phase 24, the entry points in subprocesses on {entry / 'lit-llama.pth'} ({json.loads((entry / 'config.json').read_text())}): " + "; ".join(
+    log(f"phase 24, the entry points in subprocesses (two waves, each started at once) on {entry / 'lit-llama.pth'} ({json.loads((entry / 'config.json').read_text())}): " + "; ".join(
         f"{k} exit 0 in {r['seconds']:.1f} s" + (f", perplexity {r['perplexity']} equal to the in-process value"
                                                    if "perplexity" in r else "")
         for k, r in readings.items()) + f"; generate.full's {readings['generate.full']['new_tokens']} greedy tokens "
@@ -1370,10 +1397,11 @@ def gptq_phases(dev, counters, time_ms, bound_ms, tc_peak, f32_peak, results, to
 # phase 26 serves that checkpoint (int4 at load) from HTTP_SLOTS slots, S =
 # HTTP_S, HTTP_REQUESTS requests of HTTP_PROMPT tokens each way, HTTP_NEW new
 # tokens; phase 27 pretrains SHAKESPEARE_LAYERS layers at block SHAKESPEARE_T
-# for SHAKESPEARE_STEPS steps, then resumes for 2 more
+# for SHAKESPEARE_STEPS steps, then resumes for 2 more (2 layers: the resume
+# reads back the f32 weights and moments, ~4.9 GB; 4 until phases 35-36 joined)
 CONVERT_LAYERS = 4
 HTTP_SLOTS, HTTP_S, HTTP_REQUESTS, HTTP_PROMPT, HTTP_NEW = 32, 1024, 64, (16, 512), (32, 128)
-SHAKESPEARE_LAYERS, SHAKESPEARE_T, SHAKESPEARE_STEPS, SHAKESPEARE_WIDTH = 4, 1024, 6, (4096, 32)  # (n_embd, n_head)
+SHAKESPEARE_LAYERS, SHAKESPEARE_T, SHAKESPEARE_STEPS, SHAKESPEARE_WIDTH = 2, 1024, 6, (4096, 32)  # (n_embd, n_head)
 # the script's constant 6e-4 without warmup moves every weight by ~lr in Adam's
 # first steps, which at width 4096 moves each product by several times its
 # initial scale, and the loss spikes; a step of 2e-5 moves a 4096-wide product
@@ -1402,6 +1430,7 @@ def conversion_check(dev, work: Path, seed: int):
     seeded weights tensor for tensor. Returns the readings and the Meta
     conversion's ``.pth`` (with a ``config.json`` beside it)."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -1468,12 +1497,13 @@ def conversion_check(dev, work: Path, seed: int):
     del meta, hf
 
     outs = {}
-    for kind, module, args in (
-            ("meta", "lit_llama_tpu_torch.scripts.convert_checkpoint",
+    jobs = (("meta", "lit_llama_tpu_torch.scripts.convert_checkpoint",
              ["--input_dir", work / "meta", "--output_dir", work / "lit_meta", "--dtype", "bfloat16"]),
             ("hf", "lit_llama_tpu_torch.scripts.convert_hf_checkpoint",
-             ["--checkpoint_dir", work / "hf", "--output_dir", work / "lit_hf"])):
-        _, took = _host_run(module, args)
+             ["--checkpoint_dir", work / "hf", "--output_dir", work / "lit_hf"]))
+    with ThreadPoolExecutor(len(jobs)) as pool:  # both conversions at once
+        ran = [f.result() for f in [pool.submit(_host_run, module, args) for _, module, args in jobs]]
+    for (kind, _, _), (_, took) in zip(jobs, ran):
         out = work / f"lit_{kind}" / "lit-llama.pth"
         t0 = time.perf_counter()
         got = torch.load(out, mmap=True, weights_only=True)
@@ -1494,7 +1524,7 @@ def conversion_check(dev, work: Path, seed: int):
         f"written in {readings['write_inputs_s']:.1f} s): Meta's 2 shards ({readings['meta']['input_bytes'] / 1e9:.2f} "
         f"GB) -> {readings['meta']['output_bytes'] / 1e9:.2f} GB in {readings['meta']['convert_s']:.1f} s, HF's 2 .bin "
         f"({readings['hf']['input_bytes'] / 1e9:.2f} GB) -> {readings['hf']['output_bytes'] / 1e9:.2f} GB in "
-        f"{readings['hf']['convert_s']:.1f} s (subprocesses); every tensor equal to the seeded weights")
+        f"{readings['hf']['convert_s']:.1f} s (subprocesses, at once); every tensor equal to the seeded weights")
     return readings, outs["meta"]
 
 
@@ -1837,12 +1867,6 @@ def merge_and_data_check(dev, work: Path, entry: Path, lora_dir: Path, tok_path:
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    _, stderr, gen_s = _run(["lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(merged), "--tokenizer_path",
-                             str(tok_path), "--prompt", "the lamas eat grass", "--temperature", "0",
-                             "--max_new_tokens", "16"], dev, TIMEOUT_S)
-    got_ids = json.loads(stderr.split("Token ids 1: ")[-1].splitlines()[0])
-    assert got_ids == want_ids, f"generate.base (merged): tokens {got_ids} differ from the in-process {want_ids}"
-
     rng = np.random.default_rng(seed)
     letters = list("abcdefghijklmnopqrstuvwxyz")
 
@@ -1857,10 +1881,16 @@ def merge_and_data_check(dev, work: Path, entry: Path, lora_dir: Path, tok_path:
                            max_seq_length=256, data_file=work / "alpaca.json")
     prep_s = time.perf_counter() - t0
     assert len(sft.load_samples(work / "alpaca" / "train.pt")) == 20
-    _, _, ft_s = _run(["lit_llama_tpu_torch.finetune.lora", "--data_dir", str(work / "alpaca"), "--checkpoint_path",
-                       str(merged), "--tokenizer_path", str(tok_path), "--out_dir", str(work / "ft"), "--max_iters", "1",
-                       "--batch_size", "4", "--micro_batch_size", "4", "--warmup_iters", "1", "--eval_interval", "100",
-                       "--save_interval", "100", "--max_seq_length", "256"], dev, TIMEOUT_S)
+    # generate.base and finetune.lora on the merged .pth, started at once
+    (_, stderr, gen_s), (_, _, ft_s) = _run_all(
+        [["lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(merged), "--tokenizer_path", str(tok_path),
+          "--prompt", "the lamas eat grass", "--temperature", "0", "--max_new_tokens", "16"],
+         ["lit_llama_tpu_torch.finetune.lora", "--data_dir", str(work / "alpaca"), "--checkpoint_path", str(merged),
+          "--tokenizer_path", str(tok_path), "--out_dir", str(work / "ft"), "--max_iters", "1", "--batch_size", "4",
+          "--micro_batch_size", "4", "--warmup_iters", "1", "--eval_interval", "100", "--save_interval", "100",
+          "--max_seq_length", "256"]], dev, TIMEOUT_S)
+    got_ids = json.loads(stderr.split("Token ids 1: ")[-1].splitlines()[0])
+    assert got_ids == want_ids, f"generate.base (merged): tokens {got_ids} differ from the in-process {want_ids}"
     losses = [json.loads(x)["loss"] for x in (work / "ft" / "metrics.jsonl").read_text().splitlines() if '"loss"' in x]
     assert len(losses) == 1 and np.isfinite(losses[0]), losses
     readings = dict(merge_s=merge_s, max_dlogit=err, limit=limit, lora_moved_logits=moved, generate_s=gen_s,
@@ -2521,29 +2551,27 @@ def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, t
         f"collectives {dp['collective_s'] / dp['wall_s']:.1%} of the wall (two ranks on one card over gloo: no "
         f"scaling figure; {smi}); launches a rank {dp['launches']}; per kernel at 16 slots {dp['kernel_errs']}")
 
-    # ---- 31. the entry points under torchrun ---------------------------------
+    # ---- 31. the entry points under torchrun, both started at once -----------
     t0 = time.perf_counter()
-    log_path = work / "generate_lora.log"
-    proc = _torchrun("lit_llama_tpu_torch.generate.lora",
-                     ["--model_parallel", PAR_RANKS, "--checkpoint_path", pth, "--lora_path", lora_pth,
-                      "--tokenizer_path", tok_path, "--prompt", lora_instruction, "--max_new_tokens", PAR_LORA_NEW,
-                      "--temperature", 0], log_path, dev)
-    rc = proc.wait(timeout=PAR_TIMEOUT_S)
-    text = log_path.read_text()
-    assert rc == 0, f"generate.lora --model_parallel {PAR_RANKS} exited {rc}:\n{text[-3000:]}"
-    ids_lines = [ln for ln in text.splitlines() if "Token ids: " in ln]
-    assert len(ids_lines) == 1, f"generate.lora: {len(ids_lines)} 'Token ids' lines (rank 0 alone prints)"
-    got_ids = json.loads(ids_lines[0].split("Token ids: ", 1)[1])
-    assert got_ids == lead["lora_tokens"], "generate.lora --model_parallel: tokens differ from the ranks' generate_tp"
-    lora_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
+    lora_log = work / "generate_lora.log"
+    lora_proc = _torchrun("lit_llama_tpu_torch.generate.lora",
+                          ["--model_parallel", PAR_RANKS, "--checkpoint_path", pth, "--lora_path", lora_pth,
+                           "--tokenizer_path", tok_path, "--prompt", lora_instruction, "--max_new_tokens",
+                           PAR_LORA_NEW, "--temperature", 0], lora_log, dev)
     log_path = work / "serve.log"
     proc = _torchrun("lit_llama_tpu_torch.serve.http",
                      ["--model_parallel", PAR_RANKS, "--checkpoint_path", pth, "--tokenizer_path", tok_path,
                       "--quantize", "gptq.int4", "--port", 0, "--max_batch", PAR_HTTP_SLOTS, "--max_seq_length",
                       PAR_HTTP_S, "--steps_per_sync", 8], log_path, dev)
     try:
+        rc = lora_proc.wait(timeout=PAR_TIMEOUT_S)
+        text = lora_log.read_text()
+        assert rc == 0, f"generate.lora --model_parallel {PAR_RANKS} exited {rc}:\n{text[-3000:]}"
+        ids_lines = [ln for ln in text.splitlines() if "Token ids: " in ln]
+        assert len(ids_lines) == 1, f"generate.lora: {len(ids_lines)} 'Token ids' lines (rank 0 alone prints)"
+        got_ids = json.loads(ids_lines[0].split("Token ids: ", 1)[1])
+        assert got_ids == lead["lora_tokens"], "generate.lora --model_parallel: tokens differ from the ranks' generate_tp"
+        lora_s = time.perf_counter() - t0
         url = None
         while url is None and time.perf_counter() - t0 < PAR_TIMEOUT_S and proc.poll() is None:
             time.sleep(0.5)
@@ -2562,15 +2590,16 @@ def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, t
         text = log_path.read_text()
         assert "[serve] rank 0: stopped" in text and "[serve] rank 1: stopped by rank 0" in text, text[-3000:]
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
+        for p_ in (lora_proc, proc):
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait(timeout=60)
     http_s = time.perf_counter() - t0
     log(f"phase 31: torchrun --nproc_per_node {PAR_RANKS} -m lit_llama_tpu_torch.generate.lora --model_parallel "
         f"{PAR_RANKS} on phase 25's {cfg4.n_layer}-layer checkpoint with a LoRA overlay: exit 0 in {lora_s:.1f} s, "
         f"{PAR_LORA_NEW} greedy tokens equal to the ranks' generate_tp; serve.http --model_parallel {PAR_RANKS} "
-        f"(int4 at load on the host) up in {up_s:.1f} s, {len(texts)} requests' tokens equal to the ranks' TP "
-        f"engine's, stopped cleanly by SIGTERM on every rank ({http_s:.1f} s); phases 29-31 "
+        f"(int4 at load on the host, started with it) up in {up_s:.1f} s, {len(texts)} requests' tokens equal to "
+        f"the ranks' TP engine's, stopped cleanly by SIGTERM on every rank ({http_s:.1f} s); phases 29-31 "
         f"{time.perf_counter() - t_all:.1f} s (the spawn {spawn_s:.1f} s)")
 
     # the kernels line: one shape a kernel and path (K3 / K6 the decode step's
@@ -2595,7 +2624,7 @@ def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, t
     return readings, kernels
 
 
-# ---- phases 32-34: training across ranks. TRAIN_PAR's meshes, each
+# ---- phases 32-35: training across ranks. TRAIN_PAR's meshes, each
 # with PAR_RANKS ranks as processes on the one card over gloo, as phases 29-31
 # run them: they check that a step over the mesh computes the single-process
 # step on the global batch and that each rank's kernels take their local
@@ -2620,8 +2649,17 @@ def parallel_phases(dev, smi: str, serving_tokens, serving_prompts, pth: Path, t
 # model's wherever its top-two gap exceeds twice that limit (two bf16 runs
 # may take a near-tie either way: a model trained two steps from random
 # weights has many).
-TRAIN_PAR = (("32", "DP", 2, 1, False, 4), ("33", "FSDP", 2, 1, True, 8), ("34", "TP-train", 1, 2, False, 8))
+# the depths: 4 layers each (FSDP and TP ran 8 before phases 35-36 joined the
+# script: a gloo step's wall scales with the depth, and FSDP's took 44 s at 8)
+TRAIN_PAR = (("32", "DP", 2, 1, False, 4, None), ("33", "FSDP", 2, 1, True, 4, None),
+             ("34", "TP-train", 1, 2, False, 4, None), ("35", "Adapter-TP", 1, 2, False, 4, "adapter"))
 TRAIN_PAR_B, TRAIN_PAR_F32, TRAIN_PAR_LR = 2, 3, 1e-3
+# phase 35, Adapter v1 under TP: phase 20's finetuning rows (4 x 256 tokens), the
+# default start layer 2 (so 2 of the 4 layers are active), the gates drawn
+# N(0, 0.5^2) so that the prompt has a gradient; the f32 steps run the whole
+# depth (2 layers would hold no active one); only the prompt and the gates
+# train, so the elements stepped apart are counted over them
+TRAIN_PAR_ADAPTER = dict(B=4, T=256, gate_std=0.5)
 # f32, mesh step vs single-process step: the loss to `loss` (relative); every
 # param within atol_lr * lr + rtol * |p|, but for a share `flips` of a leaf's
 # elements (each within flip_lr * lr), whose grad sits within f32 rounding of
@@ -2631,8 +2669,9 @@ TRAIN_PAR_B, TRAIN_PAR_F32, TRAIN_PAR_LR = 2, 3, 1e-3
 # (3.1e-5 of wte) steps about half of its elements a whole lr or more apart,
 # which flip_lr catches whatever their share
 TOL_PAR_STEP = dict(loss=1e-5, rtol=1e-5, atol_lr=1e-2, flips=5e-5, flip_lr=0.5)
-# the entry points: finetune.lora on phase 25's checkpoint, pretrain.shakespeare
-# at (layers, n_embd, n_head, T, vocabulary) on random tokens
+# the entry points: finetune.lora (--data_parallel) and finetune.adapter
+# (--model_parallel) on phase 25's checkpoint, pretrain.shakespeare
+# (--data_parallel) at (layers, n_embd, n_head, T, vocabulary) on random tokens
 TRAIN_PAR_ENTRY = dict(steps=2, new_tokens=16, shakespeare=(2, 1024, 8, 1024, 100))
 # --data_parallel 2 against one process, set from the card's readings
 # (PERF.md §6, PR 18), each limit about twice to four times its reading:
@@ -2642,10 +2681,15 @@ TRAIN_PAR_ENTRY = dict(steps=2, new_tokens=16, shakespeare=(2, 1024, 8, 1024, 10
 # lora, 0.137 % shakespeare), none beyond two sign flips of an Adam step (4
 # lr; read 1.36, 2.5); the largest logit difference on the one-process run's
 # greedy tokens (read 0.0801 lora, beside its checkpoint's own kernel vs
-# plain 0.0719; 0.0078 shakespeare)
+# plain 0.0719; 0.0078 shakespeare). finetune.adapter --model_parallel 2 (PERF.md
+# §6): its train losses 2e-4 apart at 4 places (TP rounds its partial
+# sums to bf16 once more), no trained element apart by more than 0.1 lr (max
+# 0.027 lr: the limit 0.25 lr, and a share of 1e-3), logits 0.0312 apart (two
+# bf16 steps at their size; the checkpoint's own kernel vs plain 0.0781)
 TOL_PAR_ENTRY = dict(loss_rtol=1e-3, loss_atol=1e-4,
                      lora=dict(apart=3e-3, apart_lr=4.0, logit=0.16),
-                     shakespeare=dict(apart=5e-3, apart_lr=4.0, logit=0.016))
+                     shakespeare=dict(apart=5e-3, apart_lr=4.0, logit=0.016),
+                     adapter=dict(apart=1e-3, apart_lr=0.25, logit=0.125))
 
 
 def _stepped_apart(got, want, lr: float):
@@ -2744,7 +2788,7 @@ def _k10_recorded(seen, time_us, peaks, timed: bool):
 
 
 def _train_par_job(rank: int, payload) -> dict:
-    """Phases 32-34 on one rank."""
+    """Phases 32-35 on one rank."""
     import gc
     import math
 
@@ -2754,10 +2798,12 @@ def _train_par_job(rank: int, payload) -> dict:
     from lit_llama_tpu_torch import LLaMAConfig
     from lit_llama_tpu_torch.models import llama
     from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.models.config import AdapterConfig
     from lit_llama_tpu_torch.parallel import comm, launch, mesh as mesh_lib, sharding
+    from lit_llama_tpu_torch.peft import adapter as adapter_mod
     from lit_llama_tpu_torch.tools import comm_anatomy, devtime
     from lit_llama_tpu_torch.training import step as step_lib
-    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves
+    from lit_llama_tpu_torch.utils.checkpoint import tree_leaves, tree_unflatten
     from lit_llama_tpu_torch.utils.device import device_peaks
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 products in full f32, as the parent's
@@ -2783,24 +2829,39 @@ def _train_par_job(rank: int, payload) -> dict:
     time_us = devtime.make_timer(dev) if on_card else None
     peaks = device_peaks(torch.cuda.get_device_name(0)) if on_card else None
     base = LLaMAConfig.from_name("7B", param_dtype="float32", compute_dtype="bfloat16", **payload.get("widths", {}))
-    T, B = base.block_size, TRAIN_PAR_B
 
     def tc(warmup):
         return step_lib.TrainConfig(learning_rate=TRAIN_PAR_LR, min_lr=TRAIN_PAR_LR / 10, warmup_iters=warmup,
                                     max_iters=10)
 
-    def tokens(steps, seed):
+    def tokens(steps, seed, mode):
+        B, T = ((TRAIN_PAR_ADAPTER["B"], min(TRAIN_PAR_ADAPTER["T"], base.block_size)) if mode
+                else (TRAIN_PAR_B, base.block_size))
         g = torch.Generator().manual_seed(seed)
         return torch.randint(0, base.vocab_size, (steps, 1, B, T + 1), generator=g).to(dev)
 
     def params_of(cfg):
-        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        if cfg.adapter is not None:  # gates off zero, so that the prompt has a gradient
+            gate = params["h"]["gating"]
+            g = torch.Generator().manual_seed(SEED + 35)
+            gate.copy_(torch.randn(gate.shape, generator=g).to(gate) * TRAIN_PAR_ADAPTER["gate_std"])
+        return params
+
+    def optimizer(cfg, tcfg, params):
+        return step_lib.make_optimizer(tcfg, None if cfg.adapter is None else adapter_mod.trainable_mask(params))
+
+    def trained(cfg, flat):
+        """The leaves a step moves (Adapter v1: the prompt and the gates)."""
+        return flat if cfg.adapter is None else {n: t for n, t in flat.items() if n.split("/")[-1] in
+                                                 ("adapter_wte", "gating")}
 
     def single(cfg, toks, tcfg, plain=False):
         """The single-process steps on the global batches: (losses, the
         stepped params, flat, on the card)."""
-        opt = step_lib.make_optimizer(tcfg)
-        state = step_lib.init_train_state(params_of(cfg), opt)
+        params = params_of(cfg)
+        opt = optimizer(cfg, tcfg, params)
+        state = step_lib.init_train_state(params, opt)
         losses = []
         for t in toks:
             state, loss = step_lib.train_step(state, t[..., :-1], t[..., 1:], cfg, opt, True, "dots", plain)
@@ -2814,7 +2875,7 @@ def _train_par_job(rank: int, payload) -> dict:
     # before the phases have one wait on the other
     t0 = time.perf_counter()
     warm = base.replace(n_layer=1, n_embd=2 * base.head_size, n_head=2, vocab_size=256)
-    toks = torch.randint(0, 256, (1, 1, T + 1), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    toks = torch.randint(0, 256, (1, 1, base.block_size + 1), generator=torch.Generator().manual_seed(SEED)).to(dev)
     opt = step_lib.make_optimizer(tc(0))
     state = step_lib.init_train_state(params_of(warm), opt)
     step_lib.train_step(state, toks[..., :-1], toks[..., 1:], warm, opt)
@@ -2823,20 +2884,22 @@ def _train_par_job(rank: int, payload) -> dict:
     sync(empty=True)
     dist.barrier()
     out = {"device": str(dev), "backend": dist.get_backend(), "warm_up_s": time.perf_counter() - t0}
-    for tag, name, dp, mp, fsdp, depth in TRAIN_PAR:
+    for tag, name, dp, mp, fsdp, depth, mode in TRAIN_PAR:
         t_phase = time.perf_counter()
         mesh = mesh_lib.make_mesh(data=dp, model=mp)
-        res = dict(mesh=[dp, mp], fsdp=fsdp, layers=depth, seconds_by_part={})
-        # (a) 2 layers in f32 compute: TRAIN_PAR_F32 steps against the single process
+        res = dict(mesh=[dp, mp], fsdp=fsdp, layers=depth, mode=mode, seconds_by_part={})
+        phase_cfg = base.replace(adapter=AdapterConfig()) if mode == "adapter" else base
+        # (a) 2 layers (an adapter: every layer) in f32 compute: TRAIN_PAR_F32
+        # steps against the single process
         t0 = time.perf_counter()
-        c2 = base.replace(n_layer=min(2, depth), compute_dtype="float32")
-        toks = tokens(TRAIN_PAR_F32, SEED + int(tag))
+        c2 = phase_cfg.replace(n_layer=depth if mode else min(2, depth), compute_dtype="float32")
+        toks = tokens(TRAIN_PAR_F32, SEED + int(tag), mode)
         if lead:
             one_losses, one = single(c2, toks, tc(1))
         dist.barrier()
         res["seconds_by_part"]["f32 single"] = time.perf_counter() - t0
-        opt = step_lib.make_optimizer(tc(1))
         local, layout = sharding.shard_params(params_of(c2), mesh, c2, fsdp=fsdp)
+        opt = optimizer(c2, tc(1), local)
         state = step_lib.init_train_state(local, opt)
         del local
         losses, f32_walls = [], []
@@ -2847,7 +2910,8 @@ def _train_par_job(rank: int, payload) -> dict:
             f32_walls.append(time.perf_counter() - t1)
         res["f32_step_s"] = f32_walls
         t1 = time.perf_counter()
-        whole = layout.gather(state.params, lead)
+        # the leaves a step moves, gathered whole (an adapter's frozen base stays as it was drawn)
+        whole = layout.gather(tree_unflatten(trained(c2, tree_leaves(state.params))), lead)
         res["seconds_by_part"]["f32 gather"] = time.perf_counter() - t1
         del state, opt
         sync(empty=True)
@@ -2874,19 +2938,19 @@ def _train_par_job(rank: int, payload) -> dict:
         # (b) bf16 at the phase's depth: one step against the single card's,
         # whose own kernel and plain paths are read beside
         t0 = time.perf_counter()
-        cd = base.replace(n_layer=depth)
-        toks = tokens(1, SEED + 100 + int(tag))
+        cd = phase_cfg.replace(n_layer=depth)
+        toks = tokens(1, SEED + 100 + int(tag), mode)
         if lead:
             (k_loss,), one = single(cd, toks, tc(0))
             (p_loss,), plain = single(cd, toks, tc(0), plain=True)
-            single_apart = _stepped_apart(plain, one, TRAIN_PAR_LR)
+            single_apart = _stepped_apart(trained(cd, plain), trained(cd, one), TRAIN_PAR_LR)
             del plain
             sync(empty=True)
         dist.barrier()
         res["seconds_by_part"]["single"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        opt = step_lib.make_optimizer(tc(0))
         local, layout = sharding.shard_params(params_of(cd), mesh, cd, fsdp=fsdp)
+        opt = optimizer(cd, tc(0), local)
         box = {"state": step_lib.init_train_state(local, opt)}
         del local
         sync(empty=True)
@@ -2921,7 +2985,8 @@ def _train_par_job(rank: int, payload) -> dict:
             fa.flash_attention_backward = orig10
         got = launches()
         L = cd.n_layer
-        want = {"K4": 2 * L, "K10dq": L, "K10dkv": L} if on_card else dict.fromkeys(counters, 0)
+        want = ({"K4": 2 * L, "K10dq": k10_layers(mode, L), "K10dkv": k10_layers(mode, L)} if on_card
+                else dict.fromkeys(counters, 0))
         assert got == want, f"rank {rank}, phase {tag}: launches {got}, expected {want}"
         assert math.isfinite(box["loss"]), box["loss"]
         res.update(launches=got, loss=box["loss"], census=box["census"], state_gib=state_bytes / 2**30,
@@ -2932,7 +2997,7 @@ def _train_par_job(rank: int, payload) -> dict:
         if lead:  # rank 0's shards against the same shards of the single card's step
             mine = tree_leaves(layout.shard(one))
             del one
-            apart = _stepped_apart(tree_leaves(box["state"].params), mine, TRAIN_PAR_LR)
+            apart = _stepped_apart(trained(cd, tree_leaves(box["state"].params)), trained(cd, mine), TRAIN_PAR_LR)
             del mine
             res.update(single_loss=k_loss, single_plain_loss=p_loss, loss_rel=abs(box["loss"] - k_loss) / abs(k_loss),
                        single_loss_rel=abs(p_loss - k_loss) / abs(k_loss), apart=apart[:2], elements=apart[2],
@@ -2961,8 +3026,9 @@ def _train_par_job(rank: int, payload) -> dict:
 
 
 def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, widths=None, entry_cfg=None):
-    """Phases 32-34 (see the constants above). ``pth``: phase 25's 4-layer
-    checkpoint (config.json beside it), which finetune.lora trains;
+    """Phases 32-35 (see the constants above). ``pth``: phase 25's 4-layer
+    checkpoint (config.json beside it), which finetune.lora and
+    finetune.adapter train;
     ``tok_path``: a tokenizer for its SFT samples. Returns the readings and
     the kernel readings for the ``kernels`` line, keyed "K4 DP", ... (none off
     the card). ``widths`` overrides the 7B preset's and ``entry_cfg``
@@ -2975,13 +3041,13 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
 
     from lit_llama_tpu_torch.data import sft
     from lit_llama_tpu_torch.data.tokenizer import Tokenizer
-    from lit_llama_tpu_torch.finetune import lora as lora_entry
+    from lit_llama_tpu_torch.finetune import adapter as adapter_entry, lora as lora_entry
     from lit_llama_tpu_torch.models import generate as gen
-    from lit_llama_tpu_torch.models.config import LoRAConfig
-    from lit_llama_tpu_torch.peft import lora as lora_mod
+    from lit_llama_tpu_torch.models.config import AdapterConfig, LoRAConfig
+    from lit_llama_tpu_torch.peft import adapter as adapter_mod, lora as lora_mod
     from lit_llama_tpu_torch.pretrain import shakespeare
     from lit_llama_tpu_torch.training.finetune import CHECKPOINT_NAMES
-    from lit_llama_tpu_torch.utils.checkpoint import load_checkpoint, tree_leaves
+    from lit_llama_tpu_torch.utils.checkpoint import load_checkpoint, tree_leaves, tree_unflatten
     from lit_llama_tpu_torch.utils.loader import load_model, load_peft_checkpoint
 
     t_all = time.perf_counter()
@@ -2993,7 +3059,7 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
     deadline = time.monotonic() + PAR_TIMEOUT_S
     try:
         while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "phases 32-34: the ranks did not finish in time"
+            assert time.monotonic() < deadline, "phases 32-35: the ranks did not finish in time"
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -3011,12 +3077,15 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
     def fmt(gib):
         return "not measured" if gib is None else f"{gib:.2f}"
 
-    for tag, name, dp, mp_, fsdp, depth in TRAIN_PAR:
+    for tag, name, dp, mp_, fsdp, depth, mode in TRAIN_PAR:
         p = lead[name]
         f32, c = p["f32"], p["census"]
         kinds = ", ".join(f"{k['kind']} {k['calls']} ({k['bytes'] / 2**20:.0f} MiB)" for k in c["rows"])
-        log(f"phase {tag}, {name} training at (data, model) = ({dp}, {mp_}) (two ranks as processes on one card over "
-            f"gloo: no scaling figure; {smi}): f32 at 2 layers, {TRAIN_PAR_F32} steps against the single process, "
+        what = (f"Adapter v1 finetuning ({TRAIN_PAR_ADAPTER['B']} x {TRAIN_PAR_ADAPTER['T']} tokens, the prompt and "
+                "the gates trained)" if mode else "training")
+        log(f"phase {tag}, {name} {what} at (data, model) = ({dp}, {mp_}) (two ranks as processes on one card over "
+            f"gloo: no scaling figure; {smi}): f32 at {depth if mode else 2} layers, {TRAIN_PAR_F32} steps against "
+            "the single process, "
             f"losses {f32['losses']} (max rel diff {f32['max_loss_rel']:.3g}), params within "
             f"{TOL_PAR_STEP['atol_lr']} lr + {TOL_PAR_STEP['rtol']} |p| but in {f32['leaves_beyond']} leaves (a "
             f"share of at most {f32['max_share']:.3g} of each, limit {TOL_PAR_STEP['flips']}: "
@@ -3035,13 +3104,15 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
         for r in p.get("kernel_times", {}).values():
             log(f"  {r['key']} {r['shape']}: {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, library "
                 f"{r['library_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
-        if name in ("DP", "TP-train") and on_card:
+        if name in ("DP", "TP-train", "Adapter-TP") and on_card:
             for r in p["kernel_times"].values():
                 kernels[f"{r['key']} {name}"] = dict(r, max_abs_err=p["kernel_errs"][r["key"]],
                                                       launches=p["launches"][r["key"]])
-    # one process's f32 params + moments at 8 layers, against FSDP's and TP's a rank
-    one_gib = 3 * 4 * sum(t.numel() for t in tree_leaves(_meta_params(widths, 8)).values()) / 2**30
-    for name in ("FSDP", "TP-train"):
+    # one process's f32 params + moments at the phase's depth, against FSDP's and TP's a rank
+    for _, name, _, _, _, depth, _ in TRAIN_PAR:
+        if name not in ("FSDP", "TP-train"):
+            continue
+        one_gib = 3 * 4 * sum(t.numel() for t in tree_leaves(_meta_params(widths, depth)).values()) / 2**30
         share = lead[name]["state_gib"] / one_gib
         assert 0.45 <= share <= 0.6, f"{name}: a rank holds {share:.2f} of one process's params + moments"
 
@@ -3067,9 +3138,12 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
                   learning_rate=SHAKESPEARE_LR)
     t0 = time.perf_counter()
     procs = {run: _torchrun(module, [a for k, v in f.items() for a in (f"--{k}", v)]
-                            + ["--out_dir", work / run, "--data_parallel", PAR_RANKS], work / f"{run}.log", dev)
-             for run, module, f in (("lora_two", "lit_llama_tpu_torch.finetune.lora", flags),
-                                    ("sh_two", "lit_llama_tpu_torch.pretrain.shakespeare", sflags))}
+                            + ["--out_dir", work / run, axis, PAR_RANKS], work / f"{run}.log", dev)
+             for run, module, f, axis in (("lora_two", "lit_llama_tpu_torch.finetune.lora", flags, "--data_parallel"),
+                                          ("sh_two", "lit_llama_tpu_torch.pretrain.shakespeare", sflags,
+                                           "--data_parallel"),
+                                          ("adapter_two", "lit_llama_tpu_torch.finetune.adapter", flags,
+                                           "--model_parallel"))}
     try:
         t1 = time.perf_counter()
         lora_entry.main(out_dir=work / "lora_one", device=None if on_card else "cpu", **flags)
@@ -3077,9 +3151,12 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
         t1 = time.perf_counter()
         shakespeare.main(out_dir=work / "sh_one", device=None if on_card else "cpu", **sflags)
         sh_one_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        adapter_entry.main(out_dir=work / "adapter_one", device=None if on_card else "cpu", **flags)
+        adapter_one_s = time.perf_counter() - t1
         for run, proc in procs.items():
             rc = proc.wait(timeout=PAR_TIMEOUT_S)
-            assert rc == 0, f"{run} (--data_parallel {PAR_RANKS}) exited {rc}:\n{(work / f'{run}.log').read_text()[-3000:]}"
+            assert rc == 0, f"{run} (with {PAR_RANKS} ranks) exited {rc}:\n{(work / f'{run}.log').read_text()[-3000:]}"
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -3087,9 +3164,9 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
                 proc.wait(timeout=60)
     entry_s = time.perf_counter() - t0
     recs = {run: [json.loads(x) for x in (work / run / "metrics.jsonl").read_text().splitlines()]
-            for run in ("lora_one", "lora_two", "sh_one", "sh_two")}
+            for run in ("lora_one", "lora_two", "sh_one", "sh_two", "adapter_one", "adapter_two")}
     faults = []  # checked after the readings are logged
-    for one, two in (("lora_one", "lora_two"), ("sh_one", "sh_two")):
+    for one, two in (("lora_one", "lora_two"), ("sh_one", "sh_two"), ("adapter_one", "adapter_two")):
         assert [(r["iter"], sorted(r)) for r in recs[two]] == [(r["iter"], sorted(r)) for r in recs[one]], recs
         faults += [f"{two}: {k} {a[k]} at iter {a['iter']}, one process {b[k]}" for a, b in zip(recs[two], recs[one])
                    for k in ("loss", "val_loss") if k in b
@@ -3107,6 +3184,18 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
     apart = {"lora": _stepped_apart(trained["lora_two"], trained["lora_one"], lora_lr)}
     held = {"lora": _entry_held(*models["lora_one"], *models["lora_two"], enc, TRAIN_PAR_ENTRY["new_tokens"], dev,
                                 "finetune.lora --data_parallel", TOL_PAR_ENTRY["lora"]["logit"])}
+    models, trained = {}, {}
+    for run in ("adapter_one", "adapter_two"):  # as generate.adapter loads them
+        kind, ap, info = load_peft_checkpoint(work / run / CHECKPOINT_NAMES["adapter"], cfg, device=dev)
+        assert kind == "adapter" and not info["v2"] and sorted(tree_leaves(ap)) == ["h/adapter_wte", "h/gating"], run
+        trained[run] = tree_leaves(ap)
+        acfg = cfg.replace(adapter=AdapterConfig(prompt_length=info["prompt_length"], start_layer=info["start_layer"]))
+        models[run] = (adapter_mod.load_adapter_state(adapter_mod.add_adapter_params(
+            tree_unflatten(tree_leaves(base)), acfg), ap), acfg)
+    adapter_lr = inspect.signature(adapter_entry.main).parameters["learning_rate"].default
+    apart["adapter"] = _stepped_apart(trained["adapter_two"], trained["adapter_one"], adapter_lr)
+    held["adapter"] = _entry_held(*models["adapter_one"], *models["adapter_two"], enc, TRAIN_PAR_ENTRY["new_tokens"],
+                                  dev, "finetune.adapter --model_parallel", TOL_PAR_ENTRY["adapter"]["logit"])
     del base, models, trained
     models = {}
     for run in ("sh_one", "sh_two"):
@@ -3119,12 +3208,14 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
                                       TRAIN_PAR_ENTRY["new_tokens"], dev, "pretrain.shakespeare --data_parallel",
                                       TOL_PAR_ENTRY["shakespeare"]["logit"])
     del models
-    entry = dict(seconds=entry_s, lora_one_s=lora_one_s, shakespeare_one_s=sh_one_s,
+    entry = dict(seconds=entry_s, lora_one_s=lora_one_s, shakespeare_one_s=sh_one_s, adapter_one_s=adapter_one_s,
                  losses={k: [r.get("loss", r.get("val_loss")) for r in v] for k, v in recs.items()}, greedy=held,
                  apart={k: dict(share=v[0], max_lr=v[1], elements=v[2]) for k, v in apart.items()})
-    log(f"phases 32-34, entry points: finetune.lora on phase 25's checkpoint and pretrain.shakespeare ({layers} "
-        f"layers at width {width}, T {T_sh}), {steps} steps each, both under torchrun --data_parallel {PAR_RANKS} "
-        f"at once beside the one-process runs (finetune.lora {lora_one_s:.1f} s, shakespeare {sh_one_s:.1f} s): "
+    log(f"phases 32-35, entry points: finetune.lora and finetune.adapter on phase 25's checkpoint and "
+        f"pretrain.shakespeare ({layers} layers at width {width}, T {T_sh}), {steps} steps each, under torchrun "
+        f"(--data_parallel {PAR_RANKS}; finetune.adapter --model_parallel {PAR_RANKS}) all at once beside the "
+        f"one-process runs (finetune.lora {lora_one_s:.1f} s, shakespeare {sh_one_s:.1f} s, finetune.adapter "
+        f"{adapter_one_s:.1f} s): "
         f"{entry_s:.1f} s; losses (the last validation) {entry['losses']}; " + "; ".join(
             f"{k}: trained elements stepped apart by > 0.1 lr {a['share']:.4%} (max {a['max_lr']:.3g} lr, "
             f"{a['elements']} elements), logits teacher-forced on the one-process run's greedy tokens max "
@@ -3134,18 +3225,141 @@ def train_parallel_phases(dev, smi: str, pth: Path, tok_path: Path, work: Path, 
             f"{h['max_gap_apart']}), free-running greedy tokens "
             f"{'equal to' if h['free_running_equal'] else 'apart from'} the one-process run's"
             for (k, h), a in zip(held.items(), entry["apart"].values()))
-        + f"; phases 32-34 {time.perf_counter() - t_all:.1f} s (the spawn {spawn_s:.1f} s)")
+        + f"; phases 32-35 {time.perf_counter() - t_all:.1f} s (the spawn {spawn_s:.1f} s)")
     faults += [f"{k}: trained elements apart {a}" for k, a in entry["apart"].items()
                if a["share"] > TOL_PAR_ENTRY[k]["apart"] or a["max_lr"] > TOL_PAR_ENTRY[k]["apart_lr"]]
     faults += [f for h in held.values() for f in h["faults"]]
-    assert not faults, "phases 32-34, entry points under --data_parallel: " + "; ".join(faults)
+    assert not faults, "phases 32-35, entry points under torchrun: " + "; ".join(faults)
     readings = {name: {**{k: v for k, v in lead[name].items() if k != "kernel_times"},
                        "peak_gib_by_rank": [o[name]["peak_gib"] for o in res]} for _, name, *_ in TRAIN_PAR}
     readings.update(entry_points=entry, spawn_s=spawn_s, seconds=time.perf_counter() - t_all,
                     kernel_times={name: lead[name].get("kernel_times", {}) for _, name, *_ in TRAIN_PAR})
-    assert sorted(kernels) == (["K10dkv DP", "K10dkv TP-train", "K10dq DP", "K10dq TP-train", "K4 DP", "K4 TP-train"]
-                               if on_card else []), sorted(kernels)
+    assert sorted(kernels) == (sorted(f"{k} {n}" for k in ("K4", "K10dq", "K10dkv")
+                                      for n in ("DP", "TP-train", "Adapter-TP")) if on_card else []), sorted(kernels)
     return readings, kernels
+
+
+# phase 36: tools/gptq_65b_dryrun.py as a user runs it, at the 65B layer shape
+# (n_embd 8192, I 22016, 64 heads; one layer, the weights on the host), then
+# K3 f32 and K4 f32 at the shapes its calibration forward gives them (M = batch
+# x seq rows), each held to its plain version and timed. The subprocess runs
+# beside phases 25-28, which time nothing on the card (their readings are
+# host clocks), so that the script keeps to its time limit
+GPTQ65 = dict(n_layer=1, n_samples=2, seq=2048, batch=2, mem_cap_gb=14.0)
+GPTQ65_TIMEOUT_S = 900
+# the subprocess: the counters set to 0, the entry point run as `python -m`
+# runs it, the counters printed on stderr after it
+_GPTQ65_RUN = """
+import json, runpy, sys
+from lit_llama_tpu_torch.ops import flash_attention as fa, quant_matmul as qm
+fa.flash_attention.launches = qm.matmul_int4.launches = 0
+sys.argv = ["gptq_65b_dryrun", *sys.argv[1:]]
+try:
+    runpy.run_module("lit_llama_tpu_torch.tools.gptq_65b_dryrun", run_name="__main__")
+finally:
+    print(json.dumps({"launches": {"K3": qm.matmul_int4.launches, "K4": fa.flash_attention.launches}}),
+          file=sys.stderr)
+"""
+
+
+def gptq_65b_start(work: Path, args=None) -> dict:
+    """Phase 36's subprocess (``GPTQ65``, or ``args``), started; its output
+    goes to files in ``work``."""
+    work.mkdir(parents=True, exist_ok=True)
+    flags = args or [a for k, v in GPTQ65.items() for a in (f"--{k}", str(v))]
+    out, err = open(work / "gptq65.out", "w"), open(work / "gptq65.err", "w")
+    proc = subprocess.Popen([sys.executable, "-c", _GPTQ65_RUN, *flags], cwd=ROOT, stdout=out, stderr=err)
+    return dict(proc=proc, flags=flags, t0=time.perf_counter(), files=(out, err), work=work)
+
+
+def gptq_65b_phase(dev, time_ms, bound_ms, f32_peak, results, totals, walk_launches_per_row, run: dict):
+    """Phase 36: the dry run that ``gptq_65b_start`` started, waited for:
+    exit 0, ``ok`` true, the peak within the cap, the 65B widths (``GPTQ65``'s
+    run); its K3 and K4 launches; then K3 f32 on c_attn's shape (8192 ->
+    24576) and K4 f32 at (batch, 64, seq, 128), each against its plain
+    version (TOL_F32) and timed beside its bound and torch.matmul / SDPA in
+    f32. The walk's launches are phase 22's count a row times the rows
+    walked (four 8192-row linears, one of 22016, lm_head's 8192). Returns
+    the readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from lit_llama_tpu_torch.ops import flash_attention as fa, quant_matmul
+    from lit_llama_tpu_torch.ops.linear import dequantize_int4, quantize_int4
+    from lit_llama_tpu_torch.tools import gptq_65b_dryrun
+
+    t_all = time.perf_counter()
+    proc, flags = run["proc"], run["flags"]
+    try:
+        rc = proc.wait(timeout=max(GPTQ65_TIMEOUT_S - (time.perf_counter() - run["t0"]), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in run["files"]:
+            f.close()
+    run_s = time.perf_counter() - run["t0"]
+    stdout, stderr = ((run["work"] / n).read_text() for n in ("gptq65.out", "gptq65.err"))
+    assert rc == 0, f"gptq_65b_dryrun exited {rc}:\n{stdout[-2000:]}\n{stderr[-3000:]}"
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    launches = json.loads(stderr.strip().splitlines()[-1])["launches"]
+    D, I = rec["widths"]
+    H, hs = D // 128, 128  # the 65B preset's head size, and the CPU cut's
+    assert rec["ok"] is True and rec["peak_device_gb"] <= rec["mem_cap_gb"], rec
+    if "--rows" not in flags:
+        full = gptq_65b_dryrun.dryrun_config(GPTQ65["n_layer"], GPTQ65["seq"], 128, 0)
+        assert [D, I, H] == [full.n_embd, full.intermediate_size, full.n_head], rec
+    on_card = dev.type == "cuda"
+    if on_card:
+        assert launches["K3"] > 0 and launches["K4"] > 0, launches
+    rows = rec["n_layer"] * (4 * D + I) + D
+    readings = dict(record=rec, run_s=run_s, wait_s=time.perf_counter() - t_all, launches=launches, rows_walked=rows,
+                    walk_launches=None if walk_launches_per_row is None else round(walk_launches_per_row * rows))
+    if on_card:
+        g = torch.Generator().manual_seed(SEED + 36)
+        M = GPTQ65["batch"] * rec["seq"]
+        q = quantize_int4((torch.randn(D, 3 * D, generator=g) * 0.01).to(dev), groupsize=128)
+        x = torch.randn(M, D, generator=g).to(dev)
+        kargs = (x, q["qw"], q["qscale"], q["qzero"], torch.float32)
+        err = _held(quant_matmul.matmul_int4(*kargs), quant_matmul.matmul_int4_ref(*kargs), TOL_F32, "K3 f32 65B")
+        wd = dequantize_int4(q, torch.float32)
+        b = bound_ms(M * D * 4 + int4_bytes(D, 3 * D) + M * 3 * D * 4, 2 * M * D * 3 * D, f32_peak)
+        results["K3 f32 65B"] = dict(shape=f"M={M} K={D} N={3 * D} (c_attn at 65B), f32", max_abs_err=err,
+                                     ms=time_ms(lambda: quant_matmul.matmul_int4(*kargs), 5),
+                                     plain_ms=time_ms(lambda: quant_matmul.matmul_int4_ref(*kargs), 3),
+                                     library_ms=time_ms(lambda: torch.matmul(x, wd), 5), bound_ms=b[0],
+                                     bound_by=b[1])
+        totals["K3 f32 65B"] = launches["K3"]
+        del q, x, kargs, wd
+        B = GPTQ65["batch"]
+        qq, kk, vv = (torch.randn((B, H, rec["seq"], hs), generator=g).to(dev) for _ in range(3))
+        o, lse = fa.flash_attention(qq, kk, vv)
+        ro, rlse = fa.flash_attention_ref(qq, kk, vv)
+        err4 = max(_held(o, ro, TOL_F32, "K4 f32 65B"), _held(lse, rlse, TOL_F32, "K4 f32 65B lse"))
+        del o, lse, ro, rlse
+        T = rec["seq"]
+        nrow, pairs = B * H * T, B * H * T * (T + 1) // 2
+        b4 = bound_ms(4 * nrow * hs * 4 + nrow * 4, 4 * hs * pairs, f32_peak)
+        results["K4 f32 65B"] = dict(
+            shape=f"B={B} H={H} T={T} hs={hs} (65B calibration), f32", max_abs_err=err4,
+            ms=time_ms(lambda: fa.flash_attention(qq, kk, vv), 5),
+            plain_ms=time_ms(lambda: fa.flash_attention_ref(qq, kk, vv), 2),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True), 5),
+            bound_ms=b4[0], bound_by=b4[1])
+        totals["K4 f32 65B"] = launches["K4"]
+        del qq, kk, vv
+        torch.cuda.empty_cache()
+        readings["kernels"] = {k: results[k] for k in ("K3 f32 65B", "K4 f32 65B")}
+    readings["seconds"] = time.perf_counter() - t_all
+    log(f"phase 36, tools/gptq_65b_dryrun.py {' '.join(flags)} in a subprocess beside phases 25-28: "
+        f"{json.dumps(rec)}; the run {run_s:.1f} s, {readings['wait_s']:.1f} s of it waited for here (the tool's own "
+        f"clock {rec['seconds']} s around quantize_model_gptq); launches "
+        f"{launches}; walk {rows} rows, ~{readings['walk_launches']} launches (phase 22's "
+        f"{walk_launches_per_row} a row)" + "".join(
+            f"; {k} at {r['shape']} {r['ms']:.2f} ms (bound {r['bound_ms']:.2f} {r['bound_by']}, plain "
+            f"{r['plain_ms']:.2f}, library {r['library_ms']:.2f}), max err {r['max_abs_err']:.3g}"
+            for k, r in readings.get("kernels", {}).items()) + f"; phase 36 {readings['seconds']:.1f} s")
+    return readings
 
 
 def _meta_params(widths, n_layer: int):
@@ -4463,7 +4677,17 @@ def main() -> int:
     torch.save(lora_overlay_to_sd(overlay_e, ce), work_e / "lora.pth")
     tok_e = Tokenizer(work_e / "tokenizer.model")
     new_e4 = 24
-    entry_runs = {}
+    # 8d''s f32 native directory, so that its generate.base starts with these two
+    from lit_llama_tpu_torch.utils.checkpoint import save_checkpoint
+
+    meta_n = dict(n_layer=2, n_head=32, n_embd=4096, vocab_size=128)
+    dense_n = llama.init_params(LLaMAConfig(**meta_n), torch.Generator(device=dev).manual_seed(SEED + 6), device=dev)
+    gn = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for tree_, name in ((dense_n["h"], "rms_1"), (dense_n["h"], "rms_2"), (dense_n, "ln_f")):
+        tree_[name] = 1.0 + 0.3 * torch.randn(tree_[name].shape, generator=gn, device=dev)
+    save_checkpoint(work_e / "native", {"params": dense_n}, metadata={"config": meta_n})
+    del dense_n
+    entry_runs, wants_e, cmds_e = {}, {}, []
     for entry in ("base", "lora"):
         params_e, cfg_e = load_model(work_e / "lit-llama.pth", "gptq.int4", device=dev)
         if entry == "lora":
@@ -4479,36 +4703,32 @@ def main() -> int:
                               eos_id=tok_e.eos_id if entry == "lora" else None).tolist()
         assert fused_layer.k1_lora.launches == (2 * (len(want_e) - len(enc) - 1) if entry == "lora" else 0)
         del params_e
-        cmd = [sys.executable, "-m", f"lit_llama_tpu_torch.generate.{entry}", "--checkpoint_path",
-               str(work_e / "lit-llama.pth"), "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize",
-               "gptq.int4", "--temperature", "0", "--max_new_tokens", str(new_e4)]
-        if entry == "lora":
-            cmd += ["--lora_path", str(work_e / "lora.pth")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-        took = time.perf_counter() - t0
-        assert proc.returncode == 0, f"generate.{entry} exited {proc.returncode}:\n{proc.stderr[-3000:]}"
-        got_e = json.loads(proc.stderr.split("Token ids" + (" 1" if entry == "base" else "") + ": ")[-1].splitlines()[0])
+        wants_e[entry] = (want_e, len(enc))
+        cmds_e.append([f"lit_llama_tpu_torch.generate.{entry}", "--checkpoint_path", str(work_e / "lit-llama.pth"),
+                       "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize", "gptq.int4",
+                       "--temperature", "0", "--max_new_tokens", str(new_e4)]
+                      + (["--lora_path", str(work_e / "lora.pth")] if entry == "lora" else []))
+    # generate.base, generate.lora and 8d''s generate.base on the f32 native
+    # directory, started at once
+    cmds_e.append(["lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(work_e / "native"),
+                   "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize", "gptq.int4", "--temperature",
+                   "0", "--max_new_tokens", str(new_e4)])
+    ran_e = _run_all(cmds_e, dev, timeout=300)
+    for entry, (out, err, took) in zip(("base", "lora"), ran_e):
+        want_e, n_enc = wants_e[entry]
+        got_e = json.loads(err.split("Token ids" + (" 1" if entry == "base" else "") + ": ")[-1].splitlines()[0])
         assert got_e == want_e, f"generate.{entry}: tokens {got_e} differ from the in-process generate's {want_e}"
-        assert proc.stdout.strip(), f"generate.{entry} printed no text"
-        entry_runs[entry] = dict(seconds=took, new_tokens=len(got_e) - len(enc))
+        assert out.strip(), f"generate.{entry} printed no text"
+        entry_runs[entry] = dict(seconds=took, new_tokens=len(got_e) - n_enc)
         log(f"python -m lit_llama_tpu_torch.generate.{entry} (2 layers at 7B width, int4 at load"
-            f"{', reference-format LoRA .pth' if entry == 'lora' else ''}): exit 0 in {took:.1f} s, "
-            f"{len(got_e) - len(enc)} greedy tokens equal to the in-process generate's; text {proc.stdout.strip()[:80]!r}")
+            f"{', reference-format LoRA .pth' if entry == 'lora' else ''}): exit 0 in {took:.1f} s (three "
+            f"subprocesses at once), {len(got_e) - n_enc} greedy tokens equal to the in-process generate's; text "
+            f"{out.strip()[:80]!r}")
 
     # ---- 8d'. f32 norm weights: an f32 native checkpoint directory at 7B width
     # (2 layers; norm weights drawn, not ones, as a trained f32 checkpoint holds
     # them) through generate.base --quantize gptq.int4, which keeps the stored f32
     # norms beside bf16 compute; then K7 and K9 on them through an engine ------------
-    from lit_llama_tpu_torch.utils.checkpoint import save_checkpoint
-
-    meta_n = dict(n_layer=2, n_head=32, n_embd=4096, vocab_size=128)
-    dense_n = llama.init_params(LLaMAConfig(**meta_n), torch.Generator(device=dev).manual_seed(SEED + 6), device=dev)
-    gn = torch.Generator(device=dev).manual_seed(SEED + 7)
-    for tree_, name in ((dense_n["h"], "rms_1"), (dense_n["h"], "rms_2"), (dense_n, "ln_f")):
-        tree_[name] = 1.0 + 0.3 * torch.randn(tree_[name].shape, generator=gn, device=dev)
-    save_checkpoint(work_e / "native", {"params": dense_n}, metadata={"config": meta_n})
-    del dense_n
     params_n, cfg_n = load_model(work_e / "native", "gptq.int4", device=dev)
     assert params_n["h"]["rms_1"].dtype == torch.float32 and cfg_n.compute_dtype == "bfloat16"
     params_n, cfg_n = fused_layer.maybe_prepare_fused(llama.unstack_layers(params_n), cfg_n)
@@ -4523,14 +4743,8 @@ def main() -> int:
     want.update({"K1": 2 * (new_e4 - 1), "K2": new_e4 - 1, "K3": 4 * 2, "K4": 2})
     assert got == want, f"f32-norm request: launches {got}, expected {want}"
     totals["K1 f32 norms"], totals["K2 f32 norms"] = got["K1"], got["K2"]
-    cmd = [sys.executable, "-m", "lit_llama_tpu_torch.generate.base", "--checkpoint_path", str(work_e / "native"),
-           "--tokenizer_path", str(work_e / "tokenizer.model"), "--quantize", "gptq.int4", "--temperature", "0",
-           "--max_new_tokens", str(new_e4)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-    took = time.perf_counter() - t0
-    assert proc.returncode == 0, f"generate.base on the f32 native directory exited {proc.returncode}:\n{proc.stderr[-3000:]}"
-    got_n = json.loads(proc.stderr.split("Token ids 1: ")[-1].splitlines()[0])
+    _, err, took = ran_e[2]
+    got_n = json.loads(err.split("Token ids 1: ")[-1].splitlines()[0])
     assert got_n == want_n, f"generate.base (f32 norms): tokens {got_n} differ from the in-process generate's {want_n}"
     entry_runs["base_f32_norms"] = dict(seconds=took, new_tokens=len(got_n) - len(enc))
     # K1, K2, K7 and K9 on the f32 norm weights vs plain, at 7B shapes
@@ -5466,16 +5680,26 @@ def main() -> int:
     # train a tokenizer and pretrain on it, merge a LoRA and prepare data: Meta and
     # HF conversions at 7B width, 64 requests through the HTTP server (in process and
     # as a subprocess), prepare_shakespeare and pretrain.shakespeare, the LoRA merge
+    # phase 36's dry run starts here and runs beside phases 25-28 (no kernel is timed there)
+    gptq65_run = gptq_65b_start(work / "gptq65")
     entry_points, pth25 = entry_point_phases(dev, counters, totals, work / "entry_points", work / "entry",
                                              Path(entries["lora"]["checkpoint"]), work / "tokenizer.model")
+    # ---- 36. GPTQ at the 65B layer shape: tools/gptq_65b_dryrun.py in a subprocess
+    # (the weights on the host, one layer on the card at a time), then K3 f32 and
+    # K4 f32 at its calibration shapes
+    gc.collect()
+    torch.cuda.empty_cache()
+    gptq65 = gptq_65b_phase(dev, time_ms, bound_ms, f32_peak, results, totals,
+                            gptq_eval["gptq"].get("walk_launches_per_row"), gptq65_run)
     # ---- 29-31. tensor- and data-parallel inference: two ranks as processes on
     # the one card over gloo (TP at mp = 2, DP at dp = 2, the entry points under torchrun)
     parallel, par_kernels = parallel_phases(dev, smi, phase8["tokens"], phase8["prompts"], pth25,
                                             work / "tokenizer.model", work / "parallel")
     gc.collect()
     torch.cuda.empty_cache()
-    # ---- 32-34. training across ranks: DP, FSDP and TP steps of two ranks on the
-    # one card over gloo, then finetune.lora and pretrain.shakespeare under torchrun
+    # ---- 32-35. training across ranks: DP, FSDP, TP and Adapter v1 TP steps of two
+    # ranks on the one card over gloo, then finetune.lora, finetune.adapter and
+    # pretrain.shakespeare under torchrun
     train_parallel, train_par_kernels = train_parallel_phases(dev, smi, pth25, work / "tokenizer.model",
                                                               work / "train_parallel")
     par_kernels.update(train_par_kernels)
@@ -5521,7 +5745,7 @@ def main() -> int:
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
               "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh",
-              "K3 M=1": "gemv4_sm90.cuh"}
+              "K3 M=1": "gemv4_sm90.cuh", "K3 f32 65B": "gemm_f32.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column
     # case: each variant's launches are its wrapper's count on a path that runs only
@@ -5532,7 +5756,7 @@ def main() -> int:
                 "K10dq f32", "K10dkv f32", "K4 hs256", "K5 hs256", "K10dq hs256", "K10dkv hs256", "K4 hs384",
                 "K5 hs384", "K10dq hs384", "K10dkv hs384", "K4 hs512", "K5 hs512", "K10dq hs512", "K10dkv hs512",
                 "K3 gs=32", "K3 M=1", "K6 M>1", "K4 T256", "K10dq T256", "K10dkv T256", "K3 f32 M8192", "K4 f32 B4 T2048",
-                "K3 M2048", "K6 M2048"]
+                "K3 M2048", "K6 M2048", "K3 f32 65B", "K4 f32 65B"]
     for key in list(sources) + variants:
         base = next(b for b in ("K1 LoRA", "K7 LoRA", key.split()[0]) if key.startswith(b))
         r = results[key]
@@ -5552,7 +5776,9 @@ def main() -> int:
                    "K5 TP": "decode_sm90.cuh", "K3 DP": "gemm_sm90.cuh", "K7 DP": "serve_layer.cu",
                    "K8 DP": "decode_attention.cu", "K9 DP": "serve_layer.cu", "K4 DP": "flash_sm90.cuh",
                    "K10dq DP": "flash_sm90.cuh", "K10dkv DP": "flash_sm90.cuh", "K4 TP-train": "flash_sm90.cuh",
-                   "K10dq TP-train": "flash_sm90.cuh", "K10dkv TP-train": "flash_sm90.cuh"}
+                   "K10dq TP-train": "flash_sm90.cuh", "K10dkv TP-train": "flash_sm90.cuh",
+                   "K4 Adapter-TP": "flash_sm90.cuh", "K10dq Adapter-TP": "flash_sm90.cuh",
+                   "K10dkv Adapter-TP": "flash_sm90.cuh"}
     for name, r in par_kernels.items():
         base = name.split()[0]
         kernels.append({
@@ -5566,7 +5792,8 @@ def main() -> int:
                       "entry_points": entry_runs, "requests_int8": full8,
                       "k3_shapes": k3_shapes, "k6_shapes": k6_shapes, "k5_shapes": k5_shapes, "training": training,
                       "finetuning": finetuning, "gptq_evaluation": gptq_eval, "conversion_http_data": entry_points,
-                      "parallel": parallel, "train_parallel": train_parallel, "entry_inputs": entry_inputs}))
+                      "parallel": parallel, "train_parallel": train_parallel, "gptq_65b": gptq65,
+                      "entry_inputs": entry_inputs}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,6 +3,7 @@ finetune/adapter.py: the same flags and defaults, plus ``--device``).
 
     python -m lit_llama_tpu_torch.finetune.adapter --data_dir DIR --checkpoint_path ckpt/lit-llama.pth \
         --tokenizer_path ckpt/tokenizer.model [--device cpu]
+    torchrun --standalone --nproc_per_node 2 -m lit_llama_tpu_torch.finetune.adapter --model_parallel 2 ...
 
 The base weights stay frozen; the prompt and the gates of the blocks from
 the third on (``start_layer`` 2) train, and the checkpoints hold only those
@@ -56,7 +57,8 @@ def main(
         max_seq_length: Truncation length (see prepare_alpaca.py).
         data_parallel: Data-parallel size (-1: every rank the model axis leaves); more than one needs torchrun
             (one process a rank).
-        model_parallel: Tensor-parallel size: 1 (the prefix attention is not laid out by head).
+        model_parallel: Tensor-parallel size (Adapter v1 trains under it: the prompt and the gates
+            whole on every rank, each rank's prefix attention on its heads); more than one needs torchrun.
         group_by_length: Batch near-equal-length samples to minimize padding.
         device: cuda (the default: the card) or cpu (the plain PyTorch path).
     """

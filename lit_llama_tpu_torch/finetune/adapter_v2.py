@@ -56,7 +56,8 @@ def main(
         max_seq_length: Truncation length (see prepare_alpaca.py).
         data_parallel: Data-parallel size (-1: every rank the model axis leaves); more than one needs torchrun
             (one process a rank).
-        model_parallel: Tensor-parallel size: 1 (the prefix attention is not laid out by head).
+        model_parallel: Tensor-parallel size: 1 (the JAX package's placement refuses Adapter v2
+            under a model axis, and so does the port).
         group_by_length: Batch near-equal-length samples to minimize padding.
         device: cuda (the default: the card) or cpu (the plain PyTorch path).
     """

@@ -40,6 +40,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
@@ -62,6 +63,9 @@ from lit_llama_tpu_torch.peft import adapter, lora
 from lit_llama_tpu_torch.utils.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
+# the JAX package's shard_map TP refuses an adapter too; training under TP takes
+# Adapter v1 (``layout``)
+ADAPTER_TP = "adapter overlays are not supported under tensor-parallel inference"
 # per layer {"k", "v"}: (B, H, S, hs); an int8 cache adds {"ks", "vs"}: (B, H, S, 1) f32
 KVCache = List[Dict[str, torch.Tensor]]
 
@@ -245,7 +249,11 @@ def _causal_self_attention(lp: Params, x, rope, mask, config: LLaMAConfig, kv, w
     if y is None:
         y = attention(q, k, v, mask, causal=causal, plain=plain)
     if config.adapter is not None:
-        y = adapter.prefix_attention(lp, q, y, config)
+        # under TP (training only) the prompt and the gates are whole on every
+        # rank and its heads give a share of their gradients: Megatron's f sums them
+        alp = {**lp, "adapter_wte": _into_group(lp["adapter_wte"], tp_group),
+               "gating": _into_group(lp["gating"], tp_group)}
+        y = adapter.prefix_attention(alp, q, y, config, 0 if tp_group is None else dist.get_rank(tp_group) * H)
     y = y.transpose(1, 2).reshape(B, T, H * hs)
     out = linear(attn["c_proj"], y, plain=plain)
     return _sum_group(out, tp_group)
@@ -362,7 +370,7 @@ def forward(
     rank returns the whole (B, T, V). The fused serving blocks (K7-K9) are
     not taken under a group, as the JAX package gates them: K9 fuses the
     attention's projection with the MLP, leaving no point for the sum
-    between them. An adapter raises: its prefix attention spans every head.
+    between them. An adapter raises, as under JAX's shard_map TP.
     With gradients on, the group's sums are ``parallel.comm``'s
     differentiable collectives (Megatron's f before each column-split
     product and the lm_head, g after each row-split one).
@@ -372,14 +380,15 @@ def forward(
     shards (``parallel.sharding``): each layer's FSDP leaves are gathered
     inside its checkpoint region, wte and the lm_head around the lookup and
     the head; under TP the lookup is vocab-parallel and the tokens' logits
-    come back whole. ``tp_group`` is the layout's model group.
+    come back whole. ``tp_group`` is the layout's model group. Adapter v1
+    trains under it: each rank's prefix attention runs its own heads.
     """
     if layout is not None:
         if kv_cache is not None:
             raise ValueError("the sharded training forward takes no cache")
         tp_group = layout.model_group
-    if tp_group is not None and config.adapter is not None:
-        raise NotImplementedError("adapter overlays are not supported under tensor parallelism")
+    if tp_group is not None and config.adapter is not None and layout is None:
+        raise NotImplementedError(ADAPTER_TP)
     B, T = tokens.shape
     cd = torch_dtype(config.compute_dtype)
     dev = tokens.device

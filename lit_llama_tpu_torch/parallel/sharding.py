@@ -33,7 +33,10 @@ use, inside the block's activation checkpoint so the backward gathers again
 (ZeRO-3). A leaf sharded over both axes holds its data shard of its model
 shard. An axis that its group does not divide is padded with zeros: a zero
 parameter whose gradient is zero stays zero under AdamW and adds nothing to
-the clip norm, so the padding is exact.
+the clip norm, so the padding is exact. Adapter v1's prompt and gates stay
+whole on every rank, as JAX places them, and each rank's prefix attention
+takes its own heads (``models.llama``); Adapter v2 is refused
+(``refuse_adapter_v2``).
 
 Nothing here calls ``torch.distributed.fsdp``: the parameters are trees of
 tensors, not modules.
@@ -135,6 +138,20 @@ def shard_tensor(t: torch.Tensor, spec: Spec, dp: int, mp: int, d: int, m: int) 
     return t.contiguous()
 
 
+def refuse_adapter_v2(model_parallel: int) -> None:
+    """Raise NotImplementedError for Adapter v2 training under a model axis,
+    as the JAX package does: its placement (``param_pspecs``) gives the
+    (L, 1, D) ``av2_bias`` / ``av2_scale`` leaves under attention's and the
+    MLP's ``c_proj`` the linear's rule, the model axis on their axis of size
+    1, and ``shard_params`` raises. Adapter v1 trains under TP: its leaves
+    are whole on every rank."""
+    if model_parallel > 1:
+        raise NotImplementedError(
+            f"adapter_v2 training under tensor parallelism (model_parallel={model_parallel}): the JAX package's "
+            "placement puts the model axis on the size-1 axis of the av2_bias / av2_scale leaves under c_proj "
+            "and refuses the tree; train Adapter v2 with --data_parallel only")
+
+
 # ---- a rank's layout --------------------------------------------------------------
 
 
@@ -177,12 +194,8 @@ class Layout:
             bad = [n for n in tree_leaves(template) if n.split("/")[-1] in ("qw", "qscale", "qzero")]
             if bad:
                 raise ValueError(f"training takes dense weights; {bad[0]} is quantized")
-            if config.adapter is not None:
-                mode = "adapter_v2" if config.adapter.v2 else "adapter"
-                raise NotImplementedError(
-                    f"{mode} training under tensor parallelism (model_parallel={self.mp}): the prefix attention "
-                    "spans every head and its leaves are not laid out by head (ROADMAP.md, queue 1); train "
-                    "adapters with --data_parallel only")
+            if config.adapter is not None and config.adapter.v2:
+                refuse_adapter_v2(self.mp)
         self.specs: Dict[str, Spec] = {}
         self.shapes: Dict[str, Tuple[int, ...]] = {}
         for name, t in tree_leaves(template).items():
@@ -310,7 +323,10 @@ class Layout:
     def sync_grads(self, grads: Dict[str, torch.Tensor]) -> None:
         """Sum, over the data group and in place, the gradients of the
         leaves that are whole on it (an FSDP leaf's gradient arrives
-        reduce-scattered)."""
+        reduce-scattered). A leaf whole on the model group needs no sum
+        there: its gradient arrives whole, the norms' after the block's
+        sum, Adapter v1's prompt and gates through Megatron's f
+        (``models.llama``)."""
         if self.dp == 1:
             return
         for name in sorted(grads):

@@ -192,7 +192,10 @@ def prepare_tp_params(params: Params, config: LLaMAConfig, mp: int) -> Params:
     list, MLP unfused; see the module docstring): c_attn's columns permuted,
     the row-sharded int4 weights re-packed per shard, the MLP hidden dim
     zero-padded where mp does not divide it. New tensors where a leaf
-    changes; the input tree is not changed."""
+    changes; the input tree is not changed. An adapter model raises
+    NotImplementedError, as JAX's shard_map TP does."""
+    if config.adapter is not None:
+        raise NotImplementedError(llama.ADAPTER_TP)
     tree = llama.unstack_layers(params)
     if config.rope_layout == "half" or any("qw_t" in lp["attn"]["c_attn"] for lp in tree["h"]):
         raise ValueError("tensor parallelism takes the weights as loaded, not prepared for the fused decode step")

@@ -76,12 +76,18 @@ def init_adapter_cache(config: LLaMAConfig, batch_size: int, dtype) -> Params:
     return {}
 
 
-def prefix_attention(layer_params: Params, q: torch.Tensor, y: torch.Tensor, config: LLaMAConfig) -> torch.Tensor:
+def prefix_attention(layer_params: Params, q: torch.Tensor, y: torch.Tensor, config: LLaMAConfig,
+                     head0: int = 0) -> torch.Tensor:
     """y + active * gate * softmax(q akᵀ / sqrt(hs)) av over one layer's
     prompt: q and y (B, H, T, hs), ``layer_params`` the layer's tree (its
-    ``adapter_wte`` (aT, D), ``gating`` (H,), ``adapter_active`` (1,) and
-    ``attn.c_attn``). The scores are taken in q's dtype, the softmax in f32,
-    its weights rounded to q's dtype, as in the JAX package."""
+    ``adapter_wte`` (aT, D), ``gating`` (all heads,), ``adapter_active``
+    (1,) and ``attn.c_attn``). The scores are taken in q's dtype, the
+    softmax in f32, its weights rounded to q's dtype, as in the JAX package.
+
+    Under tensor parallelism q and y hold a rank's H heads from ``head0``
+    on and ``c_attn`` is its shard of the columns, (q, k, v) of those heads
+    (``parallel.tp``): the prompt's keys and values come out as the rank's
+    heads, and the gates are taken from ``head0`` on."""
     B, H, T, hs = q.shape
     aT = config.adapter.prompt_length
     prefix = layer_params["adapter_wte"][None].to(q.dtype)  # (1, aT, D)
@@ -92,7 +98,7 @@ def prefix_attention(layer_params: Params, q: torch.Tensor, y: torch.Tensor, con
     scores = torch.einsum("bhts,bhas->bhta", q, ak.to(q.dtype)).float() / math.sqrt(hs)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     ay = torch.einsum("bhta,bhas->bhts", probs, av.to(q.dtype))
-    gate = layer_params["gating"][None, :, None, None].to(q.dtype)
+    gate = layer_params["gating"][head0 : head0 + H][None, :, None, None].to(q.dtype)
     active = layer_params["adapter_active"][0].to(q.dtype)
     return y + active * gate * ay
 

@@ -229,9 +229,10 @@ def _get(d: Params, dotted: str):
     return d
 
 
-def _layer(h: Params, l: int) -> Params:
-    """Layer ``l`` of the stacked tree, as fresh dicts of views."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in h.items()}
+def _layer(h: Params, l: int, device) -> Params:
+    """Layer ``l`` of the stacked tree on ``device``, as fresh dicts (of
+    views where it lies there already)."""
+    return {k: _layer(v, l, device) if isinstance(v, dict) else v[l].to(device) for k, v in h.items()}
 
 
 def _copy_dicts(tree: Params) -> Params:
@@ -259,6 +260,7 @@ def quantize_model_gptq(
     actorder: bool = False,
     host_spill: Optional[bool] = None,
     plain: bool = False,
+    device=None,
 ) -> Params:
     """Sequential block-wise GPTQ over the whole model: the five linears of
     each block, then lm_head, the error-compensated activations carried block
@@ -281,6 +283,10 @@ def quantize_model_gptq(
     128 × 2048 protocol): stage activations live in host memory with one
     ``batch`` on the card at a time, and the quantized leaves go to the host.
     ``plain`` runs the kernels' plain versions in the calibration forwards.
+    ``device`` (default: where ``params`` lie) is where the work runs: the
+    params may stay on the host (a 65B checkpoint does not fit a card), and
+    then each layer's weights, lm_head and the embedding rows of a batch
+    move to it when they are used.
 
     Returns the tree with the quantized leaf layout of
     ``llama.quantize_params(config.replace(quantize="int4"))``.
@@ -288,7 +294,8 @@ def quantize_model_gptq(
     calib = calib_tokens if isinstance(calib_tokens, torch.Tensor) else torch.from_numpy(np.asarray(calib_tokens))
     calib = calib.long()
     n_samples, T = calib.shape
-    dev = params["wte"].device
+    wte = params["wte"]
+    dev = wte.device if device is None else torch.device(device)
     rope = build_rope_cache(config.block_size, config.head_size, device=dev)[:T]
     mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     D, L = config.n_embd, config.n_layer
@@ -321,9 +328,9 @@ def quantize_model_gptq(
 
     out = _copy_dicts(params)
     with _ieee_f32(), torch.no_grad():
-        xs = batched(lambda c: params["wte"][c].float(), calib)
+        xs = batched(lambda c: wte[c.to(wte.device)].to(dev).float(), calib)
         for layer in range(L):
-            lp = _layer(params["h"], layer)
+            lp = _layer(params["h"], layer, dev)
             # stage A: rms_1 output -> c_attn Hessian
             h1 = batched(lambda x: rms_norm(x, lp["rms_1"]), xs)
             quantize_into(lp, "attn.c_attn", hessian(h1))
@@ -362,9 +369,10 @@ def quantize_model_gptq(
 
         # lm_head on the final norm's output (reference: quantize/gptq.py:131-150)
         Hlm = torch.zeros((D, D), dtype=torch.float32, device=dev)
+        ln_f = params["ln_f"].to(dev)
         for b in starts:
-            accumulate_hessian(Hlm, rms_norm(xs[b : b + batch].to(dev), params["ln_f"]))
-        q, s, z = gptq_quantize_matrix(params["lm_head"]["w"], Hlm, groupsize=groupsize, actorder=actorder)
+            accumulate_hessian(Hlm, rms_norm(xs[b : b + batch].to(dev), ln_f))
+        q, s, z = gptq_quantize_matrix(params["lm_head"]["w"].to(dev), Hlm, groupsize=groupsize, actorder=actorder)
         leaves = {"qw": pack_q4(q), "qscale": s, "qzero": z}
         out["lm_head"] = {k: v.cpu() for k, v in leaves.items()} if host_spill else leaves
     return out

@@ -7,7 +7,7 @@ whole output against the case's plain PyTorch version. A case prints its
 value as the JAX script does (one element of the output) with the largest
 difference from the plain version.
 
-    python -m lit_llama_tpu_torch.tools.probe_kernels --all            # every case, each in a subprocess
+    python -m lit_llama_tpu_torch.tools.probe_kernels --all            # every case, each in a subprocess, at once
     python -m lit_llama_tpu_torch.tools.probe_kernels --case mv_small_n  # one case, in this process
     python -m lit_llama_tpu_torch.tools.probe_kernels --all --device cpu  # the plain versions only
 
@@ -255,15 +255,25 @@ def main(argv=None) -> int:
         parser.error("give --all or --case NAME")
     fails = 0
     extra = ["--device", args.device] if args.device else []
-    for name in CASES:
-        r = subprocess.run([sys.executable, "-m", "lit_llama_tpu_torch.tools.probe_kernels", "--case", name] + extra,
-                           capture_output=True, text=True, timeout=900, cwd=Path(__file__).resolve().parents[2])
-        if r.returncode == 0:
-            print(r.stdout.strip().splitlines()[-1])
-        else:
-            fails += 1
-            tail = (r.stderr.strip().splitlines() or ["?"])[-1][:200]
-            print(f"{name}: FAILED rc={r.returncode} {tail}")
+    # the cases' processes start at once (each spends most of its time starting
+    # up) and report in the order of CASES
+    procs = {name: subprocess.Popen([sys.executable, "-m", "lit_llama_tpu_torch.tools.probe_kernels", "--case", name]
+                                    + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    cwd=Path(__file__).resolve().parents[2]) for name in CASES}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode == 0:
+                print(out.strip().splitlines()[-1])
+            else:
+                fails += 1
+                tail = (err.strip().splitlines() or ["?"])[-1][:200]
+                print(f"{name}: FAILED rc={proc.returncode} {tail}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return 1 if fails else 0
 
 

@@ -18,8 +18,9 @@ Across ranks (``data_parallel`` / ``model_parallel`` under ``torchrun``, a
 world of their product) the mesh follows JAX's ``shard_params(fsdp=mode ==
 "full", tp=model_parallel > 1)``: full finetuning shards its f32 weights and
 moments over the data axis (FSDP), the PEFT modes keep the frozen base whole
-on the data axis (DP); with a model axis the weights take the TP layout
-(Adapter v1 / v2 refuse it: their prefix attention is not laid out by head).
+on the data axis (DP); with a model axis the weights take the TP layout,
+Adapter v1's prompt and gates whole on every rank. Adapter v2 refuses a
+model axis, as JAX's placement does (``sharding.refuse_adapter_v2``).
 Every rank draws the same global batches and keeps its rows
 (``training.step``); rank 0 samples the validation answer from the gathered
 params while the others wait.
@@ -236,10 +237,13 @@ def run(
     ``model_parallel`` other than one need a ``torchrun`` world of their
     product (``parallel.sharding.train_mesh``); each rank then reads the
     whole checkpoint on the host, in the card's dtype, and keeps its
-    shard."""
+    shard. Adapter v2 with ``model_parallel`` > 1 raises
+    NotImplementedError before anything loads."""
     from lit_llama_tpu_torch.data.tokenizer import Tokenizer
     from lit_llama_tpu_torch.utils.loader import load_model
 
+    if mode == "adapter_v2":
+        sharding.refuse_adapter_v2(model_parallel)
     mesh = sharding.train_mesh(data_parallel, model_parallel, device)
     dev = (mesh is not None and launch.current_device()) or resolve_device(device)
     if mesh is None:

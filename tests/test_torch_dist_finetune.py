@@ -1,13 +1,17 @@
 """Finetuning and pretraining across ranks on the CPU: the four finetuning
 modes' train steps over gloo ranks (``tests/torch_parallel_ranks.py``) as
 the port's entry points shard them (full under FSDP, LoRA and the adapters
-under DP, LoRA under TP) against the port's single-process step, and the
-PEFT modes under DP against the JAX ``train_step`` under the same mesh,
+under DP, LoRA and Adapter v1 under TP) against the port's single-process
+step, and the PEFT modes under DP against the JAX ``train_step`` under the
+same mesh,
 with each mode's trainable mask; LoRA
 leaves that no axis of the mesh divides (padded shards) against the
-single-process step; then ``finetune.lora --data_parallel 2`` and
+single-process step; Adapter v1 under TP against JAX's (1, 2) GSPMD step
+and one process; the adapter refusals (v2 under TP, any adapter under TP
+inference) in both packages; then ``finetune.lora --data_parallel 2`` and
 ``pretrain.shakespeare --model_parallel 2`` under ``torchrun`` against the
-same entry points run in one process.
+same entry points run in one process (``finetune.adapter
+--model_parallel 2``: ``tests/test_torch_dist_adapter.py``).
 
 Tolerances, f32, as ``tests/test_torch_dist_training.py`` holds them;
 ``finetune.lora`` on the CPU computes in f32: its logged losses to their 4
@@ -22,10 +26,6 @@ rounding may flip). A TP leaf in the wrong layout is off by its own scale,
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -57,7 +57,7 @@ def port_config(cfg):
     return out
 
 
-def _case(mode, mesh, fsdp, seed, lora=LORA, jax_too=True):
+def _case(mode, mesh, fsdp, seed, lora=LORA, jax_too=True, **tc):
     """A mode's tree with its PEFT leaves drawn (LoRA B and the gates not at
     zero, so that every trainable leaf has a gradient from the first step)
     and its mask."""
@@ -77,7 +77,7 @@ def _case(mode, mesh, fsdp, seed, lora=LORA, jax_too=True):
         mask = None
     ids, tgt = dist._tokens(seed, ignore=dist.UNEVEN if mode == "full" else None)
     return dict(jax_config=cfg, config=port_config(cfg), params=params, mesh=mesh, fsdp=fsdp,
-                tc={**dist.TC, "learning_rate": 1e-2 if mode.startswith("adapter") else dist.LR},
+                tc={**dist.TC, "learning_rate": 1e-2 if mode.startswith("adapter") else dist.LR, **tc},
                 ids=ids, tgt=tgt, mask=mode if mode != "full" else None, jax_mask=mask, jax_too=jax_too)
 
 
@@ -87,13 +87,19 @@ CASES = {"full_fsdp": _case("full", (2, 1), True, 20, jax_too=False), "lora_dp":
          "adapter_dp": _case("adapter", (2, 1), False, 22), "adapter_v2_dp": _case("adapter_v2", (2, 1), False, 23),
          "lora_tp": _case("lora", (1, 2), False, 24, jax_too=False),  # TP against JAX: test_torch_dist_training
          "lora_qkv_fsdp": _case("lora", (2, 1), True, 25, LORA_QKV, jax_too=False),
-         "lora_qkv_tp": _case("lora", (1, 2), False, 26, LORA_QKV, jax_too=False)}
+         "lora_qkv_tp": _case("lora", (1, 2), False, 26, LORA_QKV, jax_too=False),
+         # the gates drawn distinct per head: a rank that took the other's gates,
+         # or its prompt keys from the other's heads, moves the loss; the clip
+         # engaged (the gradient's norm is ~8e-4): each rank's norm counts the
+         # whole prompt and gates once
+         "adapter_tp": _case("adapter", (1, 2), False, 27, grad_clip=2e-4)}
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     keys = ("config", "params", "mesh", "fsdp", "tc", "ids", "tgt", "mask")
-    payload = {"cases": {n: {k: c[k] for k in keys} for n, c in CASES.items()}}
+    payload = {"cases": {n: {k: c[k] for k in keys} for n, c in CASES.items()},
+               "adapter_inference": {k: CASES["adapter_tp"][k] for k in ("config", "params")}}
     return ranks.run("train_steps", 2, tmp_path_factory.mktemp("ft2"), payload)
 
 
@@ -109,14 +115,19 @@ def test_mode_step_matches_jax_and_one_process(two_ranks, name):
     """Three steps of a finetuning mode across two ranks (the leaves it
     trains, its mask): the losses and the params gathered whole against the
     JAX step under its mesh (where JAX's placement takes the shapes) and
-    the port's single-process step; frozen leaves unchanged bit for bit."""
+    the port's single-process step; frozen leaves unchanged bit for bit.
+    Each step's gradient norm on every rank is the single process's (each
+    leaf counted once); a clip case's is above its clip at every step."""
     case = CASES[name]
-    one_losses, one, _ = dist.port_steps(case, mask=lambda params: _port_mask(case, params))
+    one_losses, one, norms = dist.port_steps(case, grad_clip_probe=True, mask=lambda params: _port_mask(case, params))
+    clip = case["tc"].get("grad_clip")
+    assert clip is None or min(norms) > clip, norms
     lr = case["tc"]["learning_rate"]
     tol = dict(rtol=1e-6, atol=1e-2 * lr)
     got = two_ranks[0][name]["params"]
     for rank, out in enumerate(two_ranks):
         np.testing.assert_allclose(out[name]["losses"], one_losses, rtol=2e-6, err_msg=f"rank {rank}")
+        np.testing.assert_allclose(out[name]["norms"], norms, rtol=1e-5, err_msg=f"rank {rank}")
     dist._held(got, one, tol, f"{name} vs one process")
     frozen = [] if case["mask"] is None else [n for n, m in tree_leaves(_port_mask(case, dist.fresh(case["params"])))
                                               .items() if not m]
@@ -132,34 +143,52 @@ def test_mode_step_matches_jax_and_one_process(two_ranks, name):
     dist._held(got, want, dict(rtol=1e-5, atol=1e-2 * lr), f"{name} vs JAX", flips=1e-5)
 
 
+def test_adapters_are_refused_under_inference_tp(two_ranks):
+    """An Adapter v1 model through tensor-parallel inference raises in both
+    packages: JAX's shard_map TP forward, and the port's
+    ``prepare_tp_params``, ``DecodeEngine(mesh=...)`` and ``generate_tp``
+    on two ranks (the training path alone takes an adapter under TP)."""
+    from lit_llama_tpu.models import llama as jllama
+    from lit_llama_tpu_torch.models import llama as tllama
+    from lit_llama_tpu_torch.parallel import tp
+    from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+    case = CASES["adapter_tp"]
+    with pytest.raises(NotImplementedError, match="adapter"):
+        jllama.forward(case["params"], np.zeros((1, 4), np.int32), case["jax_config"], tp_axis="model")
+    with pytest.raises(NotImplementedError, match=tllama.ADAPTER_TP):
+        tp.prepare_tp_params(params_from_numpy(case["params"], device="cpu"), case["config"], 2)
+    for out in two_ranks:
+        assert out["adapter_inference"] == {"engine": tllama.ADAPTER_TP, "generate_tp": tllama.ADAPTER_TP}
+
+
+def test_adapter_v2_is_refused_under_tp_in_both_packages(tmp_path):
+    """Adapter v2 under a model axis: JAX's placement puts ``model`` on the
+    size-1 axis of the c_proj ``av2_*`` leaves and ``shard_params`` raises;
+    the port refuses the same, with the reference's reason, before it loads
+    anything (``finetune.run`` on paths that do not exist)."""
+    from jax.sharding import Mesh
+
+    from lit_llama_tpu.parallel import sharding as jsharding
+    from lit_llama_tpu_torch.training import finetune as tft
+
+    case = CASES["adapter_v2_dp"]
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+    with pytest.raises(ValueError, match="divisible"):
+        jsharding.shard_params(jax.tree_util.tree_map(jax.numpy.asarray, case["params"]), mesh, fsdp=False, tp=True)
+    specs = jsharding.param_pspecs(case["params"], fsdp=False, tp=True)
+    assert specs["h"]["attn"]["c_proj"]["av2_bias"][1] == "model"  # the (L, 1, D) leaf's axis of size 1
+    missing = tmp_path / "absent"
+    with pytest.raises(NotImplementedError, match="size-1 axis") as e:
+        tft.run("adapter_v2", missing, missing / "lit-llama.pth", missing / "tokenizer.model", tmp_path / "out",
+                learning_rate=1e-3, weight_decay=0.0, batch_size=4, micro_batch_size=2, max_iters=1, warmup_iters=0,
+                eval_interval=1, eval_iters=1, save_interval=1, log_interval=1, max_seq_length=64,
+                model_parallel=2, device="cpu")
+    assert "tensor parallelism" in str(e.value) and "--data_parallel" in str(e.value)
+    assert not (tmp_path / "out").exists()
+
+
 # ---- the entry points under torchrun ------------------------------------------------------
-
-
-def _torchrun(module, args, log):
-    """``module`` under torchrun with two CPU ranks, started; ``wait()``
-    returns its log once it exited 0."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2", "-m", module,
-           "--device", "cpu", *map(str, args)]
-    f = open(log, "w")
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
-                            env={**os.environ, "OMP_NUM_THREADS": "2"})
-
-    def wait():
-        try:
-            rc = proc.wait(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            f.close()
-        assert rc == 0, log.read_text()[-3000:]
-        return log.read_text()
-
-    return wait
-
-
-def _metrics(path):
-    return [json.loads(line) for line in (path / "metrics.jsonl").read_text().splitlines()]
 
 
 def test_finetune_lora_data_parallel_under_torchrun(work, tmp_path):  # noqa: F811
@@ -175,12 +204,12 @@ def test_finetune_lora_data_parallel_under_torchrun(work, tmp_path):  # noqa: F8
     flags = dict(data_dir=work / "data", checkpoint_path=work / "lit-llama.pth", tokenizer_path=work / "tokenizer.model",
                  learning_rate=1e-3, **HYPER)
     args = [a for k, v in flags.items() for a in (f"--{k}", v)]
-    wait = _torchrun("lit_llama_tpu_torch.finetune.lora", args + ["--out_dir", tmp_path / "two", "--data_parallel", 2],
-                     tmp_path / "two.log")
+    wait = ranks.torchrun("lit_llama_tpu_torch.finetune.lora",
+                          args + ["--out_dir", tmp_path / "two", "--data_parallel", 2], tmp_path / "two.log", ROOT)
     lora_entry.main(out_dir=tmp_path / "one", device="cpu", **flags)  # while the ranks run
     text = wait()
     assert "backend gloo" in text
-    one, two = _metrics(tmp_path / "one"), _metrics(tmp_path / "two")
+    one, two = ranks.metrics(tmp_path / "one"), ranks.metrics(tmp_path / "two")
     assert [r["iter"] for r in one] == [r["iter"] for r in two]
     for a, b in zip(one, two):
         for k in ("loss", "val_loss"):
@@ -216,11 +245,11 @@ def test_pretrain_shakespeare_model_parallel_under_torchrun(tmp_path):
     flags = dict(data_dir=data, n_layer=2, n_embd=256, n_head=2, block_size=64, vocab_size=100, batch_size=4,
                  micro_batch_size=2, max_iters=3, eval_interval=3, eval_iters=1, learning_rate=1e-3)
     args = [a for k, v in flags.items() for a in (f"--{k}", v)]
-    wait = _torchrun("lit_llama_tpu_torch.pretrain.shakespeare",
-                     args + ["--out_dir", tmp_path / "two", "--model_parallel", 2], tmp_path / "two.log")
+    wait = ranks.torchrun("lit_llama_tpu_torch.pretrain.shakespeare",
+                          args + ["--out_dir", tmp_path / "two", "--model_parallel", 2], tmp_path / "two.log", ROOT)
     shakespeare.main(out_dir=tmp_path / "one", device="cpu", **flags)  # while the ranks run
     wait()
-    one, two = _metrics(tmp_path / "one"), _metrics(tmp_path / "two")
+    one, two = ranks.metrics(tmp_path / "one"), ranks.metrics(tmp_path / "two")
     assert [r["iter"] for r in one] == [r["iter"] for r in two]
     np.testing.assert_allclose([r.get("loss", r.get("val_loss")) for r in two],
                                [r.get("loss", r.get("val_loss")) for r in one], rtol=2e-3, atol=2e-3)

@@ -23,7 +23,9 @@ WORDS = ("the quick brown fox jumps over a lazy dog while five wizards box and "
          "pack my jugs with liquor instruction input response below task").split()
 NEW_MODULES = ("scripts.convert_checkpoint", "scripts.convert_hf_checkpoint", "scripts.convert_lora_weights",
                "serve.http", "scripts.prepare_shakespeare", "pretrain.shakespeare", "scripts.prepare_alpaca",
-               "scripts.prepare_dolly", "scripts.prepare_any_text", "scripts.prepare_redpajama")
+               "scripts.prepare_dolly", "scripts.prepare_any_text", "scripts.prepare_redpajama",
+               "scripts.make_tiny_checkpoint", "scripts.prepare_code_corpus", "scripts.download",
+               "tools.gptq_65b_dryrun")
 
 
 def _jax_script(name):
@@ -144,8 +146,8 @@ def test_new_entry_points_print_help_and_import_without_jax():
         from lit_llama_tpu_torch.utils.cli import cli
         for name in {NEW_MODULES!r}:
             mod = importlib.import_module("lit_llama_tpu_torch." + name)
-            fn = next(getattr(mod, f) for f in ("main", "prepare", "convert_checkpoint", "convert_hf_checkpoint")
-                      if hasattr(mod, f))
+            fn = next(getattr(mod, f) for f in ("main", "prepare", "convert_checkpoint", "convert_hf_checkpoint",
+                                                "download_from_hub") if hasattr(mod, f))
             out = io.StringIO()
             with contextlib.redirect_stdout(out), contextlib.suppress(SystemExit):
                 cli(fn, ["--help"])

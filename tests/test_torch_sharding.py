@@ -5,7 +5,7 @@ into its shards and put back together at every coordinate of meshes whose
 axes do not divide it (the padding zero); the TP layout undone; then, in
 gloo ranks (``tests/torch_parallel_ranks.py``), ``Layout.shard`` and
 ``Layout.gather`` byte for byte on every mesh of two ranks, an
-adapter refused under TP, the four differentiable collectives and the
+Adapter v2 refused under TP, the four differentiable collectives and the
 reduce-scatter against their definitions, and the census of one train step
 (``tools.comm_anatomy``): the collectives each mesh calls.
 """
@@ -204,8 +204,9 @@ def test_layout_shards_and_gathers_byte_for_byte(request, mesh):
 
 
 def test_adapters_are_refused_under_tensor_parallelism(two):
-    """An adapter tree under a model axis raises NotImplementedError (the
-    prefix attention is not laid out by head), naming the way out."""
+    """An Adapter v2 tree under a model axis raises NotImplementedError (the
+    JAX package's placement refuses it; Adapter v1 trains under TP), naming
+    the way out."""
     assert "tensor parallelism" in two[0]["adapter_refused"] and "--data_parallel" in two[0]["adapter_refused"]
 
 

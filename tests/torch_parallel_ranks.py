@@ -1,7 +1,10 @@
 """Rank processes for the port's multi-process CPU tests
 (``test_torch_tp.py``, ``test_torch_parallel_serving.py``,
-``test_torch_sharding.py``, ``test_torch_dist_training.py``; not a test
-file).
+``test_torch_sharding.py``, ``test_torch_dist_training.py``,
+``test_torch_dist_finetune.py``; not a test file).
+
+``torchrun`` starts an entry point under ``torchrun`` with two CPU ranks
+(``metrics`` reads what it logged).
 
 ``run(job, world, tmp_path, payload)`` spawns ``world`` ranks that join a
 gloo group through a ``file://`` store under ``tmp_path`` (tests of several
@@ -15,6 +18,10 @@ JAX side in their own process and pass arrays across.
 from __future__ import annotations
 
 import datetime
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +48,34 @@ def _entry(rank: int, world: int, init: str, job: str, payload, out: str) -> Non
     finally:
         dist.destroy_process_group()
     torch.save(result, Path(out) / f"{job}_rank{rank}.pt")
+
+
+def torchrun(module: str, args, log: Path, root: Path):
+    """``module`` under torchrun with two CPU ranks (``--device cpu``) from
+    ``root``, started; ``wait()`` returns its log once it exited 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2", "-m", module,
+           "--device", "cpu", *map(str, args)]
+    f = open(log, "w")
+    proc = subprocess.Popen(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT,
+                            env={**os.environ, "OMP_NUM_THREADS": "2"})
+
+    def wait():
+        try:
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+        assert rc == 0, log.read_text()[-3000:]
+        return log.read_text()
+
+    return wait
+
+
+def metrics(path: Path):
+    """The records of ``path/metrics.jsonl``."""
+    return [json.loads(line) for line in (path / "metrics.jsonl").read_text().splitlines()]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -129,10 +164,11 @@ def _gathered_np(layout, tree, keep):
 def train_steps(rank: int, world: int, payload):
     """Each case of ``payload["cases"]`` whose mesh has ``world`` ranks: its
     params sharded (``Layout``), ``train_step`` on each of its global
-    batches. Every rank returns, a case, the losses and its local params'
-    and moments' bytes; rank 0 also the final params gathered whole
+    batches. Every rank returns, a case, the losses, each step's gradient
+    norm (``Layout.global_norm``) and its local params' and moments' bytes; rank 0 also the final params gathered whole
     (numpy, single-process layout). With ``payload["resume"]``, also
-    ``resume_runs``'s results under "resume"."""
+    ``resume_runs``'s results under "resume", with
+    ``payload["adapter_inference"]`` ``adapter_inference``'s."""
     torch.set_num_threads(1)  # tiny models: a thread a rank, so that the ranks of the CPU tests do not crowd
     from lit_llama_tpu_torch.parallel import mesh as mesh_lib, sharding
     from lit_llama_tpu_torch.training import step as step_lib
@@ -150,7 +186,14 @@ def train_steps(rank: int, world: int, payload):
         local, layout = sharding.shard_params(params, mesh, cfg, fsdp=case["fsdp"])
         opt = step_lib.make_optimizer(step_lib.TrainConfig(**case["tc"]), _mask(case.get("mask"), local))
         state = step_lib.init_train_state(local, opt)
-        losses = []
+        losses, norms = [], []
+        apply = opt.apply
+
+        def recording(params, grads, opt_state, g_norm=None):
+            norms.append(float(g_norm))
+            apply(params, grads, opt_state, g_norm)
+
+        opt.apply = recording
         for ids, tgt in zip(case["ids"], case["tgt"]):
             state, loss = step_lib.train_step(state, torch.as_tensor(ids).long(), torch.as_tensor(tgt).long(), cfg,
                                               opt, True, case.get("policy", "dots"), layout=layout)
@@ -158,10 +201,36 @@ def train_steps(rank: int, world: int, payload):
         nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.params).values())
         nbytes += sum(t.numel() * t.element_size() for k in ("mu", "nu")
                       for t in tree_leaves(state.opt_state[k]).values())
-        out[name] = {"losses": losses, "bytes": nbytes,
+        out[name] = {"losses": losses, "norms": norms, "bytes": nbytes,
                      "params": _gathered_np(layout, state.params, rank == 0)}
     if "resume" in payload:
         out["resume"] = dict(resume_runs(rank, world, payload["resume"]), out=payload["resume"]["out"])
+    if "adapter_inference" in payload:
+        out["adapter_inference"] = adapter_inference(rank, world, payload["adapter_inference"])
+    return out
+
+
+def adapter_inference(rank: int, world: int, payload):
+    """An adapter model through the TP inference paths on a (1, world)
+    mesh: ``DecodeEngine(mesh=...)`` and ``generate_tp``, each refused with
+    NotImplementedError before any collective. Returns each message (None
+    where nothing raised)."""
+    from lit_llama_tpu_torch.parallel import mesh as mesh_lib, tp
+    from lit_llama_tpu_torch.serve import DecodeEngine
+    from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+
+    mesh = mesh_lib.make_mesh(data=1, model=world, device="cpu")
+    cfg = payload["config"]
+    out = {"engine": None, "generate_tp": None}
+    try:
+        DecodeEngine(params_from_numpy(payload["params"], device="cpu"), cfg, max_batch=2, mesh=mesh, device="cpu")
+    except NotImplementedError as e:
+        out["engine"] = str(e)
+    try:  # the whole tree, as no sharding takes it: the forward refuses it
+        tp.generate_tp(params_from_numpy(payload["params"], device="cpu"), [1, 2, 3], 2, config=cfg, mesh=mesh,
+                       temperature=0.0)
+    except NotImplementedError as e:
+        out["generate_tp"] = str(e)
     return out
 
 
@@ -250,7 +319,7 @@ def sharding_checks(rank: int, world: int, payload):
     """``parallel.sharding`` and ``parallel.comm`` on ``world`` ranks: each
     (data, model, fsdp) of ``payload["meshes"]`` with ``world`` ranks, the
     tree sharded (every rank's local leaves) and gathered back (rank 0's);
-    an adapter tree refused under TP; the differentiable collectives of
+    an Adapter v2 tree refused under TP; the differentiable collectives of
     ``comm`` (``collectives``); one train step's census
     (``tools.comm_anatomy``) on each mesh of ``payload["census"]``."""
     torch.set_num_threads(1)  # tiny models: a thread a rank, so that the ranks of the CPU tests do not crowd
