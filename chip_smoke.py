@@ -112,10 +112,11 @@ phase 21's LoRA directory, the merged ``.pth``'s logits within
 subprocess (greedy tokens equal), and ``scripts.prepare_alpaca`` on a local
 JSON with one ``finetune.lora`` step on its output. The f32 bodies rebuilt
 for the card (K3's f32 tile, shared with K6 at M > 1 and K7 / K9 in f32, and
-K4's FFMA forward) are held and timed where they were: phases 8h (K3 f32 at
-M = 8 and 128, K4 f32 at T = 128 and 200, K7 / K9 f32), 12b (K6 f32 at M >
-1), 14b (K4 f32 at (1, 32, 2048, 128)), 17 (K4 f32 at head size 256, also
-timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
+K4's FFMA forward) and K10's 3xTF32 kernels are held and timed where they
+were: phases 8h (K3 f32 at M = 8 and 128, K4 f32 at T = 128 and 200, K7 / K9
+f32), 12b (K6 f32 at M > 1), 14b (K4 and K10 f32 at (1, 32, 2048, 128); K10
+beside both its bounds, FFMA and 3xTF32), 17 (K4 and K10 f32 at head size
+256, also timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
 SDPA's f32 call runs logged beside the yardsticks). Phases 29-31 run
 tensor- and data-parallel inference in two ranks on the one card (see their
 constants). Phases 32-34 train across two ranks on the one card, DP, FSDP
@@ -611,6 +612,7 @@ def finetune_kernel_times(dev, time_ms, bound_ms, tc_peak, seed: int, B: int = 4
     import torch.nn.functional as F
 
     from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.tools.profile_flash import k10_work
 
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn((B, H, T, hs), generator=g).to(dev, torch.bfloat16) for _ in range(4))
@@ -632,8 +634,7 @@ def finetune_kernel_times(dev, time_ms, bound_ms, tc_peak, seed: int, B: int = 4
         errs.append(float(err.max()))
     nrow, pairs = B * H * T, B * H * T * (T + 1) // 2
     b4 = bound_ms(4 * nrow * hs * 2 + nrow * 4, 4 * hs * pairs, tc_peak)
-    b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
-    b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+    b_dq, b_dkv = (bound_ms(nb, ops, tc_peak) for nb, ops in k10_work(nrow, pairs, hs, 2))
     dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
@@ -2748,6 +2749,7 @@ def _k10_recorded(seen, time_us, peaks, timed: bool):
     import torch.nn.functional as F
 
     from lit_llama_tpu_torch.ops import flash_attention as fa
+    from lit_llama_tpu_torch.tools.profile_flash import k10_work
 
     out = {"errs": [0.0, 0.0, 0.0], "times": {}}
     for sig, (q, k, v, o, lse, do) in seen.items():
@@ -2777,10 +2779,9 @@ def _k10_recorded(seen, time_us, peaks, timed: bool):
         lib = time_us(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True)) / 1e3
         plain = time_us(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3) / 1e3
         shape = f"B={B} H={H} T={T} hs={hs}"
-        for key, fn, b in (("K10dq", lambda: fa.flash_backward_dq(q, k, v, o, lse, do),
-                            bound(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs)),
-                           ("K10dkv", lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd),
-                            bound(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs))):
+        for key, fn, b in zip(("K10dq", "K10dkv"), (lambda: fa.flash_backward_dq(q, k, v, o, lse, do),
+                                                    lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd)),
+                              (bound(*w) for w in k10_work(nrow, pairs, hs, 2))):
             out["times"][key] = dict(key=key, shape=shape, ms=time_us(fn) / 1e3, plain_ms=plain, library_ms=lib,
                                      bound_ms=b[0], bound_by=b[1])
         del dq, dd, qs, ks, vs, sdpa_out
@@ -3399,6 +3400,7 @@ def main() -> int:
     from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row, slot_rope_rows
     from lit_llama_tpu_torch.serve import DecodeEngine
     from lit_llama_tpu_torch.tools import devtime, probe_kernels
+    from lit_llama_tpu_torch.tools.profile_flash import k10_work
     from lit_llama_tpu_torch.utils.device import device_peaks
     from lit_llama_tpu_torch.utils.random_params import random_int4_params, random_int8_params, random_lora_overlay
 
@@ -3410,7 +3412,11 @@ def main() -> int:
     smi = devtime.card_name_and_power_limit()
     log(smi)
     bw, tc_peak, f32_peak = device_peaks(kind)
-    log(f"peaks for {kind}: {bw / 1e12} TB/s, {tc_peak / 1e12} TF/s bf16, {f32_peak / 1e12} TF/s f32")
+    # f32 products in 3xTF32 on the tensor cores (K10 in f32): three TF32
+    # products each, TF32 at half the bf16 rate (the data sheet's 495 TF/s)
+    tf32x3_peak = tc_peak / 2 / 3
+    log(f"peaks for {kind}: {bw / 1e12} TB/s, {tc_peak / 1e12} TF/s bf16, {f32_peak / 1e12} TF/s f32, "
+        f"{tf32x3_peak / 1e12:.1f} TF/s f32 in 3xTF32")
     t0 = time.perf_counter()
     took = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall; per library {took}")
@@ -5154,8 +5160,7 @@ def main() -> int:
         if T == 2048:
             nrow = B * Hh * T
             pairs = B * Hh * T * (T + 1) // 2  # causal (query, key) pairs
-            b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
-            b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+            b_dq, b_dkv = (bound_ms(nb, ops, tc_peak) for nb, ops in k10_work(nrow, pairs, hs, 2))
             dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
             ms_dq = time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do))
             ms_dkv = time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd))
@@ -5198,8 +5203,7 @@ def main() -> int:
         errs10[name] = max(errs10[name], k10_err(g, w, f"K10 {name} (B, H, T) = {(2, H, 2048)}")[0])
         assert torch.equal(g, a), f"K10 {name} at B = 2: two runs differ (the kernels use no atomics)"
     nrow, pairs = 2 * H * 2048, 2 * H * 2048 * 2049 // 2
-    b_dq = bound_ms(5 * nrow * hs * 2 + nrow * 4 + nrow * hs * 2 + nrow * 4, 3 * 2 * hs * pairs, tc_peak)
-    b_dkv = bound_ms(4 * nrow * hs * 2 + 2 * nrow * 4 + 2 * nrow * hs * 2, 4 * 2 * hs * pairs, tc_peak)
+    b_dq, b_dkv = (bound_ms(nb, ops, tc_peak) for nb, ops in k10_work(nrow, pairs, hs, 2))
     dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
     ms_dq = time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do))
     ms_dkv = time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd))
@@ -5294,8 +5298,10 @@ def main() -> int:
     errs = [max_err32(g, w, f"K10 {n} f32") for n, g, w in zip(("dq", "dk", "dv"), got, want)]
     nrow, pairs = H * T, H * T * (T + 1) // 2
     b4 = bound_ms(4 * nrow * hs * 4 + nrow * 4, 4 * hs * pairs, f32_peak)
-    b_dq = bound_ms(5 * nrow * hs * 4 + nrow * 4 + nrow * hs * 4 + nrow * 4, 3 * 2 * hs * pairs, f32_peak)
-    b_dkv = bound_ms(4 * nrow * hs * 4 + 2 * nrow * 4 + 2 * nrow * hs * 4, 4 * 2 * hs * pairs, f32_peak)
+    # K10 in f32 runs 3xTF32 on the tensor cores: its bound is at that rate,
+    # the FFMA rate's beside it
+    b_dq, b_dkv = (bound_ms(nb, ops, tf32x3_peak) for nb, ops in k10_work(nrow, pairs, hs, 4))
+    f_dq, f_dkv = (bound_ms(nb, ops, f32_peak) for nb, ops in k10_work(nrow, pairs, hs, 4))
     dq, dd = fa.flash_backward_dq(q, k, v, ro, rlse, do)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
@@ -5308,10 +5314,10 @@ def main() -> int:
                              bound_ms=b4[0], bound_by=b4[1], max_abs_err=max(err4, entry_inputs["k4_f32_err_t128_t200"]))
     results["K10dq f32"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, ro, rlse, do), 5),
                                 plain_ms=plain10, library_ms=lib10, bound_ms=b_dq[0], bound_by=b_dq[1],
-                                max_abs_err=errs[0])
+                                max_abs_err=errs[0], bound_ffma_ms=f_dq[0])
     results["K10dkv f32"] = dict(shape=shape, ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, rlse, dd), 5),
                                  plain_ms=plain10, library_ms=lib10, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                                 max_abs_err=max(errs[1:]))
+                                 max_abs_err=max(errs[1:]), bound_ffma_ms=f_dkv[0])
     del q, k, v, do, o, lse, ro, rlse, got, want, dq, dd, qs, ks, vs, sdpa_out
     c14f = cfgt.replace(n_layer=2, compute_dtype="float32")
     p14 = llama.init_params(c14f, torch.Generator(device=dev).manual_seed(SEED), device=dev)
@@ -5340,7 +5346,9 @@ def main() -> int:
     log("f32 compute, K4 and K10 at (1, 32, 2048, 128) vs plain: "
         + ", ".join(f"{k} max err {results[k]['max_abs_err']:.3g}, {results[k]['ms'] * 1e3:.1f} us (plain "
                     f"{results[k]['plain_ms'] * 1e3:.1f}, SDPA f32 {results[k]['library_ms'] * 1e3:.1f}, bound "
-                    f"{results[k]['bound_ms'] * 1e3:.1f} {results[k]['bound_by']})"
+                    f"{results[k]['bound_ms'] * 1e3:.1f} {results[k]['bound_by']}"
+                    + (f" in 3xTF32, {results[k]['bound_ffma_ms'] * 1e3:.1f} in FFMA" if "bound_ffma_ms" in results[k]
+                       else " in FFMA") + ")"
                     for k in ("K4 f32", "K10dq f32", "K10dkv f32"))
         + f"; 2-layer 7B-width training forward + backward in f32 (T=2048, remat dots), kernel vs plain: loss "
         f"{losses[False]:.6f} vs {losses[True]:.6f}, per leaf max |dgrad| / max |grad| up to {max(gerr.values()):.3g}")
@@ -5490,13 +5498,29 @@ def main() -> int:
                     bound_ms=b4[0], bound_by=b4[1])
                 log(f"head size 256, f32, K4 timed: {k4f['ms'] * 1e3:.1f} us (plain {k4f['plain_ms'] * 1e3:.1f}, "
                     f"SDPA f32 {k4f['library_ms'] * 1e3:.1f}, bound {k4f['bound_ms'] * 1e3:.1f} {k4f['bound_by']})")
+                # K10's 3xTF32 kernels at their second head size (column halves over two warps)
+                dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+                qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                k10f = entry_inputs["k10_f32_hs256"] = dict(
+                    shape=f"B={Be} H={He} T={Te} hs={hse}, f32", max_abs_err=max(e10),
+                    dq_ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do), 5),
+                    dkv_ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd), 5),
+                    plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3),
+                    library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do, retain_graph=True), 5),
+                    bound_ms=[bound_ms(nb, ops, tf32x3_peak)[0] for nb, ops in k10_work(nrow, pairs, hse, 4)],
+                    bound_ffma_ms=[bound_ms(nb, ops, f32_peak)[0] for nb, ops in k10_work(nrow, pairs, hse, 4)])
+                log(f"head size 256, f32, K10 timed: dq {k10f['dq_ms'] * 1e3:.1f} us, dkv {k10f['dkv_ms'] * 1e3:.1f} "
+                    f"(plain {k10f['plain_ms'] * 1e3:.1f}, SDPA f32 backward {k10f['library_ms'] * 1e3:.1f}; bounds "
+                    f"{k10f['bound_ms'][0] * 1e3:.1f} / {k10f['bound_ms'][1] * 1e3:.1f} in 3xTF32, "
+                    f"{k10f['bound_ffma_ms'][0] * 1e3:.1f} / {k10f['bound_ffma_ms'][1] * 1e3:.1f} in FFMA)")
+                del dq, dd, qs, ks, vs, sdpa_out
             if f32:
                 continue
             es = 2  # bytes of an element
             peak = tc_peak  # bf16 products on the tensor cores
             b4 = bound_ms(4 * nrow * hse * es + nrow * 4, 4 * hse * pairs, peak)
-            b_dq = bound_ms(5 * nrow * hse * es + nrow * 4 + nrow * hse * es + nrow * 4, 3 * 2 * hse * pairs, peak)
-            b_dkv = bound_ms(4 * nrow * hse * es + 2 * nrow * 4 + 2 * nrow * hse * es, 4 * 2 * hse * pairs, peak)
+            b_dq, b_dkv = (bound_ms(nb, ops, peak) for nb, ops in k10_work(nrow, pairs, hse, es))
             b5 = bound_ms(2 * He * Te * hse * es + 2 * He * hse * es + 4, 4 * He * Te * hse, f32_peak)
             dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
             qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -5741,7 +5765,8 @@ def main() -> int:
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
     # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
-              "K10dkv": "flash_sm90.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
+              "K10dkv": "flash_sm90.cuh", "K10dq hs256": "flash_sm90_hs256.cuh", "K10dkv hs256": "flash_sm90_hs256.cuh",
+              "K10dq f32": "flash_tf32.cuh", "K10dkv f32": "flash_tf32.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
               "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh",
@@ -5767,7 +5792,7 @@ def main() -> int:
             "launches": totals[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            **{k: r[k] for k in ("ms_without_operand", "ms_at_b64", "ms_at_b2", "library_ms_at_b2", "bound_ms_at_b2",
+            **{k: r[k] for k in ("bound_ffma_ms", "ms_without_operand", "ms_at_b64", "ms_at_b2", "library_ms_at_b2", "bound_ms_at_b2",
                                  "ms_at_b8", "library_ms_at_b8", "bound_ms_at_b8")
                if k in r},
         })

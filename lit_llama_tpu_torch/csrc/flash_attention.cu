@@ -11,11 +11,12 @@
 //
 // Which body runs (the entries at the end of the file): bf16 at head size
 // 128, the size of every LLaMA preset, takes the Hopper kernels of
-// flash_sm90.cuh (wgmma, TMA, an mbarrier ring); bf16 at 256 the mma.sync
-// bodies below; past 256 the chunked kernels near the end of the file; f32
-// compute the FFMA bodies.
+// flash_sm90.cuh (wgmma, TMA, an mbarrier ring); bf16 at 256 K4's mma.sync
+// body below and K10's Hopper kernels of flash_sm90_hs256.cuh; past 256 the
+// chunked kernels near the end of the file; f32 compute K4's FFMA body and
+// K10's 3xTF32 tensor-core kernels of flash_tf32.cuh.
 //
-// The mma.sync bodies (FlashAttention-2 shape): one block per (q-tile of 64
+// K4's mma.sync body (FlashAttention-2 shape): one block per (q-tile of 64
 // rows, head, batch), 4 warps, each warp owns 16 query rows. K and V tiles of
 // 64 keys go through shared memory, and so does Q (a warp's (16 x 256) f32 O
 // accumulator takes 128 registers, which leaves none for Q's fragments).
@@ -23,18 +24,16 @@
 // the running max and sum stay in f32 registers, P is rounded to bf16 for
 // the PV product as the Pallas kernel does. Tiles above the diagonal are
 // never visited; the diagonal tile and the ragged last tile (T % 64 != 0)
-// are masked in the kernel, so T need not be a multiple of the tile. The
-// backward kernels split their output columns in halves of 128 over the grid
-// (each half recomputes S and dP over the full head), so their accumulators
-// stay (16 x 128).
+// are masked in the kernel, so T need not be a multiple of the tile.
 
 #include "flash_sm90.cuh"
+#include "flash_sm90_hs256.cuh"
+#include "flash_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
-constexpr int NCOL = 128;  // output columns of a backward block
 
 // bf16 elements per shared row of an HS-wide tile (bank spread)
 template <int HS>
@@ -206,34 +205,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 //
 // Bound on the H100: dQ runs three causal products (S = Q K^T, dP = dO V^T,
 // dQ = dS K) and dK/dV four (S, dP, dV = P^T dO, dK = dS^T Q), each
-// 2 * T * T/2 * hs per head; at T = 2048, hs = 128 they outweigh the bytes
-// (q, k, v, o, dO read once, dq, dk, dv written once) about two to one.
+// 2 * T * T/2 * hs per head; at T = 2048 they outweigh the bytes (q, k, v, o,
+// dO read once, dq, dk, dv written once).
 //
-// Design: the FlashAttention-2 recompute scheme in two kernels and no
-// atomics, as the Pallas pair: every output element is summed by one thread
-// in a fixed order, so the result repeats bit for bit from run to run.
-//  - bwd_dot: D = rowsum(dO * O) in f32, one warp per row at head size 128
-//    (JAX computes it in XLA before its kernels), before flash_sm90.cuh's dq.
-//  - bwd_dq: one block per (64-row Q tile i, 128 output columns, head,
-//    batch), 4 warps of 16 rows. Q and dO are staged in shared memory; a loop over the KV tiles
-//    j <= i (the TPU's sequential inner grid axis) stages K_j and V_j in
-//    shared memory, recomputes S and dP on mma.sync m16n8k16, P = exp(S *
-//    scale - lse) under the causal and ragged masks, dS = P * (dP - D) in
-//    f32, and adds bf16(dS) K_j to an f32 register accumulator; times scale
-//    at the end.
-//  - bwd_dkv: one block per (64-row KV tile j, 128 output columns, head,
-//    batch), 4 warps of 16
-//    keys, computing the transposed tiles S^T = K Q^T and dP^T = V dO^T so
-//    that P^T and dS^T come out of the accumulators already in the A layout of
-//    the next products. K_j and V_j stay in shared memory for the whole loop
-//    over Q tiles i >= j, which stages Q_i, dO_i, lse_i and D_i beside them
-//    (133 KB of dynamic shared memory at head size 256: K and V
-//    fragments in registers as well would leave no room under 255 registers
-//    for the two (16 x 128) f32 accumulators). dV += bf16(P^T) dO_i, dK +=
-//    bf16(dS^T) Q_i.
-// Rounding follows the Pallas kernels: P is rounded to bf16 for dV, dS for dQ
-// and dK; every sum is f32. Rows and keys past T (the ragged last tile) are
-// loaded as zeros, masked out of P and never written.
+// The FlashAttention-2 recompute scheme in two kernels and no atomics, as the
+// Pallas pair: every output element is summed by one thread in a fixed order,
+// so the result repeats bit for bit from run to run. D = rowsum(dO * O) comes
+// first, in f32, one warp per row (JAX computes it in XLA before its
+// kernels): flash_bwd_dot at head size 128 in bf16, simt_dot at 256 or in
+// f32, wide_dot past 256. The kernels themselves: flash_sm90.cuh (bf16, head
+// size 128), flash_sm90_hs256.cuh (bf16, 256), flash_tf32.cuh (f32, 128 and
+// 256), the chunked kernels below (past 256).
 
 __global__ void flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
                                      const __nv_bfloat16* __restrict__ dout,
@@ -255,243 +237,11 @@ __global__ void flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
   if (lane == 0) dd[row] = s;
 }
 
-template <int HS>
-constexpr int dq_smem() { return (2 * BKV + 2 * BQ) * ld_of<HS>() * 2; }
-
-template <int HS>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dd,
-                    __nv_bfloat16* __restrict__ dq, int H, int T, float scale) {
-  constexpr int KS = HS / 16, LD = ld_of<HS>(), NSPL = HS / NCOL;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;  // [BQ][LD] each
-  __nv_bfloat16* Ds = Qs + BQ * LD;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int qt = blockIdx.x / NSPL, c_off = (blockIdx.x % NSPL) * NCOL, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS;
-  const size_t lbase = ((size_t)b * H + h) * (size_t)T;
-  const int q0 = qt * BQ + warp * 16;
-  const int row0 = q0 + g, row1 = q0 + g + 8;
-
-  stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);  // visible after the loop's first sync
-  stage_tile<HS>(Ds, dout + base, qt * BQ, T, tid);
-  const float lse0 = row0 < T ? lse[lbase + row0] : 0.f, lse1 = row1 < T ? lse[lbase + row1] : 0.f;
-  const float dd0 = row0 < T ? dd[lbase + row0] : 0.f, dd1 = row1 < T ? dd[lbase + row1] : 0.f;
-
-  float acc[NCOL / 8][4];
-#pragma unroll
-  for (int n = 0; n < NCOL / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {  // BQ == BKV: tiles 0..qt reach the diagonal
-    const int k0 = kt * BKV;
-    __syncthreads();
-    stage_tile<HS>(Ks, k + base, k0, T, tid);
-    stage_tile<HS>(Vs, v + base, k0, T, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 8 n-tiles of 8 keys, summed over the k-steps in order
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa_[4], da_[4];
-      frag_a_smem(qa_, Qs, LD, warp * 16, kk, g, t);
-      frag_a_smem(da_, Ds, LD, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t* krow = reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD);
-        const uint32_t* vrow = reinterpret_cast<const uint32_t*>(Vs + (j * 8 + g) * LD);
-        mma_bf16(s[j], qa_, krow[(kk * 16 + 2 * t) / 2], krow[(kk * 16 + 8 + 2 * t) / 2]);
-        mma_bf16(dp[j], da_, vrow[(kk * 16 + 2 * t) / 2], vrow[(kk * 16 + 8 + 2 * t) / 2]);
-      }
-    }
-    // P under the causal and ragged masks, then dS = P (dP - D) in place of S
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        const bool kin = key < T;
-        const float p0 = (kin && key <= row0) ? __expf(s[j][e] * scale - lse0) : 0.f;
-        const float p1 = (kin && key <= row1) ? __expf(s[j][2 + e] * scale - lse1) : 0.f;
-        s[j][e] = p0 * (dp[j][e] - dd0);
-        s[j][2 + e] = p1 * (dp[j][2 + e] - dd1);
-      }
-    }
-    // dQ[:, c_off ..] += bf16(dS) K: dS from the accumulators (C layout -> A
-    // layout), 4 k-steps of 16 keys
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* k0p = Ks + (kk * 16 + 2 * t) * LD + c_off;
-      const __nv_bfloat16* k8p = Ks + (kk * 16 + 8 + 2 * t) * LD + c_off;
-#pragma unroll
-      for (int n = 0; n < NCOL / 8; ++n) {
-        const int col = n * 8 + g;
-        mma_bf16(acc[n], pa, pack_bf16(k0p[col], k0p[LD + col]), pack_bf16(k8p[col], k8p[LD + col]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < NCOL / 8; ++n) {
-    const int col = c_off + n * 8 + 2 * t;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row0 * HS + col) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (row1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row1 * HS + col) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
-
-template <int HS>
-constexpr int dkv_smem() { return 4 * BQ * ld_of<HS>() * 2 + 2 * BQ * 4; }
-
-template <int HS>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ dd,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int T,
-                     float scale) {
-  constexpr int KS = HS / 16, LD = ld_of<HS>(), NSPL = HS / NCOL;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;
-  __nv_bfloat16* Ds = Qs + BQ * LD;  // dO tile
-  float* Ls = reinterpret_cast<float*>(Ds + BQ * LD);
-  float* DDs = Ls + BQ;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kt = blockIdx.x / NSPL, c_off = (blockIdx.x % NSPL) * NCOL, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS;
-  const size_t lbase = ((size_t)b * H + h) * (size_t)T;
-  const int kw = warp * 16;  // the warp's first key inside the tile
-  const int key0 = kt * BKV + kw + g, key1 = key0 + 8;
-
-  stage_tile<HS>(Ks, k + base, kt * BKV, T, tid);
-  stage_tile<HS>(Vs, v + base, kt * BKV, T, tid);
-
-  float dka[NCOL / 8][4], dva[NCOL / 8][4];
-#pragma unroll
-  for (int n = 0; n < NCOL / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  const uint32_t* kr0 = reinterpret_cast<const uint32_t*>(Ks + (kw + g) * LD);
-  const uint32_t* kr1 = reinterpret_cast<const uint32_t*>(Ks + (kw + g + 8) * LD);
-  const uint32_t* vr0 = reinterpret_cast<const uint32_t*>(Vs + (kw + g) * LD);
-  const uint32_t* vr1 = reinterpret_cast<const uint32_t*>(Vs + (kw + g + 8) * LD);
-
-  const int n_qt = (T + BQ - 1) / BQ;
-  for (int qt = kt; qt < n_qt; ++qt) {  // Q tiles at or below the diagonal
-    const int qs0 = qt * BQ;
-    __syncthreads();
-    stage_tile<HS>(Qs, q + base, qs0, T, tid);
-    stage_tile<HS>(Ds, dout + base, qs0, T, tid);
-    if (tid < BQ) {
-      const bool in = qs0 + tid < T;
-      Ls[tid] = in ? lse[lbase + qs0 + tid] : 0.f;
-      DDs[tid] = in ? dd[lbase + qs0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 8 n-tiles of 8 queries
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c0 = (kk * 16 + 2 * t) / 2, c8 = (kk * 16 + 8 + 2 * t) / 2;
-      const uint32_t ka[4] = {kr0[c0], kr1[c0], kr0[c8], kr1[c8]};
-      const uint32_t va[4] = {vr0[c0], vr1[c0], vr0[c8], vr1[c8]};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t* qrow = reinterpret_cast<const uint32_t*>(Qs + (j * 8 + g) * LD);
-        const uint32_t* drow = reinterpret_cast<const uint32_t*>(Ds + (j * 8 + g) * LD);
-        mma_bf16(s[j], ka, qrow[c0], qrow[c8]);
-        mma_bf16(dp[j], va, drow[c0], drow[c8]);
-      }
-    }
-    // P^T (kept in s) and dS^T (in place of dP^T); query qi sees key iff key <= qi < T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + 2 * t + e, qi = qs0 + c;
-        const float l = Ls[c], d = DDs[c];
-        const bool qin = qi < T;
-        const float p0 = (qin && qi >= key0) ? __expf(s[j][e] * scale - l) : 0.f;
-        const float p1 = (qin && qi >= key1) ? __expf(s[j][2 + e] * scale - l) : 0.f;
-        s[j][e] = p0;
-        s[j][2 + e] = p1;
-        dp[j][e] = p0 * (dp[j][e] - d);
-        dp[j][2 + e] = p1 * (dp[j][2 + e] - d);
-      }
-    }
-    // dV[:, c_off ..] += bf16(P^T) dO_i and dK[:, c_off ..] += bf16(dS^T) Q_i:
-    // 4 k-steps of 16 queries
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-      const __nv_bfloat16* d0p = Ds + (kk * 16 + 2 * t) * LD + c_off;
-      const __nv_bfloat16* d8p = Ds + (kk * 16 + 8 + 2 * t) * LD + c_off;
-      const __nv_bfloat16* q0p = Qs + (kk * 16 + 2 * t) * LD + c_off;
-      const __nv_bfloat16* q8p = Qs + (kk * 16 + 8 + 2 * t) * LD + c_off;
-#pragma unroll
-      for (int n = 0; n < NCOL / 8; ++n) {
-        const int col = n * 8 + g;
-        mma_bf16(dva[n], pa, pack_bf16(d0p[col], d0p[LD + col]), pack_bf16(d8p[col], d8p[LD + col]));
-        mma_bf16(dka[n], sa, pack_bf16(q0p[col], q0p[LD + col]), pack_bf16(q8p[col], q8p[LD + col]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < NCOL / 8; ++n) {
-    const int col = c_off + n * 8 + 2 * t;
-    if (key0 < T) {
-      const size_t off = base + (size_t)key0 * HS + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    }
-    if (key1 < T) {
-      const size_t off = base + (size_t)key1 * HS + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The FFMA bodies of K4 and K10 for f32 compute (no TF32, which keeps about
-// three decimal digits where JAX's f32 path and the plain versions keep f32),
-// at head size (HS) 128 or 256. Everything is f32, as the plain versions in
-// f32 round nowhere. Bound on the H100: operations, on the CUDA cores
-// (67 TF/s f32).
+// K4's FFMA body for f32 compute (no TF32, which keeps about three decimal
+// digits where JAX's f32 path and the plain versions keep f32), at head size
+// (HS) 128 or 256. Everything is f32, as the plain versions in f32 round
+// nowhere. Bound on the H100: operations, on the CUDA cores (67 TF/s f32).
 //
 // K4's forward, ffma_fwd (replaces the Pallas _flash_kernel of
 // lit_llama_tpu/ops/flash_attention.py in f32; GPTQ's calibration forwards
@@ -521,33 +271,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 //  - O += P V: a thread keeps the same rows and HS / 16 columns (4 x 8 at HS
 //    128), columns cx * 4 + 32 t of its warp's half of the head, so P and V
 //    come as 16-byte words too (12 loads per 128 FFMA at HS 128);
-//  - outputs (o, lse) as the first body wrote them; K10's FFMA bodies below
-//    read that lse.
-//
-// K10's FFMA bodies (simple and right first): every operand tile is staged as
-// f32 in shared memory, rows padded by one word so that the threads of a warp
-// reading one column of several rows hit distinct banks. A block has 128
-// threads, thread (r, c) = (tid / 8, tid % 8): 8 threads share a row, and a
-// thread owns the row's columns c + 8 j, so the row reductions are shuffles
-// among 8 lanes.
-//  - simt_dq: a block per (16 query rows, head, batch); key tiles of 32,
-//    dQ += dS K_j in registers.
-//  - simt_dkv: a block per (16 keys, head, batch); query tiles of 32 at or
-//    below the diagonal, dV += P^T dO_i and dK += dS^T Q_i in registers.
+//  - outputs (o, lse) as the first body wrote them; K10's f32 kernels
+//    (flash_tf32.cuh) read that lse.
 
+// the FFMA bodies past head size 256 (below): threads a block, rows a block, keys a tile
 constexpr int SIMT_THREADS = 128, SIMT_BR = 16, SIMT_BC = 32;
-
-template <int HS>
-__host__ __device__ constexpr int simt_ld() { return HS + 1; }
-
-// rows [r0, r0 + n) of a (T, HS) tensor into dst (n rows of ld), zeros past T
-template <int HS>
-__device__ __forceinline__ void simt_stage(float* dst, const float* src, int r0, int n, int T, int tid) {
-  for (int e = tid; e < n * HS; e += SIMT_THREADS) {
-    const int r = e / HS, d = e % HS;
-    dst[r * simt_ld<HS>() + d] = r0 + r < T ? src[(size_t)(r0 + r) * HS + d] : 0.f;
-  }
-}
 
 // the sum over 8 adjacent lanes (one row's threads)
 __device__ __forceinline__ float row8_sum(float v) {
@@ -731,8 +459,7 @@ ffma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
   }
 }
 
-// D = rowsum(dO * O) in f32, one warp per row; T_ bf16 (the tensor-core
-// kernels past head size 128) or f32
+// D = rowsum(dO * O) in f32, one warp per row; T_ bf16 (head size 256) or f32
 template <typename T_, int HS>
 __global__ void simt_dot_kernel(const T_* __restrict__ o, const T_* __restrict__ dout, float* __restrict__ dd,
                                 int rows) {
@@ -746,144 +473,6 @@ __global__ void simt_dot_kernel(const T_* __restrict__ o, const T_* __restrict__
   }
   s = warp_sum(s);
   if (lane == 0) dd[row] = s;
-}
-
-template <int HS>
-__global__ void __launch_bounds__(SIMT_THREADS)
-simt_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-               const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-               float* __restrict__ dq, int H, int T, float scale) {
-  constexpr int LD = simt_ld<HS>(), NJ = HS / 8;
-  extern __shared__ float sm[];
-  float* Qs = sm;                     // [BR][LD]
-  float* Ds = Qs + SIMT_BR * LD;      // dO [BR][LD]
-  float* Ks = Ds + SIMT_BR * LD;      // [BC][LD]
-  float* Vs = Ks + SIMT_BC * LD;      // [BC][LD]
-  float* Ss = Vs + SIMT_BC * LD;      // dS [BR][BC]
-  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
-  const int q0 = blockIdx.x * SIMT_BR, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS, lbase = ((size_t)b * H + h) * (size_t)T;
-  const int row = q0 + r;
-  simt_stage<HS>(Qs, q + base, q0, SIMT_BR, T, tid);
-  simt_stage<HS>(Ds, dout + base, q0, SIMT_BR, T, tid);
-  const float lr = row < T ? lse[lbase + row] : 0.f, dr = row < T ? dd[lbase + row] : 0.f;
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-  const int kend = min(T, q0 + SIMT_BR);
-  for (int k0 = 0; k0 < kend; k0 += SIMT_BC) {
-    __syncthreads();
-    simt_stage<HS>(Ks, k + base, k0, SIMT_BC, T, tid);
-    simt_stage<HS>(Vs, v + base, k0, SIMT_BC, T, tid);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < SIMT_BC / 8; ++j) {
-      const int key = k0 + c + 8 * j;
-      const float* qr = Qs + r * LD;
-      const float* dr_ = Ds + r * LD;
-      const float* kr = Ks + (c + 8 * j) * LD;
-      const float* vr = Vs + (c + 8 * j) * LD;
-      float sdot = 0.f, pdot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HS; ++d) {
-        sdot += qr[d] * kr[d];
-        pdot += dr_[d] * vr[d];
-      }
-      const float p = (row < T && key < T && key <= row) ? __expf(sdot * scale - lr) : 0.f;
-      Ss[r * SIMT_BC + c + 8 * j] = p * (pdot - dr);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < SIMT_BC; ++kk) {
-      const float ds = Ss[r * SIMT_BC + kk];
-      const float* kr = Ks + kk * LD + c;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] += ds * kr[8 * j];
-    }
-  }
-  if (row >= T) return;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) dq[base + (size_t)row * HS + c + 8 * j] = acc[j] * scale;
-}
-
-template <int HS>
-__global__ void __launch_bounds__(SIMT_THREADS)
-simt_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                float* __restrict__ dk, float* __restrict__ dv, int H, int T, float scale) {
-  constexpr int LD = simt_ld<HS>(), NJ = HS / 8;
-  extern __shared__ float sm[];
-  float* Ks = sm;                     // [BR][LD]: the block's 16 keys
-  float* Vs = Ks + SIMT_BR * LD;      // [BR][LD]
-  float* Qs = Vs + SIMT_BR * LD;      // [BC][LD]: a tile of 32 queries
-  float* Ds = Qs + SIMT_BC * LD;      // dO [BC][LD]
-  float* Ps = Ds + SIMT_BC * LD;      // P^T [BR][BC]
-  float* Ss = Ps + SIMT_BR * SIMT_BC; // dS^T [BR][BC]
-  float* Ls = Ss + SIMT_BR * SIMT_BC; // lse [BC]
-  float* DDs = Ls + SIMT_BC;          // D [BC]
-  const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
-  const int k0 = blockIdx.x * SIMT_BR, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS, lbase = ((size_t)b * H + h) * (size_t)T;
-  const int key = k0 + r;
-  simt_stage<HS>(Ks, k + base, k0, SIMT_BR, T, tid);
-  simt_stage<HS>(Vs, v + base, k0, SIMT_BR, T, tid);
-  float dka[NJ], dva[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
-  for (int qs0 = k0 / SIMT_BC * SIMT_BC; qs0 < T; qs0 += SIMT_BC) {  // query tiles reaching the diagonal
-    __syncthreads();
-    simt_stage<HS>(Qs, q + base, qs0, SIMT_BC, T, tid);
-    simt_stage<HS>(Ds, dout + base, qs0, SIMT_BC, T, tid);
-    if (tid < SIMT_BC) {
-      const bool in = qs0 + tid < T;
-      Ls[tid] = in ? lse[lbase + qs0 + tid] : 0.f;
-      DDs[tid] = in ? dd[lbase + qs0 + tid] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < SIMT_BC / 8; ++j) {
-      const int cq = c + 8 * j, qi = qs0 + cq;
-      const float* kr = Ks + r * LD;
-      const float* vr = Vs + r * LD;
-      const float* qr = Qs + cq * LD;
-      const float* dr_ = Ds + cq * LD;
-      float sdot = 0.f, pdot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HS; ++d) {
-        sdot += kr[d] * qr[d];
-        pdot += vr[d] * dr_[d];
-      }
-      const float p = (qi < T && key < T && qi >= key) ? __expf(sdot * scale - Ls[cq]) : 0.f;
-      Ps[r * SIMT_BC + cq] = p;
-      Ss[r * SIMT_BC + cq] = p * (pdot - DDs[cq]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < SIMT_BC; ++qq) {
-      const float p = Ps[r * SIMT_BC + qq], ds = Ss[r * SIMT_BC + qq];
-      const float* dr_ = Ds + qq * LD + c;
-      const float* qr = Qs + qq * LD + c;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dva[j] += p * dr_[8 * j];
-        dka[j] += ds * qr[8 * j];
-      }
-    }
-  }
-  if (key >= T) return;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const size_t off = base + (size_t)key * HS + c + 8 * j;
-    dk[off] = dka[j] * scale;
-    dv[off] = dva[j];
-  }
-}
-
-template <int HS>
-constexpr int simt_dq_smem() { return (2 * SIMT_BR * simt_ld<HS>() + 2 * SIMT_BC * simt_ld<HS>() + SIMT_BR * SIMT_BC) * 4; }
-template <int HS>
-constexpr int simt_dkv_smem() {
-  return (2 * SIMT_BR * simt_ld<HS>() + 2 * SIMT_BC * simt_ld<HS>() + 2 * SIMT_BR * SIMT_BC + 2 * SIMT_BC) * 4;
 }
 
 template <typename K>
@@ -904,32 +493,6 @@ int ffma_forward(const void* q, const void* k, const void* v, void* o, void* lse
 }
 
 template <int HS>
-int simt_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                     const void* lse, void* dd, void* dq, int B, int H, int T, float scale, cudaStream_t st) {
-  const int rows = B * H * T;
-  simt_dot_kernel<float, HS><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows);
-  constexpr int smem = simt_dq_smem<HS>();
-  int err = set_smem(simt_dq_kernel<HS>, smem);
-  if (err) return err;
-  simt_dq_kernel<HS><<<dim3((T + SIMT_BR - 1) / SIMT_BR, H, B), SIMT_THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd, (float*)dq, H,
-      T, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HS>
-int simt_backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                      const void* dd, void* dk, void* dv, int B, int H, int T, float scale, cudaStream_t st) {
-  constexpr int smem = simt_dkv_smem<HS>();
-  int err = set_smem(simt_dkv_kernel<HS>, smem);
-  if (err) return err;
-  simt_dkv_kernel<HS><<<dim3((T + SIMT_BR - 1) / SIMT_BR, H, B), SIMT_THREADS, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd, (float*)dk,
-      (float*)dv, H, T, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HS>
 int mma_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
                 float scale, cudaStream_t st) {
   constexpr int smem = fwd_smem<HS>();
@@ -938,33 +501,6 @@ int mma_forward(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_kernel<HS><<<dim3((T + BQ - 1) / BQ, H, B), THREADS, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse,
       H, T, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HS>
-int mma_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                    const void* lse, void* dd, void* dq, int B, int H, int T, float scale, cudaStream_t st) {
-  const int rows = B * H * T;
-  simt_dot_kernel<__nv_bfloat16, HS><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
-                                                                     (const __nv_bfloat16*)dout, (float*)dd, rows);
-  constexpr int smem = dq_smem<HS>();
-  int err = set_smem(flash_bwd_dq_kernel<HS>, smem);
-  if (err) return err;
-  flash_bwd_dq_kernel<HS><<<dim3((T + BQ - 1) / BQ * (HS / NCOL), H, B), THREADS, smem, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const float*)dd, (__nv_bfloat16*)dq, H, T, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HS>
-int mma_backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                     const void* dd, void* dk, void* dv, int B, int H, int T, float scale, cudaStream_t st) {
-  constexpr int smem = dkv_smem<HS>();
-  int err = set_smem(flash_bwd_dkv_kernel<HS>, smem);
-  if (err) return err;
-  flash_bwd_dkv_kernel<HS><<<dim3((T + BKV - 1) / BKV * (HS / NCOL), H, B), THREADS, smem, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const float*)dd, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1300,10 +836,12 @@ flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   }
 }
 
-// The FFMA bodies past head size 256 (f32 compute): blocks of 16 query rows
-// (keys for dK/dV) as simt_dq and simt_dkv above, each also over one
-// 128-column output chunk,
-// the dot products summed over the head a staged chunk at a time.
+// The FFMA bodies past head size 256 (f32 compute): a block of 128 threads
+// per (16 query rows (keys for dK/dV) x 128-column output chunk, head,
+// batch), thread (r, c) = (tid / 8, tid % 8): 8 threads share a row, a
+// thread owns its columns c + 8 j, so the row reductions are shuffles among 8
+// lanes; every operand is staged as f32 (rows padded by one word), the dot
+// products summed over the head a staged chunk at a time.
 constexpr int SW_LD = WIDE + 1;  // f32 elements a shared chunk row
 
 // rows [r0, r0 + n) x columns c0..c0 + 127 of a (T, hs) f32 tensor into dst
@@ -1606,36 +1144,59 @@ int wide_backward_dkv(const void* q, const void* k, const void* v, const void* d
   return (int)cudaGetLastError();
 }
 
-// K10's first half on the Hopper kernels: D, then dq
-int sm90_backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
-                     void* dd, void* dq, int B, int H, int T, float scale, cudaStream_t st) {
+// K10's first kernel: D = rowsum(dO * O), then dq, on the body of (dtype, hs)
+int backward_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
+                void* dd, void* dq, int B, int H, int T, int hs, float scale, bool cbf16, cudaStream_t st) {
   const int rows = B * H * T;
-  flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
-                                                       (float*)dd, rows);
-  return fa90::backward_dq(q, k, v, dout, lse, dd, dq, B, H, T, scale, st);
+  if (hs == 128 && cbf16) {
+    flash_bwd_dot_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+                                                         (float*)dd, rows);
+    return fa90::backward_dq(q, k, v, dout, lse, dd, dq, B, H, T, scale, st);
+  }
+  if (hs == 256 && cbf16) {
+    simt_dot_kernel<__nv_bfloat16, 256><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
+                                                                        (const __nv_bfloat16*)dout, (float*)dd, rows);
+    return fa256::backward_dq(q, k, v, dout, lse, dd, dq, B, H, T, scale, st);
+  }
+  if (hs == 128) {  // f32
+    simt_dot_kernel<float, 128><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows);
+    return k10tf32::backward_dq<128>(q, k, v, dout, lse, dd, dq, B * H, T, scale, st);
+  }
+  if (hs == 256) {
+    simt_dot_kernel<float, 256><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows);
+    return k10tf32::backward_dq<256>(q, k, v, dout, lse, dd, dq, B * H, T, scale, st);
+  }
+  if (hs > 256 && hs % WIDE == 0) return wide_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, hs, scale, cbf16, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// (dtype, head size) -> the Hopper kernels (bf16, 128), the mma.sync bodies
-// (bf16, 256), the chunked kernels (past 256) or the FFMA bodies (f32: ffma_fwd
-// for K4, simt_dq and simt_dkv for K10)
-#define LLT_FLASH(SM90_FN, MMA, SIMT, WIDE_FN, ...)                           \
-  do {                                                                        \
-    if (hs == 128) return cbf16 ? SM90_FN : SIMT<128>(__VA_ARGS__);            \
-    if (hs == 256) return cbf16 ? MMA<256>(__VA_ARGS__) : SIMT<256>(__VA_ARGS__); \
-    if (hs > 256 && hs % WIDE == 0) return WIDE_FN;                           \
-    return (int)cudaErrorInvalidValue;                                        \
-  } while (0)
+// K10's second kernel: dK and dV from the dd that backward_dq wrote
+int backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
+                 void* dk, void* dv, int B, int H, int T, int hs, float scale, bool cbf16, cudaStream_t st) {
+  if (hs == 128) return cbf16 ? fa90::backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, scale, st)
+                              : k10tf32::backward_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B * H, T, scale, st);
+  if (hs == 256) return cbf16 ? fa256::backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, scale, st)
+                              : k10tf32::backward_dkv<256>(q, k, v, dout, lse, dd, dk, dv, B * H, T, scale, st);
+  if (hs > 256 && hs % WIDE == 0) return wide_backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, cbf16, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 // q, k, v, o (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs any
 // multiple of 128; lse (B, H, T) f32. bq: the query rows a block of the
 // Hopper kernel (bf16, hs 128), 64 or 128 (ops/flash_attention.py flash_plan).
+// The Hopper kernels (bf16, 128), the mma.sync body (bf16, 256), the FFMA
+// body (f32, 128 and 256) or the chunked kernels (past 256).
 LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int T, float scale, int cbf16, int hs, int bq, void* stream) {
-  LLT_FLASH(fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, (cudaStream_t)stream), mma_forward, ffma_forward,
-            wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k, v, o, lse, B, H,
-            T, scale, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (hs == 128) return cbf16 ? fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, st)
+                              : ffma_forward<128>(q, k, v, o, lse, B, H, T, scale, st);
+  if (hs == 256) return cbf16 ? mma_forward<256>(q, k, v, o, lse, B, H, T, scale, st)
+                              : ffma_forward<256>(q, k, v, o, lse, B, H, T, scale, st);
+  if (hs > 256 && hs % WIDE == 0) return wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K10, first half: D = rowsum(dO * O) into dd (B, H, T) f32, then dq. q, k,
@@ -1644,18 +1205,12 @@ LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, voi
 LLT_EXPORT int k10_flash_backward_dq(const void* q, const void* k, const void* v, const void* o,
                                      const void* dout, const void* lse, void* dd, void* dq, int B,
                                      int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(sm90_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, scale, (cudaStream_t)stream), mma_backward_dq,
-            simt_backward_dq,
-            wide_backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q, k,
-            v, o, dout, lse, dd, dq, B, H, T, scale, (cudaStream_t)stream);
+  return backward_dq(q, k, v, o, dout, lse, dd, dq, B, H, T, hs, scale, cbf16, (cudaStream_t)stream);
 }
 
 // K10, second half: dk and dv from the dd that k10_flash_backward_dq wrote.
 LLT_EXPORT int k10_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                       const void* lse, const void* dd, void* dk, void* dv, int B,
                                       int H, int T, float scale, int cbf16, int hs, void* stream) {
-  LLT_FLASH(fa90::backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, scale, (cudaStream_t)stream),
-            mma_backward_dkv, simt_backward_dkv,
-            wide_backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, cbf16, (cudaStream_t)stream), q,
-            k, v, dout, lse, dd, dk, dv, B, H, T, scale, (cudaStream_t)stream);
+  return backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, cbf16, (cudaStream_t)stream);
 }

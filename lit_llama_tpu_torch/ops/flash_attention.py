@@ -9,18 +9,23 @@ with T > 1 on the card whose head size is a multiple of 128
 tile), any head size that is a multiple of 128 (``check_flash``). bf16 at
 head size 128, every LLaMA preset's, runs on the Hopper kernels of
 ``csrc/flash_sm90.cuh`` (wgmma, TMA, an mbarrier ring), tiled as
-``flash_plan`` says; bf16 at 256 on mma.sync bodies; f32 compute on FFMA
-bodies of the same source (K4's register-blocked, fed by a cp.async ring,
-tiled as ``flash_plan`` says); past 256 the kernels split the output's head
-columns over the grid in chunks of 128 and recompute the scores once a chunk.
+``flash_plan`` says; bf16 at 256 on an mma.sync body; f32 compute on an FFMA
+body of the same source (register-blocked, fed by a cp.async ring, tiled as
+``flash_plan`` says); past 256 the kernels split the output's head columns
+over the grid in chunks of 128 and recompute the scores once a chunk.
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
-``_flash_dkv_kernel`` (entry ``_flash_backward``) with the two K10 kernels of
-the same source, each behind its own launch counter (``flash_backward_dq``,
-``flash_backward_dkv``). ``FlashAttention`` is the autograd Function around
-the pair, the counterpart of the ``jax.custom_vjp`` of ``flash_attention``:
-its forward runs K4 and saves (q, k, v, o, lse), its backward runs K10. A CPU
-tensor, or ``plain=True``, takes the plain versions in the same Function.
+``_flash_dkv_kernel`` (entry ``_flash_backward``) with two K10 kernels, each
+behind its own launch counter (``flash_backward_dq``, ``flash_backward_dkv``),
+tiled as ``k10_plan`` says: bf16 at head size 128 on ``csrc/flash_sm90.cuh``,
+bf16 at 256 on ``csrc/flash_sm90_hs256.cuh`` (the same Hopper design at four
+64-column panels; dK and dV on two warpgroups that split the work), f32 at
+128 and 256 on ``csrc/flash_tf32.cuh`` (mma.sync in 3xTF32 on the tensor
+cores), past 256 on the chunked kernels. ``FlashAttention`` is the autograd
+Function around the pair, the counterpart of the ``jax.custom_vjp`` of
+``flash_attention``: its forward runs K4 and saves (q, k, v, o, lse), its
+backward runs K10. A CPU tensor, or ``plain=True``, takes the plain versions
+in the same Function.
 
 ``flash_attention_ref`` computes the same (o, lse) in plain PyTorch: f32
 scores, the unnormalised probabilities rounded to the input dtype for the PV
@@ -32,7 +37,7 @@ round.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -96,13 +101,13 @@ def sm90_smem(kernel: str, q_rows: int = 128) -> int:
 
 
 class FlashPlan(NamedTuple):
-    """Which body K4 and K10 run for a shape, and K4's tiling there: ``body``
-    is "sm90" (bf16 at head size 128: csrc/flash_sm90.cuh), "mma" (bf16 at
-    256), "chunked" (past 256) or "ffma" (f32 compute at head size 128 or
-    256). On "sm90" and "ffma" a K4 block takes ``q_rows`` query rows (on
-    "sm90" a consumer warpgroup for each 64) against KV tiles of ``kv_rows``
-    keys, with ``smem`` bytes of shared memory; the other bodies have tilings
-    of their own (0 here)."""
+    """Which body K4 runs for a shape, and its tiling there (K10's is
+    ``k10_plan``): ``body`` is "sm90" (bf16 at head size 128:
+    csrc/flash_sm90.cuh), "mma" (bf16 at 256), "chunked" (past 256) or "ffma"
+    (f32 compute at head size 128 or 256). On "sm90" and "ffma" a K4 block
+    takes ``q_rows`` query rows (on "sm90" a consumer warpgroup for each 64)
+    against KV tiles of ``kv_rows`` keys, with ``smem`` bytes of shared
+    memory; the other bodies have tilings of their own (0 here)."""
     body: str
     q_rows: int = 0
     kv_rows: int = 0
@@ -135,23 +140,135 @@ def flash_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = t
 
 def sm90_blocks(kernel: str, T: int, q_rows: int = 128) -> List[Tuple[int, range]]:
     """The grid rows of a Hopper kernel over one head, in launch order
-    (``blockIdx.y``): each block's own tile and the tiles its loop visits, as
-    csrc/flash_sm90.cuh computes them. "fwd" (``q_rows`` query rows a block)
-    and "dq" own a Q tile and visit the KV tiles up to its diagonal, the last
-    Q tile first; "dkv" owns a KV tile of 128 keys and visits the Q tiles of
-    64 rows at or below it, the first KV tile first. "ffma" is K4's FFMA
-    body of f32 compute (csrc/flash_attention.cu ffma_fwd_kernel), tiled as
-    "fwd" with 64 query rows and KV tiles of 64. Blocks are issued heaviest
-    first."""
-    if kernel in ("fwd", "dq", "ffma"):
-        rows, kv = {"fwd": (q_rows, FWD_KV_ROWS), "dq": (DQ_Q_ROWS, DQ_KV_ROWS),
-                    "ffma": (FFMA_Q_ROWS, FFMA_KV_ROWS)}[kernel]
+    (``blockIdx.y``) for K4: each block's own tile and the KV tiles its loop
+    visits, as csrc/flash_sm90.cuh computes them. "fwd" (``q_rows`` query
+    rows a block) owns a Q tile and visits the KV tiles up to its diagonal,
+    the last Q tile first. "ffma" is K4's FFMA body of f32 compute
+    (csrc/flash_attention.cu ffma_fwd_kernel), tiled as "fwd" with 64 query
+    rows and KV tiles of 64. K10's blocks are ``k10_blocks``."""
+    if kernel in ("fwd", "ffma"):
+        rows, kv = (q_rows, FWD_KV_ROWS) if kernel == "fwd" else (FFMA_Q_ROWS, FFMA_KV_ROWS)
         n = -(-T // rows)
         return [(qt, range(-(-min((qt + 1) * rows, T) // kv))) for qt in (n - 1 - y for y in range(n))]
-    if kernel == "dkv":
-        n = -(-T // DKV_KV_ROWS)
-        return [(kt, range(kt * DKV_KV_ROWS // DKV_Q_ROWS, -(-T // DKV_Q_ROWS))) for kt in range(n)]
     raise ValueError(f"no Hopper flash kernel {kernel!r}")
+
+
+# K10 at head size 256 in bf16 (csrc/flash_sm90_hs256.cuh): dq takes 128
+# query rows a block (two consumer warpgroups) against KV tiles of 64 keys, K
+# and V in rings of their own; dK/dV takes 64 keys a block against Q tiles of
+# 64 rows in a ring, with two buffers that hand P^T from one warpgroup to the
+# other
+HS256_DQ_Q_ROWS, HS256_DQ_KV_ROWS, HS256_DQ_K_STAGES, HS256_DQ_V_STAGES = 128, 64, 2, 1
+HS256_DKV_KV_ROWS, HS256_DKV_Q_ROWS, HS256_DKV_STAGES, HS256_DKV_PBUFS = 64, 64, 2, 2
+# the Hopper K10 kernels' blocks: a producer and two consumer warpgroups, the
+# consumers raised to 240 registers a thread by setmaxnreg
+SM90_THREADS, SM90_CONSUMER_REGS = 384, 240
+# K10 in f32 (csrc/flash_tf32.cuh): streamed tiles of 32 rows padded to hs + 4
+# words; by head size, the rows a block owns (query rows in dq, keys in
+# dK/dV), the warps that split a row's head columns, ring stages
+TF32_TILE, TF32_PAD = 32, 4
+TF32_TILING = {128: (128, 1, 2), 256: (32, 2, 2)}
+MAX_THREAD_REGS, SM_REGS = 255, 65536
+
+
+class K10Kernel(NamedTuple):
+    """One K10 kernel's tiling: the rows a block owns (query rows in dq, keys
+    in dK/dV), the rows of each tile its loop streams (keys in dq, query rows
+    in dK/dV), the stages of that ring (dq at head size 256: K's; V has one),
+    threads a block, dynamic shared bytes, the f32 accumulator registers a
+    consumer thread holds (its outputs and the score tiles), and the
+    registers such a thread may hold."""
+    own_rows: int
+    tile_rows: int
+    stages: int
+    threads: int
+    smem: int
+    acc_regs: int
+    reg_limit: int
+
+
+class K10Plan(NamedTuple):
+    """Which body K10 runs for a shape and each kernel's tiling: ``body`` is
+    "sm90" (bf16 at head size 128: csrc/flash_sm90.cuh), "sm90_hs256" (bf16
+    at 256: csrc/flash_sm90_hs256.cuh), "tf32" (f32 at 128 or 256:
+    csrc/flash_tf32.cuh) or "chunked" (past 256: no tiling here)."""
+    body: str
+    dq: Optional[K10Kernel] = None
+    dkv: Optional[K10Kernel] = None
+
+
+def _hs256_smem(kernel: str) -> int:
+    """``dq_smem`` / ``dkv_smem`` of csrc/flash_sm90_hs256.cuh: alignment
+    slack, tiles of 256 bf16 columns, (dK/dV) the P^T buffers and each
+    stage's lse and D rows, mbarriers."""
+    tile = lambda rows: rows * 256 * 2  # noqa: E731
+    if kernel == "dq":
+        n = HS256_DQ_K_STAGES + HS256_DQ_V_STAGES
+        return 1024 + 2 * tile(HS256_DQ_Q_ROWS) + n * tile(HS256_DQ_KV_ROWS) + (2 * n + 1) * 8
+    return (1024 + 2 * tile(HS256_DKV_KV_ROWS) + HS256_DKV_STAGES * 2 * tile(HS256_DKV_Q_ROWS)
+            + HS256_DKV_PBUFS * HS256_DKV_KV_ROWS * HS256_DKV_Q_ROWS * 4 + HS256_DKV_STAGES * 2 * HS256_DKV_Q_ROWS * 4
+            + (2 * HS256_DKV_STAGES + 2 * HS256_DKV_PBUFS + 1) * 8)
+
+
+def _tf32_kernels(hs: int) -> Tuple[K10Kernel, K10Kernel]:
+    """dq and dK/dV of csrc/flash_tf32.cuh at head size hs: a warp holds 16
+    rows of its outputs over hs / cs columns and two 16 x 32 score tiles (S
+    and dP); ``dq_smem`` / ``dkv_smem``: the owned rows of two tensors, the
+    ring, the column halves' exchange, (dK/dV) each stage's lse and D."""
+    rows, cs, stages = TF32_TILING[hs]
+    threads = rows // 16 * cs * 32
+    hc, ld = hs // cs, hs + TF32_PAD
+    xchg = threads // 32 * 2 * 16 * TF32_TILE if cs == 2 else 0
+    dq_smem = ((2 * rows + stages * 2 * TF32_TILE) * ld + xchg) * 4
+    scores = 2 * 16 * TF32_TILE // 32
+    limit = min(MAX_THREAD_REGS, SM_REGS // threads)
+    return (K10Kernel(rows, TF32_TILE, stages, threads, dq_smem, 16 * hc // 32 + scores, limit),
+            K10Kernel(rows, TF32_TILE, stages, threads, dq_smem + stages * 2 * TF32_TILE * 4,
+                      2 * 16 * hc // 32 + scores, limit))
+
+
+def k10_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = torch.bfloat16) -> K10Plan:
+    """The body and tiling of K10's two kernels for (B, H, T, hs, dtype), a
+    pure mirror of the CUDA sources (tests/test_torch_flash_plan.py reads
+    their constants). The tiles depend on the head size and dtype only, so a
+    row's sums run in the same order at every B, H and T."""
+    if B < 1 or H < 1 or T < 1 or hs < 1 or hs % HEAD_SIZE_STEP:
+        raise ValueError(f"k10_plan takes positive shapes and a head size that is a multiple of "
+                         f"{HEAD_SIZE_STEP}, got B={B} H={H} T={T} hs={hs}")
+    if hs > 256:
+        return K10Plan("chunked")
+    if dtype != torch.bfloat16:
+        return K10Plan("tf32", *_tf32_kernels(hs))
+    wg_acc = lambda cols: 64 * cols // 128  # noqa: E731  (a warpgroup's 64-row f32 accumulator a thread)
+    if hs == SM90_HS:
+        return K10Plan("sm90",
+                       K10Kernel(DQ_Q_ROWS, DQ_KV_ROWS, DQ_STAGES, SM90_THREADS, sm90_smem("dq"),
+                                 wg_acc(hs) + 2 * wg_acc(DQ_KV_ROWS), SM90_CONSUMER_REGS),
+                       K10Kernel(DKV_KV_ROWS, DKV_Q_ROWS, DKV_STAGES, SM90_THREADS, sm90_smem("dkv"),
+                                 2 * wg_acc(hs) + 2 * wg_acc(DKV_Q_ROWS), SM90_CONSUMER_REGS))
+    # hs 256: dq's warpgroup holds dQ, S and dP; dK/dV's two warpgroups hold dV
+    # and S^T, or dK and dP^T
+    return K10Plan("sm90_hs256",
+                   K10Kernel(HS256_DQ_Q_ROWS, HS256_DQ_KV_ROWS, HS256_DQ_K_STAGES, SM90_THREADS, _hs256_smem("dq"),
+                             wg_acc(hs) + 2 * wg_acc(HS256_DQ_KV_ROWS), SM90_CONSUMER_REGS),
+                   K10Kernel(HS256_DKV_KV_ROWS, HS256_DKV_Q_ROWS, HS256_DKV_STAGES, SM90_THREADS,
+                             _hs256_smem("dkv"), wg_acc(hs) + wg_acc(HS256_DKV_Q_ROWS), SM90_CONSUMER_REGS))
+
+
+def k10_blocks(plan: K10Plan, kernel: str, T: int) -> List[Tuple[int, range]]:
+    """The grid rows of one of the plan's K10 kernels ("dq" or "dkv") over
+    one head, in launch order (``blockIdx.y``): each block's own tile and the
+    tiles its loop visits. dq owns a Q tile and visits the KV tiles up to
+    its diagonal, the last Q tile first; dK/dV owns a KV tile and visits the
+    Q tiles at or below it, the first KV tile first (heaviest first)."""
+    tiling = {"dq": plan.dq, "dkv": plan.dkv}.get(kernel)
+    if tiling is None:
+        raise ValueError(f"no K10 kernel {kernel!r} with a tiling in {plan.body!r}")
+    own, tile = tiling.own_rows, tiling.tile_rows
+    n = -(-T // own)
+    if kernel == "dq":
+        return [(qt, range(-(-min((qt + 1) * own, T) // tile))) for qt in (n - 1 - y for y in range(n))]
+    return [(kt, range(kt * own // tile, -(-T // tile))) for kt in range(n)]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -1,7 +1,7 @@
 """Write ``csrc/wgmma.cuh``: the inline-PTX wgmma of the weight-only GEMMs'
 mainloop (``csrc/gemm_sm90.cuh``) at every token-tile width it takes, and the
-two forms flash attention (``csrc/flash_sm90.cuh``) takes at the widths it
-uses. Each width lists its accumulator registers one by one, so the file is
+two forms flash attention (``csrc/flash_sm90.cuh``, ``csrc/flash_sm90_hs256.cuh``)
+takes at the widths it uses. Each width lists its accumulator registers one by one, so the file is
 generated.
 
     python -m lit_llama_tpu_torch.tools.gen_wgmma
@@ -14,9 +14,10 @@ from pathlib import Path
 # the token tiles of ops/quant_matmul.py SM90_TILES
 WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192, 224, 256)
 # flash attention: score tiles of 64 (K10) or 128 (K4) keys, both K-major
-# from shared memory; products into the 128 head columns, A from registers
+# from shared memory; products into the head's columns (128, or 256 in K10 at
+# head size 256, csrc/flash_sm90_hs256.cuh), A from registers
 SS_WIDTHS = (64, 128)
-RS_WIDTHS = (128,)
+RS_WIDTHS = (128, 256)
 
 HEAD = """// Generated by lit_llama_tpu_torch/tools/gen_wgmma.py; do not edit.
 //

@@ -1,8 +1,10 @@
 """K10, the causal flash-attention backward, and the autograd Function around
 K4 + K10: the port's plain backward against the JAX package's Pallas backward
-on the CPU (interpret mode, f32 and bf16; directly and through ``jax.grad``),
-the Function against torch autograd of ``attention_ref``, and the CUDA kernels
-against the plain version on the card (skipped without one)."""
+on the CPU (interpret mode, f32 and bf16; directly and through ``jax.grad``;
+head sizes 128, 256 and 384), the 3xTF32 arithmetic of the f32 kernels
+emulated against both and against f64, the Function against torch autograd
+of ``attention_ref``, and the CUDA kernels against the plain version on the
+card (skipped without one)."""
 
 import jax
 import jax.numpy as jnp
@@ -106,6 +108,79 @@ def test_bwd_ref_matches_pallas_head_size_384(dtype):
     for g, w in zip(got, want):
         assert g.dtype == tdt
         np.testing.assert_allclose(g.float().numpy(), _np32(w), **(TOL_F32 if dtype == "float32" else TOL_BF16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_pallas_head_size_256(dtype):
+    """Head size 256, which bf16 sends to csrc/flash_sm90_hs256.cuh and f32
+    to csrc/flash_tf32.cuh on the card: the plain backward holds against the
+    Pallas pair at the tolerances of head size 128."""
+    q, k, v, do = _inputs(11, 1, 2, 128, hs=256)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    o, lse, want = _jax_backward(q, k, v, do, jdt)
+    tq, tk, tv, tdo = _to_torch([q, k, v, do], tdt)
+    to = torch.from_numpy(_np32(o)).to(tdt)
+    got = tflash.flash_attention_bwd_ref(tq, tk, tv, to, torch.from_numpy(_np32(lse)), tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(), _np32(w), **(TOL_F32 if dtype == "float32" else TOL_BF16))
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away
+    from zero, 10 mantissa bits): the bits csrc/flash_tf32.cuh computes."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 kernels compute it: each operand split into big =
+    tf32(x) and small = tf32(x - big), the two cross products summed into
+    the f32 accumulator first, then big x big."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (np.matmul(as_, bb) + np.matmul(ab, bs)) + np.matmul(ab, bb)
+
+
+def _mm_tf32(a, b):
+    """One pass of TF32: what the tensor cores give without the split."""
+    return np.matmul(_tf32(a), _tf32(b))
+
+
+def _bwd_with(mm, q, k, v, o, lse, do):
+    """The plain K10 (flash_attention_bwd_ref) in numpy, its five products
+    (S, dP, dV, dQ, dK) through mm, the rest in the inputs' precision."""
+    T, hs = q.shape[-2:]
+    scale = q.dtype.type(1.0 / np.sqrt(hs))
+    tr = lambda x: np.swapaxes(x, -1, -2)  # noqa: E731
+    dd = (do * o).sum(-1, keepdims=True)
+    s = mm(q, tr(k)) * scale
+    causal = np.tril(np.ones((T, T), bool))
+    p = np.exp(np.where(causal, s, tflash.NEG_INF) - lse)
+    ds = p * (mm(do, tr(v)) - dd)
+    return mm(ds, k) * scale, mm(tr(ds), q) * scale, mm(tr(p), do)
+
+
+@pytest.mark.parametrize("B,H,T,hs", [(1, 2, 256, 128), (1, 1, 128, 256)])
+def test_3xtf32_arithmetic_holds_f32_tolerance(B, H, T, hs):
+    """The f32 kernels' arithmetic, emulated: f32 rounded to TF32 as
+    cvt.rna rounds, each of the five products as three partial products.
+    It holds the Pallas pair (f32, interpret mode) and an f64 reference to
+    TOL_F32, and stays at least 10x below one-pass TF32's error, which
+    keeps about three decimal digits."""
+    q, k, v, do = _inputs(B * 1000 + T + hs, B, H, T, hs)
+    o, lse, want = _jax_backward(q, k, v, do)
+    o, lse = _np32(o), _np32(lse)
+    three = _bwd_with(_mm_3xtf32, q, k, v, o, lse, do)
+    one = _bwd_with(_mm_tf32, q, k, v, o, lse, do)
+    exact = _bwd_with(np.matmul, *(x.astype(np.float64) for x in (q, k, v, o, lse, do)))
+    for name, t3, t1, x, w in zip(("dq", "dk", "dv"), three, one, exact, want):
+        assert t3.dtype == np.float32
+        np.testing.assert_allclose(t3, _np32(w), **TOL_F32)
+        np.testing.assert_allclose(t3, x, **TOL_F32)
+        e3, e1 = float(np.abs(t3 - x).max()), float(np.abs(t1 - x).max())
+        print(f"{name} at {(B, H, T, hs)}: 3xTF32 max err vs f64 {e3:.3g}, one-pass TF32 {e1:.3g}")
+        assert e3 * 10 <= e1, f"{name}: 3xTF32 {e3:.3g} is not 10x below one-pass TF32 {e1:.3g}"
 
 
 @pytest.mark.parametrize("T", [128, 384])
@@ -249,11 +324,13 @@ def test_k10_kernel_model_grads_match_plain(cuda):
         assert by_max <= TOL_CARD_GRAD["max"] and by_rms <= TOL_CARD_GRAD["rms"], (name, readings)
 
 
-# f32 compute and head size 256: the FFMA bodies of K4 and K10 against their
+# f32 compute and head size 256 (K10 on csrc/flash_tf32.cuh in 3xTF32 and on
+# csrc/flash_sm90_hs256.cuh; K4 on its FFMA and mma.sync bodies) against their
 # plain versions, row by row as above (bf16), or to 1e-4 of the output's
-# largest value (f32: the sums differ in order only)
+# largest value (f32: the sums differ in order only); T = 2048, and Ts that
+# end inside the kernels' tiles of 32, 64 and 128 rows
 @pytest.mark.parametrize("dtype,hs", [("float32", 128), ("bfloat16", 256), ("float32", 256)])
-@pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200)])
+@pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200), (2, 2, 1000), (1, 4, 2048)])
 def test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T):
     cd = getattr(torch, dtype)
     g = torch.Generator().manual_seed(T)

@@ -1,8 +1,8 @@
 """The tiling of the flash-attention kernels on the card (K4 and K10,
-``ops.flash_attention.flash_plan`` and ``sm90_blocks``): pure functions of
-the shapes, mirrors of what ``csrc/flash_sm90.cuh`` and K4's FFMA body in
-``csrc/flash_attention.cu`` compute, so what each kernel is asked to do is
-testable here, where the kernels cannot run."""
+``ops.flash_attention.flash_plan``, ``sm90_blocks``, ``k10_plan`` and
+``k10_blocks``): pure functions of the shapes, mirrors of what the kernels
+in ``csrc/`` compute, so what each kernel is asked to do is testable here,
+where the kernels cannot run."""
 
 import math
 import re
@@ -45,12 +45,19 @@ def test_shared_memory_of_each_plan_fits(kernel, q_rows):
     assert smem > tflash.SM90_MAX_SMEM // 2
 
 
+def _blocks(kernel, T, q_rows):
+    """K4's schedule from ``sm90_blocks``, K10's at head size 128 from ``k10_blocks``."""
+    if kernel in ("dq", "dkv"):
+        return tflash.k10_blocks(tflash.k10_plan(1, 1, T), kernel, T)
+    return tflash.sm90_blocks(kernel, T, q_rows)
+
+
 @pytest.mark.parametrize("kernel,q_rows", [("fwd", 64), ("fwd", 128), ("dq", 128), ("dkv", 128), ("ffma", 64)])
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 2047, 2048])
 def test_blocks_are_issued_heaviest_first(kernel, q_rows, T):
     """The grid's row index walks the tiles from the one with the most work:
     K4 and dq the last Q tile first, dK/dV the first KV tile first."""
-    blocks = tflash.sm90_blocks(kernel, T, q_rows)
+    blocks = _blocks(kernel, T, q_rows)
     work = [len(visits) for _, visits in blocks]
     assert work == sorted(work, reverse=True) and work[-1] >= 1
     own = [tile for tile, _ in blocks]
@@ -66,7 +73,7 @@ def test_every_tile_is_visited_once(kernel, q_rows, T):
     rows, kv = {"fwd": (q_rows, tflash.FWD_KV_ROWS), "dq": (tflash.DQ_Q_ROWS, tflash.DQ_KV_ROWS),
                 "dkv": (tflash.DKV_Q_ROWS, tflash.DKV_KV_ROWS),
                 "ffma": (tflash.FFMA_Q_ROWS, tflash.FFMA_KV_ROWS)}[kernel]
-    blocks = tflash.sm90_blocks(kernel, T, q_rows)
+    blocks = _blocks(kernel, T, q_rows)
     own = sorted(tile for tile, _ in blocks)
     own_rows = kv if kernel == "dkv" else rows  # the block's own tile: KV in dK/dV, Q otherwise
     assert own == list(range(-(-T // own_rows)))
@@ -227,3 +234,104 @@ def test_span_tool_instruments_each_kernel():
     assert text.count("SPAN_BEGIN(") == 3 and text.count("SPAN_END(") == 3
     with pytest.raises(ValueError):  # an anchor the source no longer has
         spans.instrument(SOURCE.read_text(), spans.FLASH._replace(rules=(("no_such_call(", "SPAN(1);", "after"),)))
+
+
+# K10's tilings (``k10_plan``): the Hopper kernels at head size 128 and 256
+# (bf16) and the 3xTF32 kernels (f32), mirrors of their sources
+K10_CASES = [(128, torch.bfloat16, "sm90"), (256, torch.bfloat16, "sm90_hs256"), (128, torch.float32, "tf32"),
+             (256, torch.float32, "tf32")]
+HS256_SOURCE = SOURCE.parent / "flash_sm90_hs256.cuh"
+TF32_SOURCE = SOURCE.parent / "flash_tf32.cuh"
+
+
+@pytest.mark.parametrize("hs,dtype,body", K10_CASES)
+def test_k10_plan_fits_the_card(hs, dtype, body):
+    """Each kernel's shared memory fits a block's 227 KB; a consumer
+    thread's f32 accumulators (outputs and score tiles) fit its register
+    allotment, and the allotments fit the SM's register file; the tiling is
+    the same at every shape, so a row's sums run in the same order."""
+    plan = tflash.k10_plan(1, 32, 2048, hs, dtype)
+    assert plan.body == body
+    for kern in (plan.dq, plan.dkv):
+        assert 0 < kern.smem <= tflash.SM90_MAX_SMEM
+        assert kern.acc_regs <= kern.reg_limit <= tflash.MAX_THREAD_REGS
+        if body == "tf32":
+            assert kern.threads * kern.reg_limit <= tflash.SM_REGS
+        else:  # a producer warpgroup at 24 registers, two consumers at the allotment
+            assert kern.threads == 384 and 24 * 128 + 2 * 128 * kern.reg_limit <= tflash.SM_REGS
+    for B, H, T in SHAPES:
+        assert tflash.k10_plan(B, H, T, hs, dtype) == plan
+
+
+def test_k10_plan_at_head_size_256_keeps_dq_and_dkv_in_registers():
+    """What the hs-256 design is for: dQ (a 64 x 256 f32 tile, 128 registers)
+    beside S and dP in one warpgroup; dK and dV (256 registers together) on
+    two warpgroups, each beside one score tile; in f32, the column halves."""
+    bf = tflash.k10_plan(1, 16, 2048, 256)
+    assert (bf.dq.acc_regs, bf.dkv.acc_regs) == (128 + 64, 128 + 32)
+    f32 = tflash.k10_plan(1, 16, 2048, 256, torch.float32)
+    assert f32.dkv.acc_regs == 2 * 16 * 128 // 32 + 32  # dK and dV over 128 of the 256 columns
+
+
+@pytest.mark.parametrize("hs,dtype,body", K10_CASES)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("T", [1, 65, 129, 2047, 2048])
+def test_k10_blocks_visit_each_causal_pair_once(hs, dtype, body, kernel, T):
+    """Every block owns one tile and the tiles own each row once; each
+    causal (query, key) pair below T is covered by exactly one visit, no
+    block visits a tile twice or one wholly above its diagonal, and blocks
+    are issued heaviest first."""
+    plan = tflash.k10_plan(1, 1, T, hs, dtype)
+    tiling = getattr(plan, kernel)
+    own, tile = tiling.own_rows, tiling.tile_rows
+    blocks = tflash.k10_blocks(plan, kernel, T)
+    assert sorted(t for t, _ in blocks) == list(range(-(-T // own)))
+    work = [len(visits) for _, visits in blocks]
+    assert work == sorted(work, reverse=True) and work[-1] >= 1
+    seen = torch.zeros(T, T, dtype=torch.int32)  # (query, key)
+    for mine, visits in blocks:
+        assert len(set(visits)) == len(visits)
+        rows = range(mine * own, min((mine + 1) * own, T))
+        for other in visits:
+            others = range(other * tile, min((other + 1) * tile, T))
+            queries, keys = (rows, others) if kernel == "dq" else (others, rows)
+            assert len(queries) and len(keys) and min(keys) <= max(queries), "a tile wholly above the diagonal"
+            seen[torch.tensor(list(queries))[:, None], torch.tensor(list(keys))[None, :]] += 1
+    causal = torch.ones(T, T, dtype=torch.bool).tril()
+    assert bool((seen[causal] == 1).all())
+
+
+def test_k10_constants_mirror_the_sources():
+    """The Python mirror and csrc/flash_sm90_hs256.cuh / flash_tf32.cuh /
+    flash_sm90.cuh name the same tiles, rings, threads and registers."""
+    hs256, tf32, sm90 = (p.read_text() for p in (HS256_SOURCE, TF32_SOURCE, SOURCE))
+
+    def const(text, name):
+        return int(re.search(rf"\b{name} = (\d+)", text).group(1))
+
+    assert [const(hs256, n) for n in ("DQ_BQ", "DQ_BKV", "DQ_KSTAGES", "DQ_VSTAGES")] == [
+        tflash.HS256_DQ_Q_ROWS, tflash.HS256_DQ_KV_ROWS, tflash.HS256_DQ_K_STAGES, tflash.HS256_DQ_V_STAGES]
+    assert [const(hs256, n) for n in ("DKV_BKV", "DKV_BQ", "DKV_STAGES", "DKV_PBUFS")] == [
+        tflash.HS256_DKV_KV_ROWS, tflash.HS256_DKV_Q_ROWS, tflash.HS256_DKV_STAGES, tflash.HS256_DKV_PBUFS]
+    assert hs256.count("__launch_bounds__(384, 1)") == 2 and tflash.SM90_THREADS == 384
+    assert const(sm90, "CONSUMER_REGS") == tflash.SM90_CONSUMER_REGS
+    assert (const(tf32, "TILE"), const(tf32, "PAD")) == (tflash.TF32_TILE, tflash.TF32_PAD)
+    for hs, tiling in tflash.TF32_TILING.items():
+        got = re.search(rf"struct Tiling<{hs}> \{{ static constexpr int ROWS = (\d+), CS = (\d+), STAGES = (\d+); \}};",
+                        tf32).groups()
+        assert tuple(map(int, got)) == tiling
+    assert const(tf32, "MAX_SMEM") == tflash.SM90_MAX_SMEM
+    # heaviest first in the f32 kernels: the last Q tile, the first KV tile
+    assert "(gridDim.y - 1 - blockIdx.y) * ROWS" in tf32 and "const int k_first = blockIdx.y * ROWS;" in tf32
+
+
+def test_k10_plan_refuses_what_it_does_not_tile():
+    assert tflash.k10_plan(1, 8, 1024, 384).body == "chunked"
+    with pytest.raises(ValueError):
+        tflash.k10_plan(0, 32, 2048)
+    with pytest.raises(ValueError):
+        tflash.k10_plan(1, 32, 2048, 64)
+    with pytest.raises(ValueError):
+        tflash.k10_blocks(tflash.k10_plan(1, 8, 1024, 512), "dq", 1024)
+    with pytest.raises(ValueError):
+        tflash.k10_blocks(tflash.k10_plan(1, 8, 1024), "bwd", 1024)
