@@ -193,7 +193,8 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
 # K6's O(20) sums at K = 4096)
 TOL_F32 = (1e-4, 1e-4)
 # head sizes 256, 384 and 512: the bf16 tolerances of head size 128 (the same
-# rounding points; past 256 the scores are summed a 128-column chunk at a time)
+# rounding points; K4 past 256 sums each score over the head's 64-column
+# panels in order, in every 256-column chunk of the output alike)
 for _hs in (256, 384, 512):
     TOL[f"K4 hs{_hs}"], TOL[f"K5 hs{_hs}"] = TOL["K4"], TOL["K5"]
 # 2-layer full-width model, kernel path vs plain path: per-op errors of the
@@ -5460,8 +5461,8 @@ def main() -> int:
 
     shutil.rmtree(work)
 
-    # ---- 17. head sizes past 128: K4, K5 and K10 vs plain at (1, 16, 2048, 256) and,
-    # on the chunked kernels, (1, 8, 1024, 384) and (1, 8, 1024, 512), then for each a
+    # ---- 17. head sizes past 128: K4, K5 and K10 vs plain at (1, 16, 2048, 256) and
+    # at (1, 8, 1024, 384) and (1, 8, 1024, 512), then for each a
     # 2-layer model (16 heads of 256, 8 of 384 or 512): prefill, per-op decode and a
     # training step through the kernels --------------------------------------------
     for hse, He, Te, D_e in ((256, 16, 2048, 4096), (384, 8, 1024, 3072), (512, 8, 1024, 4096)):
@@ -5763,9 +5764,11 @@ def main() -> int:
              "K1 LoRA": "fused_layer.cu", "K7 LoRA": "serve_layer.cu", "P1": "probe.cu", "P2": "probe.cu",
              "P3": "probe.cu", "P4": "probe.cu", "P5": "probe.cu"}
     labels = {"K10dq": "K10 dq", "K10dkv": "K10 dkv"}
-    # bf16 at head size 128 runs on the Hopper kernels flash_attention.cu includes
+    # the variants whose kernels live in a header the library includes (the Hopper
+    # bodies of flash_attention.cu, decode_attention.cu, quant_matmul.cu, ...)
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
               "K10dkv": "flash_sm90.cuh", "K10dq hs256": "flash_sm90_hs256.cuh", "K10dkv hs256": "flash_sm90_hs256.cuh",
+              "K4 hs256": "flash_sm90_hs256.cuh", "K4 hs384": "flash_sm90_wide.cuh", "K4 hs512": "flash_sm90_wide.cuh",
               "K10dq f32": "flash_tf32.cuh", "K10dkv f32": "flash_tf32.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",

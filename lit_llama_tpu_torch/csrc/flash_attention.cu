@@ -1,5 +1,5 @@
 // K4: causal flash-attention forward, O and the row log-sum-exp.
-// K10: its backward, dQ and dK/dV (after K4 below).
+// K10: its backward, dQ and dK/dV.
 //
 // K4 replaces lit_llama_tpu/ops/flash_attention.py _flash_kernel (entry
 // _flash_forward / flash_attention).
@@ -9,50 +9,23 @@
 // once, o written once); exp and the row bookkeeping run on the CUDA cores
 // beside them.
 //
-// Which body runs (the entries at the end of the file): bf16 at head size
-// 128, the size of every LLaMA preset, takes the Hopper kernels of
-// flash_sm90.cuh (wgmma, TMA, an mbarrier ring); bf16 at 256 K4's mma.sync
-// body below and K10's Hopper kernels of flash_sm90_hs256.cuh; past 256 the
-// chunked kernels near the end of the file; f32 compute K4's FFMA body and
-// K10's 3xTF32 tensor-core kernels of flash_tf32.cuh.
-//
-// K4's mma.sync body (FlashAttention-2 shape): one block per (q-tile of 64
-// rows, head, batch), 4 warps, each warp owns 16 query rows. K and V tiles of
-// 64 keys go through shared memory, and so does Q (a warp's (16 x 256) f32 O
-// accumulator takes 128 registers, which leaves none for Q's fragments).
-// S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32 accumulate);
-// the running max and sum stay in f32 registers, P is rounded to bf16 for
-// the PV product as the Pallas kernel does. Tiles above the diagonal are
-// never visited; the diagonal tile and the ragged last tile (T % 64 != 0)
-// are masked in the kernel, so T need not be a multiple of the tile.
+// Which body runs (the entries at the end of the file): bf16 takes the Hopper
+// kernels (wgmma, TMA, mbarrier rings) of flash_sm90.cuh at head size 128,
+// the size of every LLaMA preset, flash_sm90_hs256.cuh at 256 (K4 and K10)
+// and, past 256, flash_sm90_wide.cuh (K4) and the chunked mma.sync kernels
+// near the end of this file (K10); f32 compute K4's FFMA bodies (below, and
+// past 256 near the end) and K10's 3xTF32 tensor-core kernels of
+// flash_tf32.cuh (the chunked FFMA kernels past 256).
 
 #include "flash_sm90.cuh"
 #include "flash_sm90_hs256.cuh"
+#include "flash_sm90_wide.cuh"
 #include "flash_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
-
-// bf16 elements per shared row of an HS-wide tile (bank spread)
-template <int HS>
-__host__ __device__ constexpr int ld_of() { return HS + 8; }
-
-// 64 rows x HS bf16 of src (rows r0.. of one head, zeros past T) into dst
-template <int HS>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int T,
-                                           int tid) {
-  constexpr int VR = HS / 8;  // 16-byte vectors a row
-#pragma unroll
-  for (int i = 0; i < 64 * VR / THREADS; ++i) {
-    const int vec = tid + THREADS * i;
-    const int r = vec / VR, c = (vec % VR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HS + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_of<HS>() + c) = val;
-  }
-}
 
 // The A fragment of rows row0 + g (+ 8) at k-step kk from a shared tile
 __device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* tile, int ld, int row0, int kk,
@@ -61,139 +34,6 @@ __device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* ti
   const uint32_t* r1 = reinterpret_cast<const uint32_t*>(tile + (row0 + g + 8) * ld);
   const int c0 = (kk * 16 + 2 * t) / 2, c8 = (kk * 16 + 8 + 2 * t) / 2;
   a[0] = r0[c0], a[1] = r1[c0], a[2] = r0[c8], a[3] = r1[c8];
-}
-
-template <int HS>
-constexpr int fwd_smem() { return (2 * BKV + BQ) * ld_of<HS>() * 2; }
-
-template <int HS>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int H, int T, float scale) {
-  constexpr int KS = HS / 16, NO = HS / 8, LD = ld_of<HS>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BKV * LD;
-  __nv_bfloat16* Qs = Vs + BKV * LD;  // [BQ][LD]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * HS;
-  const int q0 = qt * BQ + warp * 16;
-  const int row0 = q0 + g, row1 = q0 + g + 8;
-
-  stage_tile<HS>(Qs, q + base, qt * BQ, T, tid);  // visible after the loop's first sync
-
-  float oacc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = LLT_NEG_INF, m1 = LLT_NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  const int n_tiles = qt + 1;  // BQ == BKV: tiles 0..qt reach the diagonal
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BKV;
-    __syncthreads();
-    stage_tile<HS>(Ks, k + base, k0, T, tid);
-    stage_tile<HS>(Vs, v + base, k0, T, tid);
-    __syncthreads();
-
-    // S = Q K^T: 8 n-tiles of 8 keys, summed over the k-steps in order
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      frag_a_smem(a, Qs, LD, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t* krow = reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD);
-        mma_bf16(s[j], a, krow[(kk * 16 + 2 * t) / 2], krow[(kk * 16 + 8 + 2 * t) / 2]);
-      }
-    }
-    // scale, causal and ragged masks, tile row max
-    float mt0 = LLT_NEG_INF, mt1 = LLT_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        const bool kin = key < T;
-        s[j][e] = (kin && key <= row0) ? s[j][e] * scale : LLT_NEG_INF;
-        s[j][2 + e] = (kin && key <= row1) ? s[j][2 + e] * scale : LLT_NEG_INF;
-        mt0 = fmaxf(mt0, s[j][e]);
-        mt1 = fmaxf(mt1, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, o2));
-      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, o2));
-    }
-    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ls0;  // per-thread partial; the quad is summed at the end
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
-    }
-    // O += P V: P from the S accumulators (C layout -> A layout), 4 k-steps
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * LD;
-      const __nv_bfloat16* v8 = Vs + (kk * 16 + 8 + 2 * t) * LD;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int col = n * 8 + g;
-        mma_bf16(oacc[n], pa, pack_bf16(v0[col], v0[LD + col]), pack_bf16(v8[col], v8[LD + col]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * HS + col) =
-          __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
-    if (row1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * HS + col) =
-          __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
-  }
-  if (t == 0) {
-    const size_t lbase = ((size_t)b * H + h) * (size_t)T;
-    if (row0 < T) lse[lbase + row0] = m0 + logf(fmaxf(l0, 1e-30f));
-    if (row1 < T) lse[lbase + row1] = m1 + logf(fmaxf(l1, 1e-30f));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -492,28 +332,16 @@ int ffma_forward(const void* q, const void* k, const void* v, void* o, void* lse
   return (int)cudaGetLastError();
 }
 
-template <int HS>
-int mma_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
-                float scale, cudaStream_t st) {
-  constexpr int smem = fwd_smem<HS>();
-  int err = set_smem(flash_fwd_kernel<HS>, smem);
-  if (err) return err;
-  flash_fwd_kernel<HS><<<dim3((T + BQ - 1) / BQ, H, B), THREADS, smem, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse,
-      H, T, scale);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// Head sizes past 256 (any multiple of 128 that JAX's gate sends), K4 and
-// K10 in bf16 and f32. The output's head columns are split over the grid in
-// chunks of 128 (WIDE = 128), as the backward kernels split theirs above; the
+// Head sizes past 256 (any multiple of 128 that JAX's gate sends): K10 in
+// bf16 and f32, K4 in f32 (K4 in bf16 is flash_sm90_wide.cuh). The output's
+// head columns are split over the grid in chunks of 128 (WIDE = 128); the
 // inputs pass through shared memory in chunks of 128 columns while the f32
 // score tile (and dP) builds up, so shared memory and registers do not grow
 // with hs. Each output chunk recomputes the scores over the full head: the
 // score work is hs / 128 times the single-pass kernels', acceptable while no
 // model the repo supports has such a head. The arithmetic, the rounding and
-// the masks are those of the kernels above.
+// the masks are those of the Pallas kernels.
 
 constexpr int WIDE = 128, WLD = WIDE + 8;  // columns a chunk; bf16 elements a shared chunk row
 
@@ -567,109 +395,7 @@ __device__ __forceinline__ void chunk_pv(float (*acc)[4], const float (*p)[4], c
   }
 }
 
-constexpr int WIDE_FWD_SMEM = 3 * 64 * WLD * 2, WIDE_DQ_SMEM = 4 * 64 * WLD * 2,
-              WIDE_DKV_SMEM = 4 * 64 * WLD * 2 + 2 * 64 * 4;
-
-// K4 past head size 256: a block per (64-row q tile x 128-column chunk, head, batch)
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int H, int T, int hs, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + 64 * WLD;
-  __nv_bfloat16* Vs = Ks + 64 * WLD;
-  const int nspl = hs / WIDE;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int qt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * hs;
-  const int row0 = qt * BQ + warp * 16 + g, row1 = row0 + 8;
-
-  float oacc[WIDE / 8][4];
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = LLT_NEG_INF, m1 = LLT_NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BKV;
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int d0 = 0; d0 < hs; d0 += WIDE) {  // S = Q K^T over the head, a chunk at a time
-      __syncthreads();
-      stage_chunk(Qs, q + base, qt * BQ, T, hs, d0, tid);
-      stage_chunk(Ks, k + base, k0, T, hs, d0, tid);
-      __syncthreads();
-      chunk_nt(s, Qs, warp * 16, Ks, g, t);
-    }
-    stage_chunk(Vs, v + base, k0, T, hs, c_off, tid);  // Vs is not read before the sync below
-    float mt0 = LLT_NEG_INF, mt1 = LLT_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        const bool kin = key < T;
-        s[j][e] = (kin && key <= row0) ? s[j][e] * scale : LLT_NEG_INF;
-        s[j][2 + e] = (kin && key <= row1) ? s[j][2 + e] * scale : LLT_NEG_INF;
-        mt0 = fmaxf(mt0, s[j][e]);
-        mt1 = fmaxf(mt1, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, o2));
-      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, o2));
-    }
-    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float a0 = __expf(m0 - mn0), a1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = __expf(s[j][0] - mn0);
-      s[j][1] = __expf(s[j][1] - mn0);
-      s[j][2] = __expf(s[j][2] - mn1);
-      s[j][3] = __expf(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int n = 0; n < WIDE / 8; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
-    }
-    __syncthreads();  // Vs is staged
-    chunk_pv(oacc, s, Vs, g, t);
-  }
-
-#pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) {
-    const int col = c_off + n * 8 + 2 * t;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * hs + col) =
-          __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
-    if (row1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * hs + col) =
-          __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
-  }
-  if (t == 0 && c_off == 0) {  // every chunk computes the same lse; the first writes it
-    const size_t lbase = ((size_t)b * H + h) * (size_t)T;
-    if (row0 < T) lse[lbase + row0] = m0 + logf(fmaxf(l0, 1e-30f));
-    if (row1 < T) lse[lbase + row1] = m1 + logf(fmaxf(l1, 1e-30f));
-  }
-}
+constexpr int WIDE_DQ_SMEM = 4 * 64 * WLD * 2, WIDE_DKV_SMEM = 4 * 64 * WLD * 2 + 2 * 64 * 4;
 
 // D = rowsum(dO * O) in f32 at any head size, one warp per row
 template <typename T_>
@@ -1083,22 +809,14 @@ simt_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 }
 
 // the launches past head size 256: cbf16 picks the tensor-core kernels or
-// the FFMA bodies
+// the FFMA bodies (K4: the FFMA body alone, f32)
 int wide_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T, int hs,
-                 float scale, bool cbf16, cudaStream_t st) {
+                 float scale, cudaStream_t st) {
   const int nspl = hs / WIDE;
-  if (cbf16) {
-    int err = set_smem(flash_fwd_wide_kernel, WIDE_FWD_SMEM);
-    if (err) return err;
-    flash_fwd_wide_kernel<<<dim3((T + BQ - 1) / BQ * nspl, H, B), THREADS, WIDE_FWD_SMEM, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse,
-        H, T, hs, scale);
-  } else {
-    int err = set_smem(simt_fwd_wide_kernel, SW_FWD_SMEM);
-    if (err) return err;
-    simt_fwd_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_FWD_SMEM, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, T, hs, scale);
-  }
+  int err = set_smem(simt_fwd_wide_kernel, SW_FWD_SMEM);
+  if (err) return err;
+  simt_fwd_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_FWD_SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, T, hs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1185,17 +903,19 @@ int backward_dkv(const void* q, const void* k, const void* v, const void* dout, 
 
 // q, k, v, o (B, H, T, hs) contiguous, bf16 (cbf16 = 1) or f32; hs any
 // multiple of 128; lse (B, H, T) f32. bq: the query rows a block of the
-// Hopper kernel (bf16, hs 128), 64 or 128 (ops/flash_attention.py flash_plan).
-// The Hopper kernels (bf16, 128), the mma.sync body (bf16, 256), the FFMA
-// body (f32, 128 and 256) or the chunked kernels (past 256).
+// Hopper kernels at head size 128 and 256 (bf16), 64 or 128
+// (ops/flash_attention.py flash_plan). bf16: the Hopper kernels (128:
+// flash_sm90.cuh, 256: flash_sm90_hs256.cuh, past 256: flash_sm90_wide.cuh);
+// f32: the FFMA bodies.
 LLT_EXPORT int k4_flash_forward(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int B, int H, int T, float scale, int cbf16, int hs, int bq, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (hs == 128) return cbf16 ? fa90::forward(q, k, v, o, lse, B, H, T, scale, bq, st)
                               : ffma_forward<128>(q, k, v, o, lse, B, H, T, scale, st);
-  if (hs == 256) return cbf16 ? mma_forward<256>(q, k, v, o, lse, B, H, T, scale, st)
+  if (hs == 256) return cbf16 ? fa256::forward(q, k, v, o, lse, B, H, T, scale, bq, st)
                               : ffma_forward<256>(q, k, v, o, lse, B, H, T, scale, st);
-  if (hs > 256 && hs % WIDE == 0) return wide_forward(q, k, v, o, lse, B, H, T, hs, scale, cbf16, st);
+  if (hs > 256 && hs % WIDE == 0) return cbf16 ? fawide::forward(q, k, v, o, lse, B, H, T, hs, scale, st)
+                                               : wide_forward(q, k, v, o, lse, B, H, T, hs, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,20 +1,37 @@
-// K10 at head size 256 in bf16 on Hopper: wgmma, TMA and mbarrier rings, on
-// the design of flash_sm90.cuh (which stays at head size 128). Included by
-// flash_attention.cu, whose K10 entries send bf16 at head size 256 here.
+// K4 and K10 at head size 256 in bf16 on Hopper: wgmma, TMA and mbarrier
+// rings, on the design of flash_sm90.cuh (which stays at head size 128).
+// Included by flash_attention.cu, whose entries send bf16 at head size 256
+// here; flash_sm90_wide.cuh (K4 past 256) builds on this file's helpers.
 //
-// Replaces lit_llama_tpu/ops/flash_attention.py _flash_dq_kernel and
-// _flash_dkv_kernel (entry _flash_backward) at head size 256.
+// Replaces lit_llama_tpu/ops/flash_attention.py _flash_kernel (K4, entry
+// _flash_forward) and _flash_dq_kernel / _flash_dkv_kernel (K10, entry
+// _flash_backward) at head size 256.
 //
-// Bound on the H100: the causal products, 2 * T * T/2 * 256 a head each (three
-// in dq, four in dK/dV), against the bytes (q, k, v, o, dO read once, the
-// outputs written once): at T = 2048 the tensor cores bound both kernels
-// (52.1 / 69.5 us at (1, 16, 2048, 256) and 989 TF/s).
+// Bound on the H100: the causal products, 2 * T * T/2 * 256 a head each (two
+// in the forward, three in dq, four in dK/dV), against the bytes (q, k, v, o,
+// dO read once, the outputs written once): at T = 2048 the tensor cores
+// bound every kernel (34.8 / 52.1 / 69.5 us at (1, 16, 2048, 256) and 989
+// TF/s).
 //
 // What head size 256 changes against flash_sm90.cuh. A warpgroup's 64 x 256
 // f32 accumulator takes 128 registers a thread, and a (rows x 256) bf16 tile
 // is four 64-column panels of rows x 128 bytes (the 128-byte swizzle, read by
 // the same descriptors: desc_k's panel is kk / 4, desc_mn's panel stride the
 // LBO). Shared memory (232,448 bytes a block) holds half as many rows.
+//  - K4: a block per (head, Q tile of 64 WGS rows), WGS = 1 or 2 consumer
+//    warpgroups of 64 rows (ops/flash_attention.py flash_plan picks WGS as
+//    at head size 128). Q stays (32 KB a warpgroup); K and V come in tiles
+//    of 64 keys (32 KB: a 128-key tile, as head size 128 takes, would leave
+//    no room for a second stage), each through a ring of two stages. A
+//    warpgroup holds O (128 registers) beside S (64 x 64 f32, 32) and P in
+//    bf16 (16), and issues tile j + 1's S before tile j's P V, as
+//    flash_sm90.cuh does; the two consumer warpgroups take turns on the
+//    tensor cores. A warpgroup visits the KV tiles up to its own diagonal,
+//    so the 64 keys past warpgroup 0's rows are no work of its (it takes its
+//    last turn empty). The KV tile is 64 keys under either plan, so a query
+//    row takes the same steps, and gets the same bits, whichever plan its
+//    shape picks. O goes out through the warpgroup's rows of the Q tile and
+//    a TMA store a panel.
 //  - dq: a block per (head, Q tile of 128 rows), two consumer warpgroups of
 //    64 rows, each holding dQ (128 registers) beside S and dP (64 x 64, 32
 //    each). Q and dO take 128 KB, so K and V of a 64-key tile stream through
@@ -37,10 +54,13 @@
 //    dP^T twice, 1.5x the products). K and V (64 KB) stay; (Q_i, dO_i)
 //    tiles of 64 queries come through a ring of two stages (128 KB) with
 //    their lse and D rows beside.
-// Rounding as the Pallas kernels and flash_sm90.cuh: f32 scores, P rounded
-// to bf16 for dV, dS for dQ and dK, every sum in f32, scale applied after
-// the product, lse and D in f32. No atomics: each output element is summed by
-// one thread in tile order, so a rerun repeats bit for bit.
+// Rounding as the Pallas kernels and flash_sm90.cuh: f32 scores, the scale
+// applied to the score, unnormalised P rounded to bf16 for P V and dV, O
+// divided by the row sum at the end, dS rounded for dQ and dK, every sum in
+// f32, scale applied after the product in dq and dK, lse and D in f32; exp
+// is ex2.approx of the score in units of log2(e). No atomics: each output
+// element is summed by one thread in tile order, so a rerun repeats bit for
+// bit.
 #pragma once
 
 #include "flash_sm90.cuh"
@@ -54,6 +74,7 @@ using fa90::Ring;
 
 constexpr int HS = 256;
 constexpr int PANELS = HS / fa90::PANEL;  // 64-column panels of a tile
+constexpr int FWD_BKV = 64, FWD_KSTAGES = 2, FWD_VSTAGES = 2;  // K4: keys a KV tile under every plan
 constexpr int DQ_BQ = 128, DQ_BKV = 64, DQ_KSTAGES = 2, DQ_VSTAGES = 1;
 constexpr int DKV_BKV = 64, DKV_BQ = 64, DKV_STAGES = 2, DKV_PBUFS = 2;
 
@@ -61,6 +82,10 @@ constexpr int DKV_BKV = 64, DKV_BQ = 64, DKV_STAGES = 2, DKV_PBUFS = 2;
 __host__ __device__ constexpr int tile_bytes(int rows) { return rows * HS * 2; }
 
 // dynamic shared memory: alignment slack, tiles, barriers
+__host__ __device__ constexpr int fwd_smem(int bq) {
+  return 1024 + tile_bytes(bq) + (FWD_KSTAGES + FWD_VSTAGES) * tile_bytes(FWD_BKV) +
+         (2 * (FWD_KSTAGES + FWD_VSTAGES) + 1) * 8;
+}
 __host__ __device__ constexpr int dq_smem() {
   return 1024 + 2 * tile_bytes(DQ_BQ) + (DQ_KSTAGES + DQ_VSTAGES) * tile_bytes(DQ_BKV) +
          (2 * (DQ_KSTAGES + DQ_VSTAGES) + 1) * 8;
@@ -70,7 +95,8 @@ __host__ __device__ constexpr int dkv_smem() {
   return 1024 + 2 * tile_bytes(DKV_BKV) + DKV_STAGES * 2 * tile_bytes(DKV_BQ) + DKV_PBUFS * DKV_BKV * DKV_BQ * 4 +
          DKV_STAGES * 2 * DKV_BQ * 4 + (2 * DKV_STAGES + 2 * DKV_PBUFS + 1) * 8;
 }
-static_assert(dq_smem() <= fa90::MAX_SMEM && dkv_smem() <= fa90::MAX_SMEM, "a K10 hs-256 kernel exceeds 227 KB");
+static_assert(fwd_smem(128) <= fa90::MAX_SMEM && dq_smem() <= fa90::MAX_SMEM && dkv_smem() <= fa90::MAX_SMEM,
+              "an hs-256 kernel exceeds 227 KB");
 
 // the four panels of a (rows x 256) box at row r of head bh, completing on bar
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, int rows, int r, int bh, uint32_t bar) {
@@ -78,18 +104,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m, in
   for (int c = 0; c < PANELS; ++c) tma_3d(dst + c * rows * 128, m, c * fa90::PANEL, r, bh, bar);
 }
 
-// A warpgroup's 64 output rows (the f32 accumulator times mul) to head bh,
-// rows row0.. of the tensor map, through rows r_off.. of a dead (rows x 256)
-// tile at `tile` (as fa90::store_rows, four panels)
+// A warpgroup's 64 output rows (the f32 accumulator times mul0 for the
+// thread's row r, mul1 for r + 8) to head bh, rows row0.. and columns c0..
+// of the tensor map, through rows r_off.. of a dead (rows x 256) tile at
+// `tile` (as fa90::store_rows, four panels; only the first `panels` go out)
 __device__ __forceinline__ void store_rows(unsigned char* tile_ptr, uint32_t tile, int rows, int r_off,
-                                           const float (&acc)[128], float mul, const CUtensorMap* m, int row0, int bh,
-                                           int wg, int t128) {
+                                           const float (&acc)[128], float mul0, float mul1, const CUtensorMap* m,
+                                           int row0, int bh, int wg, int t128, int c0 = 0, int panels = PANELS) {
   const int lane = t128 % 32, t = lane % 4, r = 16 * (t128 / 32) + lane / 4;
 #pragma unroll
   for (int i = 0; i < HS / 8; ++i)  // 8 head columns from 8 i: panel i / 8, 16-byte chunk i % 8
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r_off + r + 8 * h;
+      const float mul = h ? mul1 : mul0;
       const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * i + 2 * h] * mul, acc[4 * i + 2 * h + 1] * mul);
       *reinterpret_cast<__nv_bfloat162*>(tile_ptr + (i / 8) * rows * 128 + row * 128 + (((i % 8) ^ (row % 8)) << 4) +
                                          4 * t) = v;
@@ -97,11 +125,205 @@ __device__ __forceinline__ void store_rows(unsigned char* tile_ptr, uint32_t til
   fence_proxy_async();
   warpgroup_sync(wg);
   if (t128 == 0) {
-#pragma unroll
-    for (int c = 0; c < PANELS; ++c) fa90::tma_store_3d(m, tile + c * rows * 128 + r_off * 128, c * fa90::PANEL, row0, bh);
+    for (int c = 0; c < panels; ++c)
+      fa90::tma_store_3d(m, tile + c * rows * 128 + r_off * 128, c0 + c * fa90::PANEL, row0, bh);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
+}
+
+// A consumer thread's online softmax over 64-key tiles (K4 here and in
+// flash_sm90_wide.cuh), as flash_sm90.cuh's forward keeps it for its rows r0
+// and r0 + 8: the running max m (in units of log2(e)), the thread's part of
+// the row sum l (the quad's parts are summed at the end), and a, which
+// rescales what was summed before the last tile.
+struct Online {
+  float m0 = LLT_NEG_INF, m1 = LLT_NEG_INF, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+
+  // tile scores s (64 rows x 64 keys from k0, the wgmma accumulator) ->
+  // unnormalised P in place. Only the diagonal tile masks (keys past the row,
+  // or past T); the scale is folded into the exponent's FFMA
+  __device__ __forceinline__ void tile(float (&s)[32], bool diag, int k0, int r0, float sl2) {
+    float x0 = LLT_NEG_INF, x1 = LLT_NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * i + e;
+        if (diag && key > r0) s[4 * i + e] = LLT_NEG_INF;
+        if (diag && key > r0 + 8) s[4 * i + 2 + e] = LLT_NEG_INF;
+        x0 = fmaxf(x0, s[4 * i + e]), x1 = fmaxf(x1, s[4 * i + 2 + e]);
+      }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {  // a row's 64 keys lie on the 4 lanes of a quad
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, x));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, x));
+    }
+    const float mt0 = fmaxf(m0, x0 * sl2), mt1 = fmaxf(m1, x1 * sl2);
+    a0 = fa90::ex2(m0 - mt0), a1 = fa90::ex2(m1 - mt1);
+    m0 = mt0, m1 = mt1;
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * i + e] = fa90::ex2(fmaf(s[4 * i + e], sl2, -m0));
+        s[4 * i + 2 + e] = fa90::ex2(fmaf(s[4 * i + 2 + e], sl2, -m1));
+        ls0 += s[4 * i + e], ls1 += s[4 * i + 2 + e];
+      }
+    l0 = l0 * a0 + ls0;
+    l1 = l1 * a1 + ls1;
+  }
+  // O (64 x 256 f32) times a, before the last tile's P V adds to it
+  __device__ __forceinline__ void rescale(float (&o)[128]) const {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      o[4 * i] *= a0, o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1, o[4 * i + 3] *= a1;
+    }
+  }
+  // the quad's row sums; then 1 / l, the multiplier of each row of O
+  __device__ __forceinline__ void finish(float& inv0, float& inv1) {
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+    }
+    inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  }
+  // lse = m + log l of the thread's rows, from lane t == 0 of each quad
+  __device__ __forceinline__ void write_lse(float* lb, int r0, int T, int t) const {
+    if (t == 0) {
+      if (r0 < T) lb[r0] = m0 * fa90::LN2 + logf(fmaxf(l0, 1e-30f));
+      if (r0 + 8 < T) lb[r0 + 8] = m1 * fa90::LN2 + logf(fmaxf(l1, 1e-30f));
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K4. One block per (head, Q tile of 64 WGS rows): WGS consumer warpgroups of
+// 64 rows and a producer (a warp beside one consumer warpgroup, a warpgroup
+// giving its registers to two). Q once; K and V tiles of 64 keys in rings
+// of their own.
+template <int WGS>
+__global__ void __launch_bounds__(fa90::fwd_threads<WGS>(), 1) fwd_kernel(const __grid_constant__ Maps mp, const Args p) {
+  constexpr int BQ = 64 * WGS, CONS = 128 * WGS, KV = tile_bytes(FWD_BKV);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = fa90::align1024(smem_raw);
+  const uint32_t sq = smem_u32(sm), sk = sq + tile_bytes(BQ), sv = sk + FWD_KSTAGES * KV;
+  const uint32_t bars = sv + FWD_VSTAGES * KV, qbar = bars + 8 * 2 * (FWD_KSTAGES + FWD_VSTAGES);
+  const Ring<FWD_KSTAGES> rk{bars};
+  const Ring<FWD_VSTAGES> rv{bars + 8 * 2 * FWD_KSTAGES};
+
+  const int tid = threadIdx.x, bh = blockIdx.x, qt = p.n_tiles - 1 - blockIdx.y;  // the last Q tile first
+  const int q_first = qt * BQ;
+  const int n_kv = (min(q_first + BQ, p.T) + FWD_BKV - 1) / FWD_BKV;  // tiles up to the block's diagonal
+  if (tid == 0) {
+    constexpr int NB = 2 * (FWD_KSTAGES + FWD_VSTAGES) + 1;
+    int counts[NB];  // full (and Q's): the producer; empty: each consumer warpgroup
+    for (int i = 0; i < NB; ++i) counts[i] = 1;
+    for (int i = 0; i < FWD_KSTAGES; ++i) counts[FWD_KSTAGES + i] = WGS;
+    for (int i = 0; i < FWD_VSTAGES; ++i) counts[2 * FWD_KSTAGES + FWD_VSTAGES + i] = WGS;
+    fa90::init_barriers(bars, NB, counts);
+  }
+  __syncthreads();
+
+  if (tid >= CONS) {  // the producer: lane 0 of its first warp issues every copy
+    if constexpr (WGS == 2) fa90::regs_dec<fa90::PRODUCER_REGS>();
+    if (tid == CONS) {
+      mbar_expect_tx(qbar, tile_bytes(BQ));
+      load_tile(sq, &mp.q, BQ, q_first, bh, qbar);
+      for (int j = 0; j < n_kv; ++j) {
+        mbar_wait(rk.empty(j), rk.phase(j) ^ 1);
+        mbar_expect_tx(rk.full(j), KV);
+        load_tile(sk + (j % FWD_KSTAGES) * KV, &mp.k, FWD_BKV, j * FWD_BKV, bh, rk.full(j));
+        mbar_wait(rv.empty(j), rv.phase(j) ^ 1);
+        mbar_expect_tx(rv.full(j), KV);
+        load_tile(sv + (j % FWD_VSTAGES) * KV, &mp.v, FWD_BKV, j * FWD_BKV, bh, rv.full(j));
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg_first ..; this thread rows r0, r0 + 8
+  if constexpr (WGS == 2) fa90::regs_inc<fa90::CONSUMER_REGS>();
+  const int wg = tid / 128, t128 = tid % 128, lane = tid % 32, t = lane % 4;
+  const int wg_first = q_first + 64 * wg, r0 = wg_first + 16 * (t128 / 32) + lane / 4;
+  const int n_own = min(n_kv, wg_first / FWD_BKV + 1);  // the tiles up to this warpgroup's diagonal
+  float o[128];
+  uint32_t pa[16];  // P in bf16, the A operand of P V (4 k-steps of 16 keys)
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  Online sm_;
+
+  // Each tile's scores go to a fresh array (as in flash_sm90.cuh)
+  auto issue_s = [&](int j, float (&s)[32]) {  // S = Q K_j^T: 16 k-steps of 16 head columns
+    const uint32_t kt = sk + (j % FWD_KSTAGES) * KV;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HS / 16; ++kk)
+      wgmma_ss<FWD_BKV>(s, fa90::desc_k(sq, BQ, 64 * wg, kk), fa90::desc_k(kt, FWD_BKV, 0, kk), kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {  // O += P V_j: 4 k-steps of 16 keys, the head's 256 columns as N
+    const uint32_t vt = sv + (j % FWD_VSTAGES) * KV;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FWD_BKV / 16; ++kk) wgmma_rs<HS>(o, pa + 4 * kk, fa90::desc_mn(vt, FWD_BKV, kk));
+    wgmma_commit();
+  };
+
+  mbar_wait(qbar, 0);
+  if constexpr (WGS == 2) fa90::first_turn(wg);
+  {
+    float s[32];
+    mbar_wait(rk.full(0), 0);
+    if constexpr (WGS == 2) fa90::turn_wait(wg);
+    issue_s(0, s);
+    if constexpr (WGS == 2) fa90::turn_pass(wg);
+    wgmma_wait<0>();
+    fa90::fence_regs(s);
+    if (t128 == 0) mbar_arrive(rk.empty(0));
+    sm_.tile(s, n_own == 1, 2 * t, r0, p.sl2);
+    fa90::pack_a<FWD_BKV>(pa, s);
+  }
+  // tile j + 1's S goes out with tile j's P V, and its softmax runs beside
+  // it; the last tile's P V is peeled off, so every pass has the same groups
+  for (int j = 0; j + 1 < n_own; ++j) {
+    float s[32];
+    mbar_wait(rk.full(j + 1), rk.phase(j + 1));
+    mbar_wait(rv.full(j), rv.phase(j));
+    if constexpr (WGS == 2) fa90::turn_wait(wg);
+    issue_s(j + 1, s);
+    issue_pv(j);
+    if constexpr (WGS == 2) fa90::turn_pass(wg);
+    wgmma_wait<1>();
+    fa90::fence_regs(s);
+    if (t128 == 0) mbar_arrive(rk.empty(j + 1));
+    sm_.tile(s, j + 2 == n_own, (j + 1) * FWD_BKV + 2 * t, r0, p.sl2);
+    wgmma_wait<0>();
+    fa90::fence_regs(o);
+    if (t128 == 0) mbar_arrive(rv.empty(j));
+    sm_.rescale(o);
+    fa90::pack_a<FWD_BKV>(pa, s);
+  }
+  mbar_wait(rv.full(n_own - 1), rv.phase(n_own - 1));
+  issue_pv(n_own - 1);
+  wgmma_wait<0>();
+  fa90::fence_regs(o);
+  // warpgroup 0 of a 128-row block has no keys in the block's last tile: it
+  // takes that turn empty, so both warpgroups take the same number
+  if constexpr (WGS == 2)
+    if (n_own < n_kv) {
+      fa90::turn_wait(wg);
+      fa90::turn_pass(wg);
+    }
+
+  float inv0, inv1;
+  sm_.finish(inv0, inv1);
+  // O through the warpgroup's rows of the Q tile (its last scores are done)
+  store_rows(sm, sq, BQ, 64 * wg, o, inv0, inv1, &mp.o0, wg_first, bh, wg, t128);
+  sm_.write_lse(p.lse + (size_t)bh * p.T, r0, p.T, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -210,7 +432,7 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(const __grid_constant__ Maps
   }
 
   // dQ times scale through the warpgroup's rows of the Q tile
-  store_rows(sm, sq, DQ_BQ, 64 * wg, acc, p.scale, &mp.o0, wg_first, bh, wg, t128);
+  store_rows(sm, sq, DQ_BQ, 64 * wg, acc, p.scale, p.scale, &mp.o0, wg_first, bh, wg, t128);
 }
 
 // ---------------------------------------------------------------------------
@@ -319,7 +541,7 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(const __grid_constant__ Map
       if (t128 == 0) mbar_arrive(rq.empty(n));
     }
     // dK times scale through the V tile, which only this warpgroup read
-    store_rows(sm + KB, sv, DKV_BKV, 0, acc, p.scale, &mp.o0, k_first, bh, 1, t128);
+    store_rows(sm + KB, sv, DKV_BKV, 0, acc, p.scale, p.scale, &mp.o0, k_first, bh, 1, t128);
     return;
   }
 
@@ -369,15 +591,39 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(const __grid_constant__ Map
     if (t128 == 0) mbar_arrive(rq.empty(n));
   }
   // dV through the K tile, which only this warpgroup read
-  store_rows(sm, sk, DKV_BKV, 0, acc, 1.f, &mp.o1, k_first, bh, 0, t128);
+  store_rows(sm, sk, DKV_BKV, 0, acc, 1.f, 1.f, &mp.o1, k_first, bh, 0, t128);
 }
 
 // ---------------------------------------------------------------------------
 // Host side: tensor maps of (B * H, T, 256) bf16 tensors in boxes of 64 head
-// columns x `rows`, and the launches (D already in dd).
+// columns x `rows`, and the launches (K10's with D already in dd).
 
 inline int tile_map(CUtensorMap* m, const void* base, int T, int BH, int rows) {
   return map_3d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, HS, T, BH, fa90::PANEL, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// bq: the plan's query rows a block (64 or 128, ops/flash_attention.py flash_plan)
+inline int forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T, float scale,
+                   int bq, cudaStream_t st) {
+  if (bq != 64 && bq != 128) return (int)cudaErrorInvalidValue;
+  Maps mp;
+  int err = tile_map(&mp.q, q, T, B * H, bq);
+  if (!err) err = tile_map(&mp.k, k, T, B * H, FWD_BKV);
+  if (!err) err = tile_map(&mp.v, v, T, B * H, FWD_BKV);
+  if (!err) err = tile_map(&mp.o0, o, T, B * H, 64);
+  if (err) return err;
+  mp.d = mp.o1 = mp.q;
+  const int n_qt = (T + bq - 1) / bq;
+  const Args a{(float*)lse, nullptr, T, n_qt, scale, scale * fa90::LOG2E};
+  const dim3 grid(B * H, n_qt);
+  if (bq == 64) {
+    if ((err = fa90::prepare(fa256::fwd_kernel<1>, fwd_smem(64)))) return err;
+    fa256::fwd_kernel<1><<<grid, fa90::fwd_threads<1>(), fwd_smem(64), st>>>(mp, a);
+  } else {
+    if ((err = fa90::prepare(fa256::fwd_kernel<2>, fwd_smem(128)))) return err;
+    fa256::fwd_kernel<2><<<grid, fa90::fwd_threads<2>(), fwd_smem(128), st>>>(mp, a);
+  }
+  return (int)cudaGetLastError();
 }
 
 inline int backward_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,

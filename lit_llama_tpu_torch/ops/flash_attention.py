@@ -3,16 +3,20 @@ versions (counterpart of lit_llama_tpu/ops/flash_attention.py).
 
 ``flash_attention`` replaces the Pallas ``_flash_kernel``
 (lit_llama_tpu/ops/flash_attention.py, entry ``_flash_forward``) with the
-CUDA kernel in ``csrc/flash_attention.cu``. It serves every causal prefill
+CUDA kernels of ``csrc/flash_attention.cu``. It serves every causal prefill
 with T > 1 on the card whose head size is a multiple of 128
-(``ops.attention.flash_route``), any T (the kernel masks the ragged last
-tile), any head size that is a multiple of 128 (``check_flash``). bf16 at
-head size 128, every LLaMA preset's, runs on the Hopper kernels of
-``csrc/flash_sm90.cuh`` (wgmma, TMA, an mbarrier ring), tiled as
-``flash_plan`` says; bf16 at 256 on an mma.sync body; f32 compute on an FFMA
-body of the same source (register-blocked, fed by a cp.async ring, tiled as
-``flash_plan`` says); past 256 the kernels split the output's head columns
-over the grid in chunks of 128 and recompute the scores once a chunk.
+(``ops.attention.flash_route``), any T (the kernels mask the ragged last
+tile), any head size that is a multiple of 128 (``check_flash``). bf16 runs
+on Hopper kernels (wgmma, TMA, mbarrier rings), tiled as ``flash_plan``
+says: at head size 128, every LLaMA preset's, ``csrc/flash_sm90.cuh``; at
+256 ``csrc/flash_sm90_hs256.cuh`` (the same design at four 64-column
+panels, KV tiles of 64 keys); past 256 ``csrc/flash_sm90_wide.cuh`` (the
+output's columns split over the grid in chunks of 256, the scores computed
+over the whole head in each, Q and K streamed as 64-column panels). f32
+compute runs on an FFMA body of ``csrc/flash_attention.cu``
+(register-blocked, fed by a cp.async ring, tiled as ``flash_plan`` says),
+past 256 on chunked FFMA kernels that split the output's columns over the
+grid in chunks of 128 and recompute the scores once a chunk.
 
 ``flash_attention_backward`` replaces the Pallas pair ``_flash_dq_kernel`` /
 ``_flash_dkv_kernel`` (entry ``_flash_backward``) with two K10 kernels, each
@@ -62,6 +66,17 @@ DQ_Q_ROWS, DQ_KV_ROWS, DQ_STAGES = 128, 64, 4
 DKV_KV_ROWS, DKV_Q_ROWS, DKV_STAGES = 128, 64, 3
 SM90_MAX_SMEM = 232448  # what a block may use on the H100
 
+# K4 at head size 256 in bf16 (csrc/flash_sm90_hs256.cuh): 64 or 128 query
+# rows a block (as at 128) against KV tiles of 64 keys under either plan, K
+# and V in rings of their own
+HS256_FWD_KV_ROWS, HS256_FWD_K_STAGES, HS256_FWD_V_STAGES = 64, 2, 2
+# K4 past head size 256 in bf16 (csrc/flash_sm90_wide.cuh): 128 query rows a
+# block against KV tiles of 64 keys, the output's columns in chunks of 256; a
+# stage of the QK ring holds a 64-column panel of the Q tile and of the KV
+# tile, a stage of the V ring a KV tile's chunk of V
+WIDE_Q_ROWS, WIDE_KV_ROWS, WIDE_CHUNK, WIDE_QK_STAGES, WIDE_V_STAGES = 128, 64, 256, 6, 2
+PANEL = 64  # head columns of a 128-byte swizzled panel
+
 # K4's FFMA body of f32 compute (csrc/flash_attention.cu ffma_fwd_kernel, head
 # size 128 or 256): query rows a block, keys a tile under every shape,
 # threads, and the f32 words of padding a staged row
@@ -100,14 +115,33 @@ def sm90_smem(kernel: str, q_rows: int = 128) -> int:
     raise ValueError(f"no Hopper flash kernel {kernel!r}")
 
 
+def hs256_smem(q_rows: int) -> int:
+    """Dynamic shared memory of K4 at head size 256 (``fwd_smem`` of
+    csrc/flash_sm90_hs256.cuh): alignment slack, the Q tile, the K and V
+    rings' tiles of 256 bf16 columns, mbarriers."""
+    n = HS256_FWD_K_STAGES + HS256_FWD_V_STAGES
+    return 1024 + (q_rows + n * HS256_FWD_KV_ROWS) * 256 * 2 + (2 * n + 1) * 8
+
+
+def wide_smem() -> int:
+    """Dynamic shared memory of K4 past head size 256 (``fwd_smem`` of
+    csrc/flash_sm90_wide.cuh): alignment slack, the QK ring (a panel of the Q
+    tile and of the KV tile a stage), the V ring (a KV tile's chunk of 256
+    columns a stage), mbarriers. The same at every head size."""
+    return (1024 + WIDE_QK_STAGES * (WIDE_Q_ROWS + WIDE_KV_ROWS) * PANEL * 2
+            + WIDE_V_STAGES * WIDE_KV_ROWS * WIDE_CHUNK * 2 + 2 * (WIDE_QK_STAGES + WIDE_V_STAGES) * 8)
+
+
 class FlashPlan(NamedTuple):
     """Which body K4 runs for a shape, and its tiling there (K10's is
     ``k10_plan``): ``body`` is "sm90" (bf16 at head size 128:
-    csrc/flash_sm90.cuh), "mma" (bf16 at 256), "chunked" (past 256) or "ffma"
-    (f32 compute at head size 128 or 256). On "sm90" and "ffma" a K4 block
-    takes ``q_rows`` query rows (on "sm90" a consumer warpgroup for each 64)
-    against KV tiles of ``kv_rows`` keys, with ``smem`` bytes of shared
-    memory; the other bodies have tilings of their own (0 here)."""
+    csrc/flash_sm90.cuh), "sm90_hs256" (bf16 at 256:
+    csrc/flash_sm90_hs256.cuh), "sm90_wide" (bf16 past 256:
+    csrc/flash_sm90_wide.cuh), "ffma" (f32 compute at head size 128 or 256)
+    or "chunked" (f32 past 256). A K4 block takes ``q_rows`` query rows (on
+    the Hopper bodies a consumer warpgroup for each 64) against KV tiles of
+    ``kv_rows`` keys, with ``smem`` bytes of shared memory; "chunked" has a
+    tiling of its own (0 here)."""
     body: str
     q_rows: int = 0
     kv_rows: int = 0
@@ -116,25 +150,30 @@ class FlashPlan(NamedTuple):
 
 def flash_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = torch.bfloat16) -> FlashPlan:
     """The body and K4 tiling for (B, H, T, hs, dtype), a pure function of
-    the shapes. On the Hopper kernels a block takes 64 query rows (one
-    consumer warpgroup) where the blocks of 64 rows all fit on the SMs at
-    once, else 128 (two consumer warpgroups, which keep an SM's tensor cores
-    busier). At T = 200 and 32 heads, 128 blocks of 64 rows beat 64 blocks of
-    128, which leave half of 132 SMs idle; at T = 512, 256 blocks of 64 rows
-    take two waves and 128 blocks of 128 rows one. The KV tile is 128 keys
-    under either plan, so a query row runs the same steps of the online
-    softmax, and gets the same bits, whichever plan its shape picks. f32 at
-    head size 128 or 256 takes the FFMA body: 64 query rows against KV tiles
-    of 64 keys at every shape."""
-    if B < 1 or H < 1 or T < 1:
-        raise ValueError(f"flash_plan takes positive shapes, got B={B} H={H} T={T}")
+    the shapes. On the Hopper kernels at head size 128 and 256 a block takes
+    64 query rows (one consumer warpgroup) where the blocks of 64 rows all
+    fit on the SMs at once, else 128 (two consumer warpgroups, which keep an
+    SM's tensor cores busier). At T = 200 and 32 heads, 128 blocks of 64 rows
+    beat 64 blocks of 128, which leave half of 132 SMs idle; at T = 512, 256
+    blocks of 64 rows take two waves and 128 blocks of 128 rows one. The KV
+    tile (128 keys at head size 128, 64 at 256) is the same under either
+    plan, so a query row runs the same steps of the online softmax, and gets
+    the same bits, whichever plan its shape picks. Past 256, bf16 takes 128
+    query rows against KV tiles of 64 keys at every shape. f32 at head size
+    128 or 256 takes the FFMA body: 64 query rows against KV tiles of 64
+    keys at every shape."""
+    if B < 1 or H < 1 or T < 1 or hs < 1 or hs % HEAD_SIZE_STEP:
+        raise ValueError(f"flash_plan takes positive shapes and a head size that is a multiple of "
+                         f"{HEAD_SIZE_STEP}, got B={B} H={H} T={T} hs={hs}")
     if dtype != torch.bfloat16:
         if hs > 256:
             return FlashPlan("chunked")
         return FlashPlan("ffma", FFMA_Q_ROWS, FFMA_KV_ROWS, ffma_smem(hs))
-    if hs != SM90_HS:
-        return FlashPlan("mma" if hs == 256 else "chunked")
+    if hs > 256:
+        return FlashPlan("sm90_wide", WIDE_Q_ROWS, WIDE_KV_ROWS, wide_smem())
     q_rows = 64 if B * H * -(-T // 64) <= H100_SMS else 128
+    if hs == 256:
+        return FlashPlan("sm90_hs256", q_rows, HS256_FWD_KV_ROWS, hs256_smem(q_rows))
     return FlashPlan("sm90", q_rows, FWD_KV_ROWS, sm90_smem("fwd", q_rows))
 
 
@@ -151,6 +190,26 @@ def sm90_blocks(kernel: str, T: int, q_rows: int = 128) -> List[Tuple[int, range
         n = -(-T // rows)
         return [(qt, range(-(-min((qt + 1) * rows, T) // kv))) for qt in (n - 1 - y for y in range(n))]
     raise ValueError(f"no Hopper flash kernel {kernel!r}")
+
+
+def k4_warpgroups(plan: FlashPlan, T: int) -> List[Tuple[range, range]]:
+    """K4's work over one head (and one chunk of columns) on the plan's
+    body at head size 256 or past it, in launch order (the last Q tile
+    first): for each consumer warpgroup of each block, the 64 query rows it
+    owns and the KV tiles it visits, up to its own diagonal (``n_own`` in
+    csrc/flash_sm90_hs256.cuh and flash_sm90_wide.cuh). Warpgroup 0 of a
+    128-row block leaves out the block's last tile, which holds only keys
+    past its rows."""
+    if plan.body not in ("sm90_hs256", "sm90_wide"):
+        raise ValueError(f"no per-warpgroup schedule for the K4 body {plan.body!r}")
+    rows, kv = plan.q_rows, plan.kv_rows
+    n = -(-T // rows)
+    out = []
+    for qt in (n - 1 - y for y in range(n)):
+        n_kv = -(-min((qt + 1) * rows, T) // kv)
+        for first in range(qt * rows, (qt + 1) * rows, 64):
+            out.append((range(first, first + 64), range(min(n_kv, first // kv + 1))))
+    return out
 
 
 # K10 at head size 256 in bf16 (csrc/flash_sm90_hs256.cuh): dq takes 128

@@ -10,14 +10,19 @@ unpacked under ``build/``, is timed on the same card in the same call; the
 repo root is the default. Inputs are seeded normal. Shapes, bf16 at head
 size 128: K4 at (1, 32, T) for T = 128, 200 (prefills of the 7B model) and
 2048, and at (2, 32, 2048) (the training micro-batch); K10 at (1, 32, 2048)
-and (2, 32, 2048). K10 beyond it (``k10_other``): bf16 at (1, 16, 2048, 256),
+and (2, 32, 2048). K4 beyond it (``k4_other``): bf16 at (1, 16, 2048, 256)
+(csrc/flash_sm90_hs256.cuh), (1, 8, 1024, 384) and (1, 8, 1024, 512)
+(csrc/flash_sm90_wide.cuh), f32 at (1, 32, 2048, 128), (1, 16, 2048, 256)
+and (1, 8, 1024, 384) (the FFMA bodies, bound at the CUDA cores' FFMA
+rate). K10 beyond it (``k10_other``): bf16 at (1, 16, 2048, 256),
 f32 at (1, 32, 2048, 128) and (1, 16, 2048, 256); in f32 two bounds, the
 FFMA rate of the CUDA cores (67 TF/s) and 3xTF32 on the tensor cores (a
 third of TF32's 494.5 TF/s, half the bf16 rate). Each time is the median
 device time of 20 launches (CUDA events, the L2 flushed before each, a spin
 on the card ahead of the start event so the host's time in the wrapper is
 not counted). Each output's
-bits are hashed (``sha``), so two checkouts' bits compare across runs. The
+bits are hashed (``sha``), so two checkouts' bits compare across runs (K10
+takes o and lse from the plain forward, the same in every checkout). The
 library yardstick is SDPA with ``is_causal=True``: its forward, and the
 backward of one forward (dq, dk and dv together). In f32, K10 and its plain
 version are each held against the same backward in f64 on the same inputs
@@ -40,7 +45,9 @@ TF32X3_OPS_PER_S = BF16_OPS_PER_S / 2 / 3
 H, HS = 32, 128  # the 7B preset's heads and head size
 K4_SHAPES = ((1, 128), (1, 200), (1, 2048), (2, 2048))
 K10_SHAPES = ((1, 2048), (2, 2048))
-# (B, H, T, hs, dtype) of K10 past bf16 at head size 128
+# (B, H, T, hs, dtype) of K4 and K10 past bf16 at head size 128
+K4_OTHER = ((1, 16, 2048, 256, "bfloat16"), (1, 8, 1024, 384, "bfloat16"), (1, 8, 1024, 512, "bfloat16"),
+            (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"), (1, 8, 1024, 384, "float32"))
 K10_OTHER = ((1, 16, 2048, 256, "bfloat16"), (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"))
 
 
@@ -56,10 +63,12 @@ def sha(*ts) -> str:
     return h.hexdigest()[:16]
 
 
-def k4_bound_us(B: int, T: int) -> float:
-    """q, k, v read and o written once, lse written; S and P V over the causal pairs."""
-    rows = B * H * T
-    return bound_us(4 * rows * HS * 2 + rows * 4, 2 * 2 * HS * B * H * T * (T + 1) // 2)
+def k4_bound_us(B: int, T: int, heads: int = H, hs: int = HS, es: int = 2,
+                ops_per_s: float = BF16_OPS_PER_S) -> float:
+    """q, k, v read and o written once (es bytes an element), lse written; S
+    and P V over the causal pairs at ``ops_per_s``."""
+    rows = B * heads * T
+    return bound_us(4 * rows * hs * es + rows * 4, 2 * 2 * hs * B * heads * T * (T + 1) // 2, ops_per_s)
 
 
 def k10_work(rows: int, pairs: int, hs: int, es: int):
@@ -117,8 +126,9 @@ def main() -> int:
         return [torch.randn(B, heads, T, hs, generator=g).to(dev, dtype) for _ in range(n)]
 
     def k10_row(q, k, v, do, bounds):
-        """K10 timed at (q, k, v, do) beside SDPA's backward, its bits hashed."""
-        o, lse = fa.flash_attention(q, k, v)
+        """K10 timed at (q, k, v, do) beside SDPA's backward, its bits hashed.
+        o and lse come from the plain forward, so K10's bits do not follow K4's."""
+        o, lse = fa.flash_attention_ref(q, k, v)
         dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
         dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, dd)
         qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -144,6 +154,17 @@ def main() -> int:
         k4[f"B={B} T={T}"] = dict(us=time_us(lambda: fa.flash_attention(q, k, v)),
                                   sdpa_us=time_us(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
                                   bound_us=k4_bound_us(B, T), sha=sha(o, lse))
+    k4_other = {}
+    for B, heads, T, hs, dtype in K4_OTHER:
+        cd = getattr(torch, dtype)
+        q, k, v = inputs(B, T, 3, heads, hs, cd)
+        o, lse = fa.flash_attention(q, k, v)
+        k4_other[f"B={B} H={heads} T={T} hs={hs} {dtype}"] = dict(
+            us=time_us(lambda: fa.flash_attention(q, k, v)),
+            sdpa_us=time_us(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+            bound_us=k4_bound_us(B, T, heads, hs, cd.itemsize, BF16_OPS_PER_S if cd == torch.bfloat16 else FFMA_OPS_PER_S),
+            sha=sha(o, lse))
+        del q, k, v, o, lse
     k10 = {}
     for B, T in K10_SHAPES:
         b_dq, b_dkv = k10_bound_us(B, T)
@@ -161,7 +182,7 @@ def main() -> int:
         k10_other[f"B={B} H={heads} T={T} hs={hs} {dtype}"] = k10_row(*inputs(B, T, 4, heads, hs, cd), bounds)
     smi = devtime.card_name_and_power_limit()
     print(json.dumps({"tag": args.tag, "root": args.root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "k4": k4, "k10": k10,
+                      "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "k4": k4, "k4_other": k4_other, "k10": k10,
                       "k10_other": k10_other}))
     return 0
 

@@ -29,7 +29,8 @@ import torch
 
 # kernel name -> group, first match wins
 GROUPS = (
-    ("K4 flash forward", r"flash_fwd_kernel|fa90::fwd_kernel"),
+    ("K4 flash forward", r"fa90::fwd_kernel|fa256::fwd_kernel|fawide::fwd_kernel|ffma_fwd_kernel|"
+                         r"simt_fwd_wide_kernel"),
     ("K10 dq (+ D pre-pass)", r"flash_bwd_dot_kernel|simt_dot_kernel|wide_dot_kernel|fa90::dq_kernel|fa256::dq_kernel|"
                               r"k10tf32::dq_kernel|flash_bwd_dq_wide_kernel|simt_dq_wide_kernel"),
     ("K10 dkv", r"fa90::dkv_kernel|fa256::dkv_kernel|k10tf32::dkv_kernel|flash_bwd_dkv_wide_kernel|"

@@ -8,6 +8,7 @@ import math
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -109,16 +110,176 @@ def test_k4_kv_tile_is_the_same_under_every_plan():
 
 
 @pytest.mark.parametrize("hs,dtype,body", [(128, torch.float32, "ffma"), (256, torch.float32, "ffma"),
-                                           (256, torch.bfloat16, "mma"), (384, torch.bfloat16, "chunked"),
+                                           (256, torch.bfloat16, "sm90_hs256"), (384, torch.bfloat16, "sm90_wide"),
                                            (512, torch.float32, "chunked")])
 def test_other_head_sizes_and_f32_take_the_present_bodies(hs, dtype, body):
-    """Only the Hopper kernels and K4's FFMA body carry a tiling in the plan."""
+    """bf16 at head size 256 and past it takes the Hopper bodies of
+    csrc/flash_sm90_hs256.cuh and csrc/flash_sm90_wide.cuh; f32 the FFMA
+    bodies; only the chunked FFMA kernels (f32 past 256) carry no tiling in
+    the plan."""
     plan = tflash.flash_plan(1, 32, 2048, hs, dtype)
     assert plan.body == body
     if body == "ffma":
         assert (plan.q_rows, plan.kv_rows, plan.smem) == (64, 64, tflash.ffma_smem(hs))
+    elif body == "sm90_hs256":
+        assert (plan.q_rows, plan.kv_rows, plan.smem) == (128, 64, tflash.hs256_smem(128))
+    elif body == "sm90_wide":
+        assert (plan.q_rows, plan.kv_rows, plan.smem) == (128, 64, tflash.wide_smem())
     else:
         assert plan.q_rows == 0
+
+
+# K4 at head size 256 (csrc/flash_sm90_hs256.cuh) and past it
+# (csrc/flash_sm90_wide.cuh): the plan, the shared memory, the constants and
+# each consumer warpgroup's schedule
+HS256_SOURCE = SOURCE.parent / "flash_sm90_hs256.cuh"
+WIDE_SOURCE = SOURCE.parent / "flash_sm90_wide.cuh"
+
+
+@pytest.mark.parametrize("hs", [256, 384, 512, 640])
+@pytest.mark.parametrize("B,H,T", SHAPES)
+def test_k4_tile_per_shape_at_head_size_256_and_past(hs, B, H, T):
+    """At 256, 64 query rows a block where the blocks of 64 rows fit on the
+    132 SMs at once, else 128, as at 128; past 256, 128 rows at every shape.
+    Both take KV tiles of 64 keys under every plan."""
+    plan = tflash.flash_plan(B, H, T, hs)
+    if hs == 256:
+        want = 64 if B * H * -(-T // 64) <= tflash.H100_SMS else 128
+        assert plan == tflash.FlashPlan("sm90_hs256", want, 64, tflash.hs256_smem(want))
+    else:
+        assert plan == tflash.FlashPlan("sm90_wide", 128, 64, tflash.wide_smem())
+    assert plan.kv_rows == tflash.HS256_FWD_KV_ROWS == tflash.WIDE_KV_ROWS
+
+
+@pytest.mark.parametrize("smem", [tflash.hs256_smem(64), tflash.hs256_smem(128), tflash.wide_smem()])
+def test_k4_shared_memory_at_head_size_256_and_past_fits(smem):
+    """One block an SM, within the 227 KB a block may take; past 256 the
+    same at every head size (Q and K stream as 64-column panels)."""
+    assert tflash.SM90_MAX_SMEM // 2 < smem <= tflash.SM90_MAX_SMEM
+
+
+def test_k4_constants_at_head_size_256_and_past_mirror_the_sources():
+    """The Python mirror and csrc/flash_sm90_hs256.cuh / flash_sm90_wide.cuh
+    name the same tiles, chunk, rings and shared memory."""
+    hs256, wide = HS256_SOURCE.read_text(), WIDE_SOURCE.read_text()
+
+    def const(text, name):
+        return int(re.search(rf"\b{name} = (\d+)", text).group(1))
+
+    assert [const(hs256, n) for n in ("FWD_BKV", "FWD_KSTAGES", "FWD_VSTAGES")] == [
+        tflash.HS256_FWD_KV_ROWS, tflash.HS256_FWD_K_STAGES, tflash.HS256_FWD_V_STAGES]
+    assert [const(wide, n) for n in ("BQ", "BKV", "CHUNK", "QK_STAGES", "V_STAGES")] == [
+        tflash.WIDE_Q_ROWS, tflash.WIDE_KV_ROWS, tflash.WIDE_CHUNK, tflash.WIDE_QK_STAGES, tflash.WIDE_V_STAGES]
+    assert f"constexpr int QK_STAGE = (BQ + BKV) * {tflash.PANEL * 2};" in wide  # a panel row: 64 bf16
+    # the shared memory sums, term for term
+    assert ("return 1024 + tile_bytes(bq) + (FWD_KSTAGES + FWD_VSTAGES) * tile_bytes(FWD_BKV) +\n"
+            "         (2 * (FWD_KSTAGES + FWD_VSTAGES) + 1) * 8;") in hs256
+    assert "return 1024 + QK_STAGES * QK_STAGE + V_STAGES * V_TILE + 2 * (QK_STAGES + V_STAGES) * 8;" in wide
+    assert "constexpr int V_TILE = BKV * CHUNK * 2;" in wide
+    # heaviest first: the grid's y walks the Q tiles from the last; the
+    # per-warpgroup tile count of k4_warpgroups
+    for text in (hs256, wide):
+        assert "qt = p.n_tiles - 1 - blockIdx.y" in text
+        assert "const int n_own = min(n_kv, wg_first / " in text
+
+
+K4_WG_PLANS = [("sm90_hs256", 64), ("sm90_hs256", 128), ("sm90_wide", 128)]
+
+
+def _plan(body, q_rows):
+    if body == "sm90_hs256":
+        return tflash.FlashPlan(body, q_rows, 64, tflash.hs256_smem(q_rows))
+    return tflash.FlashPlan(body, q_rows, 64, tflash.wide_smem())
+
+
+@pytest.mark.parametrize("body,q_rows", K4_WG_PLANS)
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 383, 2047, 2048])
+def test_k4_warpgroups_visit_each_causal_pair_once(body, q_rows, T):
+    """Each consumer warpgroup owns 64 rows and the warpgroups own each row
+    once; each causal (query, key) pair below T is covered by exactly one
+    visit; no warpgroup with rows below T visits a tile twice or one wholly
+    above its diagonal; blocks are issued heaviest first."""
+    plan = _plan(body, q_rows)
+    wgs = tflash.k4_warpgroups(plan, T)
+    rows = sorted(r for own, _ in wgs for r in own)
+    assert rows[:T] == list(range(T)) and len(rows) == len(set(rows))
+    per_block = q_rows // 64
+    work = [sum(len(v) for _, v in wgs[i:i + per_block]) for i in range(0, len(wgs), per_block)]
+    assert work == sorted(work, reverse=True)
+    seen = np.zeros((T, T), np.int32)  # (query, key); queries and keys of a visit are contiguous
+    kv = plan.kv_rows
+    for own, visits in wgs:
+        q0, q1 = own.start, min(own.stop, T)
+        if q0 >= q1:
+            continue
+        assert len(set(visits)) == len(visits) and len(visits) >= 1
+        for tile in visits:
+            k0, k1 = tile * kv, min((tile + 1) * kv, T)
+            assert k0 < k1 and k0 <= q1 - 1, "a tile wholly above the diagonal"
+            seen[q0:q1, k0:k1] += 1
+    assert bool((seen[np.tril_indices(T)] == 1).all())
+
+
+@pytest.mark.parametrize("T", [65, 129, 200, 2047, 2048])
+def test_k4_kv_tile_at_head_size_256_is_the_same_under_every_plan(T):
+    """A query row's online softmax runs over the same KV tiles in the same
+    order under 64 and 128 query rows a block, so its bits do not depend on
+    the plan its shape picks."""
+    assert {tflash.flash_plan(B, H, T, 256).kv_rows for B, H, T in SHAPES} == {tflash.HS256_FWD_KV_ROWS}
+    tiles = {}
+    for q_rows in (64, 128):
+        for own, visits in tflash.k4_warpgroups(_plan("sm90_hs256", q_rows), T):
+            for row in range(own.start, min(own.stop, T)):
+                tiles.setdefault(row, []).append(list(visits))
+    assert len(tiles) == T and all(a == b for a, b in tiles.values())
+
+
+def warpgroup_model(q, k, v, plan):
+    """K4 at head size 256 and past it in plain PyTorch, in the kernels'
+    order: each consumer warpgroup's 64 rows against the KV tiles of
+    ``k4_warpgroups``, the online softmax merged tile by tile with the
+    unnormalised P rounded to the input dtype for P V, O divided by the row
+    sum at the end."""
+    B, H, T, hs = q.shape
+    scale = 1.0 / math.sqrt(hs)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, 1)
+    for own, visits in tflash.k4_warpgroups(plan, T):
+        if own.start >= T:  # a warpgroup past T: its rows are not stored
+            continue
+        rows = torch.arange(own.start, min(own.stop, T))
+        m = torch.full((B, H, len(rows), 1), tflash.NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), hs)
+        for tile in visits:
+            keys = torch.arange(tile * plan.kv_rows, min((tile + 1) * plan.kv_rows, T))
+            s = q[:, :, rows].float() @ k[:, :, keys].float().transpose(-1, -2) * scale
+            s = torch.where(keys[None, :] <= rows[:, None], s, torch.full_like(s, tflash.NEG_INF))
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - mn)
+            p = torch.exp(s - mn)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(q.dtype).float() @ v[:, :, keys].float()
+            m = mn
+        o[:, :, rows] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-30))
+    return o, lse
+
+
+@pytest.mark.parametrize("body,q_rows", K4_WG_PLANS)
+@pytest.mark.parametrize("T", [1, 65, 129])
+def test_k4_warpgroup_order_matches_the_plain_version(body, q_rows, T):
+    """The online softmax over each warpgroup's own KV tiles of 64 keys
+    (warpgroup 0 of a 128-row block leaving out the block's last tile) gives
+    flash_attention_ref's (o, lse) within the f32 tolerance the card holds
+    K4's f32 body to (chip_smoke.py TOL_F32: 1e-4 + 1e-4 |plain|)."""
+    hs = 256 if body == "sm90_hs256" else 384
+    g = torch.Generator().manual_seed(T + q_rows + hs)
+    q, k, v = (torch.randn(1, 2, T, hs, generator=g) for _ in range(3))
+    o, lse = warpgroup_model(q, k, v, _plan(body, q_rows))
+    ro, rlse = tflash.flash_attention_ref(q, k, v)
+    for got, want in ((o, ro), (lse, rlse)):
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
 
 
 @pytest.mark.parametrize("hs", [128, 256])
@@ -219,7 +380,11 @@ def test_plan_refuses_empty_shapes():
     with pytest.raises(ValueError):
         tflash.flash_plan(0, 32, 2048)
     with pytest.raises(ValueError):
+        tflash.flash_plan(1, 32, 2048, 64)
+    with pytest.raises(ValueError):
         tflash.sm90_blocks("bwd", 2048)
+    with pytest.raises(ValueError):
+        tflash.k4_warpgroups(tflash.flash_plan(1, 32, 2048), 2048)
 
 
 def test_span_tool_instruments_each_kernel():
