@@ -111,10 +111,14 @@ phase 21's LoRA directory, the merged ``.pth``'s logits within
 ``TOL_MODEL`` of the base with the overlay, ``generate.base`` on it in a
 subprocess (greedy tokens equal), and ``scripts.prepare_alpaca`` on a local
 JSON with one ``finetune.lora`` step on its output. The f32 bodies rebuilt
-for the card (K3's f32 tile, shared with K6 at M > 1 and K7 / K9 in f32, and
-K4's FFMA forward) and K10's 3xTF32 kernels are held and timed where they
-were: phases 8h (K3 f32 at M = 8 and 128, K4 f32 at T = 128 and 200, K7 / K9
-f32), 12b (K6 f32 at M > 1), 14b (K4 and K10 f32 at (1, 32, 2048, 128); K10
+for the card (K3's f32 tile, shared with K6 at M > 1 and K7 / K9 in f32,
+K4's FFMA forward, K1's and K2's matvec on the tensor cores through the
+three-term bf16 split, K1's attention and K5 on the split body) and K10's
+3xTF32 kernels are held and timed where they were: phases 8h (K3 f32 at
+M = 8 and 128, K4 f32 at T = 128 and 200, K1 f32 at four positions, K2 f32,
+K7 / K9 f32), 8i (the 32-layer f32 model), 12b (K6 f32 at M > 1; K5 f32 on
+an f32 and an int8 cache at head sizes 128 and 256, a row's bits at B = 3
+equal to its own alone), 14b (K4 and K10 f32 at (1, 32, 2048, 128); K10
 beside both its bounds, FFMA and 3xTF32), 17 (K4 and K10 f32 at head size
 256, also timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
 SDPA's f32 call runs logged beside the yardsticks). Phases 29-31 run
@@ -179,8 +183,8 @@ TOL = {  # |kernel - plain| <= atol + rtol * |plain|, bf16 outputs: ~2 ulp at |v
     # K5 rounds every product to bf16 as its plain version does, but takes each
     # softmax weight relative to another maximum before rounding it (the split
     # body: the running maximum of a warp's tiles of 16 or 32 rows, as the
-    # Pallas kernel's running maximum over its blocks; the first port's bodies,
-    # f32 and head sizes past 256: the 64-row chunk's), not the row's.
+    # Pallas kernel's running maximum over its blocks; the first port's wide
+    # kernels past head size 256: the 64-row chunk's), not the row's.
     # With every row of a long cache visible the outputs are small means
     # (|y| <= 0.05 at S = 2048, 0.3 at S = 72), so the absolute part is set from
     # the errors seen there (2.4e-4 to 9.8e-4): a chunk left out of the merge or
@@ -5070,6 +5074,26 @@ def main() -> int:
     (kq, ksc), (vq, vsc) = llama._quantize_kv(kf), llama._quantize_kv(vf)
     every_row = torch.full((1,), S5 - 1, dtype=torch.int32, device=dev)
     vis5 = (torch.arange(S5, device=dev)[None, :] <= every_row[:, None])[:, None, None, :]
+    # the split body in f32, at head sizes 128 and 256 (16 heads), both caches: three
+    # rows at limits 0, the middle of the second split and past S, each within
+    # TOL_F32 of the plain version and the same bits alone as in the batch (inputs
+    # from a generator of their own, so gcpu's later draws do not move)
+    g5 = torch.Generator().manual_seed(SEED + 22)
+    for hs5, H5 in ((hs, H), (256, 16)):
+        split5 = da.decode_plan(S5, hs5).split_rows
+        lims3 = torch.tensor([0, split5 + split5 // 2, S5 + 5], dtype=torch.int32, device=dev)
+        q3, k3, v3 = ((torch.randn(shape, generator=g5) * sc).to(dev) for shape, sc in (
+            ((3, H5, 1, hs5), 1.0), ((3, H5, S5, hs5), 0.5), ((3, H5, S5, hs5), 0.5)))
+        (k3q, k3s), (v3q, v3s) = llama._quantize_kv(k3), llama._quantize_kv(v3)
+        for key, c5 in (("K5 f32", (k3, v3, None, None)), ("K5q f32", (k3q, v3q, k3s, v3s))):
+            got3 = da.decode_attention(q3, *c5, lims3)
+            errs5[key] = max(errs5[key], max_err32(got3, da.decode_attention_ref(q3, *c5, lims3),
+                                                   f"{key} B=3 hs={hs5}"))
+            for b in range(3):
+                one = [t if t is None else t[b : b + 1].contiguous() for t in (q3, *c5)]
+                assert torch.equal(da.decode_attention(*one, lims3[b : b + 1]), got3[b : b + 1]), \
+                    f"{key} hs={hs5}: row {b} (limit {int(lims3[b])}) alone differs from its bits at B = 3"
+        del q3, k3, v3, k3q, k3s, v3q, v3s, got3
     for key, (k5, v5, ks5, vs5) in (("K5 f32", (kf, vf, None, None)), ("K5q f32", (kq, vq, ksc, vsc))):
         for lims in ([0], [S5 // 2 + 7], [S5 - 1], [S5 + 5]):
             lim = torch.tensor(lims, dtype=torch.int32, device=dev)
@@ -5773,6 +5797,8 @@ def main() -> int:
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",
               "K3 f32": "gemm_f32.cuh", "K6": "gemv_int8_sm90.cuh", "K6 f32": "gemv_int8_sm90.cuh",
+              "K2 f32": "gemv_sm90.cuh", "K2 f32 norms": "gemv_sm90.cuh", "K5 f32": "decode_sm90.cuh",
+              "K5q f32": "decode_sm90.cuh", "K5 hs256": "decode_sm90.cuh",
               "K3 M=1": "gemv4_sm90.cuh", "K3 f32 65B": "gemm_f32.cuh"}
     totals["K8b"] = totals["K8"]  # one CUDA kernel and one counter stand behind both entries
     # the inputs each entry takes beyond the bf16, head size 128, 64-slot, 64-column

@@ -1,8 +1,8 @@
-// Single-query attention over a ring cache in chunks of 64 slots, shared by
-// K8 (one query per serving slot) and K1 in f32 compute (in bf16 K1 runs the
-// split body of decode_sm90.cuh): a block of 128
-// threads takes one (head, chunk), writes the chunk's running max, sum and
-// unnormalised output; a second pass merges the chunks of a head.
+// Single-query attention over a ring cache in chunks of 64 slots, for K8 (one
+// query per serving slot; K1 and K5 at head size 128 and 256 run the split
+// body of decode_sm90.cuh, and K5's wide kernels take attn_combine): a block
+// of 128 threads takes one (head, chunk), writes the chunk's running max, sum
+// and unnormalised output; a second pass merges the chunks of a head.
 #pragma once
 
 #include "common.cuh"

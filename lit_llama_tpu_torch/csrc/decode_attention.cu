@@ -1,6 +1,6 @@
 // K8 and K5: single-query attention against a (B, H, S, 128) cache. K8 (first
 // below) also writes each slot's new row; K5 (second) reads a cache that is
-// already written, bf16 or int8 with one f32 scale per row.
+// already written, in the compute dtype or int8 with one f32 scale per row.
 //
 // K8: per-slot cache-row write + single-query attention for continuous
 // batching (B serving slots, each at its own position).
@@ -108,39 +108,34 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
 // K5: one query per (batch row, head) against the whole cache.
 //
 // Replaces lit_llama_tpu/ops/decode_attention.py _kernel (entry
-// decode_attention_pallas), both variants: a bf16 cache, and an int8 cache
-// whose per-row scales are folded into the score (k) and into the softmax
-// weight (v), so the cache is never dequantized.
+// decode_attention_pallas), both variants: a cache in the compute dtype (bf16
+// or f32), and an int8 cache whose per-row scales are folded into the score
+// (k) and into the softmax weight (v), so the cache is never dequantized.
 //
 // Bound on the H100: bytes. The visible rows of k and v are read once:
-// (min(limit, S - 1) + 1) * H * 128 * 2 elements per batch row, 33.6 MB at
-// B = 1, S = 2048 in bf16 and 17.3 MB in int8 with its scales; the
-// arithmetic is four operations per cache element.
+// (min(limit, S - 1) + 1) * H * hs * 2 elements per batch row, 33.6 MB at
+// B = 1, S = 2048, hs = 128 in bf16, 67.1 MB in f32 and 17.3 MB in int8 with
+// its scales; the arithmetic is four operations per cache element.
 //
-// Design: in bf16 compute at head size 128 or 256 (every preset), the split
-// body of decode_sm90.cuh (its ROUNDED arithmetic): the cache of a (batch
-// row, head) in at most 8 splits whose size depends on S alone, a block of
-// four warps a split streaming k and v through cp.async rings, the splits
-// merged in the same launch by the last block to arrive. The rest (f32
-// compute, head sizes past 256) keeps the first port's bodies below: the
-// Pallas kernel walks the cache blocks of a head in order and carries
-// (m, l, acc) in scratch; at B = 1 that order would leave all but 32 blocks
-// idle here, so every (head, 64-row chunk, batch row) is a block of its own,
-// writes its chunk's (m, l, acc) and a second kernel merges the chunks of a
-// head (the partial layout and the merge are K8's, attention_chunk.cuh).
+// Design: at head size 128 or 256 (every preset), in bf16 and in f32
+// compute, the split body of decode_sm90.cuh: the cache of a (batch row,
+// head) in at most 8 splits whose size depends on S alone, a block of four
+// warps a split streaming k and v through cp.async rings, the splits merged
+// in the same launch by the last block to arrive. Past 256 (any multiple of
+// 128) the first port's wide kernels below: the Pallas kernel walks the
+// cache blocks of a head in order and carries (m, l, acc) in scratch; at
+// B = 1 that order would leave all but 32 blocks idle here, so every (head,
+// 64-row chunk, batch row) is a block of its own (128 threads, each walking
+// hs / 128 head elements), writes its chunk's (m, l, acc) and a second
+// kernel merges the chunks of a head (the merge is K8's, attention_chunk.cuh).
 // limit is read from device memory: the grid covers every split or chunk,
 // and a block whose rows lie wholly past limit[b] exits at once, so a step
-// costs no host sync. The arithmetic is the Pallas kernel's:
+// costs no host sync. The arithmetic in bf16 is the Pallas kernel's:
 // each product k * q and w * v is rounded to bf16 (the cache's compute dtype)
 // and summed in f32; the k scale multiplies the f32 score, the v scale the
 // f32 softmax weight before it is rounded; l is floored at 1e-30, so a row
-// with limit < 0 gives zeros.
-//
-// f32 compute (q.dtype f32): the products and the softmax weights stay f32
-// (no rounding), on an f32 cache or an int8 one. Head size 128 or 256 (a
-// template parameter, HS threads a block): each slot's score takes HS / 64
-// threads of 64 elements each. Past 256, any multiple of 128: a fixed block
-// of 128 threads, each walking hs / 128 head elements (the wide kernels).
+// with limit < 0 gives zeros. In f32 compute (q.dtype f32) the products and
+// the softmax weights stay f32 (no rounding), on an f32 cache or an int8 one.
 
 namespace {
 
@@ -225,115 +220,12 @@ __device__ __forceinline__ float weighted(__nv_bfloat16 w, int8_t v) {
 __device__ __forceinline__ float weighted(float w, float v) { return w * v; }
 __device__ __forceinline__ float weighted(float w, int8_t v) { return w * (float)v; }
 
-// QT: the compute dtype of q, the products and y (bf16 or f32); CT: the
-// cache's element type, QT (ks, vs unused) or int8_t. HS: the head size, 128
-// or 256, and the block's thread count. q (B, H, HS) with a batch stride;
-// kc, vc (B, H, S, HS); ks, vs (B, H, S) f32; limit (B) int32; part
-// (B, H, nch, HS + 2) f32.
-template <typename QT, typename CT, int HS>
-__global__ void __launch_bounds__(HS)
-decode_attn_partial_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc,
-                           const CT* __restrict__ vc, const float* __restrict__ ks,
-                           const float* __restrict__ vs, const int* __restrict__ limit,
-                           float* __restrict__ part, int H, int S, float scale) {
-  constexpr bool QUANT = sizeof(CT) == 1 && sizeof(QT) != 1;
-  constexpr int TPS = HS / 64, NW = HS / 32;  // threads a slot, warps a block
-  __shared__ __align__(16) QT q_s[HS];
-  __shared__ float sc[ATT_CHUNK];
-  __shared__ QT w_s[ATT_CHUNK];
-  __shared__ float red[NW];
-  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int last = min(limit[b], S - 1);
-  const int s0 = c * ATT_CHUNK;
-  if (s0 > last) return;  // the whole chunk is past this row's limit
-  const int n = min(ATT_CHUNK, last - s0 + 1);
-  const size_t row0 = ((size_t)b * H + h) * (size_t)S + s0;  // first cache row of the chunk
-
-  q_s[tid] = q[(size_t)b * q_stride + h * HS + tid];
-  __syncthreads();
-
-  {  // scores: TPS threads per cache row, 64 elements each
-    const int slot = tid / TPS, part_ = tid % TPS;
-    float dot = 0.f;
-    if (slot < n) dot = half_row_dot(kc + (row0 + slot) * HS + part_ * 64, query_view(q_s + part_ * 64));
-#pragma unroll
-    for (int o = 1; o < TPS; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (part_ == 0 && slot < n) {
-      if (QUANT) dot *= ks[row0 + slot];
-      sc[slot] = dot * scale;
-    }
-  }
-  __syncthreads();
-  float m = tid < n ? sc[tid] : LLT_NEG_INF;
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  float p = 0.f;
-  if (tid < n) {
-    p = __expf(sc[tid] - m);
-    w_s[tid] = from_f32<QT>(QUANT ? p * vs[row0 + tid] : p);
-  }
-  float l = warp_sum(p);
-  if (lane == 0) red[warp] = l;
-  __syncthreads();  // red and w_s are visible to the block
-  l = 0.f;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) l += red[w];
-  float acc = 0.f;
-  const CT* vr = vc + row0 * HS + tid;
-#pragma unroll 8
-  for (int i = 0; i < n; ++i) acc += weighted(w_s[i], vr[(size_t)i * HS]);
-  float* pp = part + (((size_t)b * H + h) * nch + c) * (HS + 2);
-  if (tid == 0) {
-    pp[0] = m;
-    pp[1] = l;
-  }
-  pp[2 + tid] = acc;
-}
-
-template <typename QT, int HS>
-__global__ void __launch_bounds__(HS)
-decode_attn_combine_kernel(const float* __restrict__ part, const int* __restrict__ limit,
-                           QT* __restrict__ y, int H, int S, int nch_max) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int last = min(limit[b], S - 1);
-  const int nch = last < 0 ? 0 : last / ATT_CHUNK + 1;
-  const float* pp = part + ((size_t)b * H + h) * nch_max * (HS + 2);
-  y[((size_t)b * H + h) * HS + d] = from_f32<QT>(attn_combine(pp, nch, d, HS + 2));
-}
-
-template <typename QT, typename CT, int HS>
-int launch_decode_attn(const void* q, int q_stride, const void* k, const void* v, const void* ks,
-                       const void* vs, const void* limit, void* part, void* y, int B, int H, int S,
-                       cudaStream_t st) {
-  const int nch = (S + ATT_CHUNK - 1) / ATT_CHUNK;
-  const float scale = (float)(1.0 / sqrt((double)HS));
-  decode_attn_partial_kernel<QT, CT, HS><<<dim3(H, nch, B), HS, 0, st>>>(
-      (const QT*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs,
-      (const int*)limit, (float*)part, H, S, scale);
-  decode_attn_combine_kernel<QT, HS><<<dim3(H, B), HS, 0, st>>>((const float*)part, (const int*)limit,
-                                                              (QT*)y, H, S, nch);
-  return (int)cudaGetLastError();
-}
-
-template <typename QT, int HS>
-int launch_decode_attn_c(const void* q, int q_stride, const void* k, const void* v, const void* ks,
-                         const void* vs, const void* limit, void* part, void* y, int B, int H, int S,
-                         int quantized, cudaStream_t st) {
-  return quantized ? launch_decode_attn<QT, int8_t, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, st)
-                   : launch_decode_attn<QT, QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, st);
-}
-
 // Past head size 256 (any multiple of 128): a fixed block of 128 threads.
 // Two threads score a cache row, each walking half of it in pieces of 64
 // elements; a thread then owns head elements tid, tid + 128, ... of the v sum.
 // The query sits in dynamic shared memory (hs elements). The arithmetic is
-// the kernel's above.
+// the one stated above, by the helpers below (QT the compute dtype of q, the
+// products and y; CT the cache's element type, QT or int8_t).
 constexpr int WIDE_THREADS = 128;
 
 template <typename QT, typename CT>
@@ -448,31 +340,28 @@ int launch_decode_attn_wide_c(const void* q, int q_stride, const void* k, const 
 // k, v (B, H, S, hs) contiguous, of q's dtype (quantized == 0; ks, vs
 // ignored) or int8 with ks, vs (B, H, S) f32. hs any multiple of 128. limit (B) int32
 // on the device: row s is visible to batch row b iff s <= limit[b]. part:
-// scratch of B * H * dsm90::n_splits(S) * (hs + 2) floats (bf16 at head size
-// 128 or 256) or B * H * ceil(S / 64) * (hs + 2) (the rest); counter: B * H
-// int32, zeros, left zeros (bf16 at 128 or 256; else unused). y (B, H, hs)
+// scratch of B * H * dsm90::n_splits(S) * (hs + 2) floats (head size 128 or
+// 256) or B * H * ceil(S / 64) * (hs + 2) (past 256); counter: B * H int32,
+// zeros, left zeros (head size 128 or 256; else unused). y (B, H, hs)
 // contiguous, of q's dtype.
 LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, const void* v,
                                    const void* ks, const void* vs, const void* limit, void* part,
                                    void* counter, void* y, int B, int H, int S, int quantized, int cbf16,
                                    int hs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define LLT_K5_SPLIT(CT, HS) \
-  return dsm90::launch_k5<CT, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, st)
-  if (cbf16 && hs == 128) {
-    if (quantized) LLT_K5_SPLIT(int8_t, 128);
-    LLT_K5_SPLIT(__nv_bfloat16, 128);
+#define LLT_K5_SPLIT(QT, HS)                                                                                   \
+  return quantized ? dsm90::launch_k5<QT, int8_t, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, \
+                                                      st)                                                          \
+                   : dsm90::launch_k5<QT, QT, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, st)
+  if (hs == 128) {
+    if (cbf16) LLT_K5_SPLIT(__nv_bfloat16, 128);
+    LLT_K5_SPLIT(float, 128);
   }
-  if (cbf16 && hs == 256) {
-    if (quantized) LLT_K5_SPLIT(int8_t, 256);
-    LLT_K5_SPLIT(__nv_bfloat16, 256);
+  if (hs == 256) {
+    if (cbf16) LLT_K5_SPLIT(__nv_bfloat16, 256);
+    LLT_K5_SPLIT(float, 256);
   }
 #undef LLT_K5_SPLIT
-#define LLT_K5(QT, HS) \
-  return launch_decode_attn_c<QT, HS>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, quantized, st)
-  if (hs == 128 && !cbf16) LLT_K5(float, 128);
-  if (hs == 256 && !cbf16) LLT_K5(float, 256);
-#undef LLT_K5
   if (hs > 256 && hs % 128 == 0)
     return cbf16 ? launch_decode_attn_wide_c<__nv_bfloat16>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,
                                                             quantized, st)

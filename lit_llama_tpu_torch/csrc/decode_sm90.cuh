@@ -1,25 +1,29 @@
 // Single-query attention over a long cache on Hopper, in splits: K5 (the
-// per-op step's decode attention, a bf16 or int8 cache, one query per batch
-// row and head) and the attention phase of K1 (one stream, the cache row
-// written in place), on one body.
+// per-op step's decode attention, a bf16, f32 or int8 cache, one query per
+// batch row and head) and the attention phase of K1 (one stream, the cache
+// row written in place), on one body.
 //
 // Replaces, for K5, lit_llama_tpu/ops/decode_attention.py _kernel (entry
-// decode_attention_pallas) at head size 128 or 256 in bf16 compute; for K1,
-// the attention of lit_llama_tpu/ops/fused_layer.py _layer_kernel in bf16.
+// decode_attention_pallas) at head size 128 or 256, in bf16 and in f32
+// compute; for K1, the attention of lit_llama_tpu/ops/fused_layer.py
+// _layer_kernel in bf16 and in f32.
 //
 // Bound on the H100: bytes. The visible rows of k and v are read once: 33.6 MB
-// at (B, H, S, hs) = (1, 32, 2048, 128) in bf16, 17.3 MB in int8 with its
-// scales; the arithmetic is a few operations per element on the CUDA cores.
+// at (B, H, S, hs) = (1, 32, 2048, 128) in bf16, 67.1 MB in f32, 17.3 MB in
+// int8 with its scales; the arithmetic is a few operations per element on the
+// CUDA cores.
 //
 // Design. The Pallas kernel walks a head's cache in order and carries
 // (m, l, acc); here the cache of each (batch row, head) is cut into at most
 // MAX_SPLITS splits of split_rows(S) rows (a multiple of 64), a pure function
 // of S, never of B or the limit, so a row's bits do not depend on the batch.
 // One block of four warps takes a split. Each warp streams its tiles (LOADS
-// 16-byte pieces of k and of v a lane: 16 rows at hs 128 in bf16, 32 in int8)
-// with cp.async into a ring of STAGES tiles in shared memory, each lane
-// copying the pieces it then reads (a lane owns 16 bytes of a row: 8 bf16 or
-// 16 int8 elements), so the ring needs no barrier but the warp's; the copies
+// 16-byte pieces of k and of v a lane: at hs 128 16 rows in bf16, 32 in int8,
+// 8 in f32; at hs 256 half as many) with cp.async into a ring of STAGES tiles
+// in shared memory, each lane copying the pieces it then reads (a lane owns
+// 16 bytes of a row: 8 bf16, 16 int8 or 4 f32 elements; an f32 row at hs 256
+// is 64 pieces, so a lane owns two of it, 512 bytes apart), so the ring needs
+// no barrier but the warp's; the copies
 // of the next tiles overlap the online softmax of this one, the Pallas
 // kernel's (m, l, acc) carry moved into the warp. A row's score is the sum of
 // its lanes' pieces (a butterfly over the lanes of the row); a lane weights
@@ -32,13 +36,15 @@
 // with one split writes its output at once, the same bits as a merge of one.
 // Tiles past the limit are never read.
 //
-// Arithmetic. K5 (ROUNDED): the Pallas kernel's: each product k * q and w * v
-// rounded to bf16 and summed in f32; the k scale multiplies the f32 score, the
-// v scale the f32 weight before it is rounded; l is floored at 1e-30, so a
-// row with limit < 0 gives zeros. int8 elements become bf16 exactly (2^23 + u
-// as an f32, minus 2^23 + 128). K1 (F32): its own arithmetic, q in f32 and the
-// products with the cache in f32, as attention_chunk.cuh; the two are kept
-// apart by the template parameter.
+// Arithmetic. K5 in bf16 compute (ROUNDED): the Pallas kernel's: each product
+// k * q and w * v rounded to bf16 and summed in f32; the k scale multiplies
+// the f32 score, the v scale the f32 weight before it is rounded; l is
+// floored at 1e-30, so a row with limit < 0 gives zeros. int8 elements become
+// bf16 exactly (2^23 + u as an f32, minus 2^23 + 128). K5 in f32 compute and
+// K1 (F32): q, the products and the weights in f32, no rounding, on a bf16
+// (K1 in bf16), f32 or int8 cache (int8 elements exact in f32; the k scale
+// multiplies the f32 score, the v scale the f32 weight). The arithmetics are
+// kept apart by the template parameter.
 #pragma once
 
 #include "common.cuh"
@@ -63,15 +69,19 @@ enum Arith { ROUNDED = 0, F32 = 1 };
 
 template <typename CT, int HS>
 struct Geo {
-  static constexpr int EPL = 16 / (int)sizeof(CT);  // elements of a lane's 16 bytes of a row
-  static constexpr int LPR = HS / EPL;              // lanes a row
-  static constexpr int RPL = 32 / LPR;              // rows a warp's pass of 16-byte loads
-  static constexpr int TILE = LOADS * RPL;          // rows a tile
+  static constexpr int EPL = 16 / (int)sizeof(CT);  // elements of a 16-byte piece of a row
+  static constexpr int CPR = HS / EPL;              // pieces a row
+  static constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes a row
+  static constexpr int PPL = CPR / LPR;             // pieces of a row a lane holds (2: f32 at hs 256)
+  static constexpr int RPL = 32 / LPR;              // rows a warp's pass
+  static constexpr int PASSES = LOADS / PPL;        // passes a tile
+  static constexpr int TILE = PASSES * RPL;         // rows a tile
   static constexpr bool QUANT = sizeof(CT) == 1;
   static constexpr int RING = WARPS * STAGES * 2 * LOADS * 32;        // uint4 of the rings
   static constexpr int SCALES = QUANT ? WARPS * STAGES * 2 * TILE : 0;  // floats of the scale rings
   static constexpr size_t SMEM = (size_t)RING * 16 + (size_t)SCALES * 4;
   static_assert(SPLIT_QUANTUM % TILE == 0, "a tile never crosses a split");
+  static_assert(CPR % LPR == 0 && LOADS % PPL == 0, "a lane's pieces fill its loads");
 };
 
 // int8 byte i of x (x = the word ^ 0x80808080) as an exact f32
@@ -87,8 +97,8 @@ __device__ __forceinline__ void add_pair(float& a, float& b, __nv_bfloat162 p) {
 }
 
 // The two arithmetics on one lane's 16-byte piece of a row: q's fragment
-// (the lane's EPL elements as bf16 pairs, or as f32), its part of the row's
-// score, and acc += w * (its piece of a v row).
+// (the piece's EPL elements as bf16 pairs, or as f32, in element order), its
+// part of the row's score, and acc += w * (its piece of a v row).
 template <int AR, typename CT>
 struct Ops;
 
@@ -165,6 +175,45 @@ struct Ops<F32, __nv_bfloat16> {
   }
 };
 
+template <>
+struct Ops<F32, float> {
+  struct __align__(16) Q {
+    float v[4];
+  };
+  static __device__ __forceinline__ float dot(uint4 kw, const Q& q) {
+    const float k[4] = {__uint_as_float(kw.x), __uint_as_float(kw.y), __uint_as_float(kw.z), __uint_as_float(kw.w)};
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d += k[e] * q.v[e];
+    return d;
+  }
+  static __device__ __forceinline__ void axpy(float* acc, uint4 vw, float w) {
+    acc[0] += w * __uint_as_float(vw.x);
+    acc[1] += w * __uint_as_float(vw.y);
+    acc[2] += w * __uint_as_float(vw.z);
+    acc[3] += w * __uint_as_float(vw.w);
+  }
+};
+
+template <>
+struct Ops<F32, int8_t> {
+  struct __align__(16) Q {
+    float v[16];
+  };
+  static __device__ __forceinline__ float dot(uint4 kw, const Q& q) {
+    const uint32_t w[4] = {kw.x ^ 0x80808080u, kw.y ^ 0x80808080u, kw.z ^ 0x80808080u, kw.w ^ 0x80808080u};
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) d += s8_f32(w[e / 4], e % 4) * q.v[e];
+    return d;
+  }
+  static __device__ __forceinline__ void axpy(float* acc, uint4 vw, float w) {
+    const uint32_t x[4] = {vw.x ^ 0x80808080u, vw.y ^ 0x80808080u, vw.z ^ 0x80808080u, vw.w ^ 0x80808080u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += w * s8_f32(x[e / 4], e % 4);
+  }
+};
+
 // One warp's share of one split: its tiles t = warp, warp + WARPS, ... of the
 // split's rows [s0, r_end), copied into the warp's ring. kc, vc, ks, vs point
 // at the (batch row, head)'s cache (S, HS) and scales (S).
@@ -197,9 +246,9 @@ struct Ring {
     uint4* st = ring + (j % STAGES) * 2 * LOADS * 32;
     const int r0 = row0(j), rg = lane / G::LPR, cc = lane % G::LPR;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int r = r0 + i * G::RPL + rg;
-      const size_t off = (size_t)(r < S ? r : 0) * HS + cc * G::EPL;
+    for (int i = 0; i < LOADS; ++i) {  // pass i / PPL, the lane's piece i % PPL of the row
+      const int r = r0 + (i / G::PPL) * G::RPL + rg;
+      const size_t off = (size_t)(r < S ? r : 0) * HS + (cc + (i % G::PPL) * G::LPR) * G::EPL;
       cp_async16(st + i * 32 + lane, kc + off, r < S ? 16 : 0);
       cp_async16(st + (LOADS + i) * 32 + lane, vc + off, r < S ? 16 : 0);
     }
@@ -221,25 +270,29 @@ struct Ring {
 
 // The warp's online softmax over its tiles (the ring's prologue already
 // started), then its (m, l, acc) in shared memory: wm[warp], wl[warp],
-// wacc[warp][0, HS).
+// wacc[warp][0, HS). q: the lane's PPL fragments of the query.
 template <int AR, typename CT, int HS>
-__device__ __forceinline__ void run_warp(Ring<CT, HS>& rg_, const typename Ops<AR, CT>::Q& q, int r_end, float scale,
+__device__ __forceinline__ void run_warp(Ring<CT, HS>& rg_, const typename Ops<AR, CT>::Q* q, int r_end, float scale,
                                          float* wm, float* wl, float* wacc) {
   using G = Geo<CT, HS>;
+  using O = Ops<AR, CT>;
+  constexpr int NACC = G::PPL * G::EPL;
   const int lane = rg_.lane, rg = lane / G::LPR, cc = lane % G::LPR;
-  float m = LLT_NEG_INF, l = 0.f, acc[G::EPL];
+  float m = LLT_NEG_INF, l = 0.f, acc[NACC];
 #pragma unroll
-  for (int e = 0; e < G::EPL; ++e) acc[e] = 0.f;
+  for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
   for (int j = 0; j < rg_.n_tiles; ++j) {
     cp_async_wait<STAGES - 1>();
     __syncwarp();  // the scales other lanes copied
     const uint4* st = rg_.stage(j);
     const float* sc = rg_.stage_scales(j);
     const int r0 = rg_.row0(j);
-    float s[LOADS];
+    float s[G::PASSES];
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      float d = Ops<AR, CT>::dot(st[i * 32 + lane], q);
+    for (int i = 0; i < G::PASSES; ++i) {
+      float d = O::dot(st[i * G::PPL * 32 + lane], q[0]);
+#pragma unroll
+      for (int p = 1; p < G::PPL; ++p) d += O::dot(st[(i * G::PPL + p) * 32 + lane], q[p]);
 #pragma unroll
       for (int o = 1; o < G::LPR; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
       if (G::QUANT) d *= sc[i * G::RPL + rg];
@@ -247,19 +300,21 @@ __device__ __forceinline__ void run_warp(Ring<CT, HS>& rg_, const typename Ops<A
     }
     float mx = s[0];
 #pragma unroll
-    for (int i = 1; i < LOADS; ++i) mx = fmaxf(mx, s[i]);
+    for (int i = 1; i < G::PASSES; ++i) mx = fmaxf(mx, s[i]);
 #pragma unroll
     for (int o = G::LPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float mn = fmaxf(m, mx);
     const float alpha = __expf(m - mn);
     l *= alpha;
 #pragma unroll
-    for (int e = 0; e < G::EPL; ++e) acc[e] *= alpha;
+    for (int e = 0; e < NACC; ++e) acc[e] *= alpha;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
+    for (int i = 0; i < G::PASSES; ++i) {
       const float p = __expf(s[i] - mn);
       l += p;
-      Ops<AR, CT>::axpy(acc, st[(LOADS + i) * 32 + lane], G::QUANT ? p * sc[G::TILE + i * G::RPL + rg] : p);
+      const float w = G::QUANT ? p * sc[G::TILE + i * G::RPL + rg] : p;
+#pragma unroll
+      for (int pp = 0; pp < G::PPL; ++pp) O::axpy(acc + pp * G::EPL, st[(LOADS + i * G::PPL + pp) * 32 + lane], w);
     }
     m = mn;
     __syncwarp();  // every lane is done with the stage before it is refilled
@@ -271,11 +326,11 @@ __device__ __forceinline__ void run_warp(Ring<CT, HS>& rg_, const typename Ops<A
   for (int o = G::LPR; o < 32; o <<= 1) {
     l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
-    for (int e = 0; e < G::EPL; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    for (int e = 0; e < NACC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
   if (lane < G::LPR) {
 #pragma unroll
-    for (int e = 0; e < G::EPL; ++e) wacc[cc * G::EPL + e] = acc[e];
+    for (int e = 0; e < NACC; ++e) wacc[(cc + (e / G::EPL) * G::LPR) * G::EPL + e % G::EPL] = acc[e];
   }
   if (lane == 0) {
     wm[rg_.warp] = m;
@@ -339,28 +394,29 @@ __device__ __forceinline__ void finish(const float* wm, const float* wl, const f
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
-// K5: grid (n_splits(S), H, B). q (B, H, HS) bf16 with a batch stride; kc, vc
-// (B, H, S, HS) of CT (bf16, or int8 with ks, vs (B, H, S) f32); limit (B)
-// int32 on the device; part (B, H, n_splits, HS + 2) f32; counter (B, H)
-// int32, zeros; y (B, H, HS) bf16.
-template <typename CT, int HS>
+// K5: grid (n_splits(S), H, B). q (B, H, HS) of QT, the compute dtype (bf16:
+// ROUNDED, f32: F32), with a batch stride; kc, vc (B, H, S, HS) of CT (QT,
+// or int8 with ks, vs (B, H, S) f32); limit (B) int32 on the device; part
+// (B, H, n_splits, HS + 2) f32; counter (B, H) int32, zeros; y (B, H, HS) of
+// QT.
+template <typename QT, typename CT, int HS>
 __global__ void __launch_bounds__(THREADS)
-k5_kernel(const __nv_bfloat16* __restrict__ q, int q_stride, const CT* __restrict__ kc, const CT* __restrict__ vc,
+k5_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc, const CT* __restrict__ vc,
           const float* __restrict__ ks, const float* __restrict__ vs, const int* __restrict__ limit,
-          float* __restrict__ part, int* __restrict__ counter, __nv_bfloat16* __restrict__ y, int H, int S,
-          float scale) {
+          float* __restrict__ part, int* __restrict__ counter, QT* __restrict__ y, int H, int S, float scale) {
+  constexpr int AR = sizeof(QT) == 4 ? F32 : ROUNDED;
   using G = Geo<CT, HS>;
-  using O = Ops<ROUNDED, CT>;
+  using O = Ops<AR, CT>;
   extern __shared__ __align__(16) uint4 dsm[];
   __shared__ float wm[WARPS], wl[WARPS];
   __shared__ __align__(16) float wacc[WARPS][HS];
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nsp = gridDim.x;
   const int bh = b * H + h;
   const int last = min(limit[b], S - 1);
-  __nv_bfloat16* yb = y + (size_t)bh * HS;
+  QT* yb = y + (size_t)bh * HS;
   if (last < 0) {  // no row visible: zeros, as l's floor gives
     if (split == 0)
-      for (int d = threadIdx.x; d < HS; d += THREADS) yb[d] = __float2bfloat16_rn(0.f);
+      for (int d = threadIdx.x; d < HS; d += THREADS) yb[d] = from_f32<QT>(0.f);
     return;
   }
   const int sr = split_rows(S), s0 = split * sr;
@@ -370,35 +426,39 @@ k5_kernel(const __nv_bfloat16* __restrict__ q, int q_stride, const CT* __restric
   Ring<CT, HS> ring(dsm, kc + base * HS, vc + base * HS, G::QUANT ? ks + base : nullptr,
                     G::QUANT ? vs + base : nullptr, s0, r_end, S);
   ring.prologue();
-  typename O::Q qf;
-  const uint4* qp = reinterpret_cast<const uint4*>(q + (size_t)b * q_stride + (size_t)h * HS +
-                                                   (ring.lane % G::LPR) * G::EPL);
+  typename O::Q qf[G::PPL];  // the query's elements of the lane's pieces, as the arithmetic takes them
 #pragma unroll
-  for (int j = 0; j < (int)(sizeof(qf) / 16); ++j) reinterpret_cast<uint4*>(&qf)[j] = qp[j];
-  run_warp<ROUNDED, CT, HS>(ring, qf, r_end, scale, wm, wl, wacc[ring.warp]);
+  for (int p = 0; p < G::PPL; ++p) {
+    const uint4* qp = reinterpret_cast<const uint4*>(q + (size_t)b * q_stride + (size_t)h * HS +
+                                                     (ring.lane % G::LPR + p * G::LPR) * G::EPL);
+#pragma unroll
+    for (int j = 0; j < (int)(sizeof(qf[p]) / 16); ++j) reinterpret_cast<uint4*>(&qf[p])[j] = qp[j];
+  }
+  run_warp<AR, CT, HS>(ring, qf, r_end, scale, wm, wl, wacc[ring.warp]);
   finish<HS>(wm, wl, wacc, part + (size_t)bh * nsp * (HS + 2), counter + bh, split, last / sr + 1, yb);
 }
 
 // K1's attention: grid (n_valid, H), n_valid = last / split_rows(S) + 1.
-// qkv (3D) f32 in the half-rotation basis; kc, vc (H, S, HS) bf16, row
-// write_pos written here (k rotated) by the block whose split holds it,
-// before that block reads its split; part (H, n_splits, HS + 2) f32; counter
-// (H) int32, zeros; y (D) f32. Launched with launch_pdl: the copies of a split
-// that does not hold write_pos start before the kernel before it ends.
-template <int HS>
+// qkv (3D) f32 in the half-rotation basis; kc, vc (H, S, HS) of CT, the
+// compute dtype (bf16 or f32), row write_pos written here (k rotated) by the
+// block whose split holds it, before that block reads its split; part (H,
+// n_splits, HS + 2) f32; counter (H) int32, zeros; y (D) f32. Launched with
+// launch_pdl: the copies of a split that does not hold write_pos start before
+// the kernel before it ends.
+template <typename CT, int HS>
 __global__ void __launch_bounds__(THREADS)
 k1_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf, const float* __restrict__ sinf,
-               __nv_bfloat16* kc, __nv_bfloat16* vc, float* __restrict__ part, int* __restrict__ counter,
-               float* __restrict__ y, int D, int S, int write_pos, int last, float scale) {
-  using G = Geo<__nv_bfloat16, HS>;
-  using O = Ops<F32, __nv_bfloat16>;
+               CT* kc, CT* vc, float* __restrict__ part, int* __restrict__ counter, float* __restrict__ y, int D,
+               int S, int write_pos, int last, float scale) {
+  using G = Geo<CT, HS>;
+  using O = Ops<F32, CT>;
   extern __shared__ __align__(16) uint4 dsm[];
   __shared__ float wm[WARPS], wl[WARPS];
   __shared__ __align__(16) float wacc[WARPS][HS];
   const int split = blockIdx.x, h = blockIdx.y, n_valid = gridDim.x;
   const int sr = split_rows(S), s0 = split * sr, r_end = min(s0 + sr, last + 1);
   const size_t base = (size_t)h * S * HS;
-  Ring<__nv_bfloat16, HS> ring(dsm, kc + base, vc + base, nullptr, nullptr, s0, r_end, S);
+  Ring<CT, HS> ring(dsm, kc + base, vc + base, nullptr, nullptr, s0, r_end, S);
   const bool writes = write_pos >= s0 && write_pos < s0 + sr;
   if (!writes) ring.prologue();  // rows no kernel before this one writes
   pdl_wait();
@@ -407,47 +467,52 @@ k1_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf, co
     const float* kq = qkv + D + h * HS;
     for (int d = threadIdx.x; d < HS; d += THREADS) {
       const int partner = (d + HS / 2) % HS;
-      kc[base + (size_t)write_pos * HS + d] = __float2bfloat16_rn(kq[d] * cosf[d] + kq[partner] * sinf[d]);
-      vc[base + (size_t)write_pos * HS + d] = __float2bfloat16_rn(qkv[2 * D + h * HS + d]);
+      kc[base + (size_t)write_pos * HS + d] = from_f32<CT>(kq[d] * cosf[d] + kq[partner] * sinf[d]);
+      vc[base + (size_t)write_pos * HS + d] = from_f32<CT>(qkv[2 * D + h * HS + d]);
     }
     __threadfence();
     __syncthreads();  // the new row is in the cache before the split is copied
     ring.prologue();
   }
-  typename O::Q qf;
+  typename O::Q qf[G::PPL];
   const float* qh = qkv + h * HS;
 #pragma unroll
-  for (int e = 0; e < G::EPL; ++e) {
-    const int d = (ring.lane % G::LPR) * G::EPL + e, partner = (d + HS / 2) % HS;
-    qf.v[e] = qh[d] * cosf[d] + qh[partner] * sinf[d];
+  for (int p = 0; p < G::PPL; ++p) {
+#pragma unroll
+    for (int e = 0; e < G::EPL; ++e) {
+      const int d = (ring.lane % G::LPR + p * G::LPR) * G::EPL + e, partner = (d + HS / 2) % HS;
+      qf[p].v[e] = qh[d] * cosf[d] + qh[partner] * sinf[d];
+    }
   }
-  run_warp<F32, __nv_bfloat16, HS>(ring, qf, r_end, scale, wm, wl, wacc[ring.warp]);
+  run_warp<F32, CT, HS>(ring, qf, r_end, scale, wm, wl, wacc[ring.warp]);
   finish<HS>(wm, wl, wacc, part + (size_t)h * n_splits(S) * (HS + 2), counter + h, split, n_valid, y + h * HS);
 }
 
-template <typename CT, int HS>
+template <typename QT, typename CT, int HS>
 int launch_k5(const void* q, int q_stride, const void* k, const void* v, const void* ks, const void* vs,
               const void* limit, void* part, void* counter, void* y, int B, int H, int S, cudaStream_t st) {
   using G = Geo<CT, HS>;
   static int ready[16];
-  int err = allow_smem(ready, k5_kernel<CT, HS>);
+  int err = allow_smem(ready, k5_kernel<QT, CT, HS>);
   if (err) return err;
-  k5_kernel<CT, HS><<<dim3(n_splits(S), H, B), THREADS, G::SMEM, st>>>(
-      (const __nv_bfloat16*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs,
-      (const int*)limit, (float*)part, (int*)counter, (__nv_bfloat16*)y, H, S, (float)(1.0 / sqrt((double)HS)));
+  k5_kernel<QT, CT, HS><<<dim3(n_splits(S), H, B), THREADS, G::SMEM, st>>>(
+      (const QT*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs, (const int*)limit,
+      (float*)part, (int*)counter, (QT*)y, H, S, (float)(1.0 / sqrt((double)HS)));
   return (int)cudaGetLastError();
 }
 
-inline int launch_k1_attn(const float* qkv, const float* cosf, const float* sinf, __nv_bfloat16* kc,
-                          __nv_bfloat16* vc, float* part, int* counter, float* y, int D, int H, int S, int write_pos,
-                          int last, cudaStream_t st) {
+// K1's attention on a cache of CT (bf16 or f32), head size 128
+template <typename CT>
+int launch_k1_attn(const float* qkv, const float* cosf, const float* sinf, void* kc, void* vc, float* part,
+                   int* counter, float* y, int D, int H, int S, int write_pos, int last, cudaStream_t st) {
   constexpr int HS = 128;
-  using G = Geo<__nv_bfloat16, HS>;
+  using G = Geo<CT, HS>;
   static int ready[16];
-  int err = allow_smem(ready, k1_attn_kernel<HS>);
+  int err = allow_smem(ready, k1_attn_kernel<CT, HS>);
   if (err) return err;
-  return launch_pdl(k1_attn_kernel<HS>, dim3(last / split_rows(S) + 1, H), dim3(THREADS), G::SMEM, st, qkv, cosf,
-                    sinf, kc, vc, part, counter, y, D, S, write_pos, last, (float)(1.0 / sqrt((double)HS)));
+  return launch_pdl(k1_attn_kernel<CT, HS>, dim3(last / split_rows(S) + 1, H), dim3(THREADS), G::SMEM, st, qkv,
+                    cosf, sinf, (CT*)kc, (CT*)vc, part, counter, y, D, S, write_pos, last,
+                    (float)(1.0 / sqrt((double)HS)));
 }
 
 }  // namespace dsm90

@@ -7,39 +7,38 @@
 //
 // Bound on the H100: bytes. A 7B block streams 113.8 MB of int4 weights and
 // f32 scale/zero planes per token and reads the visible part of its k/v cache
-// (up to 33.6 MB at S = 2048); the arithmetic is two operations per weight.
+// (up to 33.6 MB at S = 2048 in bf16, 67.1 MB in f32); the arithmetic is two
+// operations per weight.
 // The lm_head streams 73.7 MB.
 //
 // Design: the Pallas kernel ran the block as one program with manual DMA; on
 // the card one entry launches a fixed sequence of kernels, so each can spread
-// over all SMs. In bf16 compute (the main path) five launches, chained by
-// programmatic dependent launch (each kernel asks for the weights or cache
-// rows it needs before it waits on the kernel before it, csrc/common.cuh):
+// over all SMs. Five launches, in bf16 (the main path) and in f32 compute,
+// chained by programmatic dependent launch (each kernel asks for the weights
+// or cache rows it needs before it waits on the kernel before it,
+// csrc/common.cuh):
 //   1. the int4 matvec with an RMSNorm prologue (rms_1) -> qkv, f32
 //   2. the split attention (decode_sm90.cuh, its F32 arithmetic): per
 //      (split, head) block, half-basis RoPE of q (and, in the split holding
-//      write_pos, of k, with the bf16 k/v row write before that split is
-//      read), the online softmax over the split's slots <= limit, and the
-//      merge of the splits by the last block of a head to arrive -> y, f32
+//      write_pos, of k, with the k/v row write in the compute dtype before
+//      that split is read), the online softmax over the split's slots <=
+//      limit, and the merge of the splits by the last block of a head to
+//      arrive -> y, f32
 //   3. the matvec with a residual epilogue (attn c_proj) -> xs, f32
 //   4. the matvec with an RMSNorm prologue (rms_2) and a SiLU(gate) * up
 //      epilogue (c_fc12: a block owns gate columns j.. j + 7 and up I + j..)
 //      -> gg, f32
 //   5. the matvec with a residual epilogue (mlp c_proj) -> xs, f32, and the
-//      bf16 output row on the last block of an entry
+//      output row in the compute dtype on the last block of an entry
 // The matvec (gemv_sm90.cuh: tensor cores, a cp.async ring, its design noted
 // there) reads the decode layout that prepare_fused_params adds: each
 // column's packed bytes contiguous (qw_t (N, K/2)) and its scale/zero rows
-// (qscale_t, qzero_t (N, G)). The nibble products take the bf16-rounded input
-// (exact, as the MXU products of the Pallas kernel), the zero-point term
-// comes from f32 group sums of the unrounded input, and the residual stays
-// f32 inside the block, as in the Pallas kernel.
-// f32 compute keeps the first port's six launches: the FFMA matvec of
-// gemv_int4.cuh (a warp owns two columns and walks K in 16-byte loads;
-// nibbles become floats by the exponent trick; persistent blocks, two per
-// SM), and attn_partial (a block per (head, 64-slot chunk): a pair of
-// threads scores a slot, a thread owns a head element of the v sum) with
-// attn_combine merging the chunks (attention_chunk.cuh).
+// (qscale_t, qzero_t (N, G)). In bf16 the nibble products take the
+// bf16-rounded input (exact, as the MXU products of the Pallas kernel); in
+// f32 the input's exact three-term bf16 split, so the products are the f32
+// ones. The zero-point term comes from f32 group sums of the unrounded
+// input, and the residual stays f32 inside the block, as in the Pallas
+// kernel.
 //
 // The LoRA operand (the Pallas kernel's _add_lora_delta after the QKV
 // matvec: qkv += (h @ lora_af) @ lora_bf in f32, h the unrounded normed row)
@@ -55,57 +54,17 @@
 // and summed in f32, as the Pallas kernel's astype(f32).
 //
 // f32 compute (the Pallas kernel's cdtype = f32): the matvecs take the input
-// unrounded, the cache and the output row are f32, and the attention reads
-// the f32 cache; everything else is the bf16 path's, which already sums and
+// unrounded (its exact split), the cache and the output row are f32, and the
+// attention reads the f32 cache; everything else is the bf16 path's, which already sums and
 // keeps its intermediates in f32. The norm weights are bf16 or f32, applied
 // in f32 (_rms_norm_rows).
 // Bound: bytes, D * R8 * 2 + R8 * 3D * 2 (0.5 MB at 7B, R8 = 16: 0.16 us at
 // 3.35 TB/s); the two launches' latency is most of their time.
 
-#include "attention_chunk.cuh"
 #include "decode_sm90.cuh"
 #include "gemv_sm90.cuh"
 
 namespace {
-
-constexpr int HS = ATT_HS;
-constexpr int CHUNK = ATT_CHUNK;  // cache slots per attention block
-
-// Block (head h, chunk c) of one decode token's attention. qkv (3D) f32 in
-// the half-rotation basis; caches (H, S, 128) of CT (the compute dtype, bf16
-// or f32), updated in place at write_pos. Writes the chunk's running max, sum
-// and unnormalised output.
-template <typename CT>
-__global__ void __launch_bounds__(128)
-attn_partial_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf,
-                    const float* __restrict__ sinf, CT* kc, CT* vc, float* __restrict__ part, int D,
-                    int S, int write_pos, int limit, float scale) {
-  __shared__ __align__(16) float q_s[HS];
-  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y;
-  const int d = threadIdx.x;  // one head element per thread
-  const int partner = (d + HS / 2) % HS;
-  const size_t cbase = (size_t)h * S * HS;
-
-  q_s[d] = qkv[h * HS + d] * cosf[d] + qkv[h * HS + partner] * sinf[d];
-  const int s0 = c * CHUNK;
-  if (write_pos >= s0 && write_pos < s0 + CHUNK) {
-    const float* kq = qkv + D + h * HS;
-    kc[cbase + (size_t)write_pos * HS + d] = from_f32<CT>(kq[d] * cosf[d] + kq[partner] * sinf[d]);
-    vc[cbase + (size_t)write_pos * HS + d] = from_f32<CT>(qkv[2 * D + h * HS + d]);
-  }
-  __syncthreads();  // q_s and the new cache row are visible to the block
-
-  const int last = min(limit, S - 1);
-  const int n = min(CHUNK, last - s0 + 1);  // visible slots of this chunk (>= 1)
-  attn_chunk_partial<CT>(q_s, kc + cbase, vc + cbase, s0, n, scale,
-                         part + ((size_t)h * nch + c) * ATT_PART);
-}
-
-__global__ void __launch_bounds__(128)
-attn_combine_kernel(const float* __restrict__ part, float* __restrict__ y, int nch) {
-  const int h = blockIdx.x, d = threadIdx.x;
-  y[h * HS + d] = attn_combine(part + (size_t)h * nch * ATT_PART, nch, d);
-}
 
 constexpr int LORA_THREADS = 256;
 constexpr int LORA_WARPS = LORA_THREADS / 32;
@@ -210,9 +169,9 @@ int launch_lora(const void* x_in, int in_bf16, const void* rms1, int norm_bf16, 
 // bf16 (else f32): the matvecs' inputs are rounded to it, the caches (H, S,
 // 128) and x_out (D) hold it. rms1/rms2 (D) bf16 (norm_bf16 = 1) or f32.
 // Weights in the decode layout (qw_t, qscale_t, qzero_t per linear).
-// Scratch: qkv (3D), part (H * ceil(S/64) * 130 floats in f32 compute,
-// H * dsm90::n_splits(S) * 130 in bf16), y (D), gg (I) f32; counter (H)
-// int32, zeros, left zeros (bf16); xs (D) f32 holds the residual on return. x_out is written when not null. With la
+// Scratch: qkv (3D), part (H * dsm90::n_splits(S) * 130 floats), y (D), gg
+// (I) f32; counter (H) int32, zeros, left zeros; xs (D) f32 holds the
+// residual on return. x_out is written when not null. With la
 // not null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16 (lora_bf16 = 1)
 // or f32, R8 % 8 == 0, updates qkv before RoPE; lora_part is its scratch,
 // (ceil(D / 256), R8) f32.
@@ -236,18 +195,9 @@ LLT_EXPORT int k1_decode_layer(const void* x_in, int in_bf16, const void* rms1, 
     if (err) return err;
   }
   const int last = limit < S - 1 ? limit : S - 1;
-  if (cbf16) {
-    err = dsm90::launch_k1_attn((const float*)qkv, (const float*)cosf, (const float*)sinf, (__nv_bfloat16*)kc,
-                                (__nv_bfloat16*)vc, (float*)part, (int*)counter, (float*)y, D, H, S, write_pos, last,
-                                st);
-  } else {
-    const int nch = last / CHUNK + 1;
-    attn_partial_kernel<float><<<dim3(H, nch), 128, 0, st>>>(
-        (const float*)qkv, (const float*)cosf, (const float*)sinf, (float*)kc, (float*)vc, (float*)part, D,
-        S, write_pos, limit, (float)(1.0 / sqrt((double)HS)));
-    attn_combine_kernel<<<H, 128, 0, st>>>((const float*)part, (float*)y, nch);
-    err = (int)cudaGetLastError();
-  }
+  const auto attn = cbf16 ? &dsm90::launch_k1_attn<__nv_bfloat16> : &dsm90::launch_k1_attn<float>;
+  err = attn((const float*)qkv, (const float*)cosf, (const float*)sinf, kc, vc, (float*)part, (int*)counter, (float*)y,
+             D, H, S, write_pos, last, st);
   if (err) return err;
   err = launch_gemv(Gemv{y, 0, nullptr, 0, cp_w, cp_s, cp_z, D, D, gs, EPI_RESIDUAL, x_in, in_bf16, cbf16,
                          xs, nullptr}, st);

@@ -14,13 +14,13 @@ over. It takes head sizes that are multiples of 128 (``decode_route``, the
 shape condition of JAX's ``use_decode_attention``); the model sends other
 head sizes to the plain version, as JAX runs ``attention_xla`` there. The
 kernel takes bf16 or f32 compute and every head size that is a multiple of
-128 (``check_decode``); in bf16 at head size 128 or 256 it runs the split body
-of csrc/decode_sm90.cuh, whose splits ``decode_plan`` gives from S and hs
-alone (a row's bits do not depend on the batch), with a scratch and arrival
-counters the wrapper owns (``k5_scratch``, ``arrival_counters``);
-the plain version takes any float dtype and head size. Products are rounded
-to the cache's compute dtype (``q.dtype``) and summed in f32, as in the Pallas
-kernel.
+128 (``check_decode``); at head size 128 or 256, in bf16 and in f32, it runs
+the split body of csrc/decode_sm90.cuh, whose splits ``decode_plan`` gives
+from S and hs alone (a row's bits do not depend on the batch), with a scratch
+and arrival counters the wrapper owns (``k5_scratch``, ``arrival_counters``);
+past 256 the first port's wide kernels. The plain version takes any float
+dtype and head size. Products are rounded to the cache's compute dtype
+(``q.dtype``: in f32 not at all) and summed in f32, as in the Pallas kernel.
 
 ``decode_attention_write`` replaces both Pallas kernels that compute this
 function, ``_pipe_kernel`` (entry ``decode_attention_write_pipelined``, the
@@ -48,7 +48,7 @@ import torch
 from lit_llama_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-CHUNK = 64  # cache rows per attention block of the first port's bodies (csrc/attention_chunk.cuh)
+CHUNK = 64  # cache rows per attention block of K8 and of K5's wide kernels (csrc/attention_chunk.cuh)
 # the split body (csrc/decode_sm90.cuh): a split is a multiple of SPLIT_QUANTUM
 # rows, at most MAX_SPLITS a (batch row, head); a block of SPLIT_WARPS warps,
 # each streaming tiles of SPLIT_LOADS 16-byte pieces a lane through a ring of
@@ -87,9 +87,10 @@ def decode_plan(S: int, hs: int) -> DecodePlan:
 
 
 def uses_split_body(hs: int, dtype: torch.dtype) -> bool:
-    """Whether K5 (and K1's attention) run the split body: bf16 compute at
-    head size 128 or 256; f32 and wider heads keep the first port's bodies."""
-    return dtype == torch.bfloat16 and hs in SPLIT_HEAD_SIZES
+    """Whether K5 (and K1's attention) run the split body: bf16 or f32
+    compute at head size 128 or 256; wider heads keep the first port's wide
+    kernels."""
+    return dtype in DTYPES and hs in SPLIT_HEAD_SIZES
 
 
 def k5_scratch(B: int, H: int, S: int, hs: int, dtype: torch.dtype) -> Tuple[int, int]:

@@ -5,10 +5,11 @@ the batched serving step.
 ``decode_layers_fused`` replaces the Pallas ``_layer_kernel``
 (lit_llama_tpu/ops/fused_layer.py, entry ``decode_layers_fused``): one decode
 token through whole blocks, launching the fixed sequence of CUDA kernels in
-``csrc/fused_layer.cu`` per block; in bf16 the int4 matvecs run on the
-tensor cores (``csrc/gemv_sm90.cuh``, its constants mirrored by ``GEMV_*``)
-and the attention on the split body of
-``csrc/decode_sm90.cuh`` (``decode_attention.decode_plan``, ``k1_scratch``). ``lm_head_fused`` replaces ``_head_kernel``
+``csrc/fused_layer.cu`` per block: the int4 matvecs run on the tensor cores
+(``csrc/gemv_sm90.cuh``, its constants mirrored by ``GEMV_*``; in f32 through
+an exact three-term bf16 split of the input) and the attention on the split
+body of ``csrc/decode_sm90.cuh`` (``decode_attention.decode_plan``,
+``k1_scratch``), in bf16 and in f32. ``lm_head_fused`` replaces ``_head_kernel``
 (entry ``lm_head_fused``): the final RMSNorm and the int4 lm_head matvec.
 What bounds them and how their design answers that is noted in the source.
 
@@ -75,7 +76,6 @@ from lit_llama_tpu_torch.ops import _build, decode_attention, quant_matmul
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
-CHUNK = 64  # cache slots per attention block (csrc/fused_layer.cu)
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {
@@ -206,36 +206,44 @@ _DECODE_KEYS = ("qw_t", "qscale_t", "qzero_t")
 _SHARED_KEYS = ("qw", "qscale", "qzero")
 
 
-# the bf16 matvec of K1 and K2 (csrc/gemv_sm90.cuh): a block of GEMV_WARPS
-# warps owns GEMV_COLS output columns (8 gate and their 8 up columns under
-# SiLU(gate) * up); warp w takes the GEMV_STEP-byte steps w, w + GEMV_WARPS,
-# ... of each column's K/2 packed bytes through a ring of GEMV_STAGES steps
-GEMV_WARPS, GEMV_COLS, GEMV_STEP, GEMV_STAGES = 4, 16, 64, 3
+# the int4 matvec of K1 and K2 (csrc/gemv_sm90.cuh): a block of GEMV_WARPS
+# warps (GEMV_WARPS_F32 in f32) owns GEMV_COLS output columns (8 gate and
+# their 8 up columns under SiLU(gate) * up); warp w takes the GEMV_STEP-byte
+# steps w, w + the block's warps, ... of each column's K/2 packed bytes
+# through a ring of GEMV_STAGES steps (GEMV_STAGES_F32 in f32)
+GEMV_WARPS, GEMV_WARPS_F32, GEMV_COLS, GEMV_STEP, GEMV_STAGES, GEMV_STAGES_F32 = 4, 8, 16, 64, 3, 2
 SM90_MAX_SMEM = 227 * 1024
 
 
-def gemv_smem(K: int, gs: int) -> int:
-    """Dynamic shared memory of the bf16 matvec: the rings of weights and of
-    scales, the bf16 input, its group sums, the block's zero plane and the
+# the f32 matvec's input: GEMV_PLANES_F32 bf16 terms, and a block of
+# GEMV_ZERO_BF16 zeros the padding n columns read
+GEMV_PLANES_F32, GEMV_ZERO_BF16 = 3, 16
+
+
+def gemv_smem(K: int, gs: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of the matvec: the warps' rings of weights and
+    of scales, the input's bf16 planes (one in bf16, the three split terms and
+    the zero block in f32), its group sums, the block's zero plane and the
     input's sums over 64 elements."""
     G = K // gs
-    return (GEMV_WARPS * GEMV_STAGES * (2 * 32 * 16 + 32 * 4) + 2 * K + 4 * (-(-G // 4) * 4) + GEMV_COLS * G * 4
+    bf16 = dtype == torch.bfloat16
+    planes = 2 * K if bf16 else 2 * (GEMV_PLANES_F32 * K + GEMV_ZERO_BF16)
+    warps, stages = (GEMV_WARPS, GEMV_STAGES) if bf16 else (GEMV_WARPS_F32, GEMV_STAGES_F32)
+    return (warps * stages * (2 * 32 * 16 + 32 * 4) + planes + 4 * (-(-G // 4) * 4) + GEMV_COLS * G * 4
             + 4 * (K // 64))
 
 
-def _check_gemv_smem(K: int, gs: int, what: str):
-    if gemv_smem(K, gs) > SM90_MAX_SMEM:
-        raise ValueError(f"{what}: the bf16 matvec stages K = {K} in shared memory; at most "
-                         f"{SM90_MAX_SMEM} bytes, needs {gemv_smem(K, gs)}")
+def _check_gemv_smem(K: int, gs: int, dtype: torch.dtype, what: str):
+    if gemv_smem(K, gs, dtype) > SM90_MAX_SMEM:
+        raise ValueError(f"{what}: the matvec stages K = {K} in shared memory; at most "
+                         f"{SM90_MAX_SMEM} bytes, needs {gemv_smem(K, gs, dtype)} in {dtype}")
 
 
-def k1_scratch(H: int, S: int, hs: int, dtype: torch.dtype) -> Tuple[int, int]:
+def k1_scratch(H: int, S: int, hs: int) -> Tuple[int, int]:
     """(floats of the attention's partial scratch, int32 arrival counters) K1
-    takes: in bf16 the split body's (``decode_attention.decode_plan``), in
-    f32 one partial per 64-slot chunk."""
-    if decode_attention.uses_split_body(hs, dtype):
-        return H * decode_attention.decode_plan(S, hs).n_splits * (hs + 2), H
-    return H * (-(-S // CHUNK)) * (hs + 2), 0
+    takes: the split body's (``decode_attention.decode_plan``), in either
+    compute dtype."""
+    return H * decode_attention.decode_plan(S, hs).n_splits * (hs + 2), H
 
 
 _Q4_SHAPES = {"qw_t": lambda K, N, G: (N, K // 2), "qw": lambda K, N, G: (K // 2, N),
@@ -357,8 +365,7 @@ def check_decode_layers(x, lps, kvs, cosf, sinf, write_pos: int, limit: int, con
         _check_q4(lp["mlp"]["c_fc12"], D, 2 * I, gs, "K1 c_fc12")
         _check_q4(lp["mlp"]["c_proj"], I, D, gs, "K1 mlp.c_proj")
         _lora_operand(lp["attn"]["c_attn"], "K1 c_attn", D)
-    if x.dtype == torch.bfloat16:
-        _check_gemv_smem(max(D, I), gs, "K1")
+    _check_gemv_smem(max(D, I), gs, x.dtype, "K1")
 
 
 def decode_layers_fused(
@@ -391,9 +398,9 @@ def decode_layers_fused(
     cbf16 = int(x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=dev)
     qkv = torch.empty(3 * D, **f32)
-    n_part, n_count = k1_scratch(H, S, hs, x.dtype)
+    n_part, n_count = k1_scratch(H, S, hs)
     part = torch.empty(n_part, **f32)
-    counter = decode_attention.arrival_counters(n_count, dev) if n_count else None
+    counter = decode_attention.arrival_counters(n_count, dev)
     y = torch.empty(D, **f32)
     xs = torch.empty(D, **f32)
     gg = torch.empty(I, **f32)
@@ -411,7 +418,7 @@ def decode_layers_fused(
             lp["rms_1"].data_ptr(), lp["rms_2"].data_ptr(), int(lp["rms_1"].dtype == torch.bfloat16), cbf16,
             *[t.data_ptr() for t in _w_keys(ws)],
             kv["k"].data_ptr(), kv["v"].data_ptr(), cosf.data_ptr(), sinf.data_ptr(),
-            qkv.data_ptr(), part.data_ptr(), counter.data_ptr() if n_count else None, y.data_ptr(),
+            qkv.data_ptr(), part.data_ptr(), counter.data_ptr(), y.data_ptr(),
             xs.data_ptr(), gg.data_ptr(),
             x_out.data_ptr() if j == n - 1 else None,
             la.data_ptr() if R8 else None, lb.data_ptr() if R8 else None,
@@ -440,8 +447,7 @@ def check_lm_head(x, ln_w, head: Params, config):
     _check_row(x, 1, D, "K2")
     _check_norm(ln_w, D, "K2")
     _check_q4(head, D, head["qw"].shape[-1], gs, "K2 lm_head")
-    if x.dtype == torch.bfloat16:
-        _check_gemv_smem(D, gs, "K2")
+    _check_gemv_smem(D, gs, x.dtype, "K2")
 
 
 def lm_head_fused(x, ln_w, head: Params, config):

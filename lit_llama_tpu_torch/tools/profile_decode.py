@@ -24,7 +24,8 @@ wall time; per kernel name, the device time credited to it (each instant of
 the union goes to the earliest-started kernel still running, the one a
 dependent launch waits on) beside the sum of its own intervals; the mean
 interval and credited time of each int4 matvec launch by its role in the
-block (both bodies: ``gemv_int4`` in f32, ``gemv_sm90`` in bf16; K6's
+block (``gemv_sm90`` in both compute dtypes, or ``gemv_int4`` in f32 in a
+checkout before it; K6's
 ``gemv8_kernel`` per op, or ``int8_gemv_kernel`` in a checkout before it;
 K3's ``gemv4_kernel`` per op, or the prefill mainloop ``wq_gemm_kernel`` in
 a checkout before it), the matvec's share of the busy time and, int4, the

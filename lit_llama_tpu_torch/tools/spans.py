@@ -21,11 +21,11 @@ the turn on the tensor cores, the wgmma issue, the waits for the scores and
 for the products, the softmax or elementwise work, and the epilogue.
 
 ``gemv``: the int4 matvec of K1 (one 7B block, S = 2048, pos 2047, random
-weights from seed 0) in bf16 compute (``csrc/gemv_sm90.cuh``: prologue,
-ring wait, nibble unpacking, mma.sync, scales, epilogue) and in f32 compute
-(``csrc/gemv_int4.cuh``: prologue, loads, the wait for the loads, unpacking
-with the products and scales, epilogue), for each of the block's four
-linears: the cycles a warp takes and the share of each span.
+weights from seed 0, ``csrc/gemv_sm90.cuh``) in bf16 and in f32 compute (the
+three-term split): prologue, ring wait, nibble unpacking, mma.sync, scales,
+epilogue, for each of the block's four linears: the cycles a warp takes and
+the share of each span. Table rows 0-3 take the bf16 instantiation, 4-7 the
+f32 one.
 
 ``rows``: the int4 products of K7 and K9 (``csrc/serve_layer.cu``) at B = 32
 on one 7B block (random weights from seed 0): for c_attn, attn.c_proj,
@@ -177,22 +177,15 @@ FLASH_KERNELS = ("K4", "K10 dq", "K10 dkv")
 ROLES = ("c_attn", "attn.c_proj", "c_fc12", "mlp.c_proj")
 ROLE = "(epi == EPI_SWIGLU ? 2 : epi == EPI_RESIDUAL ? (K == N ? 1 : 3) : 0)"
 LANE0 = "(threadIdx.x % 32) == 0"
-GEMV = (  # rows 0-3: the FFMA body by role; rows 4-7: the tensor-core body
-    Source("gemv_int4.cuh",
-           (Kernel("gemv_int4_kernel(", "const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;", LANE0,
-                   ROLE, "1"),),
-           (("const int nvec = Kh / 16;", "SPAN(0)", "before"),
-            ("int col[CPW];", "SPAN(4)", "before"),  # the task before this one: its epilogue
-            ("make_uint4(0, 0, 0, 0);", "SPAN(1) SPAN_WAIT(w[0].x) SPAN(2)", "after"),
-            ("for (int g = lane; g < G; g += 32) {", "SPAN(3)", "before")),
-           "SPAN(4)"),
+GEMV = (  # rows 0-3: bf16 compute by role; rows 4-7: f32 compute (the three-term split)
     Source("gemv_sm90.cuh",
-           (Kernel("gemv_sm90_kernel(", "float* hsum = zer + COLS * G;", LANE0, "4 + " + ROLE, "my_steps"),),
-           (("float acc_a = 0.f, acc_b = 0.f;", "SPAN(0)", "before"),
-            ("const uint4* stg = ring + (j % STAGES) * 64;", "SPAN(1)", "before"),
+           (Kernel("gemv_sm90_kernel(", "float* hsum = zer + COLS * G;", LANE0, "(F32 ? 4 : 0) + " + ROLE,
+                   "my_steps"),),
+           (("const bool feeds = !F32 || g < PLANES_F32;", "SPAN(0)", "before"),
+            ("const uint4* stg = ring + (j % NS) * 64;", "SPAN(1)", "before"),
             ("const uint32_t ah[4] = ", "SPAN(2)", "after"),
             ("mma_bf16(dh, ah, ", "SPAN(3)", "after"),
-            ("acc_b += dl[2] * sc.z", "SPAN(4)", "after"),
+            ("__syncwarp();  // every lane has read the stage's scales", "SPAN(4)", "before"),
             ("if (epi == EPI_SWIGLU) {", "SPAN(5)", "before")),
            ""),
 )
@@ -231,8 +224,7 @@ ROWS_SPANS = {"rows_int4_kernel(": ("token rows", "weights", "nibble conversion"
               "rows_sm90_kernel(": ("ring wait + barrier", "copy issue", "scales + nibble conversion",
                                     "token fragments", "mma", "scales + zero term", "other", "tile out / merge",
                                     "epilogue")}
-GEMV_SPANS = {0: ("prologue", "loads", "load wait", "unpack + products + scales", "epilogue"),
-              1: ("prologue", "ring wait", "unpack", "products (mma.sync)", "scales", "epilogue")}
+GEMV_SPANS = ("prologue", "ring wait", "unpack", "products (mma.sync)", "scales", "epilogue")
 # K6 at M = 1: one reader a block (thread 0), a table row a shape
 INT8_SHAPES = (("c_attn", 4096, 12288), ("attn.c_proj", 4096, 4096), ("c_fc12", 4096, 22016),
                ("mlp.c_proj", 11008, 4096), ("lm_head", 4096, 32000), ("odd", 1000, 1040))
@@ -348,15 +340,13 @@ def run_gemv(torch, lib, table, smi) -> None:
             fused_layer.decode_layers_fused(x, params["h"], [kv], cos, sin, pos % S, pos, c)
         torch.cuda.synchronize()
         rows = read(lib, table)
-        for body, source in enumerate(GEMV):
-            names = GEMV_SPANS[body]
-            for r, role in enumerate(ROLES):
-                row = rows[4 * body + r]
-                cycles, warps = row[13], row[15]
-                if warps:
-                    print(json.dumps({"body": source.file, "compute": str(dtype), "linear": role, "nvidia_smi": smi,
-                                      "warps": warps, "cycles_a_warp": cycles / warps,
-                                      "share": {names[j]: row[j] / cycles for j in range(len(names)) if row[j]}}))
+        for r, role in enumerate(ROLES):
+            row = rows[4 * (dtype == torch.float32) + r]
+            cycles, warps = row[13], row[15]
+            if warps:
+                print(json.dumps({"body": GEMV[0].file, "compute": str(dtype), "linear": role, "nvidia_smi": smi,
+                                  "warps": warps, "cycles_a_warp": cycles / warps,
+                                  "share": {GEMV_SPANS[j]: row[j] / cycles for j in range(len(GEMV_SPANS)) if row[j]}}))
 
 
 def run_rows(torch, lib, table, smi) -> None:

@@ -257,6 +257,36 @@ def test_decode_attention_kernel_rows_equal_alone_and_in_a_batch(rng, cuda, hs, 
     assert not got[limits.index(-1)].float().abs().any()
 
 
+# f32 compute on the split body: an f32 cache and uniform random int8 with
+# row scales; limits 0, the middle of a split, on both sides of a split
+# boundary and past S
+@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("cache", ["f32", "int8"])
+def test_decode_attention_kernel_f32_rows_equal_alone_and_in_a_batch(rng, cuda, hs, cache):
+    """In f32 a row's output is the same bits alone (B = 1) as among the
+    batch's rows, and on a rerun; each within 1e-4 of the plain version (f32
+    sums in another order)."""
+    S = 2048
+    split = tda.decode_plan(S, hs).split_rows
+    limits = [0, split // 2 + 3, split - 1, split, S + 100]
+    B, H = len(limits), 32 if hs == 128 else 16
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    q = _t(q).to(cuda)
+    if cache == "int8":
+        k, v = (_t(rng.integers(-127, 128, size=(B, H, S, hs)).astype(np.int8)).to(cuda) for _ in range(2))
+        ks, vs = (_t((0.01 * rng.random((B, H, S, 1))).astype(np.float32)).to(cuda) for _ in range(2))
+    else:
+        k, v, ks, vs = _t(kf * 0.5).to(cuda), _t(vf * 0.5).to(cuda), None, None
+    limit = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    got = tda.decode_attention(q, k, v, ks, vs, limit)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, tda.decode_attention_ref(q, k, v, ks, vs, limit), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, tda.decode_attention(q, k, v, ks, vs, limit))
+    for b in range(B):
+        one = [t if t is None else t[b : b + 1].contiguous() for t in (q, k, v, ks, vs)]
+        assert torch.equal(tda.decode_attention(*one, limit[b : b + 1]), got[b : b + 1]), (b, limits[b])
+
+
 def test_decode_attention_kernel_leaves_the_counters_at_zero(rng, cuda):
     """Back-to-back launches of the split body, one whose rows all need a
     merge and one with every limit inside the first split, leave the

@@ -1,5 +1,5 @@
-"""How the split decode attention of K5 and K1 and the bf16 int4 matvec of K1
-and K2 cut their work on the card (``ops.decode_attention.decode_plan``, and
+"""How the split decode attention of K5 and K1 and the int4 matvec of K1 and
+K2 cut their work on the card (``ops.decode_attention.decode_plan``, and
 the matvec's tiling from the ``GEMV_*`` constants of ``ops.fused_layer``):
 pure functions of the shapes, mirrors of what ``csrc/decode_sm90.cuh`` and
 ``csrc/gemv_sm90.cuh`` compute, so what each
@@ -26,10 +26,15 @@ def _const(text: str, name: str) -> int:
     return int(re.search(rf"\b{name} = (\d+)", text).group(1))
 
 
-def _tile_rows(hs: int, int8: bool) -> int:
-    """Cache rows of one warp's tile in the split body: SPLIT_LOADS 16-byte
-    pieces a lane, a row taking hs * (1 or 2) / 16 lanes."""
-    return tda.SPLIT_LOADS * 32 // (hs * (1 if int8 else 2) // 16)
+def _tile_rows(hs: int, elem_bytes: int) -> int:
+    """Cache rows of one warp's tile in the split body (int8, bf16 or f32
+    elements): SPLIT_LOADS 16-byte pieces a lane, a row taking hs *
+    elem_bytes / 16 pieces on at most 32 lanes (an f32 row at hs 256: two
+    pieces a lane), so 32 rows (int8), 16 (bf16), 8 (f32) at hs 128 and half
+    as many at hs 256."""
+    pieces = hs * elem_bytes // 16
+    lanes = min(pieces, 32)
+    return tda.SPLIT_LOADS // (pieces // lanes) * (32 // lanes)
 
 
 def _gemv_blocks(N: int, swiglu: bool) -> int:
@@ -47,9 +52,10 @@ def _gemv_columns(block: int, N: int, swiglu: bool):
     return [c if c < N else None for c in range(tfl.GEMV_COLS * block, tfl.GEMV_COLS * (block + 1))]
 
 
-def _gemv_steps(K: int, warp: int):
-    """The GEMV_STEP-byte steps of every column one warp takes at width K."""
-    return list(range(warp, K // 2 // tfl.GEMV_STEP, tfl.GEMV_WARPS))
+def _gemv_steps(K: int, warp: int, warps: int = tfl.GEMV_WARPS):
+    """The GEMV_STEP-byte steps of every column one warp of ``warps`` takes
+    at width K."""
+    return list(range(warp, K // 2 // tfl.GEMV_STEP, warps))
 
 
 def test_constants_mirror_the_sources():
@@ -62,6 +68,8 @@ def test_constants_mirror_the_sources():
     gemv = (CSRC / "gemv_sm90.cuh").read_text()
     assert (_const(gemv, "WARPS"), _const(gemv, "COLS"), _const(gemv, "STEP"), _const(gemv, "STAGES")) == (
         tfl.GEMV_WARPS, tfl.GEMV_COLS, tfl.GEMV_STEP, tfl.GEMV_STAGES)
+    assert (_const(gemv, "PLANES_F32"), _const(gemv, "ZERO_BF16")) == (tfl.GEMV_PLANES_F32, tfl.GEMV_ZERO_BF16)
+    assert (_const(gemv, "WARPS_F32"), _const(gemv, "STAGES_F32")) == (tfl.GEMV_WARPS_F32, tfl.GEMV_STAGES_F32)
 
 
 @pytest.mark.parametrize("S", SEQS)
@@ -72,8 +80,8 @@ def test_splits_cover_the_cache_once(S, hs):
     plan = tda.decode_plan(S, hs)
     assert plan.split_rows % tda.SPLIT_QUANTUM == 0 and 1 <= plan.n_splits <= tda.MAX_SPLITS
     assert (plan.n_splits - 1) * plan.split_rows < S <= plan.n_splits * plan.split_rows
-    for int8 in (False, True):
-        assert plan.split_rows % _tile_rows(hs, int8) == 0
+    for elem_bytes in (1, 2, 4):
+        assert plan.split_rows % _tile_rows(hs, elem_bytes) == 0
 
 
 @pytest.mark.parametrize("S", [72, 256, 2048, 2053])
@@ -83,30 +91,32 @@ def test_plan_depends_on_the_cache_length_and_head_size_alone(S):
     same splits at B = 1 and B = 8."""
     for hs in (128, 256):
         plan = tda.decode_plan(S, hs)
-        one = tda.k5_scratch(1, 32, S, hs, torch.bfloat16)
-        assert one == (32 * plan.n_splits * (hs + 2), 32)
-        for B in (2, 8, 64):
-            assert tda.k5_scratch(B, 32, S, hs, torch.bfloat16) == (B * one[0], B * one[1])
+        for dtype in (torch.bfloat16, torch.float32):
+            one = tda.k5_scratch(1, 32, S, hs, dtype)
+            assert one == (32 * plan.n_splits * (hs + 2), 32)
+            for B in (2, 8, 64):
+                assert tda.k5_scratch(B, 32, S, hs, dtype) == (B * one[0], B * one[1])
     assert tda.decode_plan(2048, 128) == (256, 8)
     assert tda.decode_plan(72, 128) == (64, 2)
 
 
 @pytest.mark.parametrize("hs,dtype,split", [(128, torch.bfloat16, True), (256, torch.bfloat16, True),
-                                            (128, torch.float32, False), (384, torch.bfloat16, False)])
+                                            (128, torch.float32, True), (256, torch.float32, True),
+                                            (384, torch.bfloat16, False), (384, torch.float32, False)])
 def test_scratch_the_wrappers_allocate_follows_the_body(hs, dtype, split):
-    """K5 and K1 allocate the split body's partials and counters in bf16 at
-    head size 128 and 256; elsewhere the first port's chunk partials and no
-    counter."""
+    """K5 and K1 allocate the split body's partials and counters in bf16 and
+    in f32 at head size 128 and 256; past 256 K5's wide kernels take the
+    chunk partials and no counter. K1 (head size 128) takes the split body's
+    in either compute dtype."""
     B, H, S = 3, 4, 300
     assert tda.uses_split_body(hs, dtype) is split
     if split:
         n = tda.decode_plan(S, hs).n_splits
         assert tda.k5_scratch(B, H, S, hs, dtype) == (B * H * n * (hs + 2), B * H)
-        assert tfl.k1_scratch(H, S, hs, dtype) == (H * n * (hs + 2), H)
+        if hs == 128:
+            assert tfl.k1_scratch(H, S, hs) == (H * n * (hs + 2), H)
     else:
         assert tda.k5_scratch(B, H, S, hs, dtype) == (B * H * math.ceil(S / 64) * (hs + 2), 0)
-        if hs == 128:
-            assert tfl.k1_scratch(H, S, hs, dtype) == (H * math.ceil(S / 64) * (hs + 2), 0)
 
 
 def test_arrival_counters_are_zeros_that_persist():
@@ -144,20 +154,31 @@ def test_matvec_blocks_cover_every_column_once(N, swiglu):
 def test_matvec_steps_and_groups(K, gs):
     """The warps take every 64-byte step of a column once; a step's low
     nibbles lie in one group (and its high nibbles in that group + G/2); the
-    shared memory of the 7B widths fits."""
-    steps = sorted(s for w in range(tfl.GEMV_WARPS) for s in _gemv_steps(K, w))
-    assert steps == list(range(K // 2 // tfl.GEMV_STEP)) and (K // 2) % tfl.GEMV_STEP == 0
+    shared memory of the 7B widths fits in both compute dtypes (f32: three
+    bf16 planes of the input and the zero block)."""
+    for warps in (tfl.GEMV_WARPS, tfl.GEMV_WARPS_F32):
+        steps = sorted(s for w in range(warps) for s in _gemv_steps(K, w, warps))
+        assert steps == list(range(K // 2 // tfl.GEMV_STEP)) and (K // 2) % tfl.GEMV_STEP == 0
     for s in steps:
         lo = range(s * tfl.GEMV_STEP, (s + 1) * tfl.GEMV_STEP)
         assert len({k // gs for k in lo}) == 1
         assert len({(k + K // 2) // gs for k in lo}) == 1 and (lo[0] + K // 2) // gs == lo[0] // gs + K // gs // 2
     assert tfl.gemv_smem(K, gs) <= tfl.SM90_MAX_SMEM
+    ring = lambda warps, stages: warps * stages * (2 * 32 * 16 + 32 * 4)
+    assert tfl.gemv_smem(K, gs, torch.float32) - tfl.gemv_smem(K, gs) == (
+        2 * (2 * K + tfl.GEMV_ZERO_BF16) + ring(tfl.GEMV_WARPS_F32, tfl.GEMV_STAGES_F32)
+        - ring(tfl.GEMV_WARPS, tfl.GEMV_STAGES))
+    assert tfl.gemv_smem(K, gs, torch.float32) <= tfl.SM90_MAX_SMEM
 
 
 def test_matvec_refuses_an_input_too_wide_for_shared_memory():
     with pytest.raises(ValueError):
-        tfl._check_gemv_smem(128 * 1024, 128, "K1")
-    tfl._check_gemv_smem(11008, 64, "K1")
+        tfl._check_gemv_smem(128 * 1024, 128, torch.bfloat16, "K1")
+    with pytest.raises(ValueError):  # fits one bf16 plane, not three
+        tfl._check_gemv_smem(64 * 1024, 128, torch.float32, "K1")
+    tfl._check_gemv_smem(64 * 1024, 128, torch.bfloat16, "K1")
+    tfl._check_gemv_smem(11008, 64, torch.bfloat16, "K1")
+    tfl._check_gemv_smem(22016, 64, torch.float32, "K1")  # the 65B MLP width
 
 
 def _split_merge(s, vw, S, split_rows):
@@ -228,10 +249,73 @@ def test_k1_attention_merged_over_splits_equals_one_pass(S):
 
 
 def test_span_tool_instruments_both_matvec_bodies():
-    """tools/spans.py finds its anchors in both matvec sources."""
+    """tools/spans.py finds its anchors in the matvec source, whose one
+    kernel takes both compute dtypes (table rows 0-3 bf16, 4-7 f32)."""
     from lit_llama_tpu_torch.tools import spans
 
-    for body, source in enumerate(spans.GEMV):
-        text = spans.instrument((CSRC / source.file).read_text(), source).replace(spans.HEAD, "")
-        assert text.count("SPAN(") >= len(spans.GEMV_SPANS[body]) and text.count("SPAN_END(") == 1
-        assert text.count("SPAN_BEGIN(") == 1
+    (source,) = spans.GEMV
+    text = spans.instrument((CSRC / source.file).read_text(), source).replace(spans.HEAD, "")
+    assert text.count("SPAN(") >= len(spans.GEMV_SPANS) and text.count("SPAN_END(") == 1
+    assert text.count("SPAN_BEGIN((F32 ? 4 : 0) + ") == 1
+
+
+# ---- the f32 matvec's input: an exact three-term bf16 split (csrc/gemv_sm90.cuh F32)
+
+
+def split_bf16x3(x: np.ndarray):
+    """The kernel's split of f32 values into three bf16 terms, by truncation:
+    hi = x with its low 16 bits cleared, mid the same of x - hi, lo the same
+    of x - hi - mid (each term's f32 value, low 16 bits zero)."""
+    def trunc(v):
+        return (v.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+    hi = trunc(x)
+    r = x - hi  # exact
+    mid = trunc(r)
+    return hi, mid, trunc(r - mid)
+
+
+def _exponent_sweep(rng, lo: int, hi: int, n: int) -> np.ndarray:
+    """n f32 values of random sign and mantissa, exponents uniform in [lo, hi]."""
+    m = rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+    return np.ldexp(m, rng.integers(lo, hi + 1, n)).astype(np.float32)
+
+
+def test_three_term_split_is_exact():
+    """hi + mid + lo == x bit for bit for every finite f32 from 2^-110 up to
+    FLT_MAX (normal draws, huge ones up to FLT_MAX, tiny ones down to 2^-110,
+    and +-0); each term is a bf16 (its low 16 bits zero), so each term times a
+    nibble is exact in f32. Rounding instead of truncating would overflow:
+    bf16(FLT_MAX) is inf."""
+    rng = np.random.default_rng(22)
+    fmax = np.finfo(np.float32).max
+    x = np.concatenate([rng.normal(size=4096).astype(np.float32), _exponent_sweep(rng, -110, 127, 8192),
+                        np.array([0.0, -0.0, fmax, -fmax, np.float32(2.0 ** -110)], np.float32),
+                        np.nextafter(np.float32(fmax), np.float32(0), dtype=np.float32)[None]])
+    terms = split_bf16x3(x)
+    for t in terms:
+        assert not (t.view(np.uint32) & 0xFFFF).any()
+        assert np.isfinite(t).all()
+    total = (terms[0].astype(np.float64) + terms[1]) + terms[2]
+    np.testing.assert_array_equal(total, x.astype(np.float64))
+    np.testing.assert_array_equal((terms[0] + terms[1]) + terms[2], x)  # in f32 too (-0 sums to +0)
+    assert torch.isinf(torch.tensor(fmax).to(torch.bfloat16))
+
+
+def test_three_term_split_below_2_to_the_minus_110_loses_under_2_to_the_minus_133():
+    """Below 2^-110 (the small normals and the subnormals) x's last bits fall
+    under bf16's smallest subnormal, 2^-133: lo keeps what bf16 holds and the
+    loss is |x - (hi + mid + lo)| < 2^-133 (a relative 2^-23 at 2^-110), of
+    x's sign; the split never grows x."""
+    rng = np.random.default_rng(23)
+    tiny = np.finfo(np.float32).smallest_subnormal
+    x = np.concatenate([_exponent_sweep(rng, -126, -111, 4096),
+                        (rng.integers(1, 2 ** 23, 4096) * rng.choice([-1, 1], 4096) * np.float64(tiny)).astype(
+                            np.float32), np.array([tiny, -tiny], np.float32)])
+    assert (np.abs(x) < 2.0 ** -110).all() and (x != 0).all()
+    terms = split_bf16x3(x)
+    total = (terms[0].astype(np.float64) + terms[1]) + terms[2]
+    loss = x.astype(np.float64) - total
+    assert (np.abs(loss) < 2.0 ** -133).all()
+    assert ((loss == 0) | (np.sign(loss) == np.sign(x))).all()
+    assert (loss != 0).any()  # the range does lose bits

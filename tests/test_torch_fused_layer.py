@@ -23,6 +23,7 @@ from lit_llama_tpu_torch.models import config as tcfg
 from lit_llama_tpu_torch.ops import fused_layer as tfl
 from lit_llama_tpu_torch.ops.rope import build_rope_cache, rope_half_row
 from lit_llama_tpu_torch.utils.jax_params import params_from_numpy
+from tests.test_torch_decode_plan import split_bf16x3
 
 S = 128
 
@@ -213,6 +214,115 @@ def test_lm_head_ref_matches_pallas(prepared):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
+# ---- the f32 matvec's arithmetic (csrc/gemv_sm90.cuh, F32), emulated in numpy
+
+
+def _butterfly(parts: np.ndarray) -> np.ndarray:
+    """Lane 0's value after an xor butterfly over the last axis (its length
+    a power of 2), as the kernel's shuffles add, in f32."""
+    n = parts.shape[-1]
+    o = n // 2
+    while o:
+        parts = parts + parts[..., np.arange(n) ^ o]
+        o //= 2
+    return parts[..., 0]
+
+
+def emulate_f32_matvec(h: np.ndarray, w, gs: int, terms: int = 3) -> np.ndarray:
+    """The f32 matvec of K1 and K2 on one row h (K,) f32, in the kernel's
+    order, from the decode layout (qw_t (N, K/2), qscale_t / qzero_t (N, G)):
+    each warp w of four takes the 64-byte steps w, w + 4, ...; a step's four
+    mma per nibble half add 16 exact products each into the f32 sums of the
+    hi, mid and lo columns (an mma rounds once: its products are exact and
+    the tensor cores add them before the one rounding, taken here as exact);
+    lane t = 0 adds (hi + mid) times the step's group scale into its sum and
+    lane t = 1 lo times the scale into its own; the warp's sum is the two
+    added once at the end; the four warps and the zero-point term (f32 group
+    sums of h over 64-element chunks, eight partial sums a column) add in warp
+    order. ``terms`` < 3 drops the split's last terms (hi alone is the bf16
+    body's input)."""
+    f32 = np.float32
+    wt, st, zt = (w[k].numpy() for k in ("qw_t", "qscale_t", "qzero_t"))
+    N, Kh = wt.shape
+    K, G = 2 * Kh, st.shape[1]
+    Gh, nsteps = G // 2, Kh // 64
+    parts = [t.astype(np.float64) for t in split_bf16x3(h.astype(f32))[:terms]]
+    parts += [np.zeros(K)] * (3 - terms)
+    lo_n, hi_n = (wt & 0xF).astype(np.float64), (wt >> 4).astype(np.float64)
+    red = []
+    for warp in range(4):
+        acc0 = np.zeros(N, f32)  # lane t = 0: hi + mid
+        acc1 = np.zeros(N, f32)  # lane t = 1: lo
+        for s in range(warp, nsteps, 4):
+            g = s * 64 // gs
+            col = {}
+            for half, nib, off in (("l", lo_n, 0), ("h", hi_n, Kh)):
+                for p in range(3):
+                    d = np.zeros(N, f32)
+                    for m in range(4):  # mma m: k0 + 16 t + 4 m + {0, 1, 2, 3}, t = 0..3
+                        ks = np.array([s * 64 + 16 * t + 4 * m + j for t in range(4) for j in range(4)])
+                        d = (d.astype(np.float64) + nib[:, ks] @ parts[p][off + ks]).astype(f32)
+                    col[half, p] = d
+            acc0 = acc0 + ((col["l", 0] + col["l", 1]) * st[:, g] + (col["h", 0] + col["h", 1]) * st[:, Gh + g])
+            acc1 = acc1 + (col["l", 2] * st[:, g] + col["h", 2] * st[:, Gh + g])
+        red.append(acc0 + acc1)
+    hsum = _butterfly((h.astype(f32).reshape(K // 64, 16, 4) @ np.ones(4, f32)).astype(f32))  # (K / 64,)
+    gx = np.zeros(G, f32)
+    for j in range(gs // 64):
+        gx = gx + hsum.reshape(G, gs // 64)[:, j]
+    z = _butterfly(np.stack([(zt[:, p8::8] * gx[p8::8]).sum(-1, dtype=f32) for p8 in range(8)], -1))
+    return (((red[0] + red[1]) + red[2]) + red[3]) + z
+
+
+def _emulated_mv(terms: int = 3):
+    """An ``mv_int4_ref`` in f32 compute that runs the emulation on each row."""
+    def mv(src, w, cdtype):
+        assert cdtype == torch.float32
+        wd = tfl._with_decode_layout(w)
+        gs = 2 * w["qw"].shape[0] // w["qscale"].shape[0]
+        return torch.from_numpy(np.stack([emulate_f32_matvec(r, wd, gs, terms) for r in src.numpy()]))
+    return mv
+
+
+def test_f32_matvec_emulation_matches_plain_and_pallas(prepared, monkeypatch):
+    """The f32 matvec's arithmetic, emulated (``emulate_f32_matvec``): on
+    each linear of a block it equals the port's plain f32 matvec to 4e-6 of
+    the output's largest value (the same exact products summed in another
+    order: 5-7e-7 seen), where the split without lo (1.2-2.7e-5) and the bf16
+    body's input, hi alone (3-9e-3), stand farther off; K2 (final norm + lm_head) and one K1 block on it hold JAX's
+    _head_kernel and _layer_kernel in f32 (interpret mode) to the tolerances
+    the plain versions are held to (1e-4; the block's output 2e-3 as in
+    test_decode_layer_ref_matches_pallas_f32)."""
+    fparams, fcfg, tparams, tc = prepared
+    rng = np.random.default_rng(22)
+    lp = tparams["h"][0]
+    for w in (lp["attn"]["c_attn"], lp["attn"]["c_proj"], lp["mlp"]["c_fc12"], lp["mlp"]["c_proj"]):
+        h = torch.from_numpy(rng.normal(size=(1, 2 * w["qw"].shape[0])).astype(np.float32))
+        want = tfl.mv_int4_ref(h, w, torch.float32)
+        tol = 4e-6 * float(want.abs().max())
+        assert float((_emulated_mv()(h, w, torch.float32) - want).abs().max()) <= tol
+        for terms in (1, 2):
+            assert float((_emulated_mv(terms)(h, w, torch.float32) - want).abs().max()) > tol
+    monkeypatch.setattr(tfl, "mv_int4_ref", _emulated_mv())
+    x = rng.normal(size=(1, fcfg.n_embd)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = jfl.lm_head_fused(jnp.asarray(x), fparams["ln_f"], fparams["lm_head"], fcfg)
+    got = tfl.lm_head_fused(torch.from_numpy(x), tparams["ln_f"], tparams["lm_head"], tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    pos = 37
+    x, k, v = _inputs(rng, fcfg)
+    hs = fcfg.head_size
+    cosj, sinj = j_rope_row(j_rope_cache(fcfg.block_size, hs), jnp.int32(pos), hs)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jkv = jfl.decode_layer_fused(jnp.asarray(x), fparams["h"][0], {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+                                           cosj, sinj, jnp.int32(pos), jnp.int32(pos), fcfg)
+    cost, sint = rope_half_row(build_rope_cache(tc.block_size, hs), pos, hs)
+    kv = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    tout, _ = tfl.decode_layer_fused(torch.from_numpy(x), tparams["h"][0], kv, cost, sint, pos, pos, tc)
+    np.testing.assert_allclose(kv["k"].numpy(), np.asarray(jkv["k"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("pos", [0, 37, 130, 259])
 def test_decode_layers_kernel_matches_plain(prepared, cuda, pos):
     """K1 on the card against its plain version at bf16, S = 256 (two
@@ -345,27 +455,41 @@ def test_decode_layers_kernel_at_split_boundaries(prepared, cuda, pos):
     plain version at S = 2048: positions on both sides of a split boundary
     (256 rows a split), the last row, and past S (the ring wrapped). Its
     arrival counters are zeros after the call."""
+    _split_boundary_case(prepared, cuda, pos, torch.bfloat16, dict(rtol=1e-2, atol=1e-2), dict(rtol=2e-2, atol=2e-2))
+
+
+@pytest.mark.parametrize("pos", [0, 255, 256, 2047, 2300])
+def test_decode_layers_kernel_f32_at_split_boundaries(prepared, cuda, pos):
+    """K1 in f32 (the matvec through the three-term split, the split
+    attention on the f32 cache) against its plain version at S = 2048, at the
+    first row and the positions of the bf16 test: f32 sums in another order,
+    1e-4 on the cache rows and the output."""
+    tol = dict(rtol=1e-4, atol=1e-4)
+    _split_boundary_case(prepared, cuda, pos, torch.float32, tol, tol)
+
+
+def _split_boundary_case(prepared, cuda, pos, cd, cache_tol, out_tol):
     from lit_llama_tpu_torch.ops import decode_attention as tda
 
     _, fcfg, tparams, tc = prepared
-    tc = tc.replace(compute_dtype="bfloat16", block_size=4096)
+    tc = tc.replace(compute_dtype=str(cd).split(".")[1], block_size=4096)
     params = {**tparams, "h": [
-        {**lp, "rms_1": lp["rms_1"].to(torch.bfloat16), "rms_2": lp["rms_2"].to(torch.bfloat16)}
+        {**lp, "rms_1": lp["rms_1"].to(cd), "rms_2": lp["rms_2"].to(cd)}
         for lp in tparams["h"]]}
     params = _to(tfl.add_decode_layout(params), cuda)
     rng = np.random.default_rng(pos)
     Sg, H, hs = 2048, tc.n_head, tc.head_size
     assert tda.decode_plan(Sg, hs).split_rows == 256
-    mk = lambda: torch.from_numpy((rng.normal(size=(1, H, Sg, hs)) * 0.3).astype(np.float32)).to(cuda, torch.bfloat16)
+    mk = lambda: torch.from_numpy((rng.normal(size=(1, H, Sg, hs)) * 0.3).astype(np.float32)).to(cuda, cd)
     kvs = [{"k": mk(), "v": mk()} for _ in range(2)]
     ref_kvs = [{n: c.clone() for n, c in kv.items()} for kv in kvs]
-    x = torch.from_numpy(rng.normal(size=(1, tc.n_embd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(1, tc.n_embd)).astype(np.float32)).to(cuda, cd)
     cos, sin = rope_half_row(build_rope_cache(tc.block_size, hs, device=cuda), pos, hs)
     out, _ = tfl.decode_layers_fused(x, params["h"], kvs, cos, sin, pos % Sg, pos, tc)
     ref, _ = tfl.decode_layers_fused_ref(x, params["h"], ref_kvs, cos, sin, pos % Sg, pos, tc)
     torch.cuda.synchronize()
     for kv, rkv in zip(kvs, ref_kvs):
-        torch.testing.assert_close(kv["k"].float(), rkv["k"].float(), rtol=1e-2, atol=1e-2)
-        torch.testing.assert_close(kv["v"].float(), rkv["v"].float(), rtol=1e-2, atol=1e-2)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(kv["k"].float(), rkv["k"].float(), **cache_tol)
+        torch.testing.assert_close(kv["v"].float(), rkv["v"].float(), **cache_tol)
+    torch.testing.assert_close(out.float(), ref.float(), **out_tol)
     assert int(tda.arrival_counters(H, cuda).abs().sum()) == 0
