@@ -120,7 +120,10 @@ K7 / K9 f32), 8i (the 32-layer f32 model), 12b (K6 f32 at M > 1; K5 f32 on
 an f32 and an int8 cache at head sizes 128 and 256, a row's bits at B = 3
 equal to its own alone), 14b (K4 and K10 f32 at (1, 32, 2048, 128); K10
 beside both its bounds, FFMA and 3xTF32), 17 (K4 and K10 f32 at head size
-256, also timed) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
+256, also timed; past 256 K4 f32, K10 f32 and K5 on f32, bf16 and int8
+caches timed beside their bounds, the f32 ones at the FFMA rate, and SDPA,
+K5 held on both caches and a row's bits in a batch of three equal to its
+own alone) and 22 (the calibration shapes, with ``allow_tf32`` and the kernels
 SDPA's f32 call runs logged beside the yardsticks). Phases 29-31 run
 tensor- and data-parallel inference in two ranks on the one card (see their
 constants). Phases 32-34 train across two ranks on the one card, DP, FSDP
@@ -5505,14 +5508,30 @@ def main() -> int:
                    for n, g, w in zip(("dq", "dk", "dv"), got, want)]
             q5 = q[:, :, -1:].contiguous()
             kc5, vc5 = k * 0.5, v * 0.5
-            e5 = 0.0
-            for lims in ([0], [Te // 2 + 7], [Te - 1], [Te + 5]):
-                lim = torch.tensor(lims, dtype=torch.int32, device=dev)
-                g5 = da.decode_attention(q5, kc5, vc5, None, None, lim)
-                w5 = da.decode_attention_ref(q5, kc5, vc5, None, None, lim)
-                e5 = max(e5, max_err32(g5, w5, f"K5 {hk} f32") if f32 else max_err(g5, w5, f"K5 {hk}"))
+            (kq5, ksc5), (vq5, vsc5) = llama._quantize_kv(kc5), llama._quantize_kv(vc5)
+            caches5 = {"cache": (kc5, vc5, None, None), "int8 cache": (kq5, vq5, ksc5, vsc5)}
+            e5 = dict.fromkeys(caches5, 0.0)
+            for cname, c5 in caches5.items():
+                for lims in ([0], [Te // 2 + 7], [Te - 1], [Te + 5]):
+                    lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+                    g5, w5 = da.decode_attention(q5, *c5, lim), da.decode_attention_ref(q5, *c5, lim)
+                    e5[cname] = max(e5[cname], max_err32(g5, w5, f"K5 {hk} f32 {cname}") if f32 else
+                                    max_err(g5, w5, f"K5 {hk}"))
+                if hse > 256:  # each row's bits alone and in a batch of three (other queries, caches and limits)
+                    qb = q[0, :, -3:].transpose(0, 1)[:, :, None].contiguous()  # (3, He, 1, hs)
+                    cb = [None if c is None else torch.cat([c, c.flip(2), c.roll(1, 2)]) for c in c5]
+                    limb = torch.tensor([5, Te // 2 + 7, Te + 5], dtype=torch.int32, device=dev)
+                    yb = da.decode_attention(qb, *cb, limb)
+                    for b in range(3):
+                        one = [None if c is None else c[b : b + 1].contiguous() for c in cb]
+                        assert torch.equal(da.decode_attention(qb[b : b + 1].contiguous(), *one, limb[b : b + 1]),
+                                           yb[b : b + 1]), f"K5 {hk} {dt} {cname}: row {b} alone differs in a batch"
+            if hse > 256:
+                entry_inputs.setdefault("k5_rows_equal_alone_and_in_a_batch", []).append(f"{hk} {dt}")
             log(f"head size {hse}, {'f32' if f32 else 'bf16'}, at ({Be}, {He}, {Te}, {hse}) vs plain: K4 max err "
-                f"{e4:.3g}, K10 dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5:.3g}")
+                f"{e4:.3g}, K10 dq/dk/dv {e10[0]:.3g}/{e10[1]:.3g}/{e10[2]:.3g}, K5 {e5['cache']:.3g}, K5 on the "
+                f"int8 cache {e5['int8 cache']:.3g}" + ("; K5 rows alone equal their bits in a batch of 3 on both "
+                                                         "caches" if hse > 256 else ""))
             if f32 and hse == 256:  # K4's FFMA body at its second head size
                 b4 = bound_ms(4 * nrow * hse * 4 + nrow * 4, 4 * hse * pairs, f32_peak)
                 k4f = entry_inputs["k4_f32_hs256"] = dict(
@@ -5540,6 +5559,51 @@ def main() -> int:
                     f"{k10f['bound_ms'][0] * 1e3:.1f} / {k10f['bound_ms'][1] * 1e3:.1f} in 3xTF32, "
                     f"{k10f['bound_ffma_ms'][0] * 1e3:.1f} / {k10f['bound_ffma_ms'][1] * 1e3:.1f} in FFMA)")
                 del dq, dd, qs, ks, vs, sdpa_out
+            if hse > 256:  # the bodies past 256 never timed before: f32 (bounds at the FFMA rate), int8 caches
+                k5_t = {}
+                for cname, c5 in caches5.items():
+                    quant = c5[2] is not None
+                    es5 = 1 if quant else dt.itemsize
+                    nb5 = 2 * He * Te * hse * es5 + (2 * He * Te * 4 if quant else 0) + 2 * He * hse * dt.itemsize + 4
+                    b5q = bound_ms(nb5, 4 * He * Te * hse, f32_peak)
+                    every = torch.full((1,), Te - 1, dtype=torch.int32, device=dev)
+                    # the library call on the cache dequantized to the compute dtype
+                    kd5, vd5 = ((c5[0].float() * c5[2]).to(dt), (c5[1].float() * c5[3]).to(dt)) if quant else c5[:2]
+                    k5_t[cname] = dict(
+                        ms=time_ms(lambda: da.decode_attention(q5, *c5, every)),
+                        plain_ms=time_ms(lambda: da.decode_attention_ref(q5, *c5, every), 3),
+                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kd5, vd5)),
+                        bound_ms=b5q[0], bound_by=b5q[1], max_abs_err=e5[cname])
+                rec = {"shape": f"B={Be} H={He} T={Te} hs={hse}, {'f32' if f32 else 'bf16'}", "K5": k5_t}
+                if f32:
+                    b4 = bound_ms(4 * nrow * hse * 4 + nrow * 4, 4 * hse * pairs, f32_peak)
+                    dq, dd = fa.flash_backward_dq(q, k, v, o, lse, do)
+                    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+                    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                    rec.update(
+                        K4=dict(ms=time_ms(lambda: fa.flash_attention(q, k, v), 5),
+                                plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v), 3),
+                                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 5),
+                                bound_ms=b4[0], bound_by=b4[1], max_abs_err=e4),
+                        K10=dict(dq_ms=time_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do), 5),
+                                 dkv_ms=time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse, dd), 5),
+                                 plain_ms=time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 3),
+                                 library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                                                                retain_graph=True), 5),
+                                 bound_ms=[bound_ms(nb, ops, f32_peak)[0] for nb, ops in k10_work(nrow, pairs, hse, 4)],
+                                 max_abs_err=max(e10)))
+                    del dq, dd, qs, ks, vs, sdpa_out
+                entry_inputs[f"{'f32' if f32 else 'bf16'}_{hk}"] = rec
+                log(f"head size {hse}, {'f32' if f32 else 'bf16'}, timed beside bound (f32: FFMA rate) and library: "
+                    + ", ".join(f"K5 {n} {r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f}, SDPA "
+                                f"{r['library_ms'] * 1e3:.1f}, bound {r['bound_ms'] * 1e3:.1f} {r['bound_by']})"
+                                for n, r in k5_t.items())
+                    + ("" if not f32 else
+                       f", K4 {rec['K4']['ms'] * 1e3:.1f} us (plain {rec['K4']['plain_ms'] * 1e3:.1f}, SDPA "
+                       f"{rec['K4']['library_ms'] * 1e3:.1f}, bound {rec['K4']['bound_ms'] * 1e3:.1f}), K10 dq / dkv "
+                       f"{rec['K10']['dq_ms'] * 1e3:.1f} / {rec['K10']['dkv_ms'] * 1e3:.1f} us (plain "
+                       f"{rec['K10']['plain_ms'] * 1e3:.1f}, SDPA backward {rec['K10']['library_ms'] * 1e3:.1f}, "
+                       f"bounds {rec['K10']['bound_ms'][0] * 1e3:.1f} / {rec['K10']['bound_ms'][1] * 1e3:.1f})"))
             if f32:
                 continue
             es = 2  # bytes of an element
@@ -5571,13 +5635,13 @@ def main() -> int:
                 ms=time_ms(lambda: da.decode_attention(q5, kc5, vc5, None, None, all_rows)),
                 plain_ms=time_ms(lambda: da.decode_attention_ref(q5, kc5, vc5, None, None, all_rows), 3),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(q5, kc5, vc5)),
-                bound_ms=b5[0], bound_by=b5[1], max_abs_err=e5)
+                bound_ms=b5[0], bound_by=b5[1], max_abs_err=e5["cache"])
             log(f"head size {hse}, bf16, timed: " + ", ".join(
                 f"{key} {results[key]['ms'] * 1e3:.1f} us (plain {results[key]['plain_ms'] * 1e3:.1f}, library "
                 f"{results[key]['library_ms'] * 1e3:.1f}, bound {results[key]['bound_ms'] * 1e3:.1f} "
                 f"{results[key]['bound_by']})" for key in (f"K4 {hk}", f"K10dq {hk}", f"K10dkv {hk}", f"K5 {hk}")))
             del dq, dd, qs, ks, vs, sdpa_out
-        del q, k, v, do, o, lse, ro, rlse, got, want, q5, kc5, vc5
+        del q, k, v, do, o, lse, ro, rlse, got, want, q5, kc5, vc5, caches5
         ce = LLaMAConfig(n_layer=2, n_head=D_e // hse, n_embd=D_e, param_dtype="bfloat16", compute_dtype="bfloat16")
         assert ce.head_size == hse
         pe = llama.unstack_layers(llama.init_params(ce, torch.Generator(device=dev).manual_seed(SEED + 8), device=dev))
@@ -5793,6 +5857,9 @@ def main() -> int:
     hopper = {"K4": "flash_sm90.cuh", "K4 T2048": "flash_sm90.cuh", "K10dq": "flash_sm90.cuh",
               "K10dkv": "flash_sm90.cuh", "K10dq hs256": "flash_sm90_hs256.cuh", "K10dkv hs256": "flash_sm90_hs256.cuh",
               "K4 hs256": "flash_sm90_hs256.cuh", "K4 hs384": "flash_sm90_wide.cuh", "K4 hs512": "flash_sm90_wide.cuh",
+              "K10dq hs384": "flash_sm90_wide.cuh", "K10dkv hs384": "flash_sm90_wide.cuh",
+              "K10dq hs512": "flash_sm90_wide.cuh", "K10dkv hs512": "flash_sm90_wide.cuh",
+              "K5 hs384": "decode_sm90.cuh", "K5 hs512": "decode_sm90.cuh",
               "K10dq f32": "flash_tf32.cuh", "K10dkv f32": "flash_tf32.cuh", "K5": "decode_sm90.cuh", "K5q": "decode_sm90.cuh", "K2": "gemv_sm90.cuh",
               "K4 T256": "flash_sm90.cuh", "K10dq T256": "flash_sm90.cuh", "K10dkv T256": "flash_sm90.cuh",
               "K3 M2048": "gemm_sm90.cuh", "K6 M2048": "gemm_sm90.cuh", "K3 f32 M8192": "gemm_f32.cuh",

@@ -117,17 +117,18 @@ LLT_EXPORT int k8_decode_attention_write(const void* q, const void* kn, const vo
 // B = 1, S = 2048, hs = 128 in bf16, 67.1 MB in f32 and 17.3 MB in int8 with
 // its scales; the arithmetic is four operations per cache element.
 //
-// Design: at head size 128 or 256 (every preset), in bf16 and in f32
-// compute, the split body of decode_sm90.cuh: the cache of a (batch row,
-// head) in at most 8 splits whose size depends on S alone, a block of four
-// warps a split streaming k and v through cp.async rings, the splits merged
-// in the same launch by the last block to arrive. Past 256 (any multiple of
-// 128) the first port's wide kernels below: the Pallas kernel walks the
-// cache blocks of a head in order and carries (m, l, acc) in scratch; at
-// B = 1 that order would leave all but 32 blocks idle here, so every (head,
-// 64-row chunk, batch row) is a block of its own (128 threads, each walking
-// hs / 128 head elements), writes its chunk's (m, l, acc) and a second
-// kernel merges the chunks of a head (the merge is K8's, attention_chunk.cuh).
+// Design: at every head size that is a multiple of 128 up to
+// dsm90::MAX_HS (1024; every preset has 128), in bf16 and in f32 compute, the
+// split body of decode_sm90.cuh: the cache of a (batch row, head) in splits
+// whose size depends on S and hs alone (at most 8 at head size 128 and 256,
+// 8 hs / 128 past it), a block of four warps a split streaming k and v
+// through cp.async rings, the splits merged in the same launch by the last
+// block to arrive. Past 1024, a static route by head size that no model the
+// repo supports takes, the first port's wide kernels below, not rebuilt for
+// Hopper: every (head, 64-row chunk, batch row) is a block of its own (128
+// threads, each walking hs / 128 head elements), writes its chunk's (m, l,
+// acc) and a second kernel merges the chunks of a head (the merge is K8's,
+// attention_chunk.cuh).
 // limit is read from device memory: the grid covers every split or chunk,
 // and a block whose rows lie wholly past limit[b] exits at once, so a step
 // costs no host sync. The arithmetic in bf16 is the Pallas kernel's:
@@ -220,7 +221,7 @@ __device__ __forceinline__ float weighted(__nv_bfloat16 w, int8_t v) {
 __device__ __forceinline__ float weighted(float w, float v) { return w * v; }
 __device__ __forceinline__ float weighted(float w, int8_t v) { return w * (float)v; }
 
-// Past head size 256 (any multiple of 128): a fixed block of 128 threads.
+// Past head size 1024 (any multiple of 128): a fixed block of 128 threads.
 // Two threads score a cache row, each walking half of it in pieces of 64
 // elements; a thread then owns head elements tid, tid + 128, ... of the v sum.
 // The query sits in dynamic shared memory (hs elements). The arithmetic is
@@ -340,10 +341,10 @@ int launch_decode_attn_wide_c(const void* q, int q_stride, const void* k, const 
 // k, v (B, H, S, hs) contiguous, of q's dtype (quantized == 0; ks, vs
 // ignored) or int8 with ks, vs (B, H, S) f32. hs any multiple of 128. limit (B) int32
 // on the device: row s is visible to batch row b iff s <= limit[b]. part:
-// scratch of B * H * dsm90::n_splits(S) * (hs + 2) floats (head size 128 or
-// 256) or B * H * ceil(S / 64) * (hs + 2) (past 256); counter: B * H int32,
-// zeros, left zeros (head size 128 or 256; else unused). y (B, H, hs)
-// contiguous, of q's dtype.
+// scratch of B * H * dsm90::n_splits(S, hs) * (hs + 2) floats (head size up
+// to dsm90::MAX_HS) or B * H * ceil(S / 64) * (hs + 2) (past it); counter:
+// B * H int32, zeros, left zeros (up to dsm90::MAX_HS; else unused). y (B, H,
+// hs) contiguous, of q's dtype.
 LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, const void* v,
                                    const void* ks, const void* vs, const void* limit, void* part,
                                    void* counter, void* y, int B, int H, int S, int quantized, int cbf16,
@@ -353,16 +354,23 @@ LLT_EXPORT int k5_decode_attention(const void* q, int q_stride, const void* k, c
   return quantized ? dsm90::launch_k5<QT, int8_t, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, \
                                                       st)                                                          \
                    : dsm90::launch_k5<QT, QT, HS>(q, q_stride, k, v, ks, vs, limit, part, counter, y, B, H, S, st)
-  if (hs == 128) {
-    if (cbf16) LLT_K5_SPLIT(__nv_bfloat16, 128);
-    LLT_K5_SPLIT(float, 128);
+#define LLT_K5_HS(HS)                         \
+  if (hs == HS) {                             \
+    if (cbf16) LLT_K5_SPLIT(__nv_bfloat16, HS); \
+    LLT_K5_SPLIT(float, HS);                  \
   }
-  if (hs == 256) {
-    if (cbf16) LLT_K5_SPLIT(__nv_bfloat16, 256);
-    LLT_K5_SPLIT(float, 256);
-  }
+  LLT_K5_HS(128)
+  LLT_K5_HS(256)
+  LLT_K5_HS(384)
+  LLT_K5_HS(512)
+  LLT_K5_HS(640)
+  LLT_K5_HS(768)
+  LLT_K5_HS(896)
+  LLT_K5_HS(1024)
+  static_assert(dsm90::MAX_HS == 1024, "every head size up to MAX_HS has its split body above");
+#undef LLT_K5_HS
 #undef LLT_K5_SPLIT
-  if (hs > 256 && hs % 128 == 0)
+  if (hs > dsm90::MAX_HS && hs % 128 == 0)
     return cbf16 ? launch_decode_attn_wide_c<__nv_bfloat16>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,
                                                             quantized, st)
                  : launch_decode_attn_wide_c<float>(q, q_stride, k, v, ks, vs, limit, part, y, B, H, S, hs,

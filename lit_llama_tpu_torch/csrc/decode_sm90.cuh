@@ -4,9 +4,9 @@
 // row written in place), on one body.
 //
 // Replaces, for K5, lit_llama_tpu/ops/decode_attention.py _kernel (entry
-// decode_attention_pallas) at head size 128 or 256, in bf16 and in f32
-// compute; for K1, the attention of lit_llama_tpu/ops/fused_layer.py
-// _layer_kernel in bf16 and in f32.
+// decode_attention_pallas) at every head size that is a multiple of 128 up
+// to MAX_HS (1024), in bf16 and in f32 compute; for K1, the attention of
+// lit_llama_tpu/ops/fused_layer.py _layer_kernel in bf16 and in f32.
 //
 // Bound on the H100: bytes. The visible rows of k and v are read once: 33.6 MB
 // at (B, H, S, hs) = (1, 32, 2048, 128) in bf16, 67.1 MB in f32, 17.3 MB in
@@ -15,15 +15,20 @@
 //
 // Design. The Pallas kernel walks a head's cache in order and carries
 // (m, l, acc); here the cache of each (batch row, head) is cut into at most
-// MAX_SPLITS splits of split_rows(S) rows (a multiple of 64), a pure function
-// of S, never of B or the limit, so a row's bits do not depend on the batch.
-// One block of four warps takes a split. Each warp streams its tiles (LOADS
-// 16-byte pieces of k and of v a lane: at hs 128 16 rows in bf16, 32 in int8,
-// 8 in f32; at hs 256 half as many) with cp.async into a ring of STAGES tiles
-// in shared memory, each lane copying the pieces it then reads (a lane owns
-// 16 bytes of a row: 8 bf16, 16 int8 or 4 f32 elements; an f32 row at hs 256
-// is 64 pieces, so a lane owns two of it, 512 bytes apart), so the ring needs
-// no barrier but the warp's; the copies
+// max_splits(hs) splits of split_rows(S, hs) rows (a multiple of 64), a pure
+// function of S and hs, never of B or the limit, so a row's bits do not
+// depend on the batch: at most MAX_SPLITS at head size 128 and 256, and past
+// 256 MAX_SPLITS * hs / 128, so that a split holds about the bytes of an
+// hs-128 split of the same cache. One block of four warps takes a split.
+// Each warp streams its tiles (Geo::PIECES 16-byte pieces of k and of v a
+// lane, LOADS or fewer: at hs 128 16 rows in bf16, 32 in int8, 8 in f32; at
+// hs 256 half as many) with cp.async into a ring of STAGES tiles in shared
+// memory, each lane copying the pieces it then reads (a lane owns 16 bytes of
+// a row: 8 bf16, 16 int8 or 4 f32 elements; a row of CPR pieces lies on LPR
+// lanes, the largest power of two up to 32 that divides CPR, so a lane holds
+// PPL = CPR / LPR pieces of it, LPR pieces apart: two of an f32 row at hs
+// 256, three of a bf16 row at hs 384 on 16 lanes), so the ring needs no
+// barrier but the warp's; the copies
 // of the next tiles overlap the online softmax of this one, the Pallas
 // kernel's (m, l, acc) carry moved into the warp. A row's score is the sum of
 // its lanes' pieces (a butterfly over the lanes of the row); a lane weights
@@ -53,17 +58,20 @@ namespace dsm90 {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int LOADS = 8;           // 16-byte pieces a lane copies of k, and of v, a tile
+constexpr int LOADS = 8;           // 16-byte pieces a lane copies of k, and of v, a tile, at most
 constexpr int STAGES = 2;          // tiles in a warp's ring
 constexpr int SPLIT_QUANTUM = 64;  // a split's rows are a multiple of this
-constexpr int MAX_SPLITS = 8;      // splits of one (batch row, head)'s cache
+constexpr int MAX_SPLITS = 8;      // splits of one (batch row, head)'s cache at head size 128 and 256
+constexpr int MAX_HS = 1024;       // the widest head the body is built for (decode_attention.cu)
 
-// rows a split takes, and the number of splits, at cache length S >= 1
-__host__ __device__ inline int split_rows(int S) {
-  const int per = (S + MAX_SPLITS - 1) / MAX_SPLITS;
+// splits of one (batch row, head)'s cache at most, rows a split takes and
+// the number of splits, at cache length S >= 1 and head size hs
+__host__ __device__ inline int max_splits(int hs) { return hs <= 256 ? MAX_SPLITS : MAX_SPLITS * hs / 128; }
+__host__ __device__ inline int split_rows(int S, int hs) {
+  const int per = (S + max_splits(hs) - 1) / max_splits(hs);
   return (per + SPLIT_QUANTUM - 1) / SPLIT_QUANTUM * SPLIT_QUANTUM;
 }
-__host__ __device__ inline int n_splits(int S) { return (S + split_rows(S) - 1) / split_rows(S); }
+__host__ __device__ inline int n_splits(int S, int hs) { return (S + split_rows(S, hs) - 1) / split_rows(S, hs); }
 
 enum Arith { ROUNDED = 0, F32 = 1 };
 
@@ -71,17 +79,20 @@ template <typename CT, int HS>
 struct Geo {
   static constexpr int EPL = 16 / (int)sizeof(CT);  // elements of a 16-byte piece of a row
   static constexpr int CPR = HS / EPL;              // pieces a row
-  static constexpr int LPR = CPR < 32 ? CPR : 32;   // lanes a row
+  static constexpr int LPR = CPR % 32 == 0 ? 32 : CPR % 16 == 0 ? 16 : 8;  // lanes a row
   static constexpr int PPL = CPR / LPR;             // pieces of a row a lane holds (2: f32 at hs 256)
   static constexpr int RPL = 32 / LPR;              // rows a warp's pass
-  static constexpr int PASSES = LOADS / PPL;        // passes a tile
+  // passes a tile: the largest power of two up to LOADS / PPL; pieces a lane copies of k (of v) a tile
+  static constexpr int PASSES = PPL == 1 ? 8 : PPL == 2 ? 4 : PPL <= 4 ? 2 : 1;
+  static constexpr int PIECES = PASSES * PPL;
   static constexpr int TILE = PASSES * RPL;         // rows a tile
   static constexpr bool QUANT = sizeof(CT) == 1;
-  static constexpr int RING = WARPS * STAGES * 2 * LOADS * 32;        // uint4 of the rings
+  static constexpr int RING = WARPS * STAGES * 2 * PIECES * 32;       // uint4 of the rings
   static constexpr int SCALES = QUANT ? WARPS * STAGES * 2 * TILE : 0;  // floats of the scale rings
   static constexpr size_t SMEM = (size_t)RING * 16 + (size_t)SCALES * 4;
-  static_assert(SPLIT_QUANTUM % TILE == 0, "a tile never crosses a split");
-  static_assert(CPR % LPR == 0 && LOADS % PPL == 0, "a lane's pieces fill its loads");
+  static_assert(HS % 128 == 0 && HS <= MAX_HS && CPR % LPR == 0, "a row's pieces lie evenly on its lanes");
+  static_assert(PIECES <= LOADS, "a lane copies at most LOADS pieces of k (of v) a tile");
+  static_assert(SPLIT_QUANTUM % TILE == 0 && TILE <= 32, "a tile never crosses a split; a lane copies a scale");
 };
 
 // int8 byte i of x (x = the word ^ 0x80808080) as an exact f32
@@ -220,7 +231,7 @@ struct Ops<F32, int8_t> {
 template <typename CT, int HS>
 struct Ring {
   using G = Geo<CT, HS>;
-  uint4* ring;  // this warp's STAGES x (k, v) x LOADS x 32 pieces
+  uint4* ring;  // this warp's STAGES x (k, v) x PIECES x 32 pieces
   float* scl;   // this warp's STAGES x (ks, vs) x TILE scales (int8)
   const CT *kc, *vc;
   const float *ks, *vs;
@@ -232,25 +243,25 @@ struct Ring {
       : kc(kc_), vc(vc_), ks(ks_), vs(vs_), s0(s0_), S(S_) {
     warp = threadIdx.x / 32;
     lane = threadIdx.x % 32;
-    ring = dsm + warp * STAGES * 2 * LOADS * 32;
+    ring = dsm + warp * STAGES * 2 * G::PIECES * 32;
     scl = reinterpret_cast<float*>(dsm + G::RING) + warp * STAGES * 2 * G::TILE;
     const int tiles = (r_end - s0 + G::TILE - 1) / G::TILE;  // the split's tiles with a visible row
     n_tiles = warp < tiles ? (tiles - warp + WARPS - 1) / WARPS : 0;
   }
   __device__ int row0(int j) const { return s0 + (warp + j * WARPS) * G::TILE; }
-  __device__ const uint4* stage(int j) const { return ring + (j % STAGES) * 2 * LOADS * 32; }
+  __device__ const uint4* stage(int j) const { return ring + (j % STAGES) * 2 * G::PIECES * 32; }
   __device__ const float* stage_scales(int j) const { return scl + (j % STAGES) * 2 * G::TILE; }
 
   // copies of the warp's tile j into its stage; rows past S are zeros
   __device__ void fetch(int j) {
-    uint4* st = ring + (j % STAGES) * 2 * LOADS * 32;
+    uint4* st = ring + (j % STAGES) * 2 * G::PIECES * 32;
     const int r0 = row0(j), rg = lane / G::LPR, cc = lane % G::LPR;
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {  // pass i / PPL, the lane's piece i % PPL of the row
+    for (int i = 0; i < G::PIECES; ++i) {  // pass i / PPL, the lane's piece i % PPL of the row
       const int r = r0 + (i / G::PPL) * G::RPL + rg;
       const size_t off = (size_t)(r < S ? r : 0) * HS + (cc + (i % G::PPL) * G::LPR) * G::EPL;
       cp_async16(st + i * 32 + lane, kc + off, r < S ? 16 : 0);
-      cp_async16(st + (LOADS + i) * 32 + lane, vc + off, r < S ? 16 : 0);
+      cp_async16(st + (G::PIECES + i) * 32 + lane, vc + off, r < S ? 16 : 0);
     }
     if (G::QUANT && lane < G::TILE) {
       float* sc = scl + (j % STAGES) * 2 * G::TILE;
@@ -314,7 +325,7 @@ __device__ __forceinline__ void run_warp(Ring<CT, HS>& rg_, const typename Ops<A
       l += p;
       const float w = G::QUANT ? p * sc[G::TILE + i * G::RPL + rg] : p;
 #pragma unroll
-      for (int pp = 0; pp < G::PPL; ++pp) O::axpy(acc + pp * G::EPL, st[(LOADS + i * G::PPL + pp) * 32 + lane], w);
+      for (int pp = 0; pp < G::PPL; ++pp) O::axpy(acc + pp * G::EPL, st[(G::PIECES + i * G::PPL + pp) * 32 + lane], w);
     }
     m = mn;
     __syncwarp();  // every lane is done with the stage before it is refilled
@@ -394,7 +405,7 @@ __device__ __forceinline__ void finish(const float* wm, const float* wl, const f
   if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
-// K5: grid (n_splits(S), H, B). q (B, H, HS) of QT, the compute dtype (bf16:
+// K5: grid (n_splits(S, HS), H, B). q (B, H, HS) of QT, the compute dtype (bf16:
 // ROUNDED, f32: F32), with a batch stride; kc, vc (B, H, S, HS) of CT (QT,
 // or int8 with ks, vs (B, H, S) f32); limit (B) int32 on the device; part
 // (B, H, n_splits, HS + 2) f32; counter (B, H) int32, zeros; y (B, H, HS) of
@@ -419,7 +430,7 @@ k5_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc, con
       for (int d = threadIdx.x; d < HS; d += THREADS) yb[d] = from_f32<QT>(0.f);
     return;
   }
-  const int sr = split_rows(S), s0 = split * sr;
+  const int sr = split_rows(S, HS), s0 = split * sr;
   if (s0 > last) return;  // the whole split is past this row's limit
   const int r_end = min(s0 + sr, last + 1);
   const size_t base = (size_t)bh * S;
@@ -438,7 +449,7 @@ k5_kernel(const QT* __restrict__ q, int q_stride, const CT* __restrict__ kc, con
   finish<HS>(wm, wl, wacc, part + (size_t)bh * nsp * (HS + 2), counter + bh, split, last / sr + 1, yb);
 }
 
-// K1's attention: grid (n_valid, H), n_valid = last / split_rows(S) + 1.
+// K1's attention: grid (n_valid, H), n_valid = last / split_rows(S, HS) + 1.
 // qkv (3D) f32 in the half-rotation basis; kc, vc (H, S, HS) of CT, the
 // compute dtype (bf16 or f32), row write_pos written here (k rotated) by the
 // block whose split holds it, before that block reads its split; part (H,
@@ -456,7 +467,7 @@ k1_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf, co
   __shared__ float wm[WARPS], wl[WARPS];
   __shared__ __align__(16) float wacc[WARPS][HS];
   const int split = blockIdx.x, h = blockIdx.y, n_valid = gridDim.x;
-  const int sr = split_rows(S), s0 = split * sr, r_end = min(s0 + sr, last + 1);
+  const int sr = split_rows(S, HS), s0 = split * sr, r_end = min(s0 + sr, last + 1);
   const size_t base = (size_t)h * S * HS;
   Ring<CT, HS> ring(dsm, kc + base, vc + base, nullptr, nullptr, s0, r_end, S);
   const bool writes = write_pos >= s0 && write_pos < s0 + sr;
@@ -485,7 +496,7 @@ k1_attn_kernel(const float* __restrict__ qkv, const float* __restrict__ cosf, co
     }
   }
   run_warp<F32, CT, HS>(ring, qf, r_end, scale, wm, wl, wacc[ring.warp]);
-  finish<HS>(wm, wl, wacc, part + (size_t)h * n_splits(S) * (HS + 2), counter + h, split, n_valid, y + h * HS);
+  finish<HS>(wm, wl, wacc, part + (size_t)h * n_splits(S, HS) * (HS + 2), counter + h, split, n_valid, y + h * HS);
 }
 
 template <typename QT, typename CT, int HS>
@@ -495,7 +506,7 @@ int launch_k5(const void* q, int q_stride, const void* k, const void* v, const v
   static int ready[16];
   int err = allow_smem(ready, k5_kernel<QT, CT, HS>);
   if (err) return err;
-  k5_kernel<QT, CT, HS><<<dim3(n_splits(S), H, B), THREADS, G::SMEM, st>>>(
+  k5_kernel<QT, CT, HS><<<dim3(n_splits(S, HS), H, B), THREADS, G::SMEM, st>>>(
       (const QT*)q, q_stride, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs, (const int*)limit,
       (float*)part, (int*)counter, (QT*)y, H, S, (float)(1.0 / sqrt((double)HS)));
   return (int)cudaGetLastError();
@@ -510,7 +521,7 @@ int launch_k1_attn(const float* qkv, const float* cosf, const float* sinf, void*
   static int ready[16];
   int err = allow_smem(ready, k1_attn_kernel<CT, HS>);
   if (err) return err;
-  return launch_pdl(k1_attn_kernel<CT, HS>, dim3(last / split_rows(S) + 1, H), dim3(THREADS), G::SMEM, st, qkv,
+  return launch_pdl(k1_attn_kernel<CT, HS>, dim3(last / split_rows(S, HS) + 1, H), dim3(THREADS), G::SMEM, st, qkv,
                     cosf, sinf, (CT*)kc, (CT*)vc, part, counter, y, D, S, write_pos, last,
                     (float)(1.0 / sqrt((double)HS)));
 }

@@ -11,30 +11,17 @@
 //
 // Which body runs (the entries at the end of the file): bf16 takes the Hopper
 // kernels (wgmma, TMA, mbarrier rings) of flash_sm90.cuh at head size 128,
-// the size of every LLaMA preset, flash_sm90_hs256.cuh at 256 (K4 and K10)
-// and, past 256, flash_sm90_wide.cuh (K4) and the chunked mma.sync kernels
-// near the end of this file (K10); f32 compute K4's FFMA bodies (below, and
-// past 256 near the end) and K10's 3xTF32 tensor-core kernels of
-// flash_tf32.cuh (the chunked FFMA kernels past 256).
+// the size of every LLaMA preset, flash_sm90_hs256.cuh at 256 and
+// flash_sm90_wide.cuh past 256 (K4 and K10 each); f32 compute K4's FFMA
+// bodies (below, and past 256 near the end) and K10's 3xTF32 tensor-core
+// kernels of flash_tf32.cuh (the chunked FFMA kernels past 256).
 
 #include "flash_sm90.cuh"
 #include "flash_sm90_hs256.cuh"
 #include "flash_sm90_wide.cuh"
 #include "flash_tf32.cuh"
-#include "mma.cuh"
 
 namespace {
-
-constexpr int BQ = 64, BKV = 64, THREADS = 128;
-
-// The A fragment of rows row0 + g (+ 8) at k-step kk from a shared tile
-__device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* tile, int ld, int row0, int kk,
-                                            int g, int t) {
-  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(tile + (row0 + g) * ld);
-  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(tile + (row0 + g + 8) * ld);
-  const int c0 = (kk * 16 + 2 * t) / 2, c8 = (kk * 16 + 8 + 2 * t) / 2;
-  a[0] = r0[c0], a[1] = r1[c0], a[2] = r0[c8], a[3] = r1[c8];
-}
 
 // ---------------------------------------------------------------------------
 // K10: causal flash-attention backward.
@@ -54,8 +41,9 @@ __device__ __forceinline__ void frag_a_smem(uint32_t* a, const __nv_bfloat16* ti
 // first, in f32, one warp per row (JAX computes it in XLA before its
 // kernels): flash_bwd_dot at head size 128 in bf16, simt_dot at 256 or in
 // f32, wide_dot past 256. The kernels themselves: flash_sm90.cuh (bf16, head
-// size 128), flash_sm90_hs256.cuh (bf16, 256), flash_tf32.cuh (f32, 128 and
-// 256), the chunked kernels below (past 256).
+// size 128), flash_sm90_hs256.cuh (bf16, 256), flash_sm90_wide.cuh (bf16,
+// past 256), flash_tf32.cuh (f32, 128 and 256), the chunked FFMA kernels
+// below (f32, past 256).
 
 __global__ void flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
                                      const __nv_bfloat16* __restrict__ dout,
@@ -333,69 +321,16 @@ int ffma_forward(const void* q, const void* k, const void* v, void* o, void* lse
 }
 
 // ---------------------------------------------------------------------------
-// Head sizes past 256 (any multiple of 128 that JAX's gate sends): K10 in
-// bf16 and f32, K4 in f32 (K4 in bf16 is flash_sm90_wide.cuh). The output's
-// head columns are split over the grid in chunks of 128 (WIDE = 128); the
-// inputs pass through shared memory in chunks of 128 columns while the f32
-// score tile (and dP) builds up, so shared memory and registers do not grow
-// with hs. Each output chunk recomputes the scores over the full head: the
-// score work is hs / 128 times the single-pass kernels', acceptable while no
-// model the repo supports has such a head. The arithmetic, the rounding and
-// the masks are those of the Pallas kernels.
+// Head sizes past 256 (any multiple of 128 that JAX's gate sends) in f32:
+// K4 and K10 (bf16 is flash_sm90_wide.cuh). The output's head columns are
+// split over the grid in chunks of 128 (WIDE = 128); the inputs pass through
+// shared memory in chunks of 128 columns while the f32 score tile (and dP)
+// builds up, so shared memory and registers do not grow with hs. Each output
+// chunk recomputes the scores over the full head: the score work is hs / 128
+// times the single-pass kernels'. The arithmetic and the masks are those of
+// the Pallas kernels.
 
-constexpr int WIDE = 128, WLD = WIDE + 8;  // columns a chunk; bf16 elements a shared chunk row
-
-// rows r0.. (64, zeros past T) x columns c0..c0 + 127 of a (T, hs) bf16
-// tensor into dst [64][WLD]
-__device__ __forceinline__ void stage_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int T, int hs,
-                                            int c0, int tid) {
-#pragma unroll
-  for (int i = 0; i < 64 * (WIDE / 8) / THREADS; ++i) {
-    const int vec = tid + THREADS * i;
-    const int r = vec / (WIDE / 8), c = (vec % (WIDE / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * hs + c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * WLD + c) = val;
-  }
-}
-
-// acc[j] (16 rows of the warp x 8 n-tiles of 8 rows of B) += A (16 rows from
-// a_row0 of As) B^T (64 rows of Bs), over one chunk of 128 columns
-__device__ __forceinline__ void chunk_nt(float (*acc)[4], const __nv_bfloat16* As, int a_row0,
-                                        const __nv_bfloat16* Bs, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < WIDE / 16; ++kk) {
-    uint32_t a[4];
-    frag_a_smem(a, As, WLD, a_row0, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t* brow = reinterpret_cast<const uint32_t*>(Bs + (j * 8 + g) * WLD);
-      mma_bf16(acc[j], a, brow[(kk * 16 + 2 * t) / 2], brow[(kk * 16 + 8 + 2 * t) / 2]);
-    }
-  }
-}
-
-// acc (16 x 128) += P (16 x 64, the C layout of p) V (64 x 128 of Vs)
-__device__ __forceinline__ void chunk_pv(float (*acc)[4], const float (*p)[4], const __nv_bfloat16* Vs, int g,
-                                        int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * WLD;
-    const __nv_bfloat16* v8 = Vs + (kk * 16 + 8 + 2 * t) * WLD;
-#pragma unroll
-    for (int n = 0; n < WIDE / 8; ++n) {
-      const int col = n * 8 + g;
-      mma_bf16(acc[n], pa, pack_bf16(v0[col], v0[WLD + col]), pack_bf16(v8[col], v8[WLD + col]));
-    }
-  }
-}
-
-constexpr int WIDE_DQ_SMEM = 4 * 64 * WLD * 2, WIDE_DKV_SMEM = 4 * 64 * WLD * 2 + 2 * 64 * 4;
+constexpr int WIDE = 128;  // columns a chunk
 
 // D = rowsum(dO * O) in f32 at any head size, one warp per row
 template <typename T_>
@@ -407,159 +342,6 @@ __global__ void wide_dot_kernel(const T_* __restrict__ o, const T_* __restrict__
   for (int d = lane; d < hs; d += 32) s += to_f32(o[(size_t)row * hs + d]) * to_f32(dout[(size_t)row * hs + d]);
   s = warp_sum(s);
   if (lane == 0) dd[row] = s;
-}
-
-// K10 dQ past head size 256: a block per (64-row q tile x 128-column chunk, head, batch)
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ dd,
-                         __nv_bfloat16* __restrict__ dq, int H, int T, int hs, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ds = Qs + 64 * WLD;
-  __nv_bfloat16* Ks = Ds + 64 * WLD;
-  __nv_bfloat16* Vs = Ks + 64 * WLD;
-  const int nspl = hs / WIDE;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int qt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
-  const int row0 = qt * BQ + warp * 16 + g, row1 = row0 + 8;
-  const float lse0 = row0 < T ? lse[lbase + row0] : 0.f, lse1 = row1 < T ? lse[lbase + row1] : 0.f;
-  const float dd0 = row0 < T ? dd[lbase + row0] : 0.f, dd1 = row1 < T ? dd[lbase + row1] : 0.f;
-
-  float acc[WIDE / 8][4];
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BKV;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    for (int d0 = 0; d0 < hs; d0 += WIDE) {  // S = Q K^T and dP = dO V^T, a chunk at a time
-      __syncthreads();
-      stage_chunk(Qs, q + base, qt * BQ, T, hs, d0, tid);
-      stage_chunk(Ds, dout + base, qt * BQ, T, hs, d0, tid);
-      stage_chunk(Ks, k + base, k0, T, hs, d0, tid);
-      stage_chunk(Vs, v + base, k0, T, hs, d0, tid);
-      __syncthreads();
-      chunk_nt(s, Qs, warp * 16, Ks, g, t);
-      chunk_nt(dp, Ds, warp * 16, Vs, g, t);
-    }
-    __syncthreads();  // every warp is done with Ks
-    stage_chunk(Ks, k + base, k0, T, hs, c_off, tid);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        const bool kin = key < T;
-        const float p0 = (kin && key <= row0) ? __expf(s[j][e] * scale - lse0) : 0.f;
-        const float p1 = (kin && key <= row1) ? __expf(s[j][2 + e] * scale - lse1) : 0.f;
-        s[j][e] = p0 * (dp[j][e] - dd0);
-        s[j][2 + e] = p1 * (dp[j][2 + e] - dd1);
-      }
-    }
-    __syncthreads();  // the K chunk at c_off is staged
-    chunk_pv(acc, s, Ks, g, t);  // dQ[:, c_off ..] += bf16(dS) K
-  }
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) {
-    const int col = c_off + n * 8 + 2 * t;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row0 * hs + col) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (row1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row1 * hs + col) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
-
-// K10 dK/dV past head size 256: a block per (64-key tile x 128-column chunk,
-// head, batch), the transposed tiles S^T = K Q^T and dP^T = V dO^T as above
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ dd,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int T, int hs,
-                          float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + 64 * WLD;
-  __nv_bfloat16* Qs = Vs + 64 * WLD;
-  __nv_bfloat16* Ds = Qs + 64 * WLD;  // dO chunk
-  float* Ls = reinterpret_cast<float*>(Ds + 64 * WLD);
-  float* DDs = Ls + 64;
-  const int nspl = hs / WIDE;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int kt = blockIdx.x / nspl, c_off = (blockIdx.x % nspl) * WIDE, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = ((size_t)b * H + h) * (size_t)T * hs, lbase = ((size_t)b * H + h) * (size_t)T;
-  const int kw = warp * 16, key0 = kt * BKV + kw + g, key1 = key0 + 8;
-
-  float dka[WIDE / 8][4], dva[WIDE / 8][4];
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  const int n_qt = (T + BQ - 1) / BQ;
-  for (int qt = kt; qt < n_qt; ++qt) {
-    const int qs0 = qt * BQ;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    for (int d0 = 0; d0 < hs; d0 += WIDE) {
-      __syncthreads();
-      stage_chunk(Ks, k + base, kt * BKV, T, hs, d0, tid);
-      stage_chunk(Vs, v + base, kt * BKV, T, hs, d0, tid);
-      stage_chunk(Qs, q + base, qs0, T, hs, d0, tid);
-      stage_chunk(Ds, dout + base, qs0, T, hs, d0, tid);
-      if (d0 == 0 && tid < BQ) {
-        const bool in = qs0 + tid < T;
-        Ls[tid] = in ? lse[lbase + qs0 + tid] : 0.f;
-        DDs[tid] = in ? dd[lbase + qs0 + tid] : 0.f;
-      }
-      __syncthreads();
-      chunk_nt(s, Ks, kw, Qs, g, t);
-      chunk_nt(dp, Vs, kw, Ds, g, t);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + 2 * t + e, qi = qs0 + c;
-        const float l = Ls[c], d = DDs[c];
-        const bool qin = qi < T;
-        const float p0 = (qin && qi >= key0) ? __expf(s[j][e] * scale - l) : 0.f;
-        const float p1 = (qin && qi >= key1) ? __expf(s[j][2 + e] * scale - l) : 0.f;
-        s[j][e] = p0;
-        s[j][2 + e] = p1;
-        dp[j][e] = p0 * (dp[j][e] - d);
-        dp[j][2 + e] = p1 * (dp[j][2 + e] - d);
-      }
-    }
-    __syncthreads();  // every warp is done with Qs, Ds and Ls
-    stage_chunk(Qs, q + base, qs0, T, hs, c_off, tid);
-    stage_chunk(Ds, dout + base, qs0, T, hs, c_off, tid);
-    __syncthreads();
-    chunk_pv(dva, s, Ds, g, t);   // dV[:, c_off ..] += bf16(P^T) dO_i
-    chunk_pv(dka, dp, Qs, g, t);  // dK[:, c_off ..] += bf16(dS^T) Q_i
-  }
-#pragma unroll
-  for (int n = 0; n < WIDE / 8; ++n) {
-    const int col = c_off + n * 8 + 2 * t;
-    if (key0 < T) {
-      const size_t off = base + (size_t)key0 * hs + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    }
-    if (key1 < T) {
-      const size_t off = base + (size_t)key1 * hs + col;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-    }
-  }
 }
 
 // The FFMA bodies past head size 256 (f32 compute): a block of 128 threads
@@ -808,8 +590,9 @@ simt_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   }
 }
 
-// the launches past head size 256: cbf16 picks the tensor-core kernels or
-// the FFMA bodies (K4: the FFMA body alone, f32)
+// the launches past head size 256: K4 in f32 (bf16 K4 goes from the entry to
+// flash_sm90_wide.cuh); K10's D, then flash_sm90_wide.cuh's kernels (bf16)
+// or the FFMA bodies (f32)
 int wide_forward(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T, int hs,
                  float scale, cudaStream_t st) {
   const int nspl = hs / WIDE;
@@ -826,39 +609,27 @@ int wide_backward_dq(const void* q, const void* k, const void* v, const void* o,
   if (cbf16) {
     wide_dot_kernel<__nv_bfloat16><<<(rows + 7) / 8, 256, 0, st>>>((const __nv_bfloat16*)o,
                                                                    (const __nv_bfloat16*)dout, (float*)dd, rows, hs);
-    int err = set_smem(flash_bwd_dq_wide_kernel, WIDE_DQ_SMEM);
-    if (err) return err;
-    flash_bwd_dq_wide_kernel<<<dim3((T + BQ - 1) / BQ * nspl, H, B), THREADS, WIDE_DQ_SMEM, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-        (const float*)lse, (const float*)dd, (__nv_bfloat16*)dq, H, T, hs, scale);
-  } else {
-    wide_dot_kernel<float><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows, hs);
-    int err = set_smem(simt_dq_wide_kernel, SW_DQ_SMEM);
-    if (err) return err;
-    simt_dq_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DQ_SMEM, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
-        (float*)dq, H, T, hs, scale);
+    return fawide::backward_dq(q, k, v, dout, lse, dd, dq, B, H, T, hs, scale, st);
   }
+  wide_dot_kernel<float><<<(rows + 7) / 8, 256, 0, st>>>((const float*)o, (const float*)dout, (float*)dd, rows, hs);
+  int err = set_smem(simt_dq_wide_kernel, SW_DQ_SMEM);
+  if (err) return err;
+  simt_dq_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DQ_SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
+      (float*)dq, H, T, hs, scale);
   return (int)cudaGetLastError();
 }
 
 int wide_backward_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* dd, void* dk, void* dv, int B, int H, int T, int hs, float scale, bool cbf16,
                       cudaStream_t st) {
+  if (cbf16) return fawide::backward_dkv(q, k, v, dout, lse, dd, dk, dv, B, H, T, hs, scale, st);
   const int nspl = hs / WIDE;
-  if (cbf16) {
-    int err = set_smem(flash_bwd_dkv_wide_kernel, WIDE_DKV_SMEM);
-    if (err) return err;
-    flash_bwd_dkv_wide_kernel<<<dim3((T + BKV - 1) / BKV * nspl, H, B), THREADS, WIDE_DKV_SMEM, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-        (const float*)lse, (const float*)dd, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, T, hs, scale);
-  } else {
-    int err = set_smem(simt_dkv_wide_kernel, SW_DKV_SMEM);
-    if (err) return err;
-    simt_dkv_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DKV_SMEM, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
-        (float*)dk, (float*)dv, H, T, hs, scale);
-  }
+  int err = set_smem(simt_dkv_wide_kernel, SW_DKV_SMEM);
+  if (err) return err;
+  simt_dkv_wide_kernel<<<dim3((T + SIMT_BR - 1) / SIMT_BR * nspl, H, B), SIMT_THREADS, SW_DKV_SMEM, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse, (const float*)dd,
+      (float*)dk, (float*)dv, H, T, hs, scale);
   return (int)cudaGetLastError();
 }
 

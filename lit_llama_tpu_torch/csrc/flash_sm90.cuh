@@ -1,9 +1,8 @@
 // K4 and K10 at head size 128 in bf16 on Hopper: wgmma, TMA and an mbarrier
 // ring. Included by flash_attention.cu, whose launchers send bf16 at head
-// size 128 here (bf16 at 256 goes to K4 and K10 of flash_sm90_hs256.cuh, past
-// 256 to K4 of flash_sm90_wide.cuh, both built on this file, and to K10's
-// chunked kernels in flash_attention.cu; f32 to K4's FFMA bodies there and
-// K10's flash_tf32.cuh).
+// size 128 here (bf16 at 256 goes to K4 and K10 of flash_sm90_hs256.cuh,
+// past 256 to those of flash_sm90_wide.cuh, both built on this file; f32 to
+// K4's FFMA bodies in flash_attention.cu and K10's flash_tf32.cuh).
 //
 // Replaces lit_llama_tpu/ops/flash_attention.py _flash_kernel (K4, entry
 // _flash_forward) and _flash_dq_kernel / _flash_dkv_kernel (K10, entry

@@ -1,7 +1,8 @@
 // K4 and K10 at head size 256 in bf16 on Hopper: wgmma, TMA and mbarrier
 // rings, on the design of flash_sm90.cuh (which stays at head size 128).
 // Included by flash_attention.cu, whose entries send bf16 at head size 256
-// here; flash_sm90_wide.cuh (K4 past 256) builds on this file's helpers.
+// here; flash_sm90_wide.cuh (K4 and K10 past 256) builds on this file's
+// helpers.
 //
 // Replaces lit_llama_tpu/ops/flash_attention.py _flash_kernel (K4, entry
 // _flash_forward) and _flash_dq_kernel / _flash_dkv_kernel (K10, entry

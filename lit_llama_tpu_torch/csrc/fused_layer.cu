@@ -169,7 +169,7 @@ int launch_lora(const void* x_in, int in_bf16, const void* rms1, int norm_bf16, 
 // bf16 (else f32): the matvecs' inputs are rounded to it, the caches (H, S,
 // 128) and x_out (D) hold it. rms1/rms2 (D) bf16 (norm_bf16 = 1) or f32.
 // Weights in the decode layout (qw_t, qscale_t, qzero_t per linear).
-// Scratch: qkv (3D), part (H * dsm90::n_splits(S) * 130 floats), y (D), gg
+// Scratch: qkv (3D), part (H * dsm90::n_splits(S, 128) * 130 floats), y (D), gg
 // (I) f32; counter (H) int32, zeros, left zeros; xs (D) f32 holds the
 // residual on return. x_out is written when not null. With la
 // not null, the LoRA operand la (D, R8) and lb (R8, 3D), bf16 (lora_bf16 = 1)

@@ -14,11 +14,14 @@ over. It takes head sizes that are multiples of 128 (``decode_route``, the
 shape condition of JAX's ``use_decode_attention``); the model sends other
 head sizes to the plain version, as JAX runs ``attention_xla`` there. The
 kernel takes bf16 or f32 compute and every head size that is a multiple of
-128 (``check_decode``); at head size 128 or 256, in bf16 and in f32, it runs
-the split body of csrc/decode_sm90.cuh, whose splits ``decode_plan`` gives
-from S and hs alone (a row's bits do not depend on the batch), with a scratch
-and arrival counters the wrapper owns (``k5_scratch``, ``arrival_counters``);
-past 256 the first port's wide kernels. The plain version takes any float
+128 (``check_decode``); up to ``SPLIT_MAX_HEAD_SIZE`` (1024), in bf16 and in
+f32, it runs the split body of csrc/decode_sm90.cuh, whose splits
+``decode_plan`` gives from S and hs alone (a row's bits do not depend on the
+batch), with a scratch and arrival counters the wrapper owns
+(``k5_scratch``, ``arrival_counters``); past 1024, a static route by head
+size (``uses_split_body``) that no model the repo supports takes, the first
+port's wide kernels, not rebuilt for Hopper. The plain version takes any
+float
 dtype and head size. Products are rounded to the cache's compute dtype
 (``q.dtype``: in f32 not at all) and summed in f32, as in the Pallas kernel.
 
@@ -50,12 +53,14 @@ from lit_llama_tpu_torch.ops import _build
 NEG_INF = -1e30
 CHUNK = 64  # cache rows per attention block of K8 and of K5's wide kernels (csrc/attention_chunk.cuh)
 # the split body (csrc/decode_sm90.cuh): a split is a multiple of SPLIT_QUANTUM
-# rows, at most MAX_SPLITS a (batch row, head); a block of SPLIT_WARPS warps,
-# each streaming tiles of SPLIT_LOADS 16-byte pieces a lane through a ring of
-# SPLIT_STAGES tiles
+# rows, at most MAX_SPLITS a (batch row, head) at head size 128 and 256 and
+# MAX_SPLITS * hs / 128 past it; a block of SPLIT_WARPS warps, each streaming
+# tiles of at most SPLIT_LOADS 16-byte pieces a lane through a ring of
+# SPLIT_STAGES tiles; built for every multiple of 128 up to SPLIT_MAX_HEAD_SIZE
 SPLIT_QUANTUM, MAX_SPLITS = 64, 8
 SPLIT_WARPS, SPLIT_LOADS, SPLIT_STAGES = 4, 8, 2
-SPLIT_HEAD_SIZES = (128, 256)
+SPLIT_MAX_HEAD_SIZE = 1024
+SPLIT_HEAD_SIZES = tuple(range(128, SPLIT_MAX_HEAD_SIZE + 1, 128))
 
 _P, _I = _build.PTR, _build.INT
 _SIGS = {  # both entries of csrc/decode_attention.cu
@@ -64,6 +69,11 @@ _SIGS = {  # both entries of csrc/decode_attention.cu
 }
 HEAD_SIZE_STEP = 128  # K5 takes every head size that is a multiple; K8 takes 128
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+def max_splits(hs: int) -> int:
+    """Splits of one (batch row, head)'s cache at most (``max_splits``)."""
+    return MAX_SPLITS if hs <= 256 else MAX_SPLITS * hs // 128
 
 
 class DecodePlan(NamedTuple):
@@ -78,18 +88,24 @@ def decode_plan(S: int, hs: int) -> DecodePlan:
     """The splits of the single-query attention of K5 and K1 on the card
     (``split_rows`` / ``n_splits`` in csrc/decode_sm90.cuh): a pure function
     of the cache length and the head size, never of the batch or the limit,
-    so a row's output has the same bits at any B. At most ``MAX_SPLITS``
-    splits, each a multiple of ``SPLIT_QUANTUM`` rows."""
+    so a row's output has the same bits at any B. At most ``max_splits(hs)``
+    splits (past head size 256 the rows shrink as the row's bytes grow, so a
+    split holds about the bytes it holds at 128), each the fewest multiple of
+    ``SPLIT_QUANTUM`` rows that fits the cache in that many."""
     if S < 1 or hs not in SPLIT_HEAD_SIZES:
-        raise ValueError(f"the split body takes S >= 1 and a head size in {SPLIT_HEAD_SIZES}, got S={S} hs={hs}")
-    rows = -(-(-(-S // MAX_SPLITS)) // SPLIT_QUANTUM) * SPLIT_QUANTUM
+        raise ValueError(f"the split body takes S >= 1 and a head size that is a multiple of 128 up to "
+                         f"{SPLIT_MAX_HEAD_SIZE}, got S={S} hs={hs}")
+    rows = -(-(-(-S // max_splits(hs))) // SPLIT_QUANTUM) * SPLIT_QUANTUM
     return DecodePlan(rows, -(-S // rows))
 
 
 def uses_split_body(hs: int, dtype: torch.dtype) -> bool:
-    """Whether K5 (and K1's attention) run the split body: bf16 or f32
-    compute at head size 128 or 256; wider heads keep the first port's wide
-    kernels."""
+    """Whether K5 (and K1's attention) run the split body (``k5_kernel`` of
+    csrc/decode_sm90.cuh, one launch): bf16 or f32 compute at every head
+    size that is a multiple of 128 up to ``SPLIT_MAX_HEAD_SIZE``. Wider heads
+    take the first port's wide kernels (``decode_attn_wide_partial_kernel``
+    and ``decode_attn_wide_combine_kernel`` of csrc/decode_attention.cu), a
+    static route by head size."""
     return dtype in DTYPES and hs in SPLIT_HEAD_SIZES
 
 
@@ -132,7 +148,8 @@ def arrival_counters(n: int, device) -> torch.Tensor:
 
 def decode_route(hs: int) -> bool:
     """Whether a cached single-token step attends through K5 on the card: a
-    static predicate on the head size, decided before any launch."""
+    static predicate on the head size, decided before any launch (which of
+    K5's bodies runs is ``uses_split_body``, by head size too)."""
     return hs % 128 == 0
 
 

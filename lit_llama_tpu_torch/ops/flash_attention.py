@@ -23,9 +23,12 @@ grid in chunks of 128 and recompute the scores once a chunk.
 behind its own launch counter (``flash_backward_dq``, ``flash_backward_dkv``),
 tiled as ``k10_plan`` says: bf16 at head size 128 on ``csrc/flash_sm90.cuh``,
 bf16 at 256 on ``csrc/flash_sm90_hs256.cuh`` (the same Hopper design at four
-64-column panels; dK and dV on two warpgroups that split the work), f32 at
-128 and 256 on ``csrc/flash_tf32.cuh`` (mma.sync in 3xTF32 on the tensor
-cores), past 256 on the chunked kernels. ``FlashAttention`` is the autograd
+64-column panels; dK and dV on two warpgroups that split the work), bf16 past
+256 on ``csrc/flash_sm90_wide.cuh`` (the hs-256 designs with the outputs'
+columns in chunks of 256 over the grid and the scores' operands streamed as
+64-column panels, as K4 past 256), f32 at 128 and 256 on
+``csrc/flash_tf32.cuh`` (mma.sync in 3xTF32 on the tensor cores), f32 past
+256 on the chunked FFMA kernels. ``FlashAttention`` is the autograd
 Function around the pair, the counterpart of the ``jax.custom_vjp`` of
 ``flash_attention``: its forward runs K4 and saves (q, k, v, o, lse), its
 backward runs K10. A CPU tensor, or ``plain=True``, takes the plain versions
@@ -219,6 +222,15 @@ def k4_warpgroups(plan: FlashPlan, T: int) -> List[Tuple[range, range]]:
 # other
 HS256_DQ_Q_ROWS, HS256_DQ_KV_ROWS, HS256_DQ_K_STAGES, HS256_DQ_V_STAGES = 128, 64, 2, 1
 HS256_DKV_KV_ROWS, HS256_DKV_Q_ROWS, HS256_DKV_STAGES, HS256_DKV_PBUFS = 64, 64, 2, 2
+# K10 past head size 256 in bf16 (csrc/flash_sm90_wide.cuh): the output's
+# columns in chunks of WIDE_CHUNK over the grid; dq takes 128 query rows a
+# block against KV tiles of 64 keys, a stage of its panel ring a 64-column
+# panel of Q and dO (128 rows) and of K and V (64 keys), a ring of its own for
+# a KV tile's chunk of K; dK/dV takes 64 keys a block against Q tiles of 64
+# rows, a stage a panel of K, Q, V and dO, one chunk stage (Q's and dO's
+# chunk of columns, the tile's lse and D rows) and two P^T buffers
+WIDE_DQ_Q_ROWS, WIDE_DQ_KV_ROWS, WIDE_DQ_STAGES, WIDE_DQ_KC_STAGES = 128, 64, 4, 1
+WIDE_DKV_KV_ROWS, WIDE_DKV_Q_ROWS, WIDE_DKV_STAGES, WIDE_DKV_PBUFS = 64, 64, 4, 2
 # the Hopper K10 kernels' blocks: a producer and two consumer warpgroups, the
 # consumers raised to 240 registers a thread by setmaxnreg
 SM90_THREADS, SM90_CONSUMER_REGS = 384, 240
@@ -249,8 +261,10 @@ class K10Kernel(NamedTuple):
 class K10Plan(NamedTuple):
     """Which body K10 runs for a shape and each kernel's tiling: ``body`` is
     "sm90" (bf16 at head size 128: csrc/flash_sm90.cuh), "sm90_hs256" (bf16
-    at 256: csrc/flash_sm90_hs256.cuh), "tf32" (f32 at 128 or 256:
-    csrc/flash_tf32.cuh) or "chunked" (past 256: no tiling here)."""
+    at 256: csrc/flash_sm90_hs256.cuh), "sm90_wide" (bf16 past 256:
+    csrc/flash_sm90_wide.cuh, the tiling of one chunk of 256 output
+    columns), "tf32" (f32 at 128 or 256: csrc/flash_tf32.cuh) or "chunked"
+    (f32 past 256: no tiling here)."""
     body: str
     dq: Optional[K10Kernel] = None
     dkv: Optional[K10Kernel] = None
@@ -267,6 +281,23 @@ def _hs256_smem(kernel: str) -> int:
     return (1024 + 2 * tile(HS256_DKV_KV_ROWS) + HS256_DKV_STAGES * 2 * tile(HS256_DKV_Q_ROWS)
             + HS256_DKV_PBUFS * HS256_DKV_KV_ROWS * HS256_DKV_Q_ROWS * 4 + HS256_DKV_STAGES * 2 * HS256_DKV_Q_ROWS * 4
             + (2 * HS256_DKV_STAGES + 2 * HS256_DKV_PBUFS + 1) * 8)
+
+
+def _wide_k10_smem(kernel: str) -> int:
+    """``dq_smem`` / ``dkv_smem`` of csrc/flash_sm90_wide.cuh: alignment
+    slack, the panel ring (stages of 64-column panels, 128 bytes a row),
+    dq's K chunk ring or dK/dV's chunk stage (chunks of 256 bf16 columns,
+    the lse and D rows) and P^T buffers, mbarriers. The same at every head
+    size."""
+    row = PANEL * 2
+    if kernel == "dq":
+        stage = (2 * WIDE_DQ_Q_ROWS + 2 * WIDE_DQ_KV_ROWS) * row
+        return (1024 + WIDE_DQ_STAGES * stage + WIDE_DQ_KC_STAGES * WIDE_DQ_KV_ROWS * WIDE_CHUNK * 2
+                + 2 * (WIDE_DQ_STAGES + WIDE_DQ_KC_STAGES) * 8)
+    stage = (2 * WIDE_DKV_KV_ROWS + 2 * WIDE_DKV_Q_ROWS) * row
+    chunk = 2 * WIDE_DKV_Q_ROWS * WIDE_CHUNK * 2 + 2 * WIDE_DKV_Q_ROWS * 4
+    return (1024 + WIDE_DKV_STAGES * stage + chunk + WIDE_DKV_PBUFS * WIDE_DKV_KV_ROWS * WIDE_DKV_Q_ROWS * 4
+            + 2 * (WIDE_DKV_STAGES + 1 + WIDE_DKV_PBUFS) * 8)
 
 
 def _tf32_kernels(hs: int) -> Tuple[K10Kernel, K10Kernel]:
@@ -294,11 +325,16 @@ def k10_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = tor
     if B < 1 or H < 1 or T < 1 or hs < 1 or hs % HEAD_SIZE_STEP:
         raise ValueError(f"k10_plan takes positive shapes and a head size that is a multiple of "
                          f"{HEAD_SIZE_STEP}, got B={B} H={H} T={T} hs={hs}")
-    if hs > 256:
-        return K10Plan("chunked")
     if dtype != torch.bfloat16:
-        return K10Plan("tf32", *_tf32_kernels(hs))
+        return K10Plan("chunked") if hs > 256 else K10Plan("tf32", *_tf32_kernels(hs))
     wg_acc = lambda cols: 64 * cols // 128  # noqa: E731  (a warpgroup's 64-row f32 accumulator a thread)
+    if hs > 256:  # as at 256, over a chunk of 256 columns: the chunk beside S and dP, or beside one score tile
+        return K10Plan("sm90_wide",
+                       K10Kernel(WIDE_DQ_Q_ROWS, WIDE_DQ_KV_ROWS, WIDE_DQ_STAGES, SM90_THREADS, _wide_k10_smem("dq"),
+                                 wg_acc(WIDE_CHUNK) + 2 * wg_acc(WIDE_DQ_KV_ROWS), SM90_CONSUMER_REGS),
+                       K10Kernel(WIDE_DKV_KV_ROWS, WIDE_DKV_Q_ROWS, WIDE_DKV_STAGES, SM90_THREADS,
+                                 _wide_k10_smem("dkv"), wg_acc(WIDE_CHUNK) + wg_acc(WIDE_DKV_Q_ROWS),
+                                 SM90_CONSUMER_REGS))
     if hs == SM90_HS:
         return K10Plan("sm90",
                        K10Kernel(DQ_Q_ROWS, DQ_KV_ROWS, DQ_STAGES, SM90_THREADS, sm90_smem("dq"),
@@ -316,7 +352,9 @@ def k10_plan(B: int, H: int, T: int, hs: int = SM90_HS, dtype: torch.dtype = tor
 
 def k10_blocks(plan: K10Plan, kernel: str, T: int) -> List[Tuple[int, range]]:
     """The grid rows of one of the plan's K10 kernels ("dq" or "dkv") over
-    one head, in launch order (``blockIdx.y``): each block's own tile and the
+    one head (on "sm90_wide", one head and chunk of output columns: every
+    chunk's blocks visit the same tiles), in launch order (``blockIdx.y``):
+    each block's own tile and the
     tiles its loop visits. dq owns a Q tile and visits the KV tiles up to
     its diagonal, the last Q tile first; dK/dV owns a KV tile and visits the
     Q tiles at or below it, the first KV tile first (heaviest first)."""

@@ -23,7 +23,9 @@ Shapes: K5 at (B, H, S) = (1, 32, 72), (1, 32, 256), (1, 32, 2048) and
 (8, 32, 2048), hs 128, bf16 and int8 cache, every row visible, with SDPA on
 the masked cache (the int8 one dequantized to bf16 first) beside it, and in
 f32 compute (f32 q, an f32 cache or the int8 one, SDPA in f32) at
-(1, 32, 2048) and (8, 32, 2048), hs 128, and (1, 16, 2048), hs 256; K1 at
+(1, 32, 2048) and (8, 32, 2048), hs 128, and (1, 16, 2048), hs 256, and past
+head size 256 at (1, 8, 1024), hs 384 and 512, in bf16 compute (bf16 and
+int8 cache) and f32 compute (f32 and int8 cache); K1 at
 S = 256 (pos 255) and S = 2048 (pos 2047), without and with a LoRA operand
 (r = 8 on q and v, R8 = 16), and in f32 compute (f32 row and cache) at
 S = 2048; K2 at V = 32 000 in bf16 and in f32; K6 at M = 1 on the five 7B
@@ -82,6 +84,7 @@ from pathlib import Path
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 H, HS = 32, 128  # the 7B preset's heads and head size
 K5_SHAPES = ((1, 72), (1, 256), (1, 2048), (8, 2048))
+K5_PAST_256 = ((1, 8, 1024, 384), (1, 8, 1024, 512))  # (B, H, S, hs) in both compute dtypes
 K6_SHAPES = (("c_attn", 4096, 12288), ("attn.c_proj", 4096, 4096), ("c_fc12", 4096, 22016),
              ("mlp.c_proj", 11008, 4096), ("lm_head", 4096, 32000), ("odd", 1000, 1040))
 K3_SHAPES = K6_SHAPES[:5] + (("odd", 1024, 1040),)
@@ -257,6 +260,23 @@ def k5_times(torch, F, time_us, randn, bound_us, dev, llama, da) -> dict:
                 bound_us=bound_us(k5_bytes(B, S, ks is not None, 4, heads, hs)))
             del kd, vd
         del kf, vf, kq, vq, ksc, vsc
+    for B, heads, S, hs in K5_PAST_256:
+        for cd, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q = randn(B, 1, heads, hs).transpose(1, 2).to(cd)
+            kf, vf = randn(B, heads, S, hs, scale=0.5).to(cd), randn(B, heads, S, hs, scale=0.5).to(cd)
+            (kq, ksc), (vq, vsc) = llama._quantize_kv(kf), llama._quantize_kv(vf)
+            every = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+            vis = (torch.arange(S, device=dev)[None, :] <= every[:, None])[:, None, None, :]
+            for cache, (k, v, ks, vs) in ((name, (kf, vf, None, None)), (f"{name} int8", (kq, vq, ksc, vsc))):
+                kd, vd = ((kq.float() * ksc).to(cd), (vq.float() * vsc).to(cd)) if ks is not None else (kf, vf)
+                k5_call = lambda: da.decode_attention(q, k, v, ks, vs, every)
+                sdpa_call = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=vis)
+                k5[f"{cache} B={B} H={heads} S={S} hs={hs}"] = dict(
+                    us=time_us(k5_call), sdpa_us=time_us(sdpa_call), us_clean_l2=time_us(k5_call, clean=True),
+                    sdpa_us_clean_l2=time_us(sdpa_call, clean=True),
+                    bound_us=bound_us(k5_bytes(B, S, ks is not None, cd.itemsize, heads, hs)))
+                del kd, vd
+            del kf, vf, kq, vq, ksc, vsc
     return k5
 
 

@@ -12,10 +12,13 @@ size 128: K4 at (1, 32, T) for T = 128, 200 (prefills of the 7B model) and
 2048, and at (2, 32, 2048) (the training micro-batch); K10 at (1, 32, 2048)
 and (2, 32, 2048). K4 beyond it (``k4_other``): bf16 at (1, 16, 2048, 256)
 (csrc/flash_sm90_hs256.cuh), (1, 8, 1024, 384) and (1, 8, 1024, 512)
-(csrc/flash_sm90_wide.cuh), f32 at (1, 32, 2048, 128), (1, 16, 2048, 256)
-and (1, 8, 1024, 384) (the FFMA bodies, bound at the CUDA cores' FFMA
-rate). K10 beyond it (``k10_other``): bf16 at (1, 16, 2048, 256),
-f32 at (1, 32, 2048, 128) and (1, 16, 2048, 256); in f32 two bounds, the
+(csrc/flash_sm90_wide.cuh), f32 at (1, 32, 2048, 128), (1, 16, 2048, 256),
+(1, 8, 1024, 384) and (1, 8, 1024, 512) (the FFMA bodies, bound at the CUDA
+cores' FFMA rate). K10 beyond it (``k10_other``): bf16 at (1, 16, 2048,
+256), (1, 8, 1024, 384) and (1, 8, 1024, 512) (csrc/flash_sm90_wide.cuh),
+f32 at (1, 32, 2048, 128), (1, 16, 2048, 256) (csrc/flash_tf32.cuh),
+(1, 8, 1024, 384) and (1, 8, 1024, 512) (the chunked FFMA kernels); in f32
+two bounds, the
 FFMA rate of the CUDA cores (67 TF/s) and 3xTF32 on the tensor cores (a
 third of TF32's 494.5 TF/s, half the bf16 rate). Each time is the median
 device time of 20 launches (CUDA events, the L2 flushed before each, a spin
@@ -47,8 +50,11 @@ K4_SHAPES = ((1, 128), (1, 200), (1, 2048), (2, 2048))
 K10_SHAPES = ((1, 2048), (2, 2048))
 # (B, H, T, hs, dtype) of K4 and K10 past bf16 at head size 128
 K4_OTHER = ((1, 16, 2048, 256, "bfloat16"), (1, 8, 1024, 384, "bfloat16"), (1, 8, 1024, 512, "bfloat16"),
-            (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"), (1, 8, 1024, 384, "float32"))
-K10_OTHER = ((1, 16, 2048, 256, "bfloat16"), (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"))
+            (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"), (1, 8, 1024, 384, "float32"),
+            (1, 8, 1024, 512, "float32"))
+K10_OTHER = ((1, 16, 2048, 256, "bfloat16"), (1, 8, 1024, 384, "bfloat16"), (1, 8, 1024, 512, "bfloat16"),
+             (1, 32, 2048, 128, "float32"), (1, 16, 2048, 256, "float32"), (1, 8, 1024, 384, "float32"),
+             (1, 8, 1024, 512, "float32"))
 
 
 def bound_us(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S) -> float:

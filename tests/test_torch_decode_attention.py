@@ -101,7 +101,7 @@ def test_decode_attention_ref_int8_matches_pallas(rng, B, S, limits, dtype):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_attention_ref_matches_pallas_head_size_384(rng, dtype, quantized):
     """Head size 384, which the JAX gate sends to the Pallas kernel (the
-    card's kernel takes it with a fixed block walking the head): the plain
+    card's split body takes it at three pieces of a row a lane): the plain
     version holds, bf16 or int8 cache."""
     B, H, S, hs, limits = 2, 2, 256, 384, [100, 300]
     q, kf, vf = _inputs(rng, B, H, S, hs)
@@ -145,6 +145,29 @@ def test_decode_attention_ref_matches_masked_attention(rng, quantized):
 
 def test_decode_attention_keeps_the_jax_entry_name():
     assert tda.decode_attention_pallas is tda.decode_attention
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_ref_matches_pallas_head_size_512(rng, dtype, quantized):
+    """Head size 512 (the card's split body at four pieces of an f32 row a
+    lane): the plain version holds against the Pallas kernel, bf16 or int8
+    cache."""
+    B, H, S, hs, limits = 2, 1, 256, 512, [70, 300]
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    limit = np.asarray(limits, np.int32)
+    if quantized:
+        (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+        jk, jv, jks, jvs = jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks), jnp.asarray(vs)
+        tk, tv, tks, tvs = _t(k), _t(v), _t(ks), _t(vs)
+    else:
+        jk, jv, jks, jvs = jnp.asarray(kf).astype(jdt), jnp.asarray(vf).astype(jdt), None, None
+        tk, tv, tks, tvs = _t(kf, tdt), _t(vf, tdt), None, None
+    want = decode_attention_pallas(jnp.asarray(q).astype(jdt), jk, jv, jks, jvs, jnp.asarray(limit), interpret=True)
+    got = tda.decode_attention_ref(_t(q, tdt), tk, tv, tks, tvs, _t(limit))
+    assert got.shape == (B, H, 1, hs) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **TOL[dtype])
 
 
 def _card_case(rng, cuda, B, S, limits, quantized):
@@ -212,7 +235,7 @@ def test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, qua
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-# past head size 256: a fixed block of 128 threads walking the head
+# past head size 256: the split body, a row laid on its lanes as Geo (decode_sm90.cuh) lays it
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hs", [384, 512])
 @pytest.mark.parametrize("quantized", [False, True])
@@ -220,15 +243,16 @@ def test_decode_attention_kernel_head_sizes_past_256(rng, cuda, dtype, hs, quant
     test_decode_attention_kernel_f32_and_head_size_256(rng, cuda, dtype, hs, quantized)
 
 
-# the split body (csrc/decode_sm90.cuh, bf16 at head size 128 and 256): limits
-# on both sides of a split boundary (256 rows a split at S = 2048), inside the
+# the split body (csrc/decode_sm90.cuh, bf16 at every head size up to 1024):
+# limits on both sides of a split boundary (at S = 2048: 256 rows a split at
+# head size 128 and 256, 128 at 384, 64 at 512), inside the
 # first split, past S and below 0. Caches: bf16; int8 rows quantized as the
 # int8 cache holds them; uniform random int8 with row scales 0.01 * U(0, 1).
 # On uniform int8 with larger scales (0.03, 0.1) the products reach |v| ~ 4-13
 # and no body holds TOL_CARD's absolute part: the first port's chunk body and
 # the plain version stand 4.5 to 60 times that tolerance from the exact
 # attention there (tools/profile_decode_kernels.py --accuracy, PERF.md)
-@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("hs", [128, 256, 384, 512])
 @pytest.mark.parametrize("cache", ["bf16", "int8 rows", "int8 uniform"])
 def test_decode_attention_kernel_rows_equal_alone_and_in_a_batch(rng, cuda, hs, cache):
     """A row's output is the same bits alone (B = 1) as among 8 rows, and on
@@ -260,7 +284,7 @@ def test_decode_attention_kernel_rows_equal_alone_and_in_a_batch(rng, cuda, hs, 
 # f32 compute on the split body: an f32 cache and uniform random int8 with
 # row scales; limits 0, the middle of a split, on both sides of a split
 # boundary and past S
-@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("hs", [128, 256, 384, 512])
 @pytest.mark.parametrize("cache", ["f32", "int8"])
 def test_decode_attention_kernel_f32_rows_equal_alone_and_in_a_batch(rng, cuda, hs, cache):
     """In f32 a row's output is the same bits alone (B = 1) as among the
@@ -285,6 +309,28 @@ def test_decode_attention_kernel_f32_rows_equal_alone_and_in_a_batch(rng, cuda, 
     for b in range(B):
         one = [t if t is None else t[b : b + 1].contiguous() for t in (q, k, v, ks, vs)]
         assert torch.equal(tda.decode_attention(*one, limit[b : b + 1]), got[b : b + 1]), (b, limits[b])
+
+
+@pytest.mark.parametrize("hs,body", [(1024, "split"), (1152, "wide")])
+def test_decode_attention_kernel_body_by_head_size(rng, cuda, hs, body):
+    """Up to head size 1024 K5 is the split body's one kernel; past it, a
+    static route by head size, the first port's two wide kernels: the
+    profiler names which ran, and either holds against the plain version."""
+    assert tda.uses_split_body(hs, torch.bfloat16) is tda.uses_split_body(hs, torch.float32) is (body == "split")
+    B, H, S = 2, 2, 300
+    q, kf, vf = _inputs(rng, B, H, S, hs)
+    q, k, v = _t(q, torch.bfloat16).to(cuda), _t(kf * 0.5, torch.bfloat16).to(cuda), _t(vf * 0.5, torch.bfloat16).to(cuda)
+    limit = torch.tensor([150, 400], dtype=torch.int32, device=cuda)
+    tda.decode_attention(q, k, v, None, None, limit)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = tda.decode_attention(q, k, v, None, None, limit)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    split = any("k5_kernel" in n for n in names)
+    wide = any("decode_attn_wide_partial_kernel" in n for n in names)
+    assert (split, wide) == (body == "split", body == "wide"), names
+    torch.testing.assert_close(got.float(), tda.decode_attention_ref(q, k, v, None, None, limit).float(), **TOL_CARD)
 
 
 def test_decode_attention_kernel_leaves_the_counters_at_zero(rng, cuda):

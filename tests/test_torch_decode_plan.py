@@ -26,15 +26,25 @@ def _const(text: str, name: str) -> int:
     return int(re.search(rf"\b{name} = (\d+)", text).group(1))
 
 
-def _tile_rows(hs: int, elem_bytes: int) -> int:
-    """Cache rows of one warp's tile in the split body (int8, bf16 or f32
-    elements): SPLIT_LOADS 16-byte pieces a lane, a row taking hs *
-    elem_bytes / 16 pieces on at most 32 lanes (an f32 row at hs 256: two
-    pieces a lane), so 32 rows (int8), 16 (bf16), 8 (f32) at hs 128 and half
-    as many at hs 256."""
+def _geometry(hs: int, elem_bytes: int):
+    """How a warp of the split body lays a cache row on its lanes (``Geo`` in
+    csrc/decode_sm90.cuh), for int8, bf16 or f32 elements: a row of hs *
+    elem_bytes / 16 pieces lies on the largest power of two of lanes, at most
+    32, that divides it, each lane taking the same number of its pieces; a
+    lane copies as many rows' pieces as fit SPLIT_LOADS, a power of two of
+    rows, one at least. Returns (lanes a row, pieces a lane, rows a lane,
+    pieces a lane copies of k, the tile's rows): tiles of 32 rows (int8), 16
+    (bf16), 8 (f32) at hs 128, half as many at hs 256, and 8 / 4 / 2 at hs
+    384 (three pieces of a row a lane, two rows)."""
     pieces = hs * elem_bytes // 16
-    lanes = min(pieces, 32)
-    return tda.SPLIT_LOADS // (pieces // lanes) * (32 // lanes)
+    lanes = max(n for n in (8, 16, 32) if pieces % n == 0)
+    per_lane = pieces // lanes
+    rows_a_lane = max([1] + [r for r in (2, 4, 8) if r * per_lane <= tda.SPLIT_LOADS])
+    return lanes, per_lane, rows_a_lane, rows_a_lane * per_lane, rows_a_lane * (32 // lanes)
+
+
+def _tile_rows(hs: int, elem_bytes: int) -> int:
+    return _geometry(hs, elem_bytes)[-1]
 
 
 def _gemv_blocks(N: int, swiglu: bool) -> int:
@@ -65,6 +75,13 @@ def test_constants_mirror_the_sources():
     assert (_const(dec, "SPLIT_QUANTUM"), _const(dec, "MAX_SPLITS")) == (tda.SPLIT_QUANTUM, tda.MAX_SPLITS)
     assert (_const(dec, "WARPS"), _const(dec, "LOADS"), _const(dec, "STAGES")) == (
         tda.SPLIT_WARPS, tda.SPLIT_LOADS, tda.SPLIT_STAGES)
+    assert _const(dec, "MAX_HS") == tda.SPLIT_MAX_HEAD_SIZE == max(tda.SPLIT_HEAD_SIZES)
+    # the lanes of a row, the passes of a tile and the splits past 256, as _geometry and tda.max_splits take them
+    assert "LPR = CPR % 32 == 0 ? 32 : CPR % 16 == 0 ? 16 : 8;" in dec
+    assert "PASSES = PPL == 1 ? 8 : PPL == 2 ? 4 : PPL <= 4 ? 2 : 1;" in dec
+    assert "return hs <= 256 ? MAX_SPLITS : MAX_SPLITS * hs / 128;" in dec
+    att = (CSRC / "decode_attention.cu").read_text()  # a split body for every head size up to MAX_HS
+    assert [int(h) for h in re.findall(r"LLT_K5_HS\((\d+)\)", att)] == list(tda.SPLIT_HEAD_SIZES)
     gemv = (CSRC / "gemv_sm90.cuh").read_text()
     assert (_const(gemv, "WARPS"), _const(gemv, "COLS"), _const(gemv, "STEP"), _const(gemv, "STAGES")) == (
         tfl.GEMV_WARPS, tfl.GEMV_COLS, tfl.GEMV_STEP, tfl.GEMV_STAGES)
@@ -73,12 +90,16 @@ def test_constants_mirror_the_sources():
 
 
 @pytest.mark.parametrize("S", SEQS)
-@pytest.mark.parametrize("hs", [128, 256])
+@pytest.mark.parametrize("hs", [128, 256, 384, 512, 640])
 def test_splits_cover_the_cache_once(S, hs):
-    """At most MAX_SPLITS splits, each a multiple of SPLIT_QUANTUM rows; they
-    cover rows [0, S) once, and a warp's tile never crosses a split."""
+    """At most MAX_SPLITS splits at head size 128 and 256 (MAX_SPLITS * hs /
+    128 past it, so a split holds about the bytes it holds at 128), each the
+    fewest multiple of SPLIT_QUANTUM rows that fits the cache in that many;
+    they cover rows [0, S) once, and a warp's tile never crosses a split."""
     plan = tda.decode_plan(S, hs)
-    assert plan.split_rows % tda.SPLIT_QUANTUM == 0 and 1 <= plan.n_splits <= tda.MAX_SPLITS
+    most = tda.MAX_SPLITS * (hs // 128 if hs > 256 else 1)
+    assert plan.split_rows % tda.SPLIT_QUANTUM == 0 and 1 <= plan.n_splits <= most
+    assert plan.split_rows < -(-S // most) + tda.SPLIT_QUANTUM
     assert (plan.n_splits - 1) * plan.split_rows < S <= plan.n_splits * plan.split_rows
     for elem_bytes in (1, 2, 4):
         assert plan.split_rows % _tile_rows(hs, elem_bytes) == 0
@@ -89,7 +110,7 @@ def test_plan_depends_on_the_cache_length_and_head_size_alone(S):
     """The plan of a row is the same at every batch size and limit: the
     wrappers' scratch grows with B by whole rows' plans, so a K5 row takes the
     same splits at B = 1 and B = 8."""
-    for hs in (128, 256):
+    for hs in (128, 256, 384, 512, 640):
         plan = tda.decode_plan(S, hs)
         for dtype in (torch.bfloat16, torch.float32):
             one = tda.k5_scratch(1, 32, S, hs, dtype)
@@ -98,14 +119,17 @@ def test_plan_depends_on_the_cache_length_and_head_size_alone(S):
                 assert tda.k5_scratch(B, 32, S, hs, dtype) == (B * one[0], B * one[1])
     assert tda.decode_plan(2048, 128) == (256, 8)
     assert tda.decode_plan(72, 128) == (64, 2)
+    assert tda.decode_plan(1024, 384) == tda.decode_plan(1024, 512) == (64, 16)
+    assert tda.decode_plan(2048, 384) == (128, 16)
 
 
 @pytest.mark.parametrize("hs,dtype,split", [(128, torch.bfloat16, True), (256, torch.bfloat16, True),
                                             (128, torch.float32, True), (256, torch.float32, True),
-                                            (384, torch.bfloat16, False), (384, torch.float32, False)])
+                                            (384, torch.bfloat16, True), (384, torch.float32, True),
+                                            (1152, torch.bfloat16, False), (1152, torch.float32, False)])
 def test_scratch_the_wrappers_allocate_follows_the_body(hs, dtype, split):
     """K5 and K1 allocate the split body's partials and counters in bf16 and
-    in f32 at head size 128 and 256; past 256 K5's wide kernels take the
+    in f32 at every head size up to 1024; past it K5's wide kernels take the
     chunk partials and no counter. K1 (head size 128) takes the split body's
     in either compute dtype."""
     B, H, S = 3, 4, 300
@@ -128,10 +152,34 @@ def test_arrival_counters_are_zeros_that_persist():
 
 
 def test_plan_refuses_what_the_split_body_does_not_take():
+    """The split body takes every multiple of 128 up to 1024: past it (and off
+    the multiples) the plan refuses, and K5 takes its wide kernels."""
     with pytest.raises(ValueError):
         tda.decode_plan(0, 128)
     with pytest.raises(ValueError):
-        tda.decode_plan(2048, 384)
+        tda.decode_plan(2048, 1152)
+    with pytest.raises(ValueError):
+        tda.decode_plan(2048, 320)
+    assert tda.decode_plan(2048, 1024).n_splits == 32
+
+
+@pytest.mark.parametrize("hs", [128, 256, 384, 512, 640])
+@pytest.mark.parametrize("elem_bytes", [1, 2, 4])
+def test_split_geometry_lays_each_row_on_its_lanes(hs, elem_bytes):
+    """A warp's tile: each of its rows lies on `lanes` lanes, which together
+    copy each of the row's 16-byte pieces once (lane c takes pieces c, c +
+    lanes, ...); the warp's 32 lanes take 32 / lanes rows a pass; a lane
+    copies at most SPLIT_LOADS pieces of k (of v); a lane's row count is a
+    power of two, so the tile's rows divide SPLIT_QUANTUM; and at head size
+    128 and 256 the layout is the one those sizes had before wider heads."""
+    lanes, pieces, passes, loads, rows = _geometry(hs, elem_bytes)
+    cpr = hs * elem_bytes // 16
+    assert lanes in (8, 16, 32) and loads <= tda.SPLIT_LOADS and rows <= 32
+    assert tda.SPLIT_QUANTUM % rows == 0 and passes & (passes - 1) == 0
+    covered = sorted(c + p * lanes for c in range(lanes) for p in range(pieces))
+    assert covered == list(range(cpr))
+    if hs <= 256:  # LPR = min(CPR, 32) and LOADS / PPL passes, as before
+        assert (lanes, loads) == (min(cpr, 32), tda.SPLIT_LOADS)
 
 
 @pytest.mark.parametrize("N,swiglu", [(12288, False), (4096, False), (22016, True), (32000, False), (256, False),
@@ -208,6 +256,40 @@ def test_k5_merged_over_splits_equals_one_pass(S, quantized):
     H, hs = 4, 128
     plan = tda.decode_plan(S, hs)
     limits = [0, plan.split_rows // 2 + 3, S + 7]
+    B = len(limits)
+    q = torch.from_numpy(rng.normal(size=(B, H, 1, hs)).astype(np.float32))
+    if quantized:
+        k = torch.from_numpy(rng.integers(-127, 128, size=(B, H, S, hs)).astype(np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, size=(B, H, S, hs)).astype(np.int8))
+        ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.01, size=(B, H, S, 1)).astype(np.float32)) for _ in "kv")
+    else:
+        k, v = (torch.from_numpy(rng.normal(size=(B, H, S, hs)).astype(np.float32)) for _ in "kv")
+        ks = vs = None
+    limit = torch.tensor(limits, dtype=torch.int32)
+    want = tda.decode_attention_ref(q, k, v, ks, vs, limit)[:, :, 0]
+    s = (k.float() * q).sum(-1)
+    if quantized:
+        s = s * ks[..., 0]
+    s = s / math.sqrt(hs)
+    s = torch.where(torch.arange(S)[None, None, :] <= limit[:, None, None], s, torch.full_like(s, -1e30))
+    vw = v.float() * (vs if quantized else 1.0)
+    got = _split_merge(s, vw, S, plan.split_rows)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("hs", [384, 512, 640])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k5_merged_over_splits_equals_one_pass_past_256(hs, quantized):
+    """Past head size 256 the plan cuts the cache into more, shorter splits
+    (16 of 128 rows at S = 2048 and hs 384, 32 of 64 at 512): the plain K5 in
+    f32, merged over them in split order, equals its one-pass plain version
+    to f32 rounding, at limits 0, a split boundary, the middle of a split and
+    past S."""
+    rng = np.random.default_rng(hs + quantized)
+    H, S = 2, 2048
+    plan = tda.decode_plan(S, hs)
+    assert plan.n_splits > tda.MAX_SPLITS
+    limits = [0, plan.split_rows - 1, 5 * plan.split_rows + 7, S + 7]
     B = len(limits)
     q = torch.from_numpy(rng.normal(size=(B, H, 1, hs)).astype(np.float32))
     if quantized:

@@ -111,6 +111,22 @@ def test_bwd_ref_matches_pallas_head_size_384(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_pallas_head_size_512(dtype):
+    """Head size 512, the widest of the card's checks (bf16 runs it on
+    csrc/flash_sm90_wide.cuh in two 256-column chunks): the plain backward
+    holds against the Pallas pair at the tolerances of head size 128."""
+    q, k, v, do = _inputs(13, 1, 1, 128, hs=512)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    o, lse, want = _jax_backward(q, k, v, do, jdt)
+    tq, tk, tv, tdo = _to_torch([q, k, v, do], tdt)
+    to = torch.from_numpy(_np32(o)).to(tdt)
+    got = tflash.flash_attention_bwd_ref(tq, tk, tv, to, torch.from_numpy(_np32(lse)), tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(), _np32(w), **(TOL_F32 if dtype == "float32" else TOL_BF16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_ref_matches_pallas_head_size_256(dtype):
     """Head size 256, which bf16 sends to csrc/flash_sm90_hs256.cuh and f32
     to csrc/flash_tf32.cuh on the card: the plain backward holds against the
@@ -354,8 +370,9 @@ def test_k10_kernel_f32_and_head_size_256(cuda, dtype, hs, B, H, T):
         assert torch.equal(gt, a)
 
 
-# past head size 256: the chunked kernels (128 output columns a block, the
-# scores and dP summed a 128-column chunk at a time), held as above
+# past head size 256: bf16 on csrc/flash_sm90_wide.cuh (256 output columns a
+# block, the scores and dP summed over the head's 64-column panels), f32 on the
+# chunked FFMA kernels, held as above
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("hs", [384, 512])
 @pytest.mark.parametrize("B,H,T", [(1, 2, 65), (2, 3, 200)])
@@ -380,6 +397,31 @@ def test_k10_sm90_kernels_match_plain(cuda, T):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
         err, need = _card_err(g, w)
         print(f"K10 {name} at {(B, H, T)}: max err {err:.3g}, row part needed {need:.3g}")
+        assert need <= TOL_CARD["row"], f"{name}: row part {need:.3g} needed, max err {err:.3g}"
+    again = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+# bf16 past head size 256 on csrc/flash_sm90_wide.cuh: T on either side of its
+# tiles of 64 and 128 rows, a chunk of 128 columns (hs 384, 640) beside whole
+# ones, B * H > 1; each query's dq and each key's dk and dv held row by row
+# (TOL_CARD), and a rerun gives the same bits (no atomics)
+@pytest.mark.parametrize("hs", [384, 512, 640])
+@pytest.mark.parametrize("B,H,T", [(2, 2, 63), (1, 3, 129), (2, 2, 1025), (1, 8, 1024)])
+def test_k10_wide_kernels_match_plain_row_by_row(cuda, hs, B, H, T):
+    assert tflash.k10_plan(B, H, T, hs).body == "sm90_wide"
+    q, k, v, do = _to_torch(_inputs(T + hs, B, H, T, hs=hs), torch.bfloat16, cuda)
+    o, lse = tflash.flash_attention(q, k, v)
+    before = (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches)
+    got = tflash.flash_attention_backward(q, k, v, o, lse, do)
+    want = tflash.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (tflash.flash_backward_dq.launches, tflash.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        err, need = _card_err(g, w)
+        print(f"K10 {name} at {(B, H, T, hs)}: max err {err:.3g}, row part needed {need:.3g}")
         assert need <= TOL_CARD["row"], f"{name}: row part {need:.3g} needed, max err {err:.3g}"
     again = tflash.flash_attention_backward(q, k, v, o, lse, do)
     for g, a in zip(got, again):

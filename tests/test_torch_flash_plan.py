@@ -401,10 +401,14 @@ def test_span_tool_instruments_each_kernel():
         spans.instrument(SOURCE.read_text(), spans.FLASH._replace(rules=(("no_such_call(", "SPAN(1);", "after"),)))
 
 
-# K10's tilings (``k10_plan``): the Hopper kernels at head size 128 and 256
-# (bf16) and the 3xTF32 kernels (f32), mirrors of their sources
+# K10's tilings (``k10_plan``): the Hopper kernels at head size 128, 256 and
+# past it (bf16) and the 3xTF32 kernels (f32), mirrors of their sources
 K10_CASES = [(128, torch.bfloat16, "sm90"), (256, torch.bfloat16, "sm90_hs256"), (128, torch.float32, "tf32"),
-             (256, torch.float32, "tf32")]
+             (256, torch.float32, "tf32"), (384, torch.bfloat16, "sm90_wide"), (512, torch.bfloat16, "sm90_wide"),
+             (640, torch.bfloat16, "sm90_wide")]
+# the blocks of "sm90_wide" are the same at every head size past 256 (its plan
+# is, test_k10_plan_past_256_keeps_each_chunk_in_registers): one case of it
+K10_BLOCK_CASES = K10_CASES[:5]
 HS256_SOURCE = SOURCE.parent / "flash_sm90_hs256.cuh"
 TF32_SOURCE = SOURCE.parent / "flash_tf32.cuh"
 
@@ -438,7 +442,7 @@ def test_k10_plan_at_head_size_256_keeps_dq_and_dkv_in_registers():
     assert f32.dkv.acc_regs == 2 * 16 * 128 // 32 + 32  # dK and dV over 128 of the 256 columns
 
 
-@pytest.mark.parametrize("hs,dtype,body", K10_CASES)
+@pytest.mark.parametrize("hs,dtype,body", K10_BLOCK_CASES)
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("T", [1, 65, 129, 2047, 2048])
 def test_k10_blocks_visit_each_causal_pair_once(hs, dtype, body, kernel, T):
@@ -466,6 +470,22 @@ def test_k10_blocks_visit_each_causal_pair_once(hs, dtype, body, kernel, T):
     assert bool((seen[causal] == 1).all())
 
 
+def test_k10_plan_past_256_keeps_each_chunk_in_registers():
+    """What the wide design is for: at every head size past 256 a block owns
+    a chunk of 256 output columns, so a consumer thread holds dQ's chunk
+    beside S and dP, or dK's / dV's chunk beside one score tile, as at 256;
+    shared memory is the same at every head size (the scores' operands stream
+    as 64-column panels) and holds one block an SM."""
+    at256 = tflash.k10_plan(1, 16, 2048, 256)
+    for hs in (384, 512, 640, 1024):
+        plan = tflash.k10_plan(1, 8, 1024, hs)
+        assert plan.body == "sm90_wide"
+        assert (plan.dq.acc_regs, plan.dkv.acc_regs) == (at256.dq.acc_regs, at256.dkv.acc_regs) == (128 + 64, 128 + 32)
+        assert plan == tflash.k10_plan(3, 5, 77, 640)
+        for kern in (plan.dq, plan.dkv):
+            assert tflash.SM90_MAX_SMEM // 2 < kern.smem <= tflash.SM90_MAX_SMEM
+
+
 def test_k10_constants_mirror_the_sources():
     """The Python mirror and csrc/flash_sm90_hs256.cuh / flash_tf32.cuh /
     flash_sm90.cuh name the same tiles, rings, threads and registers."""
@@ -479,6 +499,25 @@ def test_k10_constants_mirror_the_sources():
     assert [const(hs256, n) for n in ("DKV_BKV", "DKV_BQ", "DKV_STAGES", "DKV_PBUFS")] == [
         tflash.HS256_DKV_KV_ROWS, tflash.HS256_DKV_Q_ROWS, tflash.HS256_DKV_STAGES, tflash.HS256_DKV_PBUFS]
     assert hs256.count("__launch_bounds__(384, 1)") == 2 and tflash.SM90_THREADS == 384
+    wide = WIDE_SOURCE.read_text()
+    assert [const(wide, n) for n in ("DQ_BQ", "DQ_BKV", "DQ_STAGES", "DQ_KC_STAGES", "CHUNK")] == [
+        tflash.WIDE_DQ_Q_ROWS, tflash.WIDE_DQ_KV_ROWS, tflash.WIDE_DQ_STAGES, tflash.WIDE_DQ_KC_STAGES,
+        tflash.WIDE_CHUNK]
+    assert [const(wide, n) for n in ("DKV_BKV", "DKV_BQ", "DKV_STAGES", "DKV_PBUFS")] == [
+        tflash.WIDE_DKV_KV_ROWS, tflash.WIDE_DKV_Q_ROWS, tflash.WIDE_DKV_STAGES, tflash.WIDE_DKV_PBUFS]
+    assert wide.count("__launch_bounds__(384, 1)") == 3  # K4, dq, dK/dV
+    # the shared memory sums, term for term (the stage and chunk sizes they take)
+    assert "constexpr int DQ_STAGE = (2 * DQ_BQ + 2 * DQ_BKV) * PANEL_ROW;" in wide
+    assert "constexpr int KC_TILE = DQ_BKV * CHUNK * 2;" in wide
+    assert "constexpr int DKV_STAGE = (2 * DKV_BKV + 2 * DKV_BQ) * PANEL_ROW;" in wide
+    assert "constexpr int DKV_CHUNK = 2 * DKV_BQ * CHUNK * 2 + 2 * DKV_BQ * 4;" in wide
+    assert "return 1024 + DQ_STAGES * DQ_STAGE + DQ_KC_STAGES * KC_TILE + 2 * (DQ_STAGES + DQ_KC_STAGES) * 8;" in wide
+    assert ("return 1024 + DKV_STAGES * DKV_STAGE + DKV_CHUNK + DKV_PBUFS * DKV_BKV * DKV_BQ * 4 +\n"
+            "         2 * (DKV_STAGES + 1 + DKV_PBUFS) * 8;") in wide
+    # heaviest first: dq the last Q tile, dK/dV the first KV tile; k10_blocks' tile counts
+    assert "const int qt = p.n_tiles - 1 - blockIdx.y, q_first = qt * DQ_BQ;" in wide
+    assert "const int k_first = blockIdx.y * DKV_BKV;" in wide
+    assert "const int i0 = k_first / DKV_BQ, n_q = (p.T + DKV_BQ - 1) / DKV_BQ;" in wide
     assert const(sm90, "CONSUMER_REGS") == tflash.SM90_CONSUMER_REGS
     assert (const(tf32, "TILE"), const(tf32, "PAD")) == (tflash.TF32_TILE, tflash.TF32_PAD)
     for hs, tiling in tflash.TF32_TILING.items():
@@ -491,12 +530,15 @@ def test_k10_constants_mirror_the_sources():
 
 
 def test_k10_plan_refuses_what_it_does_not_tile():
-    assert tflash.k10_plan(1, 8, 1024, 384).body == "chunked"
+    """Only f32 past 256 (the chunked FFMA kernels) carries no tiling; bf16
+    past 256 takes the wide Hopper kernels."""
+    assert tflash.k10_plan(1, 8, 1024, 384, torch.float32).body == "chunked"
+    assert tflash.k10_plan(1, 8, 1024, 384).body == "sm90_wide"
     with pytest.raises(ValueError):
         tflash.k10_plan(0, 32, 2048)
     with pytest.raises(ValueError):
         tflash.k10_plan(1, 32, 2048, 64)
     with pytest.raises(ValueError):
-        tflash.k10_blocks(tflash.k10_plan(1, 8, 1024, 512), "dq", 1024)
+        tflash.k10_blocks(tflash.k10_plan(1, 8, 1024, 512, torch.float32), "dq", 1024)
     with pytest.raises(ValueError):
         tflash.k10_blocks(tflash.k10_plan(1, 8, 1024), "bwd", 1024)
